@@ -7,13 +7,18 @@ Phases, in order (any failed check exits non-zero; no phase swallows an
 exception):
 
 1. device: the card's name and power limit (nvidia-smi) and the versions;
-2. build: the three flash-attention kernels from ops/csrc, at first use;
-3. kernels: each kernel against its plain PyTorch version on the card at the
-   slice shapes (B=2, T=2048, Hq=32, D=128, bf16; causal, dense, GQA with
-   Hkv=8, ragged T=2000, D=64 tiles, one f32 case), checking O, lse, dQ, dK
-   and dV, with timings of the kernel, its plain version and
-   torch's scaled_dot_product_attention as a yardstick (the port never
-   calls it);
+2. build: the three flash-attention kernels from ops/csrc with nvcc, at
+   first use, with the build time and ptxas's registers and spills of every
+   kernel;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the slice shapes (B=2, T=2048, Hq=32, D=128, bf16; causal, dense, GQA with
+   Hkv=8, ragged T=2000, f32) and then every compiled instance (both dtypes,
+   D 64 and 128, every tile pair of ops/flash_attention.py's TILES, causal
+   and dense, GQA, T=200 and T=96, below one tile), checking O, lse, dQ, dK
+   and dV; then timings of each kernel, its plain version and torch's
+   scaled_dot_product_attention as a yardstick (the port never calls it),
+   and of dK/dV at the GQA shape, each the mean over back-to-back calls
+   (fedml_tpu_torch/tools/compare_kernels.py cuda_ms);
 4. train step: LLMTrainer.train for 3 steps at Llama-2-7B widths (d_model
    4096, 32 heads, d_ff 11008, vocab 32000) cut to 4 layers, bf16 compute,
    f32 params, LoRA rank 8 on q/k/v/o, seq_len 2048, batch 2: finite loss,
@@ -21,8 +26,11 @@ exception):
 5. client round: LLMClientTrainer set_model_params -> train -> get_model_params;
    adapter keys equal split_lora's paths and the round moves them.
    Launch counts are zeroed before phase 4 and read after phase 5: each kernel
-   must have run exactly as often as those steps imply;
-6. the kernels line (JSON), the card line, and last the result line.
+   must have run exactly as often as those steps imply, and every launch on
+   the design KERNELS names, as the kernels' C entry points count them by
+   design (the bf16 forward and dK/dV on the wgmma/TMA kernels);
+6. the kernels line (JSON, with the design each kernel ran on the main
+   path), the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -62,12 +70,15 @@ ROW_RTOL = {"bfloat16": 1e-2, "float32": 1e-5}
 ROW_ATOL = 1e-6
 LSE_TOL = 1e-4  # lse is f32 in both dtypes, ~8 in size: abs 1e-4 is 1e-5 relative
 
+# name: (source, TPU kernel it replaces, the design (ops/_build.py DESIGNS)
+# every bf16 launch of the main path must run: phases 4-5 fail otherwise)
 KERNELS = {
-    "flash_fwd": ("fedml_tpu_torch/ops/csrc/flash_fwd.cu", "fedml_tpu/ops/flash_attention.py:180"),
+    "flash_fwd": ("fedml_tpu_torch/ops/csrc/flash_fwd.cu", "fedml_tpu/ops/flash_attention.py:180",
+                  "sm90_wgmma_tma"),
     "flash_bwd_dq": ("fedml_tpu_torch/ops/csrc/flash_bwd_dq.cu",
-                     "fedml_tpu/ops/flash_attention.py:273"),
+                     "fedml_tpu/ops/flash_attention.py:273", "simt_f32_fma"),
     "flash_bwd_dkv": ("fedml_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
-                      "fedml_tpu/ops/flash_attention.py:305"),
+                      "fedml_tpu/ops/flash_attention.py:305", "sm90_wgmma_tma"),
 }
 
 
@@ -88,20 +99,6 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _inputs(b, t, hq, hkv, d, dtype, seed=0):
@@ -126,27 +123,30 @@ def row_check(got, ref, dtype) -> tuple[bool, float]:
     return ok, (err / size.clamp_min(1e-30)).max().item()
 
 
-def kernel_case(fa, b, t, hq, hkv, d, causal, dtype, block_q=None, block_k=None) -> dict:
+def kernel_case(fa, b, t, hq, hkv, d, causal, dtype, tiles=None) -> dict:
     """Each kernel against its plain version on the same inputs; raises on a
-    disagreement. Returns the max abs error per kernel."""
+    disagreement. ``tiles`` maps a kernel's name to its (block_q, block_k),
+    the kernel's default where absent. Returns the max abs error per kernel."""
     import torch
 
     q, k, v, do = _inputs(b, t, hq, hkv, d, dtype)
     kw = dict(causal=causal, hq=hq, hkv=hkv)
-    tiles = dict(block_q=block_q, block_k=block_k)
-    o, lse = fa.flash_fwd(q, k, v, **kw, **tiles)
+    pick = {name: fa.resolve_blocks(name, dtype, *(tiles or {}).get(name, (None, None)))
+            for name in KERNELS}
+    blocks = {name: dict(block_q=bq, block_k=bk) for name, (bq, bk) in pick.items()}
+    o, lse = fa.flash_fwd(q, k, v, **kw, **blocks["flash_fwd"])
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, **kw)
     # both backward kernels read the plain forward's stats, so each is held
     # against its own plain version on identical inputs
     delta = (do.float() * o_ref.float()).sum(-1)
-    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw, **tiles)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw, **tiles)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw, **blocks["flash_bwd_dq"])
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw, **blocks["flash_bwd_dkv"])
     torch.cuda.synchronize()
     dq_ref = fa.flash_bwd_dq_reference(q, k, v, do, lse_ref, delta, **kw)
     dk_ref, dv_ref = fa.flash_bwd_dkv_reference(q, k, v, do, lse_ref, delta, **kw)
     label = (f"B={b} T={t} Hq={hq} Hkv={hkv} D={d} causal={causal} {str(dtype)[6:]} "
-             f"tiles={fa.resolve_blocks(block_q, block_k)}")
+             f"tiles fwd/dq/dkv={'/'.join(str(pick[n]) for n in KERNELS)}")
     errs, rels = {}, {}
     for name, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref),
                            ("dv", dv, dv_ref)):
@@ -163,11 +163,42 @@ def kernel_case(fa, b, t, hq, hkv, d, causal, dtype, block_q=None, block_k=None)
             "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
 
 
+def instance_sweep(fa) -> int:
+    """Every compiled instance against its plain version at small shapes:
+    both dtypes, both head dims, every tile pair of each kernel (cycled, so
+    each pair runs at least once), causal and dense in turn, GQA 8/2 at the
+    ragged T=200; then T=96, below one tile, for the bf16 kernels."""
+    import torch
+
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in fa.HEAD_DIMS:
+            n = max(len(fa.TILES[name][dtype]) for name in KERNELS)
+            for i in range(n):
+                tiles = {name: fa.TILES[name][dtype][i % len(fa.TILES[name][dtype])]
+                         for name in KERNELS}
+                kernel_case(fa, 2, 200, 8, 2, d, i % 2 == 0, dtype, tiles)
+                cases += 1
+    for d in fa.HEAD_DIMS:
+        kernel_case(fa, 2, 96, 8, 2, d, True, torch.bfloat16)
+        cases += 1
+    return cases
+
+
+def _bound(flops, nbytes, dtype) -> dict:
+    peak = PEAK_FLOPS[str(dtype).split(".")[-1]]
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def time_kernels(fa, b, t, hq, hkv, d, dtype) -> dict:
     """ms of each kernel, its plain version and the library yardstick, and
     the bound, at the main path's shape (causal)."""
     import torch
     import torch.nn.functional as F
+
+    from fedml_tpu_torch.tools.compare_kernels import ITERS, cuda_ms, work
 
     q, k, v, do = _inputs(b, t, hq, hkv, d, dtype, seed=1)
     kw = dict(causal=True, hq=hq, hkv=hkv)
@@ -195,29 +226,41 @@ def time_kernels(fa, b, t, hq, hkv, d, dtype) -> dict:
     # the library's backward computes dQ, dK and dV in one call: it stands
     # beside both backward kernels
     sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), do4,
-                                                      retain_graph=True), 10)
-    # operations: 2*D per (q, k) product, over the causal pairs these inputs need
-    pairs = b * hq * t * (t + 1) / 2
-    esize = q.element_size()
-    qbytes, kvbytes, stat = q.numel() * esize, k.numel() * esize, b * hq * t * 4
-    work = {  # (operations, bytes: inputs read once + outputs written once)
-        "flash_fwd": (2 * 2 * d * pairs, 2 * qbytes + 2 * kvbytes + stat),
-        "flash_bwd_dq": (3 * 2 * d * pairs, 3 * qbytes + 2 * kvbytes + 2 * stat),
-        "flash_bwd_dkv": (4 * 2 * d * pairs, 2 * qbytes + 4 * kvbytes + 2 * stat),
-    }
-    peak = PEAK_FLOPS[str(dtype).split(".")[-1]]
+                                                      retain_graph=True), ITERS)
     out = {}
     for name, (kernel, plain, lib) in times.items():
-        flops, nbytes = work[name]
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        flops, nbytes = work(name, b, t, hq, hkv, d, q.element_size())
+        ms = cuda_ms(kernel, ITERS)
         out[name] = {
-            "ms": cuda_ms(kernel, 10),
+            "ms": ms,
             "plain_ms": cuda_ms(plain, 3),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": cuda_ms(lib, 10) if lib is not None else sdpa_bwd_ms,
+            **_bound(flops, nbytes, dtype),
+            "library_ms": cuda_ms(lib, ITERS) if lib is not None else sdpa_bwd_ms,
+            "tflops": flops / ms / 1e9,
         }
     return out
+
+
+def time_dkv_gqa(fa, b, t, hq, hkv, d, dtype) -> dict:
+    """dK/dV at a GQA shape, where its in-block loop over the group's query
+    heads replaces the TPU's sequential grid axis; SDPA's backward (with
+    enable_gqa) beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.tools.compare_kernels import ITERS, cuda_ms, work
+
+    q, k, v, do = _inputs(b, t, hq, hkv, d, dtype, seed=2)
+    kw = dict(causal=True, hq=hq, hkv=hkv)
+    o, lse = fa.flash_fwd_reference(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    q4, k4, v4 = (x.view(b, -1, t, d).detach().clone().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)
+    flops, nbytes = work("flash_bwd_dkv", b, t, hq, hkv, d, q.element_size())
+    ms = cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw), ITERS)
+    return {"ms": ms, **_bound(flops, nbytes, dtype), "tflops": flops / ms / 1e9,
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                sdpa_out, (q4, k4, v4), do.view(b, hq, t, d), retain_graph=True), ITERS)}
 
 
 def _snapshot(model, adapters: bool):
@@ -328,7 +371,9 @@ def main() -> int:
     say("== 2. build")
     t0 = time.time()
     _build.kernels()
-    say(f"  built route={_build.build_route()} in {time.time() - t0:.1f}s")
+    say(f"  built with nvcc (one process per source) in {time.time() - t0:.1f}s")
+    for line in _build.ptxas_report():
+        say(f"  ptxas: {line}")
 
     say("== 3. kernels against their plain versions")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -337,22 +382,29 @@ def main() -> int:
     kernel_case(fa, B, T, HQ, 8, D, True, bf16)       # GQA
     kernel_case(fa, B, 2000, HQ, HQ, D, True, bf16)   # ragged T
     kernel_case(fa, B, T, HQ, HQ, D, True, f32)
-    kernel_case(fa, B, 1024, 16, 4, 64, True, bf16, block_q=32, block_k=64)
-    kernel_case(fa, B, 1000, 16, 16, 64, False, f32, block_q=64, block_k=32)
+    say(f"  every compiled instance: {instance_sweep(fa)} cases passed")
     timing = time_kernels(fa, B, T, HQ, HQ, D, bf16)
     for name, row in timing.items():
         say(f"  {name}: " + " ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                                      for k, v in row.items()))
+    gqa = time_dkv_gqa(fa, B, T, HQ, 8, D, bf16)
+    say(f"  flash_bwd_dkv at Hq={HQ} Hkv=8: " + " ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in gqa.items()))
 
     tmp = os.path.join(ROOT, ".smoke_run")
     shutil.rmtree(tmp, ignore_errors=True)
+    libs = _build.kernels()
     try:
         fa.reset_launch_counts()
+        by_design0 = {name: libs.design_launches(name) for name in KERNELS}
         say("== 4. train step (LLMTrainer.train)")
         trained = train_phase(tmp)
         say("== 5. client round (LLMClientTrainer)")
         client_phase(tmp, trained["adapters"])
         launches = dict(fa.launch_counts)
+        by_design = {name: {d: n - by_design0[name][d]
+                            for d, n in libs.design_launches(name).items()
+                            if n > by_design0[name][d]} for name in KERNELS}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     steps = TRAIN_STEPS + ROUND_STEPS
@@ -361,12 +413,19 @@ def main() -> int:
             "flash_bwd_dkv": N_LAYERS * steps}
     say(f"  launches on the main path: {launches} (expected {want})")
     check(launches == want, f"launch counts {launches} != {want}")
+    # which instances ran, as the C entry points counted them: the main path is bf16
+    say(f"  launches by design: {by_design}")
+    for name, (_, _, design) in KERNELS.items():
+        check(by_design[name] == {design: want[name]},
+              f"{name}: main-path launches by design {by_design[name]}, "
+              f"expected all {want[name]} on {design}")
 
     say("== 6. result")
     rows = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": errs[name], **timing[name]})
+                     "launches": launches[name], "max_abs_err": errs[name], **timing[name],
+                     "design": "+".join(sorted(by_design[name]))})
     say(f"  total {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

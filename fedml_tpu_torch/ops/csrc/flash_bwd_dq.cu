@@ -133,6 +133,13 @@ extern "C" int fedml_flash_bwd_dq(const void* q, const void* k, const void* v, c
   a.t = t;
   a.causal = causal;
   a.scale = 1.0f / sqrtf((float)d);
-  return fedml_flash::dispatch<fedml_flash::DqLaunch>(a, bhq, d, block_q, block_k, is_bf16,
-                                                      static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using namespace fedml_flash;
+  return counted(kSimtF32Fma,
+                 is_bf16 ? dispatch_simt<DqLaunch, __nv_bfloat16>(a, bhq, d, block_q, block_k, s)
+                         : dispatch_simt<DqLaunch, float>(a, bhq, d, block_q, block_k, s));
+}
+
+extern "C" long long fedml_flash_bwd_dq_launches(int design) {
+  return fedml_flash::design_launches(design);
 }

@@ -1,11 +1,13 @@
 // Shared pieces of the three flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu).
+// flash_bwd_dq.cu, flash_bwd_dkv.cu): the arguments, and the SIMT kernels'
+// tiles (dQ in both dtypes, the forward and dK/dV in f32; the bf16 forward
+// and dK/dV are wgmma kernels built from flash_sm90.cuh).
 //
 // Layout: q and dO are [B*Hq, T, D], k and v [B*Hkv, T, D], all contiguous,
 // lse and delta [B*Hq, T] f32. Query head h of batch b reads KV head
 // h / (Hq/Hkv) of the same batch; K and V are never repeated.
 //
-// Every kernel runs 256 threads (8 warps). A tile of rows is staged in
+// Every SIMT kernel runs 256 threads (8 warps). A tile of rows is staged in
 // shared memory as f32 with a row stride of D+1 floats, so that 32 lanes
 // reading one column of 32 different rows hit 32 different banks. Score
 // tiles [R][C] are spread over the block as rows ty + 8*i and columns
@@ -161,9 +163,10 @@ __device__ __forceinline__ int num_k_tiles(int q0, int t, int causal) {
   return c < n ? c : n;
 }
 
-// Runs L<T, D, BQ, BK>::run(a, stream) for the runtime choice of dtype, head
-// dim and tiles. A combination with no instance returns cudaErrorInvalidValue
-// (the Python wrappers refuse those before they get here).
+// Runs L<T, D, BQ, BK>::run(a, stream) of a SIMT kernel for the runtime choice
+// of head dim and tiles. A combination with no instance returns
+// cudaErrorInvalidValue (the Python wrappers refuse those before they get
+// here).
 template <template <typename, int, int, int> class L, typename T, int D>
 cudaError_t dispatch_tiles(const FlashArgs& a, int bh, int bq, int bk, cudaStream_t s) {
   if (bq == 64 && bk == 64) return L<T, D, 64, 64>::run(a, bh, s);
@@ -173,16 +176,29 @@ cudaError_t dispatch_tiles(const FlashArgs& a, int bh, int bq, int bk, cudaStrea
   return cudaErrorInvalidValue;
 }
 
-template <template <typename, int, int, int> class L>
-cudaError_t dispatch(const FlashArgs& a, int bh, int d, int bq, int bk, int is_bf16,
-                     cudaStream_t s) {
-  if (d == 64)
-    return is_bf16 ? dispatch_tiles<L, __nv_bfloat16, 64>(a, bh, bq, bk, s)
-                   : dispatch_tiles<L, float, 64>(a, bh, bq, bk, s);
-  if (d == 128)
-    return is_bf16 ? dispatch_tiles<L, __nv_bfloat16, 128>(a, bh, bq, bk, s)
-                   : dispatch_tiles<L, float, 128>(a, bh, bq, bk, s);
+template <template <typename, int, int, int> class L, typename T>
+cudaError_t dispatch_simt(const FlashArgs& a, int bh, int d, int bq, int bk, cudaStream_t s) {
+  if (d == 64) return dispatch_tiles<L, T, 64>(a, bh, bq, bk, s);
+  if (d == 128) return dispatch_tiles<L, T, 128>(a, bh, bq, bk, s);
   return cudaErrorInvalidValue;
 }
+
+// Successful launches of each design in this library, so a caller can tell
+// which kernels ran; each source exports them as fedml_flash_*_launches
+// (ops/_build.py DESIGNS names the indices). Internal linkage: an inline
+// (vague-linkage) counter would be one object shared by all three libraries.
+enum Design { kSimtF32Fma = 0, kSm90WgmmaTma = 1, kDesigns = 2 };
+namespace {
+long long g_design_launches[kDesigns] = {};
+
+cudaError_t counted(Design design, cudaError_t err) {
+  if (err == cudaSuccess) ++g_design_launches[design];
+  return err;
+}
+
+long long design_launches(int design) {
+  return design >= 0 && design < kDesigns ? g_design_launches[design] : -1;
+}
+}  // namespace
 
 }  // namespace fedml_flash

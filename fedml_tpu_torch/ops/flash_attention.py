@@ -11,6 +11,11 @@ kernels become hand-written CUDA C++ kernels for Hopper (``csrc/``):
   group are a loop inside the block (the TPU's sequential grid axis), summed
   in f32 registers and written once.
 
+In bf16 the forward and dK/dV run on the tensor cores (``wgmma`` fed by
+TMA, warp-specialised, ``csrc/flash_sm90.cuh``); dQ, and every kernel in
+f32, run f32 FMAs from shared memory (tensor cores would need TF32). Each
+kernel's compiled tiles are listed in ``TILES``.
+
 The [T, T] score matrix never reaches device memory. K/V are consumed at
 their own head count: query head ``h`` reads KV head ``h // (Hq // Hkv)``.
 Causal k tiles past the diagonal (forward, dQ) and q tiles above it (dK/dV)
@@ -33,18 +38,25 @@ import torch
 
 NEG_INF = -1e30
 
-# CUDA tile sizes compiled into the kernels (csrc/flash_common.cuh
-# dispatch_tiles). block_q/block_k name the rows of a q and a k tile; the
-# plain versions are untiled and ignore them.
-TILE_SIZES = (32, 64)
-DEFAULT_BLOCK = 64
+# The compiled (block_q, block_k) tile pairs of each kernel, by dtype: the one
+# record of the instances in csrc/ (flash_fwd.cu fwd_dispatch,
+# flash_bwd_dkv.cu dkv_dispatch, flash_common.cuh dispatch_tiles for the SIMT
+# kernels). The first pair is the kernel's default. block_q/block_k name the
+# rows of a q and a k tile; the plain versions are untiled and ignore them.
+_SIMT_TILES = ((64, 64), (64, 32), (32, 64), (32, 32))
+TILES = {
+    "flash_fwd": {torch.bfloat16: ((128, 128),), torch.float32: _SIMT_TILES},
+    "flash_bwd_dq": {torch.bfloat16: _SIMT_TILES, torch.float32: _SIMT_TILES},
+    "flash_bwd_dkv": {torch.bfloat16: ((64, 128),), torch.float32: _SIMT_TILES},
+}
 HEAD_DIMS = (64, 128)
-MAX_HEAD_ROWS = 65535  # B*H is the kernels' grid.y, which CUDA caps here
+MAX_HEAD_ROWS = 65535  # B*H is the SIMT kernels' grid.y, which CUDA caps here
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
-# Block-size overrides for callers that pass none (the JAX module's
-# FEDML_FLASH_BLOCK_Q/K). A value that is not one of TILE_SIZES is ignored
-# with a warning rather than crashing a training run over a bad env var.
+# Tile overrides for callers that pass none (the JAX module's
+# FEDML_FLASH_BLOCK_Q/K), both set to one compiled pair. A choice that names
+# no compiled pair of a kernel is ignored for that kernel with a warning
+# rather than crashing a training run over a bad env var.
 _BLOCK_Q_ENV = "FEDML_FLASH_BLOCK_Q"
 _BLOCK_K_ENV = "FEDML_FLASH_BLOCK_K"
 
@@ -58,35 +70,47 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _env_block(name: str, default: int) -> int:
+def _env_block(name: str) -> int | None:
     raw = os.environ.get(name)
     if not raw:
-        return default
+        return None
     try:
-        val = int(raw)
+        return int(raw)
     except ValueError:
-        val = -1
-    if val not in TILE_SIZES:
-        warnings.warn(f"{name}={raw!r} is not one of the CUDA tile sizes "
-                      f"{TILE_SIZES}; using default {default}")
-        return default
-    return val
+        return -1  # names no tile: warns below
 
 
-def resolve_blocks(block_q: int | None = None, block_k: int | None = None) -> tuple[int, int]:
-    """The (block_q, block_k) CUDA tiles a launch uses: explicit values must
-    be one of TILE_SIZES; None takes the env override, else the default."""
-    if block_q is None:
-        block_q = _env_block(_BLOCK_Q_ENV, DEFAULT_BLOCK)
-    if block_k is None:
-        block_k = _env_block(_BLOCK_K_ENV, DEFAULT_BLOCK)
-    for name, val in (("block_q", block_q), ("block_k", block_k)):
-        if val not in TILE_SIZES:
-            raise ValueError(f"{name}={val} is not a CUDA tile size {TILE_SIZES}")
+def resolve_blocks(kernel: str, dtype: torch.dtype, block_q: int | None = None,
+                   block_k: int | None = None) -> tuple[int, int]:
+    """The (block_q, block_k) tiles a launch of ``kernel`` on ``dtype`` uses.
+    An explicit pair must be one of the kernel's compiled pairs, else
+    ValueError. With none, the pair FEDML_FLASH_BLOCK_Q/K name is taken if it
+    is compiled; otherwise the override warns and the default runs, so the
+    override only has an effect on kernels with more than one compiled pair
+    (the SIMT kernels, not the bf16 wgmma forward and dK/dV)."""
+    pairs = TILES[kernel][dtype]
+    if block_q is None and block_k is None:
+        env = (_env_block(_BLOCK_Q_ENV), _env_block(_BLOCK_K_ENV))
+        if env in pairs:
+            return env
+        if env != (None, None):
+            warnings.warn(f"{_BLOCK_Q_ENV}/{_BLOCK_K_ENV}={env} names no {kernel} tile for "
+                          f"{dtype} (compiled: {pairs}); using default {pairs[0]}")
+        return pairs[0]
+    if (block_q, block_k) not in pairs:
+        raise ValueError(f"block_q={block_q}, block_k={block_k} names no compiled {kernel} "
+                         f"tile for {dtype}: {pairs}")
     return block_q, block_k
 
 
 # --- plain versions on [B*H, T, D] -------------------------------------------
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """x in the plain versions' working type: f32 for bf16 and f32 inputs, as
+    the kernels accumulate, and f64 for f64 inputs (a reference free of f32
+    rounding, for tests of the f32 kernels)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
 
 def _kv_index(bhq: int, hq: int, hkv: int, device) -> torch.Tensor:
     """Row of k/v [B*Hkv] read by each row of q [B*Hq]."""
@@ -101,7 +125,7 @@ def _causal_mask(t: int, device) -> torch.Tensor:
 def _scores(q, k, *, hq: int, hkv: int, causal: bool):
     """s = (q.k^T) * D^-1/2 in f32 (k gathered per query head), masked."""
     kk = k[_kv_index(q.shape[0], hq, hkv, q.device)]
-    s = torch.matmul(q.float(), kk.float().transpose(1, 2)) * q.shape[-1] ** -0.5
+    s = torch.matmul(_acc(q), _acc(kk).transpose(1, 2)) * q.shape[-1] ** -0.5
     mask = _causal_mask(q.shape[1], q.device) if causal else None
     return s, mask
 
@@ -118,7 +142,7 @@ def flash_fwd_reference(q, k, v, *, causal: bool, hq: int, hkv: int):
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
     vv = v[_kv_index(q.shape[0], hq, hkv, q.device)]
     # p in the input dtype for P.V with f32 accumulation, as the kernel does
-    o = torch.matmul(p.to(v.dtype).float(), vv.float()) / l_safe
+    o = torch.matmul(_acc(p.to(v.dtype)), _acc(vv)) / l_safe
     return o.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
 
 
@@ -128,7 +152,7 @@ def _probs_and_ds(q, k, v, do, lse, delta, *, causal: bool, hq: int, hkv: int):
     if mask is not None:
         p = torch.where(mask, p, 0.0)
     vv = v[_kv_index(q.shape[0], hq, hkv, q.device)]
-    dp = torch.matmul(do.float(), vv.float().transpose(1, 2))
+    dp = torch.matmul(_acc(do), _acc(vv).transpose(1, 2))
     return p, p * (dp - delta[..., None])
 
 
@@ -136,7 +160,7 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, *, causal: bool, hq: int, hk
     """Plain version of the dQ kernel: -> dq like q."""
     _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal=causal, hq=hq, hkv=hkv)
     kk = k[_kv_index(q.shape[0], hq, hkv, q.device)]
-    dq = torch.matmul(ds.to(k.dtype).float(), kk.float()) * q.shape[-1] ** -0.5
+    dq = torch.matmul(_acc(ds.to(k.dtype)), _acc(kk)) * q.shape[-1] ** -0.5
     return dq.to(q.dtype)
 
 
@@ -144,8 +168,8 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, causal: bool, hq: int, h
     """Plain version of the dK/dV kernel: -> (dk like k, dv like v), summed in
     f32 over the query heads of each group."""
     p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal=causal, hq=hq, hkv=hkv)
-    dv = torch.matmul(p.to(do.dtype).float().transpose(1, 2), do.float())
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(1, 2), q.float()) * q.shape[-1] ** -0.5
+    dv = torch.matmul(_acc(p.to(do.dtype)).transpose(1, 2), _acc(do))
+    dk = torch.matmul(_acc(ds.to(q.dtype)).transpose(1, 2), _acc(q)) * q.shape[-1] ** -0.5
     # query rows b*Hq + hk*G + g all belong to kv row b*Hkv + hk
     shape = (k.shape[0], hq // hkv) + tuple(k.shape[1:])
     return dk.view(shape).sum(1).to(k.dtype), dv.view(shape).sum(1).to(v.dtype)
@@ -206,7 +230,7 @@ def flash_fwd(q, k, v, *, causal: bool, hq: int, hkv: int,
     if not _on_cuda(q):
         return flash_fwd_reference(q, k, v, causal=causal, hq=hq, hkv=hkv)
     check_kernel_inputs(q, k, v, hq=hq, hkv=hkv)
-    bq, bk = resolve_blocks(block_q, block_k)
+    bq, bk = resolve_blocks("flash_fwd", q.dtype, block_q, block_k)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):  # launch on q's card, not the current one
@@ -224,7 +248,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, hq: int, hkv: int,
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
         raise ValueError("dO must be a contiguous tensor shaped and typed like q")
     _check_stats(q, lse, delta)
-    bq, bk = resolve_blocks(block_q, block_k)
+    bq, bk = resolve_blocks("flash_bwd_dq", q.dtype, block_q, block_k)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _kernels().bwd_dq(q, k, v, do, lse, delta, dq, causal, hq, hkv, bq, bk)
@@ -241,7 +265,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, hq: int, hkv: int,
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
         raise ValueError("dO must be a contiguous tensor shaped and typed like q")
     _check_stats(q, lse, delta)
-    bq, bk = resolve_blocks(block_q, block_k)
+    bq, bk = resolve_blocks("flash_bwd_dkv", q.dtype, block_q, block_k)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -269,7 +293,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         # delta = rowsum(dO * O): one elementwise reduce outside the kernels
-        delta = (do.float() * o.float()).sum(-1)
+        delta = (_acc(do) * _acc(o)).sum(-1)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, **ctx.cfg)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.cfg)
         return dq, dk, dv, None, None, None, None, None
@@ -280,15 +304,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int | None = None) -> torch.Tensor:
     """[B, T, Hq, D], [B, T, Hkv, D] x2 -> [B, T, Hq, D]. GQA-native: Hkv may
     divide Hq; K/V are consumed at their own head count (no repeat). On CUDA
-    tensors the kernels run with (block_q, block_k) tiles, None taking
-    FEDML_FLASH_BLOCK_Q/K or the default; on CPU tensors the plain
-    versions run and the blocks are unused."""
+    tensors each kernel runs with (block_q, block_k) tiles, which must name
+    one of its compiled pairs (``TILES``); None takes FEDML_FLASH_BLOCK_Q/K
+    or each kernel's own default. On CPU tensors the plain versions run and
+    the blocks are unused."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     if Hq % Hkv:
         raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hkv}")
-    qr = q.transpose(1, 2).reshape(B * Hq, T, D)
-    kr = k.transpose(1, 2).reshape(B * Hkv, T, D)
-    vr = v.transpose(1, 2).reshape(B * Hkv, T, D)
+    # at B=1 the reshape is a strided view, which the kernels do not take
+    qr = q.transpose(1, 2).reshape(B * Hq, T, D).contiguous()
+    kr = k.transpose(1, 2).reshape(B * Hkv, T, D).contiguous()
+    vr = v.transpose(1, 2).reshape(B * Hkv, T, D).contiguous()
     out = _FlashAttention.apply(qr, kr, vr, causal, Hq, Hkv, block_q, block_k)
     return out.reshape(B, Hq, T, D).transpose(1, 2)

@@ -41,15 +41,19 @@ def _close(got, ref, dtype):
     assert not bad.any(), (err / size.clamp_min(1e-30)).max().item()
 
 
-def _check_kernels(b, t, hq, hkv, d, causal, dtype, **tiles):
+def _check_kernels(b, t, hq, hkv, d, causal, dtype, tiles=None):
+    """Each kernel against its plain version; ``tiles`` maps a kernel's name
+    to its (block_q, block_k), the kernel's default where absent."""
     rng = np.random.default_rng(t + d)
     q, k, v, do = (_rows(rng, b * h, t, d, dtype) for h in (hq, hkv, hkv, hq))
     kw = dict(causal=causal, hq=hq, hkv=hkv)
-    o, lse = fa.flash_fwd(q, k, v, **kw, **tiles)
+    blocks = {name: dict(zip(("block_q", "block_k"), (tiles or {}).get(name, (None, None))))
+              for name in fa.TILES}
+    o, lse = fa.flash_fwd(q, k, v, **kw, **blocks["flash_fwd"])
     o_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
     delta = (do.float() * o_r.float()).sum(-1)
-    dq = fa.flash_bwd_dq(q, k, v, do, lse_r, delta, **kw, **tiles)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_r, delta, **kw, **tiles)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_r, delta, **kw, **blocks["flash_bwd_dq"])
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_r, delta, **kw, **blocks["flash_bwd_dkv"])
     torch.cuda.synchronize()
     _close(o, o_r, dtype)
     assert (lse - lse_r).abs().max().item() <= 1e-4
@@ -59,29 +63,56 @@ def _check_kernels(b, t, hq, hkv, d, causal, dtype, **tiles):
     _close(dv, dv_r, dtype)
 
 
+def _instances():
+    """Every compiled instance: per dtype and head dim, each kernel's tile
+    pairs (ops/flash_attention.py TILES) cycled so that each runs once."""
+    out = []
+    for dtype in fa.KERNEL_DTYPES:
+        n = max(len(pairs[dtype]) for pairs in fa.TILES.values())
+        for d in fa.HEAD_DIMS:
+            for i in range(n):
+                tiles = {name: pairs[dtype][i % len(pairs[dtype])]
+                         for name, pairs in fa.TILES.items()}
+                out.append(pytest.param(dtype, d, tiles, id=f"{str(dtype)[6:]}-d{d}-{i}"))
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("tiles", [(64, 64), (32, 64), (64, 32), (32, 32)])
-def test_kernels_match_plain_versions(cuda, dtype, causal, tiles):
-    """GQA 8/2, ragged T, both head dims, every compiled tile pair."""
-    for d in fa.HEAD_DIMS:
-        _check_kernels(2, 200, 8, 2, d, causal, dtype, block_q=tiles[0], block_k=tiles[1])
+@pytest.mark.parametrize("dtype,d,tiles", _instances())
+def test_kernels_match_plain_versions(cuda, dtype, d, tiles, causal):
+    """GQA 8/2 at a ragged T=200 and at T=96, below one tile: the bf16
+    forward and dK/dV (wgmma), dQ's tiles in both dtypes, the f32 SIMT
+    forward and dK/dV."""
+    for t in (96, 200):
+        _check_kernels(2, t, 8, 2, d, causal, dtype, tiles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_kernels_at_long_ragged_t(cuda, d, causal):
+    """The bf16 kernels at the default tiles over many tiles, GQA 8/2,
+    T=2000 (not a multiple of any tile)."""
+    _check_kernels(1, 2000, 8, 2, d, causal, torch.bfloat16)
 
 
 @pytest.mark.cuda
 def test_autograd_on_cuda_matches_cpu_plain_path(cuda):
-    """The public op end to end: CUDA kernels vs the CPU plain versions, and
-    each wrapper counts one launch per call."""
+    """The public op end to end: the f32 CUDA kernels vs the CPU plain
+    versions, and each wrapper counts one launch per call. The CPU side runs
+    in f64: PyTorch's f32 CPU kernels on the H100's machine gave one of two
+    results from process to process, up to 7e-5 apart on O, while the CUDA
+    kernels' results were bitwise the same in every process."""
     rng = np.random.default_rng(0)
     q, k, v, g = (rng.standard_normal((2, 96, h, 64)).astype(np.float32) for h in (4, 2, 2, 4))
     grads = {}
     fa.reset_launch_counts()
-    for dev in ("cpu", "cuda"):
-        tq, tk, tv = (torch.from_numpy(x).to(dev).requires_grad_() for x in (q, k, v))
+    for dev, dtype in (("cpu", torch.float64), ("cuda", torch.float32)):
+        tq, tk, tv = (torch.from_numpy(x).to(dev, dtype).requires_grad_() for x in (q, k, v))
         out = fa.flash_attention(tq, tk, tv, causal=True)
-        (out * torch.from_numpy(g).to(dev)).sum().backward()
-        grads[dev] = [out.detach().cpu()] + [x.grad.cpu() for x in (tq, tk, tv)]
+        (out * torch.from_numpy(g).to(dev, dtype)).sum().backward()
+        grads[dev] = [out.detach().cpu().float()] + [x.grad.cpu().float() for x in (tq, tk, tv)]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-5)
     assert fa.launch_counts == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
@@ -89,18 +120,46 @@ def test_autograd_on_cuda_matches_cpu_plain_path(cuda):
 
 @pytest.mark.cuda
 def test_nvcc_route_builds_and_matches(cuda):
-    """The build route taken without ninja: one nvcc per source, C ABI via
-    ctypes, same results as the plain versions."""
-    libs = _build._load_ctypes()
+    """The one build route: one nvcc per source, C ABI via ctypes; ptxas
+    reports every kernel, the wgmma kernels without spills; the built
+    library gives the plain version's results."""
+    libs = _build.kernels()
+    report = _build.ptxas_report()
+    for name in ("flash_fwd_kernel_sm90", "flash_bwd_dkv_kernel_sm90", "flash_bwd_dq_kernel"):
+        assert any(line.startswith(name) for line in report), name
+    assert all("spill stores 0 B, loads 0 B" in line for line in report if "sm90" in line)
     rng = np.random.default_rng(1)
     q, k, v = (_rows(rng, 2 * h, 130, 128, torch.bfloat16) for h in (4, 2, 2))
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device="cuda")
-    libs.fwd(q, k, v, o, lse, True, 4, 2, 64, 64)
+    libs.fwd(q, k, v, o, lse, True, 4, 2, *fa.TILES["flash_fwd"][torch.bfloat16][0])
     torch.cuda.synchronize()
     o_r, lse_r = fa.flash_fwd_reference(q, k, v, causal=True, hq=4, hkv=2)
     _close(o, o_r, torch.bfloat16)
     assert (lse - lse_r).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_launches_run_the_design_of_their_dtype(cuda):
+    """The public op in bf16 runs the forward and dK/dV on the wgmma/TMA
+    kernels and dQ on the SIMT kernel, as the C entry points count them by
+    design; in f32 all three run the SIMT kernels. At B=1, whose
+    [B*H, T, D] reshape is a strided view the op makes contiguous."""
+    libs = _build.kernels()
+    rng = np.random.default_rng(2)
+    wgmma = {"flash_fwd": "sm90_wgmma_tma", "flash_bwd_dq": "simt_f32_fma",
+             "flash_bwd_dkv": "sm90_wgmma_tma"}
+    for dtype, want in ((torch.bfloat16, wgmma),
+                        (torch.float32, dict.fromkeys(fa.TILES, "simt_f32_fma"))):
+        before = {name: libs.design_launches(name) for name in fa.TILES}
+        q, k, v = (torch.from_numpy(rng.standard_normal((1, 130, h, 64)).astype(np.float32))
+                   .to("cuda", dtype).requires_grad_() for h in (4, 2, 2))
+        fa.flash_attention(q, k, v).float().sum().backward()
+        torch.cuda.synchronize()
+        for name in fa.TILES:
+            after = libs.design_launches(name)
+            ran = {d: n - before[name][d] for d, n in after.items() if n != before[name][d]}
+            assert ran == {want[name]: 1}, (name, dtype, ran)
 
 
 @pytest.mark.cuda
@@ -112,8 +171,14 @@ def test_wrappers_refuse_what_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_fwd(y, y, y, causal=True, hq=1, hkv=1)
     z = torch.zeros(2, 16, 64, device="cuda")
-    with pytest.raises(ValueError, match="tile size"):
+    with pytest.raises(ValueError, match="names no compiled"):
         fa.flash_fwd(z, z, z, causal=True, hq=1, hkv=1, block_q=128)
+    zb = z.bfloat16()
+    with pytest.raises(ValueError, match="names no compiled"):
+        fa.flash_fwd(zb, zb, zb, causal=True, hq=1, hkv=1, block_q=64, block_k=64)
+    with pytest.raises(ValueError, match="names no compiled"):
+        fa.flash_bwd_dkv(zb, zb, zb, zb, z[..., 0].contiguous(), z[..., 0].contiguous(),
+                         causal=True, hq=1, hkv=1, block_q=64, block_k=64)
 
 
 @pytest.mark.cuda

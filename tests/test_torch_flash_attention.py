@@ -127,6 +127,22 @@ def test_ragged_and_tiled_T_match_plain_attention(t):
         np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=5e-5)
 
 
+def test_plain_path_works_in_f64_for_f64_inputs():
+    """f64 inputs keep f64 through the plain versions (the card tests'
+    reference for the f32 kernels) and agree with the f32 path at this
+    file's f32 tolerances."""
+    q, k, v, g = _qkvg(seed=6)
+    res = {}
+    for dtype in (torch.float64, torch.float32):
+        tq, tk, tv = (torch.from_numpy(x).to(dtype).requires_grad_() for x in (q, k, v))
+        out = tfa.flash_attention(tq, tk, tv, causal=True)
+        (out * torch.from_numpy(g).to(dtype)).sum().backward()
+        res[dtype] = [out.detach()] + [x.grad for x in (tq, tk, tv)]
+    assert all(x.dtype == torch.float64 for x in res[torch.float64])
+    for i, (a, b) in enumerate(zip(res[torch.float64], res[torch.float32])):
+        np.testing.assert_allclose(a.float().numpy(), b.numpy(), atol=2e-5 if i == 0 else 5e-5)
+
+
 def test_cpu_path_counts_no_launches():
     tfa.reset_launch_counts()
     q, k, v, g = _qkvg(seed=5)
@@ -136,18 +152,66 @@ def test_cpu_path_counts_no_launches():
 
 
 def test_block_env_override(monkeypatch):
-    """FEDML_FLASH_BLOCK_Q/K set the CUDA tiles for callers that pass none;
-    a value that is not a tile size warns and keeps the default; explicit
-    caller values win and must be tile sizes."""
+    """FEDML_FLASH_BLOCK_Q/K choose among each kernel's compiled tiles for
+    callers that pass none; a choice that names no pair of a kernel (one of
+    the two alone included) warns and keeps that kernel's default; explicit
+    caller values win."""
+    bf16, f32 = torch.bfloat16, torch.float32
     monkeypatch.setenv("FEDML_FLASH_BLOCK_Q", "32")
     monkeypatch.setenv("FEDML_FLASH_BLOCK_K", "64")
-    assert tfa.resolve_blocks() == (32, 64)
-    assert tfa.resolve_blocks(64, 32) == (64, 32)
+    assert tfa.resolve_blocks("flash_bwd_dq", bf16) == (32, 64)
+    assert tfa.resolve_blocks("flash_fwd", f32) == (32, 64)
+    assert tfa.resolve_blocks("flash_bwd_dq", bf16, 64, 32) == (64, 32)
+    with pytest.warns(UserWarning, match="FEDML_FLASH_BLOCK_Q"):
+        assert tfa.resolve_blocks("flash_fwd", bf16) == tfa.TILES["flash_fwd"][bf16][0]
     monkeypatch.setenv("FEDML_FLASH_BLOCK_K", "100")
-    with pytest.warns(UserWarning, match="FEDML_FLASH_BLOCK_K"):
-        assert tfa.resolve_blocks() == (32, tfa.DEFAULT_BLOCK)
-    with pytest.raises(ValueError, match="block_q"):
-        tfa.resolve_blocks(16, 64)
+    with pytest.warns(UserWarning, match="names no flash_bwd_dq tile"):
+        assert tfa.resolve_blocks("flash_bwd_dq", f32) == tfa.TILES["flash_bwd_dq"][f32][0]
+    monkeypatch.delenv("FEDML_FLASH_BLOCK_Q")
+    monkeypatch.setenv("FEDML_FLASH_BLOCK_K", "32")
+    with pytest.warns(UserWarning, match=r"\(None, 32\) names no flash_bwd_dq tile"):
+        assert tfa.resolve_blocks("flash_bwd_dq", bf16) == tfa.TILES["flash_bwd_dq"][bf16][0]
+    monkeypatch.setenv("FEDML_FLASH_BLOCK_Q", "64")
+    assert tfa.resolve_blocks("flash_bwd_dq", bf16) == (64, 32)
+    with pytest.raises(ValueError, match="block_q=16"):
+        tfa.resolve_blocks("flash_bwd_dq", f32, 16, 64)
+
+
+@pytest.mark.parametrize("kernel", sorted(tfa.TILES))
+def test_tile_table_defaults(kernel, monkeypatch):
+    """Each kernel and dtype has its own compiled tiles, the first the
+    default; the bf16 forward and dK/dV are the wgmma kernels' 128-row
+    tiles, the rest the SIMT kernels' four pairs."""
+    monkeypatch.delenv("FEDML_FLASH_BLOCK_Q", raising=False)
+    monkeypatch.delenv("FEDML_FLASH_BLOCK_K", raising=False)
+    for dtype in tfa.KERNEL_DTYPES:
+        pairs = tfa.TILES[kernel][dtype]
+        assert pairs and len(set(pairs)) == len(pairs)
+        assert tfa.resolve_blocks(kernel, dtype) == pairs[0]
+        for bq, bk in pairs:
+            assert tfa.resolve_blocks(kernel, dtype, bq, bk) == (bq, bk)
+            with pytest.raises(ValueError, match="names no compiled"):
+                tfa.resolve_blocks(kernel, dtype, bq)  # a pair or nothing
+    assert tfa.TILES[kernel][torch.float32] == ((64, 64), (64, 32), (32, 64), (32, 32))
+    wgmma = {"flash_fwd": ((128, 128),), "flash_bwd_dkv": ((64, 128),)}
+    assert tfa.TILES[kernel][torch.bfloat16] == wgmma.get(kernel, tfa.TILES[kernel][torch.float32])
+
+
+@pytest.mark.parametrize("kernel,dtype,tiles", [
+    ("flash_fwd", torch.bfloat16, (64, 64)),
+    ("flash_fwd", torch.bfloat16, (None, 32)),
+    ("flash_fwd", torch.bfloat16, (None, 128)),
+    ("flash_bwd_dq", torch.float32, (64, None)),
+    ("flash_bwd_dkv", torch.bfloat16, (64, 64)),
+    ("flash_bwd_dkv", torch.float32, (128, 128)),
+    ("flash_bwd_dq", torch.bfloat16, (128, 128)),
+])
+def test_tile_pair_without_instance_is_refused(kernel, dtype, tiles):
+    """An explicit pair with no compiled instance raises, naming the pairs
+    there are, and so does one value alone, even one a compiled pair has;
+    nothing is silently replaced."""
+    with pytest.raises(ValueError, match="names no compiled"):
+        tfa.resolve_blocks(kernel, dtype, *tiles)
 
 
 @pytest.mark.parametrize("case", ["head_dim", "dtype", "mixed_dtype", "gqa", "shape",

@@ -60,16 +60,52 @@ def test_importing_builds_nothing():
 
 
 def test_kernel_sources_and_build_dir():
-    """Three CUDA kernels with a plain C interface; one binding file is the
-    only source that includes PyTorch's headers; the build dir is ignored."""
+    """Three CUDA kernels with a plain C interface, built by nvcc alone: no
+    source includes PyTorch's headers, ptxas reports registers and spills;
+    the build dir is ignored."""
     for src in _build.KERNEL_SOURCES:
         text = (_build.CSRC / src).read_text()
-        assert "torch/extension.h" not in text and 'extern "C"' in text
+        assert 'extern "C"' in text
         assert "Replaces: fedml_tpu/ops/flash_attention.py:" in text
-    assert "torch/extension.h" in (_build.CSRC / _build.BINDING_SOURCE).read_text()
+    for path in _build.CSRC.iterdir():
+        assert path.suffix in (".cu", ".cuh"), path.name
+        assert "torch/" not in path.read_text(), path.name
     assert "sm_90a" in " ".join(_build.CUDA_FLAGS)
+    assert " -Xptxas -v" in " " + " ".join(_build.CUDA_FLAGS)
+    assert not hasattr(_build, "build_route") and not hasattr(_build, "_load_extension")
     assert _build.BUILD_DIR == PKG / "ops" / "_build"
     assert "fedml_tpu_torch/ops/_build/" in (ROOT / ".gitignore").read_text().splitlines()
+
+
+def test_sources_count_launches_by_design():
+    """Each source counts its launches by design and exports the counts,
+    indexed as _build.DESIGNS names them."""
+    common = (_build.CSRC / "flash_common.cuh").read_text()
+    assert "enum Design { kSimtF32Fma = 0, kSm90WgmmaTma = 1, kDesigns = 2 };" in common
+    assert _build.DESIGNS == ("simt_f32_fma", "sm90_wgmma_tma")
+    for src, kernel in zip(_build.KERNEL_SOURCES, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        text = (_build.CSRC / src).read_text()
+        assert f'extern "C" long long fedml_{kernel}_launches(int design)' in text
+        assert "return counted(kSimtF32Fma," in text
+        assert ("return counted(kSm90WgmmaTma," in text) == (kernel != "flash_bwd_dq")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_work_counts(causal):
+    """The operations and bytes a bound is computed from: 2*D operations per
+    (q, k) product (2, 3 and 4 products), over T(T+1)/2 pairs a head when
+    causal; each input read and each output written once."""
+    from fedml_tpu_torch.tools.compare_kernels import work
+
+    b, t, hq, hkv, d, esize = 2, 8, 4, 2, 64, 2
+    pairs = b * hq * (t * (t + 1) // 2 if causal else t * t)
+    q_bytes, kv_bytes, row_bytes = b * hq * t * d * esize, b * hkv * t * d * esize, b * hq * t * 4
+    assert work("flash_fwd", b, t, hq, hkv, d, esize, causal) == (
+        4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes)  # q, k, v -> o, lse
+    assert work("flash_bwd_dq", b, t, hq, hkv, d, esize, causal) == (
+        6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes)  # q, k, v, dO, lse, delta -> dq
+    assert work("flash_bwd_dkv", b, t, hq, hkv, d, esize, causal) == (
+        8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)  # ... -> dk, dv
 
 
 @pytest.fixture
