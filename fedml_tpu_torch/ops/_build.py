@@ -6,8 +6,8 @@ no PyTorch header. ``nvcc`` compiles each source into its own shared library
 with ``ctypes``. They land in ``ops/_build/``, which ``.gitignore`` lists,
 named by a digest of the sources and flags, so a checkout builds once.
 ptxas's report of every kernel (registers, spills) is kept beside each
-library and read back by ``ptxas_report()``. A build or launch error raises:
-nothing falls back to the plain PyTorch versions.
+library and read back by ``ptxas_report()`` and ``ptxas_notes()``. A build
+or launch error raises: nothing falls back to the plain PyTorch versions.
 
 Nothing here runs at import time; ``kernels()`` builds on its first call.
 """
@@ -111,6 +111,15 @@ def ptxas_report() -> list[str]:
             lines.append(f"{m.group(1)} registers, {spill}{smem}")
             name, spill = None, ""
     return [f"{n}: {line}" for n, line in zip(_demangle(names), lines)]
+
+
+def ptxas_notes() -> list[str]:
+    """ptxas's performance advisories (C75xx, e.g. C7515 "wgmma serialized")
+    in the current build's logs; a clean build has none."""
+    digest = _source_digest()
+    logs = (_lib_path(s, digest).with_suffix(".log") for s in KERNEL_SOURCES)
+    return [line.strip() for log in logs if log.exists()
+            for line in log.read_text().splitlines() if "C75" in line]
 
 
 def _demangle(names: list[str]) -> list[str]:

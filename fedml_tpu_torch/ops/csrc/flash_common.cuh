@@ -1,7 +1,7 @@
 // Shared pieces of the three flash-attention kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu): the arguments, and the SIMT kernels'
-// tiles (dQ in both dtypes, the forward and dK/dV in f32; the bf16 forward
-// and dK/dV are wgmma kernels built from flash_sm90.cuh).
+// tiles (all three in f32; in bf16 all three are wgmma kernels built from
+// flash_sm90.cuh).
 //
 // Layout: q and dO are [B*Hq, T, D], k and v [B*Hkv, T, D], all contiguous,
 // lse and delta [B*Hq, T] f32. Query head h of batch b reads KV head

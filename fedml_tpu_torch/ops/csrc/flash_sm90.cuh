@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels
-// (flash_fwd.cu, flash_bwd_dkv.cu): TMA tile loads with mbarrier
+// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu): TMA tile loads with mbarrier
 // completion, warpgroup matrix multiplies (wgmma) with shared-memory
 // descriptors, register reallocation between warpgroups, and the host-side
 // tensor maps.

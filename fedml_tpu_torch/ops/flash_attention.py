@@ -5,16 +5,16 @@ kernels become hand-written CUDA C++ kernels for Hopper (``csrc/``):
 
 * ``flash_fwd``: one block per (query head, q tile) streams the K/V tiles of
   its KV head; online softmax in f32; writes O and the per-row logsumexp.
-* ``flash_bwd_dq``: dQ per (query head, q tile), rebuilding
-  ``p = exp(s - lse)`` from the saved logsumexp.
+* ``flash_bwd_dq``: dQ per (query head, q tile) streams the K/V tiles of its
+  KV head, rebuilding ``p = exp(s - lse)`` from the saved logsumexp.
 * ``flash_bwd_dkv``: dK/dV per (KV head, k tile); the query heads of the
   group are a loop inside the block (the TPU's sequential grid axis), summed
   in f32 registers and written once.
 
-In bf16 the forward and dK/dV run on the tensor cores (``wgmma`` fed by
-TMA, warp-specialised, ``csrc/flash_sm90.cuh``); dQ, and every kernel in
-f32, run f32 FMAs from shared memory (tensor cores would need TF32). Each
-kernel's compiled tiles are listed in ``TILES``.
+In bf16 all three run on the tensor cores (``wgmma`` fed by TMA,
+warp-specialised, ``csrc/flash_sm90.cuh``); in f32 they run f32 FMAs from
+shared memory (tensor cores would need TF32). Each kernel's compiled tiles
+are listed in ``TILES``.
 
 The [T, T] score matrix never reaches device memory. K/V are consumed at
 their own head count: query head ``h`` reads KV head ``h // (Hq // Hkv)``.
@@ -31,6 +31,7 @@ no counterpart here).
 
 from __future__ import annotations
 
+import math
 import os
 import warnings
 
@@ -39,18 +40,19 @@ import torch
 NEG_INF = -1e30
 
 # The compiled (block_q, block_k) tile pairs of each kernel, by dtype: the one
-# record of the instances in csrc/ (flash_fwd.cu fwd_dispatch,
-# flash_bwd_dkv.cu dkv_dispatch, flash_common.cuh dispatch_tiles for the SIMT
-# kernels). The first pair is the kernel's default. block_q/block_k name the
-# rows of a q and a k tile; the plain versions are untiled and ignore them.
+# record of the instances in csrc/ (flash_fwd.cu fwd_dispatch, flash_bwd_dq.cu
+# dq_dispatch, flash_bwd_dkv.cu dkv_dispatch, flash_common.cuh dispatch_tiles
+# for the SIMT kernels). The first pair is the kernel's default. block_q/block_k
+# name the rows of a q and a k tile; the plain versions are untiled and ignore
+# them.
 _SIMT_TILES = ((64, 64), (64, 32), (32, 64), (32, 32))
 TILES = {
     "flash_fwd": {torch.bfloat16: ((128, 128),), torch.float32: _SIMT_TILES},
-    "flash_bwd_dq": {torch.bfloat16: _SIMT_TILES, torch.float32: _SIMT_TILES},
+    "flash_bwd_dq": {torch.bfloat16: ((128, 128),), torch.float32: _SIMT_TILES},
     "flash_bwd_dkv": {torch.bfloat16: ((64, 128),), torch.float32: _SIMT_TILES},
 }
 HEAD_DIMS = (64, 128)
-MAX_HEAD_ROWS = 65535  # B*H is the SIMT kernels' grid.y, which CUDA caps here
+MAX_HEAD_ROWS = 65535  # B*H is the f32 SIMT kernels' grid.y, which CUDA caps here
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 # Tile overrides for callers that pass none (the JAX module's
@@ -87,7 +89,7 @@ def resolve_blocks(kernel: str, dtype: torch.dtype, block_q: int | None = None,
     ValueError. With none, the pair FEDML_FLASH_BLOCK_Q/K name is taken if it
     is compiled; otherwise the override warns and the default runs, so the
     override only has an effect on kernels with more than one compiled pair
-    (the SIMT kernels, not the bf16 wgmma forward and dK/dV)."""
+    (the f32 SIMT kernels, not the bf16 wgmma kernels)."""
     pairs = TILES[kernel][dtype]
     if block_q is None and block_k is None:
         env = (_env_block(_BLOCK_Q_ENV), _env_block(_BLOCK_K_ENV))
@@ -162,6 +164,26 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, *, causal: bool, hq: int, hk
     kk = k[_kv_index(q.shape[0], hq, hkv, q.device)]
     dq = torch.matmul(_acc(ds.to(k.dtype)), _acc(kk)) * q.shape[-1] ** -0.5
     return dq.to(q.dtype)
+
+
+def flash_bwd_dq_rounding_floor(q, k, v, do, lse, *, causal: bool, hq: int, hkv: int):
+    """Per row of dQ ([BHq, T] f32): how far two right f32 evaluations of
+    that row may lie apart by summation order alone. Each dp = dO.v is a
+    D-term f32 dot product, rounded by about 2^-24 sqrt(D) sum_d |dO_d v_d|
+    (the usual estimate for a sum in any order); carried through p and K to
+    the row it is || D^-1/2 sum_j p_j (2^-24 sqrt(D) sum_d |dO_d| |v_jd|) |k_j| ||.
+    It is the whole size of a row whose ds cancels: causal row 0, whose p is
+    1 and whose delta is its one dp, is 0 in exact arithmetic and rounding
+    noise of this size in f32."""
+    d = q.shape[-1]
+    idx = _kv_index(q.shape[0], hq, hkv, q.device)
+    s, mask = _scores(q, k, hq=hq, hkv=hkv, causal=causal)
+    p = torch.exp(s - lse[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    abs_dp = torch.matmul(_acc(do).abs(), _acc(v[idx]).abs().transpose(1, 2))
+    bound = torch.matmul(p * abs_dp, _acc(k[idx]).abs()) * d ** -0.5
+    return 2.0 ** -24 * math.sqrt(d) * bound.norm(dim=-1)
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, causal: bool, hq: int, hkv: int):

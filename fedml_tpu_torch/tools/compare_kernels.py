@@ -1,6 +1,6 @@
-"""Time the bf16 flash forward and dK/dV kernels against SDPA and, optionally,
-against the same kernels built from another copy of the sources, on one CUDA
-card.
+"""Time the bf16 flash kernels (forward, dQ, dK/dV) against SDPA and,
+optionally, against the same kernels built from another copy of the sources,
+on one CUDA card.
 
     python -m fedml_tpu_torch.tools.compare_kernels [--against DIR] [--rounds N]
 
@@ -75,26 +75,32 @@ def _cases(kern, b: int, t: int, h: int, causal: bool):
     q, k, v, do = (torch.randn(b * h, t, D, generator=g, device="cuda").bfloat16()
                    for _ in range(4))
     fwd_tiles = fa.resolve_blocks("flash_fwd", torch.bfloat16)
+    dq_tiles = fa.resolve_blocks("flash_bwd_dq", torch.bfloat16)
     dkv_tiles = fa.resolve_blocks("flash_bwd_dkv", torch.bfloat16)
     o, lse = torch.empty_like(q), torch.empty(b * h, t, device="cuda")
     kern.fwd(q, k, v, o, lse, causal, h, h, *fwd_tiles)
     delta = (do.float() * o.float()).sum(-1)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     out, stats = torch.empty_like(o), torch.empty_like(lse)
     q4, k4, v4 = (x.view(b, h, t, D) for x in (q, k, v))
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-    flops = {name: work(name, b, t, h, h, D, 2, causal)[0] for name in ("flash_fwd",
-                                                                        "flash_bwd_dkv")}
+    flops = {name: work(name, b, t, h, h, D, 2, causal)[0]
+             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qg, kg, vg), do.view(b, h, t, D), retain_graph=True)
+
     return {
         "flash_fwd": (lambda kn: kn.fwd(q, k, v, out, stats, causal, h, h, *fwd_tiles),
                       lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
                       flops["flash_fwd"]),
+        "flash_bwd_dq": (lambda kn: kn.bwd_dq(q, k, v, do, lse, delta, dq, causal, h, h,
+                                              *dq_tiles),
+                         sdpa_bwd, flops["flash_bwd_dq"]),
         "flash_bwd_dkv": (lambda kn: kn.bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal, h, h,
                                                 *dkv_tiles),
-                          lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg),
-                                                      do.view(b, h, t, D), retain_graph=True),
-                          flops["flash_bwd_dkv"]),
+                          sdpa_bwd, flops["flash_bwd_dkv"]),
     }
 
 

@@ -8,10 +8,13 @@ through the
 trainer's step function (each timed alone, after the kernels' build), then
 times steady steps on the host clock with a synchronize at each end, and
 profiles two more with ``torch.profiler``. Prints one JSON object: the card,
-build and first-step times, steady step time and tokens/s, device kernel
-time over the two profiled steps grouped (the three flash kernels, matmuls,
-the rest) and by kernel, the device's busy share of the profiled window, and
-the launches per step.
+build and first-step times, steady step time and tokens/s, the host's time
+to enqueue a steady step (the steps issue no synchronize, so a host that
+needs about the whole step time to enqueue one is what bounds it), device
+kernel time over the two profiled steps grouped (the three flash kernels,
+matmuls, the rest) and by kernel, the device's busy share of the profiled
+window (the profiler slows the host) and of a steady step, and the launches
+per step.
 Needs a CUDA card.
 """
 
@@ -76,6 +79,7 @@ def main() -> None:
     t0 = time.perf_counter()
     for toks, mask in inputs:
         trainer._step_fn(toks, mask)
+    enqueue_s = (time.perf_counter() - t0) / TIMED_STEPS
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
 
@@ -106,9 +110,13 @@ def main() -> None:
         "build_s": build_s, "first_steps_s": warm_s,
         "steady_step_ms": step_s * 1e3,
         "steady_tokens_per_sec": BATCH * SEQ / step_s,
+        "host_enqueue_ms_per_step": enqueue_s * 1e3,
         "profiled_steps": PROFILED_STEPS, "profiled_window_ms": window_s * 1e3,
         "device_ms_by_group": groups if kernel_ms else "not measured",
+        "device_ms_per_step": kernel_ms / PROFILED_STEPS if kernel_ms else "not measured",
         "device_busy_share": kernel_ms / (window_s * 1e3) if kernel_ms else "not measured",
+        "device_busy_share_of_steady_step": (kernel_ms / PROFILED_STEPS / (step_s * 1e3)
+                                             if kernel_ms else "not measured"),
         "top_kernels_ms": {name[:90]: ms for name, ms in top},
         "launches_per_step": {k: v / PROFILED_STEPS for k, v in fa.launch_counts.items()},
         "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,

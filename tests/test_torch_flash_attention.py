@@ -143,6 +143,32 @@ def test_plain_path_works_in_f64_for_f64_inputs():
         np.testing.assert_allclose(a.float().numpy(), b.numpy(), atol=2e-5 if i == 0 else 5e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_rounding_floor_holds_only_cancelling_rows(causal):
+    """flash_bwd_dq_rounding_floor, what the card's row gate allows the bf16
+    dQ kernel for the order in which it sums dP: a dQ summed in another
+    order (the head dim permuted) lies within the gate on every row, and the
+    floor exceeds 1e-2 of a row's size only on causal row 0, whose ds
+    cancels exactly (p = 1, delta = its one dp)."""
+    q, k, v, g = _qkvg(seed=7, d=64)
+    qr, kr, vr, dor = (torch.from_numpy(_rows(x)).to(torch.bfloat16) for x in (q, k, v, g))
+    kw = dict(causal=causal, hq=HQ, hkv=HKV)
+    o, lse = tfa.flash_fwd_reference(qr, kr, vr, **kw)
+    delta = (dor.float() * o.float()).sum(-1)
+    ref = tfa.flash_bwd_dq_reference(qr, kr, vr, dor, lse, delta, **kw).float()
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(64))
+    other = tfa.flash_bwd_dq_reference(*(x[..., perm] for x in (qr, kr, vr, dor)), lse, delta,
+                                       **kw).float()[..., torch.argsort(perm)]
+    floor = tfa.flash_bwd_dq_rounding_floor(qr, kr, vr, dor, lse, **kw)
+    assert floor.shape == lse.shape and torch.isfinite(floor).all() and (floor > 0).all()
+    size = ref.norm(dim=-1)
+    assert ((other - ref).norm(dim=-1) <= 1e-2 * size + 1e-6 + floor).all()
+    held = floor > 1e-2 * size
+    want = torch.zeros_like(held)
+    want[:, 0] = causal
+    assert torch.equal(held, want)
+
+
 def test_cpu_path_counts_no_launches():
     tfa.reset_launch_counts()
     q, k, v, g = _qkvg(seed=5)
@@ -155,24 +181,27 @@ def test_block_env_override(monkeypatch):
     """FEDML_FLASH_BLOCK_Q/K choose among each kernel's compiled tiles for
     callers that pass none; a choice that names no pair of a kernel (one of
     the two alone included) warns and keeps that kernel's default; explicit
-    caller values win."""
+    caller values win. The f32 kernels have four pairs each, the bf16 ones
+    one."""
     bf16, f32 = torch.bfloat16, torch.float32
     monkeypatch.setenv("FEDML_FLASH_BLOCK_Q", "32")
     monkeypatch.setenv("FEDML_FLASH_BLOCK_K", "64")
-    assert tfa.resolve_blocks("flash_bwd_dq", bf16) == (32, 64)
+    assert tfa.resolve_blocks("flash_bwd_dq", f32) == (32, 64)
     assert tfa.resolve_blocks("flash_fwd", f32) == (32, 64)
-    assert tfa.resolve_blocks("flash_bwd_dq", bf16, 64, 32) == (64, 32)
+    assert tfa.resolve_blocks("flash_bwd_dq", f32, 64, 32) == (64, 32)
     with pytest.warns(UserWarning, match="FEDML_FLASH_BLOCK_Q"):
         assert tfa.resolve_blocks("flash_fwd", bf16) == tfa.TILES["flash_fwd"][bf16][0]
+    with pytest.warns(UserWarning, match="names no flash_bwd_dq tile"):
+        assert tfa.resolve_blocks("flash_bwd_dq", bf16) == tfa.TILES["flash_bwd_dq"][bf16][0]
     monkeypatch.setenv("FEDML_FLASH_BLOCK_K", "100")
     with pytest.warns(UserWarning, match="names no flash_bwd_dq tile"):
         assert tfa.resolve_blocks("flash_bwd_dq", f32) == tfa.TILES["flash_bwd_dq"][f32][0]
     monkeypatch.delenv("FEDML_FLASH_BLOCK_Q")
     monkeypatch.setenv("FEDML_FLASH_BLOCK_K", "32")
     with pytest.warns(UserWarning, match=r"\(None, 32\) names no flash_bwd_dq tile"):
-        assert tfa.resolve_blocks("flash_bwd_dq", bf16) == tfa.TILES["flash_bwd_dq"][bf16][0]
+        assert tfa.resolve_blocks("flash_bwd_dq", f32) == tfa.TILES["flash_bwd_dq"][f32][0]
     monkeypatch.setenv("FEDML_FLASH_BLOCK_Q", "64")
-    assert tfa.resolve_blocks("flash_bwd_dq", bf16) == (64, 32)
+    assert tfa.resolve_blocks("flash_bwd_dq", f32) == (64, 32)
     with pytest.raises(ValueError, match="block_q=16"):
         tfa.resolve_blocks("flash_bwd_dq", f32, 16, 64)
 
@@ -180,8 +209,8 @@ def test_block_env_override(monkeypatch):
 @pytest.mark.parametrize("kernel", sorted(tfa.TILES))
 def test_tile_table_defaults(kernel, monkeypatch):
     """Each kernel and dtype has its own compiled tiles, the first the
-    default; the bf16 forward and dK/dV are the wgmma kernels' 128-row
-    tiles, the rest the SIMT kernels' four pairs."""
+    default; in bf16 each kernel is its wgmma kernel's one pair (128-row
+    tiles of the rows it owns), in f32 the SIMT kernels' four pairs."""
     monkeypatch.delenv("FEDML_FLASH_BLOCK_Q", raising=False)
     monkeypatch.delenv("FEDML_FLASH_BLOCK_K", raising=False)
     for dtype in tfa.KERNEL_DTYPES:
@@ -193,8 +222,9 @@ def test_tile_table_defaults(kernel, monkeypatch):
             with pytest.raises(ValueError, match="names no compiled"):
                 tfa.resolve_blocks(kernel, dtype, bq)  # a pair or nothing
     assert tfa.TILES[kernel][torch.float32] == ((64, 64), (64, 32), (32, 64), (32, 32))
-    wgmma = {"flash_fwd": ((128, 128),), "flash_bwd_dkv": ((64, 128),)}
-    assert tfa.TILES[kernel][torch.bfloat16] == wgmma.get(kernel, tfa.TILES[kernel][torch.float32])
+    wgmma = {"flash_fwd": ((128, 128),), "flash_bwd_dq": ((128, 128),),
+             "flash_bwd_dkv": ((64, 128),)}
+    assert tfa.TILES[kernel][torch.bfloat16] == wgmma[kernel]
 
 
 @pytest.mark.parametrize("kernel,dtype,tiles", [
@@ -204,7 +234,7 @@ def test_tile_table_defaults(kernel, monkeypatch):
     ("flash_bwd_dq", torch.float32, (64, None)),
     ("flash_bwd_dkv", torch.bfloat16, (64, 64)),
     ("flash_bwd_dkv", torch.float32, (128, 128)),
-    ("flash_bwd_dq", torch.bfloat16, (128, 128)),
+    ("flash_bwd_dq", torch.bfloat16, (128, 64)),
 ])
 def test_tile_pair_without_instance_is_refused(kernel, dtype, tiles):
     """An explicit pair with no compiled instance raises, naming the pairs
