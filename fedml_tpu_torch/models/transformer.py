@@ -1,4 +1,5 @@
-"""Llama-family causal transformer for the FedLLM path (training forward).
+"""Llama-family causal transformer for the FedLLM path: training forward and
+the KV-cache decode modes of serving.
 
 Counterpart of ``fedml_tpu/models/transformer.py``: RMSNorm + rotary + GQA +
 SwiGLU, f32 parameters with compute in ``cfg.dtype`` (bf16 by default), one
@@ -11,9 +12,30 @@ Module and parameter names mirror the flax tree (``layer_0.attn.q_proj``,
 the other by path. Dense weights are stored as ``nn.Linear`` does,
 ``[out, in]``; LoRA factors keep the JAX shapes ``A [in, r]``, ``B [r, out]``.
 
-This slice is one device, dense and not quantised: ring attention, MoE,
-int8 weights and the decode (serving) modes raise NotImplementedError (see
-ROADMAP.md).
+Decode (``cfg.decode``, the serving model): there is no flax "cache"
+collection. The cache is an explicit nested dict that mirrors the flax
+collection's paths, ``cache["layer_i"]["attn"]`` = ``{"k", "v", "idx"}``
+(``init_cache``), passed to ``forward(..., cache=cache)`` and UPDATED IN
+PLACE (k/v written at the write index, idx advanced). Three modes, as in
+JAX: a contiguous ``[B, max_seq_len, kv, hd]`` cache with a shared write
+index (prefill, single-token steps, the left-pad ``attn_start`` mask); its
+per-row ``cache_idx`` slot mode; and, when ``block_tables`` are passed, a
+page pool ``[kv_num_pages, kv_page_size, kv, hd]`` (``init_cache`` of a
+config with ``kv_page_size > 0``) addressed through them. One decode model
+serves all three, so the paged engine's contiguous prefill and its paged
+steps share one set of weights. Every decode mode runs the plain masked ``xla_attention``,
+never the flash kernels. A decode model called without a cache runs the
+plain causal forward of the same weights (the non-cached reference).
+
+A decode model holds its dense weights, embedding and LoRA factors in
+``cfg.dtype``, cast once when loaded (``generation.decode_model``); RMSNorm
+scales stay f32. The JAX model casts its f32 kernels to the activation dtype
+on every call; the f32 -> bf16 cast rounds to nearest even either way, so
+both multiply the same bf16 values, and decode reads half the bytes per
+token.
+
+This slice is one device, dense and not quantised: ring attention, MoE and
+int8 weights raise NotImplementedError (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -101,8 +123,6 @@ class TransformerConfig:
             raise _unsupported("moe_experts > 0 (the MoE MLP)")
         if self.weight_quant != "none":
             raise _unsupported(f"weight_quant={self.weight_quant!r}")
-        if self.decode or self.kv_page_size > 0:
-            raise _unsupported("decode mode (the KV-cache serving path)")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"remat_policy must be 'full' or 'dots', got {self.remat_policy!r}")
 
@@ -138,6 +158,11 @@ def _lora_target(name: Optional[str], cfg: TransformerConfig) -> bool:
     return name is not None and any(t in name for t in cfg.lora_targets)
 
 
+def _weight_dtype(cfg: TransformerConfig) -> torch.dtype:
+    """f32 master weights for training; ``cfg.dtype`` for a decode model."""
+    return cfg.dtype if cfg.decode else torch.float32
+
+
 class LoRALinear(nn.Module):
     """Dense with an optional low-rank adapter: x.W + (alpha/r)·((x.A).B),
     everything in the activation dtype. The adapter exists only where the
@@ -147,12 +172,13 @@ class LoRALinear(nn.Module):
                  device=None):
         super().__init__()
         self.cfg = cfg
-        self.weight = nn.Parameter(torch.empty(features, in_dim, device=device))
+        dtype = _weight_dtype(cfg)
+        self.weight = nn.Parameter(torch.empty(features, in_dim, device=device, dtype=dtype))
         r = cfg.lora_rank
         self.has_lora = r > 0 and _lora_target(name, cfg)
         if self.has_lora:
-            self.lora_a = nn.Parameter(torch.empty(in_dim, r, device=device))
-            self.lora_b = nn.Parameter(torch.zeros(r, features, device=device))
+            self.lora_a = nn.Parameter(torch.empty(in_dim, r, device=device, dtype=dtype))
+            self.lora_b = nn.Parameter(torch.zeros(r, features, device=device, dtype=dtype))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's defaults in distribution: lecun-normal kernel (std
@@ -164,6 +190,7 @@ class LoRALinear(nn.Module):
                 self.lora_b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a no-op for a decode model, whose weights already are x's dtype
         y = F.linear(x, self.weight.to(x.dtype))
         if self.has_lora:
             scale = self.cfg.lora_alpha / self.cfg.lora_rank
@@ -206,7 +233,11 @@ class Attention(nn.Module):
         self.v_proj = LoRALinear(cfg.d_model, cfg.n_kv_heads * hd, cfg, "v_proj", device)
         self.o_proj = LoRALinear(cfg.n_heads * hd, cfg.d_model, cfg, "o_proj", device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                attn_start: Optional[torch.Tensor] = None,
+                cache: Optional[dict] = None,
+                cache_idx: Optional[torch.Tensor] = None,
+                block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         B, T, _ = x.shape
         hd = cfg.head_dim
@@ -215,6 +246,12 @@ class Attention(nn.Module):
         v = self.v_proj(x).view(B, T, cfg.n_kv_heads, hd)
         q = rotary_embedding(q, positions, cfg.rope_theta)
         k = rotary_embedding(k, positions, cfg.rope_theta)
+        if cache is not None:
+            if block_tables is not None:
+                out = self._paged_decode_attention(q, k, v, cache, cache_idx, block_tables)
+            else:
+                out = self._decode_attention(q, k, v, cache, attn_start, cache_idx)
+            return self.o_proj(out.reshape(B, T, cfg.n_heads * hd))
         impl = cfg.attention_impl
         if impl == "auto":
             impl = "pallas" if x.is_cuda else "xla"
@@ -227,6 +264,90 @@ class Attention(nn.Module):
             k, v = repeat_kv(k, v, cfg.n_heads)
             out = xla_attention(q, k, v, causal=True)
         return self.o_proj(out.reshape(B, T, cfg.n_heads * hd))
+
+    def _decode_attention(self, q, k, v, cache: dict,
+                          attn_start: Optional[torch.Tensor] = None,
+                          cache_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """KV-cache attention over a contiguous cache ``{"k", "v": [B, S, kv,
+        hd], "idx": int32 scalar}``: prefill (T = prompt length) and
+        single-token steps write k/v at the shared index ``idx`` (then
+        advance it by T), and queries attend to everything written so far.
+        The index stays on the device, so a decode loop never waits on it.
+
+        ``attn_start`` [B] (optional): first VALID cache slot per row —
+        batched serving LEFT-pads shorter prompts so all rows share the
+        write index, and each row masks out its pad prefix.
+
+        ``cache_idx`` [B] (optional, T must be 1): PER-ROW write index, the
+        slot engine's mode. Row b's k/v land at ``cache_idx[b]`` and its
+        query attends to positions ``<= cache_idx[b]``; the shared index is
+        neither read nor advanced. Garbage beyond a row's index (a rewound
+        prefill's padding, a freed slot's leftovers) is invisible to it."""
+        ck, cv, cidx = cache["k"], cache["v"], cache["idx"]
+        B, T = q.shape[:2]
+        S = ck.shape[1]
+        ar = torch.arange(S, device=q.device)
+        if cache_idx is not None:
+            if T != 1:
+                raise ValueError(f"cache_idx decode requires T=1 steps, got T={T}")
+            cache_idx = cache_idx.long()
+            rows = torch.arange(B, device=q.device)
+            ck[rows, cache_idx] = k[:, 0].to(ck.dtype)
+            cv[rows, cache_idx] = v[:, 0].to(cv.dtype)
+            # [B, 1, 1, S]: row b sees exactly its own written prefix
+            valid = (ar[None, :] <= cache_idx[:, None])[:, None, None]
+        else:
+            q_pos = cidx + torch.arange(T, device=q.device)  # absolute position of each query
+            ck.index_copy_(1, q_pos, k.to(ck.dtype))
+            cv.index_copy_(1, q_pos, v.to(cv.dtype))
+            cidx.add_(T)
+            valid = ar[None, :] <= q_pos[:, None]  # [T, S] causal+written
+            if attn_start is not None:
+                # [B, 1, T, S]: rows additionally exclude their pad prefix
+                valid = (valid[None] & (ar[None, None, :] >= attn_start[:, None, None]))[:, None]
+        k_all, v_all = repeat_kv(ck, cv, self.cfg.n_heads)
+        return xla_attention(q, k_all, v_all, mask=valid)
+
+    def _paged_decode_attention(self, q, k, v, cache: dict,
+                                cache_idx: Optional[torch.Tensor],
+                                block_tables: Optional[torch.Tensor]) -> torch.Tensor:
+        """Block-table KV attention over a physical page pool ``{"k", "v":
+        [num_pages, page, kv, hd]}`` (the paged engine's mode,
+        serving/paged_kv.py). Row ``b``'s logical position ``l`` lives at page
+        ``block_tables[b, l // page]``, slot ``l % page``. The block tables
+        [B, max_blocks] and the per-row write index ``cache_idx`` [B] are
+        runtime data.
+
+        Write: the new k/v token goes to (bt[b, idx // page], idx % page).
+        The allocator never makes a shared prefix page the write target, so
+        copy-on-write never needs a copy.
+
+        Read: gather each row's pages back into logical order and mask
+        positions > cache_idx[b]. Unallocated entries point at the trash
+        page 0; their positions lie beyond the row's index, so the mask
+        hides their garbage."""
+        cfg = self.cfg
+        ck, cv = cache["k"], cache["v"]
+        ps = ck.shape[1]
+        B, T = q.shape[:2]
+        if T != 1:
+            raise ValueError(f"paged decode requires T=1 steps, got T={T}")
+        if cache_idx is None:
+            raise ValueError("paged decode requires cache_idx and block_tables")
+        if ck.shape[0] < 2:
+            raise ValueError("kv_num_pages must be >= 2 (page 0 is the trash page)")
+        cache_idx, block_tables = cache_idx.long(), block_tables.long()
+        page = block_tables.gather(1, (cache_idx // ps)[:, None])[:, 0]  # [B]
+        off = cache_idx % ps
+        ck[page, off] = k[:, 0].to(ck.dtype)
+        cv[page, off] = v[:, 0].to(cv.dtype)
+        S_l = block_tables.shape[1] * ps  # logical context length
+        k_rows = ck[block_tables].reshape(B, S_l, cfg.n_kv_heads, cfg.head_dim)
+        v_rows = cv[block_tables].reshape(B, S_l, cfg.n_kv_heads, cfg.head_dim)
+        k_all, v_all = repeat_kv(k_rows, v_rows, cfg.n_heads)
+        # [B, 1, 1, S_l]: row b sees exactly its own written prefix
+        valid = (torch.arange(S_l, device=q.device)[None, :] <= cache_idx[:, None])[:, None, None]
+        return xla_attention(q, k_all, v_all, mask=valid)
 
 
 class MLP(nn.Module):
@@ -248,15 +369,20 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.d_model, device=device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.attn_norm(x), positions)
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                attn_start: Optional[torch.Tensor] = None,
+                cache: Optional[dict] = None,
+                cache_idx: Optional[torch.Tensor] = None,
+                block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x), positions, attn_start,
+                          None if cache is None else cache["attn"], cache_idx, block_tables)
         return x + self.mlp(self.mlp_norm(x))
 
 
 class Embed(nn.Module):
-    def __init__(self, vocab: int, dim: int, device=None):
+    def __init__(self, vocab: int, dim: int, device=None, dtype=torch.float32):
         super().__init__()
-        self.embedding = nn.Parameter(torch.empty(vocab, dim, device=device))
+        self.embedding = nn.Parameter(torch.empty(vocab, dim, device=device, dtype=dtype))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return F.embedding(tokens, self.embedding)
@@ -277,7 +403,7 @@ class TransformerLM(nn.Module):
         super().__init__()
         cfg.check_supported()
         self.cfg = cfg
-        self.embed = Embed(cfg.vocab_size, cfg.d_model, device)
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, device, _weight_dtype(cfg))
         for i in range(cfg.n_layers):
             self.add_module(f"layer_{i}", Block(cfg, device))
         self.final_norm = RMSNorm(cfg.d_model, device=device)
@@ -312,12 +438,45 @@ class TransformerLM(nn.Module):
                                                  _dots_policy))
         return checkpoint(block, x, positions, use_reentrant=False)
 
-    def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                attn_start: Optional[torch.Tensor] = None,
+                cache_idx: Optional[torch.Tensor] = None,
+                block_tables: Optional[torch.Tensor] = None,
+                *, cache: Optional[dict] = None) -> torch.Tensor:
+        """Logits [B, T, vocab] in f32. With ``cache`` (decode models only;
+        ``init_cache``) this is a decode-mode call that updates the cache in
+        place; ``block_tables`` selects the paged mode
+        (``Attention._paged_decode_attention``), ``attn_start`` and
+        ``cache_idx`` the contiguous ones (``Attention._decode_attention``)."""
         cfg = self.cfg
+        if cache is not None and not cfg.decode:
+            raise ValueError("a cache needs a decode model (cfg.decode=True; "
+                             "generation.decode_model)")
         x = self.embed(tokens).to(cfg.dtype)
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
-        for block in self.layers:
-            x = self._run_block(block, x, positions)
+        for i, block in enumerate(self.layers):
+            if cache is not None:
+                x = block(x, positions, attn_start, cache[f"layer_{i}"], cache_idx, block_tables)
+            else:
+                x = self._run_block(block, x, positions)
         x = self.final_norm(x)
         return self.lm_head(x).to(torch.float32)
+
+
+def init_cache(cfg: TransformerConfig, batch: int, device=None) -> dict:
+    """A zeroed decode cache for ``cfg``, with the flax cache collection's
+    paths and shapes: ``cache["layer_i"]["attn"]`` holds ``k`` and ``v``
+    ([batch, max_seq_len, kv, hd], or the page pool [kv_num_pages,
+    kv_page_size, kv, hd] when ``cfg.kv_page_size > 0``) in ``cfg.dtype``, and
+    the shared write index ``idx`` (int32 scalar; unused by the slot and
+    paged modes, kept so every cache has the same leaves)."""
+    if cfg.kv_page_size > 0:
+        shape = (cfg.kv_num_pages, cfg.kv_page_size, cfg.n_kv_heads, cfg.head_dim)
+    else:
+        shape = (batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+    return {f"layer_{i}": {"attn": {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "idx": torch.zeros((), dtype=torch.int32, device=device),
+    }} for i in range(cfg.n_layers)}

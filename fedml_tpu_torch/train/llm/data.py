@@ -1,17 +1,73 @@
 """Packed-token datasets for LLM training (numpy only).
 
-Counterpart of ``fedml_tpu/train/llm/data.py``: pack token streams into
-fixed ``[N, seq_len]`` blocks, yield deterministic shuffled (tokens,
-loss_mask) batches, and split blocks across clients. The numpy draws are the
-JAX module's, so both packages see bit-identical batches from one seed. The
-tokenizer and reading text files wait for a later slice (ROADMAP.md).
+Counterpart of ``fedml_tpu/train/llm/data.py``: read local text files, load
+or train the BPE tokenizer, pack token streams into fixed ``[N, seq_len]``
+blocks, yield deterministic shuffled (tokens, loss_mask) batches, and split
+blocks across clients. The numpy draws are the JAX module's, so both
+packages see bit-identical batches from one seed. ``TextDataset.from_path``
+(text files into the trainer) waits for a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .tokenizer import BPETokenizer, train_bpe
+
+
+def read_text_files(path: str, *, text_key: str = "text", max_lines: Optional[int] = None) -> List[str]:
+    """path = a .txt/.jsonl file or a directory of them."""
+    files: List[str] = []
+    if os.path.isdir(path):
+        for name in sorted(os.listdir(path)):
+            if name.endswith((".txt", ".jsonl", ".json")):
+                files.append(os.path.join(path, name))
+    else:
+        files = [path]
+    lines: List[str] = []
+    for fp in files:
+        with open(fp, encoding="utf-8", errors="replace") as f:
+            if fp.endswith((".jsonl", ".json")):
+                for raw in f:
+                    raw = raw.strip()
+                    if not raw:
+                        continue
+                    try:
+                        obj = json.loads(raw)
+                        lines.append(obj[text_key] if isinstance(obj, dict) else str(obj))
+                    except (json.JSONDecodeError, KeyError):
+                        continue
+                    if max_lines and len(lines) >= max_lines:
+                        return lines
+            else:
+                for raw in f:
+                    raw = raw.rstrip("\n")
+                    if raw:
+                        lines.append(raw)
+                    if max_lines and len(lines) >= max_lines:
+                        return lines
+    return lines
+
+
+def load_or_train_tokenizer(
+    dataset_path: Optional[str],
+    tokenizer_path: Optional[str],
+    *,
+    vocab_size: int = 512,
+    corpus: Optional[Sequence[str]] = None,
+) -> BPETokenizer:
+    """tokenizer.json if given (HF checkpoint dir or file); else train a
+    byte-level BPE from the dataset itself (self-contained, zero egress)."""
+    if tokenizer_path:
+        return BPETokenizer.load(tokenizer_path)
+    corpus = corpus if corpus is not None else (read_text_files(dataset_path) if dataset_path else [])
+    if not corpus:
+        raise ValueError("no tokenizer_path and no corpus to train one from")
+    return train_bpe(corpus, vocab_size=vocab_size)
 
 
 def pack_tokens(

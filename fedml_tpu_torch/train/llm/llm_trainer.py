@@ -6,7 +6,7 @@ chain of ``optim.py`` (LoRA: only adapters train, base weights are frozen
 and get no gradient) and checkpoints the named (flax path) layout.
 
 This slice is one device: any mesh axis above 1 (dp, fsdp, tp, sp, ep, pp)
-raises NotImplementedError, as do text datasets (the tokenizer is not ported)
+raises NotImplementedError, as do text datasets (``TextDataset.from_path``)
 and HF checkpoint import. Telemetry (spans, devperf, modelwatch) waits for a
 later slice (ROADMAP.md).
 """
@@ -170,8 +170,9 @@ class LLMTrainer:
         if batches is None:
             if self.data_args.dataset_path:
                 raise NotImplementedError(
-                    "dataset_path needs the tokenizer, which is not ported to "
-                    "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+                    "dataset_path (text files through the tokenizer into "
+                    "TextDataset.from_path) is not ported to fedml_tpu_torch yet "
+                    "(see ROADMAP.md, Queue 1)")
             batches = synthetic_token_batches(
                 self.cfg.vocab_size, self.model_args.seq_len, exp.per_device_batch_size,
                 exp.max_steps, exp.seed)

@@ -7,6 +7,8 @@ there without tests/conftest.py (which sets up JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -243,3 +245,99 @@ def test_llm_trainer_steps_on_cuda(cuda, tmp_path):
     assert fa.launch_counts == {"flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
     for n, p in trainer.model.named_parameters():
         assert torch.equal(p, before[n]) != is_lora_name(n), n
+
+
+# --- serving (the decode modes, the predictor) on the card ----------------------
+
+SERVE_GEOM = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512,
+                  max_seq_len=128, remat=False)
+
+
+def _serving_pair(dtype=torch.float32):
+    """The same random weights as a decode model on the CPU and on the card."""
+    from fedml_tpu_torch.models.transformer import TransformerConfig
+    from fedml_tpu_torch.train.llm.generation import decode_model
+
+    cfg = TransformerConfig(dtype=dtype, **SERVE_GEOM)
+    cpu = decode_model(cfg, None, device="cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    return cfg, cpu, decode_model(cfg, cpu, device="cuda")
+
+
+@pytest.mark.cuda
+def test_decode_modes_on_cuda_match_the_cpu(cuda):
+    """Contiguous prefill + steps, the slot mode and the paged mode on the
+    card against the same modules on the CPU (f32; TF32 off)."""
+    from fedml_tpu_torch.models.transformer import init_cache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, gpu = _serving_pair()
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 24)))
+    outs = {}
+    with torch.inference_mode():
+        for name, m, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, "cuda")):
+            t = toks.to(dev)
+            cache = init_cache(m.cfg, 2, dev)
+            pre = m(t[:, :16], torch.arange(16, device=dev).expand(2, 16), cache=cache)
+            steps = [m(t[:, s:s + 1], torch.full((2, 1), s, device=dev), cache=cache)
+                     for s in range(16, 24)]
+            idx = torch.tensor([23, 5], device=dev)
+            slot = m(t[:, :1], idx[:, None], cache_idx=idx, cache=cache)
+            pool = init_cache(dataclasses.replace(m.cfg, kv_page_size=16, kv_num_pages=6),
+                              0, dev)
+            tables = torch.tensor([[3, 1, 0, 0, 0, 0, 0, 0], [5, 0, 0, 0, 0, 0, 0, 0]],
+                                  device=dev)
+            paged = m(t[:, :1], idx[:, None], cache_idx=idx, block_tables=tables, cache=pool)
+            outs[name] = [x.cpu() for x in [pre, *steps, slot, paged]]
+    for a, b in zip(outs["gpu"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_llm_predictor_serves_on_cuda(cuda):
+    from fedml_tpu_torch.serving import LLMPredictor
+    from fedml_tpu_torch.train.llm.generation import generate
+    from fedml_tpu_torch.train.llm.tokenizer import train_bpe
+
+    tok = train_bpe(["the quick brown fox jumps over the lazy dog"] * 4, vocab_size=300)
+    cfg, _, gpu = _serving_pair(torch.bfloat16)
+    fa.reset_launch_counts()
+    for kw in ({}, {"continuous": True, "num_slots": 2}, {"paged": True, "num_slots": 2}):
+        pred = LLMPredictor(gpu, cfg, tok, default_max_new_tokens=8, **kw)
+        try:
+            out = pred.predict({"prompt": "the quick"})
+            assert isinstance(out["text"], str)
+            assert pred.predict({"prompt": "the quick"}) == out
+            many = pred.predict_many([{"prompt": "the quick"}, {"prompt": "lazy dog"}])
+            assert len(many) == 2
+        finally:
+            if pred.engine is not None:
+                pred.engine.shutdown()
+    assert generate(gpu, cfg, [[1, 2, 3]], 4).is_cuda
+    assert fa.launch_counts == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+@pytest.mark.cuda
+def test_serving_weights_are_cast_once_and_never_per_call(cuda):
+    """The decode model's dense weights are bf16 on the card (norm scales
+    f32), and a profiled decode step casts no weight-sized tensor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.models.transformer import init_cache
+
+    cfg, _, gpu = _serving_pair(torch.bfloat16)
+    weights = {tuple(p.shape) for n, p in gpu.named_parameters() if not n.endswith("scale")}
+    for n, p in gpu.named_parameters():
+        assert p.is_cuda and p.dtype == (torch.float32 if n.endswith("scale") else torch.bfloat16)
+    with torch.inference_mode():
+        cache = init_cache(gpu.cfg, 2, "cuda")
+        gpu(torch.zeros((2, 4), dtype=torch.long, device="cuda"),
+            torch.arange(4, device="cuda").expand(2, 4), cache=cache)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            gpu(torch.ones((2, 1), dtype=torch.long, device="cuda"),
+                torch.full((2, 1), 4, device="cuda"), cache=cache)
+            torch.cuda.synchronize()
+    casts = [e for e in prof.events() if e.name in ("aten::_to_copy", "aten::copy_")
+             and any(tuple(s) in weights for s in e.input_shapes if s)]
+    assert not casts, [(e.name, e.input_shapes) for e in casts[:5]]

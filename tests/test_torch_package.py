@@ -12,6 +12,7 @@ import sys
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -151,3 +152,81 @@ def test_default_output_dir_is_under_the_callers_temp_dir(monkeypatch, tmp_path)
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     assert ExperimentArguments().output_dir == str(tmp_path / "fedml_tpu_llm")
     assert ExperimentArguments.from_args(SimpleNamespace()).output_dir.startswith(str(tmp_path))
+
+
+def test_serving_modules_load_no_jax_or_fedml_tpu():
+    """The serving path on its own: importing the serving package and the
+    generation module leaves no jax or fedml_tpu module loaded."""
+    code = (
+        "import sys\n"
+        "import fedml_tpu_torch.serving, fedml_tpu_torch.train.llm.generation\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'fedml_tpu'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def _tiny_lm(**over):
+    from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    cfg = TransformerConfig(**{**dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4,
+                                      n_kv_heads=2, d_ff=64, max_seq_len=32, remat=False,
+                                      lora_rank=2), **over})
+    model = TransformerLM(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+    return cfg, model
+
+
+def test_serving_entry_points_raise_without_cuda(no_cuda):
+    """generate, generate_batch, decode_model, LLMPredictor, TorchPredictor
+    and both engines default to CUDA and raise without it; given "cpu" they
+    run."""
+    from fedml_tpu_torch.serving import (ContinuousBatchingEngine, LLMPredictor,
+                                         PagedContinuousBatchingEngine, TorchPredictor)
+    from fedml_tpu_torch.train.llm import generation as tg
+    from fedml_tpu_torch.train.llm.tokenizer import train_bpe
+
+    cfg, model = _tiny_lm()
+    tok = train_bpe(["a b c"], vocab_size=260)
+    calls = [lambda **kw: tg.generate(model, cfg, [[1, 2]], 2, **kw),
+             lambda **kw: tg.generate_batch(model, cfg, [[1, 2]], 2, **kw),
+             lambda **kw: tg.decode_model(cfg, model, **kw),
+             lambda **kw: LLMPredictor(model, cfg, tok, **kw),
+             lambda **kw: ContinuousBatchingEngine(model, cfg, num_slots=1, **kw),
+             lambda **kw: PagedContinuousBatchingEngine(model, cfg, num_slots=1, **kw),
+             lambda **kw: TorchPredictor(lambda p, x: x, None, **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        made = call(device="cpu")
+        engine = getattr(made, "engine", made)
+        if hasattr(engine, "shutdown"):
+            engine.shutdown()
+
+
+def test_load_time_cast_equals_the_per_call_cast_bit_for_bit():
+    """The decode model holds dense weights and LoRA factors in bf16, cast
+    once at load (norm scales stay f32); the training model casts its f32
+    weights on every call. f32 -> bf16 rounds to nearest even either way, so
+    the weights and the logits are bit-identical."""
+    from fedml_tpu_torch.train.llm.generation import decode_model
+
+    cfg, train = _tiny_lm(dtype=torch.bfloat16)
+    dec = decode_model(cfg, train, device="cpu")
+    for (name, p), (_, q) in zip(train.named_parameters(), dec.named_parameters()):
+        if name.endswith("scale"):
+            assert q.dtype == torch.float32 and torch.equal(p, q), name
+        else:
+            assert q.dtype == torch.bfloat16, name
+            assert torch.equal(q.view(torch.int16), p.to(torch.bfloat16).view(torch.int16)), name
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (2, 12)))
+    with torch.no_grad():
+        assert torch.equal(train(toks), dec(toks))

@@ -165,7 +165,7 @@ def test_remat_policies_agree(jax_params):
     (dict(attention_impl="ring"), NotImplementedError),
     (dict(moe_experts=4), NotImplementedError),
     (dict(weight_quant="int8"), NotImplementedError),
-    (dict(decode=True), NotImplementedError),
+    (dict(decode=True, weight_quant="int8"), NotImplementedError),  # int8 decode
     (dict(attention_impl="bogus"), ValueError),
     (dict(remat_policy="bogus"), ValueError),
 ])
