@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke for fedml_tpu_torch: the FedLLM LoRA train step and LLM serving
-on one CUDA card.
+"""Chip smoke for fedml_tpu_torch: the FedLLM LoRA train step, LLM serving and
+the sp FedAvg round on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -45,14 +45,30 @@ exception):
    flash launch in the phase; (c) prefill ms (B=1, P=512), decode ms per
    token at B=1 and 8 (generate_batch, and the engines' chunks), the
    engines' tokens/s and the peak memory of each part;
-7. the serve line and the kernels line (JSON, with the design each kernel ran
-   on the main path), the card line, and last the result line.
+7. FedAvg: the sp simulator's round through the user's entry points (init,
+   get_device, data.load, model.create, FedMLRunner). (a) Parrot config 1
+   (examples/quick_start/parrot/fedml_config.yaml: LR, MNIST surrogate, 2
+   clients, 10 rounds) on the card and on the CPU from the same seeded
+   params, every eval round and the final params within PARROT_* of each
+   other; (b) ResNet-56 at full width on the CIFAR-10 surrogate: one
+   client's local round on the card against the CPU with cuDNN's TF32 off
+   (R56_*), then 16 clients, all in every round, for 3 rounds on the card in
+   the port's documented precision (PyTorch's defaults: TF32 convolutions,
+   f32 matmuls): finite losses, w_global moved, the last round's fold within
+   FOLD_TOL of the float64 weighted mean of its 16 w_locals; round seconds,
+   rounds/hr, local steps/s, images/s, the round's split from the fedavg.*
+   spans, peak memory and test_acc per round (reported, not gated); no flash
+   launch in the phase;
+8. the serve, fedavg and kernels lines (JSON, the kernels line with the
+   design each kernel ran on the main path), the card line, and last the
+   result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -754,6 +770,255 @@ def _agree(outs, refs) -> float:
     return sum(a == b for a, b in pairs) / max(1, len(pairs))
 
 
+# -- phase 7: the FedAvg round of the sp simulator ---------------------------
+
+# Parrot config 1, examples/quick_start/parrot/fedml_config.yaml as written
+# (tests/test_torch_fedavg.py holds this dict to the file), with no data
+# cache dir: the MNIST surrogate either way, and nothing read outside the run
+PARROT = dict(random_seed=0, dataset="mnist", data_cache_dir="", partition_method="hetero",
+              partition_alpha=0.5, model="lr", federated_optimizer="FedAvg",
+              client_num_in_total=2, client_num_per_round=2, comm_round=10, epochs=1,
+              batch_size=10, client_optimizer="sgd", learning_rate=0.03, weight_decay=0.001,
+              frequency_of_the_test=5, backend="sp")
+# ResNet-56 at full width (16/32/64 channels, 56 layers, 855,770 params) on
+# the CIFAR-10 surrogate (12,000 train / 2,000 test, 32x32x3), 16 silos all
+# in every round (BASELINE.md's 16-silo shape), hetero alpha 0.5
+RESNET = dict(random_seed=0, dataset="cifar10", data_cache_dir="", partition_method="hetero",
+              partition_alpha=0.5, model="resnet56", federated_optimizer="FedAvg",
+              client_num_in_total=16, client_num_per_round=16, comm_round=3, epochs=1,
+              batch_size=128, client_optimizer="sgd", learning_rate=0.05, momentum=0.9,
+              weight_decay=5e-4, frequency_of_the_test=1, backend="sp")
+# Parrot on the card against the same run on the CPU (12,000 SGD steps in
+# f32): each eval round's test_loss within rtol 1e-4 and test_correct within
+# 2 of 2,000; the final params within 1e-4 of their largest magnitude (the
+# tolerances tests/test_torch_fedavg.py holds the CPU port to against JAX)
+PARROT_LOSS_RTOL, PARROT_ACC_SLACK, PARROT_PARAM_TOL = 1e-4, 2, 1e-4
+# ResNet-56, card against CPU, cuDNN's TF32 off: the forward of the seeded
+# params on the client's first batch within 1e-4 of the logits' scale (56
+# f32 conv layers summed in other orders); the client's local round (3
+# steps of lr 0.05, momentum 0.9, from a loss near 16) with its mean loss
+# within rtol 1e-3 and its update within 5e-2 (relative L2) of the CPU's.
+# The round amplifies f32 noise: on the CPU, the same round from params
+# perturbed by 1e-7 (relative) moves the update by 1.5e-3. A dropped
+# padding or layout change moves logits by O(1) (tests/test_torch_vision_models.py).
+R56_LOGITS_TOL, R56_LOSS_RTOL, R56_UPDATE_TOL = 1e-4, 1e-3, 5e-2
+R56_PARITY_CLIENT = 7   # the smallest shard: 341 examples, 3 steps, the last part-masked
+# the fold against the float64 sample-weighted mean of the round's 16
+# w_locals: f32 accumulation of 16 terms, within 2e-6 of each leaf's scale
+FOLD_TOL = 2e-6
+
+
+def _fedavg_runner(over: dict, using_gpu: bool):
+    """The user's entry points: init, get_device, data.load, model.create,
+    FedMLRunner."""
+    import fedml_tpu_torch as fedml
+
+    args = fedml.init(fedml.default_config("simulation", using_gpu=using_gpu, **over))
+    dev = fedml.get_device(args)
+    dataset, output_dim = fedml.data.load(args)
+    model = fedml.model.create(args, output_dim)
+    return args, dataset, model, fedml.FedMLRunner(args, dev, dataset, model)
+
+
+def _rel(a: dict, b: dict, start: dict = None) -> float:
+    """||a - b|| / ||b - start|| (or / ||b||) over state dicts on the CPU."""
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in b)
+    den = sum(float(((b[k].double() - (start[k].double() if start else 0)) ** 2).sum()) for k in b)
+    return (num / den) ** 0.5
+
+
+def _cpu(tree: dict) -> dict:
+    return {k: v.detach().to("cpu") for k, v in tree.items()}
+
+
+def parrot_parity() -> dict:
+    """Parrot config 1 on the card and on the CPU from the same seeded params."""
+    import torch
+
+    out = {}
+    for where in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        _, _, model, runner = _fedavg_runner(PARROT, where == "cuda")
+        check(model.device.type == where, f"Parrot model on {model.device}, wanted {where}")
+        p0 = _cpu(model.params)
+        runner.run()
+        api = runner.runner.fl_trainer
+        out[where] = {"p0": p0, "hist": api.metrics_history, "s": time.perf_counter() - t0,
+                      "w": _cpu(api.model_trainer.get_model_params())}
+    gpu, cpu = out[DEV], out["cpu"]
+    check(all(torch.equal(gpu["p0"][k], cpu["p0"][k]) for k in cpu["p0"]),
+          "Parrot: the card and the CPU started from different params")
+    check([m["round"] for m in gpu["hist"]] == [m["round"] for m in cpu["hist"]] == [0, 5, 9],
+          f"Parrot eval rounds {[m['round'] for m in gpu['hist']]}")
+    rows = []
+    for g, c in zip(gpu["hist"], cpu["hist"]):
+        rel = abs(g["test_loss"] - c["test_loss"]) / abs(c["test_loss"])
+        rows.append({"round": g["round"], "test_loss": g["test_loss"], "test_acc": g["test_acc"],
+                     "cpu_test_loss": c["test_loss"], "cpu_test_acc": c["test_acc"],
+                     "loss_rel_diff": rel})
+        check(rel <= PARROT_LOSS_RTOL, f"Parrot round {g['round']}: test_loss {g['test_loss']} vs "
+                                       f"CPU {c['test_loss']} (rtol {PARROT_LOSS_RTOL})")
+        check(abs(g["test_correct"] - c["test_correct"]) <= PARROT_ACC_SLACK,
+              f"Parrot round {g['round']}: {g['test_correct']} correct vs CPU {c['test_correct']}")
+    param_err = max((gpu["w"][k] - cpu["w"][k]).abs().max().item()
+                    / cpu["w"][k].abs().max().item() for k in cpu["w"])
+    check(param_err <= PARROT_PARAM_TOL, f"Parrot final params {param_err:.3g} of their scale apart")
+    say(f"  Parrot config 1 (LR, 2 clients, 10 rounds): card {gpu['s']:.1f}s, CPU {cpu['s']:.1f}s; "
+        f"eval rounds {rows}; final params {param_err:.3g} of their scale apart")
+    return {"rounds": rows, "final_param_err_of_scale": param_err, "card_s": gpu["s"],
+            "cpu_s": cpu["s"]}
+
+
+def _client_round(args, model, shard, client_id: int):
+    from fedml_tpu_torch.ml.trainer.classification_trainer import ClassificationTrainer
+
+    trainer = ClassificationTrainer(model, args)
+    trainer.set_id(client_id)
+    trainer.train(shard)
+    return _cpu(trainer.get_model_params()), trainer.last_loss, trainer.last_steps
+
+
+def resnet_client_parity(args, dataset) -> dict:
+    """One ResNet-56 client round on the card against the same round on the
+    CPU (same seeded params, same epoch_index_array), cuDNN's TF32 off."""
+    import numpy as np
+    import torch
+
+    import fedml_tpu_torch as fedml
+
+    shard = dataset[5][R56_PARITY_CLIENT]
+    res = {"client": R56_PARITY_CLIENT, "examples": len(shard)}
+    x = torch.from_numpy(np.ascontiguousarray(shard.x[:RESNET["batch_size"]]))
+    got = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+        for where in (DEV, "cpu"):
+            model = fedml.model.create(args, dataset[-1], device=where)
+            p0 = _cpu(model.params)
+            with torch.no_grad():
+                logits = model.module(x.to(where)).to("cpu")
+            t0 = time.perf_counter()
+            w, loss, steps = _client_round(args, model, shard, R56_PARITY_CLIENT)
+            got[where] = dict(p0=p0, logits=logits, w=w, loss=loss, steps=steps,
+                              s=time.perf_counter() - t0)
+            del model
+    gpu, cpu = got[DEV], got["cpu"]
+    check(all(torch.equal(gpu["p0"][k], cpu["p0"][k]) for k in cpu["p0"]),
+          "ResNet-56: the card and the CPU started from different params")
+    res["logits_err_of_scale"] = ((gpu["logits"] - cpu["logits"]).abs().max()
+                                  / cpu["logits"].abs().max()).item()
+    res["steps"] = gpu["steps"]
+    res["loss"], res["cpu_loss"] = gpu["loss"], cpu["loss"]
+    res["loss_rel_diff"] = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    res["update_rel_err"] = _rel(gpu["w"], cpu["w"], cpu["p0"])
+    res["card_s"], res["cpu_s"] = gpu["s"], cpu["s"]
+    say(f"  ResNet-56 client {R56_PARITY_CLIENT} round, card vs CPU (TF32 off): {res}")
+    check(np.isfinite(gpu["loss"]) and np.isfinite(cpu["loss"]), "ResNet-56 client loss not finite")
+    check(res["logits_err_of_scale"] <= R56_LOGITS_TOL,
+          f"ResNet-56 logits {res['logits_err_of_scale']:.3g} of their scale apart")
+    check(res["loss_rel_diff"] <= R56_LOSS_RTOL, f"ResNet-56 client loss {res['loss_rel_diff']:.3g}")
+    check(res["update_rel_err"] <= R56_UPDATE_TOL,
+          f"ResNet-56 client update {res['update_rel_err']:.3g} from the CPU's")
+    return res
+
+
+def _span_sums(since: int) -> dict:
+    """{round: {span name: seconds}} of the fedavg spans after seq ``since``."""
+    from fedml_tpu_torch.core import telemetry as tel
+
+    out: dict = {}
+    for r in tel.snapshot()["spans"]:
+        if r["seq"] > since and r["name"].startswith("fedavg."):
+            row = out.setdefault(r["attrs"]["round"], {})
+            row[r["name"]] = row.get(r["name"], 0.0) + r["dur_ns"] / 1e9
+    return out
+
+
+def fedavg_phase() -> dict:
+    """Phase 7: Parrot config 1 card vs CPU; ResNet-56 at full width, one
+    client round card vs CPU, then 3 rounds of 16 clients on the card
+    through FedMLRunner (see the module docstring)."""
+    import math
+
+    import torch
+
+    res = {"parrot": parrot_parity()}
+
+    args, dataset, model, runner = _fedavg_runner(RESNET, DEV == "cuda")
+    n_params = sum(p.numel() for p in model.module.parameters())
+    check(model.device.type == DEV and n_params == 855770,
+          f"ResNet-56 has {n_params} params on {model.device}")
+    res["resnet56"] = {"params": n_params, "parity": resnet_client_parity(args, dataset)}
+
+    api = runner.runner.fl_trainer
+    p0 = _cpu(model.params)
+    folds = []
+    aggregate = api.aggregator.aggregate
+
+    def recorded(pairs):  # the last round's w_locals and fold, for the check after the run
+        out = aggregate(pairs)
+        folds[:] = [(pairs, out)]  # references: nothing writes them after the fold
+        return out
+
+    api.aggregator.aggregate = recorded
+    sizes = dataset[4]
+    steps = sum(math.ceil(n / RESNET["batch_size"]) * RESNET["epochs"] for n in sizes.values())
+    images = sum(sizes.values()) * RESNET["epochs"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    since = _last_span_seq()
+    t0 = time.perf_counter()
+    runner.run()
+    wall = time.perf_counter() - t0
+    spans = _span_sums(since)
+    hist = api.metrics_history
+    check([m["round"] for m in hist] == [0, 1, 2], f"eval rounds {[m['round'] for m in hist]}")
+    check(all(math.isfinite(m["test_loss"]) for m in hist), f"test loss not finite: {hist}")
+    w = _cpu(api.model_trainer.get_model_params())
+    check(all(torch.isfinite(v).all() for v in w.values()), "w_global not finite")
+    moved = max(float((w[k] - p0[k]).abs().max()) for k in w)
+    check(moved > 0, "w_global did not move")
+    pairs, fold = folds[0]
+    pairs, fold = [(n, _cpu(t)) for n, t in pairs], _cpu(fold)
+    total = sum(n for n, _ in pairs)
+    fold_err = max(((fold[k].double() - sum(n * t[k].double() for n, t in pairs) / total).abs().max()
+                    / fold[k].double().abs().max().clamp_min(1e-30)).item() for k in fold)
+    check(len(pairs) == 16 and fold_err <= FOLD_TOL,
+          f"the fold of {len(pairs)} w_locals is {fold_err:.3g} from their weighted mean")
+    per_round = [{"round": r, "round_s": spans[r]["fedavg.round"],
+                  "client_train_s": spans[r]["fedavg.client_train"],
+                  "aggregate_s": spans[r]["fedavg.aggregate"],
+                  "eval_s": spans[r].get("fedavg.eval", 0.0)} for r in sorted(spans)]
+    steady = per_round[1:]
+    mean = {k: sum(r[k] for r in steady) / len(steady)
+            for k in ("round_s", "client_train_s", "aggregate_s", "eval_s")}
+    res["resnet56"].update({
+        "config": {k: RESNET[k] for k in ("client_num_in_total", "client_num_per_round",
+                                          "comm_round", "epochs", "batch_size",
+                                          "learning_rate", "momentum", "weight_decay")},
+        "precision": {"params": "float32",
+                      "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                      "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32},
+        "local_steps_per_round": steps, "images_per_round": images,
+        "round_s_mean_rounds_2_3": mean["round_s"],
+        "rounds_per_hr": 3600.0 / mean["round_s"],
+        "local_steps_per_s": steps / mean["client_train_s"],
+        "images_per_s": images / mean["client_train_s"],
+        "split_s_mean_rounds_2_3": {"client_train": mean["client_train_s"],
+                                    "aggregate": mean["aggregate_s"], "eval": mean["eval_s"],
+                                    "other": mean["round_s"] - mean["client_train_s"]
+                                    - mean["aggregate_s"] - mean["eval_s"]},
+        "per_round": per_round,
+        "test_acc": [m["test_acc"] for m in hist], "test_loss": [m["test_loss"] for m in hist],
+        "fold_err_of_scale": fold_err, "w_global_max_move": moved,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "run_wall_s": wall,
+    })
+    say(f"  ResNet-56, 16 clients x 3 rounds: {res['resnet56']}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -850,7 +1115,24 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the serve phase launched flash kernels: {serve_launches}")
 
-    say("== 7. result")
+    say("== 7. FedAvg round (sp simulator: Parrot config 1, ResNet-56 x 16 clients)")
+    # the phase is host-bound: start it without the serving phase's garbage
+    # and cached blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    fedavg = fedavg_phase()
+    fedavg_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the FedAvg phase: {fedavg_launches}")
+    # the FedAvg path runs convolutions, GroupNorm, GEMMs and the fold: no
+    # TPU kernel has a counterpart on it, so no flash kernel may launch
+    check(all(n == 0 for n in fedavg_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the FedAvg phase launched flash kernels: {fedavg_launches}")
+
+    say("== 8. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -858,6 +1140,8 @@ def main() -> int:
                      "design": "+".join(sorted(by_design[name]))})
     say(f"  total {time.time() - t_start:.1f}s")
     print(json.dumps({"serve": {"card": card, **serve}}), flush=True)
+    print(json.dumps({"fedavg": {"card": card, "flash_launches": fedavg_launches, **fedavg}}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

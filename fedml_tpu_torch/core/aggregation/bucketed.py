@@ -1,0 +1,122 @@
+"""The bucketed fold: counterpart of ``fedml_tpu/core/aggregation/bucketed.py``.
+
+A weighted average over client state dicts, taken in fixed-size buckets of
+clients: each bucket's state dicts are flattened to f32 rows, stacked
+``[bucket, P]`` and contracted with the bucket's weights in one matrix-vector
+product, and the products are summed in an f32 accumulator. Device memory
+stays O(bucket x model) whatever the cohort's size. A ragged tail is padded
+to the bucket's shape by repeating the last client with weight 0.0, as in
+the JAX package. At the end the accumulator is cast back to each leaf's
+dtype.
+
+Not ported: ``aggregate_stacked`` (the vmapped front's stacked fold), the
+modelwatch fusion, object leaves (FHE ciphertexts) and the mesh-sharded
+engine (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import telemetry as tel
+
+StateDict = Dict[str, torch.Tensor]
+
+DEFAULT_BUCKET_SIZE = 16
+
+
+def _flat_f32(tree: StateDict) -> torch.Tensor:
+    # one cat (which promotes mixed dtypes) and at most one cast: a cast per
+    # leaf costs the host a dispatch per leaf and client
+    return torch.cat([v.reshape(-1) for v in tree.values()]).to(torch.float32)
+
+
+class BucketedAggregator:
+    """Streaming weighted average over client state dicts in buckets of
+    ``bucket_size``. :meth:`aggregate` takes ``(weight, state dict)`` pairs
+    and normalises the weights; :meth:`accumulate_bucket` and
+    :meth:`finalize` are the raw steps."""
+
+    def __init__(self, bucket_size: int = DEFAULT_BUCKET_SIZE):
+        if bucket_size < 1:
+            raise ValueError(f"bucket_size must be >= 1, got {bucket_size}")
+        self.bucket_size = int(bucket_size)
+
+    def accumulate_bucket(self, acc: Optional[torch.Tensor], chunk: Sequence[StateDict],
+                          weights) -> torch.Tensor:
+        """``acc + sum_i weights[i] * flat(chunk[i])`` in f32 (a new
+        accumulator when ``acc`` is None; else ``acc`` is updated in place).
+        ``chunk`` holds exactly ``bucket_size`` state dicts."""
+        if len(chunk) != self.bucket_size:
+            raise ValueError(f"chunk has {len(chunk)} trees, bucket_size is {self.bucket_size}")
+        for tree in chunk:
+            bad = [k for k, v in tree.items() if not isinstance(v, torch.Tensor)]
+            if bad:
+                raise NotImplementedError(
+                    f"leaves {bad[:3]} are not tensors: the fold of object leaves (FHE "
+                    "ciphertexts) is not ported to fedml_tpu_torch (ROADMAP.md, Queue 1)")
+        dev = next(iter(chunk[0].values())).device
+        w = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
+        with tel.span("agg.bucket", bucket_size=self.bucket_size, first=acc is None):
+            part = w @ torch.stack([_flat_f32(t) for t in chunk])
+            if acc is None:
+                return part
+            return acc.add_(part)
+
+    def finalize(self, acc: torch.Tensor, template: StateDict) -> StateDict:
+        """Split the f32 accumulator into ``template``'s leaves, each cast
+        back to its dtype."""
+        with tel.span("agg.finalize"):
+            out: StateDict = {}
+            off = 0
+            for name, leaf in template.items():
+                n = leaf.numel()
+                out[name] = acc[off:off + n].view(leaf.shape).to(leaf.dtype)
+                off += n
+            return out
+
+    def aggregate(self, pairs: Sequence[Tuple[float, StateDict]]) -> StateDict:
+        """Weighted average of ``(weight, state dict)`` pairs; weights
+        normalised in f32, as the JAX engine does."""
+        if not pairs:
+            raise ValueError("aggregate() needs at least one (weight, tree) pair")
+        weights = np.asarray([float(w) for w, _ in pairs], dtype=np.float32)
+        weights = weights / weights.sum()
+        trees = [t for _, t in pairs]
+        b = self.bucket_size
+        with tel.span("agg.aggregate", k=len(trees), bucket_size=b):
+            acc = None
+            for start in range(0, len(trees), b):
+                chunk = trees[start:start + b]
+                w = weights[start:start + b]
+                real = len(chunk)
+                if real < b:  # ragged tail: zero-weight pad to the bucket's shape
+                    pad = b - real
+                    with tel.span("agg.pad_tail", pad=pad, real=real):
+                        chunk = list(chunk) + [chunk[-1]] * pad
+                        w = np.concatenate([w, np.zeros((pad,), np.float32)])
+                acc = self.accumulate_bucket(acc, chunk, w)
+            return self.finalize(acc, trees[0])
+
+
+_ENGINES: Dict[int, BucketedAggregator] = {}
+_ENGINES_LOCK = threading.Lock()
+
+
+def get_engine(bucket_size: Optional[int] = None) -> BucketedAggregator:
+    """The process-wide engine for a bucket size (default 16, or
+    ``FEDML_AGG_BUCKET``)."""
+    if bucket_size is None:
+        bucket_size = int(os.environ.get("FEDML_AGG_BUCKET", DEFAULT_BUCKET_SIZE))
+    with _ENGINES_LOCK:
+        return _ENGINES.setdefault(int(bucket_size), BucketedAggregator(bucket_size))
+
+
+def bucketed_weighted_average(pairs: Sequence[Tuple[float, StateDict]],
+                              bucket_size: Optional[int] = None) -> StateDict:
+    return get_engine(bucket_size).aggregate(pairs)

@@ -1,9 +1,15 @@
 """Abstract client trainer with privacy/security hooks.
 
 Counterpart of ``fedml_tpu/core/alg_frame/client_trainer.py`` (reference
-``python/fedml/core/alg_frame/client_trainer.py:8``). Model parameters move
-as nested dicts of numpy arrays in the flax path layout, so torch and JAX
-peers exchange the same payloads.
+``python/fedml/core/alg_frame/client_trainer.py:8``). What
+``get_model_params``/``set_model_params`` exchange is the trainer's own: the
+FedAvg trainers (``ml/trainer``) pass state dicts of tensors that stay on
+the trainer's device between clients, copied in and out (torch tensors are
+mutable); the FedLLM client (``train/llm/fed_llm_trainer.py``) passes its
+adapters as nested dicts of numpy arrays in the flax layout, the payload a
+JAX peer takes. ``models/convert.py`` maps a state dict to the flax layout;
+the FedAvg path needs it only in tests until the message plane is ported
+(ROADMAP.md, Queue 1).
 
 The hooks keep their place in the round (poison before training; local DP
 noise then FHE after), but local DP, attacks and FHE are not ported yet:
@@ -53,7 +59,7 @@ class ClientTrainer(abc.ABC):
     # --- abstract parameter plumbing ------------------------------------
     @abc.abstractmethod
     def get_model_params(self):
-        """Return the trainable parameters (nested dict, flax path layout)."""
+        """Return the trainable parameters (a copy the caller may keep)."""
 
     @abc.abstractmethod
     def set_model_params(self, model_parameters) -> None:

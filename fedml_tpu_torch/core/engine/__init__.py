@@ -1,0 +1,24 @@
+"""core.engine: the round engine's synchronous loop (counterpart of
+``fedml_tpu/core/engine``; the placement search is not ported)."""
+
+from .round_engine import (
+    AggregationSink,
+    AlgFrameSink,
+    ClientExecutionStrategy,
+    InProcessSequentialStrategy,
+    RoundEngine,
+    RoundResult,
+    eval_due,
+    sample_cohort,
+)
+
+__all__ = [
+    "AggregationSink",
+    "AlgFrameSink",
+    "ClientExecutionStrategy",
+    "InProcessSequentialStrategy",
+    "RoundEngine",
+    "RoundResult",
+    "eval_due",
+    "sample_cohort",
+]

@@ -1,0 +1,175 @@
+"""The synchronous round loop: the sp part of
+``fedml_tpu/core/engine/round_engine.py``.
+
+A front supplies a client-execution strategy and an aggregation sink; the
+engine owns the loop: cohort sampling, the span taxonomy
+(``fedavg.round`` > ``fedavg.sample`` / ``fedavg.client_train`` (one per
+client, from the strategy) / ``fedavg.aggregate`` / ``fedavg.eval``), the
+shared ``Context`` cohort, the eval cadence and the ``engine.rounds`` /
+``engine.round_seconds`` series. Sampling reproduces the reference's
+``np.random.seed(round_idx)`` + ``choice`` bit for bit.
+
+Ported: ``sample_cohort``, ``eval_due``, ``RoundResult``,
+``InProcessSequentialStrategy``, ``AlgFrameSink`` and ``RoundEngine.run``.
+Not ported yet (ROADMAP.md, Queue 1): the grouped, vmapped, remote and
+pipelined strategies, the stacked, hooked and async sinks, the round
+checkpointer and chaos knobs, the SLO engine, ``devperf``, the flight
+recorder and the mlops summaries.
+"""
+
+from __future__ import annotations
+
+import abc
+import logging
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .. import telemetry as tel
+
+log = logging.getLogger(__name__)
+
+StateDict = Any
+
+
+def sample_cohort(round_idx: int, client_num_in_total: int, client_num_per_round: int) -> List[int]:
+    """Bit-exact mirror of the reference's ``_client_sampling``
+    (fedavg_api.py:127): the full cohort when the pool fits, else
+    ``np.random.seed(round_idx)`` + ``np.random.choice`` without replacement."""
+    if client_num_in_total == client_num_per_round:
+        client_indexes: Sequence[int] = [i for i in range(client_num_in_total)]
+    else:
+        num_clients = min(client_num_per_round, client_num_in_total)
+        np.random.seed(round_idx)
+        client_indexes = np.random.choice(range(client_num_in_total), num_clients, replace=False)
+    log.info("client_indexes = %s", client_indexes)
+    return list(client_indexes)
+
+
+def eval_due(round_idx: int, comm_round: int, frequency_of_the_test: int) -> bool:
+    """The sp cadence: always on the final round, else every ``freq`` rounds."""
+    freq = int(frequency_of_the_test)
+    return round_idx == comm_round - 1 or (freq > 0 and round_idx % freq == 0)
+
+
+@dataclass
+class RoundResult:
+    """What one round of client execution produced: per-client
+    ``(weight, state dict)`` pairs."""
+
+    pairs: Optional[List[Tuple[float, StateDict]]] = None
+
+    @property
+    def k(self) -> int:
+        return len(self.pairs) if self.pairs is not None else 0
+
+
+class ClientExecutionStrategy(abc.ABC):
+    """How a cohort's local training happens for one round."""
+
+    name: str = "strategy"
+
+    @abc.abstractmethod
+    def run_round(self, round_idx: int, w_global: StateDict, cohort: Sequence[int]) -> RoundResult:
+        ...
+
+
+class InProcessSequentialStrategy(ClientExecutionStrategy):
+    """The sp front: one ``Client`` object per slot, trained in-process one
+    after the other, one ``fedavg.client_train`` span per client."""
+
+    name = "in_process_sequential"
+
+    def __init__(self, api: Any):
+        self.api = api
+
+    def run_round(self, round_idx: int, w_global: StateDict, cohort: Sequence[int]) -> RoundResult:
+        api = self.api
+        w_locals: List[Tuple[float, StateDict]] = []
+        for idx, client in enumerate(api.client_list):
+            client_idx = cohort[idx]
+            client.update_local_dataset(
+                client_idx,
+                api.train_data_local_dict[client_idx],
+                api.test_data_local_dict[client_idx],
+                api.train_data_local_num_dict[client_idx],
+            )
+            with tel.span("fedavg.client_train", round=round_idx, client=int(client_idx)):
+                w = client.train(w_global)
+            w_locals.append((client.get_sample_number(), w))
+        return RoundResult(pairs=w_locals)
+
+
+class AggregationSink(abc.ABC):
+    """Where one round's client results fold into the next global model."""
+
+    name: str = "sink"
+
+    @abc.abstractmethod
+    def fold(self, round_idx: int, w_global: StateDict, result: RoundResult) -> StateDict:
+        ...
+
+
+class AlgFrameSink(AggregationSink):
+    """Delegate to the front's per-algorithm server rule (the sp
+    ``_server_update``: alg-frame hooks, the fold, the FedOpt step)."""
+
+    name = "alg_frame"
+
+    def __init__(self, update_fn: Callable[[StateDict, List[Tuple[float, StateDict]]], StateDict]):
+        self._update_fn = update_fn
+
+    def fold(self, round_idx: int, w_global: StateDict, result: RoundResult) -> StateDict:
+        return self._update_fn(w_global, result.pairs or [])
+
+
+class RoundEngine:
+    """The synchronous round loop, once."""
+
+    def __init__(
+        self,
+        args: Any,
+        strategy: ClientExecutionStrategy,
+        sink: AggregationSink,
+        *,
+        sample_fn: Callable[[int], List[int]],
+        install_fn: Callable[[StateDict], None],
+        eval_fn: Callable[[int], Optional[Dict[str, float]]],
+        round_span_attrs: Optional[Dict[str, Any]] = None,
+        metrics_history: Optional[List[Dict[str, float]]] = None,
+    ):
+        self.args = args
+        self.strategy = strategy
+        self.sink = sink
+        self.sample_fn = sample_fn
+        self.install_fn = install_fn
+        self.eval_fn = eval_fn
+        self.round_span_attrs = dict(round_span_attrs or {})
+        self.metrics_history = metrics_history if metrics_history is not None else []
+
+    def run(self, w_global: StateDict) -> StateDict:
+        from ..alg_frame.context import Context
+
+        comm_round = int(getattr(self.args, "comm_round", 10))
+        freq = int(getattr(self.args, "frequency_of_the_test", 5))
+        for round_idx in range(comm_round):
+            log.info("================ Communication round : %d", round_idx)
+            t0 = time.perf_counter()
+            with tel.span("fedavg.round", round=round_idx, **self.round_span_attrs):
+                with tel.span("fedavg.sample", round=round_idx):
+                    cohort = self.sample_fn(round_idx)
+                Context().add("client_indexes_of_round", cohort)
+                result = self.strategy.run_round(round_idx, w_global, cohort)
+                with tel.span("fedavg.aggregate", round=round_idx, k=result.k):
+                    w_global = self.sink.fold(round_idx, w_global, result)
+                self.install_fn(w_global)
+                if eval_due(round_idx, comm_round, freq):
+                    with tel.span("fedavg.eval", round=round_idx):
+                        metrics = self.eval_fn(round_idx)
+                    if metrics is not None:
+                        self.metrics_history.append(metrics)
+            tel.counter("engine.rounds").add(1)
+            tel.histogram("engine.round_seconds").observe(time.perf_counter() - t0)
+        return w_global

@@ -2,13 +2,22 @@
 
 The JAX params are a nested dict with flax path names
 (``layer_0/attn/q_proj/kernel``); the port's state is a flat state dict
-(``layer_0.attn.q_proj.weight``). Paths map one to one. The only layout
-change is the dense kernel: flax ``Dense`` stores ``kernel [in, out]``, the
-port stores ``weight [out, in]`` as ``nn.Linear`` does, so it is
-transposed. The embedding ``[V, D]``, norm scales ``[D]`` and LoRA factors
-(``lora_a [in, r]``, ``lora_b [r, out]``) keep their shapes. The adapter
-subtree (``layer_i/attn/q_proj/lora_a``, ...) is the WAN wire layout, so a
-JAX server can fold adapters trained here.
+(``layer_0.attn.q_proj.weight``). Paths map one to one: the port's modules
+carry flax's names, auto-names included (``BasicBlock_26/Conv_0``). The
+only layout change is the kernel, which the port calls ``weight``:
+
+- flax ``Dense`` stores ``kernel [in, out]``, the port ``weight [out, in]``
+  as ``nn.Linear`` does: transposed;
+- flax ``Conv`` stores ``kernel [kh, kw, in, out]`` (HWIO), the port
+  ``weight [out, in, kh, kw]`` (OIHW) as ``F.conv2d`` takes it:
+  ``transpose(3, 2, 0, 1)``, and back ``transpose(2, 3, 1, 0)``.
+
+Everything else keeps its name and shape: the embedding ``[V, D]``, norm
+scales ``[D]`` (flax's GroupNorm ``scale``/``bias`` are the port's
+GroupNorm's own names, models/layers.py), biases, and the LoRA factors
+(``lora_a [in, r]``, ``lora_b [r, out]``). The adapter subtree
+(``layer_i/attn/q_proj/lora_a``, ...) is the WAN wire layout, so a JAX
+server can fold adapters trained here.
 """
 
 from __future__ import annotations
@@ -18,6 +27,14 @@ from typing import Dict, Mapping, Union
 import numpy as np
 import torch
 from torch import nn
+
+
+def _kernel_to_torch(arr: np.ndarray) -> np.ndarray:
+    return arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+
+
+def _weight_to_flax(arr: np.ndarray) -> np.ndarray:
+    return arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
 
 
 def _torch_name(path) -> str:
@@ -37,7 +54,7 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 continue
             arr = np.asarray(v)
             if k == "kernel":
-                arr = arr.T
+                arr = _kernel_to_torch(arr)
             # a C-ordered copy: JAX hands out read-only arrays
             out[_torch_name(path + [k])] = torch.from_numpy(np.array(arr, order="C"))
 
@@ -54,7 +71,7 @@ def params_to_jax(model: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict:
         *head, leaf = name.split(".")
         arr = t.detach().cpu().numpy()
         if leaf == "weight":
-            leaf, arr = "kernel", arr.T
+            leaf, arr = "kernel", _weight_to_flax(arr)
         node = out
         for k in head:
             node = node.setdefault(k, {})

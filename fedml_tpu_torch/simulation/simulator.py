@@ -1,0 +1,60 @@
+"""Simulator facade: counterpart of ``fedml_tpu/simulation/simulator.py``
+(reference ``simulation/simulator.py:27``).
+
+``SimulatorSingleProcess`` wraps the sp FedAvg-family API (FedAvg, FedProx,
+FedOpt). The other sp algorithms (hierarchical FL, TurboAggregate, async
+FedAvg, FedGAN, FedGKT, FedNAS, split NN, FedSeg, FedAvg_seq) and the
+vmapped, collective and MPI simulators are not ported yet (ROADMAP.md,
+Queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from ..constants import (
+    FEDML_FEDERATED_OPTIMIZER_ASYNC_FEDAVG,
+    FEDML_FEDERATED_OPTIMIZER_FEDAVG_SEQ,
+    FEDML_FEDERATED_OPTIMIZER_FEDGAN,
+    FEDML_FEDERATED_OPTIMIZER_FEDGKT,
+    FEDML_FEDERATED_OPTIMIZER_FEDNAS,
+    FEDML_FEDERATED_OPTIMIZER_FEDSEG,
+    FEDML_FEDERATED_OPTIMIZER_HIERACHICAL_FL,
+    FEDML_FEDERATED_OPTIMIZER_SPLIT_NN,
+    FEDML_FEDERATED_OPTIMIZER_TURBO_AGGREGATE,
+)
+
+_OTHER_SP_APIS = (
+    FEDML_FEDERATED_OPTIMIZER_HIERACHICAL_FL,
+    FEDML_FEDERATED_OPTIMIZER_TURBO_AGGREGATE,
+    FEDML_FEDERATED_OPTIMIZER_ASYNC_FEDAVG,
+    FEDML_FEDERATED_OPTIMIZER_FEDGAN,
+    FEDML_FEDERATED_OPTIMIZER_FEDGKT,
+    FEDML_FEDERATED_OPTIMIZER_FEDNAS,
+    FEDML_FEDERATED_OPTIMIZER_SPLIT_NN,
+    FEDML_FEDERATED_OPTIMIZER_FEDSEG,
+    FEDML_FEDERATED_OPTIMIZER_FEDAVG_SEQ,
+)
+
+
+class SimulatorSingleProcess:
+    def __init__(self, args: Any, device: Any, dataset, model, client_trainer=None,
+                 server_aggregator=None):
+        opt = str(getattr(args, "federated_optimizer", "FedAvg"))
+        if opt in _OTHER_SP_APIS:
+            raise NotImplementedError(
+                f"federated_optimizer {opt!r}: its sp simulator is not ported to "
+                "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+        from .sp.fedavg_api import FedAvgAPI
+
+        if dataset is not None:
+            y = getattr(dataset[2], "y", None)  # train_global labels
+            if y is not None and getattr(y, "ndim", 0) >= 3:
+                raise ValueError(
+                    "segmentation dataset (per-pixel labels) requires "
+                    'federated_optimizer: "FedSeg"'
+                )
+        self.fl_trainer = FedAvgAPI(args, device, dataset, model, client_trainer, server_aggregator)
+
+    def run(self):
+        return self.fl_trainer.train()

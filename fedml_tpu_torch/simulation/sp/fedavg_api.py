@@ -1,0 +1,140 @@
+"""Single-process FL simulation: counterpart of
+``fedml_tpu/simulation/sp/fedavg_api.py`` (reference
+``simulation/sp/fedavg/fedavg_api.py:14``).
+
+One simulator covers FedAvg, FedProx and FedOpt: the trainer factory picks
+the local algorithm and ``_server_update`` applies the server rule (the
+alg-frame hooks around the sample-weighted fold, then the FedOpt step when
+configured). The round loop is the engine's (``core/engine``), with the
+reference's cohort sampling. One ``Client`` object per cohort slot shares
+the one trainer, whose module holds the model on the device; the global
+model travels between the parts as a state dict on that device.
+
+Not ported yet, each raising NotImplementedError (ROADMAP.md, Queue 1):
+FedNova, SCAFFOLD, FedDyn and Mime (their trainers), the pipelined client
+execution, durable round state (``resilience_dir``) and modelwatch's
+quarantine. Modelwatch's fold statistics, on by default in the JAX package,
+change nothing the round computes; the port runs without them.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Dict, List, Optional
+
+from ...constants import FEDML_FEDERATED_OPTIMIZER_FEDOPT
+from ...core.aggregation.server_optimizer import FedOptServer, create_fedopt_server
+from ...core.alg_frame.context import Context
+from ...core.engine import AlgFrameSink, InProcessSequentialStrategy, RoundEngine, sample_cohort
+from ...ml.aggregator import create_server_aggregator
+from ...ml.trainer.trainer_creator import create_model_trainer
+from .client import Client
+
+log = logging.getLogger(__name__)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+
+
+class FedAvgAPI:
+    def __init__(self, args: Any, device: Any, dataset, model, client_trainer=None,
+                 server_aggregator=None):
+        if str(getattr(args, "client_execution", "sequential") or "sequential") != "sequential":
+            raise _not_ported(f"client_execution={args.client_execution!r}")
+        if getattr(args, "resilience_dir", None):
+            raise _not_ported("resilience_dir (durable round state and resume)")
+        if getattr(args, "modelwatch_quarantine", False):
+            raise _not_ported("modelwatch_quarantine")
+        self.device = device
+        self.args = args
+        [
+            train_data_num,
+            test_data_num,
+            train_data_global,
+            test_data_global,
+            train_data_local_num_dict,
+            train_data_local_dict,
+            test_data_local_dict,
+            class_num,
+        ] = dataset
+        self.train_global = train_data_global
+        self.test_global = test_data_global
+        self.train_data_num_in_total = train_data_num
+        self.test_data_num_in_total = test_data_num
+        self.train_data_local_num_dict = train_data_local_num_dict
+        self.train_data_local_dict = train_data_local_dict
+        self.test_data_local_dict = test_data_local_dict
+        self.class_num = class_num
+        self.fed_opt = str(getattr(args, "federated_optimizer", "FedAvg"))
+
+        self.model_trainer = client_trainer or create_model_trainer(model, args)
+        self.aggregator = server_aggregator or create_server_aggregator(model, args)
+        Context().add(Context.KEY_TEST_DATA, self.test_global)
+
+        self.client_list: List[Client] = []
+        self._setup_clients(train_data_local_num_dict, train_data_local_dict, test_data_local_dict)
+
+        self._fedopt_server: Optional[FedOptServer] = None
+        if self.fed_opt == FEDML_FEDERATED_OPTIMIZER_FEDOPT:
+            self._fedopt_server = create_fedopt_server(args, self.model_trainer.get_model_params())
+        self.metrics_history: List[Dict[str, float]] = []
+
+    def _setup_clients(self, train_data_local_num_dict, train_data_local_dict,
+                       test_data_local_dict) -> None:
+        """One Client object per sampled slot, reused across rounds (local
+        datasets swapped in per round)."""
+        for client_idx in range(int(self.args.client_num_per_round)):
+            c = Client(
+                client_idx,
+                train_data_local_dict[client_idx],
+                test_data_local_dict[client_idx],
+                train_data_local_num_dict[client_idx],
+                self.args,
+                self.device,
+                self.model_trainer,
+            )
+            self.client_list.append(c)
+
+    def _client_sampling(self, round_idx: int, client_num_in_total: int,
+                         client_num_per_round: int) -> List[int]:
+        return sample_cohort(round_idx, client_num_in_total, client_num_per_round)
+
+    def train(self) -> Dict[str, float]:
+        engine = RoundEngine(
+            self.args,
+            InProcessSequentialStrategy(self),
+            AlgFrameSink(self._server_update),
+            sample_fn=lambda r: self._client_sampling(
+                r, int(self.args.client_num_in_total), int(self.args.client_num_per_round)
+            ),
+            install_fn=self._install_global,
+            eval_fn=self._test_global,
+            round_span_attrs={"optimizer": self.fed_opt},
+            metrics_history=self.metrics_history,
+        )
+        engine.run(self.model_trainer.get_model_params())
+        return self.metrics_history[-1] if self.metrics_history else {}
+
+    def _install_global(self, w_global) -> None:
+        self.model_trainer.set_model_params(w_global)
+        self.aggregator.set_model_params(w_global)
+
+    def _server_update(self, w_global, w_locals):
+        """The server rule with the alg-frame hooks around it (the JAX
+        package's default branch: hooks, fold, FedOpt step, hooks)."""
+        agg = self.aggregator
+        lst = agg.on_before_aggregation(w_locals)
+        new_w = agg.aggregate(lst)
+        if self._fedopt_server is not None:
+            new_w = self._fedopt_server.apply(w_global, new_w)
+        new_w = agg.on_after_aggregation(new_w)
+        agg.assess_contribution()
+        return new_w
+
+    def _test_global(self, round_idx: int) -> Dict[str, float]:
+        metrics = self.aggregator.test(self.test_global, self.device, self.args)
+        metrics["round"] = round_idx
+        log.info("round %d: %s", round_idx, {k: round(float(v), 4) for k, v in metrics.items()})
+        return metrics

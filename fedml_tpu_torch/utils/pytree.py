@@ -1,0 +1,81 @@
+"""State-dict arithmetic: the counterpart of ``fedml_tpu/utils/pytree.py``.
+
+The JAX package passes model parameters as pytrees; the port passes them as
+state dicts, ``{name: tensor}`` with the module's dotted parameter names, on
+the device the model lives on. Every aggregation rule of the FedAvg path is
+built from these helpers. The weighted average delegates to the bucketed
+fold (``core/aggregation/bucketed.py``), as in the JAX package.
+
+A state dict's order is its module's registration order; the flat vector
+keeps that order. ``models/convert.py`` maps a state dict to and from the
+flax layout (the JAX package's wire layout).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def tree_add(a: StateDict, b: StateDict) -> StateDict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def tree_sub(a: StateDict, b: StateDict) -> StateDict:
+    return {k: a[k] - b[k] for k in a}
+
+
+def tree_scale(a: StateDict, s) -> StateDict:
+    return {k: v * s for k, v in a.items()}
+
+
+def tree_zeros_like(a: StateDict) -> StateDict:
+    return {k: torch.zeros_like(v) for k, v in a.items()}
+
+
+def tree_global_norm(a: StateDict) -> torch.Tensor:
+    """L2 norm over the whole state dict (as one flat vector), a 0-d tensor."""
+    return torch.sqrt(sum(v.float().square().sum() for v in a.values()))
+
+
+def tree_clone(a: StateDict) -> StateDict:
+    """A copy that shares no storage with ``a`` (tensors are mutable, where
+    JAX arrays are not: a state dict handed on must not move with its
+    source)."""
+    return {k: v.detach().clone() for k, v in a.items()}
+
+
+def weighted_average(pairs: Sequence[Tuple[float, StateDict]]) -> StateDict:
+    """Weighted average of ``(weight, state dict)`` pairs, weights normalised,
+    through the bucketed fold (f32 accumulation, each leaf cast back to its
+    dtype)."""
+    from ..core.aggregation.bucketed import bucketed_weighted_average
+
+    return bucketed_weighted_average(pairs)
+
+
+def tree_flatten_to_vector(a: StateDict, dtype=torch.float32
+                           ) -> Tuple[torch.Tensor, Tuple[List[str], List[torch.Size], List[torch.dtype]]]:
+    """One contiguous vector of ``dtype`` (in the state dict's order) and the
+    spec that restores the state dict."""
+    names = list(a)
+    shapes = [a[k].shape for k in names]
+    dtypes = [a[k].dtype for k in names]
+    if not names:
+        return torch.zeros(0, dtype=dtype), (names, shapes, dtypes)
+    flat = torch.cat([a[k].reshape(-1).to(dtype) for k in names])
+    return flat, (names, shapes, dtypes)
+
+
+def tree_unflatten_from_vector(flat: torch.Tensor, spec) -> StateDict:
+    names, shapes, dtypes = spec
+    out: StateDict = {}
+    off = 0
+    for name, shape, dtype in zip(names, shapes, dtypes):
+        size = shape.numel()
+        out[name] = flat[off:off + size].reshape(shape).to(dtype)
+        off += size
+    return out

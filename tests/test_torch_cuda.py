@@ -341,3 +341,45 @@ def test_serving_weights_are_cast_once_and_never_per_call(cuda):
     casts = [e for e in prof.events() if e.name in ("aten::_to_copy", "aten::copy_")
              and any(tuple(s) in weights for s in e.input_shapes if s)]
     assert not casts, [(e.name, e.input_shapes) for e in casts[:5]]
+
+
+def _resnet56_step(device, x, y, args):
+    """One local step of a ResNet-56 client (a shard of one batch) from the
+    seeded params: (params before, params after, mean loss), on the CPU."""
+    from fedml_tpu_torch.data.dataset import ArrayDataset
+    from fedml_tpu_torch.ml.trainer.classification_trainer import ClassificationTrainer
+    from fedml_tpu_torch.models.model_hub import create
+
+    model = create(args, 10, seed=0, device=device)
+    before = {k: v.cpu() for k, v in model.params.items()}
+    trainer = ClassificationTrainer(model, args)
+    trainer.train(ArrayDataset(x, y))
+    assert trainer.last_steps == 1
+    assert all(p.device.type == torch.device(device).type for p in model.module.parameters())
+    return before, {k: v.cpu() for k, v in trainer.get_model_params().items()}, trainer.last_loss
+
+
+@pytest.mark.cuda
+def test_resnet56_client_step_on_the_card_matches_cpu(cuda):
+    """One ResNet-56 (full width) client step, batch 128, SGD with momentum
+    and weight decay, on the card with cuDNN's TF32 off against the CPU:
+    the loss within rtol 1e-4 and the update (one step: lr times the
+    gradient plus decay) within 1e-3 relative L2 of the CPU's; the params
+    stay on the card."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((128, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, 128).astype(np.int64)
+    args = SimpleNamespace(model="resnet56", dataset="cifar10", batch_size=128, epochs=1,
+                           client_optimizer="sgd", learning_rate=0.05, momentum=0.9,
+                           weight_decay=5e-4, random_seed=0)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        p0, gpu, gpu_loss = _resnet56_step("cuda", x, y, args)
+    p0_cpu, cpu, cpu_loss = _resnet56_step("cpu", x, y, args)
+    assert all(torch.equal(p0[k], p0_cpu[k]) for k in p0)
+    assert np.isfinite(gpu_loss) and abs(gpu_loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    num = sum(((gpu[k] - cpu[k]).double() ** 2).sum() for k in cpu)
+    den = sum(((cpu[k] - p0[k]).double() ** 2).sum() for k in cpu)
+    assert (num / den).sqrt().item() <= 1e-3

@@ -230,3 +230,56 @@ def test_load_time_cast_equals_the_per_call_cast_bit_for_bit():
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (2, 12)))
     with torch.no_grad():
         assert torch.equal(train(toks), dec(toks))
+
+
+FEDAVG_MODULES = (
+    "fedml_tpu_torch.runner", "fedml_tpu_torch.arguments", "fedml_tpu_torch.constants",
+    "fedml_tpu_torch.data", "fedml_tpu_torch.data.data_loader", "fedml_tpu_torch.data.sources",
+    "fedml_tpu_torch.core.data.noniid_partition", "fedml_tpu_torch.models.model_hub",
+    "fedml_tpu_torch.models.resnet", "fedml_tpu_torch.models.cnn", "fedml_tpu_torch.models.linear",
+    "fedml_tpu_torch.models.layers", "fedml_tpu_torch.utils.pytree",
+    "fedml_tpu_torch.ml.trainer.local_sgd", "fedml_tpu_torch.ml.trainer.classification_trainer",
+    "fedml_tpu_torch.ml.trainer.trainer_creator", "fedml_tpu_torch.ml.aggregator",
+    "fedml_tpu_torch.core.aggregation.bucketed", "fedml_tpu_torch.core.aggregation.agg_operator",
+    "fedml_tpu_torch.core.aggregation.server_optimizer", "fedml_tpu_torch.core.engine",
+    "fedml_tpu_torch.core.alg_frame.server_aggregator", "fedml_tpu_torch.core.alg_frame.context",
+    "fedml_tpu_torch.simulation.simulator", "fedml_tpu_torch.simulation.sp.fedavg_api",
+    "fedml_tpu_torch.tools.profile_fedavg_round")
+
+
+def test_fedavg_modules_load_no_jax_or_fedml_tpu():
+    """The sp FedAvg path on its own: importing each of its modules leaves no
+    jax or fedml_tpu module loaded, and builds no kernel."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {FEDAVG_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from fedml_tpu_torch.ops import _build\n"
+        "assert _build.kernels.cache_info().currsize == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'fedml_tpu'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_fedavg_entry_points_raise_without_cuda(no_cuda):
+    """get_device, model.create and run_simulation default to CUDA and
+    raise without it; using_gpu=False (or device="cpu") runs on the CPU."""
+    args = fedml_tpu_torch.default_config("simulation", data_cache_dir="", comm_round=1,
+                                          client_num_in_total=2, client_num_per_round=2,
+                                          batch_size=200)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fedml_tpu_torch.get_device(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fedml_tpu_torch.model.create(args, 10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fedml_tpu_torch.run_simulation(args=args)
+    assert fedml_tpu_torch.model.create(args, 10, device="cpu").device.type == "cpu"
+    args.using_gpu = False
+    assert fedml_tpu_torch.get_device(args) == torch.device("cpu")
+    out = fedml_tpu_torch.run_simulation(args=args)
+    assert out["round"] == 0 and np.isfinite(out["test_loss"])
