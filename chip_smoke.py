@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke for fedml_tpu_torch: the FedLLM LoRA train step, LLM serving and
-the sp FedAvg round on one CUDA card.
+"""Chip smoke for fedml_tpu_torch: the FedLLM LoRA train step, LLM serving,
+the sp and vmapped FedAvg rounds and the FedNova, SCAFFOLD, FedDyn and Mime
+algorithms on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -56,12 +57,29 @@ exception):
    the port's documented precision (PyTorch's defaults: TF32 convolutions,
    f32 matmuls): finite losses, w_global moved, the last round's fold within
    FOLD_TOL of the float64 weighted mean of its 16 w_locals; round seconds,
-   rounds/hr, local steps/s, images/s, the round's split from the fedavg.*
+   rounds/hr, local steps/s, images/s (over the round), the round's split from the fedavg.*
    spans, peak memory and test_acc per round (reported, not gated); no flash
    launch in the phase;
-8. the serve, fedavg and kernels lines (JSON, the kernels line with the
-   design each kernel ran on the main path), the card line, and last the
-   result line.
+8. vmapped FedAvg: the same ResNet-56 x 16 clients through the client-batched
+   simulator (backend "vmap", FedMLRunner -> SimulatorVmap -> VmapFedAvgAPI),
+   3 rounds in the port's documented precision. (c) first, with cuDNN's TF32
+   off: the vmapped local round of 4 clients over their first 2 steps, the
+   last client's second step padded as _stack_clients pads a short shard,
+   against the same functional step run client by client without vmap on
+   the card (VMAP_LOGITS_TOL on the first batch's logits, VMAP_UPDATE_TOL
+   on each client's update); then (a) finite losses and w_global moved, (b)
+   the last round's stacked fold within FOLD_TOL of the float64 weighted
+   mean of its 16 rows, (d) round seconds, rounds/hr, batched steps/s,
+   images/s (real images, over the round), the fedavg.* split (the staging
+   inside client_train) and peak memory, (e) no flash launch;
+9. algorithm zoo: FedNova, SCAFFOLD, FedDyn and Mime, each 2 rounds of
+   Parrot config 1's shape on the card and on the CPU from the same seeded
+   params: each eval's test_loss (PARROT_LOSS_RTOL + ZOO_LOSS_ATOL), the
+   final params and the server state (SCAFFOLD's c, FedDyn's h, Mime's s)
+   within PARROT_PARAM_TOL of their scale; no flash launch;
+10. the serve, fedavg (with its vmap and zoo entries) and kernels lines
+   (JSON, the kernels line with the design each kernel ran on the main
+   path), the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1004,7 +1022,7 @@ def fedavg_phase() -> dict:
         "round_s_mean_rounds_2_3": mean["round_s"],
         "rounds_per_hr": 3600.0 / mean["round_s"],
         "local_steps_per_s": steps / mean["client_train_s"],
-        "images_per_s": images / mean["client_train_s"],
+        "images_per_s": images / mean["round_s"],
         "split_s_mean_rounds_2_3": {"client_train": mean["client_train_s"],
                                     "aggregate": mean["aggregate_s"], "eval": mean["eval_s"],
                                     "other": mean["round_s"] - mean["client_train_s"]
@@ -1017,6 +1035,219 @@ def fedavg_phase() -> dict:
     })
     say(f"  ResNet-56, 16 clients x 3 rounds: {res['resnet56']}")
     return res
+
+# -- phase 8: the vmapped FedAvg round ----------------------------------------
+
+# the client-batched round of 4 clients over their first 2 steps, TF32 off,
+# against the same functional step run client by client without vmap on the
+# card (the plain counterpart: per-client convolutions in place of the
+# grouped ones vmap makes). The last client is ragged: its second step is a
+# padded one (index row 0, mask all 0, as _stack_clients pads a shard with
+# fewer batches), where only weight decay and momentum move it. Limits from
+# this comparison's own readings on the H100 (logits 6.5e-7 of their scale,
+# updates 2.4e-4 to 6.7e-4 of theirs): about 8-15x those.
+VMAP_PARITY_CLIENTS, VMAP_PARITY_STEPS = 4, 2
+VMAP_LOGITS_TOL, VMAP_UPDATE_TOL = 1e-5, 5e-3
+
+
+def vmap_loop_parity(api, args, model) -> dict:
+    """Phase 8 (c): the vmapped local round against a loop over clients."""
+    import torch
+
+    from fedml_tpu_torch.ml.trainer.local_sgd import create_client_optimizer, make_client_loss_fn
+
+    cohort = list(range(VMAP_PARITY_CLIENTS))
+    x, y, idx, mask = api._stack_clients(cohort)
+    idx, mask = idx[:, :1, :VMAP_PARITY_STEPS].clone(), mask[:, :1, :VMAP_PARITY_STEPS].clone()
+    idx[-1, 0, 1:], mask[-1, 0, 1:] = 0, 0  # the ragged client's padded step
+    w0 = {k: v.detach().clone() for k, v in model.params.items()}
+    rows = torch.arange(len(cohort), device=x.device)[:, None]
+    xb = x[rows, idx[:, 0, 0].long()]
+    loss_fn = torch.func.grad_and_value(make_client_loss_fn(model, args))
+    res = {"clients": len(cohort), "steps": VMAP_PARITY_STEPS,
+           "real_steps": [int((mask[k, 0].sum(-1) > 0).sum()) for k in cohort]}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+        stacked0 = {k: v.expand(len(cohort), *v.shape).clone() for k, v in w0.items()}
+        with torch.no_grad():
+            vm_logits = torch.func.vmap(
+                lambda p, b: torch.func.functional_call(model.module, p, (b,)))(stacked0, xb)
+            loop_logits = torch.stack([model.apply(w0, xb[k]) for k in range(len(cohort))])
+        got = api._vmapped_train(w0, x, y, idx, mask, 0)
+        loop = []
+        for k in range(len(cohort)):  # the plain counterpart: one client at a time
+            params = {n: v.clone() for n, v in w0.items()}
+            opt = create_client_optimizer(args, list(params.values()))
+            for s in range(VMAP_PARITY_STEPS):
+                sel = idx[k, 0, s].long()
+                grads, _ = loss_fn(params, x[k, sel], y[k, sel], mask[k, 0, s], w0)
+                for n, p in params.items():
+                    p.grad = grads[n]
+                opt.step()
+            loop.append(params)
+        torch.cuda.synchronize()
+    res["logits_err_of_scale"] = ((vm_logits - loop_logits).abs().max()
+                                  / loop_logits.abs().max()).item()
+    res["update_rel_err"] = [_rel(_cpu({n: v[k] for n, v in got.params.items()}), _cpu(loop[k]),
+                                  _cpu(w0)) for k in range(len(cohort))]
+    say(f"  vmapped round vs client loop on the card (TF32 off): {res}")
+    check(res["real_steps"] == [VMAP_PARITY_STEPS] * (len(cohort) - 1) + [1],
+          f"the parity cohort's real steps {res['real_steps']}")
+    check(res["logits_err_of_scale"] <= VMAP_LOGITS_TOL,
+          f"vmapped logits {res['logits_err_of_scale']:.3g} of their scale from the loop's")
+    check(max(res["update_rel_err"]) <= VMAP_UPDATE_TOL,
+          f"vmapped client updates {res['update_rel_err']} from the loop's")
+    return res
+
+
+def vmap_phase() -> dict:
+    """Phase 8: ResNet-56 x 16 clients through the vmapped simulator
+    (backend "vmap"): the vmap-vs-loop gate, then 3 rounds on the card."""
+    import math
+
+    import torch
+
+    from fedml_tpu_torch.core.aggregation.bucketed import get_engine
+
+    over = dict(RESNET, backend="vmap")
+    args, dataset, model, runner = _fedavg_runner(over, DEV == "cuda")
+    api = runner.runner.fl_trainer
+    n_params = sum(p.numel() for p in model.module.parameters())
+    check(model.device.type == DEV and n_params == 855770 and type(api).__name__ == "VmapFedAvgAPI",
+          f"ResNet-56 has {n_params} params on {model.device} under {type(api).__name__}")
+    res = {"params": n_params, "parity": vmap_loop_parity(api, args, model)}
+
+    p0 = _cpu(model.params)
+    engine = get_engine()
+    folds = []
+
+    def recorded(stacked, weights):  # the last round's stacked fold, for the check after the run
+        out = type(engine).aggregate_stacked(engine, stacked, weights)
+        folds[:] = [(stacked, weights, out)]
+        return out
+
+    engine.aggregate_stacked = recorded
+    sizes = dataset[4]
+    bs, epochs = over["batch_size"], over["epochs"]
+    steps = math.ceil(max(sizes.values()) / bs) * epochs  # batched steps a round
+    images = sum(sizes.values()) * epochs                  # real images, not padded slots
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    since = _last_span_seq()
+    t0 = time.perf_counter()
+    try:
+        runner.run()
+    finally:
+        del engine.aggregate_stacked
+    wall = time.perf_counter() - t0
+    spans = _span_sums(since)
+    hist = api.metrics_history
+    check([m["round"] for m in hist] == [0, 1, 2], f"vmap eval rounds {[m['round'] for m in hist]}")
+    check(all(math.isfinite(m["test_loss"]) for m in hist), f"vmap test loss not finite: {hist}")
+    w = _cpu(api.model.params)
+    check(all(torch.isfinite(v).all() for v in w.values()), "vmap w_global not finite")
+    moved = max(float((w[k] - p0[k]).abs().max()) for k in w)
+    check(moved > 0, "vmap w_global did not move")
+    stacked, weights, fold = folds[0]
+    fold = _cpu(fold)
+    wt = torch.as_tensor(weights, dtype=torch.float64)
+    fold_err = max(((fold[k].double() - torch.tensordot(wt, stacked[k].double().cpu(), dims=1))
+                    .abs().max() / fold[k].double().abs().max().clamp_min(1e-30)).item()
+                   for k in fold)
+    check(len(weights) == 16 and fold_err <= FOLD_TOL,
+          f"the stacked fold of {len(weights)} clients is {fold_err:.3g} from their weighted mean")
+    per_round = [{"round": r, "round_s": spans[r]["fedavg.round"],
+                  "client_train_s": spans[r]["fedavg.client_train"],
+                  "aggregate_s": spans[r]["fedavg.aggregate"],
+                  "eval_s": spans[r].get("fedavg.eval", 0.0)} for r in sorted(spans)]
+    steady = per_round[1:]
+    mean = {k: sum(r[k] for r in steady) / len(steady)
+            for k in ("round_s", "client_train_s", "aggregate_s", "eval_s")}
+    res.update({
+        "precision": {"params": "float32",
+                      "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                      "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32},
+        "batched_steps_per_round": steps, "images_per_round": images,
+        "round_s_mean_rounds_2_3": mean["round_s"],
+        "rounds_per_hr": 3600.0 / mean["round_s"],
+        "batched_steps_per_s": steps / mean["client_train_s"],
+        "images_per_s": images / mean["round_s"],
+        "split_s_mean_rounds_2_3": {"client_train": mean["client_train_s"],
+                                    "aggregate": mean["aggregate_s"], "eval": mean["eval_s"],
+                                    "other": mean["round_s"] - mean["client_train_s"]
+                                    - mean["aggregate_s"] - mean["eval_s"]},
+        "per_round": per_round,
+        "test_acc": [m["test_acc"] for m in hist], "test_loss": [m["test_loss"] for m in hist],
+        "fold_err_of_scale": fold_err, "w_global_max_move": moved,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "run_wall_s": wall,
+    })
+    say(f"  ResNet-56, 16 clients x 3 rounds, vmapped: {res}")
+    return res
+
+
+# -- phase 9: the algorithm zoo ------------------------------------------------
+
+ZOO = ("FedNova", "SCAFFOLD", "FedDyn", "Mime")
+ZOO_STATE = {"SCAFFOLD": "_scaffold_c", "FedDyn": "_feddyn_h", "Mime": "_mime_s"}
+# each eval's test_loss within PARROT_LOSS_RTOL of the CPU's plus an absolute
+# 1e-7: FedDyn and Mime fit the surrogate to losses of 9e-5 and 2.5e-6 in 2
+# rounds, where f32 evaluation alone is 2.5e-8 from float64 (measured on the
+# CPU, logits up to 27)
+ZOO_LOSS_ATOL = 1e-7
+
+
+def zoo_phase() -> dict:
+    """Phase 9: FedNova, SCAFFOLD, FedDyn and Mime, each 2 rounds of Parrot
+    config 1's shape, on the card and on the CPU from the same seeded params:
+    each eval's test_loss, the final params and the server state."""
+    import torch
+
+    out = {}
+    for opt in ZOO:
+        runs = {}
+        for where in (DEV, "cpu"):
+            t0 = time.perf_counter()
+            over = dict(PARROT, comm_round=2, federated_optimizer=opt)
+            _, _, model, runner = _fedavg_runner(over, where == "cuda")
+            check(model.device.type == where, f"{opt} model on {model.device}, wanted {where}")
+            p0 = _cpu(model.params)
+            runner.run()
+            api = runner.runner.fl_trainer
+            state = getattr(api, ZOO_STATE[opt]) if opt in ZOO_STATE else None
+            runs[where] = {"p0": p0, "hist": api.metrics_history, "s": time.perf_counter() - t0,
+                           "w": _cpu(api.model_trainer.get_model_params()),
+                           "state": _cpu(state) if state is not None else None}
+        gpu, cpu = runs[DEV], runs["cpu"]
+        check(all(torch.equal(gpu["p0"][k], cpu["p0"][k]) for k in cpu["p0"]),
+              f"{opt}: the card and the CPU started from different params")
+        check([m["round"] for m in gpu["hist"]] == [m["round"] for m in cpu["hist"]] == [0, 1],
+              f"{opt} eval rounds {[m['round'] for m in gpu['hist']]}")
+        row = {"card_s": gpu["s"], "cpu_s": cpu["s"], "rounds": []}
+        for g, c in zip(gpu["hist"], cpu["hist"]):
+            diff = abs(g["test_loss"] - c["test_loss"])
+            row["rounds"].append({"round": g["round"], "test_loss": g["test_loss"],
+                                  "cpu_test_loss": c["test_loss"], "test_acc": g["test_acc"],
+                                  "loss_abs_diff": diff})
+            check(diff <= PARROT_LOSS_RTOL * abs(c["test_loss"]) + ZOO_LOSS_ATOL,
+                  f"{opt} round {g['round']}: test_loss {g['test_loss']} vs CPU {c['test_loss']}")
+
+        def of_scale(a, b):
+            return max((a[k] - b[k]).abs().max().item() for k in b) / \
+                max(b[k].abs().max().item() for k in b)
+
+        row["final_param_err_of_scale"] = of_scale(gpu["w"], cpu["w"])
+        check(row["final_param_err_of_scale"] <= PARROT_PARAM_TOL,
+              f"{opt} final params {row['final_param_err_of_scale']:.3g} of their scale apart")
+        if opt in ZOO_STATE:
+            row["server_state"] = ZOO_STATE[opt]
+            row["state_err_of_scale"] = of_scale(gpu["state"], cpu["state"])
+            check(row["state_err_of_scale"] <= PARROT_PARAM_TOL,
+                  f"{opt} {ZOO_STATE[opt]} {row['state_err_of_scale']:.3g} of its scale apart")
+        say(f"  {opt}: {row}")
+        out[opt] = row
+    return out
 
 
 def main() -> int:
@@ -1132,7 +1363,31 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the FedAvg phase launched flash kernels: {fedavg_launches}")
 
-    say("== 8. result")
+    say("== 8. vmapped FedAvg round (backend vmap: ResNet-56 x 16 clients)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    fedavg["vmap"] = vmap_phase()
+    vmap_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the vmapped phase: {vmap_launches}")
+    check(all(n == 0 for n in vmap_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the vmapped phase launched flash kernels: {vmap_launches}")
+
+    say("== 9. algorithm zoo (FedNova, SCAFFOLD, FedDyn, Mime at Parrot config 1's shape)")
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    fedavg["zoo"] = zoo_phase()
+    zoo_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the zoo phase: {zoo_launches}")
+    check(all(n == 0 for n in zoo_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the zoo phase launched flash kernels: {zoo_launches}")
+
+    say("== 10. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1140,8 +1395,9 @@ def main() -> int:
                      "design": "+".join(sorted(by_design[name]))})
     say(f"  total {time.time() - t_start:.1f}s")
     print(json.dumps({"serve": {"card": card, **serve}}), flush=True)
-    print(json.dumps({"fedavg": {"card": card, "flash_launches": fedavg_launches, **fedavg}}),
-          flush=True)
+    print(json.dumps({"fedavg": {"card": card, "flash_launches": fedavg_launches,
+                                 "vmap_flash_launches": vmap_launches,
+                                 "zoo_flash_launches": zoo_launches, **fedavg}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,9 @@ package's for the sp FedAvg simulation::
     model = fedml.model.create(args, output_dim)
     fedml.FedMLRunner(args, dev, dataset, model).run()
 
-or the one-liner ``run_simulation(args=args)``.
+or the one-liner ``run_simulation(args=args)``; ``backend="vmap"`` runs the
+client-batched simulator, and ``federated_optimizer`` picks FedAvg, FedProx,
+FedOpt, FedNova, SCAFFOLD, FedDyn or Mime on the sp backend.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 A copy of ``fedml_tpu/constants.py`` (reference ``python/fedml/constants.py``):
 the same vocabulary, so a config written for the JAX package drives the port
-unchanged. Of the simulation backends the port runs ``sp``; the others raise
-(ROADMAP.md, Queue 1).
+unchanged. Of the simulation backends the port runs ``sp`` and ``vmap``; the
+others raise (ROADMAP.md, Queue 1).
 """
 
 # --- training types (reference: constants.py FEDML_TRAINING_PLATFORM_*) ---

@@ -9,9 +9,14 @@ to the bucket's shape by repeating the last client with weight 0.0, as in
 the JAX package. At the end the accumulator is cast back to each leaf's
 dtype.
 
-Not ported: ``aggregate_stacked`` (the vmapped front's stacked fold), the
-modelwatch fusion, object leaves (FHE ciphertexts) and the mesh-sharded
-engine (ROADMAP.md, Queue 1).
+:meth:`BucketedAggregator.aggregate_stacked` is the vmapped front's fold: its
+state dict's leaves already carry a leading client axis ``[K, ...]``, so it
+flattens each leaf once to ``[K, n]``, concatenates them to ``[K, P]``, pads K
+to a multiple of the bucket with zero rows of weight 0.0 and sums bucket by
+bucket in f32.
+
+Not ported: the modelwatch fusion, object leaves (FHE ciphertexts) and the
+mesh-sharded engine (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -102,6 +107,28 @@ class BucketedAggregator:
                         w = np.concatenate([w, np.zeros((pad,), np.float32)])
                 acc = self.accumulate_bucket(acc, chunk, w)
             return self.finalize(acc, trees[0])
+
+    def aggregate_stacked(self, stacked: StateDict, weights) -> StateDict:
+        """``sum_k weights[k] * leaf[k]`` over leaves with a leading client
+        axis ``[K, ...]``; the weights are NOT normalised here. Returns leaves
+        without the client axis, each in its own dtype."""
+        if not stacked:
+            return stacked
+        leaves = list(stacked.values())
+        k = leaves[0].shape[0]
+        dev = leaves[0].device
+        b = self.bucket_size
+        pad = (-k) % b
+        with tel.span("agg.aggregate_stacked", k=k, bucket_size=b):
+            flat = torch.cat([v.reshape(k, -1) for v in leaves], dim=1).to(torch.float32)
+            w = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
+            if pad:
+                flat = torch.cat([flat, flat.new_zeros(pad, flat.shape[1])])
+                w = torch.cat([w, w.new_zeros(pad)])
+            acc = torch.zeros(flat.shape[1], dtype=torch.float32, device=dev)
+            for start in range(0, k + pad, b):
+                acc.add_(w[start:start + b] @ flat[start:start + b])
+            return self.finalize(acc, {name: v[0] for name, v in stacked.items()})
 
 
 _ENGINES: Dict[int, BucketedAggregator] = {}

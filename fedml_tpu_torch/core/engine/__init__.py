@@ -1,5 +1,6 @@
-"""core.engine: the round engine's synchronous loop (counterpart of
-``fedml_tpu/core/engine``; the placement search is not ported)."""
+"""core.engine: the round engine's synchronous loop, its sp and vmapped
+strategies and sinks (counterpart of ``fedml_tpu/core/engine``; the placement
+search is not ported)."""
 
 from .round_engine import (
     AggregationSink,
@@ -8,6 +9,8 @@ from .round_engine import (
     InProcessSequentialStrategy,
     RoundEngine,
     RoundResult,
+    StackedBucketedSink,
+    VmappedMegabatchStrategy,
     eval_due,
     sample_cohort,
 )
@@ -19,6 +22,8 @@ __all__ = [
     "InProcessSequentialStrategy",
     "RoundEngine",
     "RoundResult",
+    "StackedBucketedSink",
+    "VmappedMegabatchStrategy",
     "eval_due",
     "sample_cohort",
 ]

@@ -10,11 +10,14 @@ shared ``Context`` cohort, the eval cadence and the ``engine.rounds`` /
 ``np.random.seed(round_idx)`` + ``choice`` bit for bit.
 
 Ported: ``sample_cohort``, ``eval_due``, ``RoundResult``,
-``InProcessSequentialStrategy``, ``AlgFrameSink`` and ``RoundEngine.run``.
-Not ported yet (ROADMAP.md, Queue 1): the grouped, vmapped, remote and
-pipelined strategies, the stacked, hooked and async sinks, the round
-checkpointer and chaos knobs, the SLO engine, ``devperf``, the flight
-recorder and the mlops summaries.
+``InProcessSequentialStrategy`` (the sp front, with the FedNova, SCAFFOLD and
+Mime control state and payloads), ``VmappedMegabatchStrategy`` and
+``StackedBucketedSink`` (the vmapped front), ``AlgFrameSink`` and
+``RoundEngine.run``. Not ported yet (ROADMAP.md, Queue 1): the grouped,
+remote and pipelined strategies, the hooked and async sinks, the stacked
+sink's per-client middleware branch (the middleware itself is not ported),
+the round checkpointer and chaos knobs, the SLO engine, ``devperf``, the
+flight recorder and the mlops summaries.
 """
 
 from __future__ import annotations
@@ -27,6 +30,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ...constants import (
+    FEDML_FEDERATED_OPTIMIZER_FEDNOVA,
+    FEDML_FEDERATED_OPTIMIZER_MIME,
+    FEDML_FEDERATED_OPTIMIZER_SCAFFOLD,
+)
 from .. import telemetry as tel
 
 log = logging.getLogger(__name__)
@@ -56,14 +64,21 @@ def eval_due(round_idx: int, comm_round: int, frequency_of_the_test: int) -> boo
 
 @dataclass
 class RoundResult:
-    """What one round of client execution produced: per-client
-    ``(weight, state dict)`` pairs."""
+    """What one round of client execution produced, in whichever of the two
+    shapes the fronts use: per-client ``(weight, state dict)`` pairs, or a
+    stacked megabatch ``(stacked state dict, normalised weights)`` whose
+    leaves carry a leading client axis."""
 
     pairs: Optional[List[Tuple[float, StateDict]]] = None
+    stacked: Optional[Tuple[StateDict, Any]] = None
 
     @property
     def k(self) -> int:
-        return len(self.pairs) if self.pairs is not None else 0
+        if self.pairs is not None:
+            return len(self.pairs)
+        if self.stacked is not None:
+            return len(self.stacked[1])
+        return 0
 
 
 class ClientExecutionStrategy(abc.ABC):
@@ -78,7 +93,11 @@ class ClientExecutionStrategy(abc.ABC):
 
 class InProcessSequentialStrategy(ClientExecutionStrategy):
     """The sp front: one ``Client`` object per slot, trained in-process one
-    after the other, one ``fedavg.client_train`` span per client."""
+    after the other, one ``fedavg.client_train`` span per client; the
+    optimizer's server state pushed into the trainer before each local run
+    (SCAFFOLD's control variate, Mime's server momentum), and the trainer's
+    structured round payload (FedNova, SCAFFOLD, Mime) taken in place of the
+    weights."""
 
     name = "in_process_sequential"
 
@@ -96,10 +115,44 @@ class InProcessSequentialStrategy(ClientExecutionStrategy):
                 api.test_data_local_dict[client_idx],
                 api.train_data_local_num_dict[client_idx],
             )
+            if api.fed_opt == FEDML_FEDERATED_OPTIMIZER_SCAFFOLD:
+                api.model_trainer.set_control_variate(api._scaffold_c)
+            elif api.fed_opt == FEDML_FEDERATED_OPTIMIZER_MIME:
+                api.model_trainer.set_server_momentum(api._mime_s)
             with tel.span("fedavg.client_train", round=round_idx, client=int(client_idx)):
                 w = client.train(w_global)
-            w_locals.append((client.get_sample_number(), w))
+            payload = getattr(api.model_trainer, "round_payload", None)
+            if api.fed_opt in (
+                FEDML_FEDERATED_OPTIMIZER_FEDNOVA,
+                FEDML_FEDERATED_OPTIMIZER_SCAFFOLD,
+                FEDML_FEDERATED_OPTIMIZER_MIME,
+            ) and payload is not None:
+                w_locals.append((client.get_sample_number(), payload))
+            else:
+                w_locals.append((client.get_sample_number(), w))
         return RoundResult(pairs=w_locals)
+
+
+class VmappedMegabatchStrategy(ClientExecutionStrategy):
+    """The vmapped front: the cohort's shards stacked into one megabatch and
+    every client's local round run as one client-batched program; weights are
+    the per-client sample counts normalised in f32 numpy, and the clients'
+    dropout draws come from the round index."""
+
+    name = "vmapped_megabatch"
+
+    def __init__(self, api: Any):
+        self.api = api
+
+    def run_round(self, round_idx: int, w_global: StateDict, cohort: Sequence[int]) -> RoundResult:
+        api = self.api
+        # the span holds the staging, as the sp front's holds each client's copies
+        with tel.span("fedavg.client_train", round=round_idx, clients=len(cohort)):
+            x, y, idx, mask = api._stack_clients(list(cohort))
+            result = api._vmapped_train(w_global, x, y, idx, mask, round_idx)
+        counts = np.asarray([api.train_data_local_num_dict[i] for i in cohort], dtype=np.float32)
+        weights = counts / counts.sum()
+        return RoundResult(stacked=(result.params, weights))
 
 
 class AggregationSink(abc.ABC):
@@ -123,6 +176,26 @@ class AlgFrameSink(AggregationSink):
 
     def fold(self, round_idx: int, w_global: StateDict, result: RoundResult) -> StateDict:
         return self._update_fn(w_global, result.pairs or [])
+
+
+class StackedBucketedSink(AggregationSink):
+    """The vmapped front's fold: the stacked megabatch goes straight into
+    the bucketed engine's ``aggregate_stacked``, then the after-aggregation
+    hook. The JAX package unstacks the clients for the per-client hooks when
+    an attack, defense or DP middleware is on; that middleware is not ported,
+    and asking for it raises in the hook, as at every other."""
+
+    name = "stacked_bucketed"
+
+    def __init__(self, aggregator: Any):
+        self._agg = aggregator
+
+    def fold(self, round_idx: int, w_global: StateDict, result: RoundResult) -> StateDict:
+        from ..aggregation.bucketed import get_engine
+
+        stacked, weights = result.stacked
+        new_w = get_engine().aggregate_stacked(stacked, weights)
+        return self._agg.on_after_aggregation(new_w)
 
 
 class RoundEngine:

@@ -65,7 +65,12 @@ class ClassificationTrainer(ClientTrainer):
 
     # --- training --------------------------------------------------------
     def train(self, train_data: ArrayDataset, device=None, args: Any = None) -> None:
-        args = args or self.args
+        self._local_round(train_data, args or self.args)
+
+    def _local_round(self, train_data: ArrayDataset, args: Any, extras: Any = None) -> None:
+        """One local round from the weights the module holds, over this
+        client's (client, round)-seeded shuffles; ``extras`` goes to the
+        local loop's gradient transform (fed_trainers.py)."""
         batch_size = int(getattr(args, "batch_size", 32))
         epochs = int(getattr(args, "epochs", 1))
         seed = round_seed(args, self.id, self._round)
@@ -73,7 +78,7 @@ class ClassificationTrainer(ClientTrainer):
         x_all = torch.from_numpy(np.ascontiguousarray(train_data.x)).to(self.device)
         y_all = torch.from_numpy(np.ascontiguousarray(train_data.y)).to(self.device)
         rng = torch.Generator(device=self.device).manual_seed(seed)
-        result = self._local_train(x_all, y_all, idx, mask, rng, None)
+        result = self._local_train(x_all, y_all, idx, mask, rng, extras)
         self._round += 1
         # one read of the device per local round, as the JAX trainer's log does
         self.last_loss = float(result.loss)

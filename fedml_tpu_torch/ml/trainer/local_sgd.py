@@ -10,6 +10,20 @@ reads back to the host until the round ends. The last batch of an epoch is
 padded to B with repeated rows whose mask is 0: they stay in the batch, as
 in JAX, and the loss ignores them.
 
+The client-batched ("vmapped") local round, :func:`make_vmapped_local_train_fn`,
+is the counterpart of ``jit(vmap(local_train))`` in the JAX package's vmapped
+simulator: every client of the cohort trains from the same global weights
+at once. The parameters are stacked ``[K, ...]`` leaves; each step gathers
+the K clients' batches outside the vmap, takes the per-client gradients with
+``torch.func.vmap(torch.func.grad_and_value(loss))`` over
+``torch.func.functional_call``, and steps the stacked leaves with the same
+``torch.optim`` optimizer: SGD (momentum, decay) and Adam are elementwise,
+so one step over ``[K, ...]`` leaves is K independent client steps (every
+client takes the same number of steps, so Adam's shared step count is
+right). A padded step (a client with fewer batches than the cohort's
+largest) has an all-zero mask and a zero gradient, which is written into
+``.grad`` as zeros: weight decay and momentum still apply there, as in JAX.
+
 The optimizers are ``torch.optim``'s, where they compute what optax does:
 ``add_decayed_weights(wd)`` then ``sgd`` (trace momentum) is
 ``SGD(momentum, dampening=0, weight_decay=wd)``; ``adam`` is
@@ -50,16 +64,6 @@ def masked_loss(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> to
         losses = F.binary_cross_entropy_with_logits(logits, y.to(logits.dtype),
                                                     reduction="none").mean(dim=-1)
     return (losses * mask).sum() / mask.sum().clamp_min(1.0)
-
-
-def make_loss_fn(model: FedModel) -> Callable:
-    """``loss_fn(x, y, mask, rng)``: the masked loss of the module's own
-    parameters in training mode (dropout draws from ``rng``)."""
-
-    def loss_fn(x, y, mask, rng):
-        return masked_loss(model.module(x, train=True, rng=rng), y, mask)
-
-    return loss_fn
 
 
 def make_eval_fn(model: FedModel) -> Callable:
@@ -140,8 +144,9 @@ def epoch_index_array(n: int, batch_size: int, epochs: int, seed: int) -> Tuple[
 
 
 class LocalTrainResult(NamedTuple):
-    params: StateDict          # the module's own parameters (views, not copies)
-    loss: torch.Tensor         # mean loss over all local steps, 0-d, on the device
+    params: StateDict          # the module's own parameters (views, not copies); stacked
+                               # [K, ...] leaves from the client-batched round
+    loss: torch.Tensor         # mean loss over all local steps, 0-d ([K] batched), on the device
     num_steps: int             # total optimizer steps taken
 
 
@@ -157,7 +162,7 @@ def make_local_train_fn(model: FedModel, args: Any, *, grad_transform: Optional[
     when ``args.fedprox_mu`` > 0. ``rng`` is the ``torch.Generator`` dropout
     draws from.
     """
-    loss_fn = make_loss_fn(model)
+    loss_fn = make_client_loss_fn(model, args)
     mu = float(getattr(args, "fedprox_mu", 0.0) or 0.0)
     module = model.module
 
@@ -174,10 +179,7 @@ def make_local_train_fn(model: FedModel, args: Any, *, grad_transform: Optional[
         for s in range(steps):
             bx = x_all.index_select(0, flat_idx[s])
             by = y_all.index_select(0, flat_idx[s])
-            loss = loss_fn(bx, by, flat_mask[s], rng)
-            if mu > 0.0:
-                prox = sum(torch.sum(torch.square(p - global_params[k])) for k, p in params.items())
-                loss = loss + 0.5 * mu * prox
+            loss = loss_fn(None, bx, by, flat_mask[s], global_params, rng)
             opt.zero_grad(set_to_none=True)
             loss.backward()
             if grad_transform is not None:
@@ -189,5 +191,73 @@ def make_local_train_fn(model: FedModel, args: Any, *, grad_transform: Optional[
             opt.step()
             losses[s] = loss.detach()
         return LocalTrainResult({k: p.detach() for k, p in params.items()}, losses.mean(), steps)
+
+    return local_train
+
+
+def make_client_loss_fn(model: FedModel, args: Any) -> Callable:
+    """``loss(params, x, y, mask, global_params, rng=None)``: one client's
+    masked loss in training mode, plus FedProx's ``0.5 * mu * ||params -
+    global_params||^2`` when ``args.fedprox_mu`` > 0. ``params`` None runs
+    the module's own parameters (the eager loop: autograd fills their
+    ``.grad``); a state dict runs through ``torch.func.functional_call``
+    (the client-batched round). Dropout draws from ``rng``, or with None
+    from the default generator of the data's device (inside
+    ``torch.func.vmap`` only that one is allowed)."""
+    module = model.module
+    mu = float(getattr(args, "fedprox_mu", 0.0) or 0.0)
+
+    def loss(params, x, y, mask, global_params, rng=None):
+        kwargs = {"train": True, "rng": rng}
+        if params is None:
+            logits = module(x, **kwargs)
+        else:
+            logits = torch.func.functional_call(module, params, (x,), kwargs)
+        out = masked_loss(logits, y, mask)
+        if mu > 0.0:
+            own = dict(module.named_parameters()) if params is None else params
+            prox = sum(torch.sum(torch.square(p - global_params[k])) for k, p in own.items())
+            out = out + 0.5 * mu * prox
+        return out
+
+    return loss
+
+
+def make_vmapped_local_train_fn(model: FedModel, args: Any):
+    """Build the client-batched local round
+    ``local_train(w_global, x_all, y_all, idx, mask, round_idx)``:
+    ``x_all``/``y_all`` are the cohort's padded shards ``[K, N, ...]`` and
+    ``idx``/``mask`` their ``[K, E, nb, B]`` index and mask arrays, all on the
+    device of ``w_global``. Every client starts from ``w_global`` (left
+    unmoved) with a fresh optimizer; the result holds the K clients' weights
+    as stacked ``[K, ...]`` leaves and their mean losses ``[K]``. The clients'
+    dropout draws come from the device's default generator seeded with
+    ``round_idx`` for the round (and restored after it), so a seeded round
+    repeats bit for bit."""
+    step = torch.func.vmap(torch.func.grad_and_value(make_client_loss_fn(model, args)),
+                           in_dims=(0, 0, 0, 0, None), randomness="different")
+
+    def local_train(w_global: StateDict, x_all, y_all, idx, mask,
+                    round_idx: int) -> LocalTrainResult:
+        k, e, nb, b = idx.shape
+        steps = e * nb
+        dev = x_all.device
+        # real tensors, not views of the global: the optimizer moves them in place
+        stacked = {n: v.detach().expand(k, *v.shape).clone() for n, v in w_global.items()}
+        opt = create_client_optimizer(args, list(stacked.values()))
+        flat_idx = idx.reshape(k, steps, b).long()
+        flat_mask = mask.reshape(k, steps, b)
+        rows = torch.arange(k, device=dev)[:, None]
+        losses = []
+        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+            torch.manual_seed(int(round_idx))
+            for s in range(steps):
+                grads, loss = step(stacked, x_all[rows, flat_idx[:, s]],
+                                   y_all[rows, flat_idx[:, s]], flat_mask[:, s], w_global)
+                for n, p in stacked.items():
+                    p.grad = grads[n]
+                opt.step()
+                losses.append(loss)
+        return LocalTrainResult(stacked, torch.stack(losses, dim=1).mean(dim=1), steps)
 
     return local_train

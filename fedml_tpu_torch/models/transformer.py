@@ -223,6 +223,30 @@ def xla_attention(q, k, v, causal: bool = True, mask: Optional[torch.Tensor] = N
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def pick_attention(impl: str, on_cuda: bool, batch: int, n_heads: int, head_dim: int,
+                   dtype: torch.dtype) -> str:
+    """The attention a training forward runs: ``"auto"`` takes the flash
+    kernels ("pallas") on CUDA and the plain masked attention ("xla") on
+    the CPU; an explicit choice stands. On CUDA, a shape or dtype the
+    kernels do not take (``ops.flash_attention.kernels_take``) raises
+    ``NotImplementedError``: the JAX package's kernel runs it, the port has
+    no kernel instance for it yet, and it does not swap in the plain
+    attention unasked (``attention_impl="xla"`` asks for it)."""
+    if impl != "auto":
+        return impl
+    if not on_cuda:
+        return "xla"
+    from ..ops.flash_attention import HEAD_DIMS, KERNEL_DTYPES, MAX_HEAD_ROWS, kernels_take
+
+    if not kernels_take(batch, n_heads, head_dim, dtype):
+        raise NotImplementedError(
+            f"the flash kernels have no instance for head dim {head_dim}, {dtype}, "
+            f"B*Hq={batch * n_heads} (they take head dims {HEAD_DIMS}, dtypes {KERNEL_DTYPES}, "
+            f"B*Hq <= {MAX_HEAD_ROWS}); the other instances are not ported to fedml_tpu_torch "
+            f"yet (see ROADMAP.md, Queue 2). attention_impl='xla' runs the plain attention")
+    return "pallas"
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -252,9 +276,7 @@ class Attention(nn.Module):
             else:
                 out = self._decode_attention(q, k, v, cache, attn_start, cache_idx)
             return self.o_proj(out.reshape(B, T, cfg.n_heads * hd))
-        impl = cfg.attention_impl
-        if impl == "auto":
-            impl = "pallas" if x.is_cuda else "xla"
+        impl = pick_attention(cfg.attention_impl, x.is_cuda, B, cfg.n_heads, hd, q.dtype)
         if impl == "pallas":
             # GQA-native: the kernels map query heads to kv heads themselves
             from ..ops.flash_attention import flash_attention

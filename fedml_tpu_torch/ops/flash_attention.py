@@ -199,20 +199,26 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, causal: bool, hq: int, h
 
 # --- kernel wrappers -----------------------------------------------------------
 
+def kernels_take(batch: int, hq: int, head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA kernels have an instance for attention of this shape
+    and dtype: head dim in ``HEAD_DIMS``, dtype in ``KERNEL_DTYPES``, B*Hq
+    at most ``MAX_HEAD_ROWS``."""
+    return head_dim in HEAD_DIMS and dtype in KERNEL_DTYPES and batch * hq <= MAX_HEAD_ROWS
+
+
 def check_kernel_inputs(q, k, v, *, hq: int, hkv: int) -> None:
     """Raise on anything the CUDA kernels do not take."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("flash kernels take [B*H, T, D] tensors")
-    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash kernels take one dtype of {KERNEL_DTYPES}, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash kernels take one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if hq <= 0 or hkv <= 0 or hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     bhq, t, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernels take head dims {HEAD_DIMS}, got {d}")
-    if bhq > MAX_HEAD_ROWS:
-        raise ValueError(f"B*Hq={bhq} exceeds the kernels' grid limit {MAX_HEAD_ROWS}")
+    if not kernels_take(bhq // hq, hq, d, q.dtype):
+        raise ValueError(f"flash kernels take head dims {HEAD_DIMS}, a dtype of {KERNEL_DTYPES} "
+                         f"and B*Hq <= {MAX_HEAD_ROWS} (the grid limit), got head dim {d}, "
+                         f"{q.dtype}, B*Hq={bhq}")
     if bhq % hq or k.shape != (bhq // hq * hkv, t, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} for hq={hq}, hkv={hkv}")

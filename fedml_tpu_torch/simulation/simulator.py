@@ -2,10 +2,11 @@
 (reference ``simulation/simulator.py:27``).
 
 ``SimulatorSingleProcess`` wraps the sp FedAvg-family API (FedAvg, FedProx,
-FedOpt). The other sp algorithms (hierarchical FL, TurboAggregate, async
-FedAvg, FedGAN, FedGKT, FedNAS, split NN, FedSeg, FedAvg_seq) and the
-vmapped, collective and MPI simulators are not ported yet (ROADMAP.md,
-Queue 1).
+FedOpt, FedNova, SCAFFOLD, FedDyn, Mime); ``SimulatorVmap`` the client-batched
+simulator (backend ``vmap``). The other sp algorithms (hierarchical FL,
+TurboAggregate, async FedAvg, FedGAN, FedGKT, FedNAS, split NN, FedSeg,
+FedAvg_seq), the vmapped front's async driver (``async_rounds``) and the
+collective and MPI simulators are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -55,6 +56,21 @@ class SimulatorSingleProcess:
                     'federated_optimizer: "FedSeg"'
                 )
         self.fl_trainer = FedAvgAPI(args, device, dataset, model, client_trainer, server_aggregator)
+
+    def run(self):
+        return self.fl_trainer.train()
+
+
+class SimulatorVmap:
+    def __init__(self, args: Any, device: Any, dataset, model, client_trainer=None,
+                 server_aggregator=None):
+        if getattr(args, "async_rounds", False):
+            raise NotImplementedError(
+                "async_rounds: the vmapped front's async driver is not ported to "
+                "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+        from .vmapped.vmap_fedavg import VmapFedAvgAPI
+
+        self.fl_trainer = VmapFedAvgAPI(args, device, dataset, model)
 
     def run(self):
         return self.fl_trainer.train()

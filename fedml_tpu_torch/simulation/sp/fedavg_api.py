@@ -2,19 +2,18 @@
 ``fedml_tpu/simulation/sp/fedavg_api.py`` (reference
 ``simulation/sp/fedavg/fedavg_api.py:14``).
 
-One simulator covers FedAvg, FedProx and FedOpt: the trainer factory picks
-the local algorithm and ``_server_update`` applies the server rule (the
-alg-frame hooks around the sample-weighted fold, then the FedOpt step when
-configured). The round loop is the engine's (``core/engine``), with the
-reference's cohort sampling. One ``Client`` object per cohort slot shares
-the one trainer, whose module holds the model on the device; the global
-model travels between the parts as a state dict on that device.
+One simulator covers FedAvg, FedProx, FedOpt, FedNova, SCAFFOLD, FedDyn and
+Mime: the trainer factory picks the local algorithm and ``_server_update``
+applies the matching server rule. The round loop is the engine's
+(``core/engine``), with the reference's cohort sampling. One ``Client``
+object per cohort slot shares the one trainer, whose module holds the model
+on the device; the global model and the server state (SCAFFOLD's ``c``,
+FedDyn's ``h``, Mime's momentum ``s``) travel as state dicts on that device.
 
-Not ported yet, each raising NotImplementedError (ROADMAP.md, Queue 1):
-FedNova, SCAFFOLD, FedDyn and Mime (their trainers), the pipelined client
-execution, durable round state (``resilience_dir``) and modelwatch's
-quarantine. Modelwatch's fold statistics, on by default in the JAX package,
-change nothing the round computes; the port runs without them.
+Not ported yet, each raising NotImplementedError (ROADMAP.md, Queue 1): the
+pipelined client execution, durable round state (``resilience_dir``) and
+modelwatch's quarantine. Modelwatch's fold statistics, on by default in the
+JAX package, change nothing the round computes; the port runs without them.
 """
 
 from __future__ import annotations
@@ -22,12 +21,20 @@ from __future__ import annotations
 import logging
 from typing import Any, Dict, List, Optional
 
-from ...constants import FEDML_FEDERATED_OPTIMIZER_FEDOPT
+from ...constants import (
+    FEDML_FEDERATED_OPTIMIZER_FEDDYN,
+    FEDML_FEDERATED_OPTIMIZER_FEDNOVA,
+    FEDML_FEDERATED_OPTIMIZER_FEDOPT,
+    FEDML_FEDERATED_OPTIMIZER_MIME,
+    FEDML_FEDERATED_OPTIMIZER_SCAFFOLD,
+)
+from ...core.aggregation.agg_operator import fednova_aggregate, scaffold_aggregate, uniform_average
 from ...core.aggregation.server_optimizer import FedOptServer, create_fedopt_server
 from ...core.alg_frame.context import Context
 from ...core.engine import AlgFrameSink, InProcessSequentialStrategy, RoundEngine, sample_cohort
 from ...ml.aggregator import create_server_aggregator
 from ...ml.trainer.trainer_creator import create_model_trainer
+from ...utils.pytree import tree_sub, tree_zeros_like
 from .client import Client
 
 log = logging.getLogger(__name__)
@@ -79,6 +86,9 @@ class FedAvgAPI:
         self._fedopt_server: Optional[FedOptServer] = None
         if self.fed_opt == FEDML_FEDERATED_OPTIMIZER_FEDOPT:
             self._fedopt_server = create_fedopt_server(args, self.model_trainer.get_model_params())
+        self._scaffold_c = tree_zeros_like(self.model_trainer.get_model_params())
+        self._feddyn_h = tree_zeros_like(self.model_trainer.get_model_params())
+        self._mime_s = tree_zeros_like(self.model_trainer.get_model_params())
         self.metrics_history: List[Dict[str, float]] = []
 
     def _setup_clients(self, train_data_local_num_dict, train_data_local_dict,
@@ -122,14 +132,50 @@ class FedAvgAPI:
         self.aggregator.set_model_params(w_global)
 
     def _server_update(self, w_global, w_locals):
-        """The server rule with the alg-frame hooks around it (the JAX
-        package's default branch: hooks, fold, FedOpt step, hooks)."""
+        """Apply the per-algorithm server rule with the alg-frame hooks
+        around it, as the JAX package runs them. Structured payloads (FedNova
+        ``(a_i, d_i)``, SCAFFOLD ``(dw, dc)``) do not pass through the
+        weight-space before-hooks: FedNova takes the after-hook only,
+        SCAFFOLD no hook."""
         agg = self.aggregator
-        lst = agg.on_before_aggregation(w_locals)
-        new_w = agg.aggregate(lst)
-        if self._fedopt_server is not None:
-            new_w = self._fedopt_server.apply(w_global, new_w)
-        new_w = agg.on_after_aggregation(new_w)
+        if self.fed_opt == FEDML_FEDERATED_OPTIMIZER_FEDNOVA:
+            # d_i = (w_global - w_local)/a_i already carries lr
+            new_w = fednova_aggregate(w_global, w_locals)
+            new_w = agg.on_after_aggregation(new_w)
+        elif self.fed_opt == FEDML_FEDERATED_OPTIMIZER_SCAFFOLD:
+            new_w, self._scaffold_c = scaffold_aggregate(
+                w_global,
+                self._scaffold_c,
+                w_locals,
+                int(self.args.client_num_in_total),
+                float(getattr(self.args, "server_lr", 1.0)),
+            )
+        elif self.fed_opt == FEDML_FEDERATED_OPTIMIZER_MIME:
+            weight_payloads = [(n, p[0]) for n, p in w_locals]
+            grad_payloads = [p[1] for _, p in w_locals]
+            lst = agg.on_before_aggregation(weight_payloads)
+            new_w = agg.aggregate(lst)
+            new_w = agg.on_after_aggregation(new_w)
+            beta = float(getattr(self.args, "mime_beta", 0.9))
+            avg_grad = uniform_average(grad_payloads)
+            self._mime_s = {k: beta * s + (1 - beta) * avg_grad[k] for k, s in self._mime_s.items()}
+        elif self.fed_opt == FEDML_FEDERATED_OPTIMIZER_FEDDYN:
+            lst = agg.on_before_aggregation(w_locals)
+            alpha = float(getattr(self.args, "feddyn_alpha", 0.01))
+            avg_w = uniform_average([w for _, w in lst])
+            m = int(self.args.client_num_in_total)
+            # the uniform mean of (w_i - g) is mean(w_i) - g
+            delta = tree_sub(avg_w, w_global)
+            frac = len(lst) / float(m)
+            self._feddyn_h = {k: h - alpha * frac * delta[k] for k, h in self._feddyn_h.items()}
+            new_w = {k: w - self._feddyn_h[k] / alpha for k, w in avg_w.items()}
+            new_w = agg.on_after_aggregation(new_w)
+        else:
+            lst = agg.on_before_aggregation(w_locals)
+            new_w = agg.aggregate(lst)
+            if self._fedopt_server is not None:
+                new_w = self._fedopt_server.apply(w_global, new_w)
+            new_w = agg.on_after_aggregation(new_w)
         agg.assess_contribution()
         return new_w
 

@@ -92,8 +92,9 @@ def test_fold_pads_a_ragged_tail_with_zero_weight():
 
 
 def test_unported_rules_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FedMLAggOperator.agg(type("A", (), {"federated_optimizer": "FedNova"})(), [])
+    # every rule of the JAX package's table is ported; an unknown name is refused as there
+    with pytest.raises(ValueError, match="unknown federated optimizer"):
+        FedMLAggOperator.agg(type("A", (), {"federated_optimizer": "FedNovel"})(), [])
     with pytest.raises(NotImplementedError, match="FHE"):
         bucketed.BucketedAggregator(1).aggregate([(1.0, {"a": object()})])
 

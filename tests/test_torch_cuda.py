@@ -247,6 +247,42 @@ def test_llm_trainer_steps_on_cuda(cuda, tmp_path):
         assert torch.equal(p, before[n]) != is_lora_name(n), n
 
 
+@pytest.mark.cuda
+def test_transformer_with_head_dim_16_trains_on_cuda_without_the_kernels(cuda):
+    """A TransformerLM whose head dim (16) the flash kernels have no
+    instance for: "auto" refuses it on the card (NotImplementedError naming
+    ROADMAP.md) before any launch; asked for the plain attention
+    (attention_impl="xla"), its forward and backward on the card match the
+    CPU's (f32, TF32 off), and no kernel launches."""
+    import dataclasses
+
+    from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    auto = TransformerConfig(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                             d_ff=128, max_seq_len=32, remat=False, dtype=torch.float32)
+    assert auto.attention_impl == "auto" and auto.head_dim == 16
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 32)))
+    fa.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TransformerLM(auto).to("cuda")(toks.to("cuda"))
+    cfg = dataclasses.replace(auto, attention_impl="xla")
+    torch.manual_seed(0)
+    cpu = TransformerLM(cfg)
+    for p in cpu.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.05)
+    gpu = TransformerLM(cfg).to("cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    outs = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        logits = model(toks.to(name))
+        logits.float().square().mean().backward()
+        outs[name] = [logits.detach().cpu()] + [p.grad.cpu() for p in model.parameters()]
+    assert fa.launch_counts == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
 # --- serving (the decode modes, the predictor) on the card ----------------------
 
 SERVE_GEOM = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512,

@@ -437,8 +437,8 @@ def test_run_simulation_on_the_cpu_and_refusals():
     for name, n in (("fedavg.round", 1), ("fedavg.sample", 1), ("fedavg.client_train", 2),
                     ("fedavg.aggregate", 1), ("fedavg.eval", 1), ("agg.aggregate", 1)):
         assert names.count(name) == n, (name, names)
-    for over, what in [(dict(federated_optimizer="FedNova"), "FedNova"),
-                       (dict(federated_optimizer="SCAFFOLD"), "SCAFFOLD"),
+    for over, what in [(dict(backend="vmap", async_rounds=True), "async_rounds"),
+                       (dict(backend="NCCL"), "NCCL"),
                        (dict(client_execution="pipelined"), "pipelined"),
                        (dict(resilience_dir="x"), "resilience_dir"),
                        (dict(federated_optimizer="HierarchicalFL"), "HierarchicalFL")]:
@@ -446,8 +446,8 @@ def test_run_simulation_on_the_cpu_and_refusals():
         for k, v in over.items():
             setattr(bad, k, v)
         with pytest.raises(NotImplementedError, match=what):
-            fedml_tpu_torch.run_simulation(args=bad)
-    for over in (dict(backend="vmap"), dict(training_type="cross_silo")):
+            fedml_tpu_torch.run_simulation(backend=bad.backend, args=bad)
+    for over in (dict(backend="MPI"), dict(training_type="cross_silo")):
         bad = copy.copy(args)
         for k, v in over.items():
             setattr(bad, k, v)

@@ -214,3 +214,36 @@ def test_lora_split_matches_jax(jax_params):
                                                               sorted(_leaves(port_tree))))
     marked = [p for p, m in _leaves(lora_mask(port_tree)) if m]
     assert marked == [p for p, _ in _leaves(adapters)]
+
+
+@pytest.mark.parametrize("b,hq,d,dtype,takes", [
+    (2, 32, 128, torch.bfloat16, True), (2, 4, 64, torch.float32, True),
+    (2, 4, 16, torch.float32, False), (2, 4, 80, torch.bfloat16, False),
+    (2, 4, 256, torch.bfloat16, False), (2, 4, 64, torch.float16, False),
+    (1, 65535, 64, torch.float32, True), (1, 65536, 64, torch.float32, False)])
+def test_attention_dispatch_takes_the_kernels_only_where_they_take_the_shape(b, hq, d, dtype,
+                                                                             takes):
+    """The rule on the shape beside check_kernel_inputs: "auto" picks the
+    flash kernels on CUDA exactly where check_kernel_inputs accepts the
+    inputs (head dim, dtype, B*Hq) and raises NotImplementedError naming
+    ROADMAP.md elsewhere (no kernel instance yet; the JAX package's kernel
+    runs such shapes, so the plain attention is never swapped in unasked);
+    on the CPU always the plain one; an explicit choice stands."""
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    assert fa.kernels_take(b, hq, d, dtype) is takes
+    q = torch.zeros(b * hq, 1, d, dtype=dtype)
+    try:
+        fa.check_kernel_inputs(q, q, q, hq=hq, hkv=hq)
+        accepted = True
+    except ValueError:
+        accepted = False
+    assert accepted is takes
+    if takes:
+        assert tt.pick_attention("auto", True, b, hq, d, dtype) == "pallas"
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tt.pick_attention("auto", True, b, hq, d, dtype)
+    assert tt.pick_attention("auto", False, b, hq, d, dtype) == "xla"
+    assert tt.pick_attention("xla", True, b, hq, d, dtype) == "xla"
+    assert tt.pick_attention("pallas", False, b, hq, d, dtype) == "pallas"
