@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for fedml_tpu_torch: the FedLLM LoRA train step, LLM serving,
-the sp and vmapped FedAvg rounds and the FedNova, SCAFFOLD, FedDyn and Mime
-algorithms on one CUDA card.
+the sp and vmapped FedAvg rounds, the FedNova, SCAFFOLD, FedDyn and Mime
+algorithms and the cross-silo front on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -77,9 +77,28 @@ exception):
    params: each eval's test_loss (PARROT_LOSS_RTOL + ZOO_LOSS_ATOL), the
    final params and the server state (SCAFFOLD's c, FedDyn's h, Mime's s)
    within PARROT_PARAM_TOL of their scale; no flash launch;
-10. the serve, fedavg (with its vmap and zoo entries) and kernels lines
-   (JSON, the kernels line with the design each kernel ran on the main
-   path), the card line, and last the result line.
+10. cross-silo: BASELINE.md config 2, the cross-silo front over the message
+   plane through FedMLRunner for each role. (a) ResNet-56 x 16 silos, all
+   in every round, over INMEMORY (the server and 16 client threads in this
+   process): first, with cuDNN deterministic and TF32 off, round 1's 16
+   uploads and the server's fold against the sp simulator's round 1 of the
+   same config from the same w_global (CS_UPLOAD_TOL, CS_FOLD_TOL), the fold
+   within CS_MEAN_TOL of the float64 weighted mean of its arrivals; then 3
+   rounds in the port's documented precision: round seconds, rounds/hr, the
+   split from the server.* and client.train spans, peak memory, beside
+   phase 7's sp round, and the same federation with the local rounds taken
+   one at a time (a diagnostic); (b) a server and 4 client processes over
+   the port's SocketMqttBroker (hosted here) with one object store,
+   ResNet-56, 2 rounds, cuDNN deterministic and TF32 off: every party on
+   the card and exiting 0 within CS_PARTY_TIMEOUT_S, the final params within
+   CS_PROC_TOL of the same federation in process over INMEMORY; seconds a
+   round, payload bytes, object-store times, start to ready; (c) card state
+   dicts in f32 and bf16 through the wire layout and the codec bit-exactly,
+   and a CPU arrival ingested with one host-to-device copy per dtype group;
+   (d) no flash launch;
+11. the serve, fedavg (with its vmap and zoo entries), cross_silo and
+   kernels lines (JSON, the kernels line with the design each kernel ran on
+   the main path), the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1250,6 +1269,497 @@ def zoo_phase() -> dict:
     return out
 
 
+# -- phase 10: the cross-silo front ("Octopus") over the message plane ---------
+
+# BASELINE.md config 2: FedAvg, ResNet-56 on the CIFAR-10 surrogate, 16 silos
+# all in every round: phase 7's ResNet-56 config as a cross-silo federation
+# (the server and 16 clients, each a party of its own through FedMLRunner)
+CROSS_SILO = {k: v for k, v in RESNET.items() if k != "backend"}
+# (b): the same model over 4 silos, 2 rounds, each party a process of its own
+CS_PROCS = dict(CROSS_SILO, client_num_in_total=4, client_num_per_round=4, comm_round=2)
+CS_PARTY_TIMEOUT_S = 420
+# limits of the gates, each from this phase's own readings on an H100
+# (PERF.md). (a) Round 1's 16 uploads and the server's fold against the sp
+# simulator's round 1 from the same w_global, cuDNN deterministic, TF32 off:
+# read bit-equal (the same kernels on the same inputs in the same order), so
+# held bit-equal. The fold against the float64 weighted mean of its
+# arrivals: read 1.97e-7 of each leaf's scale, held to 1e-6 (f32 sums of 16
+# terms). (b) The cross-process server's final params against the
+# in-process INMEMORY run's: read bit-equal (the wire carries f32 exactly),
+# held bit-equal.
+CS_UPLOAD_TOL = 0.0
+CS_FOLD_TOL = 0.0
+CS_MEAN_TOL = 1e-6
+CS_PROC_TOL = 0.0
+
+
+def _of_scale(a: dict, b: dict) -> float:
+    """max |a - b| over max |b|, over state dicts (on the CPU)."""
+    return max((a[k].double() - b[k].double()).abs().max().item() for k in b) / \
+        max(b[k].double().abs().max().item() for k in b)
+
+
+class _Federation:
+    """Every party of one cross-silo federation in this process, each built
+    through the user's entry points (init, get_device, model.create,
+    FedMLRunner) and run as a thread. The silos' data is the one
+    ``data.load`` of the config, loaded once and handed to every party (a
+    silo's loader would give each the same partition)."""
+
+    def __init__(self, over: dict, run_id: str, backend: str = "INMEMORY", **extra):
+        import fedml_tpu_torch as fedml
+        from fedml_tpu_torch.core.distributed.communication.inmemory.broker import InMemoryBroker
+
+        InMemoryBroker.reset(run_id)
+        self.run_id, self.runners, self.errors = run_id, {}, {}
+        dataset = output_dim = None
+        for rank in range(int(over["client_num_per_round"]) + 1):
+            args = fedml.init(fedml.default_config(
+                "cross_silo", run_id=run_id, rank=rank, role="server" if rank == 0 else "client",
+                backend=backend, using_gpu=DEV == "cuda", **over, **extra))
+            dev = fedml.get_device(args)
+            if dataset is None:
+                dataset, output_dim = fedml.data.load(args)
+            args.output_dim = output_dim
+            model = fedml.model.create(args, output_dim)
+            check(model.device.type == DEV, f"party {rank}'s model on {model.device}")
+            self.runners[rank] = fedml.FedMLRunner(args, dev, dataset, model)
+        self.dataset = dataset
+
+    @property
+    def server(self):
+        return self.runners[0].runner.server_manager
+
+    def run(self, timeout_s: float = CS_PARTY_TIMEOUT_S) -> float:
+        import threading
+
+        from fedml_tpu_torch.core.distributed.communication.inmemory.broker import InMemoryBroker
+
+        def party(rank):
+            try:
+                self.runners[rank].run()
+            except BaseException as e:  # noqa: BLE001 - reported below; a dead party must not hang the phase
+                self.errors[rank] = repr(e)
+                raise
+
+        threads = [threading.Thread(target=party, args=(r,), daemon=True, name=f"party-{r}")
+                   for r in self.runners]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + timeout_s
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+            check(not t.is_alive(), f"{self.run_id}: {t.name} still running after {timeout_s}s")
+        wall = time.perf_counter() - t0
+        InMemoryBroker.reset(self.run_id)
+        check(not self.errors, f"{self.run_id}: parties failed: {self.errors}")
+        return wall
+
+
+def cross_silo_parity() -> dict:
+    """Phase 10 (a), the gate: round 1 of the 16-silo federation against
+    the sp simulator's round 1 of the same config from the same w_global,
+    cuDNN deterministic and TF32 off. The sp trainer seeds each local round
+    from its call counter unless args.round_idx is set, the cross-silo
+    trainer from the round index: the sp run is given round_idx 0, so both
+    train every client on the same shuffles."""
+    import torch
+
+    uploads, folds = {}, []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+        _, _, model, runner = _fedavg_runner(dict(CROSS_SILO, backend="sp", comm_round=1,
+                                                  round_idx=0), DEV == "cuda")
+        api = runner.runner.fl_trainer
+        sp_p0 = _cpu(model.params)
+        sp = {}
+        aggregate = api.aggregator.aggregate
+
+        def sp_recorded(pairs):
+            out = aggregate(pairs)
+            sp["pairs"], sp["fold"] = [(n, _cpu(t)) for n, t in pairs], _cpu(out)
+            return out
+
+        api.aggregator.aggregate = sp_recorded
+        runner.run()
+        del runner, api, model
+        fed = _Federation(dict(CROSS_SILO, comm_round=1), "smoke_cs_parity")
+        agg = fed.server.aggregator
+        cs_p0 = _cpu(agg.get_global_model_params())
+        add, cs_aggregate = agg.add_local_trained_result, agg.aggregate
+
+        def record_add(index, params, n):
+            uploads[index] = (n, _cpu(params))
+            add(index, params, n)
+
+        def record_aggregate():
+            out = cs_aggregate()
+            folds.append(_cpu(out))
+            return out
+
+        agg.add_local_trained_result, agg.aggregate = record_add, record_aggregate
+        fed.run()
+    check(all(torch.equal(sp_p0[k], cs_p0[k]) for k in sp_p0),
+          "the cross-silo server and the sp simulator started from different params")
+    k = int(CROSS_SILO["client_num_per_round"])
+    check(sorted(uploads) == list(range(k)) and len(sp["pairs"]) == k and len(folds) == 1,
+          f"uploads {sorted(uploads)}, sp clients {len(sp['pairs'])}, folds {len(folds)}")
+    upload_errs = [_of_scale(uploads[i][1], sp["pairs"][i][1]) for i in range(k)]
+    check(all(uploads[i][0] == sp["pairs"][i][0] for i in range(k)), "sample counts differ")
+    fold = folds[0]
+    fold_err = _of_scale(fold, sp["fold"])
+    total = sum(n for n, _ in uploads.values())
+    mean_err = max(((fold[key].double() - sum(n * t[key].double() for n, t in uploads.values())
+                     / total).abs().max() / fold[key].double().abs().max().clamp_min(1e-30)).item()
+                   for key in fold)
+    res = {"uploads_err_of_scale_max": max(upload_errs), "uploads_bit_equal":
+           sum(all(torch.equal(uploads[i][1][key], sp["pairs"][i][1][key]) for key in fold)
+               for i in range(k)),
+           "fold_err_of_scale": fold_err,
+           "fold_bit_equal": all(torch.equal(fold[key], sp["fold"][key]) for key in fold),
+           "fold_vs_f64_mean_of_scale": mean_err}
+    say(f"  parity, round 1 against the sp simulator (TF32 off, deterministic): {res}")
+    check(max(upload_errs) <= CS_UPLOAD_TOL, f"uploads {max(upload_errs):.3g} of scale from sp's")
+    check(fold_err <= CS_FOLD_TOL, f"the fold is {fold_err:.3g} of scale from sp's")
+    check(mean_err <= CS_MEAN_TOL, f"the fold is {mean_err:.3g} from its float64 weighted mean")
+    return res
+
+
+def _cs_round_split(since: int) -> list:
+    """Per round, from the server's and the clients' spans after ``since``:
+    the server.round time and its parts, and the clients' client.train."""
+    from fedml_tpu_torch.core import telemetry as tel
+
+    rows: dict = {}
+    for r in tel.snapshot()["spans"]:
+        if r["seq"] <= since:
+            continue
+        rnd = r.get("attrs", {}).get("round", r.get("trace_round"))
+        if rnd is None:
+            continue
+        row = rows.setdefault(rnd, {"train": []})
+        if r["name"] == "client.train":
+            row["train"].append((r["t0_ns"], r["t0_ns"] + r["dur_ns"]))
+        elif r["name"].startswith("server."):
+            row[r["name"]] = row.get(r["name"], 0.0) + r["dur_ns"] / 1e9
+    out = []
+    for rnd in sorted(rows):
+        row = rows[rnd]
+        parts = {k: row.get(f"server.{k}", 0.0)
+                 for k in ("round", "broadcast", "receive_model", "aggregate", "eval")}
+        out.append({"round": rnd, "round_s": parts["round"], "broadcast_s": parts["broadcast"],
+                    "receive_s": parts["receive_model"], "aggregate_s": parts["aggregate"],
+                    "eval_s": parts["eval"],
+                    "server_wait_s": parts["round"] - parts["broadcast"] - parts["receive_model"]
+                    - parts["aggregate"] - parts["eval"],
+                    "client_train_mean_s": sum(b - a for a, b in row["train"]) / 1e9
+                    / max(1, len(row["train"])),
+                    "client_train_wall_s": (max(b for _, b in row["train"])
+                                            - min(a for a, _ in row["train"])) / 1e9
+                    if row["train"] else 0.0,
+                    "clients": len(row["train"])})
+    return out
+
+
+def cross_silo_timed(sp: dict) -> tuple:
+    """Phase 10 (a), timed: 3 rounds of the 16-silo federation in the port's
+    documented precision, beside phase 7's sp round."""
+    import math
+
+    import torch
+
+    fed = _Federation(CROSS_SILO, "smoke_cs_timed")
+    server = fed.server
+    p0 = _cpu(server.aggregator.get_global_model_params())
+    evals = []
+    test = server.aggregator.test_on_server_for_all_clients
+
+    def recorded(round_idx):
+        m = test(round_idx)
+        if m is not None:
+            evals.append(dict(m))
+        return m
+
+    server.aggregator.test_on_server_for_all_clients = recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    since = _last_span_seq()
+    wall = fed.run()
+    rows = _cs_round_split(since)
+    k = int(CROSS_SILO["client_num_per_round"])
+    check([r["round"] for r in rows] == [0, 1, 2] and all(r["clients"] == k for r in rows),
+          f"rounds {[(r['round'], r['clients']) for r in rows]}")
+    check([m["round"] for m in evals] == [0, 1, 2] and
+          all(math.isfinite(m["test_loss"]) for m in evals), f"evals {evals}")
+    w = server.aggregator.get_global_model_params()
+    check(all(v.device.type == DEV for v in w.values()), "the global params left the card")
+    w = _cpu(w)
+    check(all(torch.isfinite(v).all() for v in w.values()), "w_global not finite")
+    moved = max(float((w[key] - p0[key]).abs().max()) for key in w)
+    check(moved > 0, "w_global did not move")
+    steady = rows[1:]
+    keys = ("round_s", "broadcast_s", "receive_s", "aggregate_s", "eval_s", "server_wait_s",
+            "client_train_mean_s", "client_train_wall_s")
+    mean = {key: sum(r[key] for r in steady) / len(steady) for key in keys}
+    images = sum(fed.dataset[4].values()) * int(CROSS_SILO["epochs"])
+    res = {
+        "config": {key: CROSS_SILO[key] for key in ("client_num_in_total", "client_num_per_round",
+                                                    "comm_round", "batch_size", "learning_rate")},
+        "backend": "INMEMORY", "parties": "server + 16 client threads in one process",
+        "precision": {"params": "float32", "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                      "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32},
+        "round_s_mean_rounds_2_3": mean["round_s"], "rounds_per_hr": 3600.0 / mean["round_s"],
+        "images_per_s": images / mean["round_s"],
+        "split_s_mean_rounds_2_3": {key[:-2]: mean[key] for key in keys if key != "round_s"},
+        "per_round": rows, "test_acc": [m["test_acc"] for m in evals],
+        "test_loss": [m["test_loss"] for m in evals], "w_global_max_move": moved,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "run_wall_s": wall,
+        "sp_phase7": {key: sp.get(key) for key in ("round_s_mean_rounds_2_3", "rounds_per_hr",
+                                                   "images_per_s", "split_s_mean_rounds_2_3",
+                                                   "peak_mem_gb")},
+    }
+    say(f"  ResNet-56, 16 silos x 3 rounds over INMEMORY: {res}")
+    return res, fed
+
+
+def cross_silo_serialized() -> dict:
+    """Phase 10 (a), a diagnostic: the same 16-silo federation with the
+    clients' local rounds taken one at a time (a lock shared by the client
+    threads around each), so the round's excess over the sp round splits
+    into the clients training at once and the rest of the front."""
+    import threading
+
+    fed = _Federation(CROSS_SILO, "smoke_cs_serial")
+    lock = threading.Lock()
+    for rank, runner in fed.runners.items():
+        if rank == 0:
+            continue
+        adapter = runner.runner.client_manager.trainer_dist_adapter
+
+        def locked(round_idx=None, _train=adapter.train):
+            with lock:
+                return _train(round_idx)
+
+        adapter.train = locked
+    since = _last_span_seq()
+    fed.run()
+    rows = _cs_round_split(since)
+    steady = rows[1:]
+    res = {"round_s_mean_rounds_2_3": sum(r["round_s"] for r in steady) / len(steady),
+           "client_train_wall_s_mean_rounds_2_3":
+               sum(r["client_train_wall_s"] for r in steady) / len(steady),
+           "per_round_s": [r["round_s"] for r in rows]}
+    say(f"  the same federation with the local rounds one at a time: {res}")
+    return res
+
+
+def party_main(spec_json: str) -> None:
+    """One party of phase 10 (b), in a process of its own (started by
+    cross_silo_processes): build it through the user's entry points, run
+    it, and print one JSON line of what it saw."""
+    import torch
+
+    spec = json.loads(spec_json)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core import telemetry as tel
+    from fedml_tpu_torch.core.distributed.communication.mqtt_s3.object_store import LocalObjectStore
+
+    store = {"write_s": 0.0, "read_s": 0.0, "writes": 0, "reads": 0, "bytes_written": 0}
+    write_model, read_model = LocalObjectStore.write_model, LocalObjectStore.read_model
+
+    def timed_write(self, key, params):
+        t0 = time.perf_counter()
+        url = write_model(self, key, params)
+        store["write_s"] += time.perf_counter() - t0
+        store["writes"] += 1
+        store["bytes_written"] += os.path.getsize(url[len("file://"):])
+        return url
+
+    def timed_read(self, url):
+        t0 = time.perf_counter()
+        out = read_model(self, url)
+        store["read_s"] += time.perf_counter() - t0
+        store["reads"] += 1
+        return out
+
+    LocalObjectStore.write_model, LocalObjectStore.read_model = timed_write, timed_read
+    args = fedml.init(fedml.default_config("cross_silo", **spec["config"]))
+    dev = fedml.get_device(args)
+    dataset, output_dim = fedml.data.load(args)
+    model = fedml.model.create(args, output_dim)
+    runner = fedml.FedMLRunner(args, dev, dataset, model)
+    t_ready = time.time()
+    metrics = runner.run()
+    out = {"rank": args.rank, "device": str(model.device), "t_ready": t_ready,
+           "t_end": time.time(), "store": store}
+    if args.role == "server":
+        w = runner.runner.server_manager.aggregator.get_global_model_params()
+        out["global_device"] = str(next(iter(w.values())).device)
+        torch.save(_cpu(w), spec["params_out"])
+        out["metrics"] = metrics
+        out["round_s"] = [r["dur_ns"] / 1e9 for r in tel.snapshot()["spans"]
+                          if r["name"] == "server.round"]
+    print(json.dumps(out), flush=True)
+
+
+def cross_silo_processes(tmp: str) -> dict:
+    """Phase 10 (b): a server and 4 client processes over the port's
+    SocketMqttBroker (hosted here) with one shared object store, ResNet-56,
+    2 rounds, cuDNN deterministic and TF32 off; its final params against the
+    same federation run in this process over INMEMORY."""
+    import torch
+
+    from fedml_tpu_torch.core.distributed.communication.mqtt_s3.socket_broker import SocketMqttBroker
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        ref = _Federation(CS_PROCS, "smoke_cs_ref")
+        ref.run()
+        ref_w = _cpu(ref.server.aggregator.get_global_model_params())
+    del ref
+    os.makedirs(tmp, exist_ok=True)
+    broker = SocketMqttBroker(port=0)
+    store_dir = os.path.join(tmp, "object_store")
+    n = int(CS_PROCS["client_num_per_round"])
+    procs, logs, spawned = {}, {}, {}
+    try:
+        for rank in list(range(1, n + 1)) + [0]:  # clients first: the broker keeps the backlog
+            spec = {"config": dict(CS_PROCS, run_id="smoke_cs_procs", rank=rank,
+                                   role="server" if rank == 0 else "client", backend="MQTT_S3",
+                                   mqtt_socket=broker.address, object_store_dir=store_dir,
+                                   using_gpu=DEV == "cuda"),
+                    "params_out": os.path.join(tmp, "server_params.pt")}
+            code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                    f"chip_smoke.party_main({json.dumps(spec)!r})")
+            logs[rank] = (open(os.path.join(tmp, f"party{rank}.out"), "w+"),
+                          open(os.path.join(tmp, f"party{rank}.err"), "w+"))
+            spawned[rank] = time.time()
+            procs[rank] = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                           stdout=logs[rank][0], stderr=logs[rank][1])
+        deadline = time.monotonic() + CS_PARTY_TIMEOUT_S
+        for rank, p in procs.items():
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                check(False, f"party {rank} still running after {CS_PARTY_TIMEOUT_S}s")
+        results = {}
+        for rank, p in procs.items():
+            out, err = logs[rank]
+            out.seek(0)
+            err.seek(0)
+            lines = out.read().strip().splitlines()
+            check(p.returncode == 0 and lines,
+                  f"party {rank} exited {p.returncode}: {err.read()[-3000:]}")
+            results[rank] = json.loads(lines[-1])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in (f for pair in logs.values() for f in pair):
+            f.close()
+        broker.stop()
+    for rank, r in results.items():
+        check(r["device"].startswith(DEV), f"party {rank} ran on {r['device']}")
+    server = results[0]
+    check(server["global_device"].startswith(DEV), f"the server's global on {server['global_device']}")
+    got = torch.load(os.path.join(tmp, "server_params.pt"))
+    err = _of_scale(got, ref_w)
+    rounds = int(CS_PROCS["comm_round"])
+    store = {key: sum(r["store"][key] for r in results.values())
+             for key in ("write_s", "read_s", "writes", "reads", "bytes_written")}
+    res = {
+        "config": {key: CS_PROCS[key] for key in ("client_num_per_round", "comm_round",
+                                                  "batch_size")},
+        "processes": len(results), "backend": "MQTT_S3 over SocketMqttBroker",
+        "final_params_err_of_scale_vs_inmemory": err,
+        "final_params_bit_equal": all(torch.equal(got[key], ref_w[key]) for key in ref_w),
+        "round_s": server["round_s"], "test_acc": server["metrics"]["test_acc"],
+        "payload_bytes_per_round": store["bytes_written"] / rounds,
+        "object_store": {**store, "write_ms_mean": 1e3 * store["write_s"] / max(1, store["writes"]),
+                         "read_ms_mean": 1e3 * store["read_s"] / max(1, store["reads"])},
+        "start_to_ready_s": {str(rank): r["t_ready"] - spawned[rank] for rank, r in results.items()},
+        "start_to_end_s": {str(rank): r["t_end"] - spawned[rank] for rank, r in results.items()},
+    }
+    say(f"  ResNet-56, 4 silos x {rounds} rounds, 5 processes over MQTT_S3: {res}")
+    check(store["writes"] == 2 * n * rounds and store["reads"] == 2 * n * rounds,
+          f"object store writes {store['writes']}, reads {store['reads']}")
+    check(err <= CS_PROC_TOL, f"cross-process final params {err:.3g} of scale from INMEMORY's")
+    return res
+
+
+def cross_silo_wire(fed) -> dict:
+    """Phase 10 (c): the wire at the card boundary. A state dict of card
+    tensors in f32 and bf16 through the wire layout and the codec, bit-exact;
+    the aggregator ingesting a CPU arrival with one host-to-device copy per
+    dtype group."""
+    import torch
+
+    from fedml_tpu_torch.core import telemetry as tel
+    from fedml_tpu_torch.core.distributed.communication.codec import (message_from_bytes,
+                                                                      message_to_bytes)
+    from fedml_tpu_torch.core.distributed.communication.message import Message
+    from fedml_tpu_torch.core.distributed.fedml_comm_manager import (from_wire_layout,
+                                                                     to_wire_layout)
+    from fedml_tpu_torch.utils.pytree import H2D_TRANSFERS
+
+    agg = fed.server.aggregator
+    w = agg.get_global_model_params()
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        src = {key: v.to(dtype) for key, v in w.items()}
+        msg = Message(3, 1, 0)
+        msg.add_params(Message.MSG_ARG_KEY_MODEL_PARAMS, to_wire_layout(src))
+        t0 = time.perf_counter()
+        frame = message_to_bytes(msg)
+        back = from_wire_layout(message_from_bytes(frame).get(Message.MSG_ARG_KEY_MODEL_PARAMS))
+        res[f"{str(dtype)[6:]}_round_trip_ms"] = 1e3 * (time.perf_counter() - t0)
+        res[f"{str(dtype)[6:]}_frame_bytes"] = len(frame)
+        check(sorted(back) == sorted(src), "wire keys differ")
+        check(all(back[key].dtype == dtype and back[key].device.type == "cpu" and
+                  torch.equal(back[key], src[key].cpu()) for key in src),
+              f"the {dtype} state dict did not round-trip bit-exactly")
+    names = list(w)
+    # on the card one copy per dtype group; a CPU server has nothing to copy
+    for label, groups in (("f32", 1), ("f32_bf16", 2)) if DEV == "cuda" else (("f32", 0),):
+        arrival = {key: v.to("cpu", torch.bfloat16 if label == "f32_bf16" and i % 2 else
+                             torch.float32) for i, (key, v) in enumerate(w.items())}
+        before = tel.get_telemetry().counter(H2D_TRANSFERS).value
+        agg.add_local_trained_result(0, arrival, 1)
+        copies = tel.get_telemetry().counter(H2D_TRANSFERS).value - before
+        landed = agg.model_dict.pop(0)
+        agg.flag_client_model_uploaded_dict[0] = False
+        res[f"ingest_{label}_leaves"] = len(names)
+        res[f"ingest_{label}_copies"] = copies
+        check(copies == groups, f"ingesting {label}: {copies} host-to-device copies, want {groups}")
+        check(all(landed[key].device.type == DEV and torch.equal(landed[key].cpu(), arrival[key])
+                  for key in names), f"ingesting {label}: leaves not on the card or changed")
+    say(f"  the wire at the card boundary: {res}")
+    return res
+
+
+def cross_silo_phase(sp: dict) -> dict:
+    """Phase 10: the cross-silo front, (a) in process, (b) across processes,
+    (c) the wire at the card boundary ((d), no flash launch, is main's)."""
+    res = {"parity": cross_silo_parity()}
+    res["inmemory_16"], fed = cross_silo_timed(sp)
+    res["wire"] = cross_silo_wire(fed)
+    del fed
+    res["inmemory_16"]["training_serialized"] = cross_silo_serialized()
+    tmp = os.path.join(ROOT, ".smoke_run", "cross_silo")
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        res["processes_4"] = cross_silo_processes(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1387,7 +1897,23 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the zoo phase launched flash kernels: {zoo_launches}")
 
-    say("== 10. result")
+    say("== 10. cross-silo front (Octopus): ResNet-56 x 16 silos over INMEMORY, 4 silo "
+        "processes over MQTT_S3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    cross_silo = cross_silo_phase(fedavg["resnet56"])
+    cs_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the cross-silo phase: {cs_launches}")
+    # in this process: the parity gate, the timed federation and the wire
+    # checks (the party processes import the same code and run no attention)
+    check(all(n == 0 for n in cs_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the cross-silo phase launched flash kernels: {cs_launches}")
+
+    say("== 11. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1398,6 +1924,8 @@ def main() -> int:
     print(json.dumps({"fedavg": {"card": card, "flash_launches": fedavg_launches,
                                  "vmap_flash_launches": vmap_launches,
                                  "zoo_flash_launches": zoo_launches, **fedavg}}), flush=True)
+    print(json.dumps({"cross_silo": {"card": card, "flash_launches": cs_launches, **cross_silo}}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

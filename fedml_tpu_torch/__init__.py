@@ -20,6 +20,13 @@ package's for the sp FedAvg simulation::
 or the one-liner ``run_simulation(args=args)``; ``backend="vmap"`` runs the
 client-batched simulator, and ``federated_optimizer`` picks FedAvg, FedProx,
 FedOpt, FedNova, SCAFFOLD, FedDyn or Mime on the sp backend.
+
+Cross-silo FedAvg runs one party per ``FedMLRunner``: a config with
+``training_type="cross_silo"``, ``role`` "server" (rank 0) or "client"
+(ranks 1..N) and ``backend`` "INMEMORY" (parties as threads of one process)
+or "MQTT_S3" (over the socket broker, ``mqtt_socket="host:port"``, with one
+shared ``object_store_dir``); ``run_cross_silo_server(args)`` and
+``run_cross_silo_client(args)`` are the one-liners.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ import numpy as np
 
 from . import constants, data
 from .arguments import Arguments, default_config, load_arguments
-from .constants import FEDML_SIMULATION_TYPE_SP, FEDML_TRAINING_PLATFORM_SIMULATION
+from .constants import (FEDML_SIMULATION_TYPE_SP, FEDML_TRAINING_PLATFORM_CROSS_SILO,
+                        FEDML_TRAINING_PLATFORM_SIMULATION)
 from .device import get_device, resolve_device
 from .runner import FedMLRunner
 
@@ -98,6 +106,28 @@ def run_simulation(backend: str = FEDML_SIMULATION_TYPE_SP, args: Optional[Any] 
     return FedMLRunner(args, dev, dataset, mdl).run()
 
 
+def _run_cross_silo(role: str, args: Optional[Any] = None):
+    """One party of a cross-silo federation: init, device, data, model,
+    runner; returns the server's final metrics (None for a client)."""
+    args = args or load_arguments(training_type=FEDML_TRAINING_PLATFORM_CROSS_SILO)
+    args.training_type = FEDML_TRAINING_PLATFORM_CROSS_SILO
+    args.role = role
+    args = init(args)
+    dev = get_device(args)
+    dataset, output_dim = data.load(args)
+    mdl = model.create(args, output_dim, device=dev)
+    return FedMLRunner(args, dev, dataset, mdl).run()
+
+
+def run_cross_silo_server(args: Optional[Any] = None):
+    """Reference: launch_cross_silo_horizontal.py."""
+    return _run_cross_silo("server", args)
+
+
+def run_cross_silo_client(args: Optional[Any] = None):
+    return _run_cross_silo("client", args)
+
+
 __all__ = [
     "Arguments",
     "FedMLRunner",
@@ -110,5 +140,7 @@ __all__ = [
     "load_arguments",
     "model",
     "resolve_device",
+    "run_cross_silo_client",
+    "run_cross_silo_server",
     "run_simulation",
 ]

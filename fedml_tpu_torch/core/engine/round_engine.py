@@ -9,15 +9,18 @@ shared ``Context`` cohort, the eval cadence and the ``engine.rounds`` /
 ``engine.round_seconds`` series. Sampling reproduces the reference's
 ``np.random.seed(round_idx)`` + ``choice`` bit for bit.
 
-Ported: ``sample_cohort``, ``eval_due``, ``RoundResult``,
-``InProcessSequentialStrategy`` (the sp front, with the FedNova, SCAFFOLD and
-Mime control state and payloads), ``VmappedMegabatchStrategy`` and
-``StackedBucketedSink`` (the vmapped front), ``AlgFrameSink`` and
-``RoundEngine.run``. Not ported yet (ROADMAP.md, Queue 1): the grouped,
-remote and pipelined strategies, the hooked and async sinks, the stacked
-sink's per-client middleware branch (the middleware itself is not ported),
-the round checkpointer and chaos knobs, the SLO engine, ``devperf``, the
-flight recorder and the mlops summaries.
+Ported: ``sample_cohort``, ``sample_silos``, ``sample_from_pool``,
+``eval_due``, ``RoundResult``, ``InProcessSequentialStrategy`` (the sp front,
+with the FedNova, SCAFFOLD and Mime control state and payloads),
+``VmappedMegabatchStrategy`` and ``StackedBucketedSink`` (the vmapped front),
+``RemoteCommStrategy`` and ``run_local_round`` (the cross-silo front, with
+its ``server.broadcast`` and ``client.train`` spans), ``AlgFrameSink`` and
+``RoundEngine.run``. Not ported yet (ROADMAP.md, Queue 1): the grouped and
+pipelined strategies, the hooked and async sinks, the stacked sink's
+per-client middleware branch (the middleware itself is not ported), the
+round checkpointer and the chaos knobs (asking for one raises), uplink
+compression, the SLO engine, ``devperf``, the flight recorder and the mlops
+summaries.
 """
 
 from __future__ import annotations
@@ -54,6 +57,26 @@ def sample_cohort(round_idx: int, client_num_in_total: int, client_num_per_round
         client_indexes = np.random.choice(range(client_num_in_total), num_clients, replace=False)
     log.info("client_indexes = %s", client_indexes)
     return list(client_indexes)
+
+
+def sample_silos(round_idx: int, client_num_in_total: int, client_num_per_round: int) -> List[int]:
+    """Silo-index variant (reference fedml_aggregator.data_silo_selection):
+    when every silo participates the ordered range is returned — note the
+    ``>=`` guard, unlike :func:`sample_cohort`'s ``==``."""
+    if client_num_per_round >= client_num_in_total:
+        return list(range(client_num_in_total))
+    np.random.seed(round_idx)
+    return list(np.random.choice(range(client_num_in_total), client_num_per_round, replace=False))
+
+
+def sample_from_pool(round_idx: int, client_id_list_in_total: Sequence[Any], client_num_per_round: int) -> List[Any]:
+    """Sample concrete client ids from an explicit pool (reference
+    fedml_aggregator.client_selection; ``>=`` guard like :func:`sample_silos`
+    so an over-provisioned round returns the whole pool)."""
+    if client_num_per_round >= len(client_id_list_in_total):
+        return list(client_id_list_in_total)
+    np.random.seed(round_idx)
+    return list(np.random.choice(client_id_list_in_total, client_num_per_round, replace=False))
 
 
 def eval_due(round_idx: int, comm_round: int, frequency_of_the_test: int) -> bool:
@@ -155,6 +178,30 @@ class VmappedMegabatchStrategy(ClientExecutionStrategy):
         return RoundResult(stacked=(result.params, weights))
 
 
+class RemoteCommStrategy(ClientExecutionStrategy):
+    """Cross-silo: clients live behind a comm backend. The server half uses
+    :meth:`broadcast` inside a ``server.broadcast`` span to push the global
+    model; arrivals flow back through the comm manager's message handlers,
+    so there is no blocking ``run_round`` (the JAX package's ``collect_fn``
+    variant has no caller)."""
+
+    name = "remote_comm"
+
+    def __init__(self, send_fn: Callable[..., None]):
+        self._send_fn = send_fn
+
+    def broadcast(self, round_idx: int, w_global: StateDict, receiver_ids: Sequence[Any],
+                  silo_indexes: Sequence[Any]) -> None:
+        with tel.span("server.broadcast", round=int(round_idx), receivers=len(receiver_ids)):
+            for idx, receiver_id in enumerate(receiver_ids):
+                self._send_fn(receiver_id, w_global, silo_indexes[idx])
+
+    def run_round(self, round_idx: int, w_global: StateDict, cohort: Sequence[int]) -> RoundResult:
+        raise RuntimeError(
+            "RemoteCommStrategy is broadcast-only: arrivals fold through the comm "
+            "manager's handlers, not a blocking round loop")
+
+
 class AggregationSink(abc.ABC):
     """Where one round's client results fold into the next global model."""
 
@@ -246,3 +293,37 @@ class RoundEngine:
             tel.counter("engine.rounds").add(1)
             tel.histogram("engine.round_seconds").observe(time.perf_counter() - t0)
         return w_global
+
+
+def knob_set(v: Any) -> bool:
+    """A knob counts as set unless it is None, False, 0, "" or "none"."""
+    return v is not None and v is not False and not (isinstance(v, (int, float)) and v == 0) \
+        and str(v).strip().lower() not in ("", "none")
+
+
+def refuse_knobs(args: Any, checks: Sequence[Tuple[str, Callable[[Any], bool]]], what: str) -> None:
+    """Raise NotImplementedError naming every knob of ``checks`` that
+    ``args`` turns on (``(name, is_on)`` pairs); ``what`` says which feature
+    they belong to."""
+    on = [name for name, is_on in checks if is_on(getattr(args, name, None))]
+    if on:
+        raise NotImplementedError(
+            f"{', '.join(on)}: {what} not ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+
+
+def refuse_chaos_knobs(args: Any) -> None:
+    """The JAX package's fault-injection knobs (``chaos_*``: straggler delay,
+    scheduled raise, NaN poison, delta scaling, link throttle, SIGKILL
+    drills) are not ported: setting any raises NotImplementedError."""
+    refuse_knobs(args, [(k, lambda v: v is not None and v is not False)
+                        for k in sorted(vars(args)) if k.startswith("chaos_")],
+                 "the chaos knobs are")
+
+
+def run_local_round(train_fn: Callable[[], Any], args: Any, round_idx: int) -> Any:
+    """Client-side local-round scaffolding: the ``client.train`` span around
+    ``train_fn``. The JAX package's chaos knobs raise
+    (:func:`refuse_chaos_knobs`)."""
+    refuse_chaos_knobs(args)
+    with tel.span("client.train", round=int(round_idx)):
+        return train_fn()

@@ -1,0 +1,9 @@
+"""cross_silo: the cross-silo front ("Octopus"), the counterpart of
+``fedml_tpu/cross_silo``: the synchronous FedAvg server and client managers
+over the message plane. The SecAgg and LightSecAgg fronts are not ported
+(ROADMAP.md, Queue 1)."""
+
+from .fedml_client import Client, FedMLCrossSiloClient
+from .fedml_server import FedMLCrossSiloServer, Server
+
+__all__ = ["Client", "Server", "FedMLCrossSiloClient", "FedMLCrossSiloServer"]

@@ -1,0 +1,151 @@
+"""Server-side aggregation state for cross-silo FL: the synchronous path of
+``fedml_tpu/cross_silo/server/fedml_aggregator.py``.
+
+Reference: ``cross_silo/server/fedml_aggregator.py:13`` (add_local_trained_
+result, check_whether_all_receive, aggregate:78, client sampling + test).
+The aggregation itself delegates to the alg-frame hooks and the bucketed
+fold (the port's ``ServerAggregator``, whose hooks refuse the middleware).
+
+An arrival is ingested at the comm boundary: a state dict of CPU tensors
+(what a byte backend delivers) goes up to the server's device with one
+host-to-device copy per dtype group (``utils/pytree.py`` ``tree_to_device``,
+the counterpart of ``tree_from_numpy``); tensors already on a device (an
+INMEMORY client's upload) pass through.
+
+Not ported, each raising NotImplementedError when its knob is set
+(ROADMAP.md, Queue 1): the server mesh (``server_mesh``), async rounds
+(``async_rounds``), privacy (``privacy``) and modelwatch quarantine
+(``modelwatch_quarantine``). The JAX package also runs modelwatch's
+fold-boundary statistics and the fleet view (``FleetTelemetry``) by default;
+with quarantine off neither changes the fold, and neither is ported.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from ...core import telemetry as tel
+from ...core.alg_frame.context import Context
+from ...core.engine import knob_set, refuse_knobs, sample_from_pool, sample_silos
+from ...utils.pytree import tree_to_device
+
+log = logging.getLogger(__name__)
+
+_KNOBS = (("server_mesh", knob_set), ("async_rounds", knob_set), ("privacy", knob_set),
+          ("modelwatch_quarantine", knob_set))
+
+
+def _float_tensor_leaves_only(tree) -> bool:
+    """True iff ``tree`` is a state dict whose every leaf is a floating
+    tensor: the only payloads ingested eagerly."""
+    if not isinstance(tree, dict) or not tree:
+        return False
+    return all(isinstance(v, torch.Tensor) and v.is_floating_point() for v in tree.values())
+
+
+class FedMLAggregator:
+    def __init__(
+        self,
+        train_global,
+        test_global,
+        all_train_data_num,
+        train_data_local_dict,
+        test_data_local_dict,
+        train_data_local_num_dict,
+        client_num: int,
+        device,
+        args: Any,
+        server_aggregator,
+    ):
+        refuse_knobs(args, _KNOBS, "the server mesh, async rounds, privacy and modelwatch are")
+        if os.environ.get("FEDML_SERVER_MESH", "").strip():
+            raise NotImplementedError(
+                "FEDML_SERVER_MESH: the server mesh is not ported to fedml_tpu_torch yet "
+                "(see ROADMAP.md, Queue 1)")
+        self.aggregator = server_aggregator
+        self.args = args
+        self.train_global = train_global
+        self.test_global = test_global
+        self.all_train_data_num = all_train_data_num
+        self.train_data_local_dict = train_data_local_dict
+        self.test_data_local_dict = test_data_local_dict
+        self.train_data_local_num_dict = train_data_local_num_dict
+        self.client_num = client_num
+        self.device = torch.device(device)
+        self.model_dict: Dict[int, Any] = {}
+        self.sample_num_dict: Dict[int, float] = {}
+        self.flag_client_model_uploaded_dict = {i: False for i in range(client_num)}
+        Context().add(Context.KEY_TEST_DATA, test_global)
+
+    def get_global_model_params(self):
+        return self.aggregator.get_model_params()
+
+    def set_global_model_params(self, model_parameters) -> None:
+        self.aggregator.set_model_params(model_parameters)
+
+    def add_local_trained_result(self, index: int, model_params, sample_num) -> None:
+        log.info("add_model. index = %d", index)
+        if _float_tensor_leaves_only(model_params):
+            # the fold flattens each state dict in its own key order: put an
+            # arrival from the wire (flax orders keys by name) in the
+            # global's order
+            ref = self.get_global_model_params()
+            if list(model_params) != list(ref):
+                if sorted(model_params) != sorted(ref):
+                    raise ValueError(
+                        f"client {index}'s upload has other parameters than the global model: "
+                        f"{sorted(set(model_params) ^ set(ref))[:4]}")
+                model_params = {k: model_params[k] for k in ref}
+            # ONE host-to-device copy per dtype group, not one per leaf, so
+            # the fold reads device-resident state dicts
+            model_params = tree_to_device(model_params, self.device)
+        self.model_dict[index] = model_params
+        self.sample_num_dict[index] = sample_num
+        self.flag_client_model_uploaded_dict[index] = True
+
+    def check_whether_all_receive(self) -> bool:
+        if all(self.flag_client_model_uploaded_dict.get(i, False) for i in range(self.client_num)):
+            for i in range(self.client_num):
+                self.flag_client_model_uploaded_dict[i] = False
+            return True
+        return False
+
+    def aggregate(self):
+        start = time.perf_counter()
+        with tel.span("server.aggregate", k=len(self.model_dict)):
+            Context().add("client_indexes_of_round", sorted(self.model_dict))
+            model_list = [(self.sample_num_dict[i], self.model_dict[i]) for i in sorted(self.model_dict)]
+            model_list = self.aggregator.on_before_aggregation(model_list)
+            Context().add(Context.KEY_CLIENT_MODEL_LIST, model_list)
+            averaged = self.aggregator.aggregate(model_list)
+            averaged = self.aggregator.on_after_aggregation(averaged)
+            self.set_global_model_params(averaged)
+            self.aggregator.assess_contribution()
+            self.model_dict.clear()
+        dt = time.perf_counter() - start
+        tel.histogram("server.aggregate_seconds").observe(dt)
+        log.info("aggregate time cost: %.3fs", dt)
+        return averaged
+
+    def data_silo_selection(self, round_idx: int, client_num_in_total: int, client_num_per_round: int) -> List[int]:
+        """reference fedml_aggregator.py data_silo_selection — sample which
+        data silos the online clients should train on this round."""
+        return sample_silos(round_idx, client_num_in_total, client_num_per_round)
+
+    def client_selection(self, round_idx: int, client_id_list_in_total: List[int], client_num_per_round: int) -> List[int]:
+        return sample_from_pool(round_idx, client_id_list_in_total, client_num_per_round)
+
+    def test_on_server_for_all_clients(self, round_idx: int) -> Optional[Dict[str, float]]:
+        freq = int(getattr(self.args, "frequency_of_the_test", 5))
+        comm_round = int(getattr(self.args, "comm_round", 10))
+        if round_idx % max(freq, 1) != 0 and round_idx != comm_round - 1:
+            return None
+        metrics = self.aggregator.test(self.test_global, self.device, self.args)
+        metrics["round"] = round_idx
+        log.info("server test round %d: %s", round_idx, metrics)
+        return metrics

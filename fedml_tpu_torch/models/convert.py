@@ -17,7 +17,14 @@ scales ``[D]`` (flax's GroupNorm ``scale``/``bias`` are the port's
 GroupNorm's own names, models/layers.py), biases, and the LoRA factors
 (``lora_a [in, r]``, ``lora_b [r, out]``). The adapter subtree
 (``layer_i/attn/q_proj/lora_a``, ...) is the WAN wire layout, so a JAX
-server can fold adapters trained here.
+server can fold adapters trained here; the cross-silo message plane sends
+every model payload that leaves the process in this layout
+(``core/distributed/fedml_comm_manager.py``).
+
+Leaves are numpy arrays, except bfloat16 ones: numpy has no bfloat16 without
+``ml_dtypes`` (a JAX dependency the port does not load), so those stay CPU
+tensors in the flax layout, and the wire codec carries them bit-exactly.
+``params_from_jax`` takes numpy arrays and tensors alike.
 """
 
 from __future__ import annotations
@@ -29,12 +36,12 @@ import torch
 from torch import nn
 
 
-def _kernel_to_torch(arr: np.ndarray) -> np.ndarray:
-    return arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+def _kernel_to_torch(t: torch.Tensor) -> torch.Tensor:
+    return t.T if t.ndim == 2 else t.permute(3, 2, 0, 1)
 
 
-def _weight_to_flax(arr: np.ndarray) -> np.ndarray:
-    return arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+def _weight_to_flax(t: torch.Tensor) -> torch.Tensor:
+    return t.T if t.ndim == 2 else t.permute(2, 3, 1, 0)
 
 
 def _torch_name(path) -> str:
@@ -43,8 +50,9 @@ def _torch_name(path) -> str:
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Nested dict of numpy arrays (flax layout) -> the port's state dict.
-    Works on a partial tree (e.g. adapters only)."""
+    """Nested dict of numpy arrays or tensors (flax layout) -> the port's
+    state dict of CPU tensors. Works on a partial tree (e.g. adapters
+    only)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -52,11 +60,16 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             if isinstance(v, Mapping):
                 walk(v, path + [k])
                 continue
-            arr = np.asarray(v)
+            if isinstance(v, torch.Tensor):
+                t = v.detach().cpu()
+            else:
+                arr = np.array(v)  # writable: JAX hands out read-only arrays
+                t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) \
+                    if arr.dtype.name == "bfloat16" else torch.from_numpy(arr)
             if k == "kernel":
-                arr = _kernel_to_torch(arr)
-            # a C-ordered copy: JAX hands out read-only arrays
-            out[_torch_name(path + [k])] = torch.from_numpy(np.array(arr, order="C"))
+                t = _kernel_to_torch(t)
+            # a contiguous copy that shares no storage with the input
+            out[_torch_name(path + [k])] = t.clone(memory_format=torch.contiguous_format)
 
     walk(tree, [])
     return out
@@ -64,16 +77,18 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 def params_to_jax(model: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict:
     """The port's model (or a state dict, or part of one) -> nested dict of
-    numpy arrays in the flax layout."""
+    numpy arrays (bfloat16: CPU tensors) in the flax layout."""
     state = model.state_dict() if isinstance(model, nn.Module) else model
     out: Dict = {}
     for name, t in state.items():
         *head, leaf = name.split(".")
-        arr = t.detach().cpu().numpy()
+        t = t.detach().cpu()
         if leaf == "weight":
-            leaf, arr = "kernel", _weight_to_flax(arr)
+            leaf, t = "kernel", _weight_to_flax(t)
+        # a contiguous copy that shares no storage with the model
+        t = t.clone(memory_format=torch.contiguous_format)
         node = out
         for k in head:
             node = node.setdefault(k, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = t if t.dtype == torch.bfloat16 else t.numpy()
     return out

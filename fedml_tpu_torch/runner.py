@@ -1,21 +1,22 @@
 """Runner dispatch: counterpart of ``fedml_tpu/runner.py`` (reference
 ``python/fedml/runner.py:19``). The port runs the ``sp`` and ``vmap``
-simulations; the other simulation backends (NCCL, MPI), cross-silo,
-cross-cloud, cross-device and placement plans raise NotImplementedError
-(ROADMAP.md, Queue 1)."""
+simulations and the cross-silo front (``training_type: cross_silo``,
+dispatched by ``role``); the other simulation backends (NCCL, MPI),
+cross-silo secure aggregation, cross-cloud, cross-device and placement plans
+raise NotImplementedError (ROADMAP.md, Queue 1)."""
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
 from .constants import (FEDML_SIMULATION_TYPE_SP, FEDML_SIMULATION_TYPE_VMAP,
-                        FEDML_TRAINING_PLATFORM_SIMULATION)
+                        FEDML_TRAINING_PLATFORM_CROSS_SILO, FEDML_TRAINING_PLATFORM_SIMULATION)
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to fedml_tpu_torch yet; the port runs the sp "
-        "and vmap simulations (see ROADMAP.md, Queue 1)")
+        f"{what} is not ported to fedml_tpu_torch yet; the port runs the sp and vmap "
+        "simulations and cross-silo FedAvg (see ROADMAP.md, Queue 1)")
 
 
 class FedMLRunner:
@@ -31,8 +32,17 @@ class FedMLRunner:
         self.args = args
         if getattr(args, "placement", None):
             raise _not_ported("placement")
-        if args.training_type != FEDML_TRAINING_PLATFORM_SIMULATION:
+        if args.training_type == FEDML_TRAINING_PLATFORM_SIMULATION:
+            self.runner = self._init_simulation_runner(
+                args, device, dataset, model, client_trainer, server_aggregator)
+        elif args.training_type == FEDML_TRAINING_PLATFORM_CROSS_SILO:
+            self.runner = self._init_cross_silo_runner(
+                args, device, dataset, model, client_trainer, server_aggregator)
+        else:
             raise _not_ported(f"training_type {args.training_type!r}")
+
+    @staticmethod
+    def _init_simulation_runner(args, device, dataset, model, client_trainer, server_aggregator):
         backend = getattr(args, "backend", FEDML_SIMULATION_TYPE_SP)
         if backend == FEDML_SIMULATION_TYPE_SP:
             from .simulation.simulator import SimulatorSingleProcess as Simulator
@@ -40,7 +50,23 @@ class FedMLRunner:
             from .simulation.simulator import SimulatorVmap as Simulator
         else:
             raise _not_ported(f"simulation backend {backend!r}")
-        self.runner = Simulator(args, device, dataset, model, client_trainer, server_aggregator)
+        return Simulator(args, device, dataset, model, client_trainer, server_aggregator)
+
+    @staticmethod
+    def _init_cross_silo_runner(args, device, dataset, model, client_trainer, server_aggregator):
+        role = getattr(args, "role", "client")
+        secure = str(getattr(args, "secure_aggregation", "") or "").lower()
+        if secure in ("lightsecagg", "lsa", "secagg", "sa"):
+            raise _not_ported(f"secure_aggregation {secure!r} (the SecAgg and LightSecAgg fronts)")
+        if role == "client":
+            from .cross_silo.fedml_client import FedMLCrossSiloClient
+
+            return FedMLCrossSiloClient(args, device, dataset, model, client_trainer)
+        if role == "server":
+            from .cross_silo.fedml_server import FedMLCrossSiloServer
+
+            return FedMLCrossSiloServer(args, device, dataset, model, server_aggregator)
+        raise ValueError(f"unknown role {role!r}")
 
     def run(self):
         return self.runner.run()

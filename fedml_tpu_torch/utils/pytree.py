@@ -7,7 +7,8 @@ built from these helpers. The weighted average delegates to the bucketed
 fold (``core/aggregation/bucketed.py``), as in the JAX package.
 
 A state dict's order is its module's registration order; the flat vector
-keeps that order. ``models/convert.py`` maps a state dict to and from the
+keeps that order. :func:`tree_to_device` is the counterpart of the JAX
+package's ``tree_from_numpy``: host leaves go up in one copy per dtype group. ``models/convert.py`` maps a state dict to and from the
 flax layout (the JAX package's wire layout).
 """
 
@@ -16,6 +17,12 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+
+from ..core import telemetry as tel
+
+# the JAX package's transfer counters (core/telemetry/jax_hooks.py)
+H2D_TRANSFERS = "comm.host_to_device_transfers"
+H2D_BYTES = "comm.host_to_device_bytes"
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -78,4 +85,29 @@ def tree_unflatten_from_vector(flat: torch.Tensor, spec) -> StateDict:
         size = shape.numel()
         out[name] = flat[off:off + size].reshape(shape).to(dtype)
         off += size
+    return out
+
+
+def tree_to_device(a: StateDict, device) -> StateDict:
+    """``a`` with its CPU tensors on ``device``, moved with ONE host-to-device
+    copy per dtype group (not one per leaf): each group is concatenated on
+    the host, copied up, and split into views of the one device buffer.
+    Tensors already on a device, and every leaf when ``device`` is the CPU,
+    pass through. Each copy bumps ``comm.host_to_device_transfers`` and
+    ``comm.host_to_device_bytes``."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return a
+    out = dict(a)
+    groups: Dict[torch.dtype, List[str]] = {}
+    for k, v in a.items():
+        if isinstance(v, torch.Tensor) and v.device.type == "cpu":
+            groups.setdefault(v.dtype, []).append(k)
+    for dtype, names in groups.items():
+        flat_host = torch.cat([a[k].reshape(-1) for k in names])
+        flat = flat_host.to(device)
+        tel.counter(H2D_TRANSFERS).add(1)
+        tel.counter(H2D_BYTES).add(flat_host.numel() * flat_host.element_size())
+        for k, part in zip(names, torch.split(flat, [a[k].numel() for k in names])):
+            out[k] = part.view(a[k].shape)
     return out

@@ -1,0 +1,436 @@
+"""The port's cross-silo front against the JAX package's, on the CPU.
+
+Each federation runs every party (server rank 0, clients 1..N) as a thread
+of this process through FedMLRunner, over its own run_id; every thread is
+joined within JOIN_S and a party still alive fails the test. Tolerances:
+
+- the port against JAX, LR on the synthetic set (tests/test_cross_silo.py's
+  shape: 2 clients, 2 rounds, INMEMORY), the port's server starting from the
+  JAX server's initial params: each round's test_loss within rtol 1e-5 and
+  test_correct within 1 of 24, the final params within 1e-5 of their scale
+  (Parrot config 1's parity level; measured 1.6e-7, test_loss 4.7e-8);
+- a small CNN (CNNCifar) in float64 on both sides, as the vmapped
+  simulator's ResNet parity tests run (f32 noise of the training dynamics
+  would hide a fault), 2 clients, 2 rounds, momentum SGD with weight decay:
+  test_loss within rtol 1e-7 and test_correct equal, the final params'
+  update within 5e-5 of JAX's (those tests' limits; both folds accumulate in
+  f32, and here they meet exactly: measured 0.0, test_loss equal);
+- the port against itself: cross-silo against the sp simulator (with the sp
+  trainer's seed rule pinned to the round index, as the cross-silo trainer's
+  is) and MQTT_S3 against INMEMORY, bit for bit;
+- a JAX server with two port clients over a JAX socket broker: its final
+  params within 1e-5 of their scale of the all-JAX run's.
+"""
+
+import copy
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fedml_tpu
+import fedml_tpu_torch
+from fedml_tpu.core.distributed.communication.inmemory.broker import InMemoryBroker as JBroker
+from fedml_tpu.core.distributed.communication.mqtt_s3.socket_broker import SocketMqttBroker
+from fedml_tpu.data import data_loader as jloader
+from fedml_tpu.data.dataset import ArrayDataset as JArrayDataset
+from fedml_tpu_torch.core import telemetry as tel
+from fedml_tpu_torch.core.distributed.communication.inmemory.broker import InMemoryBroker
+from fedml_tpu_torch.core.distributed.communication.mqtt_s3.mqtt_transport import LocalMqttBroker
+from fedml_tpu_torch.data import data_loader as tloader
+from fedml_tpu_torch.data.dataset import ArrayDataset as TArrayDataset
+from fedml_tpu_torch.models.convert import params_from_jax, params_to_jax
+
+JOIN_S = 120
+
+LR = dict(client_num_in_total=2, client_num_per_round=2, comm_round=2, epochs=1,
+          batch_size=16, frequency_of_the_test=1, dataset="synthetic", model="lr",
+          random_seed=0, scenario="horizontal", data_cache_dir="")
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Several parties train at once in each federation; under several test
+    workers a pool of threads in each only spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _leaves(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        out.update(_leaves(v, prefix + (k,)) if isinstance(v, dict) else {prefix + (k,): v})
+    return out
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _max_err_of_scale(got, ref):
+    g, r = _leaves(got), _leaves(ref)
+    assert sorted(g) == sorted(r)
+    return max(float(np.abs(_np(g[k]).astype(np.float64) - _np(r[k])).max()
+                     / np.abs(_np(r[k])).max()) for k in r)
+
+
+class Federation:
+    """Build every party's runner through the package's own entry points
+    (init, get_device, data.load, model.create, FedMLRunner), then run them
+    as threads. ``load(args)`` replaces ``data.load``; ``prepare(role, rank,
+    args, dataset, model)`` may swap the model before the runner is built."""
+
+    def __init__(self, pkg, run_id, kw, backend="INMEMORY", roles=None, prepare=None, load=None):
+        self.pkg, self.results, self.errors = pkg, {}, {}
+        n = int(kw["client_num_per_round"])
+        self.runners = {}
+        for rank in range(n + 1):
+            role = "server" if rank == 0 else "client"
+            if roles is not None and roles.get(rank, pkg) is not pkg:
+                continue
+            over = dict(kw, run_id=run_id, rank=rank, role=role, backend=backend)
+            if pkg is fedml_tpu_torch:
+                over["using_gpu"] = False
+            args = pkg.init(pkg.default_config("cross_silo", **over))
+            dev = pkg.device.get_device(args) if pkg is fedml_tpu else pkg.get_device(args)
+            dataset, output_dim = (load or pkg.data.load)(args)
+            model = pkg.model.create(args, output_dim) if pkg is fedml_tpu else \
+                pkg.model.create(args, output_dim, device=dev)
+            if prepare is not None:
+                dataset, model = prepare(role, rank, args, dataset, model)
+            self.runners[rank] = pkg.FedMLRunner(args, dev, dataset, model)
+
+    @property
+    def server(self):
+        return self.runners[0].runner.server_manager
+
+    def client_trainer(self, rank):
+        return self.runners[rank].runner.client_manager.trainer_dist_adapter.trainer.trainer
+
+    def _party(self, rank):
+        try:
+            self.results[rank] = self.runners[rank].run()
+        except BaseException as e:  # reported by run(); the thread must not hang the test
+            self.errors[rank] = e
+            raise
+
+    def run(self, others=()):
+        threads = [threading.Thread(target=self._party, args=(r,), daemon=True,
+                                    name=f"party-{r}") for r in self.runners]
+        for t in list(threads) + list(others):
+            t.start()
+        for t in list(threads) + list(others):
+            t.join(JOIN_S)
+            assert not t.is_alive(), f"{t.name} still running after {JOIN_S}s: deadlock"
+        assert not self.errors, self.errors
+        return self
+
+
+def _record_evals(fed):
+    """Every server eval's metrics, by round."""
+    agg = fed.server.aggregator
+    hist = []
+    test = agg.test_on_server_for_all_clients
+
+    def recorded(round_idx):
+        m = test(round_idx)
+        if m is not None:
+            hist.append(dict(m))
+        return m
+
+    agg.test_on_server_for_all_clients = recorded
+    return hist
+
+
+def _global(fed):
+    return fed.server.aggregator.get_global_model_params()
+
+
+def _jax_p0(kw):
+    args = fedml_tpu.init(fedml_tpu.default_config("cross_silo", **kw))
+    _, output_dim = fedml_tpu.data.load(args)
+    return jax.device_get(fedml_tpu.model.create(args, output_dim).params)
+
+
+def _from_jax_params(p0, dtype=None):
+    def prepare(role, rank, args, dataset, model):
+        model.module.load_state_dict(params_from_jax(p0))
+        if dtype is not None:
+            model.module.to(dtype)
+        model.params = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+        return dataset, model
+    return prepare
+
+
+def _assert_hist_close(got, ref, rtol, acc_slack):
+    assert [m["round"] for m in got] == [m["round"] for m in ref] == [0, 1]
+    for g, r in zip(got, ref):
+        assert g["test_total"] == r["test_total"]
+        np.testing.assert_allclose(g["test_loss"], r["test_loss"], rtol=rtol)
+        assert abs(g["test_correct"] - r["test_correct"]) <= acc_slack, (g, r)
+
+
+def _run_jax(run_id, kw, backend="INMEMORY", prepare=None, load=None):
+    JBroker.reset(run_id)
+    fed = Federation(fedml_tpu, run_id, kw, backend=backend, prepare=prepare, load=load)
+    hist = _record_evals(fed)
+    fed.run()
+    JBroker.reset(run_id)
+    return fed, hist, jax.device_get(_global(fed))
+
+
+def _run_port(run_id, kw, backend="INMEMORY", prepare=None, load=None):
+    InMemoryBroker.reset(run_id)
+    LocalMqttBroker.reset(run_id)
+    fed = Federation(fedml_tpu_torch, run_id, kw, backend=backend, prepare=prepare, load=load)
+    hist = _record_evals(fed)
+    fed.run()
+    InMemoryBroker.reset(run_id)
+    LocalMqttBroker.reset(run_id)
+    return fed, hist, {k: v.detach().clone() for k, v in _global(fed).items()}
+
+
+def test_lr_federation_tracks_jax_round_by_round():
+    p0 = _jax_p0(LR)
+    _, ref_hist, ref_w = _run_jax("tcs_jax_lr", LR)
+    fed, hist, w = _run_port("tcs_port_lr", LR, prepare=_from_jax_params(p0))
+    _assert_hist_close(hist, ref_hist, rtol=1e-5, acc_slack=1)
+    assert fed.server.final_metrics == hist[-1]
+    assert _max_err_of_scale(params_to_jax(w), ref_w) <= 1e-5
+    for k, v in w.items():
+        assert v.device.type == "cpu" and v.dtype == torch.float32, k
+
+
+def _small_cifar_f64(load, ds_cls, args):
+    """A loader for the parties: the CIFAR-10 surrogate in 2 hetero shards
+    cut to their first 24 examples (a full and a part-masked batch), the
+    test set to 64 (a cut of scale, for CPU time); images in float64. Loaded
+    once, handed to every party."""
+    d = load(args)
+    local = {c: ds_cls(s.x[:24].astype(np.float64), s.y[:24]) for c, s in d[5].items()}
+    test = ds_cls(d[3].x[:64].astype(np.float64), d[3].y[:64])
+    data = (sum(len(s) for s in local.values()), 64, d[2], test,
+            {c: len(s) for c, s in local.items()}, local, {c: test for c in local}, d[7])
+    return lambda party_args: (data, d[7])
+
+
+def test_cnn_federation_in_float64_tracks_jax():
+    kw = dict(LR, dataset="cifar10", model="cnn_cifar", partition_method="hetero",
+              partition_alpha=0.5, learning_rate=0.01, momentum=0.9, weight_decay=5e-4)
+    p0 = _jax_p0(kw)
+
+    def jprep(role, rank, args, dataset, model):
+        model.params = jax.tree.map(lambda leaf: jnp.asarray(leaf, jnp.float64), p0)
+        return dataset, model
+
+    jload = _small_cifar_f64(jloader.load, JArrayDataset, fedml_tpu.default_config("cross_silo", **kw))
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)  # global: the parties run on their own threads
+    try:
+        _, ref_hist, ref_w = _run_jax("tcs_jax_cnn", kw, prepare=jprep, load=jload)
+    finally:
+        jax.config.update("jax_enable_x64", prev)
+    tload = _small_cifar_f64(tloader.load, TArrayDataset,
+                             fedml_tpu_torch.default_config("cross_silo", **kw))
+    _, hist, w = _run_port("tcs_port_cnn", kw, prepare=_from_jax_params(p0, torch.float64),
+                           load=tload)
+    assert all(v.dtype == torch.float64 for v in w.values())
+    assert [m["round"] for m in hist] == [m["round"] for m in ref_hist] == [0, 1]
+    for g, r in zip(hist, ref_hist):
+        assert g["test_total"] == r["test_total"] and g["test_correct"] == r["test_correct"]
+        np.testing.assert_allclose(g["test_loss"], r["test_loss"], rtol=1e-7)
+    g, r, s = _leaves(params_to_jax(w)), _leaves(ref_w), _leaves(p0)
+    num = sum(float(np.sum((np.asarray(g[k], np.float64) - np.asarray(r[k], np.float64)) ** 2))
+              for k in r)
+    den = sum(float(np.sum((np.asarray(r[k], np.float64) - np.asarray(s[k], np.float64)) ** 2))
+              for k in r)
+    assert den > 0 and (num / den) ** 0.5 <= 5e-5
+
+
+def test_cross_silo_equals_the_sp_simulator():
+    """Full cohort, same seed: the sp simulator's trainer seeds each local
+    round from its own call counter unless args.round_idx is set, and the
+    cross-silo trainer sets it to the round index; with the sp side's
+    round_idx pinned to the round, both runs train the same steps on the same
+    data from the same params, and the final params are equal bit for bit."""
+    _, hist, w = _run_port("tcs_port_vs_sp", LR)
+    args = fedml_tpu_torch.init(fedml_tpu_torch.default_config(
+        "simulation", **dict(LR, backend="sp", using_gpu=False)))
+    dataset, output_dim = fedml_tpu_torch.data.load(args)
+    model = fedml_tpu_torch.model.create(args, output_dim, device="cpu")
+    runner = fedml_tpu_torch.FedMLRunner(args, torch.device("cpu"), dataset, model)
+    api = runner.runner.fl_trainer
+    sample = api._client_sampling
+
+    def pinned(round_idx, total, per_round):
+        args.round_idx = round_idx
+        return sample(round_idx, total, per_round)
+
+    api._client_sampling = pinned
+    runner.run()
+    sp_w = api.model_trainer.get_model_params()
+    assert list(sp_w) == list(w)
+    for k in w:
+        assert torch.equal(sp_w[k], w[k]), k
+    assert [{k: m[k] for k in ("round", "test_loss", "test_correct")} for m in api.metrics_history] \
+        == [{k: m[k] for k in ("round", "test_loss", "test_correct")} for m in hist]
+
+
+def test_mqtt_s3_equals_inmemory(tmp_path):
+    """The transport is invisible: the same seeded run over MQTT_S3 (the
+    local broker, the object store, the wire layout both ways) and over
+    INMEMORY gives equal metrics and params, bit for bit."""
+    _, hist_a, wa = _run_port("tcs_det_a", LR)
+    kw = dict(LR, object_store_dir=str(tmp_path / "store"))
+    fed, hist_b, wb = _run_port("tcs_det_b", kw, backend="MQTT_S3")
+    assert hist_a == hist_b
+    assert list(wa) == list(wb) and all(torch.equal(wa[k], wb[k]) for k in wa)
+    assert len(list((tmp_path / "store").iterdir())) == 2 * 2 + 2 * 2  # 2 rounds x (2 down + 2 up)
+
+
+def test_jax_server_with_port_clients_over_the_socket_broker(tmp_path):
+    """A JAX server and two port clients, each a thread, over a JAX
+    SocketMqttBroker with one shared object store: the run completes and its
+    final params match the all-JAX run of the same config."""
+    _, _, ref_w = _run_jax("tcs_mixed_ref", LR)
+    broker = SocketMqttBroker(port=0)
+    try:
+        kw = dict(LR, mqtt_socket=broker.address, object_store_dir=str(tmp_path / "store"))
+        jfed = Federation(fedml_tpu, "tcs_mixed", kw, backend="MQTT_S3", roles={1: None, 2: None})
+        tfed = Federation(fedml_tpu_torch, "tcs_mixed", kw, backend="MQTT_S3", roles={0: None})
+        assert sorted(jfed.runners) == [0] and sorted(tfed.runners) == [1, 2]
+        clients = [threading.Thread(target=tfed._party, args=(r,), daemon=True, name=f"port-{r}")
+                   for r in tfed.runners]
+        jfed.run(others=clients)
+        assert not tfed.errors, tfed.errors
+    finally:
+        broker.stop()
+    assert jfed.server.final_metrics["round"] == 1
+    got = jax.device_get(_global(jfed))
+    assert _max_err_of_scale(got, ref_w) <= 1e-5
+
+
+def test_no_payload_aliases_a_module_and_the_global_stays_put():
+    """INMEMORY hands state dicts over by reference. After a round: no
+    client's upload shares storage with its module's parameters, and the
+    global the server broadcast (each client holds it by reference) is bit
+    for bit what the fold made, after the clients' next local training."""
+    InMemoryBroker.reset("tcs_alias")
+    fed = Federation(fedml_tpu_torch, "tcs_alias", LR)
+    agg = fed.server.aggregator
+    uploads, globals_ = [], []
+    add, aggregate = agg.add_local_trained_result, agg.aggregate
+
+    def record_add(index, params, n):
+        uploads.append((index, params))
+        add(index, params, n)
+
+    def record_aggregate():
+        out = aggregate()
+        globals_.append((out, {k: v.clone() for k, v in out.items()}))
+        return out
+
+    agg.add_local_trained_result, agg.aggregate = record_add, record_aggregate
+    fed.run()
+    InMemoryBroker.reset("tcs_alias")
+    assert len(uploads) == 4 and len(globals_) == 2
+    ptrs = {r: {p.untyped_storage().data_ptr()
+                for p in fed.client_trainer(r).model.module.parameters()} for r in (1, 2)}
+    for index, params in uploads:
+        assert not {v.untyped_storage().data_ptr() for v in params.values()} & ptrs[index + 1]
+    round0, frozen = globals_[0]  # broadcast for round 1, trained from by both clients
+    assert all(torch.equal(round0[k], frozen[k]) for k in frozen)
+    assert any(not torch.equal(round0[k], globals_[1][0][k]) for k in frozen)
+
+
+def test_cross_silo_spans_per_role():
+    """The server's round spans and the clients' train spans, read per
+    thread: one server.round, server.aggregate and server.eval per round, a
+    server.broadcast per round after the first, and one client.train per
+    client and round on that client's own thread."""
+    since = max((r["seq"] for r in tel.snapshot()["spans"]), default=0)
+    _run_port("tcs_spans", LR)
+    spans = [r for r in tel.snapshot()["spans"] if r["seq"] > since]
+    by_name = {}
+    for r in spans:
+        by_name.setdefault(r["name"], []).append(r)
+    for name, n in (("server.round", 2), ("server.aggregate", 2), ("server.eval", 2),
+                    ("server.broadcast", 1), ("server.receive_model", 4),
+                    ("client.train", 4), ("client.upload", 4)):
+        assert len(by_name.get(name, [])) == n, (name, len(by_name.get(name, [])))
+    server_tids = {r["tid"] for r in by_name["server.aggregate"]}
+    train_tids = {r["tid"] for r in by_name["client.train"]}
+    assert len(server_tids) == 1 and len(train_tids) == 2 and not server_tids & train_tids
+    # the clients' spans carry the server's round trace
+    assert {r.get("trace_round") for r in by_name["client.train"]} == {0, 1}
+
+
+def test_arrivals_take_the_globals_key_order():
+    """The fold flattens each state dict in its own key order, and a wire
+    arrival comes in flax's (by name): the aggregator puts it in the
+    global's order at ingest, values untouched, and refuses an arrival with
+    other parameters."""
+    InMemoryBroker.reset("tcs_order")
+    fed = Federation(fedml_tpu_torch, "tcs_order", LR)
+    agg = fed.server.aggregator
+    ref = agg.get_global_model_params()
+    arrival = {k: v.clone() + 1.0 for k, v in reversed(list(ref.items()))}
+    agg.add_local_trained_result(0, arrival, 10)
+    got = agg.model_dict[0]
+    assert list(got) == list(ref) != list(arrival)
+    assert all(torch.equal(got[k], arrival[k]) for k in ref)
+    with pytest.raises(ValueError, match="other parameters"):
+        agg.add_local_trained_result(1, {"linear.weight": ref["linear.weight"]}, 10)
+    InMemoryBroker.reset("tcs_order")
+
+
+# --- what is not ported raises ---------------------------------------------------
+
+GATES = {
+    "async_rounds": ("server", dict(async_rounds=True)),
+    "privacy": ("server", dict(privacy="dp")),
+    "privacy_client": ("client", dict(privacy="secagg")),
+    "secure_aggregation_secagg": ("server", dict(secure_aggregation="secagg")),
+    "secure_aggregation_lsa": ("client", dict(secure_aggregation="lsa")),
+    "comm_compressor": ("client", dict(comm_compressor="eftopk")),
+    "scenario_hierarchical": ("client", dict(scenario="hierarchical")),
+    "quorum": ("server", dict(quorum_frac=0.5)),
+    "round_deadline": ("server", dict(round_deadline_s=5.0)),
+    "overprovision": ("server", dict(overprovision_frac=0.5)),
+    "resilience_dir": ("server", dict(resilience_dir="rs")),
+    "link_probe_interval_s": ("server", dict(link_probe_interval_s=1.0)),
+    "link_wan_health": ("server", dict(link_wan_health=True)),
+    "statusz": ("server", dict(statusz_port=0)),
+    "slo": ("server", dict(slo_spec="x")),
+    "fleet_trace": ("server", dict(fleet_trace="t.json")),
+    "server_mesh": ("server", dict(server_mesh="1x1")),
+    "modelwatch_quarantine": ("server", dict(modelwatch_quarantine=True)),
+    "chaos_train_delay_s": ("client", dict(chaos_train_delay_s=1.0)),
+    "chaos_raise_at_round": ("client", dict(chaos_raise_at_round=0)),
+    "chaos_kill_after_round": ("server", dict(chaos_kill_after_round=1)),
+    "chaos_link_throttle": ("client", dict(chaos_link_throttle=1e6)),
+    "mqtt_host": ("client", dict(backend="MQTT_S3", mqtt_host="broker.example")),
+    "s3_bucket": ("server", dict(backend="MQTT_S3", s3_bucket="bucket")),
+    "mqtt_s3_wire_fedml": ("server", dict(backend="MQTT_S3", mqtt_s3_wire="fedml")),
+    **{f"backend_{b}": ("server", dict(backend=b))
+       for b in ("GRPC", "MPI", "TRPC", "MQTT_WEB3", "MQTT_THETASTORE")},
+}
+
+
+@pytest.mark.parametrize("gate", list(GATES))
+def test_unported_knobs_and_backends_raise(gate, tmp_path):
+    role, over = GATES[gate]
+    kw = dict(LR, run_id=f"tcs_gate_{gate}", rank=0 if role == "server" else 1, role=role,
+              backend="INMEMORY", using_gpu=False, object_store_dir=str(tmp_path))
+    kw.update(over)
+    args = fedml_tpu_torch.default_config("cross_silo", **kw)
+    dataset, output_dim = fedml_tpu_torch.data.load(copy.copy(args))
+    model = fedml_tpu_torch.model.create(args, output_dim, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fedml_tpu_torch.FedMLRunner(args, torch.device("cpu"), dataset, model)
+    LocalMqttBroker.reset(kw["run_id"])

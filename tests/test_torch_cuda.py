@@ -419,3 +419,63 @@ def test_resnet56_client_step_on_the_card_matches_cpu(cuda):
     num = sum(((gpu[k] - cpu[k]).double() ** 2).sum() for k in cpu)
     den = sum(((cpu[k] - p0[k]).double() ** 2).sum() for k in cpu)
     assert (num / den).sqrt().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cross_silo_lr_federation_on_the_card(cuda):
+    """A 2-client LR federation over INMEMORY, every party a thread on the
+    card through FedMLRunner: the global params stay on cuda and the result
+    is finite."""
+    import threading
+
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core.distributed.communication.inmemory.broker import InMemoryBroker
+
+    run_id = "test_torch_cuda_cross_silo"
+    InMemoryBroker.reset(run_id)
+    runners, results = {}, {}
+    for rank in range(3):
+        args = fedml.init(fedml.default_config(
+            "cross_silo", run_id=run_id, rank=rank, role="server" if rank == 0 else "client",
+            backend="INMEMORY", client_num_in_total=2, client_num_per_round=2, comm_round=2,
+            batch_size=16, frequency_of_the_test=1, dataset="synthetic", model="lr",
+            data_cache_dir=""))
+        dev = fedml.get_device(args)
+        dataset, output_dim = fedml.data.load(args)
+        model = fedml.model.create(args, output_dim)
+        assert dev.type == "cuda" and model.device.type == "cuda"
+        runners[rank] = fedml.FedMLRunner(args, dev, dataset, model)
+    threads = [threading.Thread(target=lambda r=r: results.__setitem__(r, runners[r].run()),
+                                daemon=True) for r in runners]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+        assert not t.is_alive()
+    InMemoryBroker.reset(run_id)
+    metrics = results[0]
+    assert metrics["round"] == 1 and np.isfinite(metrics["test_loss"])
+    w = runners[0].runner.server_manager.aggregator.get_global_model_params()
+    assert all(v.device.type == "cuda" and torch.isfinite(v).all() for v in w.values())
+
+
+@pytest.mark.cuda
+def test_ingest_moves_host_leaves_in_one_copy_per_dtype_group(cuda):
+    """utils.pytree.tree_to_device: CPU leaves go up with one host-to-device
+    copy per dtype group (counted), card leaves pass through untouched."""
+    from fedml_tpu_torch.core import telemetry as tel
+    from fedml_tpu_torch.utils.pytree import H2D_TRANSFERS, tree_to_device
+
+    gen = torch.Generator().manual_seed(0)
+    tree = {"a": torch.randn(3, 4, generator=gen), "b": torch.randn(5, generator=gen).bfloat16(),
+            "c": torch.randn(2, 2, generator=gen), "d": torch.randn(7, generator=gen).bfloat16()}
+    on_card = torch.ones(3, device="cuda")
+    tree["e"] = on_card
+    before = tel.get_telemetry().counter(H2D_TRANSFERS).value
+    out = tree_to_device(tree, "cuda")
+    assert tel.get_telemetry().counter(H2D_TRANSFERS).value - before == 2
+    assert out["e"] is on_card and list(out) == list(tree)
+    for k, v in tree.items():
+        assert out[k].device.type == "cuda" and out[k].dtype == v.dtype
+        assert torch.equal(out[k].cpu(), v.cpu())
+

@@ -447,7 +447,7 @@ def test_run_simulation_on_the_cpu_and_refusals():
             setattr(bad, k, v)
         with pytest.raises(NotImplementedError, match=what):
             fedml_tpu_torch.run_simulation(backend=bad.backend, args=bad)
-    for over in (dict(backend="MPI"), dict(training_type="cross_silo")):
+    for over in (dict(backend="MPI"), dict(training_type="cross_device")):
         bad = copy.copy(args)
         for k, v in over.items():
             setattr(bad, k, v)

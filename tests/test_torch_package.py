@@ -283,3 +283,49 @@ def test_fedavg_entry_points_raise_without_cuda(no_cuda):
     assert fedml_tpu_torch.get_device(args) == torch.device("cpu")
     out = fedml_tpu_torch.run_simulation(args=args)
     assert out["round"] == 0 and np.isfinite(out["test_loss"])
+
+
+CROSS_SILO_MODULES = (
+    "fedml_tpu_torch.cross_silo", "fedml_tpu_torch.core.distributed.fedml_comm_manager",
+    "fedml_tpu_torch.core.distributed.communication.mqtt_s3.mqtt_s3_comm_manager",
+    "fedml_tpu_torch.core.distributed.communication.mqtt_s3.socket_broker",
+    "fedml_tpu_torch.core.distributed.communication.codec",
+)
+
+
+def test_cross_silo_modules_load_no_jax_ml_dtypes_or_fedml_tpu():
+    """The cross-silo front, the comm manager and the MQTT_S3 backend on
+    their own: importing them, and a bf16 payload's round trip through the
+    codec, leave no jax, ml_dtypes or fedml_tpu module loaded."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {CROSS_SILO_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "from fedml_tpu_torch.core.distributed.communication import serialization as s\n"
+        "t = torch.arange(6.0).reshape(2, 3).bfloat16()\n"
+        "assert torch.equal(s.deserialize_pytree(s.serialize_pytree({'w': t}))['w'], t)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'fedml_tpu'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_cross_silo_entry_points_raise_without_cuda(no_cuda):
+    """A cross-silo party defaults to CUDA and raises without it; with
+    using_gpu=False it is built on the CPU."""
+    args = fedml_tpu_torch.default_config("cross_silo", role="server", rank=0,
+                                          backend="INMEMORY", dataset="synthetic",
+                                          client_num_in_total=2, client_num_per_round=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fedml_tpu_torch.run_cross_silo_server(args)
+    args.using_gpu = False
+    dataset, output_dim = fedml_tpu_torch.data.load(args)
+    model = fedml_tpu_torch.model.create(args, output_dim, device="cpu")
+    runner = fedml_tpu_torch.FedMLRunner(args, torch.device("cpu"), dataset, model)
+    assert type(runner.runner).__name__ == "FedMLCrossSiloServer"
