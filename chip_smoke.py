@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for fedml_tpu_torch: the FedLLM LoRA train step, LLM serving,
 the sp and vmapped FedAvg rounds, the FedNova, SCAFFOLD, FedDyn and Mime
-algorithms and the cross-silo front on one CUDA card.
+algorithms, the cross-silo front, and async federation with the compressed
+uplink on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -96,7 +97,28 @@ exception):
    dicts in f32 and bf16 through the wire layout and the codec bit-exactly,
    and a CPU arrival ingested with one host-to-device copy per dtype group;
    (d) no flash launch;
-11. the serve, fedavg (with its vmap and zoo entries), cross_silo and
+11. async federation and the compressed uplink, ResNet-56 at full width on
+   the CIFAR-10 surrogate: (b) first, the vmapped async driver through
+   FedMLRunner (backend "vmap", async_rounds; 16 clients in flight, a
+   publish every 8 merges, 4 publishes, staleness exponent 0.5, cut 10):
+   finite losses, w_global moved, the publish count; publishes/hr,
+   images/s, the async.merge / async.publish spans, staleness and peak
+   memory; (a) the buffer's gate, cuDNN's TF32 off: exponent 0 and
+   publish_k 16 (one bucket) bit-equal to engine.aggregate of the same 16
+   state dicts, publish_k 32 within ASYNC_STREAM_TOL of the float64
+   weighted mean; (c) simulate_async_rounds over the ResNet-56 state dict at
+   1,000 and 10,000 clients (publish_k 32, gen_batch 1024, 8 publishes), the
+   card waited for after each submit and publish: rounds/hr of server
+   seconds at each size and their ratio (reported, not gated), and the
+   same seed's event trace identical; (d) the cross-silo front over
+   INMEMORY: 16 silos in async mode (a publish every 8 merges, 4 publishes),
+   seconds a publish; phase 10's synchronous federation cut to 2 rounds,
+   plain and with comm_compressor eftopk at ratio 1.0, cuDNN deterministic
+   and TF32 off, final params bit-equal; topk at ratio 0.05 to an end with
+   finite metrics, its client.compress / server.decompress spans and
+   payload bytes, and both compressors timed on the card; (e) no flash
+   launch;
+12. the serve, fedavg (with its vmap and zoo entries), cross_silo, async and
    kernels lines (JSON, the kernels line with the design each kernel ran on
    the main path), the card line, and last the result line.
 
@@ -1463,6 +1485,22 @@ def _cs_round_split(since: int) -> list:
     return out
 
 
+def _evals_of(fed) -> list:
+    """Every eval the federation's server runs, recorded as it runs."""
+    agg = fed.server.aggregator
+    evals = []
+    test = agg.test_on_server_for_all_clients
+
+    def recorded(round_idx):
+        m = test(round_idx)
+        if m is not None:
+            evals.append(dict(m))
+        return m
+
+    agg.test_on_server_for_all_clients = recorded
+    return evals
+
+
 def cross_silo_timed(sp: dict) -> tuple:
     """Phase 10 (a), timed: 3 rounds of the 16-silo federation in the port's
     documented precision, beside phase 7's sp round."""
@@ -1473,16 +1511,7 @@ def cross_silo_timed(sp: dict) -> tuple:
     fed = _Federation(CROSS_SILO, "smoke_cs_timed")
     server = fed.server
     p0 = _cpu(server.aggregator.get_global_model_params())
-    evals = []
-    test = server.aggregator.test_on_server_for_all_clients
-
-    def recorded(round_idx):
-        m = test(round_idx)
-        if m is not None:
-            evals.append(dict(m))
-        return m
-
-    server.aggregator.test_on_server_for_all_clients = recorded
+    evals = _evals_of(fed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     since = _last_span_seq()
@@ -1760,6 +1789,347 @@ def cross_silo_phase(sp: dict) -> dict:
     return res
 
 
+# -- phase 11: async federation (FedBuff) and the compressed uplink ------------
+
+# phase 7's ResNet-56 x 16 clients through the vmapped async driver
+# (FedMLRunner, backend "vmap", async_rounds): 16 clients in flight, a
+# publish every 8 merges, 4 publishes, staleness exponent 0.5, cut 10,
+# delays lognormal around 1.0 with spread 0.5
+ASYNC_VMAP = dict(RESNET, backend="vmap", async_rounds=True, async_publish_k=8, comm_round=4,
+                  async_staleness_exponent=0.5, async_max_staleness=10, async_mean_delay=1.0,
+                  async_delay_heterogeneity=0.5)
+# simulate_async_rounds at two fleet sizes over the ResNet-56 state dict
+ASYNC_SIM_CLIENTS = (1000, 10000)
+ASYNC_SIM = dict(publish_k=32, gen_batch=1024, publishes=8, seed=0)
+# the cross-silo front: phase 10's 16 silos in async mode (4 publishes of 8
+# merges), then its synchronous federation cut to 2 rounds, plain, eftopk at
+# ratio 1.0 and topk at ratio 0.05
+CS_ASYNC = dict(CROSS_SILO, async_rounds=True, async_publish_k=8, comm_round=4)
+CS_COMPRESSED = dict(CROSS_SILO, comm_round=2)
+LOSSY_RATIO = 0.05
+# the streaming fold (publish_k 32 = two buckets, scaled after the fold)
+# against the float64 weighted mean of its 32 state dicts: f32 sums of 32
+# terms and one f32 scale, within 1e-6 of each leaf's scale
+ASYNC_STREAM_TOL = 1e-6
+
+
+def _client_trees(template: dict, n: int, seed: int) -> list:
+    """``n`` distinct ResNet-56 state dicts on the card: the template plus
+    seeded noise (the async driver's synthetic delta)."""
+    from fedml_tpu_torch.simulation.vmapped.async_driver import make_synthetic_delta_fn
+
+    stacked = make_synthetic_delta_fn(seed=seed)(template, list(range(n)), 0)
+    return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+
+
+def async_parity(template: dict, counts: list) -> dict:
+    """Phase 11 (a): exponent 0 and publish_k = 16 = the bucket publishes
+    through engine.aggregate, bit for bit; publish_k = 32 folds two buckets
+    as they fill and scales after, within ASYNC_STREAM_TOL of the float64
+    weighted mean. cuDNN's TF32 off."""
+    import torch
+
+    from fedml_tpu_torch.core.aggregation.async_buffer import AsyncAggBuffer, StalenessPolicy
+    from fedml_tpu_torch.core.aggregation.bucketed import get_engine
+
+    engine = get_engine()
+    check(engine.bucket_size == 16, f"bucket size {engine.bucket_size}")
+    res = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        trees = _client_trees(template, 16, seed=1)
+        pairs = [(float(counts[i]), trees[i]) for i in range(16)]
+        buf = AsyncAggBuffer(16, StalenessPolicy(exponent=0.0), engine)
+        verdicts = [buf.submit(i, t, n, client_version=0) for i, (n, t) in enumerate(pairs)]
+        out, ref = buf.publish(), engine.aggregate(pairs)
+        res["publish_k_16_bit_equal"] = all(torch.equal(out[k], ref[k]) for k in ref)
+        check(verdicts == ["accept"] * 16, f"verdicts {verdicts}")
+        check(res["publish_k_16_bit_equal"], "the exponent-0 publish of one bucket is not "
+                                             "bit-equal to engine.aggregate")
+        trees = _client_trees(template, 32, seed=2)
+        pairs = [(float(counts[i % 16]), trees[i]) for i in range(32)]
+        buf = AsyncAggBuffer(32, StalenessPolicy(exponent=0.0), engine)
+        for i, (n, t) in enumerate(pairs):
+            buf.submit(i, t, n, client_version=0)
+        pending = buf.statusz()["pending_unfolded"]
+        out = _cpu(buf.publish())
+    total = sum(n for n, _ in pairs)
+    err = max(((out[k].double() - sum(n * t[k].double().cpu() for n, t in pairs) / total)
+               .abs().max() / out[k].double().abs().max().clamp_min(1e-30)).item() for k in out)
+    res.update({"publish_k_32_vs_f64_mean_of_scale": err, "pending_after_32": pending})
+    say(f"  (a) parity: {res}")
+    check(pending == 0, f"{pending} arrivals left unfolded after two full buckets")
+    check(err <= ASYNC_STREAM_TOL, f"the streaming fold is {err:.3g} from its float64 mean")
+    return res
+
+
+def _span_totals(since: int, names) -> dict:
+    """{name: (count, seconds)} of the spans after seq ``since``."""
+    from fedml_tpu_torch.core import telemetry as tel
+
+    out = {n: [0, 0.0] for n in names}
+    for r in tel.snapshot()["spans"]:
+        if r["seq"] > since and r["name"] in out:
+            out[r["name"]][0] += 1
+            out[r["name"]][1] += r["dur_ns"] / 1e9
+    return {n: {"count": c, "s": s} for n, (c, s) in out.items()}
+
+
+def async_vmap() -> tuple:
+    """Phase 11 (b): the vmapped async driver through FedMLRunner."""
+    import math
+
+    import torch
+
+    args, dataset, model, runner = _fedavg_runner(ASYNC_VMAP, DEV == "cuda")
+    api = runner.runner.fl_trainer
+    check(type(api).__name__ == "VmapAsyncFedAvgAPI", f"backend vmap + async_rounds ran "
+                                                      f"{type(api).__name__}")
+    p0 = _cpu(model.params)
+    trained = []
+    stack = api._stack_clients
+
+    def counting(ids):  # the clients each generation batch trains
+        trained.extend(ids)
+        return stack(ids)
+
+    api._stack_clients = counting
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    since = _last_span_seq()
+    t0 = time.perf_counter()
+    runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats, hist = api.stats, api.metrics_history
+    check(stats["publishes"] == ASYNC_VMAP["comm_round"], f"publishes {stats['publishes']}")
+    check([m["round"] for m in hist] == list(range(ASYNC_VMAP["comm_round"])) and
+          all(math.isfinite(m["test_loss"]) for m in hist), f"evals {hist}")
+    w = _cpu(api.model.params)
+    check(all(torch.isfinite(v).all() for v in w.values()), "async w_global not finite")
+    moved = max(float((w[k] - p0[k]).abs().max()) for k in w)
+    check(moved > 0, "async w_global did not move")
+    images = sum(dataset[4][c] for c in trained) * ASYNC_VMAP["epochs"]
+    spans = _span_totals(since, ("async.merge", "async.publish"))
+    res = {"config": {k: ASYNC_VMAP[k] for k in (
+               "client_num_in_total", "client_num_per_round", "async_publish_k", "comm_round",
+               "async_staleness_exponent", "async_max_staleness", "async_mean_delay",
+               "async_delay_heterogeneity", "batch_size")},
+           "precision": {"params": "float32", "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32},
+           "stats": stats, "run_wall_s": wall,
+           "publishes_per_hr": 3600.0 * stats["publishes"] / wall,
+           "clients_trained": len(trained), "images_trained": images,
+           "images_per_s": images / wall, "spans": spans,
+           "test_loss": [m["test_loss"] for m in hist], "test_acc": [m["test_acc"] for m in hist],
+           "w_global_max_move": moved, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    say(f"  (b) vmapped async driver, ResNet-56 x 16 in flight: {res}")
+    return res, model.params, [dataset[4][c] for c in range(16)]
+
+
+def _synced_recording_sink(buffer):
+    """An AsyncBufferSink over ``buffer`` that waits for the card after each
+    submit and publish, so the simulator's server_seconds hold the device's
+    work, and records every arrival's (client, version, verdict)."""
+    import torch
+
+    from fedml_tpu_torch.core.engine import AsyncBufferSink
+
+    class Sink(AsyncBufferSink):
+        def __init__(self, buf):
+            super().__init__(buf)
+            self.trace = []
+
+        def submit(self, rank, tree, weight, client_version):
+            verdict = super().submit(rank, tree, weight, client_version)
+            torch.cuda.synchronize()
+            self.trace.append((int(rank), int(client_version), verdict))
+            return verdict
+
+        def try_publish(self):
+            out = super().try_publish()
+            torch.cuda.synchronize()
+            return out
+
+    return Sink(buffer)
+
+
+def async_fleet(template: dict) -> dict:
+    """Phase 11 (c): simulate_async_rounds over the ResNet-56 state dict at
+    1,000 and 10,000 clients; the same seed twice gives the same trace."""
+    import torch
+
+    from fedml_tpu_torch.core.aggregation.async_buffer import AsyncAggBuffer
+    from fedml_tpu_torch.core.aggregation.bucketed import get_engine
+    from fedml_tpu_torch.simulation.vmapped.async_driver import simulate_async_rounds
+
+    res, traces = {}, []
+    for n in ASYNC_SIM_CLIENTS + ASYNC_SIM_CLIENTS[:1]:
+        sink = _synced_recording_sink(AsyncAggBuffer(ASYNC_SIM["publish_k"], engine=get_engine()))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = simulate_async_rounds(n, ASYNC_SIM["publish_k"], template,
+                                      ASYNC_SIM["publishes"], gen_batch=ASYNC_SIM["gen_batch"],
+                                      buffer=sink, seed=ASYNC_SIM["seed"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(stats["publishes"] == ASYNC_SIM["publishes"], f"{n} clients: {stats}")
+        traces.append((n, sink.trace))
+        if str(n) in res:
+            continue
+        res[str(n)] = {**stats, "run_wall_s": wall,
+                       "rounds_per_hr_server_s": 3600.0 * stats["publishes"]
+                       / stats["server_seconds"],
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    small, large = (str(n) for n in ASYNC_SIM_CLIENTS)
+    res["ratio_large_over_small"] = (res[large]["rounds_per_hr_server_s"]
+                                     / res[small]["rounds_per_hr_server_s"])
+    same = traces[0][1] == traces[2][1]
+    res["same_seed_same_trace"] = same
+    res["config"] = dict(ASYNC_SIM)
+    say(f"  (c) simulate_async_rounds over ResNet-56: {res}")
+    check(same and len(traces[0][1]) > 0, "the same seed gave another event trace")
+    return res
+
+
+def cross_silo_async() -> dict:
+    """Phase 11 (d): the cross-silo front with async rounds over INMEMORY,
+    16 silos, a publish every 8 merges, 4 publishes."""
+    import math
+
+    import torch
+
+    fed = _Federation(CS_ASYNC, "smoke_cs_async")
+    agg = fed.server.aggregator
+    p0 = _cpu(agg.get_global_model_params())
+    evals = _evals_of(fed)
+    stamps = []
+    publish = agg.publish_async
+
+    def stamped():
+        out = publish()
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return out
+
+    agg.publish_async = stamped
+    torch.cuda.synchronize()
+    since = _last_span_seq()
+    t0 = time.perf_counter()
+    wall = fed.run()
+    buf = agg.async_buffer
+    check(buf.version == CS_ASYNC["comm_round"] and len(stamps) == CS_ASYNC["comm_round"],
+          f"async server at version {buf.version} after {len(stamps)} publishes")
+    check([m["round"] for m in evals] == list(range(CS_ASYNC["comm_round"])) and
+          all(math.isfinite(m["test_loss"]) for m in evals), f"async evals {evals}")
+    w = _cpu(agg.get_global_model_params())
+    check(all(torch.isfinite(v).all() for v in w.values()), "async w_global not finite")
+    check(max(float((w[k] - p0[k]).abs().max()) for k in w) > 0, "async w_global did not move")
+    gaps = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    res = {"config": {k: CS_ASYNC[k] for k in ("client_num_per_round", "async_publish_k",
+                                               "comm_round")},
+           "run_wall_s": wall, "s_per_publish": gaps, "s_per_publish_mean": wall / len(stamps),
+           "statusz": {k: v for k, v in buf.statusz().items() if k != "client_versions"},
+           "spans": _span_totals(since, ("server.async_receive", "async.merge", "async.publish",
+                                         "server.eval", "client.train")),
+           "test_loss": [m["test_loss"] for m in evals]}
+    say(f"  (d) cross-silo async rounds, 16 silos: {res}")
+    return res
+
+
+def cross_silo_compressed() -> dict:
+    """Phase 11 (d): the synchronous 16-silo federation twice, plain and
+    with eftopk at ratio 1.0, cuDNN deterministic and TF32 off: the final
+    params bit-equal; then topk at ratio LOSSY_RATIO to an end with finite
+    metrics."""
+    import math
+
+    import torch
+
+    from fedml_tpu_torch.utils.compression import payload_nbytes
+
+    res, finals = {}, {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for label, extra in (("plain", {}), ("eftopk_1.0", dict(comm_compressor="eftopk",
+                                                                 comm_compressor_ratio=1.0))):
+            fed = _Federation(dict(CS_COMPRESSED, **extra), f"smoke_cs_{label}")
+            evals = _evals_of(fed)
+            since = _last_span_seq()
+            wall = fed.run()
+            finals[label] = (_cpu(fed.server.aggregator.get_global_model_params()), evals)
+            res[label] = {"run_wall_s": wall, "spans": _span_totals(
+                since, ("client.compress", "server.decompress"))}
+            del fed
+    (pw, pe), (cw, ce) = finals["plain"], finals["eftopk_1.0"]
+    res["eftopk_1.0"]["bit_equal_to_plain"] = same = \
+        list(pw) == list(cw) and all(torch.equal(pw[k], cw[k]) for k in pw) and pe == ce
+    check(res["eftopk_1.0"]["spans"]["server.decompress"]["count"] ==
+          int(CS_COMPRESSED["client_num_per_round"]) * int(CS_COMPRESSED["comm_round"]),
+          f"decompressed arrivals: {res['eftopk_1.0']['spans']}")
+    check(same, "the eftopk ratio-1.0 federation is not bit-equal to the plain one")
+    fed = _Federation(dict(CS_COMPRESSED, comm_compressor="topk",
+                           comm_compressor_ratio=LOSSY_RATIO), "smoke_cs_topk")
+    evals = _evals_of(fed)
+    sizes = []
+    for rank, runner in fed.runners.items():
+        if rank:
+            comp = runner.runner.client_manager._comm_compressor
+
+            def recording(tree, _f=comp.compress_tree):
+                payload = _f(tree)
+                sizes.append(payload_nbytes(payload))
+                return payload
+            comp.compress_tree = recording
+    since = _last_span_seq()
+    wall = fed.run()
+    check(evals and all(math.isfinite(m["test_loss"]) for m in evals), f"topk evals {evals}")
+    spans = _span_totals(since, ("client.compress", "server.decompress"))
+    res[f"topk_{LOSSY_RATIO}"] = {
+        "run_wall_s": wall, "spans": spans, "payload_bytes": sorted(set(sizes)),
+        "dense_bytes": 4 * sum(v.numel() for v in pw.values()),
+        "client_compress_ms_mean": 1e3 * spans["client.compress"]["s"]
+        / max(1, spans["client.compress"]["count"]),
+        "server_decompress_ms_mean": 1e3 * spans["server.decompress"]["s"]
+        / max(1, spans["server.decompress"]["count"]),
+        "test_loss": [m["test_loss"] for m in evals]}
+    say(f"  (d) compressed uplinks, 16 silos x {CS_COMPRESSED['comm_round']} rounds: {res}")
+    return res
+
+
+def compression_timed(template: dict) -> dict:
+    """Phase 11 (d): CommCompressor.compress_tree and the server's
+    decompression of the ResNet-56 state dict on the card, synchronised
+    (the spans above time the host's enqueue only)."""
+    from fedml_tpu_torch.utils.compression import CommCompressor, decompress_comm_payload
+
+    res = {}
+    for kind, ratio in (("topk", LOSSY_RATIO), ("eftopk", 1.0)):
+        comp = CommCompressor(kind, ratio=ratio)
+        payload = comp.compress_tree(template)
+        res[f"{kind}_{ratio}"] = {
+            "compress_ms": _time_ms(lambda: comp.compress_tree(template), 20),
+            "decompress_ms": _time_ms(lambda: decompress_comm_payload(payload), 20)}
+    say(f"  (d) compression on the card, ResNet-56 state dict: {res}")
+    return res
+
+
+def async_phase() -> dict:
+    """Phase 11: (a) the buffer's parity gate, (b) the vmapped async
+    driver, (c) simulate_async_rounds at two fleet sizes, (d) the cross-silo
+    front in async mode and with compressed uplinks ((e), no flash launch,
+    is main's)."""
+    res = {}
+    res["vmap_async"], template, counts = async_vmap()
+    res["parity"] = async_parity(template, counts)
+    res["fleet"] = async_fleet(template)
+    res["compression_ms"] = compression_timed(template)
+    del template
+    res["cross_silo_async"] = cross_silo_async()
+    res["cross_silo_compressed"] = cross_silo_compressed()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1913,7 +2283,21 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the cross-silo phase launched flash kernels: {cs_launches}")
 
-    say("== 11. result")
+    say("== 11. async federation (FedBuff) and the compressed uplink: ResNet-56 x 16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    asyncfed = async_phase()
+    async_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the async phase: {async_launches}")
+    # async folds, compression and ResNet training run no attention
+    check(all(n == 0 for n in async_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the async phase launched flash kernels: {async_launches}")
+
+    say("== 12. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1925,6 +2309,8 @@ def main() -> int:
                                  "vmap_flash_launches": vmap_launches,
                                  "zoo_flash_launches": zoo_launches, **fedavg}}), flush=True)
     print(json.dumps({"cross_silo": {"card": card, "flash_launches": cs_launches, **cross_silo}}),
+          flush=True)
+    print(json.dumps({"async": {"card": card, "flash_launches": async_launches, **asyncfed}}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -1,4 +1,4 @@
-"""The synchronous round loop: the sp part of
+"""The round loop and its strategies and sinks: the ported part of
 ``fedml_tpu/core/engine/round_engine.py``.
 
 A front supplies a client-execution strategy and an aggregation sink; the
@@ -12,15 +12,19 @@ shared ``Context`` cohort, the eval cadence and the ``engine.rounds`` /
 Ported: ``sample_cohort``, ``sample_silos``, ``sample_from_pool``,
 ``eval_due``, ``RoundResult``, ``InProcessSequentialStrategy`` (the sp front,
 with the FedNova, SCAFFOLD and Mime control state and payloads),
-``VmappedMegabatchStrategy`` and ``StackedBucketedSink`` (the vmapped front),
-``RemoteCommStrategy`` and ``run_local_round`` (the cross-silo front, with
-its ``server.broadcast`` and ``client.train`` spans), ``AlgFrameSink`` and
-``RoundEngine.run``. Not ported yet (ROADMAP.md, Queue 1): the grouped and
-pipelined strategies, the hooked and async sinks, the stacked sink's
+``GroupedSequentialStrategy`` and ``HookedAverageSink`` (the hierarchical sp
+front), ``VmappedMegabatchStrategy`` and ``StackedBucketedSink`` (the
+vmapped front), ``RemoteCommStrategy`` and ``run_local_round`` (the
+cross-silo front, with its ``server.broadcast`` and ``client.train``
+spans), ``AlgFrameSink``, ``RoundEngine.run``, the async sinks over the
+FedBuff buffer (``AsyncSink``, ``AsyncBufferSink``, ``as_async_sink``) and
+the uplink compressor's boundaries (``compress_upload``,
+``decompress_arrival``). Not ported yet (ROADMAP.md, Queue 1): the
+pipelined strategy, the hierarchy sink (``HierarchySink``, and
+``as_async_sink`` of a hierarchy tree, raise), the stacked sink's
 per-client middleware branch (the middleware itself is not ported), the
-round checkpointer and the chaos knobs (asking for one raises), uplink
-compression, the SLO engine, ``devperf``, the flight recorder and the mlops
-summaries.
+round checkpointer and the chaos knobs (asking for one raises), the SLO
+engine, ``devperf``, the flight recorder and the mlops summaries.
 """
 
 from __future__ import annotations
@@ -156,6 +160,28 @@ class InProcessSequentialStrategy(ClientExecutionStrategy):
         return RoundResult(pairs=w_locals)
 
 
+class GroupedSequentialStrategy(ClientExecutionStrategy):
+    """Hierarchical FL: partition the sampled cohort by group, run an inner
+    FedAvg (``group_comm_round`` rounds) per group, return one state dict per
+    group weighted by the group's sample count."""
+
+    name = "grouped_sequential"
+
+    def __init__(self, api: Any):
+        self.api = api
+
+    def run_round(self, round_idx: int, w_global: StateDict, cohort: Sequence[int]) -> RoundResult:
+        api = self.api
+        group_to_clients: Dict[int, List[int]] = {}
+        for ci in cohort:
+            group_to_clients.setdefault(int(api.group_indexes[ci]), []).append(int(ci))
+        log.info("client_indexes of each group = %s", group_to_clients)
+        pairs: List[Tuple[float, StateDict]] = []
+        for gidx in sorted(group_to_clients):
+            pairs.append(api._group_train(group_to_clients[gidx], w_global))
+        return RoundResult(pairs=pairs)
+
+
 class VmappedMegabatchStrategy(ClientExecutionStrategy):
     """The vmapped front: the cohort's shards stacked into one megabatch and
     every client's local round run as one client-batched program; weights are
@@ -225,6 +251,21 @@ class AlgFrameSink(AggregationSink):
         return self._update_fn(w_global, result.pairs or [])
 
 
+class HookedAverageSink(AggregationSink):
+    """Plain hooks and the sample-weighted average (the hierarchical front's
+    group fold: no FedOpt step, no contribution assessment)."""
+
+    name = "hooked_average"
+
+    def __init__(self, aggregator: Any):
+        self._agg = aggregator
+
+    def fold(self, round_idx: int, w_global: StateDict, result: RoundResult) -> StateDict:
+        lst = self._agg.on_before_aggregation(result.pairs or [])
+        new_w = self._agg.aggregate(lst)
+        return self._agg.on_after_aggregation(new_w)
+
+
 class StackedBucketedSink(AggregationSink):
     """The vmapped front's fold: the stacked megabatch goes straight into
     the bucketed engine's ``aggregate_stacked``, then the after-aggregation
@@ -243,6 +284,104 @@ class StackedBucketedSink(AggregationSink):
         stacked, weights = result.stacked
         new_w = get_engine().aggregate_stacked(stacked, weights)
         return self._agg.on_after_aggregation(new_w)
+
+
+# ---------------------------------------------------------------------------
+# async sinks: one facade over the FedBuff buffer
+# ---------------------------------------------------------------------------
+
+class AsyncSink(abc.ABC):
+    """Barrier-free fold-at-arrival endpoint: the async driver and the
+    cross-silo async path submit arrivals and poll for publishes through
+    this facade."""
+
+    name: str = "async_sink"
+    raw: Any = None
+
+    @abc.abstractmethod
+    def submit(self, rank: int, tree: StateDict, weight: float, client_version: int) -> str:
+        """Fold one arrival; returns the staleness verdict string."""
+
+    @abc.abstractmethod
+    def try_publish(self) -> Optional[Tuple[int, StateDict]]:
+        """``(new_version, model)`` if a publish happened, else None."""
+
+    @property
+    @abc.abstractmethod
+    def version(self) -> int:
+        ...
+
+    @property
+    @abc.abstractmethod
+    def publish_k(self) -> int:
+        ...
+
+    @property
+    @abc.abstractmethod
+    def high_water(self) -> int:
+        ...
+
+    def statusz(self) -> Dict[str, Any]:
+        return self.raw.statusz() if hasattr(self.raw, "statusz") else {}
+
+
+class AsyncBufferSink(AsyncSink):
+    """The flat FedBuff buffer: a publish when ``publish_k`` merges have
+    accumulated."""
+
+    name = "async_buffer"
+
+    def __init__(self, buffer: Any):
+        self.raw = buffer
+
+    def submit(self, rank: int, tree: StateDict, weight: float, client_version: int) -> str:
+        return self.raw.submit(rank, tree, weight, client_version)
+
+    def try_publish(self) -> Optional[Tuple[int, StateDict]]:
+        if not self.raw.ready():
+            return None
+        model = self.raw.publish()
+        if model is None:
+            return None
+        return int(self.raw.version), model
+
+    @property
+    def version(self) -> int:
+        return int(self.raw.version)
+
+    @property
+    def publish_k(self) -> int:
+        return int(self.raw.publish_k)
+
+    @property
+    def high_water(self) -> int:
+        return int(self.raw.depth_high_water)
+
+
+def _hierarchy_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "the edge->regional->root hierarchy (HierarchyTree, HierarchySink) is not ported to "
+        "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+
+
+class HierarchySink:
+    """The edge->regional->root tree's async sink: not ported (it needs the
+    hierarchy and the fleet view); constructing one raises."""
+
+    name = "hierarchy"
+
+    def __init__(self, tree: Any):
+        raise _hierarchy_not_ported()
+
+
+def as_async_sink(sink: Any) -> AsyncSink:
+    """Wrap a raw ``AsyncAggBuffer`` (or pass an :class:`AsyncSink`
+    through). A hierarchy tree raises: the hierarchy is not ported."""
+    if isinstance(sink, AsyncSink):
+        return sink
+    if type(sink).__name__ == "HierarchyTree" or hasattr(sink, "latest_model"):
+        raise _hierarchy_not_ported()
+    return AsyncBufferSink(sink)
 
 
 class RoundEngine:
@@ -327,3 +466,24 @@ def run_local_round(train_fn: Callable[[], Any], args: Any, round_idx: int) -> A
     refuse_chaos_knobs(args)
     with tel.span("client.train", round=int(round_idx)):
         return train_fn()
+
+
+def decompress_arrival(model_params: Any, sender_id: Any) -> Any:
+    """Server-side arrival boundary: rehydrate a compressed uplink payload
+    (identity for plain state dicts) under the ``server.decompress`` span."""
+    from ...utils.compression import decompress_comm_payload, is_comm_payload
+
+    if not is_comm_payload(model_params):
+        return model_params
+    with tel.span("server.decompress", sender=int(sender_id)):
+        return decompress_comm_payload(model_params)
+
+
+def compress_upload(compressor: Any, weights: Any) -> Any:
+    """Client-side upload boundary: run the configured uplink compressor
+    (its error feedback lives inside it) under the ``client.compress``
+    span."""
+    if compressor is None:
+        return weights
+    with tel.span("client.compress", kind=str(getattr(compressor, "kind", "?"))):
+        return compressor.compress_tree(weights)

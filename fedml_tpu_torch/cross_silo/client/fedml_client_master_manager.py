@@ -5,12 +5,22 @@ Reference: ``cross_silo/client/fedml_client_master_manager.py:22`` — ONLINE
 report (:178), handle_message_init (:100), __train (:232), model upload
 (:164).
 
-Not ported (ROADMAP.md, Queue 1): uplink compression (``comm_compressor``)
-and privacy (``privacy``) raise NotImplementedError; the link-probe and
-SecAgg handlers are absent; the client does not attach its telemetry delta
-to the upload (the fleet view reads it; a JAX server accepts an upload
-without it). ``init`` refuses ``num_processes > 1``, so a silo is one
-process and there are no slave processes to synchronise.
+Uplink compression (``comm_compressor``: topk, eftopk, quantize, qsgd) runs
+at the upload through the engine's ``compress_upload`` (``client.compress``),
+the whole model as one flat vector (``utils/compression.py``); the server
+decompresses every arrival. The payload is a dict of tensors and a flat spec
+of names, shapes and dtypes. Over MQTT_S3 the npz codec
+(``serialization.py``, no pickle) cannot carry that spec, and the JAX
+package's own codec fails on its payload at the receiver (its treedef
+pickles on the way out and ``allow_pickle=False`` refuses it on the way
+in), so the port refuses ``comm_compressor`` with MQTT_S3 up front.
+
+Not ported (ROADMAP.md, Queue 1): privacy (``privacy``) raises
+NotImplementedError; the link-probe and SecAgg handlers are absent; the
+client does not attach its telemetry delta to the upload (the fleet view
+reads it; a JAX server accepts an upload without it). ``init`` refuses
+``num_processes > 1``, so a silo is one process and there are no slave
+processes to synchronise.
 """
 
 from __future__ import annotations
@@ -22,18 +32,28 @@ from typing import Any, Optional
 from ...core import telemetry as tel
 from ...core.distributed.communication.message import Message
 from ...core.distributed.fedml_comm_manager import FedMLCommManager
-from ...core.engine import knob_set, refuse_chaos_knobs, refuse_knobs, run_local_round
+from ...core.engine import (compress_upload, knob_set, refuse_chaos_knobs, refuse_knobs,
+                            run_local_round)
+from ...utils.compression import make_comm_compressor
 from ..message_define import MyMessage
 
 log = logging.getLogger(__name__)
 
-_KNOBS = (("comm_compressor", knob_set), ("privacy", knob_set))
+_KNOBS = (("privacy", knob_set),)
 
 
 class ClientMasterManager(FedMLCommManager):
     def __init__(self, args: Any, trainer_dist_adapter, comm=None, rank=0, size=0, backend="INMEMORY"):
-        refuse_knobs(args, _KNOBS, "uplink compression and privacy are")
+        refuse_knobs(args, _KNOBS, "privacy is")
         refuse_chaos_knobs(args)
+        # opt-in uplink compression at the flat-vector boundary; eftopk keeps
+        # its residual here
+        self._comm_compressor = make_comm_compressor(args)
+        if self._comm_compressor is not None and str(backend).upper() == "MQTT_S3":
+            raise NotImplementedError(
+                "comm_compressor over MQTT_S3: the npz codec cannot carry the compressed "
+                "payload's spec; compressed uplinks over a byte backend are not ported to "
+                "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
         super().__init__(args, comm, rank, size, backend)
         self.trainer_dist_adapter = trainer_dist_adapter
         self.num_rounds = int(getattr(args, "comm_round", 10))
@@ -131,6 +151,7 @@ class ClientMasterManager(FedMLCommManager):
 
     def send_model_to_server(self, receive_id: int, weights, local_sample_num) -> None:
         with tel.span("client.upload", round=int(self.args.round_idx)):
+            weights = compress_upload(self._comm_compressor, weights)
             message = Message(MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, self.client_real_id, receive_id)
             message.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS, weights)
             message.add_params(MyMessage.MSG_ARG_KEY_NUM_SAMPLES, int(local_sample_num))

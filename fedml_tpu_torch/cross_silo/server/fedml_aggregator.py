@@ -12,12 +12,19 @@ host-to-device copy per dtype group (``utils/pytree.py`` ``tree_to_device``,
 the counterpart of ``tree_from_numpy``); tensors already on a device (an
 INMEMORY client's upload) pass through.
 
+Async (non-barrier) rounds (``async_rounds``): arrivals fold into the
+FedBuff buffer (``core/aggregation/async_buffer.py``, built by
+``buffer_from_args``) as they come, through :meth:`submit_async_result`, and
+:meth:`publish_async` installs each published model. The buffer's staleness
+policy has no health tracker (``health=None``) until the fleet view is
+ported, so no rank gets the straggler grace.
+
 Not ported, each raising NotImplementedError when its knob is set
-(ROADMAP.md, Queue 1): the server mesh (``server_mesh``), async rounds
-(``async_rounds``), privacy (``privacy``) and modelwatch quarantine
-(``modelwatch_quarantine``). The JAX package also runs modelwatch's
-fold-boundary statistics and the fleet view (``FleetTelemetry``) by default;
-with quarantine off neither changes the fold, and neither is ported.
+(ROADMAP.md, Queue 1): the server mesh (``server_mesh``), privacy
+(``privacy``) and modelwatch quarantine (``modelwatch_quarantine``). The JAX
+package also runs modelwatch's fold-boundary statistics and the fleet view
+(``FleetTelemetry``) by default; with quarantine off neither changes the
+fold, and neither is ported.
 """
 
 from __future__ import annotations
@@ -30,13 +37,15 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ...core import telemetry as tel
+from ...core.aggregation.async_buffer import buffer_from_args
+from ...core.aggregation.bucketed import get_engine
 from ...core.alg_frame.context import Context
 from ...core.engine import knob_set, refuse_knobs, sample_from_pool, sample_silos
 from ...utils.pytree import tree_to_device
 
 log = logging.getLogger(__name__)
 
-_KNOBS = (("server_mesh", knob_set), ("async_rounds", knob_set), ("privacy", knob_set),
+_KNOBS = (("server_mesh", knob_set), ("privacy", knob_set),
           ("modelwatch_quarantine", knob_set))
 
 
@@ -62,7 +71,7 @@ class FedMLAggregator:
         args: Any,
         server_aggregator,
     ):
-        refuse_knobs(args, _KNOBS, "the server mesh, async rounds, privacy and modelwatch are")
+        refuse_knobs(args, _KNOBS, "the server mesh, privacy and modelwatch are")
         if os.environ.get("FEDML_SERVER_MESH", "").strip():
             raise NotImplementedError(
                 "FEDML_SERVER_MESH: the server mesh is not ported to fedml_tpu_torch yet "
@@ -81,6 +90,11 @@ class FedMLAggregator:
         self.sample_num_dict: Dict[int, float] = {}
         self.flag_client_model_uploaded_dict = {i: False for i in range(client_num)}
         Context().add(Context.KEY_TEST_DATA, test_global)
+        # async (non-barrier) rounds: arrivals fold into this buffer instead
+        # of parking in model_dict until a round completes
+        self.async_buffer = None
+        if getattr(args, "async_rounds", False):
+            self.async_buffer = buffer_from_args(args, health=None, engine=get_engine())
 
     def get_global_model_params(self):
         return self.aggregator.get_model_params()
@@ -88,8 +102,9 @@ class FedMLAggregator:
     def set_global_model_params(self, model_parameters) -> None:
         self.aggregator.set_model_params(model_parameters)
 
-    def add_local_trained_result(self, index: int, model_params, sample_num) -> None:
-        log.info("add_model. index = %d", index)
+    def _ingest(self, index: int, model_params):
+        """A float state dict in the global's key order, on the server's
+        device; any other payload as it came."""
         if _float_tensor_leaves_only(model_params):
             # the fold flattens each state dict in its own key order: put an
             # arrival from the wire (flax orders keys by name) in the
@@ -104,9 +119,33 @@ class FedMLAggregator:
             # ONE host-to-device copy per dtype group, not one per leaf, so
             # the fold reads device-resident state dicts
             model_params = tree_to_device(model_params, self.device)
-        self.model_dict[index] = model_params
+        return model_params
+
+    def add_local_trained_result(self, index: int, model_params, sample_num) -> None:
+        log.info("add_model. index = %d", index)
+        self.model_dict[index] = self._ingest(index, model_params)
         self.sample_num_dict[index] = sample_num
         self.flag_client_model_uploaded_dict[index] = True
+
+    # --- async (non-barrier) rounds ---------------------------------------
+    def submit_async_result(self, index: int, model_params, sample_num,
+                            client_version: Optional[int]) -> str:
+        """Fold one arrival straight into the async buffer (no round
+        barrier), after the same ingest as the synchronous path. Returns the
+        staleness verdict."""
+        return self.async_buffer.submit(
+            int(index), self._ingest(index, model_params), float(sample_num), client_version)
+
+    def publish_async(self):
+        """Publish a new global model from the buffered merges (None when
+        nothing merged since the last publish) and install it. The async
+        path is plain staleness-scaled sample-weighted averaging: the
+        aggregation hooks, which need a whole round's client list, do not
+        run here."""
+        published = self.async_buffer.publish()
+        if published is not None:
+            self.set_global_model_params(published)
+        return published
 
     def check_whether_all_receive(self) -> bool:
         if all(self.flag_client_model_uploaded_dict.get(i, False) for i in range(self.client_num)):

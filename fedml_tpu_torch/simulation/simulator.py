@@ -2,11 +2,12 @@
 (reference ``simulation/simulator.py:27``).
 
 ``SimulatorSingleProcess`` wraps the sp FedAvg-family API (FedAvg, FedProx,
-FedOpt, FedNova, SCAFFOLD, FedDyn, Mime); ``SimulatorVmap`` the client-batched
-simulator (backend ``vmap``). The other sp algorithms (hierarchical FL,
-TurboAggregate, async FedAvg, FedGAN, FedGKT, FedNAS, split NN, FedSeg,
-FedAvg_seq), the vmapped front's async driver (``async_rounds``) and the
-collective and MPI simulators are not ported yet (ROADMAP.md, Queue 1).
+FedOpt, FedNova, SCAFFOLD, FedDyn, Mime), the hierarchical trainer
+(``HierarchicalFL``) and async FedAvg (``Async_FedAvg``); ``SimulatorVmap``
+the client-batched simulator (backend ``vmap``) and, with ``async_rounds``,
+its event-driven async driver. The other sp algorithms (TurboAggregate,
+FedGAN, FedGKT, FedNAS, split NN, FedSeg, FedAvg_seq) and the collective and
+MPI simulators are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -26,9 +27,7 @@ from ..constants import (
 )
 
 _OTHER_SP_APIS = (
-    FEDML_FEDERATED_OPTIMIZER_HIERACHICAL_FL,
     FEDML_FEDERATED_OPTIMIZER_TURBO_AGGREGATE,
-    FEDML_FEDERATED_OPTIMIZER_ASYNC_FEDAVG,
     FEDML_FEDERATED_OPTIMIZER_FEDGAN,
     FEDML_FEDERATED_OPTIMIZER_FEDGKT,
     FEDML_FEDERATED_OPTIMIZER_FEDNAS,
@@ -46,7 +45,12 @@ class SimulatorSingleProcess:
             raise NotImplementedError(
                 f"federated_optimizer {opt!r}: its sp simulator is not ported to "
                 "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
-        from .sp.fedavg_api import FedAvgAPI
+        if opt == FEDML_FEDERATED_OPTIMIZER_HIERACHICAL_FL:
+            from .sp.hierarchical_fl import HierarchicalTrainer as API
+        elif opt == FEDML_FEDERATED_OPTIMIZER_ASYNC_FEDAVG:
+            from .sp.async_fedavg import AsyncFedAvgAPI as API
+        else:
+            from .sp.fedavg_api import FedAvgAPI as API
 
         if dataset is not None:
             y = getattr(dataset[2], "y", None)  # train_global labels
@@ -55,7 +59,7 @@ class SimulatorSingleProcess:
                     "segmentation dataset (per-pixel labels) requires "
                     'federated_optimizer: "FedSeg"'
                 )
-        self.fl_trainer = FedAvgAPI(args, device, dataset, model, client_trainer, server_aggregator)
+        self.fl_trainer = API(args, device, dataset, model, client_trainer, server_aggregator)
 
     def run(self):
         return self.fl_trainer.train()
@@ -65,12 +69,13 @@ class SimulatorVmap:
     def __init__(self, args: Any, device: Any, dataset, model, client_trainer=None,
                  server_aggregator=None):
         if getattr(args, "async_rounds", False):
-            raise NotImplementedError(
-                "async_rounds: the vmapped front's async driver is not ported to "
-                "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
-        from .vmapped.vmap_fedavg import VmapFedAvgAPI
+            # non-barrier variant: event-driven async federation, a publish
+            # every args.async_publish_k merges (comm_round counts publishes)
+            from .vmapped.async_driver import VmapAsyncFedAvgAPI as API
+        else:
+            from .vmapped.vmap_fedavg import VmapFedAvgAPI as API
 
-        self.fl_trainer = VmapFedAvgAPI(args, device, dataset, model)
+        self.fl_trainer = API(args, device, dataset, model)
 
     def run(self):
         return self.fl_trainer.train()

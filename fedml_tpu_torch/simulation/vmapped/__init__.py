@@ -1,2 +1,2 @@
-"""The client-batched simulator (counterpart of ``fedml_tpu/simulation/vmapped``):
-``VmapFedAvgAPI``. The async driver is not ported yet (ROADMAP.md, Queue 1)."""
+"""The client-batched ("vmapped") simulator: ``VmapFedAvgAPI`` and its
+asynchronous driver ``VmapAsyncFedAvgAPI`` (``async_rounds``)."""

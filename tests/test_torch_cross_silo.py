@@ -19,7 +19,18 @@ joined within JOIN_S and a party still alive fails the test. Tolerances:
   trainer's seed rule pinned to the round index, as the cross-silo trainer's
   is) and MQTT_S3 against INMEMORY, bit for bit;
 - a JAX server with two port clients over a JAX socket broker: its final
-  params within 1e-5 of their scale of the all-JAX run's.
+  params within 1e-5 of their scale of the all-JAX run's;
+- async rounds (``async_rounds``, LR, 2 clients, a publish every 3 merges,
+  3 publishes), the uploads put in one order on both sides by a turnstile:
+  the same verdicts and client versions arrival by arrival, each publish
+  and the final params within 1e-5 of their scale of JAX's, each eval's
+  test_loss within rtol 1e-5 (the synchronous LR limits; measured 1.7e-7
+  and 3.7e-8); a JAX async server with port clients, and a port async
+  server with JAX clients, over the socket broker: the same arrivals as
+  the all-JAX async run and final params within 1e-5 of its;
+- the uplink compressor: eftopk at ratio 1.0 bit-equal to the uncompressed
+  run (metrics and params), and topk at ratio 0.25 finishing with finite
+  metrics (tests/test_cross_silo.py's two compressor cases).
 """
 
 import copy
@@ -389,15 +400,203 @@ def test_arrivals_take_the_globals_key_order():
     InMemoryBroker.reset("tcs_order")
 
 
+# --- async rounds ---------------------------------------------------------------
+
+ASYNC = dict(LR, async_rounds=True, async_publish_k=3, comm_round=3, async_staleness_exponent=0.5,
+             async_max_staleness=1)
+
+
+class Turnstile:
+    """Puts a federation's uploads in one order: client ``r`` of ``n``
+    sends its ``k``-th upload on turn ``k * n + r - 1``, and a turn ends
+    when the server has handled the upload (and sent its reply: a client
+    may be back before the turn has ended). Once the server has published
+    its last model the turnstile opens."""
+
+    def __init__(self, n_clients):
+        self.n = int(n_clients)
+        self.seq, self.open, self.sent = 0, False, {}
+        self.cv = threading.Condition()
+
+    def wrap_client(self, rank, cm):
+        send = cm.send_model_to_server
+
+        def in_turn(receive_id, weights, n):
+            with self.cv:
+                turn = self.sent.get(rank, 0) * self.n + rank - 1
+                assert self.cv.wait_for(lambda: self.open or self.seq == turn, timeout=JOIN_S)
+                self.sent[rank] = self.sent.get(rank, 0) + 1
+            send(receive_id, weights, n)
+        cm.send_model_to_server = in_turn
+
+    def wrap_server(self, server):
+        handle = server.handle_message_receive_model_from_client
+
+        def then_advance(msg):
+            handle(msg)
+            with self.cv:
+                self.seq += 1
+                self.open = server.args.round_idx >= server.round_num
+                self.cv.notify_all()
+        server.handle_message_receive_model_from_client = then_advance
+
+
+def _record_async(server, to_np):
+    """Every arrival's (rank, client version, verdict) and every publish."""
+    buf, agg = server.aggregator.async_buffer, server.aggregator
+    arrivals, publishes = [], []
+    submit, publish = buf.submit, agg.publish_async
+
+    def rec_submit(rank, tree, n, client_version):
+        verdict = submit(rank, tree, n, client_version)
+        arrivals.append((int(rank), client_version, verdict))
+        return verdict
+
+    def rec_publish():
+        out = publish()
+        if out is not None:
+            publishes.append(to_np(out))
+        return out
+
+    buf.submit, agg.publish_async = rec_submit, rec_publish
+    return arrivals, publishes
+
+
+def _async_fed(pkg, run_id, kw, backend="INMEMORY", roles=None, prepare=None, turnstile=None):
+    fed = Federation(pkg, run_id, kw, backend=backend, roles=roles, prepare=prepare)
+    turn = turnstile or Turnstile(kw["client_num_per_round"])
+    for rank, runner in fed.runners.items():
+        if rank == 0:
+            turn.wrap_server(fed.server)
+        else:
+            turn.wrap_client(rank, runner.runner.client_manager)
+    return fed, turn
+
+
+def _port_np(tree):
+    return params_to_jax({k: v.detach().clone() for k, v in tree.items()})
+
+
+def test_async_rounds_track_jax_publish_by_publish():
+    p0 = _jax_p0(ASYNC)
+    JBroker.reset("tcs_async_jax")
+    jfed, _ = _async_fed(fedml_tpu, "tcs_async_jax", ASYNC)
+    jhist = _record_evals(jfed)
+    jarr, jpub = _record_async(jfed.server, jax.device_get)
+    jfed.run()
+    JBroker.reset("tcs_async_jax")
+    InMemoryBroker.reset("tcs_async_port")
+    fed, _ = _async_fed(fedml_tpu_torch, "tcs_async_port", ASYNC, prepare=_from_jax_params(p0))
+    hist = _record_evals(fed)
+    arr, pub = _record_async(fed.server, _port_np)
+    fed.run()
+    InMemoryBroker.reset("tcs_async_port")
+    assert arr == jarr and len(arr) >= 9
+    assert {v for _, _, v in arr} >= {"accept", "stale_accepted"}
+    assert len(pub) == len(jpub) == 3 and fed.server.aggregator.async_buffer.version == 3
+    for got, ref in zip(pub, jpub):
+        assert _max_err_of_scale(got, ref) <= 1e-5
+    assert [m["round"] for m in hist] == [m["round"] for m in jhist] == [0, 1, 2]
+    for g, r in zip(hist, jhist):
+        assert g["test_total"] == r["test_total"]
+        np.testing.assert_allclose(g["test_loss"], r["test_loss"], rtol=1e-5)
+    assert fed.server.final_metrics == hist[-1]
+    assert _max_err_of_scale(_port_np(_global(fed)), jax.device_get(_global(jfed))) <= 1e-5
+
+
+def test_async_jax_server_with_port_clients_over_the_socket_broker(tmp_path):
+    """A JAX async server and two port clients over a JAX SocketMqttBroker,
+    in the turnstile's order: the same arrivals as the all-JAX async run
+    over INMEMORY, and final params within 1e-5 of its."""
+    JBroker.reset("tcs_async_mixed_ref")
+    rfed, _ = _async_fed(fedml_tpu, "tcs_async_mixed_ref", ASYNC)
+    rarr, _ = _record_async(rfed.server, jax.device_get)
+    rfed.run()
+    JBroker.reset("tcs_async_mixed_ref")
+    broker = SocketMqttBroker(port=0)
+    try:
+        kw = dict(ASYNC, mqtt_socket=broker.address, object_store_dir=str(tmp_path / "store"))
+        jfed, turn = _async_fed(fedml_tpu, "tcs_async_mixed", kw, backend="MQTT_S3",
+                                roles={1: None, 2: None})
+        tfed, _ = _async_fed(fedml_tpu_torch, "tcs_async_mixed", kw, backend="MQTT_S3",
+                             roles={0: None}, turnstile=turn)
+        arr, _ = _record_async(jfed.server, jax.device_get)
+        clients = [threading.Thread(target=tfed._party, args=(r,), daemon=True, name=f"port-{r}")
+                   for r in tfed.runners]
+        jfed.run(others=clients)
+        assert not tfed.errors, tfed.errors
+    finally:
+        broker.stop()
+    assert arr == rarr and jfed.server.aggregator.async_buffer.version == 3
+    assert _max_err_of_scale(jax.device_get(_global(jfed)), jax.device_get(_global(rfed))) <= 1e-5
+
+
+def test_async_port_server_with_jax_clients_over_the_socket_broker(tmp_path):
+    """The other way round: a port async server and two JAX clients over a
+    JAX SocketMqttBroker, in the turnstile's order, from the JAX initial
+    params: the same arrivals as the all-JAX async run over INMEMORY, and
+    final params within 1e-5 of its."""
+    p0 = _jax_p0(ASYNC)
+    JBroker.reset("tcs_async_rmixed_ref")
+    rfed, _ = _async_fed(fedml_tpu, "tcs_async_rmixed_ref", ASYNC)
+    rarr, _ = _record_async(rfed.server, jax.device_get)
+    rfed.run()
+    JBroker.reset("tcs_async_rmixed_ref")
+    broker = SocketMqttBroker(port=0)
+    try:
+        kw = dict(ASYNC, mqtt_socket=broker.address, object_store_dir=str(tmp_path / "store"))
+        tfed, turn = _async_fed(fedml_tpu_torch, "tcs_async_rmixed", kw, backend="MQTT_S3",
+                                roles={1: None, 2: None}, prepare=_from_jax_params(p0))
+        jfed, _ = _async_fed(fedml_tpu, "tcs_async_rmixed", kw, backend="MQTT_S3",
+                             roles={0: None}, turnstile=turn)
+        arr, _ = _record_async(tfed.server, _port_np)
+        clients = [threading.Thread(target=jfed._party, args=(r,), daemon=True, name=f"jax-{r}")
+                   for r in jfed.runners]
+        tfed.run(others=clients)
+        assert not jfed.errors, jfed.errors
+    finally:
+        broker.stop()
+    assert arr == rarr and tfed.server.aggregator.async_buffer.version == 3
+    assert _max_err_of_scale(_port_np(_global(tfed)), jax.device_get(_global(rfed))) <= 1e-5
+
+
+# --- the uplink compressor -----------------------------------------------------------
+
+def test_comm_compressor_full_ratio_uplink_parity():
+    """tests/test_cross_silo.py's case in the port: at eftopk ratio 1.0 the
+    uplink round-trips bit-exactly, so the compressed run's metrics and
+    final params equal the uncompressed run's; every upload went through
+    client.compress and server.decompress."""
+    _, plain_hist, plain_w = _run_port("tcs_comp_off", LR)
+    since = max((r["seq"] for r in tel.snapshot()["spans"]), default=0)
+    _, hist, w = _run_port("tcs_comp_on", dict(LR, comm_compressor="eftopk",
+                                               comm_compressor_ratio=1.0))
+    names = [r["name"] for r in tel.snapshot()["spans"] if r["seq"] > since]
+    assert names.count("client.compress") == names.count("server.decompress") == 4
+    assert hist == plain_hist
+    assert list(w) == list(plain_w) and all(torch.equal(w[k], plain_w[k]) for k in w)
+
+
+def test_comm_compressor_lossy_uplink_still_converges():
+    """A sparsifying uplink (topk ratio 0.25) completes the run with finite
+    metrics, the server decompressing each arrival."""
+    fed, hist, w = _run_port("tcs_comp_lossy", dict(LR, comm_compressor="topk",
+                                                    comm_compressor_ratio=0.25))
+    assert [m["round"] for m in hist] == [0, 1] and np.isfinite(hist[-1]["test_loss"])
+    assert all(torch.isfinite(v).all() for v in w.values())
+
+
 # --- what is not ported raises ---------------------------------------------------
 
 GATES = {
-    "async_rounds": ("server", dict(async_rounds=True)),
+    "async_rounds": ("server", dict(async_rounds=True, async_checkpoint_every_merges=4)),
+    "async_checkpoint_every_merges": ("server", dict(async_checkpoint_every_merges=4)),
+    "async_link_admission": ("server", dict(async_rounds=True, async_link_admission=True)),
     "privacy": ("server", dict(privacy="dp")),
     "privacy_client": ("client", dict(privacy="secagg")),
     "secure_aggregation_secagg": ("server", dict(secure_aggregation="secagg")),
     "secure_aggregation_lsa": ("client", dict(secure_aggregation="lsa")),
-    "comm_compressor": ("client", dict(comm_compressor="eftopk")),
+    "comm_compressor": ("client", dict(comm_compressor="eftopk", backend="MQTT_S3")),
     "scenario_hierarchical": ("client", dict(scenario="hierarchical")),
     "quorum": ("server", dict(quorum_frac=0.5)),
     "round_deadline": ("server", dict(round_deadline_s=5.0)),

@@ -437,11 +437,12 @@ def test_run_simulation_on_the_cpu_and_refusals():
     for name, n in (("fedavg.round", 1), ("fedavg.sample", 1), ("fedavg.client_train", 2),
                     ("fedavg.aggregate", 1), ("fedavg.eval", 1), ("agg.aggregate", 1)):
         assert names.count(name) == n, (name, names)
-    for over, what in [(dict(backend="vmap", async_rounds=True), "async_rounds"),
+    for over, what in [(dict(backend="vmap", async_rounds=True, hierarchy_edges=2),
+                        "hierarchy_edges"),
                        (dict(backend="NCCL"), "NCCL"),
                        (dict(client_execution="pipelined"), "pipelined"),
                        (dict(resilience_dir="x"), "resilience_dir"),
-                       (dict(federated_optimizer="HierarchicalFL"), "HierarchicalFL")]:
+                       (dict(federated_optimizer="TA"), "federated_optimizer .TA.")]:
         bad = copy.copy(args)
         for k, v in over.items():
             setattr(bad, k, v)

@@ -329,3 +329,44 @@ def test_cross_silo_entry_points_raise_without_cuda(no_cuda):
     model = fedml_tpu_torch.model.create(args, output_dim, device="cpu")
     runner = fedml_tpu_torch.FedMLRunner(args, torch.device("cpu"), dataset, model)
     assert type(runner.runner).__name__ == "FedMLCrossSiloServer"
+
+
+ASYNC_MODULES = (
+    "fedml_tpu_torch.core.resilience.quorum", "fedml_tpu_torch.core.aggregation.async_buffer",
+    "fedml_tpu_torch.utils.compression", "fedml_tpu_torch.simulation.vmapped.async_driver",
+    "fedml_tpu_torch.simulation.sp.async_fedavg", "fedml_tpu_torch.simulation.sp.hierarchical_fl",
+    "fedml_tpu_torch.cross_silo.server.fedml_aggregator",
+    "fedml_tpu_torch.cross_silo.server.fedml_server_manager",
+    "fedml_tpu_torch.cross_silo.client.fedml_client_master_manager",
+)
+
+
+def test_async_and_compression_modules_load_no_jax_or_fedml_tpu():
+    """The async federation, the uplink compressor and the hierarchical
+    trainer on their own: importing them, one buffer publish and one
+    compressed round trip leave no jax or fedml_tpu module loaded and build
+    no kernel."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {ASYNC_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "from fedml_tpu_torch.core.aggregation.async_buffer import AsyncAggBuffer\n"
+        "from fedml_tpu_torch.utils.compression import CommCompressor, decompress_comm_payload\n"
+        "buf = AsyncAggBuffer(publish_k=2)\n"
+        "for r in range(2):\n"
+        "    buf.submit(r, {'w': torch.ones(3) * r}, 1.0, 0)\n"
+        "assert torch.equal(buf.publish()['w'], torch.full((3,), 0.5))\n"
+        "t = {'w': torch.arange(6.0)}\n"
+        "c = CommCompressor('eftopk', ratio=1.0)\n"
+        "assert torch.equal(decompress_comm_payload(c.compress_tree(t))['w'], t['w'])\n"
+        "from fedml_tpu_torch.ops import _build\n"
+        "assert _build.kernels.cache_info().currsize == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fedml_tpu'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout

@@ -431,5 +431,6 @@ def test_backend_vmap_through_the_entry_points_and_refusals():
     assert runner.run()["round"] == 1
     bad = copy.copy(args)
     bad.async_rounds = True
-    with pytest.raises(NotImplementedError, match="async_rounds.*ROADMAP"):
+    bad.hierarchy_edges = 2
+    with pytest.raises(NotImplementedError, match="hierarchy_edges.*ROADMAP"):
         fedml_tpu_torch.run_simulation(backend="vmap", args=bad)
