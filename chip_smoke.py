@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke for fedml_tpu_torch: the FedLLM LoRA train step, LLM serving,
 the sp and vmapped FedAvg rounds, the FedNova, SCAFFOLD, FedDyn and Mime
-algorithms, the cross-silo front, and async federation with the compressed
-uplink on one CUDA card.
+algorithms, the cross-silo front, async federation with the compressed
+uplink, and durable round state, quorum rounds and the chaos drills on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -118,9 +119,33 @@ exception):
    finite metrics, its client.compress / server.decompress spans and
    payload bytes, and both compressors timed on the card; (e) no flash
    launch;
-12. the serve, fedavg (with its vmap and zoo entries), cross_silo, async and
-   kernels lines (JSON, the kernels line with the design each kernel ran on
-   the main path), the card line, and last the result line.
+12. resilience, ResNet-56 at full width on the CIFAR-10 surrogate: (b)
+   first, 16 silo threads over INMEMORY as a quorum federation in this
+   process (QUORUM: 12 a round from 16 connected, quorum_frac 0.75, a 20 s
+   deadline under the adaptive rule, over-provisioning by 0.25, 4 rounds;
+   silo 16 raises in round 0, silo 15 sleeps 8 s before each local round):
+   the run ends within QUORUM_TIMEOUT_S with the dead party alone failed
+   and no deadline timer alive; each round closes complete (12 kept) or
+   partial (at least 9); from round 1 the cohort is 15 exactly when the last
+   health report flagged a straggler, and some round is; health flags the
+   straggler and marks the dead rank failed; each round's fold bit-equal to
+   engine.aggregate of the arrivals it kept, captured at ingest (f32
+   matmuls, TF32 off); per round the seconds, the deadline, the arrivals,
+   the missing ranks, late and surplus deltas. Then the SIGKILL drills of
+   fedml_tpu_torch/tools/resilience_drill.py, every run a process of its own
+   under RES_DRILL_TIMEOUT_S, deterministic: (a) sp, 16 clients x 3 rounds
+   under FedOpt; (c) cross-silo, a server and 4 silo threads x 3 rounds;
+   (d) cross-silo async, one silo, a publish every 2 merges, a snapshot
+   after every merge, killed after merge 3: each crash exits by SIGKILL
+   with a complete round short of the end in its store (for (d) a snapshot
+   holding a pending arrival), and the resumed store's final state is
+   bit-equal to the baseline's; (a) alone, with its save times (enqueue ms
+   with the card waited for, checkpoint_save_seconds, drops, store bytes,
+   spawn to the first resumed round), then (c) and (d) side by side; (e) no
+   flash launch;
+13. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+   resilience and kernels lines (JSON, the kernels line with the design each
+   kernel ran on the main path), the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1328,17 +1353,20 @@ class _Federation:
     ``data.load`` of the config, loaded once and handed to every party (a
     silo's loader would give each the same partition)."""
 
-    def __init__(self, over: dict, run_id: str, backend: str = "INMEMORY", **extra):
+    def __init__(self, over: dict, run_id: str, backend: str = "INMEMORY", per_rank=None,
+                 **extra):
         import fedml_tpu_torch as fedml
         from fedml_tpu_torch.core.distributed.communication.inmemory.broker import InMemoryBroker
 
         InMemoryBroker.reset(run_id)
         self.run_id, self.runners, self.errors = run_id, {}, {}
         dataset = output_dim = None
-        for rank in range(int(over["client_num_per_round"]) + 1):
+        n = int(over.get("client_num_connected") or over["client_num_per_round"])
+        for rank in range(n + 1):
             args = fedml.init(fedml.default_config(
                 "cross_silo", run_id=run_id, rank=rank, role="server" if rank == 0 else "client",
-                backend=backend, using_gpu=DEV == "cuda", **over, **extra))
+                backend=backend, using_gpu=DEV == "cuda", **over, **extra,
+                **(per_rank or {}).get(rank, {})))
             dev = fedml.get_device(args)
             if dataset is None:
                 dataset, output_dim = fedml.data.load(args)
@@ -1352,7 +1380,9 @@ class _Federation:
     def server(self):
         return self.runners[0].runner.server_manager
 
-    def run(self, timeout_s: float = CS_PARTY_TIMEOUT_S) -> float:
+    def run(self, timeout_s: float = CS_PARTY_TIMEOUT_S, dies=()) -> float:
+        """Run every party to its end; the ranks in ``dies`` must end by an
+        exception (a chaos raise), every other rank without one."""
         import threading
 
         from fedml_tpu_torch.core.distributed.communication.inmemory.broker import InMemoryBroker
@@ -1362,7 +1392,8 @@ class _Federation:
                 self.runners[rank].run()
             except BaseException as e:  # noqa: BLE001 - reported below; a dead party must not hang the phase
                 self.errors[rank] = repr(e)
-                raise
+                if rank not in dies:
+                    raise
 
         threads = [threading.Thread(target=party, args=(r,), daemon=True, name=f"party-{r}")
                    for r in self.runners]
@@ -1375,7 +1406,8 @@ class _Federation:
             check(not t.is_alive(), f"{self.run_id}: {t.name} still running after {timeout_s}s")
         wall = time.perf_counter() - t0
         InMemoryBroker.reset(self.run_id)
-        check(not self.errors, f"{self.run_id}: parties failed: {self.errors}")
+        check(sorted(self.errors) == sorted(dies),
+              f"{self.run_id}: parties failed: {self.errors} (expected to die: {list(dies)})")
         return wall
 
 
@@ -2130,6 +2162,264 @@ def async_phase() -> dict:
     return res
 
 
+# -- phase 12: resilience: durable round state, quorum rounds, chaos drills -------
+
+# (a), (c), (d): the SIGKILL drills of fedml_tpu_torch/tools/resilience_drill.py,
+# each mode a process of its own on the card, deterministic (the tool sets
+# CUBLAS_WORKSPACE_CONFIG, cuDNN deterministic, TF32 off and
+# torch.use_deterministic_algorithms before CUDA initialises): ResNet-56 at
+# full width; sp 16 clients x 3 rounds under FedOpt (Adam), cs a server and
+# 4 silo threads x 3 rounds, cs_async one silo, a publish every 2 merges, 3
+# publishes, a snapshot after every merge
+RES_DRILL_MODEL = "resnet56"
+RES_DRILL_TIMEOUT_S = 300
+# (b): phase 10's 16 silos as a quorum federation: 12 a round, quorum 0.75,
+# a 20 s deadline shortened by the adaptive rule, over-provisioning by 0.25
+# once health flags a straggler; silo 16 dies in round 0, silo 15 sleeps 8 s
+# before every local round
+QUORUM = dict(CROSS_SILO, client_num_in_total=16, client_num_per_round=12,
+              client_num_connected=16, comm_round=4, frequency_of_the_test=5,
+              quorum_frac=0.75, round_deadline_s=20.0, adaptive_deadline=True,
+              overprovision_frac=0.25)
+QUORUM_DEAD, QUORUM_STRAGGLER, QUORUM_DELAY_S = 16, 15, 8.0
+QUORUM_TIMEOUT_S = 300
+
+
+def _drill(name: str, mode: str, rdir: str, expect_kill: bool = False) -> dict:
+    """One run of the drill tool in a process of its own; its report (none
+    for a crash, which dies by SIGKILL) with the spawn time."""
+    report = rdir + f".{mode}.json"
+    cmd = [sys.executable, "-m", "fedml_tpu_torch.tools.resilience_drill", name, mode, rdir,
+           "--device", DEV, "--model", RES_DRILL_MODEL, "--report", report]
+    spawn = time.time()
+    with open(rdir + f".{mode}.log", "w") as log:
+        proc = subprocess.run(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                              timeout=RES_DRILL_TIMEOUT_S,
+                              env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    wall = time.time() - spawn
+    if expect_kill:
+        check(proc.returncode in (-9, 137), f"{name} {mode}: exit {proc.returncode}, not SIGKILL "
+                                            f"(log {rdir}.{mode}.log)")
+        return {"spawn_unix": spawn, "wall_s": wall, "rc": proc.returncode}
+    check(proc.returncode == 0, f"{name} {mode}: exit {proc.returncode} (log {rdir}.{mode}.log)")
+    with open(report) as f:
+        out = json.load(f)
+    check(out["device"] == DEV and (DEV != "cuda" or out["card"]), f"{name} {mode} ran on {out}")
+    return {**out, "spawn_unix": spawn, "wall_s": wall}
+
+
+def resilience_drill(name: str, tmp: str) -> dict:
+    """Phase 12 (a), (c), (d): baseline, crash, resume of one drill; the
+    resumed store's final state bit-equal to the baseline's."""
+    from fedml_tpu_torch.tools import resilience_drill as rd
+
+    base, crash = os.path.join(tmp, f"{name}_baseline"), os.path.join(tmp, f"{name}_crash")
+    b = _drill(name, "baseline", base)
+    c = _drill(name, "crash", crash, expect_kill=True)
+    final, partial = rd.final_state(base), rd.final_state(crash)
+    check(final is not None and partial is not None, f"{name}: an empty store")
+    res = {"baseline_run_s": b["run_s"], "crash_rc": c["rc"],
+           "crash_store_round": partial.round_idx, "final_round": final.round_idx}
+    if name == "cs_async":
+        buf = partial.meta.get("async_buffer") or {}
+        res["crash_buffer"] = {k: buf.get(k) for k in ("version", "merges_total",
+                                                       "merges_since_publish")}
+        res["crash_buffer"]["pending"] = len(buf.get("pending_weights") or [])
+        check(buf.get("merges_total") == rd.KILL_AFTER_MERGES and res["crash_buffer"]["pending"] > 0
+              and len((partial.state.get("async_buffer") or {}).get("pending") or []) > 0,
+              f"cs_async: the crash store's newest snapshot holds no pending arrival: {res}")
+    else:
+        check(partial.round_idx < final.round_idx, f"{name}: the crash store reached round "
+                                                   f"{partial.round_idx} of {final.round_idx}")
+    r = _drill(name, "resume", crash)
+    resumed = rd.final_state(crash)
+    res["bit_equal"] = resumed.round_idx == final.round_idx and rd.bit_equal(resumed.state,
+                                                                            final.state)
+    res["state_keys"] = sorted(final.state)
+    res["resume_run_s"] = r["run_s"]
+    res["process_wall_s"] = {"baseline": b["wall_s"], "crash": c["wall_s"], "resume": r["wall_s"]}
+    res["start_to_first_resumed_round_s"] = r["first_save_unix"] - r["spawn_unix"]
+    res["start_to_main_s"] = r["main_start_unix"] - r["spawn_unix"]
+    for key, rep in (("baseline", b), ("resume", r)):
+        res[f"{key}_saves"] = rep["saves"]
+        res[f"{key}_checkpoint_save_seconds"] = rep["checkpoint_save_seconds"]
+        res[f"{key}_checkpoint_dropped"] = rep["checkpoint_dropped"]
+    res["enqueue_ms"] = [row["ms"] for row in b["saves"] if not row["wait"]]
+    res["store_bytes"] = b["store_bytes"]
+    say(f"  ({ {'sp': 'a', 'cs': 'c', 'cs_async': 'd'}[name] }) {name} drill: {res}")
+    check(res["bit_equal"], f"{name}: the resumed run's final state differs from the baseline's")
+    return res
+
+
+def quorum_federation() -> dict:
+    """Phase 12 (b): the 16-silo quorum federation over INMEMORY, in this
+    process; see QUORUM."""
+    import threading
+
+    import torch
+
+    from fedml_tpu_torch.core import telemetry as tel
+    from fedml_tpu_torch.core.aggregation.bucketed import get_engine
+    from fedml_tpu_torch.core.resilience import quorum as qmod
+
+    per_rank = {QUORUM_DEAD: dict(chaos_raise_at_round=0),
+                QUORUM_STRAGGLER: dict(chaos_train_delay_s=QUORUM_DELAY_S)}
+    fed = _Federation(QUORUM, "smoke_quorum", per_rank=per_rank)
+    server = fed.server
+    agg = server.aggregator
+    health = agg.fleet.health
+    p0 = _cpu(agg.get_global_model_params())
+    rounds: dict = {}
+    ingested: dict = {}
+    folds: dict = {}
+    add, aggregate, begin = agg.add_local_trained_result, agg.aggregate, server._begin_quorum_round
+
+    def record_begin():
+        report = health.report()
+        begin()
+        q, timer = server._round_quorum, server._deadline_timer
+        rounds[int(server.args.round_idx)] = {
+            "sampled": len(server.client_id_list_in_this_round),
+            "stragglers_before": list(report.stragglers) if report else [],
+            "deadline_s": timer.interval if timer is not None else None,
+            "keep_k": q.keep_k, "min_quorum": q.policy.min_quorum(q.keep_k)}
+
+    def record_add(index, params, n):
+        add(index, params, n)
+        ingested.setdefault(int(server.args.round_idx), {})[index] = (
+            n, {k: v.detach().clone() for k, v in agg.model_dict[index].items()})
+
+    def record_aggregate():
+        r = int(server.args.round_idx)
+        q = server._round_quorum
+        counters = tel.snapshot()["counters"]
+        kept = sorted(agg.model_dict)
+        out = aggregate()
+        folds[r] = (kept, {k: v.detach().clone() for k, v in out.items()})
+        rounds[r].update(partial=q.statusz()["closed"], arrived=sorted(q.arrived()),
+                         missing=q.missing(),
+                         late_discarded_total=counters.get(qmod.LATE_COUNTER, 0),
+                         surplus_total=counters.get(qmod.SURPLUS_COUNTER, 0))
+        return out
+
+    # host seconds of the resilience bookkeeping on the round path: merging
+    # the clients' telemetry deltas (the health EWMAs), the health round's
+    # MAD test, arming the deadline timer
+    bookkeeping = {"merge_client_telemetry": [0, 0.0], "health.end_round": [0, 0.0],
+                   "arm_deadline_timer": [0, 0.0]}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                row = bookkeeping[name]
+                row[0] += 1
+                row[1] += time.perf_counter() - t
+        return run
+
+    agg.merge_client_telemetry = timed("merge_client_telemetry", agg.merge_client_telemetry)
+    health.end_round = timed("health.end_round", health.end_round)
+    server._arm_deadline_timer = timed("arm_deadline_timer", server._arm_deadline_timer)
+    server._begin_quorum_round = record_begin
+    agg.add_local_trained_result, agg.aggregate = record_add, record_aggregate
+    since = _last_span_seq()
+    counters0 = tel.snapshot()["counters"]
+    torch.cuda.synchronize()
+    wall = fed.run(timeout_s=QUORUM_TIMEOUT_S, dies=(QUORUM_DEAD,))
+    for t in threading.enumerate():
+        if isinstance(t, threading.Timer):
+            t.join(5.0)  # a cancelled timer's thread ends at once
+    timers = [t for t in threading.enumerate() if isinstance(t, threading.Timer) and t.is_alive()]
+    check(not timers, f"deadline timers still alive after the run: {timers}")
+    round_s = [r["dur_ns"] / 1e9 for r in tel.snapshot()["spans"]
+               if r["seq"] > since and r["name"] == "server.round"]
+    prev = {name: counters0.get(name, 0) for name in (qmod.LATE_COUNTER, qmod.SURPLUS_COUNTER)}
+    for r in sorted(rounds):
+        row = rounds[r]
+        # discarded while the round was open (a late delta of round r-1
+        # arrives in round r), from the counters at each round's close
+        for key, name in (("late_discarded", qmod.LATE_COUNTER), ("surplus", qmod.SURPLUS_COUNTER)):
+            total = row.pop(f"{key}_total", prev[name])
+            row[key], prev[name] = total - prev[name], total
+        row["round_s"] = round_s[r] if r < len(round_s) else None
+    n_rounds, k = int(QUORUM["comm_round"]), int(QUORUM["client_num_per_round"])
+    check(sorted(rounds) == sorted(folds) == list(range(n_rounds)),
+          f"rounds begun {sorted(rounds)}, folded {sorted(folds)}")
+    state = health.export_state()
+    # each fold against engine.aggregate of exactly the arrivals it kept (the
+    # fold is f32 matmuls, TF32 off: PyTorch's default, checked)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    bit_equal = {}
+    for r, (kept, out) in folds.items():
+        row = rounds[r]
+        check(sorted(ingested.get(r, {})) == kept, f"round {r}: folded {kept}, ingested "
+                                                   f"{sorted(ingested.get(r, {}))}")
+        ref = get_engine().aggregate([ingested[r][i] for i in kept])
+        bit_equal[r] = all(torch.equal(ref[key], out[key]) for key in out)
+        row["kept"] = len(kept)
+        row["fold_bit_equal"] = bit_equal[r]
+        row["closed_as"] = "partial" if row["partial"] else "complete"
+    w = _cpu(agg.get_global_model_params())
+    res = {"config": {key: QUORUM[key] for key in ("client_num_connected", "client_num_per_round",
+                                                   "comm_round", "quorum_frac", "round_deadline_s",
+                                                   "adaptive_deadline", "overprovision_frac")},
+           "dead_rank": QUORUM_DEAD, "straggler": QUORUM_STRAGGLER,
+           "straggler_delay_s": QUORUM_DELAY_S, "run_wall_s": wall,
+           "rounds": {str(r): rounds[r] for r in sorted(rounds)},
+           "health": {str(r): state.get(str(r)) for r in (QUORUM_DEAD, QUORUM_STRAGGLER)},
+           "bookkeeping": {name: {"calls": n, "total_ms": 1e3 * sec,
+                                  "ms_per_call": 1e3 * sec / max(1, n)}
+                           for name, (n, sec) in bookkeeping.items()},
+           "died": sorted(fed.errors)}
+    say(f"  (b) quorum federation, 16 silos: {res}")
+    for r in range(n_rounds):
+        row = rounds[r]
+        check((not row["partial"] and row["kept"] == row["keep_k"] == k)
+              or (row["partial"] and row["kept"] >= row["min_quorum"]),
+              f"round {r} closed with {row['kept']} of {row['keep_k']} (partial {row['partial']})")
+        check(bit_equal[r], f"round {r}: the fold differs from engine.aggregate of its arrivals")
+        if r >= 1:
+            want = 15 if row["stragglers_before"] else k
+            check(row["sampled"] == want, f"round {r} sampled {row['sampled']} after stragglers "
+                                          f"{row['stragglers_before']}, wanted {want}")
+    check(any(rounds[r]["sampled"] > k for r in range(1, n_rounds)),
+          "no round was over-provisioned")
+    check((state.get(str(QUORUM_STRAGGLER)) or {}).get("straggler_rounds", 0) >= 1,
+          f"health never flagged the straggler: {state.get(str(QUORUM_STRAGGLER))}")
+    check((state.get(str(QUORUM_DEAD)) or {}).get("total_failures", 0) >= 1,
+          f"health never marked the dead rank failed: {state.get(str(QUORUM_DEAD))}")
+    check(all(torch.isfinite(v).all() for v in w.values())
+          and max(float((w[key] - p0[key]).abs().max()) for key in w) > 0,
+          "the quorum federation's w_global is not finite or did not move")
+    return res
+
+
+def resilience_phase() -> dict:
+    """Phase 12: (b) the quorum federation in this process, then the SIGKILL
+    drills in processes of their own: the sp drill (a) alone (its save
+    times are reported), then the cross-silo (c) and async (d) drills side
+    by side (each a sequence of three processes; only their bit-equality is
+    gated)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    tmp = os.path.join(ROOT, ".smoke_run", "resilience")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    out = {"quorum": quorum_federation()}
+    t0 = time.time()
+    out["drill_sp"] = resilience_drill("sp", tmp)
+    t1 = time.time()
+    with ThreadPoolExecutor(2) as pool:
+        futures = {name: pool.submit(resilience_drill, name, tmp) for name in ("cs", "cs_async")}
+        for name, fut in futures.items():
+            out[f"drill_{name}"] = fut.result()
+    out["drill_wall_s"] = {"sp": t1 - t0, "cs_and_cs_async_side_by_side": time.time() - t1}
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2297,7 +2587,23 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the async phase launched flash kernels: {async_launches}")
 
-    say("== 12. result")
+    say("== 12. resilience: a 16-silo quorum federation, the sp, cross-silo and async SIGKILL "
+        "drills (ResNet-56)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    resilience = resilience_phase()
+    res_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the resilience phase: {res_launches}")
+    # (e) checkpoints, quorum folds and ResNet training run no attention (the
+    # drill processes import the same code and count their own)
+    check(all(n == 0 for n in res_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the resilience phase launched flash kernels: {res_launches}")
+
+    say("== 13. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2312,6 +2618,8 @@ def main() -> int:
           flush=True)
     print(json.dumps({"async": {"card": card, "flash_launches": async_launches, **asyncfed}}),
           flush=True)
+    print(json.dumps({"resilience": {"card": card, "flash_launches": res_launches,
+                                     **resilience}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

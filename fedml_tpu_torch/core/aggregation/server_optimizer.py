@@ -90,6 +90,12 @@ class FedOptServer:
     def state(self) -> dict:
         return self.opt.state_dict()
 
+    @state.setter
+    def state(self, value: dict) -> None:
+        """Load a saved ``state`` (a resumed round); the optimizer moves its
+        tensors to the params' device."""
+        self.opt.load_state_dict(value)
+
     @torch.no_grad()
     def apply(self, w_global: StateDict, w_avg: StateDict) -> StateDict:
         for k, p in self._params.items():

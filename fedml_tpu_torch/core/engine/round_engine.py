@@ -14,28 +14,33 @@ Ported: ``sample_cohort``, ``sample_silos``, ``sample_from_pool``,
 with the FedNova, SCAFFOLD and Mime control state and payloads),
 ``GroupedSequentialStrategy`` and ``HookedAverageSink`` (the hierarchical sp
 front), ``VmappedMegabatchStrategy`` and ``StackedBucketedSink`` (the
-vmapped front), ``RemoteCommStrategy`` and ``run_local_round`` (the
-cross-silo front, with its ``server.broadcast`` and ``client.train``
-spans), ``AlgFrameSink``, ``RoundEngine.run``, the async sinks over the
-FedBuff buffer (``AsyncSink``, ``AsyncBufferSink``, ``as_async_sink``) and
-the uplink compressor's boundaries (``compress_upload``,
-``decompress_arrival``). Not ported yet (ROADMAP.md, Queue 1): the
-pipelined strategy, the hierarchy sink (``HierarchySink``, and
-``as_async_sink`` of a hierarchy tree, raise), the stacked sink's
-per-client middleware branch (the middleware itself is not ported), the
-round checkpointer and the chaos knobs (asking for one raises), the SLO
-engine, ``devperf``, the flight recorder and the mlops summaries.
+vmapped front), ``RemoteCommStrategy`` and ``run_local_round`` with its
+chaos knobs (the cross-silo front, with its ``server.broadcast`` and
+``client.train`` spans), ``AlgFrameSink``, ``RoundEngine.run`` with its
+resume, checkpoint and finalize hooks, ``RoundCheckpointer`` (durable round
+state and the SIGKILL drills), the async sinks over the FedBuff buffer
+(``AsyncSink``, ``AsyncBufferSink``, ``as_async_sink``) and the uplink
+compressor's boundaries (``compress_upload``, ``decompress_arrival``). Not
+ported yet (ROADMAP.md, Queue 1): the pipelined strategy, the hierarchy sink
+(``HierarchySink``, and ``as_async_sink`` of a hierarchy tree, raise), the
+stacked sink's per-client middleware branch (the middleware itself is not
+ported), the link, SecAgg and split-learning chaos knobs (asking for one
+raises), the SLO engine, ``devperf``, the flight recorder and the mlops
+summaries.
 """
 
 from __future__ import annotations
 
 import abc
 import logging
+import os
+import signal
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ...constants import (
     FEDML_FEDERATED_OPTIMIZER_FEDNOVA,
@@ -384,8 +389,91 @@ def as_async_sink(sink: Any) -> AsyncSink:
     return AsyncBufferSink(sink)
 
 
+class RoundCheckpointer:
+    """The one implementation of round-boundary durability, shared by the sp
+    front and the cross-silo server (the JAX package's, semantics kept so
+    the SIGKILL-resume drills hold bit-identical stores):
+
+    - the final round (and the chaos kills) drain in-flight async saves
+      first, then save with ``wait=True``: the last round must be durable,
+      never best-effort; the chaos drill models "watermark at k-1, round k
+      torn";
+    - sync mode steps the store by ``round_idx``; async mode keeps its own
+      monotone step counter (mid-window checkpoints outnumber rounds) and
+      persists the buffer's tensor state and meta sidecar next to the model;
+    - ``chaos_kill_after_round`` / ``chaos_kill_after_merges`` SIGKILL the
+      process right after the checkpoint enqueue (or the commit).
+    """
+
+    def __init__(self, store: Any, args: Any, *, async_mode: bool = False):
+        self.store = store
+        self.args = args
+        self.async_mode = bool(async_mode)
+        latest = store.latest_complete_round()
+        self._ckpt_step = (int(latest) + 1) if latest is not None else 0
+
+    def wait(self) -> None:
+        self.store.wait()
+
+    def save(
+        self,
+        round_idx: int,
+        state: Dict[str, Any],
+        *,
+        cohort: Sequence[int] = (),
+        health: Any = None,
+        extra_meta: Optional[Dict[str, Any]] = None,
+        final: bool = False,
+        async_buffer: Any = None,
+    ) -> None:
+        kill_after = getattr(self.args, "chaos_kill_after_round", None)
+        kill_now = kill_after is not None and int(round_idx) == int(kill_after)
+        kill_after_merges = getattr(self.args, "chaos_kill_after_merges", None)
+        kill_committed = False
+
+        meta: Optional[Dict[str, Any]] = dict(extra_meta) if extra_meta is not None else None
+        step = int(round_idx)
+        if self.async_mode and async_buffer is not None:
+            # async saves happen mid-window too (same FL round, newer buffer
+            # contents), so the step is a monotone save counter and the FL
+            # round travels in the meta; the buffer snapshot carries the
+            # partial accumulator, the pending arrivals and the staleness clock
+            state = dict(state)
+            bstate = async_buffer.export_pytree_state()
+            if bstate:
+                state["async_buffer"] = bstate
+            meta = dict(meta or {})
+            meta["async_buffer"] = async_buffer.export_meta()
+            meta["fl_round_idx"] = int(round_idx)
+            step = self._ckpt_step
+            self._ckpt_step += 1
+            # async drill: SIGKILL right after the Nth merge's snapshot
+            # COMMITS, so resume must rebuild a non-empty buffer
+            if kill_after_merges is not None \
+                    and int(async_buffer.merges_total) == int(kill_after_merges):
+                kill_committed = True
+
+        if final or kill_now or kill_committed:
+            # drain any in-flight async save so this one cannot be dropped
+            self.store.wait()
+        self.store.save_round(
+            step,
+            state,
+            cohort=[int(c) for c in cohort],
+            health=health,
+            extra_meta=meta,
+            wait=final or kill_committed,
+        )
+        if kill_now or kill_committed:
+            log.warning("chaos: SIGKILL self after round %d checkpoint enqueue", round_idx)
+            os.kill(os.getpid(), signal.SIGKILL)
+
+
 class RoundEngine:
-    """The synchronous round loop, once."""
+    """The synchronous round loop, once. ``resume_fn(w_global) -> (w_global,
+    start_round)`` runs before the first round, ``checkpoint_fn(round_idx,
+    w_global, cohort, final)`` after each round's install and
+    ``finalize_fn(w_global)`` after the last round."""
 
     def __init__(
         self,
@@ -396,6 +484,9 @@ class RoundEngine:
         sample_fn: Callable[[int], List[int]],
         install_fn: Callable[[StateDict], None],
         eval_fn: Callable[[int], Optional[Dict[str, float]]],
+        resume_fn: Optional[Callable[[StateDict], Tuple[StateDict, int]]] = None,
+        checkpoint_fn: Optional[Callable[[int, StateDict, List[int], bool], None]] = None,
+        finalize_fn: Optional[Callable[[StateDict], None]] = None,
         round_span_attrs: Optional[Dict[str, Any]] = None,
         metrics_history: Optional[List[Dict[str, float]]] = None,
     ):
@@ -405,6 +496,9 @@ class RoundEngine:
         self.sample_fn = sample_fn
         self.install_fn = install_fn
         self.eval_fn = eval_fn
+        self.resume_fn = resume_fn
+        self.checkpoint_fn = checkpoint_fn
+        self.finalize_fn = finalize_fn
         self.round_span_attrs = dict(round_span_attrs or {})
         self.metrics_history = metrics_history if metrics_history is not None else []
 
@@ -412,8 +506,11 @@ class RoundEngine:
         from ..alg_frame.context import Context
 
         comm_round = int(getattr(self.args, "comm_round", 10))
+        start_round = 0
+        if self.resume_fn is not None:
+            w_global, start_round = self.resume_fn(w_global)
         freq = int(getattr(self.args, "frequency_of_the_test", 5))
-        for round_idx in range(comm_round):
+        for round_idx in range(start_round, comm_round):
             log.info("================ Communication round : %d", round_idx)
             t0 = time.perf_counter()
             with tel.span("fedavg.round", round=round_idx, **self.round_span_attrs):
@@ -424,6 +521,8 @@ class RoundEngine:
                 with tel.span("fedavg.aggregate", round=round_idx, k=result.k):
                     w_global = self.sink.fold(round_idx, w_global, result)
                 self.install_fn(w_global)
+                if self.checkpoint_fn is not None:
+                    self.checkpoint_fn(round_idx, w_global, cohort, round_idx == comm_round - 1)
                 if eval_due(round_idx, comm_round, freq):
                     with tel.span("fedavg.eval", round=round_idx):
                         metrics = self.eval_fn(round_idx)
@@ -431,6 +530,8 @@ class RoundEngine:
                         self.metrics_history.append(metrics)
             tel.counter("engine.rounds").add(1)
             tel.histogram("engine.round_seconds").observe(time.perf_counter() - t0)
+        if self.finalize_fn is not None:
+            self.finalize_fn(w_global)
         return w_global
 
 
@@ -450,22 +551,78 @@ def refuse_knobs(args: Any, checks: Sequence[Tuple[str, Callable[[Any], bool]]],
             f"{', '.join(on)}: {what} not ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
 
 
+# the chaos knobs whose subsystems are not ported: the INMEMORY link throttle
+# and delay (netlink), the SecAgg upload drop (privacy) and the split-learning
+# kills and send failures
+_DEFERRED_CHAOS_PREFIXES = ("chaos_link_", "chaos_secagg_", "chaos_split_")
+
+
 def refuse_chaos_knobs(args: Any) -> None:
-    """The JAX package's fault-injection knobs (``chaos_*``: straggler delay,
-    scheduled raise, NaN poison, delta scaling, link throttle, SIGKILL
-    drills) are not ported: setting any raises NotImplementedError."""
+    """Refuse the JAX package's fault-injection knobs that are not ported:
+    the link throttle and delay, the SecAgg upload drop and the split-learning
+    kills (``chaos_link_*``, ``chaos_secagg_*``, ``chaos_split_*``). The
+    straggler delay, scheduled raise, NaN poison, delta scaling and the
+    SIGKILL drills run."""
     refuse_knobs(args, [(k, lambda v: v is not None and v is not False)
-                        for k in sorted(vars(args)) if k.startswith("chaos_")],
-                 "the chaos knobs are")
+                        for k in sorted(vars(args)) if k.startswith(_DEFERRED_CHAOS_PREFIXES)],
+                 "the link, SecAgg and split-learning chaos knobs are")
 
 
-def run_local_round(train_fn: Callable[[], Any], args: Any, round_idx: int) -> Any:
-    """Client-side local-round scaffolding: the ``client.train`` span around
-    ``train_fn``. The JAX package's chaos knobs raise
-    (:func:`refuse_chaos_knobs`)."""
-    refuse_chaos_knobs(args)
+def run_local_round(train_fn: Callable[[], Any], args: Any, round_idx: int, *,
+                    rank: Any = None) -> Any:
+    """Client-side local-round scaffolding: the ``client.train`` span plus
+    the chaos knobs — ``chaos_train_delay_s`` (inflates the measured train
+    time for straggler drills; only in rounds below
+    ``chaos_train_delay_rounds`` when that is set), ``chaos_raise_at_round``
+    (a scheduled failure exercising the crash path), ``chaos_nan_at_round``
+    (NaN-poisons the trained weights at one round) and ``chaos_scale_delta``
+    (multiplies the trained weights by a factor, every round or only at
+    ``chaos_scale_at_round``)."""
+    chaos_delay = float(getattr(args, "chaos_train_delay_s", 0) or 0)
+    chaos_delay_rounds = getattr(args, "chaos_train_delay_rounds", None)
+    if chaos_delay_rounds is not None and int(round_idx) >= int(chaos_delay_rounds):
+        chaos_delay = 0.0  # recovery drill: stop straggling so alerts can resolve
+    chaos_raise_at = getattr(args, "chaos_raise_at_round", None)
     with tel.span("client.train", round=int(round_idx)):
-        return train_fn()
+        if chaos_delay > 0:
+            time.sleep(chaos_delay)  # chaos straggler injection, not a poll loop
+        if chaos_raise_at is not None and int(chaos_raise_at) == int(round_idx):
+            raise RuntimeError(f"chaos: injected failure at round {round_idx} on rank {rank}")
+        out = train_fn()
+    return _apply_delta_chaos(out, args, round_idx, rank)
+
+
+def _apply_delta_chaos(out: Any, args: Any, round_idx: int, rank: Any) -> Any:
+    """Poison or scale a trained-weights payload per the chaos knobs, as the
+    JAX package does: NaN into the first element of each floating tensor,
+    or each floating tensor times the factor in its own dtype. Handles both
+    return conventions (a bare state dict, or ``(state dict, n_samples)``)."""
+    nan_at = getattr(args, "chaos_nan_at_round", None)
+    scale = float(getattr(args, "chaos_scale_delta", 0) or 0)
+    scale_at = getattr(args, "chaos_scale_at_round", None)
+    poison = nan_at is not None and int(nan_at) == int(round_idx)
+    do_scale = scale not in (0.0, 1.0) and (
+        scale_at is None or int(scale_at) == int(round_idx))
+    if not poison and not do_scale:
+        return out
+
+    def _mutate(t):
+        if not (isinstance(t, torch.Tensor) and t.is_floating_point()):
+            return t
+        if poison:
+            t = t.detach().clone(memory_format=torch.contiguous_format)
+            t.view(-1)[0] = float("nan")
+            return t
+        return t * torch.tensor(scale, dtype=t.dtype, device=t.device)
+
+    if isinstance(out, tuple) and len(out) == 2:
+        weights, n = out
+        result = ({k: _mutate(v) for k, v in weights.items()}, n)
+    else:
+        result = {k: _mutate(v) for k, v in out.items()}
+    log.warning("chaos: %s trained weights at round %d on rank %s",
+                "NaN-poisoned" if poison else f"scaled x{scale:g}", int(round_idx), rank)
+    return result
 
 
 def decompress_arrival(model_params: Any, sender_id: Any) -> Any:

@@ -15,10 +15,18 @@ package's own codec fails on its payload at the receiver (its treedef
 pickles on the way out and ``allow_pickle=False`` refuses it on the way
 in), so the port refuses ``comm_compressor`` with MQTT_S3 up front.
 
+Every upload carries the client's telemetry delta (the spans, counters
+and histograms since its last upload, JSON) in the reserved header, as in
+the JAX package (``:350-372``): the server's fleet view merges it, and its
+health tracker reads each ``client.train`` span as the rank's round time.
+The local round runs through the engine's ``run_local_round`` with the
+chaos knobs (straggler delay, scheduled raise, NaN poison, delta scaling);
+a client whose local round raises dies alone: the exception ends its own
+receive loop, and the broker and the other silos carry on.
+
 Not ported (ROADMAP.md, Queue 1): privacy (``privacy``) raises
-NotImplementedError; the link-probe and SecAgg handlers are absent; the
-client does not attach its telemetry delta to the upload (the fleet view
-reads it; a JAX server accepts an upload without it). ``init`` refuses
+NotImplementedError; the link-probe and SecAgg handlers are absent, and the
+delta carries no link estimates (netlink). ``init`` refuses
 ``num_processes > 1``, so a silo is one process and there are no slave
 processes to synchronise.
 """
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 import logging
 import platform
+import threading
 from typing import Any, Optional
 
 from ...core import telemetry as tel
@@ -34,6 +43,7 @@ from ...core.distributed.communication.message import Message
 from ...core.distributed.fedml_comm_manager import FedMLCommManager
 from ...core.engine import (compress_upload, knob_set, refuse_chaos_knobs, refuse_knobs,
                             run_local_round)
+from ...core.telemetry import trace_context
 from ...utils.compression import make_comm_compressor
 from ..message_define import MyMessage
 
@@ -65,6 +75,12 @@ class ClientMasterManager(FedMLCommManager):
         # the published-model version this client last trained on; echoed on
         # upload (the JAX server's async buffer reads it)
         self._model_version: Optional[int] = None
+        # telemetry shipping: spans after this seq go out with the next upload.
+        # It starts at the registry's newest span, not at 0 (the JAX
+        # package's start): over INMEMORY the delta is this thread's spans,
+        # and a thread ident of an earlier, ended party is reused, so a
+        # cursor of 0 would ship that party's spans as this client's
+        self._tel_cursor = tel.get_telemetry().delta_snapshot(tid=-1)["cursor"]
 
     def register_message_receive_handlers(self) -> None:
         self.register_message_receive_handler(MyMessage.MSG_TYPE_CONNECTION_IS_READY, self.handle_message_connection_ready)
@@ -160,15 +176,32 @@ class ClientMasterManager(FedMLCommManager):
             if self._model_version is not None:
                 # staleness tag: which published model this delta trained on
                 message.add_params(MyMessage.MSG_ARG_KEY_MODEL_VERSION, int(self._model_version))
+            self._attach_telemetry_delta(message)
             self.send_message(message)
+
+    def _attach_telemetry_delta(self, message: Message) -> None:
+        """Ship the spans and counters accumulated since the last upload
+        under the reserved header; the server folds them into its fleet
+        view. Over INMEMORY every party shares this process's registry, so
+        only this client's thread is shipped; a byte backend's party owns
+        its registry and ships every thread."""
+        t = tel.get_telemetry()
+        if not t.enabled:
+            return
+        tid = threading.get_ident() if self.backend == "INMEMORY" else None
+        delta = t.delta_snapshot(self._tel_cursor, tid=tid)
+        self._tel_cursor = delta.pop("cursor")
+        delta["rank"] = int(self.client_real_id)
+        message.add_params(Message.MSG_ARG_KEY_TELEMETRY, {trace_context.DELTA_FIELD: delta})
 
     def __train(self) -> None:
         log.info("====== training on round %d ======", self.args.round_idx)
-        # the client.train span lives in the engine's shared local-round
-        # scaffolding
+        # the client.train span and the chaos knobs live in the engine's
+        # shared local-round scaffolding
         weights, local_sample_num = run_local_round(
             lambda: self.trainer_dist_adapter.train(self.args.round_idx),
             self.args,
             int(self.args.round_idx),
+            rank=self.client_real_id,
         )
         self.send_model_to_server(0, weights, local_sample_num)

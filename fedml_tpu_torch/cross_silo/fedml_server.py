@@ -26,10 +26,13 @@ class FedMLCrossSiloServer:
         if server_aggregator is None:
             server_aggregator = create_server_aggregator(model, args)
         server_aggregator.set_id(0)
-        # the JAX package connects client_num_connected clients when it
-        # over-provisions its cohorts; over-provisioning is not ported
-        # (FedMLServerManager refuses both knobs), so the world is the cohort
-        client_num = int(getattr(args, "client_num_per_round", getattr(args, "client_num_in_total", 1)))
+        # the connected world can exceed the per-round cohort k: with
+        # straggler-aware over-provisioning the server needs spare clients to
+        # sample from (args.client_num_connected > client_num_per_round)
+        client_num = int(
+            getattr(args, "client_num_connected", None)
+            or getattr(args, "client_num_per_round", getattr(args, "client_num_in_total", 1))
+        )
         aggregator = FedMLAggregator(
             train_data_global,
             test_data_global,

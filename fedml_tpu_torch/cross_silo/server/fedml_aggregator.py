@@ -12,19 +12,22 @@ host-to-device copy per dtype group (``utils/pytree.py`` ``tree_to_device``,
 the counterpart of ``tree_from_numpy``); tensors already on a device (an
 INMEMORY client's upload) pass through.
 
+The fleet view (``FleetTelemetry``, JAX ``:69-70``, ``:320-330``): each
+client's telemetry delta, shipped on its upload, merges into :attr:`fleet`,
+whose health tracker the quorum rounds' adaptive deadline and
+over-provisioning read.
+
 Async (non-barrier) rounds (``async_rounds``): arrivals fold into the
 FedBuff buffer (``core/aggregation/async_buffer.py``, built by
-``buffer_from_args``) as they come, through :meth:`submit_async_result`, and
-:meth:`publish_async` installs each published model. The buffer's staleness
-policy has no health tracker (``health=None``) until the fleet view is
-ported, so no rank gets the straggler grace.
+``buffer_from_args`` with the fleet's health tracker, so a flagged straggler
+gets the staleness grace) as they come, through :meth:`submit_async_result`,
+and :meth:`publish_async` installs each published model.
 
 Not ported, each raising NotImplementedError when its knob is set
 (ROADMAP.md, Queue 1): the server mesh (``server_mesh``), privacy
 (``privacy``) and modelwatch quarantine (``modelwatch_quarantine``). The JAX
-package also runs modelwatch's fold-boundary statistics and the fleet view
-(``FleetTelemetry``) by default; with quarantine off neither changes the
-fold, and neither is ported.
+package also runs modelwatch's fold-boundary statistics by default; with
+quarantine off they do not change the fold, and they are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from ...core.aggregation.async_buffer import buffer_from_args
 from ...core.aggregation.bucketed import get_engine
 from ...core.alg_frame.context import Context
 from ...core.engine import knob_set, refuse_knobs, sample_from_pool, sample_silos
+from ...core.telemetry.fleet import FleetTelemetry
 from ...utils.pytree import tree_to_device
 
 log = logging.getLogger(__name__)
@@ -90,11 +94,14 @@ class FedMLAggregator:
         self.sample_num_dict: Dict[int, float] = {}
         self.flag_client_model_uploaded_dict = {i: False for i in range(client_num)}
         Context().add(Context.KEY_TEST_DATA, test_global)
+        # fleet view: per-rank telemetry deltas shipped on model upload
+        self.fleet = FleetTelemetry()
         # async (non-barrier) rounds: arrivals fold into this buffer instead
         # of parking in model_dict until a round completes
         self.async_buffer = None
         if getattr(args, "async_rounds", False):
-            self.async_buffer = buffer_from_args(args, health=None, engine=get_engine())
+            self.async_buffer = buffer_from_args(args, health=self.fleet.health,
+                                                 engine=get_engine())
 
     def get_global_model_params(self):
         return self.aggregator.get_model_params()
@@ -147,6 +154,14 @@ class FedMLAggregator:
             self.set_global_model_params(published)
         return published
 
+    def reset_round_flags(self) -> None:
+        """Clear the upload flags after a quorum-driven (partial or
+        keep-first-k) round completion: ``check_whether_all_receive`` only
+        clears them when every flag is set, which such a round never
+        reaches."""
+        for i in list(self.flag_client_model_uploaded_dict):
+            self.flag_client_model_uploaded_dict[i] = False
+
     def check_whether_all_receive(self) -> bool:
         if all(self.flag_client_model_uploaded_dict.get(i, False) for i in range(self.client_num)):
             for i in range(self.client_num):
@@ -170,6 +185,18 @@ class FedMLAggregator:
         tel.histogram("server.aggregate_seconds").observe(dt)
         log.info("aggregate time cost: %.3fs", dt)
         return averaged
+
+    # --- fleet telemetry --------------------------------------------------
+    def merge_client_telemetry(self, rank: int, delta: Any) -> bool:
+        """Fold one client's shipped telemetry delta into the fleet view."""
+        return self.fleet.merge_client_delta(rank, delta)
+
+    def fleet_summary(self) -> Dict[str, Any]:
+        return self.fleet.summary()
+
+    def export_fleet_trace(self, path: str) -> str:
+        """One Perfetto JSON: the server's lane and one lane per client rank."""
+        return self.fleet.export_fleet_trace(path, server=tel.get_telemetry())
 
     def data_silo_selection(self, round_idx: int, client_num_in_total: int, client_num_per_round: int) -> List[int]:
         """reference fedml_aggregator.py data_silo_selection — sample which

@@ -1,5 +1,5 @@
 """Cross-silo server manager (the WAN state machine, server side): the
-synchronous FedAvg path of ``fedml_tpu/cross_silo/server/fedml_server_manager.py``.
+counterpart of ``fedml_tpu/cross_silo/server/fedml_server_manager.py``.
 
 Reference: ``cross_silo/server/fedml_server_manager.py:15`` — gate on all
 clients ONLINE (:124-144), send_init_msg (:48-67), per-model receive ->
@@ -7,67 +7,82 @@ aggregate -> sync (steps 3-8 of SURVEY §3.2).
 
 Spans: ``server.round`` (one per round, the trace root whose context rides
 every broadcast), ``server.broadcast`` (the engine's ``RemoteCommStrategy``),
-``server.receive_model`` (one per arrival), ``server.aggregate`` (the
+``server.receive_model`` (one per kept arrival), ``server.aggregate`` (the
 aggregator) and ``server.eval``. The server's wait for its cohort is
 ``server.round`` less the others. As in the JAX package, round 0's INIT
 messages go out inside ``server.round`` but outside ``server.broadcast``.
+
+Quorum rounds (JAX ``:569-750``; ``quorum_frac``, ``round_deadline_s``,
+``adaptive_deadline``, ``overprovision_frac``): each round's uploads are
+judged by a ``RoundQuorum`` (late and surplus deltas are discarded and
+counted) and a ``threading.Timer`` closes the round at its deadline with
+what arrived when the quorum is met, marking the missing ranks failed in
+the fleet's health, else extends it. With stragglers flagged by health the
+cohort is over-provisioned from ``client_num_connected`` clients and the
+first ``client_num_per_round`` deltas are kept. Every round-advancing
+decision holds ``_round_lock``.
+
+Durable round state (``resilience_dir``, ``resume``, JAX ``:104-141``,
+``:952-965``): each round boundary is checkpointed through the engine's
+``RoundCheckpointer``; a resumed server restores the model, the numpy RNG,
+the health baselines and, in async mode, the half-full buffer, and stamps
+its round index on the init and sync messages so the clients' seeds follow.
 
 Async rounds (``async_rounds``, JAX ``:753-866``): every arrival folds into
 the aggregator's FedBuff buffer at once (``server.async_receive``), a model
 publishes every ``async_publish_k`` merges, and each upload is answered to
 its sender alone with the newest global and its ``MODEL_VERSION``;
 ``round_idx`` counts publishes and the run finishes after ``comm_round`` of
-them. A compressed upload (``comm_compressor`` on the clients) is
-decompressed on arrival (``server.decompress``) on either path.
+them. ``async_checkpoint_every_merges`` snapshots the buffer mid-window. A
+compressed upload (``comm_compressor`` on the clients) is decompressed on
+arrival (``server.decompress``) on either path. ``fleet_trace`` writes the
+fleet's Perfetto JSON at the end of the run.
 
 Not ported, each raising NotImplementedError when its knob is set
-(ROADMAP.md, Queue 1): mid-window buffer checkpoints
-(``async_checkpoint_every_merges``) and link-cost admission
-(``async_link_admission``); quorum, over-provisioning and round deadlines;
-resume and durable round state (``resilience_dir``); link probing and
-WAN-aware health; statusz; the SLO engine; fleet trace export; SecAgg
-windows (with ``privacy``, refused by the aggregator); the chaos knobs.
+(ROADMAP.md, Queue 1): link-cost admission (``async_link_admission``) and
+the link-cost deadline (``quorum_link_cost``), link probing and WAN-aware
+health, statusz, the SLO engine, SecAgg windows (with ``privacy``, refused
+by the aggregator) and the link, SecAgg and split-learning chaos knobs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import threading
 from typing import Any, Dict, Optional
+
+import torch
 
 from ...core import telemetry as tel
 from ...core.distributed.communication.message import Message
 from ...core.distributed.fedml_comm_manager import FedMLCommManager
-from ...core.engine import (RemoteCommStrategy, decompress_arrival, knob_set,
-                            refuse_chaos_knobs, refuse_knobs)
+from ...core.engine import (RemoteCommStrategy, RoundCheckpointer, decompress_arrival,
+                            knob_set, refuse_chaos_knobs, refuse_knobs)
+from ...core.resilience import (QuorumPolicy, RoundQuorum, RoundStateStore, note,
+                                overprovisioned_cohort_size)
+from ...core.resilience import quorum as quorum_mod
+from ...core.resilience.round_state import restore_numpy_rng
 from ...core.telemetry import trace_context
 from ..message_define import MyMessage
 
 log = logging.getLogger(__name__)
 
 _KNOBS = (
-    ("async_checkpoint_every_merges", knob_set),
     ("async_link_admission", knob_set),
-    ("round_deadline_s", lambda v: v is not None),
-    ("quorum_frac", lambda v: v is not None and float(v) < 1.0),
-    ("adaptive_deadline", knob_set),
-    ("overprovision_frac", knob_set),
-    ("client_num_connected", knob_set),
-    ("resilience_dir", knob_set),
-    ("resume", knob_set),
+    ("quorum_link_cost", knob_set),
     ("link_probe_interval_s", knob_set),
     ("link_wan_health", knob_set),
     ("statusz_port", lambda v: v is not None),
     ("slo_spec", knob_set),
     ("slo_tick_s", knob_set),
-    ("fleet_trace", knob_set),
 )
 
 
 class FedMLServerManager(FedMLCommManager):
     def __init__(self, args: Any, aggregator, comm=None, client_rank=0, client_num=0, backend="INMEMORY"):
-        refuse_knobs(args, _KNOBS, "async checkpoints and link admission, quorum rounds and "
-                                   "deadlines, resume, link probing, statusz, the SLO engine "
-                                   "and fleet telemetry are")
+        refuse_knobs(args, _KNOBS, "link-cost admission and deadlines, link probing, statusz "
+                                   "and the SLO engine are")
         refuse_chaos_knobs(args)
         super().__init__(args, comm, client_rank, client_num + 1, backend)
         self.aggregator = aggregator
@@ -93,6 +108,58 @@ class FedMLServerManager(FedMLCommManager):
         # back through the message handlers, so only the server.broadcast
         # side runs here
         self._strategy = RemoteCommStrategy(self.send_message_sync_model_to_client)
+        # --- resilience: quorum rounds + durable round state ---------------
+        self._quorum_policy = QuorumPolicy.from_args(args)
+        self._round_quorum: Optional[RoundQuorum] = None
+        self._keep_k = int(getattr(args, "client_num_per_round", self.size - 1))
+        # deltas arrive on the receive loop while the deadline timer fires on
+        # its own thread: every round-advancing decision holds this lock
+        self._round_lock = threading.RLock()
+        self._deadline_timer: Optional[threading.Timer] = None
+        self._round_store: Optional[RoundStateStore] = None
+        self._checkpointer: Optional[RoundCheckpointer] = None
+        rdir = getattr(args, "resilience_dir", None)
+        if rdir:
+            self._round_store = RoundStateStore(str(rdir))
+            self._checkpointer = RoundCheckpointer(self._round_store, args,
+                                                   async_mode=self._async_mode)
+            if getattr(args, "resume", False):
+                self._try_resume()
+
+    def _try_resume(self) -> None:
+        """Restart from the last complete round: restore the global model,
+        the cohort's health baselines and the numpy RNG, and set
+        ``round_idx`` to the first round that never finished. In async mode
+        the checkpoint also carries the buffer (accumulator, un-folded
+        pending arrivals, staleness clock), so a SIGKILL mid-window resumes
+        with the partial buffer intact."""
+        model_template = self.aggregator.get_global_model_params()
+        template: Dict[str, Any] = {"model": model_template}
+        buf = getattr(self.aggregator, "async_buffer", None)
+        buf_meta = None
+        if self._async_mode and buf is not None:
+            # the pending count varies per snapshot: read the sidecar first so
+            # the template matches the saved structure
+            step = self._round_store.latest_complete_round()
+            meta = self._round_store.read_meta(step) if step is not None else None
+            buf_meta = (meta or {}).get("async_buffer")
+            if buf_meta:
+                btmpl = buf.state_template(model_template, buf_meta)
+                if btmpl:
+                    template["async_buffer"] = btmpl
+        rs = self._round_store.resume(template=template)
+        if rs is None:
+            return
+        self.aggregator.set_global_model_params(rs.state["model"])
+        if self._async_mode and buf is not None and buf_meta:
+            buf.restore(rs.state.get("async_buffer", {}), buf_meta, template=rs.state["model"])
+            self.args.round_idx = buf.version
+        else:
+            self.args.round_idx = rs.round_idx + 1
+        restore_numpy_rng(rs.meta.get("numpy_rng"))
+        self.aggregator.fleet.health.restore_state(rs.meta.get("health"))
+        log.info("server resumed: round %d complete, restarting at round %d",
+                 rs.round_idx, self.args.round_idx)
 
     def _begin_round_trace(self) -> None:
         self._end_round_trace()
@@ -124,6 +191,7 @@ class FedMLServerManager(FedMLCommManager):
             self.send_message_init_config(
                 client_id, global_model_params, self.data_silo_index_list[idx]
             )
+        self._begin_quorum_round()
 
     def register_message_receive_handlers(self) -> None:
         self.register_message_receive_handler(MyMessage.MSG_TYPE_CONNECTION_IS_READY, self.handle_message_connection_ready)
@@ -134,20 +202,92 @@ class FedMLServerManager(FedMLCommManager):
 
     # --- cohort selection -------------------------------------------------
     def _select_cohort(self) -> None:
-        """Pick this round's cohort of client ranks and their data silos."""
+        """Pick this round's cohort of client ranks and their data silos.
+        With over-provisioning on and stragglers flagged last round, samples
+        ``ceil(k·(1+f))`` clients; the quorum keeps the first k deltas."""
         k = int(getattr(self.args, "client_num_per_round", self.size - 1))
+        n_sample = k
+        if self._quorum_policy.overprovision_frac > 0:
+            report = self.aggregator.fleet.health.report()
+            stragglers = bool(report and report.stragglers)
+            n_sample = overprovisioned_cohort_size(
+                k, self._quorum_policy.overprovision_frac, stragglers, self.size - 1
+            )
+            if n_sample > k:
+                log.info("round %d: over-provisioning cohort %d -> %d (stragglers flagged)",
+                         self.args.round_idx, k, n_sample)
+                note(overprovisioned={"round": int(self.args.round_idx), "k": k, "sampled": n_sample})
         self.client_id_list_in_this_round = self.aggregator.client_selection(
-            self.args.round_idx, list(range(1, self.size)), k
+            self.args.round_idx, list(range(1, self.size)), n_sample
         )
         self.data_silo_index_list = self.aggregator.data_silo_selection(
             self.args.round_idx,
             int(getattr(self.args, "client_num_in_total", self.size - 1)),
             len(self.client_id_list_in_this_round),
         )
+        self._keep_k = min(k, len(self.client_id_list_in_this_round))
         # async replies go to one sender at a time, long after the cohort
         # list was built: remember each client's silo
         self._silo_of = {int(cid): int(self.data_silo_index_list[i])
                          for i, cid in enumerate(self.client_id_list_in_this_round)}
+        # a late delta from a reshuffled-out rank is then skipped, not raised on
+        self.aggregator.fleet.set_expected_ranks(self.client_id_list_in_this_round)
+
+    # --- quorum round lifecycle -------------------------------------------
+    def _begin_quorum_round(self) -> None:
+        if self._async_mode or not self._quorum_policy.enabled:
+            return  # async: no barrier, the staleness policy governs instead
+        with self._round_lock:
+            self._cancel_deadline_timer()
+            self._round_quorum = RoundQuorum(
+                int(self.args.round_idx),
+                self.client_id_list_in_this_round,
+                self._keep_k,
+                self._quorum_policy,
+            )
+            note(last_quorum=self._round_quorum.statusz())
+            self._arm_deadline_timer()
+
+    def _arm_deadline_timer(self) -> None:
+        deadline_s = self._quorum_policy.deadline_for_round(self.aggregator.fleet.health)
+        if deadline_s is None:
+            return
+        t = threading.Timer(deadline_s, self._on_round_deadline, args=(int(self.args.round_idx),))
+        t.daemon = True
+        t.start()
+        self._deadline_timer = t
+
+    def _cancel_deadline_timer(self) -> None:
+        if self._deadline_timer is not None:
+            self._deadline_timer.cancel()
+            self._deadline_timer = None
+
+    def _on_round_deadline(self, round_idx: int) -> None:
+        """Timer thread: the round's deadline fired. Aggregate partially if
+        the quorum is there, on the server's device; otherwise extend by one
+        more deadline period."""
+        device = getattr(self.aggregator, "device", None)
+        on_card = torch.cuda.device(device) if getattr(device, "type", None) == "cuda" \
+            else contextlib.nullcontext()
+        with on_card, self._round_lock:
+            q = self._round_quorum
+            if q is None or q.round_idx != round_idx or int(self.args.round_idx) != round_idx:
+                return  # the round already advanced
+            if not q.deadline_quorum_met():
+                log.warning(
+                    "round %d deadline: quorum not met (%d/%d arrived, need %d), extending",
+                    round_idx, len(q.arrived()), q.keep_k,
+                    self._quorum_policy.min_quorum(q.keep_k),
+                )
+                self._arm_deadline_timer()
+                return
+            missing = q.close_partial()
+            for r in missing:
+                self.aggregator.fleet.health.observe_failure(r)
+            note(last_quorum=q.statusz())
+            log.warning("round %d: partial aggregation with %s (missing %s)",
+                        round_idx, q.arrived(), missing)
+            self._complete_round()
 
     # --- handlers ---------------------------------------------------------
     def handle_message_connection_ready(self, msg_params: Message) -> None:
@@ -164,37 +304,80 @@ class FedMLServerManager(FedMLCommManager):
         all_online = all(self.client_online_status.get(cid, False) for cid in range(1, self.size))
         if all_online and not self.is_initialized:
             self.is_initialized = True
+            if int(self.args.round_idx) >= self.round_num:
+                # resumed from a store whose last complete round was the
+                # final one: nothing left to train, release the fleet
+                log.info("resume found all %d rounds complete; finishing", self.round_num)
+                self.send_finish_to_all()
+                self.finish()
+                return
             self.send_init_msg()
 
     def handle_message_receive_model_from_client(self, msg_params: Message) -> None:
         sender_id = msg_params.get_sender_id()
-        model_params = decompress_arrival(msg_params.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS),
-                                          sender_id)
         local_sample_number = msg_params.get(MyMessage.MSG_ARG_KEY_NUM_SAMPLES)
+        delta_round = msg_params.get(MyMessage.MSG_ARG_KEY_ROUND_IDX)
+        header = trace_context.telemetry_header(msg_params)
+        if header is not None and trace_context.DELTA_FIELD in header:
+            self.aggregator.merge_client_telemetry(sender_id, header[trace_context.DELTA_FIELD])
         if self._async_mode:
+            model_params = decompress_arrival(msg_params.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS),
+                                              sender_id)
             self._handle_async_upload(sender_id, model_params, local_sample_number, msg_params)
             return
-        with tel.span("server.receive_model", round=int(self.args.round_idx), sender=int(sender_id)):
-            self.aggregator.add_local_trained_result(sender_id - 1, model_params, local_sample_number)
-        if not self.aggregator.check_whether_all_receive():
-            return
-        self._complete_round()
+        with self._round_lock:
+            q = self._round_quorum
+            if q is not None:
+                verdict = q.on_delta(sender_id, None if delta_round is None else int(delta_round))
+                if verdict != quorum_mod.ACCEPT:
+                    # late, surplus or duplicate: the delta is dropped unread
+                    # (never ingested), but the rank is alive
+                    self.aggregator.fleet.health.heartbeat(sender_id)
+                    note(last_quorum=q.statusz())
+                    return
+            model_params = decompress_arrival(msg_params.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS),
+                                              sender_id)
+            with tel.span("server.receive_model", round=int(self.args.round_idx), sender=int(sender_id)):
+                self.aggregator.add_local_trained_result(sender_id - 1, model_params, local_sample_number)
+            if q is not None:
+                note(last_quorum=q.statusz())
+                if not q.complete():
+                    return
+            elif not self.aggregator.check_whether_all_receive():
+                return
+            self._complete_round()
 
     def _complete_round(self) -> None:
-        """Aggregate every arrival, evaluate, and advance — or finish the
-        run."""
+        """Aggregate (every arrival, or the quorum's kept set), evaluate,
+        persist the round state, and advance — or finish the run. The caller
+        holds ``_round_lock`` (receive loop or deadline timer)."""
+        self._cancel_deadline_timer()
         round_idx = int(self.args.round_idx)
         # FedMLAggregator.aggregate opens the server.aggregate span itself
         global_model_params = self.aggregator.aggregate()
+        if self._round_quorum is not None:
+            # a partial or keep-first-k round leaves upload flags set
+            self.aggregator.reset_round_flags()
+            self._round_quorum = None
         with tel.span("server.eval", round=round_idx):
             metrics = self.aggregator.test_on_server_for_all_clients(round_idx)
         if metrics is not None:
             self.final_metrics = metrics
         tel.counter("engine.rounds").add(1)
+        fleet = self.aggregator.fleet
+        if fleet.merges:
+            # close the health round: the MAD straggler test over this
+            # round's client.train durations
+            report = fleet.health.end_round(round_idx)
+            if report.stragglers:
+                log.warning("round %d stragglers: %s", round_idx, report.stragglers)
+        self._save_round_state(round_idx, global_model_params,
+                               final=(round_idx + 1 >= self.round_num))
         self.args.round_idx += 1
         if self.args.round_idx >= self.round_num:
             self.send_finish_to_all()
             self._end_round_trace()
+            self._export_fleet_trace_if_configured()
             self.finish()
             return
         self._select_cohort()
@@ -203,26 +386,37 @@ class FedMLServerManager(FedMLCommManager):
             int(self.args.round_idx), global_model_params,
             self.client_id_list_in_this_round, self.data_silo_index_list,
         )
+        self._begin_quorum_round()
 
     # --- async (non-barrier) flow ------------------------------------------
     def _handle_async_upload(self, sender_id: int, model_params, local_sample_number,
                              msg_params: Message) -> None:
-        """One async arrival: fold it at once, publish if the window filled,
-        and reply to THIS sender with the newest global model so it starts
-        its next local round while the others still train."""
+        """One async arrival: fold it at once, publish if the window filled
+        (else snapshot the buffer on the mid-window cadence), and reply to
+        THIS sender with the newest global model so it starts its next local
+        round while the others still train."""
         client_version = msg_params.get(MyMessage.MSG_ARG_KEY_MODEL_VERSION)
         buf = self.aggregator.async_buffer
-        with tel.span("server.async_receive", sender=int(sender_id), version=buf.version):
-            self.aggregator.submit_async_result(
-                sender_id - 1, model_params, local_sample_number,
-                None if client_version is None else int(client_version))
-        if buf.ready():
-            self._complete_async_publish()
-            if self.args.round_idx >= self.round_num:
-                return  # finished: S2C_FINISH already sent to everyone
-        self.send_message_sync_model_to_client(
-            sender_id, self.aggregator.get_global_model_params(),
-            self._silo_of.get(int(sender_id), sender_id - 1))
+        with self._round_lock:
+            with tel.span("server.async_receive", sender=int(sender_id), version=buf.version):
+                self.aggregator.submit_async_result(
+                    sender_id - 1, model_params, local_sample_number,
+                    None if client_version is None else int(client_version))
+            self.aggregator.fleet.health.heartbeat(sender_id)
+            note(last_async=buf.statusz())
+            ckpt_every = int(getattr(self.args, "async_checkpoint_every_merges", 0) or 0)
+            if buf.ready():
+                self._complete_async_publish()
+                if self.args.round_idx >= self.round_num:
+                    return  # finished: S2C_FINISH already sent to everyone
+            elif ckpt_every and buf.merges_total % ckpt_every == 0:
+                # mid-window durability: snapshot the half-full buffer so a
+                # SIGKILL here resumes with the partial merges intact
+                self._save_round_state(int(self.args.round_idx),
+                                       self.aggregator.get_global_model_params())
+            self.send_message_sync_model_to_client(
+                sender_id, self.aggregator.get_global_model_params(),
+                self._silo_of.get(int(sender_id), sender_id - 1))
 
     def _complete_async_publish(self) -> None:
         """Publish one model generation and do its bookkeeping."""
@@ -231,9 +425,10 @@ class FedMLServerManager(FedMLCommManager):
         self._after_async_publish()
 
     def _after_async_publish(self) -> None:
-        """Evaluate the generation just published on the test cadence, and
-        finish the run after ``comm_round`` publishes. The new global is
-        installed."""
+        """Evaluate the generation just published on the test cadence, close
+        the health round, checkpoint, and finish the run after
+        ``comm_round`` publishes. The new global is installed."""
+        global_model_params = self.aggregator.get_global_model_params()
         buf = self.aggregator.async_buffer
         round_idx = buf.version - 1  # the generation just published
         self.args.round_idx = buf.version
@@ -242,12 +437,44 @@ class FedMLServerManager(FedMLCommManager):
         if metrics is not None:
             self.final_metrics = metrics
         tel.counter("engine.rounds").add(1)
-        if buf.version >= self.round_num:
+        if self.aggregator.fleet.merges:
+            self.aggregator.fleet.health.end_round(round_idx)
+        final = buf.version >= self.round_num
+        self._save_round_state(round_idx, global_model_params, final=final)
+        if final:
             self.send_finish_to_all()
             self._end_round_trace()
+            self._export_fleet_trace_if_configured()
             self.finish()
             return
         self._begin_round_trace()
+
+    def _save_round_state(self, round_idx: int, global_model_params, *, final: bool = False) -> None:
+        """Durable round boundary, owned by the engine's RoundCheckpointer:
+        async enqueue, drain-then-sync-save on the final round, mid-window
+        buffer snapshots, and both chaos SIGKILL drills."""
+        if self._checkpointer is None:
+            return
+        self._checkpointer.save(
+            int(round_idx),
+            {"model": global_model_params},
+            cohort=self.client_id_list_in_this_round or [],
+            health=self.aggregator.fleet.health.export_state(),
+            final=final,
+            async_buffer=(self.aggregator.async_buffer if self._async_mode else None),
+        )
+
+    def _export_fleet_trace_if_configured(self) -> None:
+        """Write the fleet Perfetto JSON when ``args.fleet_trace`` names a
+        path (and any client telemetry arrived)."""
+        path = getattr(self.args, "fleet_trace", None)
+        if not path or not self.aggregator.fleet.merges:
+            return
+        try:
+            out = self.aggregator.export_fleet_trace(str(path))
+            log.info("fleet trace written to %s (open in ui.perfetto.dev)", out)
+        except OSError:
+            log.exception("fleet trace export failed")
 
     def _model_version(self) -> int:
         """The published-model version stamped on every model sync: the
@@ -261,6 +488,7 @@ class FedMLServerManager(FedMLCommManager):
         message = Message(MyMessage.MSG_TYPE_S2C_INIT_CONFIG, self.get_sender_id(), receive_id)
         message.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS, global_model_params)
         message.add_params(MyMessage.MSG_ARG_KEY_CLIENT_INDEX, int(datasilo_index))
+        # a resumed server's first round is not round 0: clients adopt this
         message.add_params(MyMessage.MSG_ARG_KEY_ROUND_IDX, int(self.args.round_idx))
         message.add_params(MyMessage.MSG_ARG_KEY_MODEL_VERSION, self._model_version())
         self.send_message(message)

@@ -10,16 +10,23 @@ object per cohort slot shares the one trainer, whose module holds the model
 on the device; the global model and the server state (SCAFFOLD's ``c``,
 FedDyn's ``h``, Mime's momentum ``s``) travel as state dicts on that device.
 
+Durable round state (``resilience_dir``, JAX ``:106-115``, ``:138-195``):
+each round boundary is saved async through the engine's
+``RoundCheckpointer`` (the model, SCAFFOLD's ``c``, FedDyn's ``h``, Mime's
+``s`` and the FedOpt server state, with the numpy RNG and the trainer's
+round counter in the sidecar), the final round synchronously; ``resume``
+restarts from the last complete round and replays the rest bit for bit.
+
 Not ported yet, each raising NotImplementedError (ROADMAP.md, Queue 1): the
-pipelined client execution, durable round state (``resilience_dir``) and
-modelwatch's quarantine. Modelwatch's fold statistics, on by default in the
-JAX package, change nothing the round computes; the port runs without them.
+pipelined client execution and modelwatch's quarantine. Modelwatch's fold
+statistics, on by default in the JAX package, change nothing the round
+computes; the port runs without them.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from ...constants import (
     FEDML_FEDERATED_OPTIMIZER_FEDDYN,
@@ -31,7 +38,10 @@ from ...constants import (
 from ...core.aggregation.agg_operator import fednova_aggregate, scaffold_aggregate, uniform_average
 from ...core.aggregation.server_optimizer import FedOptServer, create_fedopt_server
 from ...core.alg_frame.context import Context
-from ...core.engine import AlgFrameSink, InProcessSequentialStrategy, RoundEngine, sample_cohort
+from ...core.engine import (AlgFrameSink, InProcessSequentialStrategy, RoundCheckpointer,
+                            RoundEngine, sample_cohort)
+from ...core.resilience import RoundStateStore
+from ...core.resilience.round_state import restore_numpy_rng
 from ...ml.aggregator import create_server_aggregator
 from ...ml.trainer.trainer_creator import create_model_trainer
 from ...utils.pytree import tree_sub, tree_zeros_like
@@ -50,8 +60,6 @@ class FedAvgAPI:
                  server_aggregator=None):
         if str(getattr(args, "client_execution", "sequential") or "sequential") != "sequential":
             raise _not_ported(f"client_execution={args.client_execution!r}")
-        if getattr(args, "resilience_dir", None):
-            raise _not_ported("resilience_dir (durable round state and resume)")
         if getattr(args, "modelwatch_quarantine", False):
             raise _not_ported("modelwatch_quarantine")
         self.device = device
@@ -91,6 +99,15 @@ class FedAvgAPI:
         self._mime_s = tree_zeros_like(self.model_trainer.get_model_params())
         self.metrics_history: List[Dict[str, float]] = []
 
+        # durable round state: every round boundary is checkpointed async;
+        # args.resume restarts from the last complete round
+        self._round_store: Optional[RoundStateStore] = None
+        self._checkpointer: Optional[RoundCheckpointer] = None
+        rdir = getattr(args, "resilience_dir", None)
+        if rdir:
+            self._round_store = RoundStateStore(str(rdir))
+            self._checkpointer = RoundCheckpointer(self._round_store, args)
+
     def _setup_clients(self, train_data_local_num_dict, train_data_local_dict,
                        test_data_local_dict) -> None:
         """One Client object per sampled slot, reused across rounds (local
@@ -111,6 +128,58 @@ class FedAvgAPI:
                          client_num_per_round: int) -> List[int]:
         return sample_cohort(round_idx, client_num_in_total, client_num_per_round)
 
+    # --- durable round state ------------------------------------------
+    def _round_state_dict(self, w_global) -> Dict[str, Any]:
+        """The named state a round boundary persists: the global model plus
+        whichever server-side algorithm state this optimizer carries."""
+        st: Dict[str, Any] = {"model": w_global}
+        if self.fed_opt == FEDML_FEDERATED_OPTIMIZER_SCAFFOLD:
+            st["scaffold_c"] = self._scaffold_c
+        elif self.fed_opt == FEDML_FEDERATED_OPTIMIZER_FEDDYN:
+            st["feddyn_h"] = self._feddyn_h
+        elif self.fed_opt == FEDML_FEDERATED_OPTIMIZER_MIME:
+            st["mime_s"] = self._mime_s
+        if self._fedopt_server is not None:
+            st["fedopt"] = self._fedopt_server.state
+        return st
+
+    def _try_resume(self, w_global) -> Tuple[Any, int]:
+        """Restore ``(w_global, start_round)`` from the round store when
+        ``args.resume`` is set; ``(w_global, 0)`` otherwise."""
+        if self._round_store is None or not getattr(self.args, "resume", False):
+            return w_global, 0
+        rs = self._round_store.resume(template=self._round_state_dict(w_global))
+        if rs is None:
+            return w_global, 0
+        st = rs.state
+        w_global = st["model"]
+        if "scaffold_c" in st:
+            self._scaffold_c = st["scaffold_c"]
+        if "feddyn_h" in st:
+            self._feddyn_h = st["feddyn_h"]
+        if "mime_s" in st:
+            self._mime_s = st["mime_s"]
+        if self._fedopt_server is not None and "fedopt" in st:
+            self._fedopt_server.state = st["fedopt"]
+        restore_numpy_rng(rs.meta.get("numpy_rng"))
+        tr = rs.meta.get("trainer_round")
+        if tr is not None and hasattr(self.model_trainer, "_round"):
+            self.model_trainer._round = int(tr)
+        self._install_global(w_global)
+        log.info("resumed after round %d (%s)", rs.round_idx, self._round_store.directory)
+        return w_global, rs.round_idx + 1
+
+    def _save_round_state(self, round_idx: int, w_global, cohort: List[int], final: bool) -> None:
+        """Round-boundary durability through the engine's RoundCheckpointer
+        (drain-then-sync-save on the final round, the chaos SIGKILL drill)."""
+        self._checkpointer.save(
+            int(round_idx),
+            self._round_state_dict(w_global),
+            cohort=cohort,
+            extra_meta={"trainer_round": getattr(self.model_trainer, "_round", None)},
+            final=final,
+        )
+
     def train(self) -> Dict[str, float]:
         engine = RoundEngine(
             self.args,
@@ -121,6 +190,9 @@ class FedAvgAPI:
             ),
             install_fn=self._install_global,
             eval_fn=self._test_global,
+            resume_fn=self._try_resume,
+            checkpoint_fn=self._save_round_state if self._checkpointer is not None else None,
+            finalize_fn=(lambda w: self._round_store.wait()) if self._round_store is not None else None,
             round_span_attrs={"optimizer": self.fed_opt},
             metrics_history=self.metrics_history,
         )

@@ -589,30 +589,25 @@ def test_comm_compressor_lossy_uplink_still_converges():
 # --- what is not ported raises ---------------------------------------------------
 
 GATES = {
-    "async_rounds": ("server", dict(async_rounds=True, async_checkpoint_every_merges=4)),
-    "async_checkpoint_every_merges": ("server", dict(async_checkpoint_every_merges=4)),
     "async_link_admission": ("server", dict(async_rounds=True, async_link_admission=True)),
+    "quorum_link_cost": ("server", dict(quorum_frac=0.5, quorum_link_cost=True)),
     "privacy": ("server", dict(privacy="dp")),
     "privacy_client": ("client", dict(privacy="secagg")),
     "secure_aggregation_secagg": ("server", dict(secure_aggregation="secagg")),
     "secure_aggregation_lsa": ("client", dict(secure_aggregation="lsa")),
     "comm_compressor": ("client", dict(comm_compressor="eftopk", backend="MQTT_S3")),
     "scenario_hierarchical": ("client", dict(scenario="hierarchical")),
-    "quorum": ("server", dict(quorum_frac=0.5)),
-    "round_deadline": ("server", dict(round_deadline_s=5.0)),
-    "overprovision": ("server", dict(overprovision_frac=0.5)),
-    "resilience_dir": ("server", dict(resilience_dir="rs")),
     "link_probe_interval_s": ("server", dict(link_probe_interval_s=1.0)),
     "link_wan_health": ("server", dict(link_wan_health=True)),
     "statusz": ("server", dict(statusz_port=0)),
     "slo": ("server", dict(slo_spec="x")),
-    "fleet_trace": ("server", dict(fleet_trace="t.json")),
+    "slo_tick_s": ("server", dict(slo_tick_s=1.0)),
     "server_mesh": ("server", dict(server_mesh="1x1")),
     "modelwatch_quarantine": ("server", dict(modelwatch_quarantine=True)),
-    "chaos_train_delay_s": ("client", dict(chaos_train_delay_s=1.0)),
-    "chaos_raise_at_round": ("client", dict(chaos_raise_at_round=0)),
-    "chaos_kill_after_round": ("server", dict(chaos_kill_after_round=1)),
     "chaos_link_throttle": ("client", dict(chaos_link_throttle=1e6)),
+    "chaos_link_base_delay_s": ("client", dict(chaos_link_base_delay_s=0.1)),
+    "chaos_secagg_drop_upload_at_round": ("client", dict(chaos_secagg_drop_upload_at_round=0)),
+    "chaos_split_kill_rank": ("server", dict(chaos_split_kill_rank=1)),
     "mqtt_host": ("client", dict(backend="MQTT_S3", mqtt_host="broker.example")),
     "s3_bucket": ("server", dict(backend="MQTT_S3", s3_bucket="bucket")),
     "mqtt_s3_wire_fedml": ("server", dict(backend="MQTT_S3", mqtt_s3_wire="fedml")),
@@ -620,16 +615,53 @@ GATES = {
        for b in ("GRPC", "MPI", "TRPC", "MQTT_WEB3", "MQTT_THETASTORE")},
 }
 
+# knobs of the resilience slice: each party builds (tests/test_torch_resilience.py
+# runs them)
+PORTED = {
+    "async_checkpoint_every_merges": ("server", dict(async_rounds=True,
+                                                     async_checkpoint_every_merges=4)),
+    "quorum": ("server", dict(quorum_frac=0.5)),
+    "round_deadline": ("server", dict(round_deadline_s=5.0)),
+    "adaptive_deadline": ("server", dict(adaptive_deadline=True)),
+    "overprovision": ("server", dict(overprovision_frac=0.5, client_num_connected=3)),
+    "resilience_dir": ("server", dict(resilience_dir="rs", resume=True)),
+    "fleet_trace": ("server", dict(fleet_trace="t.json")),
+    "chaos_train_delay_s": ("client", dict(chaos_train_delay_s=1.0, chaos_train_delay_rounds=1)),
+    "chaos_raise_at_round": ("client", dict(chaos_raise_at_round=0)),
+    "chaos_nan_at_round": ("client", dict(chaos_nan_at_round=0)),
+    "chaos_scale_delta": ("client", dict(chaos_scale_delta=2.0, chaos_scale_at_round=1)),
+    "chaos_kill_after_round": ("server", dict(resilience_dir="rs", chaos_kill_after_round=1)),
+    "chaos_kill_after_merges": ("server", dict(async_rounds=True, resilience_dir="rs",
+                                               chaos_kill_after_merges=3)),
+}
+
+
+def _party_args(gate, over, role, tmp_path):
+    kw = dict(LR, run_id=f"tcs_gate_{gate}", rank=0 if role == "server" else 1, role=role,
+              backend="INMEMORY", using_gpu=False, object_store_dir=str(tmp_path))
+    kw.update(over)
+    if "resilience_dir" in kw:
+        kw["resilience_dir"] = str(tmp_path / kw["resilience_dir"])
+    if "fleet_trace" in kw:
+        kw["fleet_trace"] = str(tmp_path / kw["fleet_trace"])
+    args = fedml_tpu_torch.default_config("cross_silo", **kw)
+    dataset, output_dim = fedml_tpu_torch.data.load(copy.copy(args))
+    return args, dataset, fedml_tpu_torch.model.create(args, output_dim, device="cpu")
+
+
+@pytest.mark.parametrize("gate", list(PORTED))
+def test_ported_resilience_knobs_build(gate, tmp_path):
+    role, over = PORTED[gate]
+    args, dataset, model = _party_args(gate, over, role, tmp_path)
+    runner = fedml_tpu_torch.FedMLRunner(args, torch.device("cpu"), dataset, model)
+    assert runner.runner is not None
+    InMemoryBroker.reset(f"tcs_gate_{gate}")
+
 
 @pytest.mark.parametrize("gate", list(GATES))
 def test_unported_knobs_and_backends_raise(gate, tmp_path):
     role, over = GATES[gate]
-    kw = dict(LR, run_id=f"tcs_gate_{gate}", rank=0 if role == "server" else 1, role=role,
-              backend="INMEMORY", using_gpu=False, object_store_dir=str(tmp_path))
-    kw.update(over)
-    args = fedml_tpu_torch.default_config("cross_silo", **kw)
-    dataset, output_dim = fedml_tpu_torch.data.load(copy.copy(args))
-    model = fedml_tpu_torch.model.create(args, output_dim, device="cpu")
+    args, dataset, model = _party_args(gate, over, role, tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fedml_tpu_torch.FedMLRunner(args, torch.device("cpu"), dataset, model)
-    LocalMqttBroker.reset(kw["run_id"])
+    LocalMqttBroker.reset(args.run_id)

@@ -441,7 +441,7 @@ def test_run_simulation_on_the_cpu_and_refusals():
                         "hierarchy_edges"),
                        (dict(backend="NCCL"), "NCCL"),
                        (dict(client_execution="pipelined"), "pipelined"),
-                       (dict(resilience_dir="x"), "resilience_dir"),
+                       (dict(modelwatch_quarantine=True), "modelwatch_quarantine"),
                        (dict(federated_optimizer="TA"), "federated_optimizer .TA.")]:
         bad = copy.copy(args)
         for k, v in over.items():

@@ -370,3 +370,37 @@ def test_async_and_compression_modules_load_no_jax_or_fedml_tpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+RESILIENCE_MODULES = (
+    "fedml_tpu_torch.core.resilience", "fedml_tpu_torch.core.resilience.round_state",
+    "fedml_tpu_torch.core.telemetry.health", "fedml_tpu_torch.core.telemetry.sketches",
+    "fedml_tpu_torch.core.telemetry.fleet", "fedml_tpu_torch.utils.checkpoint",
+    "fedml_tpu_torch.tools.resilience_drill",
+)
+
+
+def test_resilience_modules_load_no_jax_or_fedml_tpu(tmp_path):
+    """Durable round state, the fleet view and the drill tool on their own:
+    importing them, one async round-state save and its resume leave no jax
+    or fedml_tpu module loaded and build no kernel."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {RESILIENCE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "from fedml_tpu_torch.core.resilience import RoundStateStore\n"
+        f"store = RoundStateStore({str(tmp_path / 'rs')!r})\n"
+        "assert store.save_round(0, {'model': {'w': torch.ones(3)}}, cohort=[1])\n"
+        "store.wait()\n"
+        "assert torch.equal(store.resume().state['model']['w'], torch.ones(3))\n"
+        "from fedml_tpu_torch.ops import _build\n"
+        "assert _build.kernels.cache_info().currsize == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fedml_tpu'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout, out.stdout
