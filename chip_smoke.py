@@ -130,7 +130,7 @@ exception):
    health report flagged a straggler, and some round is; health flags the
    straggler and marks the dead rank failed; each round's fold bit-equal to
    engine.aggregate of the arrivals it kept, captured at ingest (f32
-   matmuls, TF32 off); per round the seconds, the deadline, the arrivals,
+   matmuls, TF32 off), and the kept set the quorum's accepted list; per round the seconds, the deadline, the arrivals,
    the missing ranks, late and surplus deltas. Then the SIGKILL drills of
    fedml_tpu_torch/tools/resilience_drill.py, every run a process of its own
    under RES_DRILL_TIMEOUT_S, deterministic: (a) sp, 16 clients x 3 rounds
@@ -2356,6 +2356,9 @@ def quorum_federation() -> dict:
         row = rounds[r]
         check(sorted(ingested.get(r, {})) == kept, f"round {r}: folded {kept}, ingested "
                                                    f"{sorted(ingested.get(r, {}))}")
+        # the folded set is the quorum's own accepted list (silo rank - 1)
+        check(kept == [a - 1 for a in row["arrived"]],
+              f"round {r}: folded {kept}, the quorum accepted ranks {row['arrived']}")
         ref = get_engine().aggregate([ingested[r][i] for i in kept])
         bit_equal[r] = all(torch.equal(ref[key], out[key]) for key in out)
         row["kept"] = len(kept)

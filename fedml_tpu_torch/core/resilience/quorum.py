@@ -27,9 +27,10 @@ tracker; thread-safe because deltas arrive on the receive loop while the
 deadline timer fires on its own thread. The server manager owns the timer;
 this module owns the decisions.
 
-The link-cost stretch of the adaptive deadline (``args.quorum_link_cost``)
-reads ``telemetry.netlink``, which is not ported: the server manager
-refuses the knob (ROADMAP.md, Queue 1).
+Not copied: the link-cost stretch of the adaptive deadline (JAX's
+``use_link_cost`` and ``link_predict``, ``args.quorum_link_cost``), which
+reads ``telemetry.netlink``; the server manager refuses the knob until
+netlink is ported (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -83,9 +84,6 @@ class QuorumPolicy:
     adaptive_mult: float = 3.0               # deadline = mult * max healthy EWMA
     min_deadline_s: float = 1.0              # adaptive floor
     overprovision_frac: float = 0.0
-    # args.quorum_link_cost: stretch the adaptive deadline by each rank's
-    # measured upload time (the link cost model)
-    use_link_cost: bool = False
 
     @property
     def enabled(self) -> bool:
@@ -102,22 +100,15 @@ class QuorumPolicy:
             adaptive_mult=float(getattr(args, "adaptive_deadline_mult", 3.0)),
             min_deadline_s=float(getattr(args, "adaptive_deadline_min_s", 1.0)),
             overprovision_frac=float(getattr(args, "overprovision_frac", 0.0)),
-            use_link_cost=bool(getattr(args, "quorum_link_cost", False)),
         )
 
     def min_quorum(self, keep_k: int) -> int:
         return max(1, int(math.ceil(float(self.quorum_frac) * int(keep_k))))
 
-    def deadline_for_round(self, health: Any = None,
-                           link_predict: Any = None) -> Optional[float]:
+    def deadline_for_round(self, health: Any = None) -> Optional[float]:
         """Seconds until this round's deadline (None = wait forever). The
         adaptive mode needs at least one EWMA observation; until then the
-        static deadline (or none) applies.
-
-        ``link_predict`` (rank -> predicted upload seconds, or None where the
-        link cost model has no confident estimate) only applies with
-        ``use_link_cost``: each rank's EWMA is stretched by its measured
-        transfer time BEFORE the cohort max."""
+        static deadline (or none) applies."""
         if self.adaptive and health is not None:
             try:
                 ewmas = {r: c.ewma_s for r, c in health._clients.items()
@@ -125,16 +116,7 @@ class QuorumPolicy:
             except Exception:  # noqa: BLE001 - duck-typed health object
                 ewmas = {}
             if ewmas:
-                per_rank = list(ewmas.values())
-                if self.use_link_cost and link_predict is not None:
-                    per_rank = []
-                    for rank, ewma in ewmas.items():
-                        try:
-                            extra = link_predict(rank)
-                        except Exception:  # noqa: BLE001 - duck-typed predictor
-                            extra = None
-                        per_rank.append(ewma + (float(extra) if extra else 0.0))
-                adaptive = max(self.min_deadline_s, self.adaptive_mult * max(per_rank))
+                adaptive = max(self.min_deadline_s, self.adaptive_mult * max(ewmas.values()))
                 return adaptive if self.deadline_s is None else min(adaptive, self.deadline_s)
         return self.deadline_s
 

@@ -32,7 +32,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from ...utils.checkpoint import CheckpointManager
+from ...utils.checkpoint import CheckpointManager, write_durably
 
 log = logging.getLogger(__name__)
 
@@ -131,10 +131,8 @@ class RoundStateStore:
 
     def _write_meta(self, round_idx: int, meta: Dict[str, Any]) -> None:
         path = os.path.join(self.directory, f"{META_PREFIX}{int(round_idx)}.json")
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(meta, f, default=_json_default)
-        os.replace(tmp, path)
+        # durable before the step file that the watermark then commits
+        write_durably(path, lambda f: f.write(json.dumps(meta, default=_json_default).encode()))
 
     def _meta_rounds(self) -> List[int]:
         out = []

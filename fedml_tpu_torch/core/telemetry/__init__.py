@@ -1,10 +1,11 @@
 """Telemetry: spans, counters, histograms and the time-series store.
 
-Counterpart of ``fedml_tpu/core/telemetry``: ``core``, ``trace_context``,
-``health`` and ``sketches`` are copies of the JAX package's framework-free
-modules, ``fleet`` (the server's fleet view: client telemetry deltas, the
-health tracker, the fleet trace) a copy but for its modelwatch and netlink
-parts, ``tsdb`` the part of its store that serving reads. Typical use::
+Counterpart of ``fedml_tpu/core/telemetry``: ``core`` and ``trace_context``
+are copies of the JAX package's framework-free modules, ``health`` a copy
+but for its ``/metrics`` gauges, ``fleet`` (the server's fleet view: client
+telemetry deltas, the health tracker, the fleet trace) the part of JAX's
+that health and the fleet trace need, ``tsdb`` the part of its store that
+serving reads. Typical use::
 
     from fedml_tpu_torch.core import telemetry as tel
 
@@ -14,8 +15,8 @@ parts, ``tsdb`` the part of its store that serving reads. Typical use::
     tel.histogram("serving.cb.ttft_seconds").observe(sp.duration_s)
 
 The rest of the JAX package's telemetry (``devperf``'s compiled-program
-costs, the flight recorder, netlink, modelwatch, SLOs, Prometheus and
-statusz) waits for the port's telemetry slice (ROADMAP.md, Queue 1).
+costs, the flight recorder, the fleet sketches, netlink, modelwatch, SLOs,
+Prometheus and statusz) waits for the port's telemetry slice (ROADMAP.md, Queue 1).
 """
 
 from . import tsdb

@@ -1,10 +1,14 @@
 """Fleet telemetry: merge per-client delta snapshots into one cohort view.
 
-A copy of ``fedml_tpu/core/telemetry/fleet.py`` but for two parts whose
-modules are not ported (ROADMAP.md, Queue 1): modelwatch's contribution
-ledger (the ``ledger`` property) and netlink's per-pair link estimates (a
-delta's ``link`` block is accepted and ignored; the exported trace has no
-message-flow arrows).
+A copy of ``fedml_tpu/core/telemetry/fleet.py`` cut to what the per-rank
+health feed and ``export_fleet_trace`` need. Left to the slices that bring
+their readers (ROADMAP.md, Queue 1): the fleet sketches (``sketches.py``:
+the quantile and offender summary, the sketch-only mode past the exact-rank
+threshold, the trace's summary lane) and the hierarchy's child-tier sketch
+slots, modelwatch's contribution ledger, and netlink's per-pair link
+estimates. A delta's ``link`` and ``sketches`` blocks are accepted and
+ignored; the exported trace has one lane per rank and no message-flow
+arrows.
 
 Clients attach ``Telemetry.delta_snapshot()`` output to their model-upload
 message (under the reserved header's ``"delta"`` field); the server merges
@@ -29,7 +33,6 @@ import json
 import logging
 from typing import Any, Dict, List, Optional, Set
 
-from . import sketches as _sketches
 from .core import Telemetry, get_telemetry
 from .health import HealthTracker
 
@@ -42,9 +45,8 @@ TRAIN_SPAN_NAME = "client.train"
 
 # every top-level delta key this version understands; anything else is a
 # newer client's stat block — skipped and counted, never a crash (mixed
-# fleets upgrade one party at a time). "sketches" is a child tier's merged
-# FleetSketches wire dict riding the same vocabulary (hierarchy forwards one
-# hop per publish).
+# fleets upgrade one party at a time). "link" and "sketches" are JAX's
+# netlink block and a hierarchy child's sketch wire: known, not read here.
 _KNOWN_DELTA_KEYS = frozenset({
     "spans", "counters", "histograms", "span_stats", "thread_names",
     "epoch_unix_ns", "dropped", "link", "sketches",
@@ -68,52 +70,15 @@ class FleetTelemetry:
         self.unknown_keys: Set[str] = set()
         self.expected_ranks: Optional[Set[int]] = None
         self.health = HealthTracker()
-        # mergeable fleet sketches: round-time/delta-norm/staleness quantiles,
-        # top-k offenders, distinct-clients HLL. Always fed (cheap); above
-        # the exact-mode threshold NEW ranks fold into sketches ONLY, so
-        # per-rank memory stays bounded at O(threshold) while the sketch view
-        # keeps covering the whole fleet.
-        self.sketches = _sketches.FleetSketches()
-        self.exact_threshold = _sketches.exact_threshold()
-        self.sketch_only_merges = 0
-        # child-tier sketch slots: a hierarchy child REPLACES its slot on
-        # every publish with its subtree's merged view, so ``sketch_view``
-        # never double-counts across publishes
-        self._child_sketches: Dict[int, _sketches.FleetSketches] = {}
 
     def set_expected_ranks(self, ranks) -> None:
         """Declare this round's cohort; ``None`` accepts any rank."""
         self.expected_ranks = None if ranks is None else {int(r) for r in ranks}
 
-    @property
-    def sketch_mode(self) -> bool:
-        """True once the tracked-rank count has reached the exact-mode
-        threshold: new ranks fold into sketches only from here on."""
-        return len(self._clients) >= self.exact_threshold
-
-    def wire_view(self) -> Dict[str, Any]:
-        """The merged view serialized for one forward hop. Skips the
-        defensive ``sketch_view`` copy when there are no child slots (edge
-        nodes — the common case; this rides EVERY hierarchy publish)."""
-        if not self._child_sketches:
-            return self.sketches.to_wire()
-        return self.sketch_view().to_wire()
-
-    def sketch_view(self) -> "_sketches.FleetSketches":
-        """This node's merged fleet view: own sketches ⊕ every child tier's
-        latest forwarded slot (each slot is already that subtree's view)."""
-        out = self.sketches.copy()
-        for child in self._child_sketches.values():
-            out.merge(child)
-        return out
-
-    def merge_client_delta(self, rank: int, delta: Any, direct: bool = True) -> bool:
+    def merge_client_delta(self, rank: int, delta: Any) -> bool:
         """Fold one client delta in; returns False (and counts it) on junk.
         Defensive by design — a misbehaving client must not crash the server's
-        receive loop. ``direct=False`` marks a delta replayed up an ancestor
-        chain: the per-rank exact path still merges, but sketches are NOT fed
-        (each observation belongs to exactly one node's sketches, or the
-        hierarchy would double-count on every forward)."""
+        receive loop."""
         if not isinstance(delta, dict):
             self.rejected += 1
             return False
@@ -130,25 +95,6 @@ class FleetTelemetry:
                 "late upload after reshuffle?", rank, sorted(self.expected_ranks),
             )
             return False
-        wire = delta.get("sketches")
-        if isinstance(wire, dict):
-            # a child tier's merged subtree view: REPLACE that child's slot
-            # (the wire is cumulative — adding it would double-count)
-            try:
-                self._child_sketches[rank] = _sketches.FleetSketches.from_wire(wire)
-            except (ValueError, KeyError, TypeError):
-                log.warning("fleet: unusable sketch wire from rank %d", rank)
-            if set(delta) <= {"sketches"}:
-                self.merges += 1
-                return True
-        if self.sketch_mode and rank not in self._clients:
-            # beyond the exact threshold a NEW rank gets no per-rank entry
-            # and no per-rank health row — its signal lives in the sketches
-            if direct:
-                self._feed_sketches_only(rank, delta)
-            self.sketch_only_merges += 1
-            self.merges += 1
-            return True
         ent = self._clients.setdefault(
             rank, {"spans": [], "counters": {}, "histograms": {}, "span_stats": {},
                    "thread_names": {}, "epoch_unix_ns": None, "dropped": 0,
@@ -159,7 +105,7 @@ class FleetTelemetry:
             for r in spans:
                 if not (isinstance(r, dict) and "name" in r and "t0_ns" in r and "dur_ns" in r):
                     continue
-                self._observe_health(rank, r, feed_sketches=direct)
+                self._observe_health(rank, r)
                 if len(ent["spans"]) >= self.max_spans_per_client:
                     ent["dropped"] += 1
                     continue
@@ -191,12 +137,10 @@ class FleetTelemetry:
         self.health.heartbeat(rank)
         return True
 
-    def _observe_health(self, rank: int, span_rec: Dict[str, Any],
-                        feed_sketches: bool = True) -> None:
+    def _observe_health(self, rank: int, span_rec: Dict[str, Any]) -> None:
         """Feed the health model from the merged span stream: each completed
         ``client.train`` span is one round-time observation (or a failure,
-        when the span unwound on an exception). Direct arrivals also feed the
-        fleet sketches (bounded fleet-wide quantiles + offenders)."""
+        when the span unwound on an exception)."""
         if span_rec.get("name") != TRAIN_SPAN_NAME:
             return
         try:
@@ -207,25 +151,8 @@ class FleetTelemetry:
             attrs = span_rec.get("attrs") or {}
             round_idx = attrs.get("round") if isinstance(attrs, dict) else None
             self.health.observe_round(rank, dur_s, round_idx)
-            if feed_sketches:
-                self.sketches.observe_round_time(rank, dur_s)
         except (TypeError, ValueError, KeyError):
             pass  # malformed span record: fleet merge already tolerates it
-
-    def _feed_sketches_only(self, rank: int, delta: Dict[str, Any]) -> None:
-        """Sketch-mode ingest for a rank with no per-rank entry: fold its
-        ``client.train`` durations into the sketches and drop the rest."""
-        spans = delta.get("spans")
-        if not isinstance(spans, list):
-            return
-        for r in spans:
-            if not (isinstance(r, dict) and r.get("name") == TRAIN_SPAN_NAME):
-                continue
-            try:
-                if not r.get("error"):
-                    self.sketches.observe_round_time(rank, float(r["dur_ns"]) / 1e9)
-            except (TypeError, ValueError, KeyError):
-                pass
 
     @property
     def ranks(self) -> List[int]:
@@ -242,43 +169,17 @@ class FleetTelemetry:
                 "spans_merged": len(ent["spans"]),
                 "dropped": ent["dropped"] + ent["client_dropped"],
             }
-        doc = {"clients": per_client, "merges": self.merges,
-               "rejected": self.rejected, "stale": self.stale,
-               "unknown_dropped": self.unknown_dropped,
-               "unknown_keys": sorted(self.unknown_keys)}
-        view = self.sketch_view()
-        if view.observations:
-            doc["sketches"] = view.snapshot()
-        if self.sketch_only_merges:
-            doc["sketch_only_merges"] = self.sketch_only_merges
-        return doc
+        return {"clients": per_client, "merges": self.merges,
+                "rejected": self.rejected, "stale": self.stale,
+                "unknown_dropped": self.unknown_dropped,
+                "unknown_keys": sorted(self.unknown_keys)}
 
     # --- export ----------------------------------------------------------
-    def export_fleet_trace(self, path: str, server: Optional[Telemetry] = None,
-                           max_client_lanes: Optional[int] = None) -> str:
-        """One Perfetto JSON: server lane (pid 0) + one pid lane per client.
-
-        Above ``max_client_lanes`` (default: the exposition budget's
-        per-family cap) the per-rank lanes collapse to ONE summary lane
-        carrying the sketch quantile table, plus lanes for only the top-k
-        offender ranks — a 10k-client trace stays loadable."""
+    def export_fleet_trace(self, path: str, server: Optional[Telemetry] = None) -> str:
+        """One Perfetto JSON: server lane (pid 0) + one pid lane per client."""
         server = server or get_telemetry()
         server_epoch = server.epoch_unix_ns()
         snap = server.snapshot()
-        if max_client_lanes is None:
-            max_client_lanes = _sketches.get_budget().per_family
-        lane_ranks = self.ranks
-        summary_lane = len(lane_ranks) > int(max_client_lanes)
-        if summary_lane:
-            view = self.sketch_view()
-            have = set(lane_ranks)
-            lane_ranks = []
-            for ki, _ in view.offenders.topk():  # sorted worst-first
-                if ki in have:
-                    lane_ranks.append(int(ki))
-                if len(lane_ranks) >= int(max_client_lanes):
-                    break
-
         # Threads shipped by any client belong to that client's lane, not the
         # server's (single-process sim: one shared registry).
         client_tids = set()
@@ -294,18 +195,7 @@ class FleetTelemetry:
             if r["tid"] in client_tids:
                 continue
             events.append(_span_event(r, pid=0, shift_ns=0))
-        if summary_lane:
-            # one bounded lane for the whole fleet: sketch quantiles +
-            # offender table as args, one instant event to anchor it
-            pid = _FLEET_SUMMARY_PID
-            n = len(self._clients) + self.sketch_only_merges
-            events.append({"ph": "M", "name": "process_name", "pid": pid,
-                           "tid": 0, "args": {"name": f"fleet-summary ({n} clients, "
-                                                      f"{len(lane_ranks)} offender lanes)"}})
-            events.append({"ph": "i", "name": "fleet.sketch_summary", "pid": pid,
-                           "tid": 0, "ts": 0, "s": "g",
-                           "args": view.snapshot()})
-        for rank in lane_ranks:
+        for rank in self.ranks:
             ent = self._clients[rank]
             pid = int(rank)
             events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
@@ -326,10 +216,6 @@ class FleetTelemetry:
         with open(path, "w") as f:
             json.dump(doc, f)
         return path
-
-
-# the summary lane's pid: far outside any plausible rank space
-_FLEET_SUMMARY_PID = 999_999_999
 
 
 def _span_event(r: Dict[str, Any], pid: int, shift_ns: int) -> Dict[str, Any]:

@@ -36,7 +36,9 @@ its sender alone with the newest global and its ``MODEL_VERSION``;
 them. ``async_checkpoint_every_merges`` snapshots the buffer mid-window. A
 compressed upload (``comm_compressor`` on the clients) is decompressed on
 arrival (``server.decompress``) on either path. ``fleet_trace`` writes the
-fleet's Perfetto JSON at the end of the run.
+fleet's Perfetto JSON at the end of the run. The clients' telemetry deltas
+are merged into the fleet view only under a knob that reads it (quorum,
+async, ``resilience_dir``, ``fleet_trace``).
 
 Not ported, each raising NotImplementedError when its knob is set
 (ROADMAP.md, Queue 1): link-cost admission (``async_link_admission``) and
@@ -119,6 +121,13 @@ class FedMLServerManager(FedMLCommManager):
         self._round_store: Optional[RoundStateStore] = None
         self._checkpointer: Optional[RoundCheckpointer] = None
         rdir = getattr(args, "resilience_dir", None)
+        # the fleet view has readers only under these knobs: the quorum
+        # (failures, adaptive deadline, over-provisioning), the async
+        # buffer's straggler grace, the round state's health and the fleet
+        # trace. Without them the clients' deltas are not merged and the
+        # round runs as it does without resilience.
+        self._fleet_read = bool(self._quorum_policy.enabled or self._async_mode or rdir
+                                or getattr(args, "fleet_trace", None))
         if rdir:
             self._round_store = RoundStateStore(str(rdir))
             self._checkpointer = RoundCheckpointer(self._round_store, args,
@@ -230,8 +239,9 @@ class FedMLServerManager(FedMLCommManager):
         # list was built: remember each client's silo
         self._silo_of = {int(cid): int(self.data_silo_index_list[i])
                          for i, cid in enumerate(self.client_id_list_in_this_round)}
-        # a late delta from a reshuffled-out rank is then skipped, not raised on
-        self.aggregator.fleet.set_expected_ranks(self.client_id_list_in_this_round)
+        if self._fleet_read:
+            # a late delta from a reshuffled-out rank is then skipped, not raised on
+            self.aggregator.fleet.set_expected_ranks(self.client_id_list_in_this_round)
 
     # --- quorum round lifecycle -------------------------------------------
     def _begin_quorum_round(self) -> None:
@@ -317,9 +327,10 @@ class FedMLServerManager(FedMLCommManager):
         sender_id = msg_params.get_sender_id()
         local_sample_number = msg_params.get(MyMessage.MSG_ARG_KEY_NUM_SAMPLES)
         delta_round = msg_params.get(MyMessage.MSG_ARG_KEY_ROUND_IDX)
-        header = trace_context.telemetry_header(msg_params)
-        if header is not None and trace_context.DELTA_FIELD in header:
-            self.aggregator.merge_client_telemetry(sender_id, header[trace_context.DELTA_FIELD])
+        if self._fleet_read:
+            header = trace_context.telemetry_header(msg_params)
+            if header is not None and trace_context.DELTA_FIELD in header:
+                self.aggregator.merge_client_telemetry(sender_id, header[trace_context.DELTA_FIELD])
         if self._async_mode:
             model_params = decompress_arrival(msg_params.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS),
                                               sender_id)

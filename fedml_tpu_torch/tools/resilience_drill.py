@@ -1,7 +1,7 @@
 """The SIGKILL drills of durable round state, one process a run.
 
     python -m fedml_tpu_torch.tools.resilience_drill DRILL MODE DIR \\
-        [--device cpu|cuda] [--model lr|resnet56] [--report FILE]
+        [--device cuda|cpu] [--model lr|resnet56] [--report FILE]
 
 ``DRILL`` is one of three federations, each with its round store in ``DIR``
 (``resilience_dir``):
@@ -33,8 +33,9 @@ server lr 1e-3, so a server state is persisted), 3 rounds; ``cs`` 4 silos,
 
 Every run is deterministic: ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA
 initialises, cuDNN deterministic without autotuning, TF32 off and
-``torch.use_deterministic_algorithms(True)``. With ``--device cuda`` and no
-card the run fails (the entry points refuse). ``--report`` writes a JSON
+``torch.use_deterministic_algorithms(True)``. The run is on the card
+(``--device cuda``, the default) and fails where there is none (the entry
+points refuse); ``--device cpu`` asks for the CPU. ``--report`` writes a JSON
 report: each round-state save (step, wait, milliseconds with the card waited
 for before and after, dropped or not), the ``checkpoint_save_seconds``
 histogram and ``checkpoint.dropped`` counter, the bytes of the newest step
@@ -239,7 +240,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("drill", choices=DRILLS)
     p.add_argument("mode", choices=MODES)
     p.add_argument("dir")
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--model", choices=("lr", "resnet56"), default="lr")
     p.add_argument("--report", default=None)
     a = p.parse_args(argv)

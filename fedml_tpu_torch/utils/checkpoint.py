@@ -2,9 +2,10 @@
 completion watermark.
 
 Counterpart of ``fedml_tpu/utils/checkpoint.py`` (orbax there). A step is
-one file ``step_<n>.pt`` holding the saved tree as CPU tensors, written to a
-temporary name, fsynced and renamed into place, so a reader never sees a
-torn step. The newest ``max_to_keep`` steps are kept.
+one file ``step_<n>.pt`` holding the saved tree as CPU tensors (the file
+is ``torch.save`` of the tree itself, as the synchronous manager wrote it
+before the async path came), written to a temporary name, fsynced and
+renamed into place, so a reader never sees a torn step. The newest ``max_to_keep`` steps are kept.
 
 The tree is snapshotted when the save is called: every tensor is copied to
 the host (``.detach().to("cpu", copy=True)``) before the call returns, so a
@@ -31,7 +32,7 @@ import os
 import re
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, List, Optional
 
 import torch
 
@@ -84,7 +85,7 @@ def _fsync_dir(directory: str) -> None:
         os.close(fd)
 
 
-def _write_durably(path: str, write) -> None:
+def write_durably(path: str, write) -> None:
     """Write through ``write(file)`` to a temporary name, fsync it and
     rename it into place."""
     tmp = path + ".tmp"
@@ -138,7 +139,7 @@ class CheckpointManager:
         current = self._read_watermark()
         if current is not None and current >= step:
             return
-        _write_durably(self._watermark_path(),
+        write_durably(self._watermark_path(),
                        lambda f: f.write(json.dumps({"step": int(step)}).encode()))
 
     def latest_complete_step(self) -> Optional[int]:
@@ -148,8 +149,8 @@ class CheckpointManager:
         return mark if mark is not None else self.latest_step()
 
     # --- save/restore -----------------------------------------------------
-    def _write(self, step: int, payload: Dict[str, Any], t0: float) -> None:
-        _write_durably(self._path(step), lambda f: torch.save(payload, f))
+    def _write(self, step: int, payload: Any, t0: float) -> None:
+        write_durably(self._path(step), lambda f: torch.save(payload, f))
         self._commit_watermark(step)
         keep = self.latest_complete_step()
         for old in self.all_steps()[: -self.max_to_keep]:
@@ -172,7 +173,7 @@ class CheckpointManager:
                     return False
                 self._async_thread.join()
             t0 = time.perf_counter()
-            payload = {"state": host_snapshot(tree)}
+            payload = host_snapshot(tree)
             if wait:
                 self._write(step, payload, t0)
                 log.info("checkpoint step %d saved to %s", step, self.directory)
@@ -204,7 +205,7 @@ class CheckpointManager:
         step = step if step is not None else self.latest_complete_step()
         if step is None:
             return None
-        state = torch.load(self._path(step), map_location="cpu", weights_only=True)["state"]
+        state = torch.load(self._path(step), map_location="cpu", weights_only=True)
         return place_like(state, template) if template is not None else state
 
     def close(self) -> None:

@@ -326,6 +326,25 @@ def test_jax_server_with_port_clients_over_the_socket_broker(tmp_path):
     assert _max_err_of_scale(got, ref_w) <= 1e-5
 
 
+@pytest.mark.parametrize("knob", [None, "fleet_trace", "quorum_frac"])
+def test_fleet_view_is_fed_only_under_a_knob_that_reads_it(knob, tmp_path):
+    """Without a resilience knob the server leaves the clients' telemetry
+    deltas unmerged (no health round, no expected cohort): the round runs as
+    it did before the fleet view. A knob that reads the fleet feeds it."""
+    over = {None: {}, "fleet_trace": dict(fleet_trace=str(tmp_path / "f.json")),
+            "quorum_frac": dict(quorum_frac=0.5)}[knob]
+    fed, hist, _ = _run_port(f"tcs_fleet_{knob}", dict(LR, **over))
+    fleet = fed.server.aggregator.fleet
+    assert [m["round"] for m in hist] == [0, 1]
+    if knob is None:
+        assert fleet.merges == 0 and fleet.expected_ranks is None
+        assert fleet.health.report() is None
+    else:
+        assert fleet.merges == 2 * LR["comm_round"] and fleet.ranks == [1, 2]
+        assert fleet.health.report() is not None
+    assert (tmp_path / "f.json").exists() == (knob == "fleet_trace")
+
+
 def test_no_payload_aliases_a_module_and_the_global_stays_put():
     """INMEMORY hands state dicts over by reference. After a round: no
     client's upload shares storage with its module's parameters, and the

@@ -374,8 +374,7 @@ def test_async_and_compression_modules_load_no_jax_or_fedml_tpu():
 
 RESILIENCE_MODULES = (
     "fedml_tpu_torch.core.resilience", "fedml_tpu_torch.core.resilience.round_state",
-    "fedml_tpu_torch.core.telemetry.health", "fedml_tpu_torch.core.telemetry.sketches",
-    "fedml_tpu_torch.core.telemetry.fleet", "fedml_tpu_torch.utils.checkpoint",
+    "fedml_tpu_torch.core.telemetry.health", "fedml_tpu_torch.core.telemetry.fleet", "fedml_tpu_torch.utils.checkpoint",
     "fedml_tpu_torch.tools.resilience_drill",
 )
 

@@ -211,7 +211,7 @@ def test_watermark_ignores_torn_round(tmp_path):
     store = trs.RoundStateStore(str(tmp_path / "rs"))
     store.save_round(0, {"model": {"w": torch.zeros(2)}}, wait=True)
     (tmp_path / "rs" / "meta-1.json").write_text(json.dumps({"round_idx": 1}))
-    torch.save({"state": {"model": {"w": torch.ones(2)}}}, str(tmp_path / "rs" / "step_1.pt"))
+    torch.save({"model": {"w": torch.ones(2)}}, str(tmp_path / "rs" / "step_1.pt"))
     (tmp_path / "rs" / "step_2.pt.tmp").write_bytes(b"torn")
     assert store.latest_complete_round() == 0
     rs = store.resume()
@@ -219,14 +219,31 @@ def test_watermark_ignores_torn_round(tmp_path):
     store.close()
 
 
+def test_step_file_is_the_bare_tree_as_the_synchronous_manager_wrote_it(tmp_path):
+    """A step file is ``torch.save`` of the tree itself: a store written
+    without the async path (the LLM trainer's checkpoints) restores, and an
+    async save reads back as the tree it was given."""
+    tree = {"params": {"w": torch.arange(4.0)}, "step": torch.tensor(7)}
+    mgr = tckpt.CheckpointManager(str(tmp_path / "ck"))
+    torch.save(tree, str(tmp_path / "ck" / "step_3.pt"))
+    got = mgr.restore()
+    assert torch.equal(got["params"]["w"], tree["params"]["w"]) and int(got["step"]) == 7
+    assert mgr.save(4, tree, wait=False)
+    mgr.wait_until_finished()
+    assert mgr.latest_complete_step() == 4
+    raw = torch.load(str(tmp_path / "ck" / "step_4.pt"), weights_only=True)
+    assert sorted(raw) == ["params", "step"] and torch.equal(raw["params"]["w"], tree["params"]["w"])
+    mgr.close()
+
+
 def _slow_writes(monkeypatch, seconds):
-    real = tckpt._write_durably
+    real = tckpt.write_durably
 
     def slow(path, write):
         time.sleep(seconds)  # holds the waiter thread: a save still in flight
         real(path, write)
 
-    monkeypatch.setattr(tckpt, "_write_durably", slow)
+    monkeypatch.setattr(tckpt, "write_durably", slow)
 
 
 def test_second_async_save_is_dropped_and_counted(tmp_path, monkeypatch, fresh_telemetry):
@@ -502,9 +519,9 @@ def test_client_telemetry_delta_is_json_and_feeds_health(fresh_telemetry):
 
     real = tfleet.FleetTelemetry.merge_client_delta
 
-    def recorded(self, rank, delta, direct=True):
+    def recorded(self, rank, delta):
         shipped.append(json.dumps(delta))
-        return real(self, rank, delta, direct)
+        return real(self, rank, delta)
 
     tfleet.FleetTelemetry.merge_client_delta = recorded
     try:
@@ -525,7 +542,8 @@ def test_client_telemetry_delta_is_json_and_feeds_health(fresh_telemetry):
 
 def _drill(name, mode, rdir, expect_kill=False):
     proc = subprocess.run(
-        [sys.executable, "-m", "fedml_tpu_torch.tools.resilience_drill", name, mode, str(rdir)],
+        [sys.executable, "-m", "fedml_tpu_torch.tools.resilience_drill", name, mode, str(rdir),
+         "--device", "cpu"],
         capture_output=True, text=True, timeout=DRILL_TIMEOUT_S, cwd=_REPO,
         env=dict(os.environ, OMP_NUM_THREADS="1"))
     if expect_kill:
