@@ -2,8 +2,8 @@
 """Chip smoke for fedml_tpu_torch: the FedLLM LoRA train step, LLM serving,
 the sp and vmapped FedAvg rounds, the FedNova, SCAFFOLD, FedDyn and Mime
 algorithms, the cross-silo front, async federation with the compressed
-uplink, and durable round state, quorum rounds and the chaos drills on one
-CUDA card.
+uplink, durable round state, quorum rounds and the chaos drills, and
+private aggregation (windowed SecAgg and accounted DP) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -143,9 +143,36 @@ exception):
    with the card waited for, checkpoint_save_seconds, drops, store bytes,
    spawn to the first resumed round), then (c) and (d) side by side; (e) no
    flash launch;
-13. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
-   resilience and kernels lines (JSON, the kernels line with the design each
-   kernel ran on the main path), the card line, and last the result line.
+13. privacy, ResNet-56 at full width on the CIFAR-10 surrogate, 16 silo
+   threads over INMEMORY (PRIV_*): first the yardstick, the async federation
+   without privacy (a publish every 16 merges, exponent 0, 3 publishes);
+   (a) ``privacy: secagg`` on it (default grid: 13 qbits, clip 3.0, a
+   20-bit ring; threshold 8; 3 windows): every upload that left a client
+   masked and no masked vector its quantized vector; each publish bit-equal
+   to the host reference dequantize_sum(center_ring(sum of quantize_vector
+   of the members' vectors, captured at the client before masking, mod
+   2^b)); the card's ring sum equal to the int64 sum of the masked vectors;
+   each publish within one QuantSpec.step of the plain mean of the same
+   arrivals at unit weight wherever they lie inside the clip (TF32 matmuls
+   off, checked); (b) the dropout drill: silo 16 drops its masked upload
+   after key exchange, the 10 s window deadline fires, the survivors reveal,
+   the window closes partial bit-equal to the 15 survivors' reference,
+   secagg.dropouts and secagg.recovered each up by 1, no timer alive; (c)
+   ``privacy: dp`` on phase 10's synchronous federation (3 rounds) and on
+   the async one, and ``secagg+dp`` (2 windows): each release's draws
+   (published less the fold's clean vector on the card) with std within
+   DP_STD_RTOL of z·C/n and mean within 4 sigma/sqrt(d), epsilon equal to
+   a fresh accountant's; (d) secagg on the window's shared topk support at
+   0.05 (2 windows): 42,789 coordinates drawn from each window's nonce, the
+   publish bit-equal to the reference on the support and 0 elsewhere;
+   per case the key exchange s, host ms to mask, the fold of a masked
+   bucket, ms to unmask, DP noise ms on the card, seconds a window, upload
+   bytes, and the cost of privacy against the yardstick; (e) no flash
+   launch;
+14. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+   resilience, privacy and kernels lines (JSON, the kernels line with the
+   design each kernel ran on the main path), the card line, and last the
+   result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2423,6 +2450,477 @@ def resilience_phase() -> dict:
     return out
 
 
+# -- phase 13: privacy: windowed async SecAgg and accounted DP at the fold ------
+
+# phase 10's 16 silos as an async federation whose publish window is the
+# whole cohort: a publish every 16 merges at staleness exponent 0 (a masked
+# window folds at unit weight), 3 publishes; the no-privacy run of it is the
+# yardstick of every async case
+PRIV_ASYNC = dict(CROSS_SILO, async_rounds=True, async_publish_k=16,
+                  async_staleness_exponent=0.0, comm_round=3)
+# (a) windowed SecAgg: the default grid (secagg_qbits 13, clip 3.0), a
+# reveal threshold of 8, one window a publish
+PRIV_SECAGG = dict(PRIV_ASYNC, privacy="secagg", secagg_threshold=8)
+# (b) the dropout drill: silo 16 drops its masked upload of round 0 after key
+# exchange; one window, closed partial after a 10 s deadline and the reveals
+PRIV_DROP_RANK = 16
+PRIV_DROP = dict(PRIV_SECAGG, comm_round=1, secagg_window_deadline_s=10.0)
+# (c) accounted DP (noise multiplier 0.8, clip 1.0, delta 1e-5, seed 0, the
+# defaults): phase 10's synchronous federation (3 rounds), the async one, and
+# secagg+dp over 2 windows
+PRIV_DP_SYNC = dict(CROSS_SILO, privacy="dp")
+PRIV_DP_ASYNC = dict(PRIV_ASYNC, privacy="dp")
+PRIV_BOTH = dict(PRIV_SECAGG, privacy="secagg+dp", comm_round=2)
+# (d) the masked uplink on the window's shared rand-k support, topk at 0.05
+PRIV_TOPK = dict(PRIV_SECAGG, comm_round=2, comm_compressor="topk", comm_compressor_ratio=0.05)
+PRIV_TIMEOUT_S = 300
+# the DP draws (published less clean, 855,770 of them a release): std within
+# 2% of the fold's sigma (a 1/sqrt(2d) = 0.08% standard error), mean within
+# 4 sigma/sqrt(d) of 0
+DP_STD_RTOL = 0.02
+
+
+class _PrivacyProbe:
+    """Records one federation's privacy traffic while it runs: each
+    member's vector before masking and its masked vector, with the host ms
+    of the masking (``WindowMember.mask``, patched class-wide for the run);
+    every model upload that leaves a client; each window's announce and its
+    last share relay; the card's ring sum, the publish and the unmask ms of
+    each window; each DP release's draws (published less the clean vector
+    the fold computed on the card, before the noise) and its ms on the card;
+    and the time of each publish."""
+
+    def __init__(self, fed):
+        import threading
+
+        import numpy as np
+        import torch
+
+        from fedml_tpu_torch.core.privacy import is_masked_payload
+        from fedml_tpu_torch.core.privacy import secagg_window as twin
+        from fedml_tpu_torch.cross_silo.message_define import MyMessage
+        from fedml_tpu_torch.models.convert import wire_vector
+
+        self.lock = threading.Lock()
+        self.masks, self.mask_ms, self.uploads = {}, [], []
+        self.announce, self.last_relay = {}, {}
+        self.publishes, self.noise, self.stamps = [], [], []
+        self.supports = {}  # window -> (nonce, the shared support), when one is drawn
+        self.publish_weights = []
+        server, agg = fed.server, fed.server.aggregator
+        co, dp, buf = agg.secagg_coordinator, agg.dp_fold, agg.async_buffer
+        self._mask_cls, self._mask_orig = twin.WindowMember, twin.WindowMember.mask
+        probe = self
+
+        def mask(member, vec):
+            t = time.perf_counter()
+            out = probe._mask_orig(member, vec)
+            dt = time.perf_counter() - t
+            with probe.lock:
+                probe.mask_ms.append(1e3 * dt)
+                probe.masks.setdefault(member.window_id, {})[member.rank] = (
+                    np.array(vec, np.float32), out.copy())
+            return out
+
+        twin.WindowMember.mask = mask
+        for rank, runner in fed.runners.items():
+            if rank == 0:
+                continue
+            cm = runner.runner.client_manager
+
+            def sent(message, _send=cm.send_message, _rank=rank):
+                if message.get_type() == MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER:
+                    p = message.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS)
+                    masked = is_masked_payload(p)
+                    nbytes = p["masked"].nbytes if masked else \
+                        sum(v.numel() * v.element_size() for v in p.values())
+                    with probe.lock:
+                        probe.uploads.append((_rank, masked, nbytes))
+                _send(message)
+            cm.send_message = sent
+        if co is not None:
+            def open_window(cohort=None, _f=server._secagg_open_window):
+                t = time.perf_counter()
+                _f(cohort)
+                if co.window is not None:
+                    probe.announce[co.window.window_id] = t
+                    if co.support is not None:
+                        probe.supports[co.window.window_id] = (co.window.nonce, co.support.copy())
+
+            def shares(msg, _f=server.handle_message_secagg_shares):
+                _f(msg)
+                wid = int(msg.get(MyMessage.MSG_ARG_KEY_SECAGG_WINDOW_ID))
+                probe.last_relay[wid] = time.perf_counter()
+
+            def on_publish(acc, weight_sum, merges, template, engine, _f=co.on_publish):
+                window = co.window
+                torch.cuda.synchronize()
+                ring_sum = acc.detach().cpu().numpy().astype(np.float64)
+                t = time.perf_counter()
+                out = _f(acc, weight_sum, merges, template, engine)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t)
+                probe.publishes.append({
+                    "window": window.window_id, "arrived": sorted(window.arrived),
+                    "missing": window.missing(), "recovered": window.recovered,
+                    "ring_sum": ring_sum, "out": wire_vector(out).cpu().numpy(),
+                    # secagg+dp: the unmasked mean before its noise
+                    "clean": probe.__dict__.pop("clean", None), "unmask_ms": ms})
+                return out
+            server._secagg_open_window = open_window
+            server.handle_message_secagg_shares = shares
+            self.unmask = co.on_publish
+            co.on_publish = on_publish
+        if dp is not None:
+            def noise(flat, s, sigma, _f=dp._noise_):
+                clean = flat.detach().clone()
+                if s != 1.0:
+                    clean.mul_(float(np.float32(s)))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _f(flat, s, sigma)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t)
+                draws = out.double() - clean.double()
+                probe.clean = clean.cpu().numpy()
+                probe.noise.append({"sigma": float(np.float32(sigma)), "d": draws.numel(),
+                                    "std": float(draws.std()), "mean": float(draws.mean()),
+                                    "noise_ms": ms, "steps": dp.accountant.steps,
+                                    "epsilon": dp.accountant.epsilon_spent})
+                return out
+            dp._noise_ = noise
+        target = buf if buf is not None else agg
+        name = "publish" if buf is not None else "aggregate"
+        orig = getattr(target, name)
+
+        def stamped(*a, _f=orig):
+            out = _f(*a)
+            torch.cuda.synchronize()
+            probe.stamps.append(time.perf_counter())
+            if buf is not None:
+                probe.publish_weights.append(buf.last_publish_weight)
+            return out
+        setattr(target, name, stamped)
+
+    def close(self) -> None:
+        self._mask_cls.mask = self._mask_orig
+
+
+def _priv_run(over: dict, run_id: str, per_rank=None) -> tuple:
+    """Build and run one federation of phase 13 under a probe; the run
+    must end within PRIV_TIMEOUT_S and leave no timer thread alive."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core import telemetry as tel
+
+    fed = _Federation(over, run_id, per_rank=per_rank)
+    evals = _evals_of(fed)
+    probe = _PrivacyProbe(fed)
+    counters0 = dict(tel.snapshot()["counters"])
+    since = _last_span_seq()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        wall = fed.run(timeout_s=PRIV_TIMEOUT_S)
+    finally:
+        probe.close()
+    for t in threading.enumerate():
+        if isinstance(t, threading.Timer):
+            t.join(5.0)  # a cancelled timer's thread ends at once
+    timers = [t for t in threading.enumerate() if isinstance(t, threading.Timer) and t.is_alive()]
+    check(not timers, f"{run_id}: timers still alive after the run: {timers}")
+    counters = tel.snapshot()["counters"]
+    probe.counters = {k: counters.get(k, 0) - counters0.get(k, 0) for k in counters
+                      if k.startswith(("secagg.", "dp.", "quorum.partial"))}
+    probe.spans = _span_totals(since, ("client.secagg_mask", "secagg.submit", "secagg.unmask",
+                                       "async.publish", "server.async_receive", "client.train"))
+    probe.gaps = [b - a for a, b in zip([t0] + probe.stamps[:-1], probe.stamps)]
+    probe.wall, probe.since = wall, since
+    probe.d = sum(v.numel() for v in fed.server.aggregator.get_global_model_params().values())
+    check(evals and all(np.isfinite(m["test_loss"]) for m in evals), f"{run_id}: evals {evals}")
+    w = fed.server.aggregator.get_global_model_params()
+    check(all(v.device.type == DEV and bool(torch.isfinite(v).all()) for v in w.values()),
+          f"{run_id}: the global params are off the card or not finite")
+    return fed, probe, evals
+
+
+def _window_reference(probe, pub: dict, spec, support=None) -> dict:
+    """Gates (a) for one publish, against the members' vectors captured at
+    the client before masking: the publish bit-equal to the host reference,
+    the card's ring sum equal to the int64 sum of the masked vectors, each
+    masked vector not its quantized vector, and the publish within one step
+    of the plain mean at unit weight (the fold's weight) wherever every
+    arrival lies inside the clip."""
+    import numpy as np
+
+    from fedml_tpu_torch.core.privacy.masking import (center_ring, dequantize_sum,
+                                                      quantize_vector)
+
+    members = probe.masks.get(pub["window"], {})
+    arrived = pub["arrived"]
+    check(set(arrived) <= set(members),
+          f"window {pub['window']}: arrivals {arrived}, masked at the clients {sorted(members)}")
+    vecs = [members[r][0] for r in arrived]
+    qsum = sum(quantize_vector(v, spec) for v in vecs)
+    ref = dequantize_sum(center_ring(np.mod(qsum, spec.ring), spec), len(vecs), spec)
+    out = pub["out"] if pub["clean"] is None else pub["clean"]
+    got = out if support is None else out[support]
+    if support is not None:
+        off = np.ones(pub["out"].size, bool)
+        off[support] = False
+        check(not pub["out"][off].any(), f"window {pub['window']}: nonzero off the support")
+    check(np.array_equal(got, ref), f"window {pub['window']}: the publish differs from the "
+                                    "host reference of its members' quantized vectors")
+    int_sum = sum(members[r][1].astype(np.int64) for r in arrived)
+    check(np.array_equal(pub["ring_sum"], int_sum.astype(np.float64)),
+          f"window {pub['window']}: the card's ring sum differs from the int64 sum")
+    check(np.array_equal(np.mod(pub["ring_sum"].astype(np.int64), spec.ring),
+                         np.mod(int_sum, spec.ring)), "ring sums differ mod 2^b")
+    for r in arrived:
+        vec, masked = members[r]
+        check(not np.array_equal(masked, np.mod(quantize_vector(vec, spec), spec.ring)),
+              f"window {pub['window']}: rank {r}'s masked vector is its quantized vector")
+    stack = np.stack(vecs)
+    inside = np.all(np.abs(stack) <= spec.clip, axis=0)
+    plain = stack.astype(np.float64).mean(axis=0).astype(np.float32)
+    gap = float(np.abs(got.astype(np.float64) - plain)[inside].max())
+    check(gap <= spec.step, f"window {pub['window']}: {gap} from the plain mean, step {spec.step}")
+    return {"window": pub["window"], "members": len(arrived), "bit_equal": True,
+            "ring_sum_exact": True, "max_from_plain": gap, "step": spec.step,
+            "coords_inside_clip": int(inside.sum()), "unmask_ms": pub["unmask_ms"]}
+
+
+def _secagg_case(probe, fed, n_windows: int) -> dict:
+    """The gates of a windowed case: every upload masked, every window
+    published and held to its reference; and its costs."""
+    import numpy as np
+
+    co = fed.server.aggregator.secagg_coordinator
+    check(probe.uploads and all(m for _, m, _ in probe.uploads),
+          f"an upload crossed the boundary unmasked: {[u for u in probe.uploads if not u[1]][:3]}")
+    check(len(probe.publishes) == n_windows, f"{len(probe.publishes)} windows published, "
+                                             f"expected {n_windows}")
+    windows = [_window_reference(probe, pub, co.spec,
+                                 support=probe.supports[pub["window"]][1]
+                                 if pub["window"] in probe.supports else None)
+               for pub in probe.publishes]
+    keyx = [probe.last_relay[w] - probe.announce[w] for w in sorted(probe.announce)
+            if w in probe.last_relay]
+    spans = probe.spans
+    return {
+        "windows": windows, "spec": co.spec.as_dict(), "threshold": co.threshold,
+        "upload_bytes": sorted({b for _, _, b in probe.uploads}), "uploads": len(probe.uploads),
+        "key_exchange_s": keyx,
+        "mask_host_ms_mean": float(np.mean(probe.mask_ms)), "mask_host_ms_max":
+            float(np.max(probe.mask_ms)), "masks": len(probe.mask_ms),
+        "client_secagg_mask_ms_mean": 1e3 * spans["client.secagg_mask"]["s"]
+        / max(1, spans["client.secagg_mask"]["count"]),
+        "submit_ms_mean": 1e3 * spans["secagg.submit"]["s"] / max(1, spans["secagg.submit"]["count"]),
+        "unmask_ms_in_run": [w["unmask_ms"] for w in windows],
+        "s_per_window": probe.gaps, "run_wall_s": probe.wall, "counters": probe.counters}
+
+
+def _dp_case(probe, fed, ns: list) -> dict:
+    """The gates of a DP case: each release's sigma z·C/n for the ``n`` its
+    fold normalizes by (``ns``, a release each), its draws against that
+    sigma, and epsilon against a fresh accountant stepped as often."""
+    import numpy as np
+
+    from fedml_tpu_torch.core.privacy import DPAccountant
+
+    dp = fed.server.aggregator.dp_fold
+    releases = len(ns)
+    check(len(probe.noise) == releases == dp.accountant.steps,
+          f"{len(probe.noise)} noised releases, accountant at {dp.accountant.steps}, "
+          f"expected {releases}")
+    for row, n in zip(probe.noise, ns):
+        want = float(np.float32(dp.noise_multiplier * dp.l2_clip / max(1.0, float(n))))
+        check(row["sigma"] == want, f"a release's sigma {row['sigma']}, z*C/n = {want} (n {n})")
+        check(row["d"] == probe.d, f"a release noised {row['d']} of {probe.d} coordinates")
+        check(abs(row["std"] - row["sigma"]) <= DP_STD_RTOL * row["sigma"],
+              f"DP draws' std {row['std']} against sigma {row['sigma']}")
+        check(abs(row["mean"]) <= 4 * row["sigma"] / np.sqrt(row["d"]),
+              f"DP draws' mean {row['mean']} (sigma {row['sigma']}, d {row['d']})")
+    acc = dp.accountant
+    fresh = DPAccountant(noise_multiplier=acc.noise_multiplier, delta=acc.delta,
+                         epsilon_budget=acc.epsilon_budget, sample_rate=acc.sample_rate)
+    for _ in range(releases):
+        fresh.step()
+    check(abs(acc.epsilon_spent - fresh.epsilon_spent) <= 1e-12,
+          f"epsilon {acc.epsilon_spent} after {releases} releases, a fresh accountant "
+          f"{fresh.epsilon_spent}")
+    return {"releases": probe.noise, "epsilon": acc.epsilon_spent,
+            "epsilon_fresh_accountant": fresh.epsilon_spent,
+            "noise_ms_mean": float(np.mean([r["noise_ms"] for r in probe.noise])),
+            "counters": probe.counters}
+
+
+def _alone(fed, probe, template) -> dict:
+    """Phase 13's host and card costs taken one at a time after a run, the
+    card otherwise idle (in a run, 16 client threads queue their training on
+    the card's one default stream, and every synchronising copy waits for
+    it): a member's masking of ResNet-56 (numpy), a client's wire flatten
+    and copy to the host, the fold of a bucket of 16 masked arrivals, the
+    unmask of the last window's ring sum (copy down, f64 ring math, copy up,
+    unflatten), one DP release's noise, and the server's clip of an arrival
+    against the global."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core.aggregation.async_buffer import AsyncAggBuffer, StalenessPolicy
+    from fedml_tpu_torch.core.aggregation.bucketed import get_engine
+    from fedml_tpu_torch.core.privacy import DPFold, WindowCoordinator, clip_to_reference
+    from fedml_tpu_torch.models.convert import wire_vector
+
+    co = fed.server.aggregator.secagg_coordinator
+    n = int(PRIV_SECAGG["client_num_per_round"])
+    vec = wire_vector(template).cpu().numpy()
+    scratch = WindowCoordinator(AsyncAggBuffer(publish_k=n, policy=StalenessPolicy(exponent=0.0)),
+                                template, spec=co.spec, threshold=co.threshold,
+                                rng=np.random.default_rng(0))
+    _, members = scratch.open_window(range(1, n + 1))
+    t = time.perf_counter()
+    for _ in range(3):
+        members[1].mask(vec)
+    mask_ms = (time.perf_counter() - t) / 3 * 1e3
+    pub = probe.publishes[-1]
+    last = probe.masks[pub["window"]]
+    chunk = [{"masked": torch.from_numpy(last[r][1]).to(DEV)} for r in sorted(last)[:n]]
+    ones = np.ones(len(chunk), np.float32)
+    engine = get_engine()
+    bucket_ms = _time_ms(lambda: engine.accumulate_bucket(None, chunk, ones), 20)
+    acc = torch.from_numpy(pub["ring_sum"].astype(np.float32)).to(DEV)
+    window, co.window = co.window, None  # no window: no bookkeeping, n from merges
+    try:
+        unmask_ms = _time_ms(lambda: probe.unmask(acc, float(n), n, None, None), 10)
+    finally:
+        co.window = window
+    flat = torch.from_numpy(vec).to(DEV)
+    fold = DPFold(seed=0)
+    noise_ms = _time_ms(lambda: fold._noise_(flat, 1.0, 0.05), 20)
+    moved = {k: v + 0.01 for k, v in template.items()}
+    clip_ms = _time_ms(lambda: clip_to_reference(moved, template, 1.0), 20)
+    return {"mask_host_ms": mask_ms,
+            "flatten_to_host_ms": _time_ms(lambda: wire_vector(template).cpu(), 20),
+            "fold_bucket_ms": bucket_ms, "fold_ms_per_arrival": bucket_ms / len(chunk),
+            "unmask_ms": unmask_ms, "dp_noise_ms": noise_ms, "dp_clip_ms": clip_ms}
+
+
+def _mean_after_first(gaps) -> float:
+    return sum(gaps[1:]) / (len(gaps) - 1) if len(gaps) > 1 else gaps[0]
+
+
+def privacy_phase(cross_silo: dict) -> dict:
+    """Phase 13: the no-privacy async yardstick, (a) windowed SecAgg, (b) the
+    dropout drill, (c) DP sync, async and composed with SecAgg, (d) the
+    masked uplink on a topk support ((e), no flash launch, is main's)."""
+    import numpy as np
+    import torch
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    res = {}
+    fed, probe, evals = _priv_run(PRIV_ASYNC, "smoke_priv_plain")
+    check(len(probe.stamps) == PRIV_ASYNC["comm_round"], f"plain: {len(probe.stamps)} publishes")
+    res["plain_async"] = {"s_per_publish": probe.gaps, "run_wall_s": probe.wall,
+                          "upload_bytes": sorted({b for _, _, b in probe.uploads}),
+                          "test_loss": [m["test_loss"] for m in evals]}
+    del fed
+    say(f"  no privacy, 16 async silos, 3 publishes of 16: {res['plain_async']}")
+
+    fed, probe, evals = _priv_run(PRIV_SECAGG, "smoke_priv_secagg")
+    case = _secagg_case(probe, fed, PRIV_SECAGG["comm_round"])
+    case["test_loss"] = [m["test_loss"] for m in evals]
+    check(case["upload_bytes"] == [probe.d * 4], f"masked upload bytes {case['upload_bytes']}")
+    res["secagg"] = case
+    res["alone"] = _alone(fed, probe, fed.server.aggregator.get_global_model_params())
+    del fed
+    say(f"  (a) windowed SecAgg, 16 silos x 3 windows: {case}")
+
+    fed, probe, evals = _priv_run(PRIV_DROP, "smoke_priv_drop",
+                                  per_rank={PRIV_DROP_RANK: dict(
+                                      chaos_secagg_drop_upload_at_round=0)})
+    case = _secagg_case(probe, fed, 1)
+    pub = probe.publishes[0]
+    check(pub["missing"] == [PRIV_DROP_RANK] and pub["recovered"] and len(pub["arrived"]) == 15,
+          f"the drill's window: arrived {pub['arrived']}, missing {pub['missing']}, "
+          f"recovered {pub['recovered']}")
+    check(probe.counters.get("secagg.dropouts") == 1 and probe.counters.get("secagg.recovered") == 1
+          and probe.counters.get("quorum.partial") == 1, f"drill counters {probe.counters}")
+    check(fed.server._secagg_deadline_timer is None, "the window's deadline timer is still set")
+    co = fed.server.aggregator.secagg_coordinator
+    t = time.perf_counter()
+    co.window.correction(co.d)  # the stray-mask correction alone: Shamir and 15 PRG draws
+    case["correction_ms_alone"] = (time.perf_counter() - t) * 1e3
+    case["test_loss"] = [m["test_loss"] for m in evals]
+    res["dropout"] = case
+    del fed
+    say(f"  (b) dropout drill, silo {PRIV_DROP_RANK} drops after key exchange: {case}")
+
+    fed, probe, evals = _priv_run(PRIV_DP_SYNC, "smoke_priv_dp_sync")
+    k = int(PRIV_DP_SYNC["client_num_per_round"])
+    case = _dp_case(probe, fed, [k] * int(PRIV_DP_SYNC["comm_round"]))
+    rows = _cs_round_split(probe.since)
+    case.update(round_s=[r["round_s"] for r in rows],
+                round_s_mean_rounds_2_3=float(np.mean([r["round_s"] for r in rows[1:]])),
+                no_privacy_phase10_round_s_mean_rounds_2_3=cross_silo["inmemory_16"][
+                    "round_s_mean_rounds_2_3"],
+                test_loss=[m["test_loss"] for m in evals])
+    res["dp_sync"] = case
+    del fed
+    say(f"  (c) DP, the synchronous 16-silo federation x 3 rounds: {case}")
+
+    fed, probe, evals = _priv_run(PRIV_DP_ASYNC, "smoke_priv_dp_async")
+    # dp alone: the fold normalizes by the window's weight sum (sample
+    # counts), and the JAX package calibrates sigma to it
+    case = _dp_case(probe, fed, probe.publish_weights)
+    case.update(s_per_publish=probe.gaps, test_loss=[m["test_loss"] for m in evals],
+                weight_sum=fed.server.aggregator.async_buffer.last_publish_weight)
+    res["dp_async"] = case
+    del fed
+    say(f"  (c) DP, 16 async silos x 3 publishes: {case}")
+
+    fed, probe, evals = _priv_run(PRIV_BOTH, "smoke_priv_both")
+    case = _secagg_case(probe, fed, PRIV_BOTH["comm_round"])
+    case["dp"] = _dp_case(probe, fed, [len(p["arrived"]) for p in probe.publishes])
+    case["test_loss"] = [m["test_loss"] for m in evals]
+    res["secagg_dp"] = case
+    del fed
+    say(f"  (c) secagg+dp, 16 silos x 2 windows: {case}")
+
+    fed, probe, evals = _priv_run(PRIV_TOPK, "smoke_priv_topk")
+    from fedml_tpu_torch.utils.compression import secagg_support
+
+    # each window's support: ceil(0.05 d) coordinates (42,789 of ResNet-56's
+    # 855,770), drawn from its nonce
+    ratio = PRIV_TOPK["comm_compressor_ratio"]
+    k = int(np.ceil(probe.d * ratio))
+    for w, (nonce, support) in probe.supports.items():
+        check(support.size == k and np.array_equal(support, secagg_support(nonce, probe.d, ratio)),
+              f"window {w}: a support of {support.size}, not the {k} its nonce draws")
+    check(len(probe.supports) == PRIV_TOPK["comm_round"], f"supports {sorted(probe.supports)}")
+    case = _secagg_case(probe, fed, PRIV_TOPK["comm_round"])
+    check(case["upload_bytes"] == [k * 4], f"masked topk upload bytes {case['upload_bytes']}")
+    case.update(support_k=k, d=probe.d)
+    case["test_loss"] = [m["test_loss"] for m in evals]
+    res["secagg_topk"] = case
+    del fed
+    say(f"  (d) secagg on a topk 0.05 support, 16 silos x 2 windows: {case}")
+    base = _mean_after_first(res["plain_async"]["s_per_publish"])
+    res["cost_of_privacy"] = {
+        "no_privacy_s_per_publish": base,
+        **{f"{name}_{key}": _mean_after_first(res[name][key])
+           for name, key in (("secagg", "s_per_window"), ("secagg_dp", "s_per_window"),
+                             ("secagg_topk", "s_per_window"), ("dp_async", "s_per_publish"))},
+        "dp_sync_round_s": res["dp_sync"]["round_s_mean_rounds_2_3"],
+        "no_privacy_sync_round_s": res["dp_sync"]["no_privacy_phase10_round_s_mean_rounds_2_3"]}
+    say(f"  cost of privacy (seconds a publish, windows 2-3 / rounds 2-3): {res['cost_of_privacy']}")
+    say(f"  costs alone, the card otherwise idle: {res['alone']}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2606,7 +3104,23 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the resilience phase launched flash kernels: {res_launches}")
 
-    say("== 13. result")
+    say("== 13. privacy: windowed SecAgg, the dropout drill, DP (sync, async, secagg+dp), the "
+        "masked topk uplink (ResNet-56 x 16 silos)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    privacy = privacy_phase(cross_silo)
+    priv_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the privacy phase: {priv_launches}")
+    # (e) masking, the ring fold, unmasking, DP noise and ResNet training run
+    # no attention
+    check(all(n == 0 for n in priv_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the privacy phase launched flash kernels: {priv_launches}")
+
+    say("== 14. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2623,6 +3137,8 @@ def main() -> int:
           flush=True)
     print(json.dumps({"resilience": {"card": card, "flash_launches": res_launches,
                                      **resilience}}), flush=True)
+    print(json.dumps({"privacy": {"card": card, "flash_launches": priv_launches, **privacy}}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

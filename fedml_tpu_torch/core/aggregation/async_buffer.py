@@ -30,9 +30,16 @@ the accumulator, the un-folded pending state dicts and the staleness clock;
 :meth:`restore` rebuilds them, and the merges after it are bit-identical to
 an uninterrupted run.
 
-Not ported (ROADMAP.md, Queue 1): the privacy hooks (SecAgg windows, DP
-folds), modelwatch's fused statistics and quarantine, the link-cost
-admission (``async_link_admission``) and the mesh-sharded engine.
+Privacy sessions (``core/privacy``: a SecAgg ``WindowCoordinator`` or a
+``DPFold``) attach through :meth:`enable_privacy`: a publish then folds
+every pending arrival into the accumulator and hands the RAW streamed sum
+to ``session.on_publish(acc, weight_sum, merges, template, engine)``, which
+owns unmasking, noising and normalization. :meth:`discard` drops an epoch
+without publishing (an aborted SecAgg window).
+
+Not ported (ROADMAP.md, Queue 1): modelwatch's fused statistics and
+quarantine, the link-cost admission (``async_link_admission``) and the
+mesh-sharded engine.
 """
 
 from __future__ import annotations
@@ -146,6 +153,7 @@ class AsyncAggBuffer:
         self._acc: Optional[torch.Tensor] = None  # flat f32, on the arrivals' device
         self._weight_sum = 0.0
         self._template: Optional[StateDict] = None
+        self._privacy: Any = None  # a core/privacy session, or None
         self._merges_since_publish = 0
         self.version = int(initial_version)
         self.merges_total = 0
@@ -161,6 +169,16 @@ class AsyncAggBuffer:
         # mean seconds between publishes (None until two publishes)
         self.publish_interval_ewma_s: Optional[float] = None
         self._last_publish_mono: Optional[float] = None
+
+    # --- privacy (core/privacy sessions) ------------------------------------
+    def enable_privacy(self, session: Any) -> None:
+        """Attach a privacy session (``WindowCoordinator`` or ``DPFold``).
+        Publishes then fold ALL pending arrivals into the accumulator and
+        route the raw weighted sum through ``session.on_publish(acc,
+        weight_sum, merges, template, engine)``: the session owns unmasking,
+        noising AND normalization."""
+        with self._lock:
+            self._privacy = session
 
     # --- submit (receive-loop thread) --------------------------------------
     def submit(self, rank: int, model_params: StateDict, sample_num: float,
@@ -230,7 +248,7 @@ class AsyncAggBuffer:
     def _publish_locked(self) -> Optional[StateDict]:
         if self._merges_since_publish == 0:
             return None
-        if self._acc is None and self._pending:
+        if self._privacy is None and self._acc is None and self._pending:
             # nothing folded eagerly (the window fit one bucket): the engine's
             # own normalized fold, bit-identical to the synchronous path
             self.last_publish_weight = float(sum(w for w, _ in self._pending))
@@ -247,10 +265,18 @@ class AsyncAggBuffer:
                 self._acc = self.engine.accumulate_bucket(self._acc, chunk, w)
                 self._weight_sum += float(w.sum())
             self.last_publish_weight = float(self._weight_sum)
-            # the JAX package's jitted scale: one in-place multiply of the
-            # accumulator by 1/W, rounded to f32 first as there
-            self._acc.mul_(float(np.float32(1.0 / self._weight_sum)))
-            out = self.engine.finalize(self._acc, self._template)
+            if self._privacy is not None:
+                # privacy mode: the session consumes the RAW streamed sum
+                # (secagg reduces it mod 2^b and the masks cancel exactly; the
+                # DP session scales and noises it) and owns normalization
+                out = self._privacy.on_publish(
+                    self._acc, self._weight_sum, self._merges_since_publish,
+                    self._template, self.engine)
+            else:
+                # the JAX package's jitted scale: one in-place multiply of
+                # the accumulator by 1/W, rounded to f32 first as there
+                self._acc.mul_(float(np.float32(1.0 / self._weight_sum)))
+                out = self.engine.finalize(self._acc, self._template)
         self.last_publish_merges = self._merges_since_publish
         self._acc = None
         self._weight_sum = 0.0
@@ -268,6 +294,22 @@ class AsyncAggBuffer:
         self._last_publish_mono = now
         tel.counter(PUBLISH_COUNTER).add(1)
         return out
+
+    def discard(self) -> int:
+        """Throw away the accumulated epoch WITHOUT publishing: no version
+        bump, no publish counter, no privacy hook. The escalation path for
+        an unrecoverable SecAgg window: its streamed sum still carries
+        un-cancellable stray masks, so normalizing it would emit garbage.
+        Returns how many merges were dropped."""
+        with self._lock:
+            dropped = self._merges_since_publish
+            self._acc = None
+            self._weight_sum = 0.0
+            self._pending = []
+            self._pending_meta = []
+            self._merges_since_publish = 0
+            self._staleness_sum = 0
+        return dropped
 
     # --- introspection -----------------------------------------------------
     def depth(self) -> int:

@@ -24,8 +24,7 @@ compressor's boundaries (``compress_upload``, ``decompress_arrival``). Not
 ported yet (ROADMAP.md, Queue 1): the pipelined strategy, the hierarchy sink
 (``HierarchySink``, and ``as_async_sink`` of a hierarchy tree, raise), the
 stacked sink's per-client middleware branch (the middleware itself is not
-ported), the link, SecAgg and split-learning chaos knobs (asking for one
-raises), the SLO engine, ``devperf``, the flight recorder and the mlops
+ported), the link and split-learning chaos knobs (asking for one raises), the SLO engine, ``devperf``, the flight recorder and the mlops
 summaries.
 """
 
@@ -552,20 +551,20 @@ def refuse_knobs(args: Any, checks: Sequence[Tuple[str, Callable[[Any], bool]]],
 
 
 # the chaos knobs whose subsystems are not ported: the INMEMORY link throttle
-# and delay (netlink), the SecAgg upload drop (privacy) and the split-learning
-# kills and send failures
-_DEFERRED_CHAOS_PREFIXES = ("chaos_link_", "chaos_secagg_", "chaos_split_")
+# and delay (netlink) and the split-learning kills and send failures
+_DEFERRED_CHAOS_PREFIXES = ("chaos_link_", "chaos_split_")
 
 
 def refuse_chaos_knobs(args: Any) -> None:
     """Refuse the JAX package's fault-injection knobs that are not ported:
-    the link throttle and delay, the SecAgg upload drop and the split-learning
-    kills (``chaos_link_*``, ``chaos_secagg_*``, ``chaos_split_*``). The
-    straggler delay, scheduled raise, NaN poison, delta scaling and the
+    the link throttle and delay and the split-learning kills
+    (``chaos_link_*``, ``chaos_split_*``). The straggler delay, scheduled
+    raise, NaN poison, delta scaling, the SecAgg upload drop
+    (``chaos_secagg_drop_upload_at_round``, the cross-silo client's) and the
     SIGKILL drills run."""
     refuse_knobs(args, [(k, lambda v: v is not None and v is not False)
                         for k in sorted(vars(args)) if k.startswith(_DEFERRED_CHAOS_PREFIXES)],
-                 "the link, SecAgg and split-learning chaos knobs are")
+                 "the link and split-learning chaos knobs are")
 
 
 def run_local_round(train_fn: Callable[[], Any], args: Any, round_idx: int, *,

@@ -23,10 +23,22 @@ FedBuff buffer (``core/aggregation/async_buffer.py``, built by
 gets the staleness grace) as they come, through :meth:`submit_async_result`,
 and :meth:`publish_async` installs each published model.
 
+Privacy (``privacy``: ``secagg``, ``dp`` or ``secagg+dp``; JAX ``:94-135``,
+``core/privacy``): with ``secagg`` a ``WindowCoordinator`` becomes the
+async buffer's privacy session (masked ring vectors fold at arrival and
+unmask at publish; the server manager drives the window protocol), over the
+window's shared rand-k support when the clients run ``comm_compressor``
+topk or eftopk; with ``dp`` alone a ``DPFold`` is the session (async: every
+arrival re-clipped against the current global, the publish noised) or, on
+the synchronous path, every arrival of a round is clipped against the
+global it trained from and the round's mean noised; with ``secagg+dp`` the
+unmasked mean is noised (the masked arrivals cannot be re-clipped here, so
+epsilon rests on the clients' clip).
+
 Not ported, each raising NotImplementedError when its knob is set
-(ROADMAP.md, Queue 1): the server mesh (``server_mesh``), privacy
-(``privacy``) and modelwatch quarantine (``modelwatch_quarantine``). The JAX
-package also runs modelwatch's fold-boundary statistics by default; with
+(ROADMAP.md, Queue 1): the server mesh (``server_mesh``) and modelwatch
+quarantine (``modelwatch_quarantine``). The JAX package also runs
+modelwatch's fold-boundary statistics by default (off under secagg); with
 quarantine off they do not change the fold, and they are not ported.
 """
 
@@ -44,13 +56,13 @@ from ...core.aggregation.async_buffer import buffer_from_args
 from ...core.aggregation.bucketed import get_engine
 from ...core.alg_frame.context import Context
 from ...core.engine import knob_set, refuse_knobs, sample_from_pool, sample_silos
+from ...core.privacy import WindowCoordinator, clip_to_reference, privacy_from_args
 from ...core.telemetry.fleet import FleetTelemetry
 from ...utils.pytree import tree_to_device
 
 log = logging.getLogger(__name__)
 
-_KNOBS = (("server_mesh", knob_set), ("privacy", knob_set),
-          ("modelwatch_quarantine", knob_set))
+_KNOBS = (("server_mesh", knob_set), ("modelwatch_quarantine", knob_set))
 
 
 def _float_tensor_leaves_only(tree) -> bool:
@@ -75,7 +87,7 @@ class FedMLAggregator:
         args: Any,
         server_aggregator,
     ):
-        refuse_knobs(args, _KNOBS, "the server mesh, privacy and modelwatch are")
+        refuse_knobs(args, _KNOBS, "the server mesh and modelwatch quarantine are")
         if os.environ.get("FEDML_SERVER_MESH", "").strip():
             raise NotImplementedError(
                 "FEDML_SERVER_MESH: the server mesh is not ported to fedml_tpu_torch yet "
@@ -102,6 +114,31 @@ class FedMLAggregator:
         if getattr(args, "async_rounds", False):
             self.async_buffer = buffer_from_args(args, health=self.fleet.health,
                                                  engine=get_engine())
+        # privacy: masked windows attach to the async buffer as its privacy
+        # session; DP noise rides the publish (async) or the round's mean
+        # (sync). The server manager drives the window protocol.
+        self.privacy_cfg = privacy_from_args(args)
+        self.dp_fold = self.privacy_cfg.build_dp()
+        self.secagg_coordinator = None
+        if self.privacy_cfg.secagg:
+            if self.async_buffer is None:
+                raise ValueError(
+                    "privacy=secagg masks per async publish window: set "
+                    "args.async_rounds (the synchronous fronts' round-barrier SecAgg, "
+                    "secure_aggregation, is not ported)")
+            n = int(getattr(args, "client_num_per_round", client_num) or client_num)
+            ratio = None
+            if str(getattr(args, "comm_compressor", "") or "") in ("topk", "eftopk"):
+                # compose with the sparse uplink: the window's shared rand-k
+                # support carries the configured ratio into the masked domain
+                ratio = float(getattr(args, "comm_compressor_ratio", 0.05))
+            self.secagg_coordinator = WindowCoordinator(
+                self.async_buffer, self.get_global_model_params(),
+                spec=self.privacy_cfg.quant_spec(n, n),
+                threshold=self.privacy_cfg.threshold,
+                dp=self.dp_fold, support_ratio=ratio)
+        elif self.dp_fold is not None and self.async_buffer is not None:
+            self.dp_fold.attach(self.async_buffer)
 
     def get_global_model_params(self):
         return self.aggregator.get_model_params()
@@ -140,8 +177,16 @@ class FedMLAggregator:
         """Fold one arrival straight into the async buffer (no round
         barrier), after the same ingest as the synchronous path. Returns the
         staleness verdict."""
+        model_params = self._ingest(index, model_params)
+        if self.dp_fold is not None and self.secagg_coordinator is None:
+            # DP sensitivity is a server-enforced bound, not a client
+            # promise: re-clip this arrival's delta against the current
+            # global before it folds (the input itself when the client
+            # already clipped)
+            model_params = clip_to_reference(
+                model_params, self.get_global_model_params(), self.dp_fold.l2_clip)
         return self.async_buffer.submit(
-            int(index), self._ingest(index, model_params), float(sample_num), client_version)
+            int(index), model_params, float(sample_num), client_version)
 
     def publish_async(self):
         """Publish a new global model from the buffered merges (None when
@@ -175,9 +220,20 @@ class FedMLAggregator:
             Context().add("client_indexes_of_round", sorted(self.model_dict))
             model_list = [(self.sample_num_dict[i], self.model_dict[i]) for i in sorted(self.model_dict)]
             model_list = self.aggregator.on_before_aggregation(model_list)
+            if self.dp_fold is not None:
+                # enforce the sensitivity bound sigma is calibrated against:
+                # clip each arrival's delta against the model this round
+                # trained from, whether or not the client already did
+                ref = self.get_global_model_params()
+                model_list = [(n, clip_to_reference(m, ref, self.dp_fold.l2_clip))
+                              for n, m in model_list]
             Context().add(Context.KEY_CLIENT_MODEL_LIST, model_list)
             averaged = self.aggregator.aggregate(model_list)
             averaged = self.aggregator.on_after_aggregation(averaged)
+            if self.dp_fold is not None:
+                # central DP on the synchronous round: noise the round's mean
+                # with sigma calibrated to the cohort's size, and account it
+                averaged = self.dp_fold.noise_tree(averaged, len(model_list))
             self.set_global_model_params(averaged)
             self.aggregator.assess_contribution()
             self.model_dict.clear()

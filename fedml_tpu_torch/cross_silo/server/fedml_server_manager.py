@@ -40,11 +40,29 @@ fleet's Perfetto JSON at the end of the run. The clients' telemetry deltas
 are merged into the fleet view only under a knob that reads it (quorum,
 async, ``resilience_dir``, ``fleet_trace``).
 
+Windowed SecAgg (``privacy: secagg``, JAX ``:321-514``, ``:546``,
+``:768-780``, ``:865``): the first masking window opens over the cohort
+before any upload, and a fresh one after every publish. A window runs over
+the message plane: ANNOUNCE (id, nonce, grid spec, threshold, the support
+ratio) to every member, the public-key DIRECTORY once every key is in,
+then a SHARE_RELAY of each dealt Shamir share. Masked uploads fold through
+the coordinator, and the window publishes when its cohort is complete
+(not at the buffer's merge count). A ``threading.Timer`` deadline
+(``secagg_window_deadline_s``) fires with members missing: below the
+reveal quorum it extends, else it sends REVEAL_REQUESTs to the survivors
+and re-arms; a window past ``secagg_window_max_extensions`` firings is
+aborted (its epoch discarded) and reopened over the live members. The
+reveals' handler closes the window partial once every dropped rank has
+its quorum of shares. As for the round deadline, the callback takes the
+round lock and the server's device and compares window ids, and the timer
+is cancelled when the run ends.
+
 Not ported, each raising NotImplementedError when its knob is set
 (ROADMAP.md, Queue 1): link-cost admission (``async_link_admission``) and
 the link-cost deadline (``quorum_link_cost``), link probing and WAN-aware
-health, statusz, the SLO engine, SecAgg windows (with ``privacy``, refused
-by the aggregator) and the link, SecAgg and split-learning chaos knobs.
+health, statusz, the SLO engine and the link and split-learning chaos
+knobs. The JAX package also logs the SecAgg dropouts and aborts to mlops;
+that is not ported.
 """
 
 from __future__ import annotations
@@ -61,6 +79,7 @@ from ...core.distributed.communication.message import Message
 from ...core.distributed.fedml_comm_manager import FedMLCommManager
 from ...core.engine import (RemoteCommStrategy, RoundCheckpointer, decompress_arrival,
                             knob_set, refuse_chaos_knobs, refuse_knobs)
+from ...core.privacy import is_masked_payload, submit_masked_payload
 from ...core.resilience import (QuorumPolicy, RoundQuorum, RoundStateStore, note,
                                 overprovisioned_cohort_size)
 from ...core.resilience import quorum as quorum_mod
@@ -118,6 +137,9 @@ class FedMLServerManager(FedMLCommManager):
         # its own thread: every round-advancing decision holds this lock
         self._round_lock = threading.RLock()
         self._deadline_timer: Optional[threading.Timer] = None
+        # windowed SecAgg: the window deadline's timer and its firings
+        self._secagg_deadline_timer: Optional[threading.Timer] = None
+        self._secagg_deadline_attempts = 0
         self._round_store: Optional[RoundStateStore] = None
         self._checkpointer: Optional[RoundCheckpointer] = None
         rdir = getattr(args, "resilience_dir", None)
@@ -201,6 +223,8 @@ class FedMLServerManager(FedMLCommManager):
                 client_id, global_model_params, self.data_silo_index_list[idx]
             )
         self._begin_quorum_round()
+        # first masking window: over the initial cohort, before any upload
+        self._secagg_open_window()
 
     def register_message_receive_handlers(self) -> None:
         self.register_message_receive_handler(MyMessage.MSG_TYPE_CONNECTION_IS_READY, self.handle_message_connection_ready)
@@ -208,6 +232,12 @@ class FedMLServerManager(FedMLCommManager):
         self.register_message_receive_handler(
             MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, self.handle_message_receive_model_from_client
         )
+        self.register_message_receive_handler(
+            MyMessage.MSG_TYPE_C2S_SECAGG_PUBKEY, self.handle_message_secagg_pubkey)
+        self.register_message_receive_handler(
+            MyMessage.MSG_TYPE_C2S_SECAGG_SHARES, self.handle_message_secagg_shares)
+        self.register_message_receive_handler(
+            MyMessage.MSG_TYPE_C2S_SECAGG_REVEAL, self.handle_message_secagg_reveal)
 
     # --- cohort selection -------------------------------------------------
     def _select_cohort(self) -> None:
@@ -408,15 +438,36 @@ class FedMLServerManager(FedMLCommManager):
         round while the others still train."""
         client_version = msg_params.get(MyMessage.MSG_ARG_KEY_MODEL_VERSION)
         buf = self.aggregator.async_buffer
+        co = self._secagg
         with self._round_lock:
             with tel.span("server.async_receive", sender=int(sender_id), version=buf.version):
-                self.aggregator.submit_async_result(
-                    sender_id - 1, model_params, local_sample_number,
-                    None if client_version is None else int(client_version))
+                if co is not None:
+                    # a masked ring payload folds through the window session
+                    # (weight 1.0); the raw state-dict path never sees it
+                    if not is_masked_payload(model_params):
+                        log.warning("privacy=secagg: dropping unmasked upload from rank %d",
+                                    int(sender_id))
+                        return
+                    submit_masked_payload(
+                        co, model_params, None if client_version is None else int(client_version))
+                else:
+                    self.aggregator.submit_async_result(
+                        sender_id - 1, model_params, local_sample_number,
+                        None if client_version is None else int(client_version))
             self.aggregator.fleet.health.heartbeat(sender_id)
             note(last_async=buf.statusz())
             ckpt_every = int(getattr(self.args, "async_checkpoint_every_merges", 0) or 0)
-            if buf.ready():
+            if co is not None:
+                # a masked window publishes when its COHORT completes (every
+                # member's masks must be in the sum before they can cancel),
+                # not at the buffer's merge count
+                window = co.window
+                if window is not None and not window.closed and window.complete():
+                    self._cancel_secagg_deadline()
+                    self._complete_async_publish()
+                    if self.args.round_idx >= self.round_num:
+                        return  # finished: S2C_FINISH already sent
+            elif buf.ready():
                 self._complete_async_publish()
                 if self.args.round_idx >= self.round_num:
                     return  # finished: S2C_FINISH already sent to everyone
@@ -453,12 +504,182 @@ class FedMLServerManager(FedMLCommManager):
         final = buf.version >= self.round_num
         self._save_round_state(round_idx, global_model_params, final=final)
         if final:
+            self._cancel_secagg_deadline()
             self.send_finish_to_all()
             self._end_round_trace()
             self._export_fleet_trace_if_configured()
             self.finish()
             return
         self._begin_round_trace()
+        # next masking cohort: one window per publish generation
+        self._secagg_open_window()
+
+    # --- windowed SecAgg driver (the server side of core/privacy) ----------
+    @property
+    def _secagg(self):
+        return self.aggregator.secagg_coordinator
+
+    def _secagg_open_window(self, cohort=None) -> None:
+        """Open the next masking window over the current cohort (or the
+        survivors of an aborted window) and ANNOUNCE it (id, nonce, grid
+        spec, threshold) to every member. Key exchange runs over the
+        message plane."""
+        co = self._secagg
+        if cohort is None:
+            cohort = self.client_id_list_in_this_round
+        if co is None or not cohort:
+            return
+        self._secagg_deadline_attempts = 0
+        cohort = [int(c) for c in cohort]
+        window, _ = co.open_window(cohort, run_key_exchange=False)
+        spec_doc = dict(co.spec.as_dict())
+        if co.support_ratio is not None:
+            spec_doc["support_ratio"] = float(co.support_ratio)
+        for cid in cohort:
+            msg = Message(MyMessage.MSG_TYPE_S2C_SECAGG_ANNOUNCE, self.get_sender_id(), cid)
+            msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_WINDOW_ID, window.window_id)
+            msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_NONCE, window.nonce)
+            msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_COHORT, cohort)
+            msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_SPEC, spec_doc)
+            msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_THRESHOLD, window.threshold)
+            self.send_message(msg)
+        self._arm_secagg_deadline(window.window_id)
+
+    def handle_message_secagg_pubkey(self, msg_params: Message) -> None:
+        """One member's window public key; once every key is in, send the
+        whole directory to every member."""
+        co = self._secagg
+        window = co.window if co is not None else None
+        if window is None or int(msg_params.get(
+                MyMessage.MSG_ARG_KEY_SECAGG_WINDOW_ID)) != window.window_id:
+            return
+        window.register_public_key(msg_params.get_sender_id(),
+                                   int(msg_params.get(MyMessage.MSG_ARG_KEY_SECAGG_PUBKEY)))
+        if len(window.public_keys) == len(window.cohort):
+            directory = {int(r): int(pk) for r, pk in window.public_keys.items()}
+            for cid in window.cohort:
+                msg = Message(MyMessage.MSG_TYPE_S2C_SECAGG_DIRECTORY, self.get_sender_id(), cid)
+                msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_WINDOW_ID, window.window_id)
+                msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_PUBKEY, directory)
+                self.send_message(msg)
+
+    def handle_message_secagg_shares(self, msg_params: Message) -> None:
+        """Relay each dealt Shamir share to its holder. The relay is opaque
+        routing: a production deployment also encrypts each share under the
+        recipient's pair key so this hop cannot read it."""
+        dealer = msg_params.get_sender_id()
+        wid = int(msg_params.get(MyMessage.MSG_ARG_KEY_SECAGG_WINDOW_ID))
+        shares = dict(msg_params.get(MyMessage.MSG_ARG_KEY_SECAGG_SHARES) or {})
+        for peer, share in shares.items():
+            msg = Message(MyMessage.MSG_TYPE_S2C_SECAGG_SHARE_RELAY, self.get_sender_id(), int(peer))
+            msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_WINDOW_ID, wid)
+            msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_DEALER, int(dealer))
+            msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_SHARE, [int(v) for v in share])
+            self.send_message(msg)
+
+    def _arm_secagg_deadline(self, window_id: int) -> None:
+        self._cancel_secagg_deadline()
+        deadline_s = float(self.aggregator.privacy_cfg.window_deadline_s)
+        if deadline_s <= 0:
+            return
+        t = threading.Timer(deadline_s, self._on_secagg_deadline, args=(window_id,))
+        t.daemon = True
+        t.start()
+        self._secagg_deadline_timer = t
+
+    def _cancel_secagg_deadline(self) -> None:
+        if self._secagg_deadline_timer is not None:
+            self._secagg_deadline_timer.cancel()
+            self._secagg_deadline_timer = None
+
+    def _on_secagg_deadline(self, window_id: int) -> None:
+        """Timer thread: the masking window's deadline fired with members
+        missing. Below the reveal quorum of arrivals it extends; else it asks
+        the survivors to reveal their shares of the dropped members' keys
+        (the reveals' handler closes the window) and re-arms, so a starving
+        reveal phase refires instead of hanging. Past
+        ``window_max_extensions`` firings the window is aborted: its epoch
+        is discarded and a fresh window opens over the live members."""
+        device = getattr(self.aggregator, "device", None)
+        on_card = torch.cuda.device(device) if getattr(device, "type", None) == "cuda" \
+            else contextlib.nullcontext()
+        with on_card, self._round_lock:
+            co = self._secagg
+            window = co.window if co is not None else None
+            if window is None or window.window_id != window_id or window.closed:
+                return  # the window already closed
+            dropped = window.missing()
+            if not dropped:
+                return
+            self._secagg_deadline_attempts += 1
+            max_ext = int(self.aggregator.privacy_cfg.window_max_extensions)
+            if self._secagg_deadline_attempts > max_ext:
+                self._secagg_abort_window(co, window, window_id)
+                return
+            if len(window.arrived) < window.threshold + 1:
+                log.warning("secagg window %d: only %d arrivals (< reveal quorum %d), "
+                            "extending the deadline (%d/%d)", window_id, len(window.arrived),
+                            window.threshold + 1, self._secagg_deadline_attempts, max_ext)
+                self._arm_secagg_deadline(window_id)
+                return
+            for cid in window.arrived:
+                msg = Message(MyMessage.MSG_TYPE_S2C_SECAGG_REVEAL_REQUEST,
+                              self.get_sender_id(), int(cid))
+                msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_WINDOW_ID, window_id)
+                msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_DROPPED, [int(r) for r in dropped])
+                self.send_message(msg)
+            # survivors may vanish before revealing: refire (bounded by the
+            # same attempts counter) rather than hang
+            self._arm_secagg_deadline(window_id)
+
+    def _secagg_abort_window(self, co, window, window_id: int) -> None:
+        """Escalation past the extension budget: too few live members to
+        ever meet the reveal quorum. Abort (discard the poisoned epoch, book
+        ``secagg.windows_failed``) and reopen over the members that proved
+        live in this window, falling back to the whole round cohort when
+        the survivors cannot form a window of their own. The caller holds
+        ``_round_lock``; this runs on the timer thread, so each reopen is
+        guarded."""
+        arrived = [int(c) for c in window.arrived]
+        missing = co.abort_window()
+        log.error("secagg window %d: aborted after %d deadline firings (arrived=%s "
+                  "missing=%s); discarding the epoch and reopening", window_id,
+                  self._secagg_deadline_attempts, arrived, missing)
+        cohort = arrived if len(arrived) >= 2 else None
+        try:
+            self._secagg_open_window(cohort=cohort)
+        except Exception:  # noqa: BLE001 - the timer thread must not die with the run's window
+            if cohort is None:
+                log.exception("secagg window %d: reopen after abort failed", window_id)
+                return
+            try:
+                self._secagg_open_window()
+            except Exception:  # noqa: BLE001 - as above
+                log.exception("secagg window %d: reopen after abort failed", window_id)
+
+    def handle_message_secagg_reveal(self, msg_params: Message) -> None:
+        """One survivor's share bundle. When every dropped rank has its
+        reveal quorum, reconstruct and subtract the stray masks and publish
+        the partial window (booked on ``quorum.partial`` by the
+        coordinator)."""
+        with self._round_lock:
+            co = self._secagg
+            window = co.window if co is not None else None
+            if window is None or int(msg_params.get(
+                    MyMessage.MSG_ARG_KEY_SECAGG_WINDOW_ID)) != window.window_id:
+                return
+            reveals = {int(dr): [int(v) for v in share] for dr, share in
+                       dict(msg_params.get(MyMessage.MSG_ARG_KEY_SECAGG_REVEALS) or {}).items()}
+            window.add_reveal(msg_params.get_sender_id(), reveals)
+            if not window.reveals_complete():
+                return
+            co.recover()  # the shares are in: validates and books the dropouts
+            self._cancel_secagg_deadline()
+            model = co.close_window()
+            if model is None:
+                return
+            self.aggregator.set_global_model_params(model)
+            self._after_async_publish()
 
     def _save_round_state(self, round_idx: int, global_model_params, *, final: bool = False) -> None:
         """Durable round boundary, owned by the engine's RoundCheckpointer:

@@ -21,6 +21,13 @@ server can fold adapters trained here; the cross-silo message plane sends
 every model payload that leaves the process in this layout
 (``core/distributed/fedml_comm_manager.py``).
 
+The flat wire vector (:func:`wire_vector`, :func:`state_from_wire_vector`)
+is the JAX package's ``tree_flatten_to_vector`` of that tree: the leaves in
+flax's order (each dict's keys sorted by name, so the paths sorted) and each
+kernel raveled in its flax layout. The masked SecAgg uplink, its shared
+sparse support and the unmasked publish all index this vector, so a port
+client's masked vector equals a JAX client's for the same weights.
+
 Leaves are numpy arrays, except bfloat16 ones: numpy has no bfloat16 without
 ``ml_dtypes`` (a JAX dependency the port does not load), so those stay CPU
 tensors in the flax layout, and the wire codec carries them bit-exactly.
@@ -42,6 +49,50 @@ def _kernel_to_torch(t: torch.Tensor) -> torch.Tensor:
 
 def _weight_to_flax(t: torch.Tensor) -> torch.Tensor:
     return t.T if t.ndim == 2 else t.permute(2, 3, 1, 0)
+
+
+def _flax_path(name: str) -> tuple:
+    *head, leaf = name.split(".")
+    return tuple(head + ["kernel" if leaf == "weight" else leaf])
+
+
+def _is_kernel(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] == "weight"
+
+
+def wire_order(state: Mapping[str, torch.Tensor]) -> list:
+    """The state dict's names in the order the JAX package flattens the
+    flax tree: sorted by flax path."""
+    return sorted(state, key=_flax_path)
+
+
+def wire_vector(state: Mapping[str, torch.Tensor], dtype=torch.float32) -> torch.Tensor:
+    """``tree_flatten_to_vector(params_to_jax(state))`` without leaving the
+    state's device: one vector of ``dtype``, the leaves in flax order, the
+    kernels in flax layout."""
+    return torch.cat([(_weight_to_flax(state[k]) if _is_kernel(k) else state[k])
+                      .reshape(-1).to(dtype) for k in wire_order(state)])
+
+
+def state_from_wire_vector(vec: torch.Tensor, template: Mapping[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`wire_vector`: ``vec`` split into ``template``'s
+    leaves (each in the port's layout, shape and dtype, contiguous), in the
+    template's key order, on ``vec``'s device."""
+    out: Dict[str, torch.Tensor] = {}
+    off = 0
+    for k in wire_order(template):
+        t = template[k]
+        n = t.numel()
+        if _is_kernel(k):
+            leaf = _kernel_to_torch(vec[off:off + n].reshape(_weight_to_flax(t).shape))
+        else:
+            leaf = vec[off:off + n].reshape(t.shape)
+        out[k] = leaf.to(t.dtype).contiguous()
+        off += n
+    if off != vec.numel():
+        raise ValueError(f"wire vector has {vec.numel()} elements, the template {off}")
+    return {k: out[k] for k in template}
 
 
 def _torch_name(path) -> str:

@@ -30,7 +30,21 @@ joined within JOIN_S and a party still alive fails the test. Tolerances:
   the all-JAX async run and final params within 1e-5 of its;
 - the uplink compressor: eftopk at ratio 1.0 bit-equal to the uncompressed
   run (metrics and params), and topk at ratio 0.25 finishing with finite
-  metrics (tests/test_cross_silo.py's two compressor cases).
+  metrics (tests/test_cross_silo.py's two compressor cases);
+- privacy (``privacy``): an async ``secagg`` federation (LR, 2 clients, 3
+  masked windows) with the model uploads put in one order on both sides:
+  every publish within one ``QuantSpec.step`` of JAX's at every coordinate
+  (both packages train to within f32 noise, about 1e-7, so a coordinate
+  near a rounding edge of the quantization grid lands one step apart, a
+  member's step over the cohort's size in the mean); a JAX async secagg
+  server with port clients over the socket broker, within one step of the
+  all-JAX run; the dropout drill (tests/test_privacy.py's message-plane
+  drill) closing its windows partial after the survivors' reveals; a
+  synchronous ``dp`` federation whose clipped mean before the noise tracks
+  JAX's within 1e-5 of its scale round by round (the port's run is given
+  JAX's realized noise, so both trajectories stay one), while the port's own
+  draws pass the statistics test (std within 10% of z·C/n over 1,220 draws,
+  mean within 4 sigma/sqrt(d)) and its accountant's epsilon equals JAX's.
 """
 
 import copy
@@ -56,6 +70,7 @@ from fedml_tpu_torch.data.dataset import ArrayDataset as TArrayDataset
 from fedml_tpu_torch.models.convert import params_from_jax, params_to_jax
 
 JOIN_S = 120
+MODEL_TO_SERVER = 3  # MSG_TYPE_C2S_SEND_MODEL_TO_SERVER in both packages
 
 LR = dict(client_num_in_total=2, client_num_per_round=2, comm_round=2, epochs=1,
           batch_size=16, frequency_of_the_test=1, dataset="synthetic", model="lr",
@@ -448,6 +463,24 @@ class Turnstile:
             send(receive_id, weights, n)
         cm.send_model_to_server = in_turn
 
+    def wrap_client_sends(self, rank, cm):
+        """Gate the client's model MESSAGES instead of its
+        ``send_model_to_server`` calls: under secagg an upload may be queued
+        for the window's key directory and sent later from the directory's
+        handler, so only the send itself is one turn."""
+        send = cm.send_message
+        model_type = MODEL_TO_SERVER
+
+        def in_turn(message):
+            if message.get_type() == model_type:
+                with self.cv:
+                    turn = self.sent.get(rank, 0) * self.n + rank - 1
+                    assert self.cv.wait_for(lambda: self.open or self.seq == turn,
+                                            timeout=JOIN_S)
+                    self.sent[rank] = self.sent.get(rank, 0) + 1
+            send(message)
+        cm.send_message = in_turn
+
     def wrap_server(self, server):
         handle = server.handle_message_receive_model_from_client
 
@@ -487,6 +520,8 @@ def _async_fed(pkg, run_id, kw, backend="INMEMORY", roles=None, prepare=None, tu
     for rank, runner in fed.runners.items():
         if rank == 0:
             turn.wrap_server(fed.server)
+        elif kw.get("privacy"):
+            turn.wrap_client_sends(rank, runner.runner.client_manager)
         else:
             turn.wrap_client(rank, runner.runner.client_manager)
     return fed, turn
@@ -605,13 +640,173 @@ def test_comm_compressor_lossy_uplink_still_converges():
     assert all(torch.isfinite(v).all() for v in w.values())
 
 
+# --- privacy: windowed async SecAgg and accounted DP ------------------------------
+
+SECAGG = dict(LR, async_rounds=True, async_publish_k=2, comm_round=3,
+              async_staleness_exponent=0.0, privacy="secagg")
+
+
+def _record_publishes(server, to_np):
+    publishes = []
+    publish = server.aggregator.async_buffer.publish
+
+    def rec():
+        out = publish()
+        if out is not None:
+            publishes.append(to_np(out))
+        return out
+
+    server.aggregator.async_buffer.publish = rec
+    return publishes
+
+
+def _within_one_step(got, ref, step):
+    g, r = _leaves(got), _leaves(ref)
+    assert sorted(g) == sorted(r)
+    return max(float(np.abs(_np(g[k]).astype(np.float64) - _np(r[k])).max()) for k in r) <= step
+
+
+def test_async_secagg_federation_tracks_jax_publish_by_publish():
+    """Masked windows on both sides, the model uploads in one order: the
+    same number of windows and masked merges, every publish within one
+    QuantSpec.step of JAX's at every coordinate."""
+    p0 = _jax_p0(SECAGG)
+    t = tel.get_telemetry()
+    m0 = t.counter("secagg.masked_merges").value
+    JBroker.reset("tcs_secagg_jax")
+    jfed, _ = _async_fed(fedml_tpu, "tcs_secagg_jax", SECAGG)
+    jpub = _record_publishes(jfed.server, jax.device_get)
+    jfed.run()
+    JBroker.reset("tcs_secagg_jax")
+    InMemoryBroker.reset("tcs_secagg_port")
+    fed, _ = _async_fed(fedml_tpu_torch, "tcs_secagg_port", SECAGG, prepare=_from_jax_params(p0))
+    pub = _record_publishes(fed.server, _port_np)
+    fed.run()
+    InMemoryBroker.reset("tcs_secagg_port")
+    co = fed.server.aggregator.secagg_coordinator
+    step = co.spec.step
+    assert co.windows_total == jfed.server.aggregator.secagg_coordinator.windows_total == 3
+    assert t.counter("secagg.masked_merges").value - m0 == 6
+    assert len(pub) == len(jpub) == 3 and fed.server.aggregator.async_buffer.version == 3
+    for got, ref in zip(pub, jpub):
+        assert _within_one_step(got, ref, step)
+    assert _within_one_step(_port_np(_global(fed)), jax.device_get(_global(jfed)), step)
+
+
+def test_async_jax_secagg_server_with_port_clients_over_the_socket_broker(tmp_path):
+    """A JAX async secagg server and two port clients over a JAX
+    SocketMqttBroker (masked payloads through the npz codec, the window's
+    control messages as JSON), uploads in the turnstile's order: every
+    publish within one step of the all-JAX run's."""
+    JBroker.reset("tcs_secagg_mixed_ref")
+    rfed, _ = _async_fed(fedml_tpu, "tcs_secagg_mixed_ref", SECAGG)
+    rpub = _record_publishes(rfed.server, jax.device_get)
+    rfed.run()
+    JBroker.reset("tcs_secagg_mixed_ref")
+    broker = SocketMqttBroker(port=0)
+    try:
+        kw = dict(SECAGG, mqtt_socket=broker.address, object_store_dir=str(tmp_path / "store"))
+        jfed, turn = _async_fed(fedml_tpu, "tcs_secagg_mixed", kw, backend="MQTT_S3",
+                                roles={1: None, 2: None})
+        tfed, _ = _async_fed(fedml_tpu_torch, "tcs_secagg_mixed", kw, backend="MQTT_S3",
+                             roles={0: None}, turnstile=turn)
+        pub = _record_publishes(jfed.server, jax.device_get)
+        clients = [threading.Thread(target=tfed._party, args=(r,), daemon=True, name=f"port-{r}")
+                   for r in tfed.runners]
+        jfed.run(others=clients)
+        assert not tfed.errors, tfed.errors
+    finally:
+        broker.stop()
+    step = jfed.server.aggregator.secagg_coordinator.spec.step
+    assert len(pub) == len(rpub) == 3
+    for got, ref in zip(pub, rpub):
+        assert _within_one_step(got, ref, step)
+
+
+def test_secagg_dropout_drill_closes_windows_partial():
+    """tests/test_privacy.py's message-plane drill in the port: rank 3
+    completes key exchange, then drops its masked upload; the deadline fires,
+    the survivors reveal their shares of its key over the wire, and each
+    window publishes partial: the run ends, no party hangs, and no window
+    timer outlives it."""
+    t = tel.get_telemetry()
+    c0 = {c: t.counter(c).value for c in ("secagg.dropouts", "secagg.recovered",
+                                          "quorum.partial")}
+    kw = dict(LR, client_num_in_total=3, client_num_per_round=3, async_rounds=True,
+              async_publish_k=3, async_staleness_exponent=0.0, privacy="secagg",
+              secagg_window_deadline_s=3.0)
+    InMemoryBroker.reset("tcs_secagg_drill")
+    fed = Federation(fedml_tpu_torch, "tcs_secagg_drill", kw)
+    cm3 = fed.runners[3].runner.client_manager
+    cm3.args.chaos_secagg_drop_upload_at_round = 0
+    fed.run()
+    InMemoryBroker.reset("tcs_secagg_drill")
+    server = fed.server
+    assert np.isfinite(fed.results[0]["test_loss"]) and server.aggregator.async_buffer.version == 2
+    assert t.counter("secagg.dropouts").value > c0["secagg.dropouts"]
+    assert t.counter("secagg.recovered").value - c0["secagg.recovered"] == 2
+    assert t.counter("quorum.partial").value - c0["quorum.partial"] == 2
+    assert server._secagg_deadline_timer is None
+
+
+def test_sync_dp_federation_clean_mean_tracks_jax():
+    """A synchronous dp federation (LR, 2 clients, 2 rounds, a clip of 0.05
+    that binds): each round's clipped mean before the noise within 1e-5 of
+    its scale of JAX's. The port's run publishes JAX's realized noise
+    (JAX's published model less its clean mean), so both runs train from the
+    same models; the port's own draws of each round are kept, and pass the
+    statistics test. Both accountants stepped twice, to the same epsilon."""
+    kw = dict(LR, privacy="dp", dp_l2_clip=0.05, dp_noise_multiplier=0.5, dp_seed=3)
+    p0 = _jax_p0(kw)
+
+    def recording(agg, rows, swap=None):
+        noise = agg.dp_fold.noise_tree
+
+        def rec(tree, n):
+            out = noise(tree, n)
+            rows.append((tree, out, n))
+            return swap(len(rows) - 1, tree, out) if swap is not None else out
+        agg.dp_fold.noise_tree = rec
+
+    JBroker.reset("tcs_dp_jax")
+    jfed = Federation(fedml_tpu, "tcs_dp_jax", kw)
+    jrows = []
+    recording(jfed.server.aggregator, jrows)
+    jfed.run()
+    JBroker.reset("tcs_dp_jax")
+
+    def jax_noise(i, clean, own):
+        jclean, jout = (params_from_jax(jax.device_get(x)) for x in jrows[i][:2])
+        return {k: (clean[k] + (jout[k] - jclean[k])) for k in clean}
+
+    InMemoryBroker.reset("tcs_dp_port")
+    fed = Federation(fedml_tpu_torch, "tcs_dp_port", kw, prepare=_from_jax_params(p0))
+    rows = []
+    recording(fed.server.aggregator, rows, swap=jax_noise)
+    fed.run()
+    InMemoryBroker.reset("tcs_dp_port")
+    assert len(rows) == len(jrows) == 2
+    draws = []
+    for (clean, out, n), (jclean, _, jn) in zip(rows, jrows):
+        assert n == jn == 2
+        assert _max_err_of_scale(_port_np(clean), jax.device_get(jclean)) <= 1e-5
+        draws.append(torch.cat([(out[k] - clean[k]).reshape(-1) for k in clean]).double())
+    noise = torch.cat(draws).numpy()
+    sigma = 0.5 * 0.05 / 2
+    assert noise.size == 2 * 610
+    assert abs(float(noise.std()) - sigma) <= 0.1 * sigma
+    assert abs(float(noise.mean())) <= 4 * sigma / np.sqrt(noise.size)
+    pacc = fed.server.aggregator.dp_fold.accountant
+    jacc = jfed.server.aggregator.dp_fold.accountant
+    assert pacc.steps == jacc.steps == 2
+    assert abs(pacc.epsilon_spent - jacc.epsilon_spent) <= 1e-12
+
+
 # --- what is not ported raises ---------------------------------------------------
 
 GATES = {
     "async_link_admission": ("server", dict(async_rounds=True, async_link_admission=True)),
     "quorum_link_cost": ("server", dict(quorum_frac=0.5, quorum_link_cost=True)),
-    "privacy": ("server", dict(privacy="dp")),
-    "privacy_client": ("client", dict(privacy="secagg")),
     "secure_aggregation_secagg": ("server", dict(secure_aggregation="secagg")),
     "secure_aggregation_lsa": ("client", dict(secure_aggregation="lsa")),
     "comm_compressor": ("client", dict(comm_compressor="eftopk", backend="MQTT_S3")),
@@ -625,7 +820,6 @@ GATES = {
     "modelwatch_quarantine": ("server", dict(modelwatch_quarantine=True)),
     "chaos_link_throttle": ("client", dict(chaos_link_throttle=1e6)),
     "chaos_link_base_delay_s": ("client", dict(chaos_link_base_delay_s=0.1)),
-    "chaos_secagg_drop_upload_at_round": ("client", dict(chaos_secagg_drop_upload_at_round=0)),
     "chaos_split_kill_rank": ("server", dict(chaos_split_kill_rank=1)),
     "mqtt_host": ("client", dict(backend="MQTT_S3", mqtt_host="broker.example")),
     "s3_bucket": ("server", dict(backend="MQTT_S3", s3_bucket="bucket")),
@@ -634,9 +828,12 @@ GATES = {
        for b in ("GRPC", "MPI", "TRPC", "MQTT_WEB3", "MQTT_THETASTORE")},
 }
 
-# knobs of the resilience slice: each party builds (tests/test_torch_resilience.py
-# runs them)
+# knobs of the resilience and privacy slices: each party builds
+# (tests/test_torch_resilience.py and the privacy tests above run them)
 PORTED = {
+    "privacy": ("server", dict(privacy="dp")),
+    "privacy_client": ("client", dict(privacy="secagg")),
+    "chaos_secagg_drop_upload_at_round": ("client", dict(chaos_secagg_drop_upload_at_round=0)),
     "async_checkpoint_every_merges": ("server", dict(async_rounds=True,
                                                      async_checkpoint_every_merges=4)),
     "quorum": ("server", dict(quorum_frac=0.5)),

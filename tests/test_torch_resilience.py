@@ -612,10 +612,10 @@ def test_run_local_round_delay_raise_and_refusals():
     with pytest.raises(RuntimeError, match="chaos: injected failure at round 3 on rank 1"):
         tengine.run_local_round(lambda: {}, args, 3, rank=1)
     ok = fedml_tpu_torch.default_config("cross_silo", chaos_train_delay_s=1.0, chaos_nan_at_round=0,
-                                        chaos_kill_after_round=1, chaos_scale_delta=2.0)
+                                        chaos_kill_after_round=1, chaos_scale_delta=2.0,
+                                        chaos_secagg_drop_upload_at_round=0)
     tengine.refuse_chaos_knobs(ok)
-    for knob in ("chaos_link_throttle", "chaos_link_base_delay_s",
-                 "chaos_secagg_drop_upload_at_round", "chaos_split_kill_rank"):
+    for knob in ("chaos_link_throttle", "chaos_link_base_delay_s", "chaos_split_kill_rank"):
         with pytest.raises(NotImplementedError, match=knob):
             tengine.refuse_chaos_knobs(fedml_tpu_torch.default_config("cross_silo", **{knob: 1}))
 
