@@ -2,8 +2,9 @@
 """Chip smoke for fedml_tpu_torch: the FedLLM LoRA train step, LLM serving,
 the sp and vmapped FedAvg rounds, the FedNova, SCAFFOLD, FedDyn and Mime
 algorithms, the cross-silo front, async federation with the compressed
-uplink, durable round state, quorum rounds and the chaos drills, and
-private aggregation (windowed SecAgg and accounted DP) on one CUDA card.
+uplink, durable round state, quorum rounds and the chaos drills, private
+aggregation (windowed SecAgg and accounted DP) and the round-barrier
+SecAgg and LightSecAgg fronts on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -169,10 +170,26 @@ exception):
    bucket, ms to unmask, DP noise ms on the card, seconds a window, upload
    bytes, and the cost of privacy against the yardstick; (e) no flash
    launch;
-14. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
-   resilience, privacy and kernels lines (JSON, the kernels line with the
-   design each kernel ran on the main path), the card line, and last the
-   result line.
+14. the round-barrier secure-aggregation fronts, ResNet-56 at full width on
+   the CIFAR-10 surrogate, 16 silo threads over INMEMORY through FedMLRunner
+   by role, 2 rounds each (SECURE_FRONTS): ``secure_aggregation: secagg``
+   (threshold 8) and ``lightsecagg`` (U 16, T 8), quantize_bits 16, p =
+   2^31 - 1. (a) Gates: each round's global bit-equal to the plain mean of
+   the 16 uploads its clients quantized before masking (their int64 sum mod
+   p, centred and dequantized in the JAX fronts' order on the host); round
+   1's global within 2^-16 per coordinate of the unweighted mean of the
+   clients' trained weights; the globals, the aggregator and every party on
+   the card; a masked upload 8 bytes a coordinate, LightSecAgg's shares and
+   aggregate mask their chunk's size. (b) Figures: seconds a round, the
+   spans of round 2 (local round, quantize, masking, LightSecAgg's encode,
+   the server's sum, unmask or decode, dequantize), SecAgg's key exchange
+   (last key in to last share relayed) and LightSecAgg's share exchange,
+   bytes a client a round, and the costs alone after each run, the card
+   waited for; (c) no flash launch;
+15. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+   resilience, privacy, secure_fronts and kernels lines (JSON, the kernels
+   line with the design each kernel ran on the main path), the card line,
+   and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2921,6 +2938,302 @@ def privacy_phase(cross_silo: dict) -> dict:
     return res
 
 
+# -- phase 14: the round-barrier secure-aggregation fronts ----------------------
+
+# phase 10's 16 ResNet-56 silos over INMEMORY through FedMLRunner by role, 2
+# rounds, secure_aggregation secagg (threshold 8, the default client_num // 2)
+# and lightsecagg (U 16, T 8, the defaults); quantize_bits 16, p = 2^31 - 1
+SECURE = dict(CROSS_SILO, comm_round=2, quantize_bits=16, mpc_prime=2**31 - 1)
+SECURE_FRONTS = {"secagg": dict(SECURE, secure_aggregation="secagg"),
+                 "lightsecagg": dict(SECURE, secure_aggregation="lightsecagg")}
+SECURE_TIMEOUT_S = 300
+# the spans of a front, by step (host seconds; the card is waited for where a
+# step ends in a copy to the host)
+SECURE_SPANS = {"secagg": {"local_round": "client.train", "quantize": "sa.quantize",
+                           "masking": "sa.mask", "server_sum": "sa.server_sum",
+                           "unmask": "sa.unmask", "dequantize": "sa.dequantize"},
+                "lightsecagg": {"local_round": "client.train", "quantize": "lsa.quantize",
+                                "encode": "lsa.encode", "masking": "lsa.mask",
+                                "server_sum": "lsa.server_sum", "decode": "lsa.decode",
+                                "dequantize": "lsa.dequantize"}}
+
+
+class _SecureProbe:
+    """Records one secure federation while it runs: each client's quantized
+    upload before masking (a reference, not a copy: nothing writes it) and,
+    in round 0, its trained weights as a float32 wire vector; the bytes of
+    every array a client sends, by message type; the server's handler times
+    (keys in, shares routed, masked uploads, reconstruction) and each
+    round's new global as it is installed."""
+
+    def __init__(self, fed, front: str):
+        import threading
+
+        import torch
+
+        from fedml_tpu_torch.models.convert import wire_vector
+
+        self.lock = threading.Lock()
+        self.uploads, self.trained, self.sent = {}, {}, {}
+        self.events, self.globals = [], []
+        probe = self
+        for rank, runner in fed.runners.items():
+            if rank == 0:
+                continue
+            cm = runner.runner.client_manager
+
+            def quantize(weights, _q=cm.quantize, _cm=cm, _rank=rank):
+                rnd = int(_cm.args.round_idx)
+                if rnd == 0:
+                    probe.trained[_rank] = wire_vector(weights, torch.float32).cpu().numpy()
+                out = _q(weights)
+                with probe.lock:
+                    probe.uploads.setdefault(rnd, {})[_rank] = out
+                return out
+
+            def send(message, _send=cm.send_message, _cm=cm):
+                nbytes = sum(_nbytes(v) for v in message.get_params().values())
+                key = (message.get_type(), int(_cm.args.round_idx))
+                with probe.lock:
+                    probe.sent[key] = probe.sent.get(key, 0) + nbytes
+                _send(message)
+            cm.quantize, cm.send_message = quantize, send
+        server = fed.server
+        names = (("handle_message_pk", "handle_message_route_share", "handle_message_masked_model",
+                  "handle_message_reveal") if front == "secagg" else
+                 ("handle_message_route_encoded_mask", "handle_message_receive_model",
+                  "handle_message_receive_aggregate_mask"))
+        for name in names:
+            def timed(msg, _f=getattr(server, name), _name=name):
+                _f(msg)
+                probe.events.append((_name, int(server.args.round_idx), time.perf_counter()))
+            setattr(server, name, timed)
+        agg = server.aggregator
+        reconstruct = agg.aggregate_model_reconstruction
+
+        def installed():
+            out = reconstruct()
+            torch.cuda.synchronize()
+            probe.globals.append((time.perf_counter(), wire_vector(out).cpu().numpy(),
+                                  {v.device.type for v in out.values()}))
+            return out
+        agg.aggregate_model_reconstruction = installed
+
+
+def _nbytes(value) -> int:
+    """Bytes of the arrays in a message parameter (a reveal is a dict of
+    dicts of shares)."""
+    import numpy as np
+
+    if isinstance(value, np.ndarray):
+        return value.nbytes
+    if isinstance(value, dict):
+        return sum(_nbytes(v) for v in value.values())
+    return 0
+
+
+def _plain_quantized_mean(uploads: list, q_bits: int, p: int):
+    """The reference a round's global is held to: the int64 sum mod p of the
+    uploads, centred, float64 over 2^q, float32, over n in float32 (the JAX
+    fronts' order, on the host)."""
+    import numpy as np
+
+    total = np.zeros_like(uploads[0])
+    for u in uploads:
+        total = (total + u) % p
+    centred = np.where(total > (p - 1) // 2, total - p, total)
+    return (centred.astype(np.float64) / 2 ** q_bits).astype(np.float32) / np.float32(len(uploads))
+
+
+def _secure_alone(front: str, fed, template) -> dict:
+    """A front's costs one at a time after its run, the card otherwise idle
+    and waited for: quantizing a ResNet-56 state dict on the card and its
+    copy to the host; a client's masking (SecAgg: its self mask and 15
+    pairwise masks; LightSecAgg: one add) and, for LightSecAgg, its mask's
+    encoding (host draws, the (16x16)·(16x106,972) product on the card, the
+    shares back) and the product alone, the sum of 16 received shares, and
+    the server's decode of 16 aggregates on the card; the server's sum of 16
+    masked uploads (each copied up); SecAgg's unmask of the last round
+    (Shamir and 16 mask draws on the host, each stripped on the card); the
+    dequantized mean installed as a state dict."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core.mpc import lightsecagg as lsa
+    from fedml_tpu_torch.core.mpc.finite_field import dequantize_mean, lcc_encode
+    from fedml_tpu_torch.core.mpc.secagg import SecAggClient
+    from fedml_tpu_torch.models.convert import state_from_wire_vector
+
+    agg = fed.server.aggregator
+    cm = fed.runners[1].runner.client_manager
+    p, n = agg.cfg.prime, agg.client_num
+    rng = np.random.default_rng(0)
+    quantize = type(cm).quantize  # the manager's own, not the probe's
+    x = quantize(cm, template)
+    d = x.size
+    out = {"quantize_to_host_ms": _time_ms(lambda: quantize(cm, template), 10)}
+    ys = [rng.integers(0, p, size=d, dtype=np.int64) for _ in range(n)]
+
+    def server_sum():
+        acc = None
+        for y in ys:
+            y = torch.from_numpy(y).to(DEV)
+            acc = y % p if acc is None else (acc + y) % p
+        return acc
+    out["server_sum_16_ms"] = _time_ms(server_sum, 5)
+    x_sum = server_sum()
+    out["dequantize_install_ms"] = _time_ms(
+        lambda: state_from_wire_vector(dequantize_mean(x_sum, n, agg.q_bits, p), template), 10)
+    if front == "secagg":
+        client = SecAggClient(0, agg.cfg, np.random.default_rng(1))
+        client.advertise_keys()
+        client.peer_public = {j: int(rng.integers(2, p - 1)) for j in range(n)}
+        t = time.perf_counter()
+        for _ in range(3):
+            client.masked_input(x)
+        out["mask_host_ms"] = (time.perf_counter() - t) / 3 * 1e3
+        out["unmask_ms"] = _time_ms(lambda: agg.server.strip_masks(agg.masked_sum, agg.reveals), 3)
+        return out
+    cfg = agg.cfg
+    t = time.perf_counter()
+    for _ in range(3):
+        state = lsa.encode_mask(cfg, d, rng, device=DEV)
+    out["encode_ms"] = (time.perf_counter() - t) / 3 * 1e3
+    chunk = state.encoded_shares.shape[1]
+    payload = torch.from_numpy(rng.integers(0, p, size=(cfg.target_active, chunk),
+                                            dtype=np.int64)).to(DEV)
+    out["encode_product_on_card_ms"] = _time_ms(lambda: lcc_encode(payload, cfg.beta, cfg.alpha, p), 10)
+    t = time.perf_counter()
+    for _ in range(3):
+        lsa.mask_vector(cfg, x, state)
+    out["mask_host_ms"] = (time.perf_counter() - t) / 3 * 1e3
+    lsa.exchange_shares({i: state for i in range(n)})
+    t = time.perf_counter()
+    for _ in range(3):
+        lsa.aggregate_encoded_mask(cfg, state, list(range(n)))
+    out["share_sum_host_ms"] = (time.perf_counter() - t) / 3 * 1e3
+    aggs = {i: torch.from_numpy(state.encoded_shares[i]).to(DEV) for i in range(n)}
+    out["decode_ms"] = _time_ms(lambda: lsa.decode_aggregate_mask(cfg, aggs, d), 10)
+    return out
+
+
+def _secure_run(front: str) -> dict:
+    """Phase 14 for one front: 16 ResNet-56 silos x 2 rounds under a probe,
+    then the gates, the figures and the costs alone."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.cross_silo.lightsecagg.lsa_fedml_server_manager import \
+        LightSecAggServerManager
+    from fedml_tpu_torch.cross_silo.secagg.sa_fedml_server_manager import SecAggServerManager
+
+    over = SECURE_FRONTS[front]
+    fed = _Federation(over, f"smoke_secure_{front}")
+    want_cls = SecAggServerManager if front == "secagg" else LightSecAggServerManager
+    check(isinstance(fed.server, want_cls), f"{front}: the server is a {type(fed.server).__name__}")
+    evals = _evals_of(fed)
+    probe = _SecureProbe(fed, front)
+    since = _last_span_seq()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wall = fed.run(timeout_s=SECURE_TIMEOUT_S)
+    rounds, n = int(over["comm_round"]), int(over["client_num_per_round"])
+    q_bits, p = int(over["quantize_bits"]), int(over["mpc_prime"])
+    check(sorted(probe.uploads) == list(range(rounds)) and len(probe.globals) == rounds and
+          all(sorted(u) == list(range(1, n + 1)) for u in probe.uploads.values()),
+          f"{front}: uploads {[(r, sorted(u)) for r, u in probe.uploads.items()]}, "
+          f"{len(probe.globals)} globals")
+    check(all(devs == {DEV} for _, _, devs in probe.globals), f"{front}: a global left the card")
+    agg = fed.server.aggregator
+    check(torch.device(agg.device).type == DEV, f"{front}: the aggregator runs on {agg.device}")
+    # each round's global bit-equal to the plain quantized mean of its uploads
+    bit_equal = []
+    for rnd in range(rounds):
+        ref = _plain_quantized_mean([probe.uploads[rnd][r] for r in range(1, n + 1)], q_bits, p)
+        bit_equal.append(bool(np.array_equal(probe.globals[rnd][1], ref)))
+    check(all(bit_equal), f"{front}: rounds bit-equal to the plain quantized mean: {bit_equal}")
+    # round 1 within one quantum of the unweighted mean of the trained weights
+    mean = sum(probe.trained[r].astype(np.float64) for r in range(1, n + 1)) / n
+    off = float(np.abs(probe.globals[0][1].astype(np.float64) - mean).max())
+    check(off <= 2.0 ** -q_bits, f"{front}: round 1 is {off:.3g} from the float mean (> 2^-{q_bits})")
+    check(all(np.isfinite(m["test_loss"]) for m in evals) and len(evals) == rounds,
+          f"{front}: evals {evals}")
+    stamps = [t for t, _, _ in probe.globals]
+    round_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    # the spans of round 2, the steady round: every span entered after round
+    # 1's dequantization (the clients wait for the sync meanwhile)
+    from fedml_tpu_torch.core import telemetry as tel
+
+    deq = SECURE_SPANS[front]["dequantize"]
+    steady = min(r["seq"] for r in tel.snapshot()["spans"] if r["seq"] > since and r["name"] == deq)
+    spans = {step: _span_totals(steady, [name])[name] for step, name in SECURE_SPANS[front].items()}
+    per_round = {"round_s": round_s}
+    for rnd in range(rounds):
+        ev = [(name, t) for name, r, t in probe.events if r == rnd]
+
+        def at(name, last=True):
+            ts = [t for nm, t in ev if nm == name]
+            return (max(ts) if last else min(ts)) if ts else None
+        if front == "secagg":
+            per_round.setdefault("keys_in_s", []).append(at("handle_message_pk") -
+                                                         at("handle_message_pk", last=False))
+            per_round.setdefault("key_exchange_s", []).append(
+                at("handle_message_route_share") - at("handle_message_pk"))
+        else:
+            per_round.setdefault("share_exchange_s", []).append(
+                at("handle_message_route_encoded_mask") -
+                at("handle_message_route_encoded_mask", last=False))
+        per_round.setdefault("uploads_s", []).append(
+            at("handle_message_masked_model" if front == "secagg" else
+               "handle_message_receive_model") -
+            at("handle_message_masked_model" if front == "secagg" else
+               "handle_message_receive_model", last=False))
+    from fedml_tpu_torch.cross_silo.lightsecagg.lsa_message_define import MyMessage as LMsg
+    from fedml_tpu_torch.cross_silo.secagg.sa_message_define import MyMessage as SMsg
+
+    def per_client(msg_type):
+        return [probe.sent.get((msg_type, rnd), 0) / n for rnd in range(rounds)]
+    if front == "secagg":
+        nbytes = {"masked_upload": per_client(SMsg.MSG_TYPE_C2S_MASKED_MODEL),
+                  "shamir_shares": per_client(SMsg.MSG_TYPE_C2S_SHARE),
+                  "reveal": per_client(SMsg.MSG_TYPE_C2S_REVEAL)}
+    else:
+        nbytes = {"masked_upload": per_client(LMsg.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER),
+                  "encoded_shares": per_client(LMsg.MSG_TYPE_C2S_SEND_ENCODED_MASK_TO_SERVER),
+                  "aggregate_mask": per_client(LMsg.MSG_TYPE_C2S_SEND_MASK_TO_SERVER)}
+    d = probe.globals[0][1].size
+    check(nbytes["masked_upload"] == [8.0 * d] * rounds,
+          f"{front}: masked upload bytes {nbytes['masked_upload']}, expected {8 * d}")
+    if front == "lightsecagg":
+        cfg = fed.server.aggregator.cfg
+        chunk = -(-d // (cfg.target_active - cfg.privacy_guarantee))
+        check(nbytes["encoded_shares"] == [8.0 * chunk * (n - 1)] * rounds and
+              nbytes["aggregate_mask"] == [8.0 * chunk * cfg.target_active / n] * rounds,
+              f"{front}: share bytes {nbytes}, a chunk of {chunk}")
+    res = {"config": {key: over[key] for key in ("client_num_per_round", "comm_round",
+                                                  "quantize_bits", "mpc_prime",
+                                                  "secure_aggregation")},
+           "d": d, "round_s": round_s, "run_wall_s": wall, "spans": spans,
+           "per_round": per_round, "bytes_per_client_per_round": nbytes,
+           "rounds_bit_equal": bit_equal, "round1_max_abs_from_float_mean": off,
+           "test_loss": [m["test_loss"] for m in evals],
+           "test_acc": [m["test_acc"] for m in evals],
+           "alone": _secure_alone(front, fed, agg.get_global_model_params())}
+    del fed
+    return res
+
+
+def secure_phase() -> dict:
+    """Phase 14: the SecAgg and LightSecAgg fronts ((c), no flash launch, is
+    main's)."""
+    res = {}
+    for front, over in SECURE_FRONTS.items():
+        res[front] = _secure_run(front)
+        say(f"  {front}, {over['client_num_per_round']} {over['model']} silos x "
+            f"{over['comm_round']} rounds: {res[front]}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3120,7 +3433,22 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the privacy phase launched flash kernels: {priv_launches}")
 
-    say("== 14. result")
+    say("== 14. secure aggregation fronts: SecAgg and LightSecAgg, ResNet-56 x 16 silos")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    secure = secure_phase()
+    secure_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the secure phase: {secure_launches}")
+    # (c) quantization, the field sums and products, and ResNet training run
+    # no attention
+    check(all(n == 0 for n in secure_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the secure phase launched flash kernels: {secure_launches}")
+
+    say("== 15. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3139,6 +3467,8 @@ def main() -> int:
                                      **resilience}}), flush=True)
     print(json.dumps({"privacy": {"card": card, "flash_launches": priv_launches, **privacy}}),
           flush=True)
+    print(json.dumps({"secure_fronts": {"card": card, "flash_launches": secure_launches,
+                                        **secure}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,29 +1,39 @@
-"""Finite-field primitives for secure aggregation: a copy of the
-framework-free part of ``fedml_tpu/core/mpc/finite_field.py``.
+"""Finite-field primitives for secure aggregation: the counterpart of
+``fedml_tpu/core/mpc/finite_field.py``.
 
 Vectorized numpy (reference: python/fedml/core/mpc/secagg.py:8-120,
 python/fedml/core/mpc/lightsecagg.py:8-81): batched Fermat inverses,
-Lagrange coefficients, Shamir shares over GF(p), the Diffie-Hellman key
-agreement behind the pairwise mask seeds, and fixed-point quantization.
-All arithmetic is int64 mod p with p < 2^31, so products fit in int64.
-:func:`shamir_reconstruct` reduces each product mod p before it sums them,
-where the JAX package sums the products in one int64 dot product that can
-overflow (ROADMAP.md, Queue 3): the two agree wherever the JAX sum does not
-wrap.
+Lagrange coefficients, Lagrange-coded encoding, Shamir and additive shares
+over GF(p), the Diffie-Hellman key agreement behind the pairwise mask
+seeds, and fixed-point quantization. All arithmetic is int64 mod p with
+p < 2^31, so a product fits in int64 but a sum of three or more products
+may not: every Lagrange sum here (:func:`lcc_encode`, :func:`lcc_decode`,
+:func:`shamir_reconstruct`) reduces each product mod p before it adds it,
+where the JAX package sums the products in one int64 matmul that wraps
+(``finite_field.py:92``, ``:101``, ``:137``; ROADMAP.md, Queue 3, R1 and
+R2). The two agree wherever the JAX sum does not wrap.
 
-The windowed SecAgg path (``core/privacy/secagg_window.py``) uses the
-Shamir and DH parts. Not copied, because only the round-barrier fronts
-(``secure_aggregation``, ROADMAP.md Queue 1) use them: the Lagrange-coded
-encoding (``lcc_encode``/``lcc_decode``), ``additive_shares`` and the
-pytree helpers (``tree_to_finite``, ``tree_from_finite``,
-``tree_dimensions``, ``flatten_finite``, ``unflatten_finite``).
+The Lagrange sums and the quantizers take a numpy array or a torch tensor
+and answer in kind, a tensor on its own device: integer arithmetic is exact
+on either, so the round-barrier fronts run their large products on the
+party's device and get numpy's answer. The state-dict helpers
+(:func:`tree_to_finite`, :func:`tree_from_finite`, :func:`tree_dimensions`,
+:func:`flatten_finite`, :func:`unflatten_finite`) stand for the JAX
+package's pytree helpers and flatten in its flat order
+(``models/convert.py`` ``wire_vector``), so coordinate k of a port vector
+is coordinate k of a JAX one.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, List, Mapping, Sequence, Tuple, Union
 
 import numpy as np
+import torch
+
+from ...models.convert import state_from_wire_vector, wire_order, wire_vector
+
+Field = Union[np.ndarray, torch.Tensor]
 
 # Default prime: the reference uses 2^15-19 (lightsecagg managers); we default
 # to a Mersenne-like 31-bit prime for more quantization headroom while still
@@ -88,6 +98,39 @@ def lagrange_coeffs(eval_points: np.ndarray, interp_points: np.ndarray, p: int) 
     return field_div(l_full[:, None], den, p)
 
 
+def field_matmul(coeffs: np.ndarray, x: Field, p: int) -> Field:
+    """``coeffs @ x`` in GF(p), one product at a time, each reduced mod p:
+    a product is below p^2 < 2^62, so an int64 sum of three or more of them
+    can wrap (the JAX package's ``U @ X`` does). ``x`` (rows, d) is a numpy
+    array or a tensor; the answer is of its kind, on its device."""
+    if isinstance(x, torch.Tensor):
+        coeffs = torch.as_tensor(np.asarray(coeffs, np.int64), device=x.device)
+    else:
+        x = np.asarray(x, np.int64)
+    x = x % p
+    out = coeffs[:, :1] * x[0] % p
+    for j in range(1, coeffs.shape[1]):
+        out = (out + coeffs[:, j:j + 1] * x[j] % p) % p
+    return out
+
+
+def lcc_encode(X: Field, eval_points: np.ndarray, interp_points: np.ndarray, p: int) -> Field:
+    """Lagrange-coded encoding: treat rows of X (shape (B, d)) as values of a
+    polynomial at ``interp_points`` and evaluate it at ``eval_points``.
+
+    Parity: LCC_encoding_with_points (lightsecagg.py:41-47).
+    """
+    return field_matmul(lagrange_coeffs(eval_points, interp_points, p), X, p)
+
+
+def lcc_decode(f_eval: Field, eval_points: np.ndarray, target_points: np.ndarray, p: int) -> Field:
+    """Inverse of lcc_encode: interpolate from evaluations back to targets.
+
+    Parity: LCC_decoding_with_points (lightsecagg.py:50-56).
+    """
+    return field_matmul(lagrange_coeffs(target_points, eval_points, p), f_eval, p)
+
+
 # ---------------------------------------------------------------------------
 # Shamir / BGW secret sharing
 # ---------------------------------------------------------------------------
@@ -120,15 +163,19 @@ def shamir_reconstruct(shares: np.ndarray, idx: Sequence[int], p: int) -> np.nda
     (Reference: BGW_decoding secagg.py:192-210.)
     """
     xs = np.asarray(idx, np.int64) + 1
-    lam = lagrange_coeffs(np.zeros(1, np.int64), xs, p)[0]  # (len(idx),)
-    shares = np.mod(np.asarray(shares, np.int64), p)
-    # one product at a time, each reduced mod p: a product is below p^2 < 2^62,
-    # so an int64 dot product of three or more of them can wrap (the JAX
-    # package's ``lam @ shares`` does, and then reconstructs a wrong key)
-    out = np.zeros(shares.shape[1:], np.int64)
-    for coeff, share in zip(lam, shares):
-        out = (out + coeff * share % p) % p
-    return out
+    lam = lagrange_coeffs(np.zeros(1, np.int64), xs, p)  # (1, len(idx))
+    return field_matmul(lam, np.asarray(shares, np.int64), p)[0]
+
+
+def additive_shares(d: int, n_out: int, p: int, rng: np.random.Generator) -> np.ndarray:
+    """n_out additive shares of 0^d: rows sum to 0 mod p.
+
+    (Reference Gen_Additive_SS secagg.py:316-326 generates shares of a
+    random secret; sharing zero lets callers add the secret in themselves.)
+    """
+    shares = rng.integers(0, p, size=(n_out, d), dtype=np.int64)
+    shares[-1] = np.mod(-shares[:-1].sum(axis=0), p)
+    return shares
 
 
 # ---------------------------------------------------------------------------
@@ -147,24 +194,76 @@ def dh_shared_key(my_secret: int, their_public: int, p: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Fixed-point quantization between reals and GF(p)
+# Fixed-point quantization between reals and GF(p), over state dicts
 # ---------------------------------------------------------------------------
 
 
-def quantize(x: np.ndarray, q_bits: int, p: int) -> np.ndarray:
-    """Real → field: round(x * 2^q), negatives wrapped to p + v.
+def quantize(x: Field, q_bits: int, p: int) -> Field:
+    """Real → field: round(x * 2^q) (half to even), negatives wrapped to
+    p + v. A tensor is quantized on its device, in float64 as numpy does.
 
     (Reference my_q secagg.py:344-348.)
     """
+    if isinstance(x, torch.Tensor):
+        xi = torch.round(x.to(torch.float64) * (1 << q_bits)).to(torch.int64)
+        return torch.where(xi < 0, xi + p, xi)
     xi = np.round(np.asarray(x, np.float64) * (1 << q_bits)).astype(np.int64)
     return np.where(xi < 0, xi + p, xi).astype(np.int64)
 
 
-def dequantize(xq: np.ndarray, q_bits: int, p: int) -> np.ndarray:
-    """Field → real: values above (p-1)/2 are negative.
+def dequantize(xq: Field, q_bits: int, p: int) -> Field:
+    """Field → real (float64): values above (p-1)/2 are negative.
 
     (Reference my_q_inv secagg.py:359-363.)
     """
+    if isinstance(xq, torch.Tensor):
+        xi = torch.where(xq > (p - 1) // 2, xq - p, xq)
+        return xi.to(torch.float64) / (1 << q_bits)
     xq = np.asarray(xq, np.int64)
     xi = np.where(xq > (p - 1) // 2, xq - p, xq)
     return xi.astype(np.float64) / (1 << q_bits)
+
+
+def dequantize_mean(x_sum: torch.Tensor, n: int, q_bits: int, p: int) -> torch.Tensor:
+    """The mean of ``n`` quantized vectors from their sum mod p, on its
+    device, in the JAX fronts' order: dequantize in float64, cast to
+    float32, divide by ``n`` in float32 (``sa_fedml_aggregator.py:89-95``).
+    The divisor is a tensor: CUDA multiplies by the reciprocal of a Python
+    scalar divisor, which is not always the quotient."""
+    mean = dequantize(x_sum, q_bits, p).to(torch.float32)
+    return mean / torch.full((), float(n), dtype=torch.float32, device=mean.device)
+
+
+StateDict = Mapping[str, torch.Tensor]
+
+
+def tree_to_finite(tree: StateDict, q_bits: int, p: int) -> Dict[str, torch.Tensor]:
+    """Quantize every leaf of a state dict into GF(p), each on its device
+    (reference transform_tensor_to_finite secagg.py:351-356)."""
+    return {k: quantize(v, q_bits, p) for k, v in tree.items()}
+
+
+def tree_from_finite(tree: StateDict, q_bits: int, p: int) -> Dict[str, torch.Tensor]:
+    """Dequantize a GF(p) state dict back to float32 leaves (reference
+    transform_finite_to_tensor secagg.py:366-382)."""
+    return {k: dequantize(v, q_bits, p).to(torch.float32) for k, v in tree.items()}
+
+
+def tree_dimensions(tree: StateDict) -> Tuple[List[int], int]:
+    """Per-leaf sizes in the JAX flat order, and the total (reference
+    model_dimension secagg.py:385-393)."""
+    dims = [tree[k].numel() for k in wire_order(tree)]
+    return dims, sum(dims)
+
+
+def flatten_finite(tree: StateDict) -> torch.Tensor:
+    """Every leaf in one int64 vector, in the JAX flat order and layout
+    (``wire_vector``), on the leaves' device."""
+    return wire_vector(tree, torch.int64)
+
+
+def unflatten_finite(flat: torch.Tensor, template: StateDict) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`flatten_finite`: int64 leaves of ``template``'s
+    names and shapes, on ``flat``'s device."""
+    shapes = {k: torch.empty(v.shape, dtype=torch.int64, device="meta") for k, v in template.items()}
+    return state_from_wire_vector(flat, shapes)

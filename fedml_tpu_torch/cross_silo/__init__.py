@@ -1,8 +1,8 @@
 """cross_silo: the cross-silo front ("Octopus"), the counterpart of
 ``fedml_tpu/cross_silo``: the synchronous FedAvg server and client managers
 over the message plane, sync and async, with windowed SecAgg and accounted
-DP (``privacy``). The round-barrier SecAgg and LightSecAgg fronts
-(``secure_aggregation``) are not ported (ROADMAP.md, Queue 1)."""
+DP (``privacy``), and the round-barrier SecAgg and LightSecAgg fronts
+(``secure_aggregation``: ``secagg/``, ``lightsecagg/``)."""
 
 from .fedml_client import Client, FedMLCrossSiloClient
 from .fedml_server import FedMLCrossSiloServer, Server

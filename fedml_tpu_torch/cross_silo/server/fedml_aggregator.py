@@ -124,8 +124,8 @@ class FedMLAggregator:
             if self.async_buffer is None:
                 raise ValueError(
                     "privacy=secagg masks per async publish window: set "
-                    "args.async_rounds (the synchronous fronts' round-barrier SecAgg, "
-                    "secure_aggregation, is not ported)")
+                    "args.async_rounds (the synchronous fronts' round-barrier SecAgg is "
+                    "secure_aggregation)")
             n = int(getattr(args, "client_num_per_round", client_num) or client_num)
             ratio = None
             if str(getattr(args, "comm_compressor", "") or "") in ("topk", "eftopk"):

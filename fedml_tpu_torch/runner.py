@@ -1,15 +1,16 @@
 """Runner dispatch: counterpart of ``fedml_tpu/runner.py`` (reference
 ``python/fedml/runner.py:19``). The port runs the ``sp`` and ``vmap``
 simulations and the cross-silo front (``training_type: cross_silo``,
-dispatched by ``role``); the other simulation backends (NCCL, MPI),
-cross-silo secure aggregation, cross-cloud, cross-device and placement plans
-raise NotImplementedError (ROADMAP.md, Queue 1)."""
+dispatched by ``role``), with its round-barrier secure-aggregation fronts
+(``secure_aggregation``: SecAgg and LightSecAgg, over INMEMORY); the other
+simulation backends (NCCL, MPI), cross-cloud, cross-device and placement
+plans raise NotImplementedError (ROADMAP.md, Queue 1)."""
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
-from .constants import (FEDML_SIMULATION_TYPE_SP, FEDML_SIMULATION_TYPE_VMAP,
+from .constants import (COMM_BACKEND_INMEMORY, FEDML_SIMULATION_TYPE_SP, FEDML_SIMULATION_TYPE_VMAP,
                         FEDML_TRAINING_PLATFORM_CROSS_SILO, FEDML_TRAINING_PLATFORM_SIMULATION)
 
 
@@ -57,7 +58,23 @@ class FedMLRunner:
         role = getattr(args, "role", "client")
         secure = str(getattr(args, "secure_aggregation", "") or "").lower()
         if secure in ("lightsecagg", "lsa", "secagg", "sa"):
-            raise _not_ported(f"secure_aggregation {secure!r} (the SecAgg and LightSecAgg fronts)")
+            backend = str(getattr(args, "backend", COMM_BACKEND_INMEMORY))
+            if backend != COMM_BACKEND_INMEMORY:
+                # the secure managers put numpy shares in the control message,
+                # which the JSON of a byte backend cannot carry, in JAX too
+                raise NotImplementedError(
+                    f"secure_aggregation {secure!r} over backend {backend!r}: the SecAgg and "
+                    f"LightSecAgg fronts run over {COMM_BACKEND_INMEMORY} only (see ROADMAP.md, "
+                    "Queue 3, R4)")
+            if secure in ("lightsecagg", "lsa"):
+                # reference: cross_silo/lightsecagg/lsa_fedml_api.py FedML_LSA_Horizontal
+                from .cross_silo import lightsecagg as front
+            else:
+                # reference: cross_silo/secagg/sa_fedml_api.py FedML_SA_Horizontal
+                from .cross_silo import secagg as front
+            if role == "client":
+                return front.Client(args, device, dataset, model, model_trainer=client_trainer)
+            return front.Server(args, device, dataset, model, server_aggregator=server_aggregator)
         if role == "client":
             from .cross_silo.fedml_client import FedMLCrossSiloClient
 

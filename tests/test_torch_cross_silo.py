@@ -807,8 +807,9 @@ def test_sync_dp_federation_clean_mean_tracks_jax():
 GATES = {
     "async_link_admission": ("server", dict(async_rounds=True, async_link_admission=True)),
     "quorum_link_cost": ("server", dict(quorum_frac=0.5, quorum_link_cost=True)),
-    "secure_aggregation_secagg": ("server", dict(secure_aggregation="secagg")),
-    "secure_aggregation_lsa": ("client", dict(secure_aggregation="lsa")),
+    # the secure fronts run over INMEMORY only (ROADMAP.md, Queue 3, R4)
+    "secure_aggregation_secagg": ("server", dict(secure_aggregation="secagg", backend="MQTT_S3")),
+    "secure_aggregation_lsa": ("client", dict(secure_aggregation="lsa", backend="MQTT_S3")),
     "comm_compressor": ("client", dict(comm_compressor="eftopk", backend="MQTT_S3")),
     "scenario_hierarchical": ("client", dict(scenario="hierarchical")),
     "link_probe_interval_s": ("server", dict(link_probe_interval_s=1.0)),
@@ -828,8 +829,9 @@ GATES = {
        for b in ("GRPC", "MPI", "TRPC", "MQTT_WEB3", "MQTT_THETASTORE")},
 }
 
-# knobs of the resilience and privacy slices: each party builds
-# (tests/test_torch_resilience.py and the privacy tests above run them)
+# knobs of the resilience, privacy and secure-aggregation slices: each party
+# builds (tests/test_torch_resilience.py, the privacy tests above and
+# tests/test_torch_secagg.py run them)
 PORTED = {
     "privacy": ("server", dict(privacy="dp")),
     "privacy_client": ("client", dict(privacy="secagg")),
@@ -849,6 +851,9 @@ PORTED = {
     "chaos_kill_after_round": ("server", dict(resilience_dir="rs", chaos_kill_after_round=1)),
     "chaos_kill_after_merges": ("server", dict(async_rounds=True, resilience_dir="rs",
                                                chaos_kill_after_merges=3)),
+    # the round-barrier secure fronts, by each of their four names
+    **{f"secure_aggregation_{name}_{role}": (role, dict(secure_aggregation=name))
+       for name in ("secagg", "sa", "lightsecagg", "lsa") for role in ("server", "client")},
 }
 
 

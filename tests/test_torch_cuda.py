@@ -479,3 +479,55 @@ def test_ingest_moves_host_leaves_in_one_copy_per_dtype_group(cuda):
         assert out[k].device.type == "cuda" and out[k].dtype == v.dtype
         assert torch.equal(out[k].cpu(), v.cpu())
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 3])
+@pytest.mark.parametrize("secure", ["secagg", "lightsecagg"])
+def test_secure_front_round_on_the_card_equals_the_plain_quantized_mean(cuda, secure, n):
+    """One round of an n-silo LR federation under ``secure_aggregation``,
+    every party a thread on the card through FedMLRunner: the global, on
+    cuda, bit-equal to the plain mean of the n uploads the clients
+    quantized before masking (their int64 sum mod p, centred, float64 over
+    2^16, float32, over n in float32: the JAX fronts' order, on the host).
+    At n = 3 the division must be a true one: CUDA multiplies by the
+    reciprocal of a Python scalar divisor, exact only for a power of 2."""
+    import threading
+
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core.distributed.communication.inmemory.broker import InMemoryBroker
+    from fedml_tpu_torch.models.convert import wire_vector
+
+    run_id, p = f"test_torch_cuda_{secure}_{n}", 2**31 - 1
+    InMemoryBroker.reset(run_id)
+    runners, uploads = {}, {}
+    for rank in range(n + 1):
+        args = fedml.init(fedml.default_config(
+            "cross_silo", run_id=run_id, rank=rank, role="server" if rank == 0 else "client",
+            backend="INMEMORY", client_num_in_total=n, client_num_per_round=n, comm_round=1,
+            batch_size=16, frequency_of_the_test=1, dataset="synthetic", model="lr",
+            data_cache_dir="", secure_aggregation=secure, quantize_bits=16, mpc_prime=p))
+        dev = fedml.get_device(args)
+        dataset, output_dim = fedml.data.load(args)
+        model = fedml.model.create(args, output_dim)
+        assert dev.type == "cuda" and model.device.type == "cuda"
+        runners[rank] = fedml.FedMLRunner(args, dev, dataset, model)
+        if rank:
+            cm = runners[rank].runner.client_manager
+            cm.quantize = lambda w, _q=cm.quantize, _r=rank: uploads.setdefault(_r, _q(w))
+    threads = [threading.Thread(target=runners[r].run, daemon=True) for r in runners]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+        assert not t.is_alive()
+    InMemoryBroker.reset(run_id)
+    assert sorted(uploads) == list(range(1, n + 1))
+    total = np.zeros_like(uploads[1])
+    for r in range(1, n + 1):
+        total = (total + uploads[r]) % p
+    centred = np.where(total > (p - 1) // 2, total - p, total)
+    want = (centred.astype(np.float64) / 2**16).astype(np.float32) / np.float32(n)
+    w = runners[0].runner.server_manager.aggregator.get_global_model_params()
+    assert all(v.device.type == "cuda" for v in w.values())
+    assert np.array_equal(wire_vector(w).cpu().numpy(), want)
