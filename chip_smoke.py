@@ -3,8 +3,9 @@
 the sp and vmapped FedAvg rounds, the FedNova, SCAFFOLD, FedDyn and Mime
 algorithms, the cross-silo front, async federation with the compressed
 uplink, durable round state, quorum rounds and the chaos drills, private
-aggregation (windowed SecAgg and accounted DP) and the round-barrier
-SecAgg and LightSecAgg fronts on one CUDA card.
+aggregation (windowed SecAgg and accounted DP), the round-barrier SecAgg
+and LightSecAgg fronts, and the edge->regional->root aggregation tree with
+its tier-masked SecAgg on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -186,10 +187,33 @@ exception):
    (last key in to last share relayed) and LightSecAgg's share exchange,
    bytes a client a round, and the costs alone after each run, the card
    waited for; (c) no flash launch;
-15. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
-   resilience, privacy, secure_fronts and kernels lines (JSON, the kernels
-   line with the design each kernel ran on the main path), the card line,
-   and last the result line.
+15. hierarchical async aggregation over the ResNet-56 state dict (a seeded
+   template on the card): (a) simulate_async_rounds(n, 8, template, 8,
+   hierarchy_edges=8, gen_batch 1024, seed 0) at 1,000 and 10,000 clients
+   and 1,000 again (8 edges of publish_k 8 under regional_fanout 4: 2
+   regionals, a root publish every 64 client merges), its own server
+   seconds; then the same event simulation over a HierarchyTree whose
+   buffers record every merge and publish, the card waited for after each
+   submit and publish: every root publish within HIER_TOL of each leaf's
+   scale of the float64 host re-fold of its recorded arrivals through the
+   same tree (at both sizes), the tree at version 8, the hierarchy.forwards
+   counter equal to the nodes' forwards, every root publish on the card,
+   after flush_sketches the root's staleness count equal to the client
+   submissions, and the same seed's event trace identical; server s and
+   rounds/hr beside phase 11 (c)'s flat buffer, forwards and merges per
+   tier, the root sketch's staleness p50/p99, high water, peak memory; (b)
+   HierarchyPrivacy over the template, 4 edges x 4 members under
+   regional_fanout 2, the default QuantSpec, exponent 0, TF32 off: the root
+   publish bit-equal to the honest quantized mean of the 16 deltas, the
+   ledger empty after it, no edge's upward ring vector close to its
+   cohort's honest partial mean, R5's tree (8 x 16 under fanout 4) refused
+   at construction; key exchange s, masking ms a client, the edge publish,
+   the regional pass-through and the root's strip and unmask ms, bytes
+   forwarded per tier; (c) no flash launch;
+16. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+   resilience, privacy, secure_fronts, hierarchy and kernels lines (JSON,
+   the kernels line with the design each kernel ran on the main path), the
+   card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2002,17 +2026,18 @@ def async_vmap() -> tuple:
     return res, model.params, [dataset[4][c] for c in range(16)]
 
 
-def _synced_recording_sink(buffer):
-    """An AsyncBufferSink over ``buffer`` that waits for the card after each
-    submit and publish, so the simulator's server_seconds hold the device's
-    work, and records every arrival's (client, version, verdict)."""
+def _synced_recording_sink(raw):
+    """The async sink of ``raw`` (a buffer or a hierarchy tree) that waits
+    for the card after each submit and publish, so the simulator's
+    server_seconds hold the device's work, and records every arrival's
+    (client, version, verdict)."""
     import torch
 
-    from fedml_tpu_torch.core.engine import AsyncBufferSink
+    from fedml_tpu_torch.core.engine import as_async_sink
 
-    class Sink(AsyncBufferSink):
-        def __init__(self, buf):
-            super().__init__(buf)
+    class Sink(type(as_async_sink(raw))):
+        def __init__(self, raw_):
+            super().__init__(raw_)
             self.trace = []
 
         def submit(self, rank, tree, weight, client_version):
@@ -2026,7 +2051,7 @@ def _synced_recording_sink(buffer):
             torch.cuda.synchronize()
             return out
 
-    return Sink(buffer)
+    return Sink(raw)
 
 
 def async_fleet(template: dict) -> dict:
@@ -3234,6 +3259,361 @@ def secure_phase() -> dict:
     return res
 
 
+# -- phase 15: hierarchical async aggregation: the edge->regional->root tree ----
+
+# the JAX bench's tree (bench.py's hierarchy rider): 8 edges of publish_k 8
+# under regional_fanout 4, so 2 regionals and a root publish every 64 client
+# merges, over the ResNet-56 state dict at phase 11's fleet sizes, generation
+# batch and seed; 8 root publishes a run, exponent 0.5 (the default policy)
+HIER_SIM = dict(hierarchy_edges=8, publish_k=8, publishes=8, gen_batch=ASYNC_SIM["gen_batch"],
+                seed=ASYNC_SIM["seed"])
+# tier-masked SecAgg over the ResNet-56 template: 4 edges x 4 members under
+# regional_fanout 2 (a 16-member root window), the default QuantSpec (13
+# qbits, clip 3.0, a 20-bit ring), exponent 0; R5's tree (8 x 16 under
+# regional_fanout 4: 128 members, 21 bits) must be refused
+HIER_MASKED = dict(n_edges=4, per_edge=4, regional_fanout=2, seed=0)
+HIER_R5 = dict(n_edges=8, per_edge=16, regional_fanout=4)
+# a root publish against the float64 host re-fold of its recorded arrivals
+# through the same tree: phase 11's ASYNC_STREAM_TOL a tier (each tier is one
+# f32 fold of at most 8 arrivals with f32-normalized weights), so 3x it
+HIER_TOL = 3 * ASYNC_STREAM_TOL
+
+
+# the spans of a gated run (nested: hierarchy.publish holds async.publish,
+# which holds agg.aggregate and its agg.bucket; an edge's arrival is
+# async.merge)
+HIER_SPANS = ("async.merge", "async.publish", "hierarchy.publish", "hierarchy.version_sync",
+              "agg.aggregate", "agg.bucket", "agg.pad_tail")
+
+
+def _sketch_hop_ms(tree) -> float:
+    """Host ms of one sketch forward (an edge's wire_view, the regional's
+    merge of it into the edge's slot), the mean of 20 after the run."""
+    edge, parent = tree.edges[0], tree.edges[0].parent
+    rank = parent._child_ranks.get(edge.name, 0)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        parent.fleet.merge_client_delta(rank, {"sketches": edge.fleet.wire_view()})
+    return (time.perf_counter() - t0) / 20 * 1e3
+
+
+def _recording_tree(template: dict):
+    """A HierarchyTree.build(8, publish_k=8) on the card whose node buffers
+    record every merge (its effective weight and state dict, by reference)
+    and every publish (its window and its output)."""
+    from fedml_tpu_torch.core.aggregation.bucketed import get_engine
+    from fedml_tpu_torch.core.distributed.hierarchy import HierarchyTree
+
+    tree = HierarchyTree.build(HIER_SIM["hierarchy_edges"], publish_k=HIER_SIM["publish_k"],
+                               engine=get_engine(), initial_model=template, device=DEV)
+    rec = {}
+    for node in tree.nodes():
+        buf, log = node.buffer, {"window": [], "pubs": []}
+        rec[node.name] = log
+
+        def merge(rank, tree_, weight, staleness, _m=buf._merge_locked, _log=log):
+            _log["window"].append((float(weight), tree_))
+            return _m(rank, tree_, weight, staleness)
+
+        def publish(_p=buf._publish_locked, _log=log):
+            out = _p()
+            if out is not None:
+                _log["pubs"].append((_log["window"], out))
+                _log["window"] = []
+            return out
+
+        buf._merge_locked, buf._publish_locked = merge, publish
+    return tree, rec
+
+
+def _hier_refold(tree, rec) -> list:
+    """Each root publish's float64 host re-fold through the recorded tree:
+    an edge's reference is the weighted mean of its window's client state
+    dicts, a regional's and the root's the weighted mean of their children's
+    references, with the weights each buffer folded (decayed, and a child's
+    forwarded window weight)."""
+    refs = {}
+    for node in tree.edges + tree.regionals + [tree.root]:
+        for window, out in rec[node.name]["pubs"]:
+            acc, wsum = None, 0.0
+            for w, t in window:
+                x = refs.get(id(t))
+                if x is None:
+                    check(next(iter(t.values())).device.type == DEV,
+                          f"{node.name}: an arrival off the card")
+                    x = _f64_host(t)
+                acc = w * x if acc is None else acc + w * x
+                wsum += w
+            refs[id(out)] = acc / wsum
+    return [(out, refs[id(out)]) for _, out in rec["root"]["pubs"]]
+
+
+def _f64_host(state: dict):
+    """A state dict as one float64 host vector (one copy down)."""
+    import numpy as np
+    import torch
+
+    return torch.cat([v.reshape(-1).float() for v in state.values()]).cpu().numpy() \
+        .astype(np.float64)
+
+
+def _of_scale_flat(out: dict, ref) -> float:
+    """max over leaves of max |out - ref| / max |ref| (a flat float64 ref in
+    the state dict's order)."""
+    import numpy as np
+
+    err, off = 0.0, 0
+    for v in out.values():
+        n = v.numel()
+        got = v.reshape(-1).float().cpu().numpy().astype(np.float64)
+        r = ref[off:off + n]
+        err = max(err, float(np.abs(got - r).max() / max(np.abs(r).max(), 1e-30)))
+        off += n
+    return err
+
+
+def hierarchy_fleet(template: dict, flat: dict) -> dict:
+    """Phase 15 (a): simulate_async_rounds(hierarchy_edges=8) over the
+    ResNet-56 state dict at 1,000 and 10,000 clients (and 1,000 again), as
+    a user calls it; then the gate runs, the same event simulation over a
+    recording tree with the card waited for after each submit and publish
+    (phase 11 (c)'s discipline, so the server seconds compare)."""
+    import torch
+
+    from fedml_tpu_torch.core import telemetry as tel
+    from fedml_tpu_torch.core.distributed.hierarchy import FORWARD_COUNTER
+    from fedml_tpu_torch.core.telemetry import sketches
+    from fedml_tpu_torch.simulation.vmapped.async_driver import (AsyncEventSim, DelayModel,
+                                                                 make_synthetic_delta_fn,
+                                                                 simulate_async_rounds)
+
+    sizes = ASYNC_SIM_CLIENTS + ASYNC_SIM_CLIENTS[:1]
+    res = {"config": dict(HIER_SIM, regional_fanout=4, tol_of_scale=HIER_TOL), "entry": {},
+           "gated": {}}
+    for n in sizes:  # the entry point, timed by its own server_seconds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = simulate_async_rounds(n, HIER_SIM["publish_k"], template, HIER_SIM["publishes"],
+                                      hierarchy_edges=HIER_SIM["hierarchy_edges"],
+                                      gen_batch=HIER_SIM["gen_batch"], seed=HIER_SIM["seed"])
+        torch.cuda.synchronize()
+        check(stats["publishes"] == HIER_SIM["publishes"], f"{n} clients: {stats}")
+        res["entry"].setdefault(str(n), []).append(
+            {**stats, "run_wall_s": time.perf_counter() - t0,
+             "rounds_per_hr_server_s": 3600.0 * stats["publishes"] / stats["server_seconds"]})
+    traces = []
+    for i, n in enumerate(sizes):
+        sketches.reset()
+        tree, rec = _recording_tree(template)
+        sink = _synced_recording_sink(tree)
+        f0 = tel.counter(FORWARD_COUNTER).value
+        since = _last_span_seq()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sim = AsyncEventSim(sink, make_synthetic_delta_fn(seed=HIER_SIM["seed"]), n,
+                            initial_model=template,
+                            delay=DelayModel(n, seed=HIER_SIM["seed"]),
+                            gen_batch=HIER_SIM["gen_batch"])
+        stats = sim.run(HIER_SIM["publishes"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        forwards = tel.counter(FORWARD_COUNTER).value - f0
+        spans = _span_totals(since, HIER_SPANS)
+        traces.append(sink.trace)
+        check(tree.version == HIER_SIM["publishes"] == stats["publishes"],
+              f"{n} clients: tree version {tree.version}, {stats}")
+        check(forwards == sum(nd.forwards for nd in tree.nodes()),
+              f"hierarchy.forwards counted {forwards}, the nodes "
+              f"{[nd.forwards for nd in tree.nodes()]}")
+        check(tree.device.type == DEV and all(
+            v.device.type == DEV for _, out in rec["root"]["pubs"] for v in out.values()),
+            "a root publish off the card")
+        tree.flush_sketches()
+        view = tree._root_sketch_view()
+        st = view.quantiles["staleness"]
+        check(st.count == len(sink.trace), f"root staleness count {st.count}, "
+                                           f"{len(sink.trace)} client submissions")
+        row = {**stats, "run_wall_s": wall,
+               "rounds_per_hr_server_s": 3600.0 * stats["publishes"] / stats["server_seconds"],
+               "forwards": {"edge": sum(e.forwards for e in tree.edges),
+                            "regional": sum(r.forwards for r in tree.regionals)},
+               "merges_by_tier": {"edge": sum(e.buffer.merges_total for e in tree.edges),
+                                  "regional": sum(r.buffer.merges_total for r in tree.regionals),
+                                  "root": tree.root.buffer.merges_total},
+               "high_water_by_tier": {
+                   "edge": max(e.buffer.depth_high_water for e in tree.edges),
+                   "regional": max(r.buffer.depth_high_water for r in tree.regionals),
+                   "root": tree.root.buffer.depth_high_water},
+               "root_sketch_staleness": {"count": st.count, "p50": st.quantile(0.5),
+                                         "p99": st.quantile(0.99)},
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "spans": spans, "sketch_hop_ms": _sketch_hop_ms(tree)}
+        if i < 2:  # the re-fold gate at each size
+            t1 = time.perf_counter()
+            errs = [_of_scale_flat(out, ref) for out, ref in _hier_refold(tree, rec)]
+            row["refold_of_scale_max"] = max(errs)
+            row["refold_s"] = time.perf_counter() - t1
+            check(len(errs) == HIER_SIM["publishes"], f"{len(errs)} root publishes re-folded")
+            check(max(errs) <= HIER_TOL, f"{n} clients: a root publish is {max(errs):.3g} of "
+                                         f"its scale from the float64 re-fold (HIER_TOL "
+                                         f"{HIER_TOL:g})")
+            res["gated"][str(n)] = row
+        del tree, rec, sink, sim
+        gc.collect()
+        torch.cuda.empty_cache()
+    sketches.reset()
+    res["same_seed_same_trace"] = traces[0] == traces[2] and len(traces[0]) > 0
+    check(res["same_seed_same_trace"], "the same seed gave another event trace")
+    small, large = (str(n) for n in ASYNC_SIM_CLIENTS)
+    res["gated_ratio_large_over_small"] = (res["gated"][large]["rounds_per_hr_server_s"]
+                                           / res["gated"][small]["rounds_per_hr_server_s"])
+    res["entry_ratio_large_over_small"] = (res["entry"][large][0]["rounds_per_hr_server_s"]
+                                           / res["entry"][small][0]["rounds_per_hr_server_s"])
+    res["flat_phase11"] = {n: {k: flat[n][k] for k in ("server_seconds", "rounds_per_hr_server_s")}
+                           for n in (small, large) if n in flat}
+    if "ratio_large_over_small" in flat:
+        res["flat_phase11"]["ratio_large_over_small"] = flat["ratio_large_over_small"]
+    say(f"  (a) the tree over ResNet-56: {res}")
+    return res
+
+
+def _resnet56_template() -> dict:
+    """A ResNet-56 state dict on the card, initialised from the seed."""
+    import fedml_tpu_torch
+
+    args = fedml_tpu_torch.default_config("simulation", model="resnet56", dataset="cifar10",
+                                          random_seed=0, using_gpu=DEV == "cuda")
+    model = fedml_tpu_torch.model.create(args, 10, device=DEV)
+    return {k: v.detach() for k, v in model.module.state_dict().items()}
+
+
+def hierarchy_masked(template: dict) -> dict:
+    """Phase 15 (b): HierarchyPrivacy over the ResNet-56 template, driven as
+    JAX's tests drive its windows; then R5's tree is refused."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core.aggregation.async_buffer import StalenessPolicy
+    from fedml_tpu_torch.core.aggregation.bucketed import get_engine
+    from fedml_tpu_torch.core.distributed.hierarchy import HierarchyTree
+    from fedml_tpu_torch.core.privacy import HierarchyPrivacy, masking
+    from fedml_tpu_torch.core.privacy.secagg_window import MASKED_LEAF
+    from fedml_tpu_torch.models.convert import wire_vector
+    from fedml_tpu_torch.simulation.vmapped.async_driver import make_synthetic_delta_fn
+
+    cfg = HIER_MASKED
+    n_edges, per, total = cfg["n_edges"], cfg["per_edge"], cfg["n_edges"] * cfg["per_edge"]
+    old_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        stacked = make_synthetic_delta_fn(seed=cfg["seed"])(template, list(range(total)), 0)
+        deltas = []
+        for i in range(total):
+            vec = wire_vector({k: v[i] for k, v in stacked.items()}).cpu().numpy()
+            scale = min(1.0, 0.9 * masking.QuantSpec().clip / float(np.abs(vec).max()))
+            deltas.append((vec * np.float32(scale)).astype(np.float32))
+        del stacked
+        tree = HierarchyTree.build(n_edges, regional_fanout=cfg["regional_fanout"],
+                                   publish_k=per, policy=StalenessPolicy(exponent=0.0),
+                                   engine=get_engine(), device=DEV)
+        hp = HierarchyPrivacy(tree, template, rng=np.random.default_rng(cfg["seed"]))
+        spec = hp.spec
+        ups = {}
+        for e in tree.edges:
+            orig = e.parent._submit_from_child
+
+            def spy(child, weight, model, _orig=orig, _name=e.name):
+                ups[_name] = model[MASKED_LEAF]
+                return _orig(child, weight, model)
+
+            e.parent._submit_from_child = spy
+        cohorts = {e.name: list(range(i * per, (i + 1) * per)) for i, e in enumerate(tree.edges)}
+        since = _last_span_seq()
+        t0 = time.perf_counter()
+        opened = hp.open_edge_windows(cohorts)
+        key_s = time.perf_counter() - t0
+        mask_ms = []
+        for e in tree.edges:
+            members = opened[e.name][1]
+            for r in cohorts[e.name]:
+                t1 = time.perf_counter()
+                masked = members[r].mask(deltas[r])
+                mask_ms.append((time.perf_counter() - t1) * 1e3)
+                verdict = e.privacy.submit(r, masked, client_version=e.buffer.version)
+                check(verdict == "accept", f"{e.name} rank {r}: {verdict}")
+            e._maybe_publish()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    out = tree.latest_model()
+    check(tree.version == 1 and out is not None, f"no root publish (version {tree.version})")
+    check(all(v.device.type == DEV for v in out.values()), "the root publish is off the card")
+    got = wire_vector(out).cpu().numpy()
+    qsum = sum(masking.quantize_vector(d, spec) for d in deltas)
+    honest = masking.dequantize_sum(masking.center_ring(np.mod(qsum, spec.ring), spec), total,
+                                    spec)
+    res = {"config": dict(cfg, spec=spec.as_dict(), d=int(got.size)),
+           "bit_equal_honest_quantized_mean": bool(np.array_equal(got, honest)),
+           "ledger_after": len(hp.ledger)}
+    check(res["bit_equal_honest_quantized_mean"],
+          f"the root publish is {float(np.abs(got - honest).max()):.3g} from the honest "
+          "quantized mean")
+    check(res["ledger_after"] == 0, f"{res['ledger_after']} ledger entries left at the root")
+    blind = {}
+    for i, e in enumerate(tree.edges):
+        check(ups[e.name].device.type == DEV, f"{e.name} forwarded off the card")
+        up = ups[e.name].cpu().numpy()
+        part = masking.dequantize_sum(
+            sum(masking.quantize_vector(deltas[r], spec) for r in cohorts[e.name]), per, spec)
+        blind[e.name] = bool(np.all(up >= 0) and not np.allclose(up, part, atol=spec.clip))
+    res["edges_blind"] = blind
+    check(all(blind.values()), f"an edge's upward vector is close to its honest partial: {blind}")
+    spans = _span_totals(since, ("secagg.unmask", "secagg.ring_pass", "secagg.root_unmask",
+                                 "hierarchy.publish", "async.merge"))
+    nbytes = int(got.size) * 4
+
+    def per_ms(name):
+        return 1e3 * spans[name]["s"] / max(1, spans[name]["count"])
+
+    res.update({
+        "key_exchange_s": key_s, "window_s": window_s,
+        "mask_ms_per_client": sum(mask_ms) / len(mask_ms), "mask_ms_max": max(mask_ms),
+        "edge_publish_ms": per_ms("secagg.unmask"),
+        "regional_pass_ms": per_ms("secagg.ring_pass"),
+        "root_strip_unmask_ms": per_ms("secagg.root_unmask"),
+        "spans": spans,
+        "bytes_per_ring_vector": nbytes,
+        "bytes_forwarded": {"edge": nbytes * sum(e.forwards for e in tree.edges),
+                            "regional": nbytes * sum(r.forwards for r in tree.regionals)}})
+    r5 = HierarchyTree.build(HIER_R5["n_edges"], regional_fanout=HIER_R5["regional_fanout"],
+                             publish_k=HIER_R5["per_edge"], policy=StalenessPolicy(exponent=0.0),
+                             device=DEV)
+    try:
+        HierarchyPrivacy(r5, template, rng=np.random.default_rng(0))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    res["r5_refused"] = refused
+    check(refused is not None and "ring_bits=20 too small" in refused,
+          f"R5's tree (8 x 16 under fanout 4) was not refused: {refused}")
+    say(f"  (b) tier-masked SecAgg over ResNet-56: {res}")
+    return res
+
+
+def hierarchy_phase(flat: dict) -> dict:
+    """Phase 15: (a) the async tree at full width, (b) tier-masked SecAgg
+    ((c), no flash launch, is main's)."""
+    from fedml_tpu_torch.core.telemetry import sketches
+
+    template = _resnet56_template()
+    try:
+        return {"fleet": hierarchy_fleet(template, flat), "masked": hierarchy_masked(template)}
+    finally:
+        sketches.reset()
+
+
 def main() -> int:
     import torch
 
@@ -3448,7 +3828,22 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the secure phase launched flash kernels: {secure_launches}")
 
-    say("== 15. result")
+    say("== 15. hierarchy: the edge->regional->root tree and tier-masked SecAgg, ResNet-56")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    hierarchy = hierarchy_phase(asyncfed["fleet"])
+    hier_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the hierarchy phase: "
+        f"{hier_launches}")
+    # (c) folds, host masks and sketches run no attention
+    check(all(n == 0 for n in hier_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the hierarchy phase launched flash kernels: {hier_launches}")
+
+    say("== 16. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3469,6 +3864,8 @@ def main() -> int:
           flush=True)
     print(json.dumps({"secure_fronts": {"card": card, "flash_launches": secure_launches,
                                         **secure}}), flush=True)
+    print(json.dumps({"hierarchy": {"card": card, "flash_launches": hier_launches,
+                                    **hierarchy}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

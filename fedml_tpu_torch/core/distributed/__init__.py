@@ -1,4 +1,5 @@
 """core.distributed: the message plane (counterpart of
-``fedml_tpu/core/distributed``): the INMEMORY and MQTT_S3 backends and
-``FedMLCommManager``. The other backends, meshes, link probing and the
-hierarchy are not ported (ROADMAP.md, Queue 1)."""
+``fedml_tpu/core/distributed``): the INMEMORY and MQTT_S3 backends,
+``FedMLCommManager`` and the in-process edge->regional->root aggregation
+tree (``hierarchy.py``). The other backends, meshes and link probing are not
+ported (ROADMAP.md, Queue 1)."""

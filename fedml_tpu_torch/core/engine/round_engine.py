@@ -18,12 +18,11 @@ vmapped front), ``RemoteCommStrategy`` and ``run_local_round`` with its
 chaos knobs (the cross-silo front, with its ``server.broadcast`` and
 ``client.train`` spans), ``AlgFrameSink``, ``RoundEngine.run`` with its
 resume, checkpoint and finalize hooks, ``RoundCheckpointer`` (durable round
-state and the SIGKILL drills), the async sinks over the FedBuff buffer
-(``AsyncSink``, ``AsyncBufferSink``, ``as_async_sink``) and the uplink
-compressor's boundaries (``compress_upload``, ``decompress_arrival``). Not
-ported yet (ROADMAP.md, Queue 1): the pipelined strategy, the hierarchy sink
-(``HierarchySink``, and ``as_async_sink`` of a hierarchy tree, raise), the
-stacked sink's per-client middleware branch (the middleware itself is not
+state and the SIGKILL drills), the async sinks over the FedBuff buffer and
+the edge->regional->root tree (``AsyncSink``, ``AsyncBufferSink``,
+``HierarchySink``, ``as_async_sink``) and the uplink compressor's
+boundaries (``compress_upload``, ``decompress_arrival``). Not ported yet
+(ROADMAP.md, Queue 1): the pipelined strategy, the stacked sink's per-client middleware branch (the middleware itself is not
 ported), the link and split-learning chaos knobs (asking for one raises), the SLO engine, ``devperf``, the flight recorder and the mlops
 summaries.
 """
@@ -362,29 +361,51 @@ class AsyncBufferSink(AsyncSink):
         return int(self.raw.depth_high_water)
 
 
-def _hierarchy_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "the edge->regional->root hierarchy (HierarchyTree, HierarchySink) is not ported to "
-        "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
-
-
-class HierarchySink:
-    """The edge->regional->root tree's async sink: not ported (it needs the
-    hierarchy and the fleet view); constructing one raises."""
+class HierarchySink(AsyncSink):
+    """Edge→regional→root tree: edges publish upward on their own cadence,
+    so a root publish is detected by watching the root version move."""
 
     name = "hierarchy"
 
     def __init__(self, tree: Any):
-        raise _hierarchy_not_ported()
+        self.raw = tree
+        self._last_seen_version = int(tree.version)
+
+    def submit(self, rank: int, tree: StateDict, weight: float, client_version: int) -> str:
+        return self.raw.submit(rank, tree, weight, client_version)
+
+    def try_publish(self) -> Optional[Tuple[int, StateDict]]:
+        v = int(self.raw.version)
+        if v == self._last_seen_version:
+            return None
+        self._last_seen_version = v
+        model = self.raw.latest_model()
+        if model is None:
+            return None
+        return v, model
+
+    @property
+    def version(self) -> int:
+        return int(self.raw.version)
+
+    @property
+    def publish_k(self) -> int:
+        return int(self.raw.edges[0].buffer.publish_k)
+
+    @property
+    def high_water(self) -> int:
+        return max(int(n.buffer.depth_high_water) for n in self.raw.nodes())
 
 
 def as_async_sink(sink: Any) -> AsyncSink:
-    """Wrap a raw ``AsyncAggBuffer`` (or pass an :class:`AsyncSink`
-    through). A hierarchy tree raises: the hierarchy is not ported."""
+    """Wrap a raw ``AsyncAggBuffer`` / ``HierarchyTree`` (or pass an
+    :class:`AsyncSink` through untouched)."""
     if isinstance(sink, AsyncSink):
         return sink
-    if type(sink).__name__ == "HierarchyTree" or hasattr(sink, "latest_model"):
-        raise _hierarchy_not_ported()
+    from ..distributed.hierarchy import HierarchyTree
+
+    if isinstance(sink, HierarchyTree):
+        return HierarchySink(sink)
     return AsyncBufferSink(sink)
 
 

@@ -14,8 +14,9 @@ Everything sits behind ``args.privacy``:
 * unset/empty       — the paths are untouched: bit-exact FedAvg.
 
 See docs/privacy.md for the threat model, the window protocol and the
-accountant math. Per-tier hierarchical masking (``HierarchyPrivacy``) is
-not ported and raises (ROADMAP.md, Queue 1, item 5).
+accountant math. Per-tier hierarchical masking (``HierarchyPrivacy``) runs
+over the in-process edge->regional->root tree
+(``core/distributed/hierarchy.py``).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Windowed async SecAgg: masking cohorts per AsyncAggBuffer publish window,
-the counterpart of ``fedml_tpu/core/privacy/secagg_window.py`` (the flat
-window: :class:`WindowMember`, :class:`SecAggWindow`,
-:class:`WindowCoordinator`).
+the counterpart of ``fedml_tpu/core/privacy/secagg_window.py``
+(:class:`WindowMember`, :class:`SecAggWindow`, :class:`WindowCoordinator`
+and the hierarchy's :class:`HierarchyPrivacy`).
 
 The cohort unit is one **publish window** of the FedBuff buffer
 (``core/aggregation/async_buffer.py``): a window opens at buffer version
@@ -30,12 +30,20 @@ flax order, kernels in flax layout (``models/convert.py`` ``wire_vector``),
 so a port member's masked vector equals a JAX member's for the same weights
 and seeds, and a mixed federation unmasks.
 
-Not ported (ROADMAP.md, Queue 1, item 5, with the edge/regional/root
-hierarchy): hierarchical masking (:class:`HierarchyPrivacy`, a
-coordinator's ``tier_key``, the regional pass-through and the root
-unmasker) raises NotImplementedError. The flight-recorder marks and the
-Prometheus gauges are not ported either; the counters and ``statusz()``
-are.
+Hierarchical masking: :class:`HierarchyPrivacy` scopes one coordinator per
+edge node of a ``HierarchyTree`` (members additionally mask with the edge
+tier's key, and the edge forwards its window's ring residue still masked,
+as a one-entry state dict on its device), leaves regional tiers folding
+opaque ring vectors (reduced mod 2^b on the host, one copy down and up a
+publish), and gives only the root the :class:`~.masking.TierKeyring`: the
+root strips every contributing member's tier mask, centres, dequantizes and
+noises. Edge and regional aggregators learn nothing but their tier's masked
+sum. Unlike the JAX package, :class:`HierarchyPrivacy` refuses a tree whose
+root publish can hold more members than the ring recovers (ROADMAP.md,
+Queue 3, R5).
+
+The flight-recorder marks and the Prometheus gauges are not ported; the
+counters and ``statusz()`` are.
 """
 
 from __future__ import annotations
@@ -88,10 +96,6 @@ MASKED_LEAF = "masked"
 _DH_PRIME = 2**31 - 1
 _DH_GENERATOR = 5
 
-_HIERARCHY = ("hierarchical masking (tier keys, HierarchyPrivacy) comes with the "
-              "edge/regional/root hierarchy, which is not ported to fedml_tpu_torch yet "
-              "(see ROADMAP.md, Queue 1, item 5)")
-
 
 def _require_exact_fold(device: torch.device) -> None:
     """The ring sum is exact only while every f32 product and partial sum
@@ -122,9 +126,7 @@ class WindowMember:
             raise ValueError(f"rank {rank} not in cohort {self.cohort}")
         self.spec = spec
         self.threshold = int(threshold)
-        if tier_key is not None:
-            raise NotImplementedError(f"tier_key: {_HIERARCHY}")
-        self.tier_key = None
+        self.tier_key = tier_key
         self._rng = rng or np.random.default_rng()
         self.secret_key = int(self._rng.integers(2, _DH_PRIME - 1))
         self.public_key = dh_public_key(self.secret_key, _DH_PRIME,
@@ -289,19 +291,35 @@ class WindowCoordinator:
     sparse uplink: each window derives a nonce-seeded shared rand-k support
     (``utils/compression.py`` ``secagg_support``) that shrinks the masking
     domain to k coordinates cohort-wide; publish scatters the unmasked mean
-    back dense (zeros off the support)."""
+    back dense (zeros off the support).
+
+    Roles by construction arguments:
+
+    * flat window (default): publish unmasks, dequantizes to the model
+      state dict, and applies DP noise when a :class:`~.dp.DPFold` is wired;
+    * edge tier (``tier_key`` set): members add the tier mask, publish
+      appends ``{tier, nonce, ranks, n}`` to the shared ``ledger`` and
+      forwards the still-masked ring residue up the hierarchy as
+      ``{MASKED_LEAF: f32 tensor}`` on this coordinator's device;
+      ``max_fanin`` is the tree's largest fold, which bounds the ring;
+    * regional pass-through and root unmask live in
+      :class:`HierarchyPrivacy`."""
 
     def __init__(self, buffer: Any, template: StateDict,
                  spec: Optional[QuantSpec] = None,
                  threshold: Optional[int] = None,
                  dp: Optional[Any] = None,
+                 tier_name: Optional[str] = None,
                  tier_key: Optional[int] = None,
+                 ledger: Optional[List[Dict[str, Any]]] = None,
+                 max_fanin: Optional[int] = None,
                  support_ratio: Optional[float] = None,
                  rng: Optional[np.random.Generator] = None):
-        if tier_key is not None:
-            raise NotImplementedError(f"tier_key: {_HIERARCHY}")
         self.buffer = buffer
         self.dp = dp
+        self.tier_name = tier_name
+        self.tier_key = tier_key
+        self.ledger = ledger  # shared across tiers by HierarchyPrivacy
         self._rng = rng or np.random.default_rng()
         # shapes, dtypes and names only: the publish unflattens into these
         self._template = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
@@ -321,6 +339,7 @@ class WindowCoordinator:
         self.recovered_total = 0
         self.dropouts_total = 0
         self.failed_total = 0
+        self._max_fanin = max_fanin
         self._lock = threading.Lock()
         if getattr(buffer.policy, "exponent", 0.0) != 0.0:
             raise ValueError(
@@ -340,7 +359,7 @@ class WindowCoordinator:
         _require_exact_fold(self._device)
         cohort = sorted(int(r) for r in cohort)
         n = len(cohort)
-        validate_ring_bits(self.spec, n, n)
+        validate_ring_bits(self.spec, self._max_fanin or n, n)
         threshold = self.threshold if self.threshold is not None else n // 2
         if threshold + 1 > n:
             raise ValueError(f"threshold {threshold} unreachable with {n} members")
@@ -356,6 +375,7 @@ class WindowCoordinator:
         if run_key_exchange:
             members = {
                 r: WindowMember(r, window_id, nonce, cohort, self.spec, threshold,
+                                tier_key=self.tier_key,
                                 rng=np.random.default_rng(self._rng.integers(2**62)))
                 for r in cohort}
             for r, m in members.items():
@@ -472,7 +492,9 @@ class WindowCoordinator:
         the centering and the dequantization run in f64 on the host; the
         dequantized mean goes back to the device in one copy, where DP noise
         (secagg+dp) is added to the flat vector before it is split into the
-        model's leaves."""
+        model's leaves. An edge tier stops after the mod 2^b and the stray-
+        mask correction: its ring residue goes up still tier-masked, one copy
+        back to the device, and the ledger says what the root must strip."""
         window = self.window
         with tel.span("secagg.unmask", window=-1 if window is None else window.window_id):
             flat = acc.detach().cpu().numpy().astype(np.float64)
@@ -490,6 +512,13 @@ class WindowCoordinator:
                 n_members = len(window.arrived)
                 window.closed = True
                 self.closed_windows.add(window.window_id)
+            if self.tier_key is not None:
+                if self.ledger is not None and window is not None:
+                    self.ledger.append({
+                        "tier": self.tier_name, "nonce": window.nonce,
+                        "ranks": list(window.arrived), "n": n_members})
+                return {MASKED_LEAF: torch.from_numpy(residue.astype(np.float32))
+                        .to(self._device)}
             signed = center_ring(residue, self.spec)
             out_vec = dequantize_sum(signed, n_members, self.spec)
             if self.support is not None:
@@ -507,7 +536,7 @@ class WindowCoordinator:
     def statusz(self) -> Dict[str, Any]:
         with self._lock:
             return {
-                "tier": "flat",
+                "tier": self.tier_name or "flat",
                 "spec": self.spec.as_dict(),
                 "windows_total": self.windows_total,
                 "recovered_total": self.recovered_total,
@@ -518,9 +547,149 @@ class WindowCoordinator:
 
 
 class HierarchyPrivacy:
-    """Per-tier masking over the edge/regional/root hierarchy (JAX
-    ``HierarchyPrivacy``, with its regional ring pass-through and root
-    unmasker): not ported."""
+    """Per-tier masking over a ``HierarchyTree``: one masking coordinator
+    per edge (members mask with that edge's tier key), opaque ring folding
+    at regional tiers, and root-side tier-key unmasking.
 
-    def __init__(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(f"HierarchyPrivacy: {_HIERARCHY}")
+    The regional and root buffers fold weight-1.0 submissions of ring
+    vectors (the tree forwards privacy publishes at unit weight) on the
+    tree's device, and their publish hooks only re-reduce mod 2^b: exact,
+    by the fan-in bound checked at construction. Draws: ``root_secret``
+    first, then one child generator per edge in edge order, as in the JAX
+    package, so the same ``rng`` gives the same masks in both.
+
+    Unlike the JAX package (whose ``open_window`` checks the ring against
+    one edge's cohort only), construction refuses a tree whose root publish
+    can sum more members than the ring recovers: root ``publish_k`` x the
+    largest regional ``publish_k`` x the largest edge ``publish_k``
+    (ROADMAP.md, Queue 3, R5); :meth:`open_edge_windows` holds each cohort
+    to the same bound."""
+
+    def __init__(self, tree: Any, template: StateDict,
+                 spec: Optional[QuantSpec] = None,
+                 threshold: Optional[int] = None,
+                 dp: Optional[Any] = None,
+                 rng: Optional[np.random.Generator] = None):
+        from .masking import TierKeyring
+
+        device = next(iter(template.values())).device
+        if getattr(tree, "device", None) is not None and device != tree.device:
+            raise ValueError(f"the template lies on {device}, and the tree folds on "
+                             f"{tree.device}")
+        self.tree = tree
+        self._rng = rng or np.random.default_rng()
+        self.ledger: List[Dict[str, Any]] = []
+        self.keyring = TierKeyring.generate(
+            [e.name for e in tree.edges],
+            root_secret=int(self._rng.integers(1, 2**62)))
+        max_fanin = max([len(tree.edges)] +
+                        [n.buffer.publish_k for n in tree.nodes()])
+        self.spec = spec or QuantSpec()
+        # the members one root publish can sum: root window x regional
+        # window x edge window, each at its largest
+        self._upstream = tree.root.buffer.publish_k * max(
+            [n.buffer.publish_k for n in tree.regionals] or [1])
+        self.max_members = self._upstream * max(e.buffer.publish_k for e in tree.edges)
+        self._check_ring(max_fanin, self.max_members)
+        self._max_fanin = max_fanin
+        self.edge_coordinators: Dict[str, WindowCoordinator] = {}
+        for edge in tree.edges:
+            co = WindowCoordinator(
+                edge.buffer, template, spec=self.spec, threshold=threshold,
+                tier_name=edge.name, tier_key=self.keyring.key_for(edge.name),
+                ledger=self.ledger, max_fanin=max_fanin,
+                rng=np.random.default_rng(self._rng.integers(2**62)))
+            self.edge_coordinators[edge.name] = co
+            edge.privacy = co
+        for node in tree.regionals:
+            node.privacy = _RingPassThrough(node.buffer, self.spec)
+        self.root_unmasker = _RootUnmasker(
+            tree.root.buffer, template, self.spec, self.keyring,
+            self.ledger, dp=dp)
+        tree.root.privacy = self.root_unmasker
+
+    def _check_ring(self, max_fanin: int, members: int) -> None:
+        try:
+            validate_ring_bits(self.spec, max_fanin, members)
+        except ValueError as e:
+            raise ValueError(
+                f"hierarchical masking: one root publish can sum {members} members "
+                f"(root x regional x edge windows); {e}") from None
+
+    def open_edge_windows(self, cohorts: Dict[str, Sequence[int]]
+                          ) -> Dict[str, Tuple[SecAggWindow, Dict[int, WindowMember]]]:
+        """Open one masking window per edge name -> cohort ranks. A cohort
+        larger than its edge's window must still fit the ring at the root."""
+        for ranks in cohorts.values():
+            self._check_ring(self._max_fanin, self._upstream * len(list(ranks)))
+        return {name: self.edge_coordinators[name].open_window(ranks)
+                for name, ranks in cohorts.items()}
+
+    def statusz(self) -> Dict[str, Any]:
+        return {
+            "edges": {n: c.statusz() for n, c in self.edge_coordinators.items()},
+            "ledger_depth": len(self.ledger),
+            "max_members": self.max_members,
+        }
+
+
+class _RingPassThrough:
+    """Regional-tier session: publish re-reduces the fold of masked edge
+    sums mod 2^b (one copy down, f64 on the host, one copy back) and
+    forwards it: the tier never learns more than the masked sum of its
+    subtree."""
+
+    def __init__(self, buffer: Any, spec: QuantSpec):
+        self.spec = spec
+        buffer.enable_privacy(self)
+
+    def before_fold(self, model: StateDict) -> None:
+        """Called by the tree before a child's forward folds here."""
+        _require_exact_fold(model[MASKED_LEAF].device)
+
+    def on_publish(self, acc: torch.Tensor, weight_sum: float, merges: int,
+                   template: Any, engine: Any) -> StateDict:
+        with tel.span("secagg.ring_pass", merges=int(merges)):
+            flat = acc.detach().cpu().numpy().astype(np.float64)
+            residue = ring_mod(flat, self.spec).astype(np.float32)
+            return {MASKED_LEAF: torch.from_numpy(residue).to(acc.device)}
+
+
+class _RootUnmasker:
+    """Root-tier session: strip every contributing member's tier mask (the
+    ledger names them), center, dequantize by the members' count, DP-noise
+    the flat vector on the device and split it into the model's leaves."""
+
+    def __init__(self, buffer: Any, template: StateDict, spec: QuantSpec,
+                 keyring: Any, ledger: List[Dict[str, Any]],
+                 dp: Optional[Any] = None):
+        self.spec = spec
+        self.keyring = keyring
+        self.ledger = ledger
+        self.dp = dp
+        self._template = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                          for k, v in template.items()}
+        self._device = next(iter(template.values())).device
+        buffer.enable_privacy(self)
+
+    def before_fold(self, model: StateDict) -> None:
+        """Called by the tree before a child's forward folds here."""
+        _require_exact_fold(model[MASKED_LEAF].device)
+
+    def on_publish(self, acc: torch.Tensor, weight_sum: float, merges: int,
+                   template: Any, engine: Any) -> StateDict:
+        with tel.span("secagg.root_unmask", merges=int(merges)):
+            flat = acc.detach().cpu().numpy().astype(np.float64)
+            residue = ring_mod(flat, self.spec)
+            entries, self.ledger[:] = list(self.ledger), []
+            contributions = [(e["tier"], e["nonce"], r)
+                             for e in entries for r in e["ranks"]]
+            n_total = sum(int(e["n"]) for e in entries) or merges
+            residue = self.keyring.strip(residue, contributions, self.spec)
+            signed = center_ring(residue, self.spec)
+            vec = torch.from_numpy(dequantize_sum(signed, n_total, self.spec)).to(self._device)
+        if self.dp is not None:
+            self.dp.noise_flat(vec, n_total)
+        from ...models.convert import state_from_wire_vector
+
+        return state_from_wire_vector(vec, self._template)

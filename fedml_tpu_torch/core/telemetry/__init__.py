@@ -1,11 +1,12 @@
 """Telemetry: spans, counters, histograms and the time-series store.
 
-Counterpart of ``fedml_tpu/core/telemetry``: ``core`` and ``trace_context``
-are copies of the JAX package's framework-free modules, ``health`` a copy
-but for its ``/metrics`` gauges, ``fleet`` (the server's fleet view: client
-telemetry deltas, the health tracker, the fleet trace) the part of JAX's
-that health and the fleet trace need, ``tsdb`` the part of its store that
-serving reads. Typical use::
+Counterpart of ``fedml_tpu/core/telemetry``: ``core``, ``trace_context``
+and ``sketches`` (the mergeable fleet sketches) are copies of the JAX
+package's framework-free modules, ``health`` a copy but for its
+``/metrics`` gauges, ``fleet`` (the server's fleet view: client telemetry
+deltas, the health tracker, the fleet sketches and their child-tier slots,
+the fleet trace) JAX's but for modelwatch's ledger and netlink, ``tsdb``
+the part of its store that serving reads. Typical use::
 
     from fedml_tpu_torch.core import telemetry as tel
 
@@ -15,11 +16,11 @@ serving reads. Typical use::
     tel.histogram("serving.cb.ttft_seconds").observe(sp.duration_s)
 
 The rest of the JAX package's telemetry (``devperf``'s compiled-program
-costs, the flight recorder, the fleet sketches, netlink, modelwatch, SLOs,
-Prometheus and statusz) waits for the port's telemetry slice (ROADMAP.md, Queue 1).
+costs, the flight recorder, netlink, modelwatch, SLOs, Prometheus and
+statusz) waits for the port's telemetry slice (ROADMAP.md, Queue 1).
 """
 
-from . import tsdb
+from . import sketches, tsdb
 from .core import (
     Counter,
     Histogram,
@@ -36,6 +37,15 @@ from .core import (
     summary,
     timed,
 )
+from .fleet import FleetTelemetry
+from .sketches import (
+    CardinalitySketch,
+    FleetSketches,
+    QuantileSketch,
+    TelemetryCardinalityBudget,
+    TopK,
+)
+from .trace_context import TraceContext, activated, new_trace_id
 from .tsdb import TimeSeriesStore
 
 __all__ = [
@@ -43,6 +53,16 @@ __all__ = [
     "Counter",
     "Histogram",
     "TimeSeriesStore",
+    "CardinalitySketch",
+    "FleetSketches",
+    "FleetTelemetry",
+    "QuantileSketch",
+    "TelemetryCardinalityBudget",
+    "TopK",
+    "TraceContext",
+    "activated",
+    "new_trace_id",
+    "sketches",
     "counter",
     "disabled_span_overhead_ns",
     "export_chrome_trace",

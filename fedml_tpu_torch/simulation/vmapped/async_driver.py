@@ -23,8 +23,9 @@ version)``, where the JAX package folds both into a PRNG key. The vmapped
 API's deltas are the client-batched local rounds, whose dropout draws
 (``make_vmapped_local_train_fn``) come from the version, not the client.
 
-The edge->regional->root hierarchy (``hierarchy_edges > 0``) is not ported
-(ROADMAP.md, Queue 1).
+``simulate_async_rounds(hierarchy_edges=E)`` drives an edge->regional->root
+:class:`~...core.distributed.hierarchy.HierarchyTree` of ``E`` edges instead
+of one buffer, on the template's device.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ import torch
 
 from ...core.aggregation.async_buffer import AsyncAggBuffer, buffer_from_args
 from ...core.aggregation.bucketed import get_engine
-from ...core.engine.round_engine import AsyncSink, as_async_sink, knob_set, refuse_knobs
+from ...core.distributed.hierarchy import HierarchyTree
+from ...core.engine.round_engine import AsyncSink, as_async_sink, knob_set
 from .vmap_fedavg import VmapFedAvgAPI
 
 log = logging.getLogger(__name__)
@@ -273,13 +275,18 @@ def simulate_async_rounds(n_clients: int, publish_k: int, template: StateDict,
                           seed: int = 0, mean_delay: float = 1.0,
                           heterogeneity: float = 0.5) -> Dict[str, Any]:
     """One synthetic async federation run: ``n_clients`` simulated clients
-    with heterogeneous delays drive a fresh buffer (or ``buffer``) until
-    ``publishes`` model versions exist. Returns the sim's stats."""
+    with heterogeneous delays drive a fresh buffer (or ``buffer``, or an
+    edge->regional->root tree on the template's device when
+    ``hierarchy_edges > 0``) until ``publishes`` global model versions
+    exist. Returns the sim's stats."""
     if hierarchy_edges > 0:
-        raise NotImplementedError(
-            "hierarchy_edges > 0: the edge->regional->root hierarchy is not ported to "
-            "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
-    sink = buffer if buffer is not None else AsyncAggBuffer(publish_k=publish_k, engine=get_engine())
+        sink: Any = HierarchyTree.build(
+            hierarchy_edges, publish_k=publish_k, engine=get_engine(),
+            initial_model=template, device=next(iter(template.values())).device)
+    elif buffer is not None:
+        sink = buffer
+    else:
+        sink = AsyncAggBuffer(publish_k=publish_k, engine=get_engine())
     sim = AsyncEventSim(
         sink, make_synthetic_delta_fn(seed=seed), n_clients,
         initial_model=template,
@@ -294,12 +301,16 @@ class VmapAsyncFedAvgAPI(VmapFedAvgAPI):
     loop and the async buffer. ``client_num_per_round`` clients stay in
     flight; ``comm_round`` counts publishes (model versions), as the
     cross-silo server's async mode does. Evaluation runs on publish at the
-    ``frequency_of_the_test`` cadence. The edge->regional->root hierarchy
-    (``hierarchy_edges``) is refused."""
+    ``frequency_of_the_test`` cadence. ``hierarchy_edges`` is refused: the
+    JAX package's API does not read it, and the tree runs through
+    :func:`simulate_async_rounds` and ``HierarchyTree``."""
 
     def __init__(self, args: Any, device: Any, dataset, model):
-        refuse_knobs(args, [("hierarchy_edges", knob_set)],
-                     "the edge->regional->root async hierarchy is")
+        if knob_set(getattr(args, "hierarchy_edges", None)):
+            raise NotImplementedError(
+                "hierarchy_edges: the vmapped async API does not read it (nor does the JAX "
+                "package's); the edge->regional->root tree runs through "
+                "simulate_async_rounds(hierarchy_edges=...) and HierarchyTree")
         super().__init__(args, device, dataset, model)
 
     def train(self) -> Dict[str, float]:

@@ -39,7 +39,6 @@ import fedml_tpu
 import fedml_tpu_torch
 from fedml_tpu.core.aggregation import async_buffer as jab
 from fedml_tpu.core.aggregation.bucketed import BucketedAggregator as JEngine
-from fedml_tpu.core.distributed.hierarchy import HierarchyTree
 from fedml_tpu.core.engine import round_engine as jengine
 from fedml_tpu.data import data_loader as jloader
 from fedml_tpu.data.dataset import ArrayDataset as JArrayDataset
@@ -382,6 +381,14 @@ def test_state_template_matches_snapshot_structure():
 # --- the async sinks ---------------------------------------------------------------
 
 def test_async_sinks_and_the_hierarchy_refusal():
+    """The buffer's sink; the tree's sink (``as_async_sink`` dispatches on the
+    port's ``HierarchyTree``, as JAX does on its own) and
+    ``simulate_async_rounds(hierarchy_edges=...)`` run, and the one refusal
+    left is the vmapped async API's ``hierarchy_edges``, a knob JAX's API
+    does not read either (``tests/test_torch_hierarchy.py`` holds the tree
+    against JAX)."""
+    from fedml_tpu_torch.core.distributed.hierarchy import HierarchyTree as TTree
+
     buf = tab.AsyncAggBuffer(publish_k=2, policy=tab.StalenessPolicy(exponent=0.0))
     sink = tengine.as_async_sink(buf)
     assert isinstance(sink, tengine.AsyncBufferSink) and tengine.as_async_sink(sink) is sink
@@ -390,11 +397,13 @@ def test_async_sinks_and_the_hierarchy_refusal():
     version, model = sink.try_publish()
     assert version == 1 == sink.version and sink.publish_k == 2 and sink.high_water == 2
     assert sorted(model) == ["b", "w"] and sink.statusz()["publishes_total"] == 1
-    jtree = HierarchyTree.build(n_edges=2, publish_k=2)
-    for make in (lambda: tengine.as_async_sink(jtree), lambda: tengine.HierarchySink(jtree),
-                 lambda: tdrv.simulate_async_rounds(8, 2, _t(_tree(0)), 1, hierarchy_edges=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make()
+    ttree = TTree.build(n_edges=2, publish_k=2, device="cpu")
+    for hsink in (tengine.as_async_sink(ttree), tengine.HierarchySink(ttree)):
+        assert isinstance(hsink, tengine.HierarchySink) and hsink.raw is ttree
+    stats = tdrv.simulate_async_rounds(8, 2, _t(_tree(0)), 1, hierarchy_edges=2)
+    assert stats["publishes"] == 1 and stats["merges"] >= 4
+    with pytest.raises(NotImplementedError, match="hierarchy_edges.*simulate_async_rounds"):
+        tdrv.VmapAsyncFedAvgAPI(types.SimpleNamespace(hierarchy_edges=2), None, None, None)
 
 
 # --- the event simulator ---------------------------------------------------------

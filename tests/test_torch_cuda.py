@@ -531,3 +531,98 @@ def test_secure_front_round_on_the_card_equals_the_plain_quantized_mean(cuda, se
     w = runners[0].runner.server_manager.aggregator.get_global_model_params()
     assert all(v.device.type == "cuda" for v in w.values())
     assert np.array_equal(wire_vector(w).cpu().numpy(), want)
+
+
+def _hier_batch(model, client_ids, version):
+    """A numpy delta pure in (client, version), on the model's device."""
+    out = {}
+    for name, leaf in model.items():
+        base = leaf.detach().cpu().numpy()
+        rows = [base + np.float32(0.01) * np.random.default_rng([7, int(c), int(version)])
+                .standard_normal(base.shape).astype(np.float32) for c in client_ids]
+        out[name] = torch.from_numpy(np.stack(rows)).to(leaf.device)
+    return out
+
+
+@pytest.mark.cuda
+def test_hierarchy_tree_on_the_card_matches_its_cpu_run(cuda):
+    """A 2-edge tree (exponent 0.5) under AsyncEventSim on the card and on
+    the CPU: the same event trace and versions, every root publish within
+    1e-6 of each leaf's scale of the CPU's (f32 folds, TF32 off), and every
+    published leaf on the card."""
+    from fedml_tpu_torch.core.aggregation.async_buffer import StalenessPolicy
+    from fedml_tpu_torch.core.distributed.hierarchy import HierarchyTree
+    from fedml_tpu_torch.simulation.vmapped.async_driver import AsyncEventSim, DelayModel
+
+    rng = np.random.default_rng(3)
+    init = {"w": rng.standard_normal((64, 32)).astype(np.float32),
+            "b": rng.standard_normal(32).astype(np.float32)}
+    runs = {}
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            model = {k: torch.from_numpy(v).to(dev) for k, v in init.items()}
+            tree = HierarchyTree.build(2, regional_fanout=2, publish_k=4,
+                                       policy=StalenessPolicy(0.5), device=dev,
+                                       initial_model=model)
+            pubs = []
+            sim = AsyncEventSim(tree, _hier_batch, 24, initial_model=model,
+                                delay=DelayModel(24, seed=2), gen_batch=8,
+                                on_publish=lambda v, m, _p=pubs: _p.append((v, m)))
+            stats = sim.run(3)
+            runs[dev] = (stats, sim.staleness_samples, pubs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    (cs, cst, cp), (ps, pst, pp) = runs["cuda"], runs["cpu"]
+    assert cst == pst and [v for v, _ in cp] == [v for v, _ in pp] == [1, 2, 3]
+    for key in ("merges", "publishes", "stale_rejected", "staleness_mean"):
+        assert cs[key] == ps[key], key
+    for (_, got), (_, ref) in zip(cp, pp):
+        for k in ref:
+            assert got[k].device.type == "cuda"
+            err = (got[k].cpu().double() - ref[k].double()).abs().max() / ref[k].abs().max()
+            assert err.item() <= 1e-6, (k, err.item())
+
+
+@pytest.mark.cuda
+def test_masked_hierarchy_on_the_card_equals_the_honest_quantized_mean(cuda):
+    """HierarchyPrivacy over a 2-edge tree on the card (2 members an edge):
+    every tier folds masked ring vectors on the card (TF32 off), and the root
+    publish is bit-equal to the honest quantized mean of the 4 deltas."""
+    from fedml_tpu_torch.core.aggregation.async_buffer import StalenessPolicy
+    from fedml_tpu_torch.core.distributed.hierarchy import HierarchyTree
+    from fedml_tpu_torch.core.privacy import HierarchyPrivacy
+    from fedml_tpu_torch.core.privacy import masking as m
+    from fedml_tpu_torch.core.privacy.secagg_window import MASKED_LEAF
+    from fedml_tpu_torch.models.convert import wire_vector
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        template = {"w": torch.zeros(40, 25, device="cuda"), "b": torch.zeros(25, device="cuda")}
+        rng = np.random.default_rng(9)
+        deltas = [rng.normal(0, 1, 1025).astype(np.float32) for _ in range(4)]
+        tree = HierarchyTree.build(2, regional_fanout=2, publish_k=2,
+                                   policy=StalenessPolicy(exponent=0.0), device="cuda")
+        hp = HierarchyPrivacy(tree, template, rng=np.random.default_rng(1))
+        ups = []
+        orig = tree.regionals[0]._submit_from_child
+        tree.regionals[0]._submit_from_child = \
+            lambda c, w, mdl: (ups.append(mdl[MASKED_LEAF].device), orig(c, w, mdl))[1]
+        opened = hp.open_edge_windows({"edge-0": [0, 1], "edge-1": [2, 3]})
+        for e in tree.edges:
+            members = opened[e.name][1]
+            for r in members:
+                assert e.privacy.submit(r, members[r].mask(deltas[r]),
+                                        client_version=e.buffer.version) == "accept"
+            e._maybe_publish()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    out = tree.latest_model()
+    assert tree.version == 1 and len(hp.ledger) == 0
+    assert [d.type for d in ups] == ["cuda", "cuda"]
+    assert all(v.device.type == "cuda" for v in out.values())
+    q = sum(m.quantize_vector(d, hp.spec) for d in deltas)
+    honest = m.dequantize_sum(m.center_ring(np.mod(q, hp.spec.ring), hp.spec), 4, hp.spec)
+    assert np.array_equal(wire_vector(out).cpu().numpy(), honest)

@@ -438,7 +438,7 @@ def test_run_simulation_on_the_cpu_and_refusals():
                     ("fedavg.aggregate", 1), ("fedavg.eval", 1), ("agg.aggregate", 1)):
         assert names.count(name) == n, (name, names)
     for over, what in [(dict(backend="vmap", async_rounds=True, hierarchy_edges=2),
-                        "hierarchy_edges"),
+                        "hierarchy_edges.*HierarchyTree"),
                        (dict(backend="NCCL"), "NCCL"),
                        (dict(client_execution="pipelined"), "pipelined"),
                        (dict(modelwatch_quarantine=True), "modelwatch_quarantine"),

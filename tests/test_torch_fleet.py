@@ -1,15 +1,15 @@
 """The port's fleet view (health, fleet telemetry) against the JAX package's,
 on the CPU.
 
-``health.py`` is a copy but for its ``/metrics`` gauges and ``fleet.py`` the
-part of JAX's that health and the fleet trace need, so every comparison here
-is exact: the same observations and deltas give the same reports, exported
-states and per-rank summaries. JAX's summary also carries its fleet
-sketches, which the port leaves out; that key is dropped before comparing.
-Only the fields that read the clock differ by construction and are left
-out: a client's ``silence_s`` (seconds since its last report, on each
-package's monotonic clock, and the ``score`` that drops to 0 past the
-silence threshold).
+``health.py`` is a copy but for its ``/metrics`` gauges and ``fleet.py``
+JAX's but for modelwatch's ledger and netlink, so every comparison here is
+exact: the same observations and deltas give the same reports, exported
+states, per-rank summaries and fleet sketches. Only the fields that read
+the clock differ by construction and are left out: a client's
+``silence_s`` (seconds since its last report, on each package's monotonic
+clock, and the ``score`` that drops to 0 past the silence threshold) and
+the sketches' own ingest and merge times (``observe_ms``, ``merge_ms``).
+``tests/test_torch_sketches.py`` holds the sketches themselves.
 """
 
 import json
@@ -111,7 +111,8 @@ def _merge_script(mod):
     f.set_expected_ranks(None)
     out.append(f.merge_client_delta(9, _delta(9, [1.2])))
     summary = f.summary()
-    summary.pop("sketches", None)  # JAX's fleet sketches: not in the port
+    for k in ("observe_ms", "merge_ms"):  # each package's own clock
+        summary["sketches"].pop(k)
     return f, out, _no_clock(report), summary
 
 
@@ -130,23 +131,32 @@ def test_fleet_merge_health_and_summary_match_jax():
 
 def test_a_child_tiers_sketch_wire_is_known_and_unread():
     """A delta carrying JAX's hierarchy sketch wire and netlink block merges
-    like any other: neither is an unknown key, the health feed is the same as
-    without them, and JAX's merge of it gives the same health."""
+    like any other: neither is an unknown key, and the health feed does not
+    read them (the same health as without them, and as JAX's merge). The
+    sketch wire is a child tier's slot: the port's sketch view takes it as
+    JAX's does, and netlink's block stays unread."""
     from fedml_tpu.core.telemetry import sketches as jsk
+    from fedml_tpu_torch.core.telemetry import sketches as tsk
 
     js = jsk.FleetSketches()
     js.observe_round_times([1, 2], [1.0, 2.0])
     extra = {"sketches": js.to_wire(), "link": {"1->0": {"bytes": 10}}}
-    states = []
+    states, views = [], []
     for mod, with_extra in ((tfleet, True), (tfleet, False), (jfleet, True)):
         f = mod.FleetTelemetry()
         for r in (1, 2, 3):
             assert f.merge_client_delta(r, _delta(r, [1.0 + r], extra=extra if with_extra else None))
         f.health.end_round(0)
         if mod is tfleet and with_extra:
-            assert f.summary()["unknown_keys"] == ["rank"] and "sketches" not in f.summary()
+            assert f.summary()["unknown_keys"] == ["rank"]
         states.append(f.health.export_state())
+        view = f.sketch_view()
+        views.append((view.observations, view.quantiles["round_time_s"].to_bytes()))
     assert states[0] == states[1] == states[2]
+    # three direct round times, plus a slot of the wire's two for each rank
+    # that carried it (a slot is keyed by the sender's rank)
+    assert views[0] == views[2] and views[0][0] == 3 + 3 * 2 and views[1][0] == 3
+    assert isinstance(tsk.FleetSketches.from_wire(js.to_wire()), tsk.FleetSketches)
 
 
 def test_fleet_trace_has_a_lane_per_client(tmp_path):

@@ -7,17 +7,19 @@ port's FedBuff buffer), the accounted DP fold (``core/privacy/dp.py``,
 The same numpy-seeded inputs go into both packages. Tolerances:
 
 - masking, the ring sum and every publish of a window (full, after a
-  dropout's reveals, on a shared sparse support): bit-equal to JAX's, and to
+  dropout's reveals, on a shared sparse support, through the
+  edge->regional->root tree with tier masks): bit-equal to JAX's, and to
   the host reference ``dequantize_sum(center_ring(sum of quantize_vector))``,
   for the same member RNG seeds (the masks are integers below 2^24 in f32,
-  so the fold is exact in any order);
+  so the fold is exact in any order); beyond the ring a tree is refused
+  where JAX publishes a wrong mean (R5, shown on both sides);
 - the flat vector every mask indexes: the port's state dict flattened in the
   JAX wire layout (``models/convert.py`` ``wire_vector``) equal to JAX's
   ``tree_flatten_to_vector`` of the flax tree, bit for bit;
 - the RDP accountant's epsilon: within 1e-12 of JAX's (the same host math);
-- DP noise: no PRNG matches across frameworks, so its statistics: the std
-  of the published noise within 5% of z·C/n (tests/test_privacy.py's
-  limit) and its mean within 4 sigma/sqrt(d) of 0;
+- DP noise (flat and at a tree's root): no PRNG matches across frameworks,
+  so its statistics: the std of the published noise within 5% of z·C/n
+  (tests/test_privacy.py's limit) and its mean within 4 sigma/sqrt(d) of 0;
 - ``clip_update``/``clip_to_reference``: within the ball the input itself;
   outside, within one f32 ulp of JAX's (the port sums the norm in f64 on
   the leaves' device, JAX on the host, in another order).
@@ -467,17 +469,224 @@ def test_nonzero_staleness_exponent_rejected():
         tpriv.WindowCoordinator(AsyncAggBuffer(publish_k=2), _ptemplate())
 
 
+def _trees(n_edges, per_edge, fanout=2):
+    """The same tree in both packages (exponent 0, the port's on the CPU)."""
+    from fedml_tpu.core.distributed.hierarchy import HierarchyTree as JTree
+    from fedml_tpu_torch.core.distributed.hierarchy import HierarchyTree as TTree
+
+    jtree = JTree.build(n_edges=n_edges, regional_fanout=fanout, publish_k=per_edge,
+                        policy=JPolicy(exponent=0.0))
+    ttree = TTree.build(n_edges=n_edges, regional_fanout=fanout, publish_k=per_edge,
+                        policy=StalenessPolicy(exponent=0.0), device="cpu")
+    return jtree, ttree
+
+
+def _cohorts(tree, per_edge):
+    return {e.name: list(range(i * per_edge, (i + 1) * per_edge))
+            for i, e in enumerate(tree.edges)}
+
+
+def _drive(tree, hp, cohorts, flat_of_rank):
+    """JAX's TestHierarchyPrivacy._drive: each edge's window opened, every
+    member masks and submits through its edge coordinator, the edge
+    publishes (and the cascade forwards)."""
+    opened = hp.open_edge_windows(cohorts)
+    for e in tree.edges:
+        members = opened[e.name][1]
+        for r in cohorts[e.name]:
+            v = e.privacy.submit(r, members[r].mask(flat_of_rank(r)),
+                                 client_version=e.buffer.version)
+            assert v == "accept"
+        e._maybe_publish()
+
+
+def _hier_pair(n_edges, per_edge, deltas, seed, fanout=2, spy=False):
+    """Drive one tree per package from ``np.random.default_rng(seed)``;
+    returns (jax out, port out, jax hp, port hp, upward vectors)."""
+    jtree, ttree = _trees(n_edges, per_edge, fanout)
+    jhp = jpriv.HierarchyPrivacy(jtree, _jtemplate(), rng=np.random.default_rng(seed))
+    thp = tpriv.HierarchyPrivacy(ttree, _ptemplate(), rng=np.random.default_rng(seed))
+    seen = {"jax": {}, "torch": {}}
+    if spy:
+        for key, tree in (("jax", jtree), ("torch", ttree)):
+            for e in tree.edges:
+                orig = e.parent._submit_from_child
+
+                def wrap(child, weight, model, _orig=orig, _name=e.name, _d=seen[key]):
+                    _d[_name] = np.array(_np_of(model), copy=True)
+                    return _orig(child, weight, model)
+
+                e.parent._submit_from_child = wrap
+    _drive(jtree, jhp, _cohorts(jtree, per_edge), lambda r: _jflat(deltas[r]))
+    _drive(ttree, thp, _cohorts(ttree, per_edge), lambda r: _pflat(_to_port(deltas[r])))
+    assert jtree.version == ttree.version == 1
+    return jtree.latest_model(), ttree.latest_model(), jhp, thp, seen
+
+
+def _np_of(model):
+    if isinstance(model, dict):  # the port's masked leaf
+        return model[twin.MASKED_LEAF].numpy()
+    return np.asarray(model)
+
+
 @pytest.mark.parametrize("what", ["HierarchyPrivacy", "coordinator_tier_key",
                                   "member_tier_key"])
 def test_hierarchical_masking_is_refused(what):
-    buf = AsyncAggBuffer(publish_k=2, policy=StalenessPolicy(exponent=0.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if what == "HierarchyPrivacy":
-            tpriv.HierarchyPrivacy(None, _ptemplate())
-        elif what == "coordinator_tier_key":
-            tpriv.WindowCoordinator(buf, _ptemplate(), tier_key=7)
-        else:
-            tpriv.WindowMember(0, 0, 1, [0, 1], tmask.QuantSpec(), 1, tier_key=7)
+    """Hierarchical masking runs (these three were refusals until the
+    hierarchy came): HierarchyPrivacy over a tree, an edge coordinator's
+    tier key and a member's tier mask, each bit-equal to JAX's for the same
+    seeds. What stays refused is a tree beyond its ring (R5,
+    test_r5_root_window_beyond_the_ring_is_refused_where_jax_publishes_garbage)."""
+    if what == "HierarchyPrivacy":
+        jtree, ttree = _trees(4, 3)
+        jhp = jpriv.HierarchyPrivacy(jtree, _jtemplate(), rng=np.random.default_rng(2))
+        thp = tpriv.HierarchyPrivacy(ttree, _ptemplate(), rng=np.random.default_rng(2))
+        assert sorted(thp.edge_coordinators) == sorted(jhp.edge_coordinators)
+        for name, co in thp.edge_coordinators.items():
+            jco = jhp.edge_coordinators[name]
+            assert co.tier_key == jco.tier_key and co.tier_name == name
+            assert co.ledger is thp.ledger and ttree.edges[int(name[5:])].privacy is co
+        assert thp.max_members == 2 * 2 * 3 and thp.statusz()["ledger_depth"] == 0
+        assert type(ttree.regionals[0].privacy).__name__ == "_RingPassThrough"
+        assert ttree.root.privacy is thp.root_unmasker
+        with pytest.raises(ValueError, match="exponent=0"):
+            tpriv.HierarchyPrivacy(
+                _tree_at_exponent_half(), _ptemplate(), rng=np.random.default_rng(2))
+    elif what == "coordinator_tier_key":
+        n, key = 3, 7
+        outs = []
+        for pkg, buf, tmpl, flat in (
+                (jpriv, JBuffer(publish_k=n, policy=JPolicy(exponent=0.0)), _jtemplate(), _jflat),
+                (tpriv, AsyncAggBuffer(publish_k=n, policy=StalenessPolicy(exponent=0.0)),
+                 _ptemplate(), lambda d: _pflat(_to_port(d)))):
+            ledger = []
+            co = pkg.WindowCoordinator(buf, tmpl, tier_name="edge-0", tier_key=key,
+                                       ledger=ledger, max_fanin=4,
+                                       rng=np.random.default_rng(13))
+            _, members = co.open_window(range(n))
+            for r, d in enumerate(_deltas(n, 17)):
+                co.submit(r, members[r].mask(flat(d)), client_version=0)
+            outs.append((_np_of(buf.publish()), ledger, co.statusz()["tier"]))
+        (jout, jled, jtier), (tout, tled, ttier) = outs
+        assert np.array_equal(tout, jout) and tled == jled and ttier == jtier == "edge-0"
+        assert tled[0]["ranks"] == [0, 1, 2] and tled[0]["n"] == n
+        # still masked: the ring residue is not the honest sum's residue
+        q = sum(tmask.quantize_vector(_jflat(d), tmask.QuantSpec()) for d in _deltas(n, 17))
+        assert not np.array_equal(tout, np.mod(q, tmask.QuantSpec().ring).astype(np.float32))
+    else:
+        spec, nonce, cohort = tmask.QuantSpec(), 99, [0, 1]
+        vecs = []
+        for pkg in (tpriv, jpriv):
+            ms = {r: pkg.WindowMember(r, 0, nonce, cohort, spec, 1, tier_key=7,
+                                      rng=np.random.default_rng(30 + r)) for r in cohort}
+            pks = {r: m.public_key for r, m in ms.items()}
+            for m in ms.values():
+                m.install_directory(pks)
+            vecs.append(ms[0].mask(_jflat(_deltas(1, 3)[0])))
+        assert np.array_equal(vecs[0], vecs[1])
+        plain = twin.WindowMember(0, 0, nonce, cohort, spec, 1, rng=np.random.default_rng(30))
+        plain.install_directory(pks)
+        tier = tmask.prg_ring(tmask.tier_seed(7, nonce, 0), D, spec)
+        assert np.array_equal(np.mod(vecs[0].astype(np.float64) - tier, spec.ring),
+                              plain.mask(_jflat(_deltas(1, 3)[0])))
+
+
+def _tree_at_exponent_half():
+    """A tree under the default staleness policy (exponent 0.5)."""
+    from fedml_tpu_torch.core.distributed.hierarchy import HierarchyTree as TTree
+
+    return TTree.build(n_edges=2, publish_k=2, device="cpu")
+
+
+def test_three_tier_window_equals_flat_and_jax():
+    """JAX's test_three_tier_equals_flat (4 edges x 3, regional_fanout 2) in
+    both packages from one rng: the root publish bit-equal to JAX's and to
+    the honest quantized mean of the 12 deltas; the ledger drained."""
+    deltas = _deltas(12, 23)
+    jout, tout, jhp, thp, _ = _hier_pair(4, 3, deltas, 11)
+    _assert_port_equals_jax_tree(tout, jout)
+    assert np.array_equal(_pflat(tout), _honest([_jflat(d) for d in deltas], thp.spec))
+    assert len(thp.ledger) == len(jhp.ledger) == 0
+
+
+def test_intermediate_tiers_never_see_plaintext():
+    """What an edge publishes upward stays in the tier ring until the root
+    strips it (JAX's test): nonnegative ring residues, far from the honest
+    partial mean, and bit-equal to JAX's upward vectors."""
+    deltas = _deltas(6, 29)
+    deltas = [{m: {k: (0.5 * v).astype(np.float32) for k, v in leaves.items()}
+               for m, leaves in d.items()} for d in deltas]
+    jout, tout, jhp, thp, seen = _hier_pair(2, 3, deltas, 31, spy=True)
+    assert set(seen["torch"]) == set(seen["jax"]) == {"edge-0", "edge-1"}
+    for i, name in enumerate(("edge-0", "edge-1")):
+        honest = _honest([_jflat(deltas[r]) for r in range(3 * i, 3 * i + 3)], thp.spec)
+        up = seen["torch"][name]
+        assert np.array_equal(up, seen["jax"][name]) and up.dtype == np.float32
+        assert np.all(up >= 0)
+        assert not np.allclose(up, honest, atol=thp.spec.clip)
+    _assert_port_equals_jax_tree(tout, jout)
+
+
+def test_dp_root_noise_matches_its_sigma():
+    """A DP root: all-zero updates through 2 edges x 2 members, so the root
+    publish is the noise alone, std z·C/n over the 4 members (the flat
+    window's statistics test)."""
+    from fedml_tpu_torch.core.distributed.hierarchy import HierarchyTree as TTree
+
+    z, clip = 0.8, 1.0
+    tree = TTree.build(n_edges=2, regional_fanout=2, publish_k=2,
+                       policy=StalenessPolicy(exponent=0.0), device="cpu")
+    dp = tpriv.DPFold(noise_multiplier=z, l2_clip=clip, seed=3)
+    hp = tpriv.HierarchyPrivacy(tree, {"w": torch.zeros(NOISE_D)}, dp=dp,
+                                rng=np.random.default_rng(4))
+    _drive(tree, hp, _cohorts(tree, 2), lambda r: np.zeros(NOISE_D, np.float32))
+    _noise_stats(tree.latest_model()["w"].numpy(), z * clip / 4)
+    assert dp.accountant.steps == 1
+
+
+def test_r5_root_window_beyond_the_ring_is_refused_where_jax_publishes_garbage():
+    """ROADMAP.md Queue 3, R5. JAX's ``WindowCoordinator.open_window``
+    (fedml_tpu/core/privacy/secagg_window.py:322) checks the ring against
+    one edge's cohort only, and ``_RootUnmasker.on_publish`` sums every
+    edge's members (``n_total``, :621) with no check against the ring. At 8
+    edges x 16 members (regional_fanout 4: 2 x 4 x 16 = 128 members, 21
+    bits against the default 20-bit ring) with every coordinate at 2.9,
+    JAX's root publishes about -0.1 where the honest quantized mean is
+    2.9000244; the port refuses that tree at construction, as the flat
+    coordinator refuses a 128-member window. At 4 x 4 both are bit-equal
+    to the honest mean."""
+    spec = tmask.QuantSpec()
+
+    def const(n):
+        return [{m: {k: np.full(sh, 2.9, np.float32) for k, sh in leaves.items()}
+                 for m, leaves in SHAPES.items()} for _ in range(n)]
+
+    def honest(deltas):
+        q = sum(tmask.quantize_vector(_jflat(d), spec) for d in deltas)
+        return tmask.dequantize_sum(q, len(deltas), spec)
+
+    deltas = const(128)
+    jtree, ttree = _trees(8, 16, fanout=4)
+    jhp = jpriv.HierarchyPrivacy(jtree, _jtemplate(), rng=np.random.default_rng(5))
+    _drive(jtree, jhp, _cohorts(jtree, 16), lambda r: _jflat(deltas[r]))
+    jroot = _jflat(jtree.latest_model())
+    ref = honest(deltas)
+    assert np.allclose(ref, 2.9000244, atol=1e-6)
+    assert np.all(np.abs(jroot - ref) > 2.0)  # JAX: wrapped, every coordinate
+    with pytest.raises(ValueError, match="128 members.*ring_bits=20 too small"):
+        tpriv.HierarchyPrivacy(ttree, _ptemplate(), rng=np.random.default_rng(5))
+    with pytest.raises(ValueError, match="ring_bits=20 too small"):
+        twin.validate_ring_bits(spec, 16, 128)  # the flat window's refusal
+    # a cohort wider than its edge's window is held to the same bound
+    jtree, ttree = _trees(2, 2)
+    thp = tpriv.HierarchyPrivacy(ttree, _ptemplate(), rng=np.random.default_rng(5))
+    with pytest.raises(ValueError, match="too small"):
+        thp.open_edge_windows({"edge-0": list(range(64))})
+    # within the ring both packages are bit-equal to the honest mean
+    deltas = const(16)
+    jout, tout, _, _, _ = _hier_pair(4, 4, deltas, 5)
+    _assert_port_equals_jax_tree(tout, jout)
+    assert np.array_equal(_pflat(tout), honest(deltas))
 
 
 def test_tf32_matmuls_refused_for_a_card_fold():

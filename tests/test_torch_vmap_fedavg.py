@@ -432,5 +432,5 @@ def test_backend_vmap_through_the_entry_points_and_refusals():
     bad = copy.copy(args)
     bad.async_rounds = True
     bad.hierarchy_edges = 2
-    with pytest.raises(NotImplementedError, match="hierarchy_edges.*ROADMAP"):
+    with pytest.raises(NotImplementedError, match="hierarchy_edges.*simulate_async_rounds"):
         fedml_tpu_torch.run_simulation(backend="vmap", args=bad)
