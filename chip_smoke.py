@@ -5,7 +5,8 @@ algorithms, the cross-silo front, async federation with the compressed
 uplink, durable round state, quorum rounds and the chaos drills, private
 aggregation (windowed SecAgg and accounted DP), the round-barrier SecAgg
 and LightSecAgg fronts, and the edge->regional->root aggregation tree with
-its tier-masked SecAgg on one CUDA card.
+its tier-masked SecAgg, and the message plane's other backends (TRPC,
+GRPC and MPI, MQTT_WEB3, the reference wire) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -210,10 +211,23 @@ exception):
    at construction; key exchange s, masking ms a client, the edge publish,
    the regional pass-through and the root's strip and unmask ms, bytes
    forwarded per tier; (c) no flash launch;
-16. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
-   resilience, privacy, secure_fronts, hierarchy and kernels lines (JSON,
-   the kernels line with the design each kernel ran on the main path), the
-   card line, and last the result line.
+16. the message plane's other backends, phase 10 (b)'s federation
+   (ResNet-56, 4 silos, 2 rounds, cuDNN deterministic, TF32 off) over each,
+   its final params bit-equal to the same federation over INMEMORY in this
+   process: (a) a server and 4 client processes over TRPC on a block of
+   ports found free (round s, payload frames and their bytes, spawn to
+   ready); (b) the same over MQTT_WEB3 through the socket broker and one
+   LocalCASStore directory (cids against uploads: each round's global is
+   one object); (c) GRPC and MPI, 4 silo threads each, when grpc imports
+   (the JSON says "grpc": "not installed" where it does not; any other
+   failure fails); (d) the reference wire, mqtt_s3_wire='fedml' and, with
+   grpc, grpc_wire='fedml', 4 silo threads; (e) comm_bench over INMEMORY,
+   TRPC and GRPC at ResNet-56's state dict (3,423,080 bytes) and 64 MB,
+   both on the card: round-trip ms and MB/s; (f) no flash launch;
+17. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+   resilience, privacy, secure_fronts, hierarchy, message_plane and kernels
+   lines (JSON, the kernels line with the design each kernel ran on the
+   main path), the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1684,29 +1698,17 @@ def cross_silo_serialized() -> dict:
     return res
 
 
-def party_main(spec_json: str) -> None:
-    """One party of phase 10 (b), in a process of its own (started by
-    cross_silo_processes): build it through the user's entry points, run
-    it, and print one JSON line of what it saw."""
-    import torch
-
-    spec = json.loads(spec_json)
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.allow_tf32 = False
-    import fedml_tpu_torch as fedml
-    from fedml_tpu_torch.core import telemetry as tel
-    from fedml_tpu_torch.core.distributed.communication.mqtt_s3.object_store import LocalObjectStore
-
-    store = {"write_s": 0.0, "read_s": 0.0, "writes": 0, "reads": 0, "bytes_written": 0}
-    write_model, read_model = LocalObjectStore.write_model, LocalObjectStore.read_model
+def _timed_store(cls, store: dict, path_of) -> None:
+    """Count and time ``cls``'s payload writes and reads into ``store`` (in
+    this party process); ``path_of(self, url)`` is a written object's file."""
+    write_model, read_model = cls.write_model, cls.read_model
 
     def timed_write(self, key, params):
         t0 = time.perf_counter()
         url = write_model(self, key, params)
         store["write_s"] += time.perf_counter() - t0
         store["writes"] += 1
-        store["bytes_written"] += os.path.getsize(url[len("file://"):])
+        store["bytes_written"] += os.path.getsize(path_of(self, url))
         return url
 
     def timed_read(self, url):
@@ -1716,7 +1718,58 @@ def party_main(spec_json: str) -> None:
         store["reads"] += 1
         return out
 
-    LocalObjectStore.write_model, LocalObjectStore.read_model = timed_write, timed_read
+    cls.write_model, cls.read_model = timed_write, timed_read
+
+
+def _counted_frames(store: dict) -> None:
+    """Count TRPC's payload frames and their bytes (header and buffers)
+    into ``store``, and time each send of one."""
+    from fedml_tpu_torch.core.distributed.communication.trpc import trpc_comm_manager as trpc
+
+    encode, send = trpc.encode_frame, trpc.TRPCCommManager.send_message
+
+    def counted(msg):
+        header, bufs = encode(msg)
+        if bufs:
+            store["writes"] += 1
+            store["bytes_written"] += len(header) + sum(b.nbytes for b in bufs)
+        return header, bufs
+
+    def timed_send(self, msg):
+        t0 = time.perf_counter()
+        send(self, msg)
+        if msg.get("model_params") is not None:
+            store["write_s"] += time.perf_counter() - t0
+
+    trpc.encode_frame, trpc.TRPCCommManager.send_message = counted, timed_send
+
+
+def party_main(spec_json: str) -> None:
+    """One party of phase 10 (b) or 16 (a)-(b), in a process of its own
+    (started by _party_processes): build it through the user's entry
+    points, run it, and print one JSON line of what it saw."""
+    import torch
+
+    spec = json.loads(spec_json)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core import telemetry as tel
+
+    store = {"write_s": 0.0, "read_s": 0.0, "writes": 0, "reads": 0, "bytes_written": 0}
+    backend = spec["config"]["backend"]
+    if backend == "MQTT_S3":
+        from fedml_tpu_torch.core.distributed.communication.mqtt_s3.object_store import (
+            LocalObjectStore)
+
+        _timed_store(LocalObjectStore, store, lambda self, url: url[len("file://"):])
+    elif backend == "MQTT_WEB3":
+        from fedml_tpu_torch.core.distributed.communication.web3 import LocalCASStore
+
+        _timed_store(LocalCASStore, store, lambda self, url: self._path(url[len("cas://"):]))
+    elif backend == "TRPC":
+        _counted_frames(store)
     args = fedml.init(fedml.default_config("cross_silo", **spec["config"]))
     dev = fedml.get_device(args)
     dataset, output_dim = fedml.data.load(args)
@@ -1736,33 +1789,35 @@ def party_main(spec_json: str) -> None:
     print(json.dumps(out), flush=True)
 
 
-def cross_silo_processes(tmp: str) -> dict:
-    """Phase 10 (b): a server and 4 client processes over the port's
-    SocketMqttBroker (hosted here) with one shared object store, ResNet-56,
-    2 rounds, cuDNN deterministic and TF32 off; its final params against the
-    same federation run in this process over INMEMORY."""
+def _inmemory_reference(over: dict, run_id: str) -> dict:
+    """The server's final params of ``over`` run in this process over
+    INMEMORY, cuDNN deterministic and TF32 off (the party processes' flags)."""
     import torch
-
-    from fedml_tpu_torch.core.distributed.communication.mqtt_s3.socket_broker import SocketMqttBroker
 
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                     allow_tf32=False):
-        ref = _Federation(CS_PROCS, "smoke_cs_ref")
+        ref = _Federation(over, run_id)
         ref.run()
-        ref_w = _cpu(ref.server.aggregator.get_global_model_params())
-    del ref
+        return _cpu(ref.server.aggregator.get_global_model_params())
+
+
+def _party_processes(tmp: str, over: dict, run_id: str, backend: str) -> tuple:
+    """A server and ``client_num_per_round`` client processes of ``over``
+    over ``backend`` (clients started first), each under a timeout; returns
+    (each rank's JSON line, each rank's spawn time, the server's final
+    params on the CPU)."""
+    import torch
+
     os.makedirs(tmp, exist_ok=True)
-    broker = SocketMqttBroker(port=0)
-    store_dir = os.path.join(tmp, "object_store")
-    n = int(CS_PROCS["client_num_per_round"])
+    n = int(over["client_num_per_round"])
     procs, logs, spawned = {}, {}, {}
+    params_out = os.path.join(tmp, "server_params.pt")
     try:
-        for rank in list(range(1, n + 1)) + [0]:  # clients first: the broker keeps the backlog
-            spec = {"config": dict(CS_PROCS, run_id="smoke_cs_procs", rank=rank,
-                                   role="server" if rank == 0 else "client", backend="MQTT_S3",
-                                   mqtt_socket=broker.address, object_store_dir=store_dir,
+        for rank in list(range(1, n + 1)) + [0]:
+            spec = {"config": dict(over, run_id=run_id, rank=rank,
+                                   role="server" if rank == 0 else "client", backend=backend,
                                    using_gpu=DEV == "cuda"),
-                    "params_out": os.path.join(tmp, "server_params.pt")}
+                    "params_out": params_out}
             code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
                     f"chip_smoke.party_main({json.dumps(spec)!r})")
             logs[rank] = (open(os.path.join(tmp, f"party{rank}.out"), "w+"),
@@ -1775,7 +1830,7 @@ def cross_silo_processes(tmp: str) -> dict:
             try:
                 p.wait(timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
-                check(False, f"party {rank} still running after {CS_PARTY_TIMEOUT_S}s")
+                check(False, f"{backend} party {rank} still running after {CS_PARTY_TIMEOUT_S}s")
         results = {}
         for rank, p in procs.items():
             out, err = logs[rank]
@@ -1783,7 +1838,7 @@ def cross_silo_processes(tmp: str) -> dict:
             err.seek(0)
             lines = out.read().strip().splitlines()
             check(p.returncode == 0 and lines,
-                  f"party {rank} exited {p.returncode}: {err.read()[-3000:]}")
+                  f"{backend} party {rank} exited {p.returncode}: {err.read()[-3000:]}")
             results[rank] = json.loads(lines[-1])
     finally:
         for p in procs.values():
@@ -1792,21 +1847,27 @@ def cross_silo_processes(tmp: str) -> dict:
                 p.wait()
         for f in (f for pair in logs.values() for f in pair):
             f.close()
-        broker.stop()
     for rank, r in results.items():
-        check(r["device"].startswith(DEV), f"party {rank} ran on {r['device']}")
-    server = results[0]
-    check(server["global_device"].startswith(DEV), f"the server's global on {server['global_device']}")
-    got = torch.load(os.path.join(tmp, "server_params.pt"))
-    err = _of_scale(got, ref_w)
-    rounds = int(CS_PROCS["comm_round"])
+        check(r["device"].startswith(DEV), f"{backend} party {rank} ran on {r['device']}")
+    check(results[0]["global_device"].startswith(DEV),
+          f"the {backend} server's global on {results[0]['global_device']}")
+    return results, spawned, torch.load(params_out)
+
+
+def _process_report(over: dict, results: dict, spawned: dict, got: dict, ref_w: dict) -> dict:
+    """The cross-process run's numbers beside its final params against the
+    INMEMORY reference's."""
+    import torch
+
+    rounds = int(over["comm_round"])
     store = {key: sum(r["store"][key] for r in results.values())
              for key in ("write_s", "read_s", "writes", "reads", "bytes_written")}
-    res = {
-        "config": {key: CS_PROCS[key] for key in ("client_num_per_round", "comm_round",
-                                                  "batch_size")},
-        "processes": len(results), "backend": "MQTT_S3 over SocketMqttBroker",
-        "final_params_err_of_scale_vs_inmemory": err,
+    server = results[0]
+    return {
+        "config": {key: over[key] for key in ("client_num_per_round", "comm_round",
+                                              "batch_size")},
+        "processes": len(results),
+        "final_params_err_of_scale_vs_inmemory": _of_scale(got, ref_w),
         "final_params_bit_equal": all(torch.equal(got[key], ref_w[key]) for key in ref_w),
         "round_s": server["round_s"], "test_acc": server["metrics"]["test_acc"],
         "payload_bytes_per_round": store["bytes_written"] / rounds,
@@ -1815,9 +1876,32 @@ def cross_silo_processes(tmp: str) -> dict:
         "start_to_ready_s": {str(rank): r["t_ready"] - spawned[rank] for rank, r in results.items()},
         "start_to_end_s": {str(rank): r["t_end"] - spawned[rank] for rank, r in results.items()},
     }
+
+
+def cross_silo_processes(tmp: str) -> dict:
+    """Phase 10 (b): a server and 4 client processes over the port's
+    SocketMqttBroker (hosted here) with one shared object store, ResNet-56,
+    2 rounds, cuDNN deterministic and TF32 off; its final params against the
+    same federation run in this process over INMEMORY."""
+    from fedml_tpu_torch.core.distributed.communication.mqtt_s3.socket_broker import SocketMqttBroker
+
+    ref_w = _inmemory_reference(CS_PROCS, "smoke_cs_ref")
+    broker = SocketMqttBroker(port=0)
+    try:
+        results, spawned, got = _party_processes(
+            tmp, dict(CS_PROCS, mqtt_socket=broker.address,
+                      object_store_dir=os.path.join(tmp, "object_store")),
+            "smoke_cs_procs", "MQTT_S3")
+    finally:
+        broker.stop()
+    res = {**_process_report(CS_PROCS, results, spawned, got, ref_w),
+           "backend": "MQTT_S3 over SocketMqttBroker"}
+    n, rounds = int(CS_PROCS["client_num_per_round"]), int(CS_PROCS["comm_round"])
+    store = res["object_store"]
     say(f"  ResNet-56, 4 silos x {rounds} rounds, 5 processes over MQTT_S3: {res}")
     check(store["writes"] == 2 * n * rounds and store["reads"] == 2 * n * rounds,
           f"object store writes {store['writes']}, reads {store['reads']}")
+    err = res["final_params_err_of_scale_vs_inmemory"]
     check(err <= CS_PROC_TOL, f"cross-process final params {err:.3g} of scale from INMEMORY's")
     return res
 
@@ -3614,6 +3698,187 @@ def hierarchy_phase(flat: dict) -> dict:
         sketches.reset()
 
 
+# -- phase 16: the message plane's other backends ----------------------------------
+
+# phase 10 (b)'s federation (ResNet-56, 4 silos, 2 rounds), over each backend
+MP_PROCS = CS_PROCS
+# comm_bench payloads: ResNet-56's state dict on the card, and a flat f32
+# tensor of 64 MB on the card (the copy to the host is in every ping)
+MP_BENCH_BIG = 64_000_000
+MP_RESNET56_BYTES = 3_423_080  # 855,770 f32 params
+MP_BENCH_REPS = {"resnet56": 20, "64mb": 10}
+# bit-equal to INMEMORY: every wire carries f32 exactly (phase 10 (b)'s limit)
+MP_TOL = CS_PROC_TOL
+
+
+def _grpc_state() -> str:
+    """"installed" when grpc imports; "not installed" when there is no such
+    package (the card's machine may lack it); any other failure raises."""
+    import importlib.util
+
+    if importlib.util.find_spec("grpc") is None:
+        return "not installed"
+    import grpc  # noqa: F401 - an installed grpc that fails to import fails the phase
+
+    return "installed"
+
+
+def _on_free_ports(run_id: str, backend: str, n: int) -> dict:
+    """The base-port knob that puts rank r of ``run_id`` at ``b + r`` for a
+    block [b, b + n) that is free now (both backends add the run id's
+    offset)."""
+    from fedml_tpu_torch.core.distributed.communication.ip_config import free_port_block
+    from fedml_tpu_torch.core.distributed.fedml_comm_manager import _run_id_offset
+
+    key = "trpc_base_port" if backend == "TRPC" else "grpc_base_port"
+    return {key: free_port_block(n) - _run_id_offset(run_id)}
+
+
+def _threaded(over: dict, run_id: str, backend: str, ref_w: dict) -> dict:
+    """``over`` as silo threads of this process over ``backend``, cuDNN
+    deterministic and TF32 off; its final params against ``ref_w``."""
+    import torch
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        fed = _Federation(over, run_id, backend=backend)
+        types = sorted({type((r.runner.server_manager if rank == 0 else
+                              r.runner.client_manager).com_manager).__name__
+                        for rank, r in fed.runners.items()})
+        since = _last_span_seq()
+        wall = fed.run()
+        got = _cpu(fed.server.aggregator.get_global_model_params())
+    from fedml_tpu_torch.core import telemetry as tel
+
+    round_s = [r["dur_ns"] / 1e9 for r in tel.snapshot()["spans"]
+               if r["seq"] > since and r["name"] == "server.round"]
+    res = {"backend": backend, "managers": types, "run_wall_s": wall, "round_s": round_s,
+           "final_params_err_of_scale_vs_inmemory": _of_scale(got, ref_w),
+           "final_params_bit_equal": all(torch.equal(got[k], ref_w[k]) for k in ref_w)}
+    check(res["final_params_err_of_scale_vs_inmemory"] <= MP_TOL,
+          f"{run_id} over {backend}: final params "
+          f"{res['final_params_err_of_scale_vs_inmemory']:.3g} of scale from INMEMORY's")
+    return res
+
+
+def message_plane_processes(tmp: str, ref_w: dict) -> dict:
+    """Phase 16 (a) TRPC and (b) MQTT_WEB3: a server and 4 client processes
+    over each, phase 10 (b)'s federation, bit-equal to INMEMORY."""
+    from fedml_tpu_torch.core.distributed.communication.mqtt_s3.socket_broker import SocketMqttBroker
+
+    n, rounds = int(MP_PROCS["client_num_per_round"]), int(MP_PROCS["comm_round"])
+    out = {}
+    run_id = "smoke_mp_trpc"
+    over = dict(MP_PROCS, **_on_free_ports(run_id, "TRPC", n + 1))
+    results, spawned, got = _party_processes(os.path.join(tmp, "trpc"), over, run_id, "TRPC")
+    res = {**_process_report(MP_PROCS, results, spawned, got, ref_w),
+           "backend": "TRPC, a listener a process",
+           "base_port": over["trpc_base_port"]}
+    res["frames"] = res.pop("object_store")
+    say(f"  (a) ResNet-56, 4 silos x {rounds} rounds, 5 processes over TRPC: {res}")
+    check(res["frames"]["writes"] == 2 * n * rounds,
+          f"TRPC payload frames {res['frames']['writes']}, want {2 * n * rounds}")
+    check(res["final_params_err_of_scale_vs_inmemory"] <= MP_TOL,
+          f"TRPC final params {res['final_params_err_of_scale_vs_inmemory']:.3g} of scale "
+          "from INMEMORY's")
+    out["trpc_processes_4"] = res
+
+    cas = os.path.join(tmp, "web3", "cas")
+    broker = SocketMqttBroker(port=0)
+    try:
+        results, spawned, got = _party_processes(
+            os.path.join(tmp, "web3"), dict(MP_PROCS, mqtt_socket=broker.address, cas_root=cas),
+            "smoke_mp_web3", "MQTT_WEB3")
+    finally:
+        broker.stop()
+    res = {**_process_report(MP_PROCS, results, spawned, got, ref_w),
+           "backend": "MQTT_WEB3 over SocketMqttBroker, one LocalCASStore directory"}
+    res["cas"] = res.pop("object_store")
+    res["cas"]["cids"] = len([f for f in os.listdir(cas) if not f.endswith(".tmp")])
+    res["cas"]["uploads"] = res["cas"]["writes"]
+    say(f"  (b) ResNet-56, 4 silos x {rounds} rounds, 5 processes over MQTT_WEB3: {res}")
+    check(res["cas"]["writes"] == 2 * n * rounds and res["cas"]["reads"] == 2 * n * rounds,
+          f"CAS writes {res['cas']['writes']}, reads {res['cas']['reads']}")
+    # each round's global goes to 4 clients as one object; the 4 uploads differ
+    check(res["cas"]["cids"] == rounds * (1 + n),
+          f"{res['cas']['cids']} cids for {res['cas']['writes']} uploads, want {rounds * (1 + n)}")
+    check(res["final_params_err_of_scale_vs_inmemory"] <= MP_TOL,
+          f"MQTT_WEB3 final params {res['final_params_err_of_scale_vs_inmemory']:.3g} of scale "
+          "from INMEMORY's")
+    out["web3_processes_4"] = res
+    return out
+
+
+def message_plane_threads(tmp: str, ref_w: dict, grpc_state: str) -> dict:
+    """Phase 16 (c) GRPC and MPI, (d) the reference wire: phase 10 (b)'s
+    federation as silo threads of this process, each bit-equal to
+    INMEMORY."""
+    n = int(MP_PROCS["client_num_per_round"])
+    out = {}
+    if grpc_state == "installed":
+        for backend in ("GRPC", "MPI"):
+            run_id = f"smoke_mp_{backend.lower()}"
+            out[f"{backend.lower()}_threads_4"] = _threaded(
+                dict(MP_PROCS, **_on_free_ports(run_id, backend, n + 1)), run_id, backend, ref_w)
+            say(f"  (c) 4 silo threads over {backend}: {out[f'{backend.lower()}_threads_4']}")
+    bucket = os.path.join(tmp, "bucket")
+    out["ref_wire_mqtt_s3_threads_4"] = _threaded(
+        dict(MP_PROCS, mqtt_s3_wire="fedml", mqtt_s3_bucket_dir=bucket), "smoke_mp_ref_mqtt",
+        "MQTT_S3", ref_w)
+    out["ref_wire_mqtt_s3_threads_4"]["bucket_objects"] = len(os.listdir(bucket))
+    say(f"  (d) 4 silo threads over MQTT_S3, mqtt_s3_wire='fedml': "
+        f"{out['ref_wire_mqtt_s3_threads_4']}")
+    if grpc_state == "installed":
+        run_id = "smoke_mp_ref_grpc"
+        out["ref_wire_grpc_threads_4"] = _threaded(
+            dict(MP_PROCS, grpc_wire="fedml", **_on_free_ports(run_id, "GRPC", n + 1)), run_id,
+            "GRPC", ref_w)
+        say(f"  (d) 4 silo threads over GRPC, grpc_wire='fedml': {out['ref_wire_grpc_threads_4']}")
+    return out
+
+
+def message_plane_bench(grpc_state: str) -> list:
+    """Phase 16 (e): comm_bench's round trips over INMEMORY, TRPC and GRPC
+    (when it imports) at ResNet-56's state dict and at 64 MB, both on the
+    card."""
+    from fedml_tpu_torch.core.distributed.communication import comm_bench
+
+    template = _resnet56_template()
+    check(comm_bench.payload_nbytes(template) == MP_RESNET56_BYTES,
+          f"ResNet-56's payload is {comm_bench.payload_nbytes(template)} bytes")
+    big = comm_bench.make_payload(MP_BENCH_BIG, DEV)
+    rows = []
+    for backend in [b for b in comm_bench.BACKENDS if b != "GRPC" or grpc_state == "installed"]:
+        for label, payload in (("resnet56", template), ("64mb", big)):
+            row = comm_bench.bench_backend(backend, payload=payload, reps=MP_BENCH_REPS[label])
+            row["payload"] = label
+            check(row["device"].startswith(DEV), f"comm_bench payload on {row['device']}")
+            say(f"  (e) comm_bench {backend} {label}: rtt median {row['rtt_ms_median']:.4g} ms, "
+                f"{row['mb_per_sec']:.5g} MB/s")
+            rows.append(row)
+    return rows
+
+
+def message_plane_phase() -> dict:
+    """Phase 16: the message plane's other backends, (a) TRPC and (b)
+    MQTT_WEB3 across processes, (c) GRPC and MPI and (d) the reference wire
+    in process, (e) comm_bench ((f), no flash launch, is main's)."""
+    tmp = os.path.join(ROOT, ".smoke_run", "message_plane")
+    shutil.rmtree(tmp, ignore_errors=True)
+    grpc_state = _grpc_state()
+    say(f"  grpc: {grpc_state}")
+    try:
+        ref_w = _inmemory_reference(MP_PROCS, "smoke_mp_ref")
+        res = {"grpc": grpc_state, "config": {k: MP_PROCS[k] for k in (
+            "model", "client_num_per_round", "comm_round", "batch_size")}}
+        res.update(message_plane_processes(tmp, ref_w))
+        res.update(message_plane_threads(tmp, ref_w, grpc_state))
+        res["comm_bench"] = message_plane_bench(grpc_state)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3843,7 +4108,24 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the hierarchy phase launched flash kernels: {hier_launches}")
 
-    say("== 16. result")
+    say("== 16. the message plane's other backends: TRPC and MQTT_WEB3 across processes, GRPC "
+        "and MPI, the reference wire, comm_bench (ResNet-56)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    message_plane = message_plane_phase()
+    mp_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the message-plane phase: "
+        f"{mp_launches}")
+    # (f) transports, codecs and ResNet training run no attention (the party
+    # processes import the same code and count their own)
+    check(all(n == 0 for n in mp_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the message-plane phase launched flash kernels: {mp_launches}")
+
+    say("== 17. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3866,6 +4148,8 @@ def main() -> int:
                                         **secure}}), flush=True)
     print(json.dumps({"hierarchy": {"card": card, "flash_launches": hier_launches,
                                     **hierarchy}}), flush=True)
+    print(json.dumps({"message_plane": {"card": card, "flash_launches": mp_launches,
+                                        **message_plane}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

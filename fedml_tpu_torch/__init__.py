@@ -24,9 +24,15 @@ FedOpt, FedNova, SCAFFOLD, FedDyn or Mime on the sp backend.
 Cross-silo FedAvg runs one party per ``FedMLRunner``: a config with
 ``training_type="cross_silo"``, ``role`` "server" (rank 0) or "client"
 (ranks 1..N) and ``backend`` "INMEMORY" (parties as threads of one process)
-or "MQTT_S3" (over the socket broker, ``mqtt_socket="host:port"``, with one
-shared ``object_store_dir``); ``run_cross_silo_server(args)`` and
-``run_cross_silo_client(args)`` are the one-liners.
+or a backend between processes: "MQTT_S3" (over the socket broker,
+``mqtt_socket="host:port"``, with one shared ``object_store_dir``;
+``mqtt_s3_wire="fedml"`` with a shared ``mqtt_s3_bucket_dir`` speaks the
+reference's pickled wire), "MQTT_WEB3"/"MQTT_THETASTORE" (the same broker,
+payloads in one shared content-addressed ``cas_root``), "TRPC" (raw TCP
+frames from ``trpc_base_port``) or "GRPC"/"MPI" (from ``grpc_base_port``;
+``grpc_wire="fedml"`` for the reference's wire; needs ``grpc``);
+``run_cross_silo_server(args)`` and ``run_cross_silo_client(args)`` are the
+one-liners.
 """
 
 from __future__ import annotations

@@ -1,7 +1,10 @@
 """MQTT + object-store communication backend: a copy of
-``fedml_tpu/core/distributed/communication/mqtt_s3/mqtt_s3_comm_manager.py``
-(its native wire; the reference pickle wire, ``mqtt_s3_wire='fedml'``, is
-not ported and raises: ROADMAP.md, Queue 1).
+``fedml_tpu/core/distributed/communication/mqtt_s3/mqtt_s3_comm_manager.py``,
+its native wire (npz payloads in the object store, addressed by URL) and the
+reference pickle wire (``mqtt_s3_wire='fedml'``: pickled payloads in a
+shared bucket addressed by key, ``ref_bucket.py``). The payload store is a
+hook, ``_create_store``, which the web3 managers override with a
+content-addressed store (``web3/``).
 
 Reference: ``mqtt_s3/mqtt_s3_multi_clients_comm_manager.py:21`` — control
 plane JSON on topics ``fedml_<run_id>_<server_id>_<client_id>`` (server->
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import json
 import queue
+import uuid
 from typing import List
 
 from .....core.telemetry import trace_context
@@ -41,21 +45,32 @@ class MqttS3MultiClientsCommManager(BaseCommunicationManager):
         self.client_num = client_num
         self.server_id = server_id
         self.is_server = client_rank == server_id
-        wire = str(getattr(args, "mqtt_s3_wire", "native") if args is not None else "native")
-        if wire == "fedml":
-            raise NotImplementedError(
-                "mqtt_s3_wire='fedml': the reference pickle wire (ref_bucket.py, "
-                "grpc/ref_wire.py) is not ported to fedml_tpu_torch yet (see ROADMAP.md, "
-                "Queue 1)")
+        # reference-wire mode (interop with the reference's own
+        # MqttS3MultiClientsCommManager): the payload is a pickled torch tree
+        # in a shared bucket addressed by key, and the control JSON carries
+        # the key in model_params, the reference's contract
+        # (mqtt_s3_multi_clients_comm_manager.py:248,283)
+        self.ref_wire = str(getattr(args, "mqtt_s3_wire", "native")) == "fedml"
         self.mqtt = create_mqtt_transport(args, client_id=f"{self.topic_prefix}_{self.rank}")
         # store must exist before _subscribe: the local broker flushes
         # backlogged messages synchronously on subscribe, and on_message
         # resolves payload urls through self.store
-        self.store = create_object_store(args)
+        self.store = self._create_store(args)
         self._observers: List[Observer] = []
         self._incoming: "queue.Queue" = queue.Queue()
         self._running = False
         self._subscribe()
+
+    def _create_store(self, args):
+        """Payload-store hook; the web3/theta subclasses return a CAS store."""
+        if self.ref_wire:
+            from .ref_bucket import RefBucketStore
+
+            root = getattr(args, "mqtt_s3_bucket_dir", None)
+            if not root:
+                raise ValueError("mqtt_s3_wire='fedml' requires mqtt_s3_bucket_dir")
+            return RefBucketStore(root)
+        return create_object_store(args)
 
     # --- topics (reference scheme) ---------------------------------------
     def _topic_server_to_client(self, client_id: int) -> str:
@@ -72,9 +87,17 @@ class MqttS3MultiClientsCommManager(BaseCommunicationManager):
             obj = json.loads(payload.decode())
             msg = Message()
             msg.init_from_json_object(obj)
-            url = msg.get(Message.MSG_ARG_KEY_MODEL_PARAMS_URL)
-            if url:
-                msg.add_params(Message.MSG_ARG_KEY_MODEL_PARAMS, self.store.read_model(url))
+            if self.ref_wire:
+                # reference peers put the bucket key in model_params
+                # (mqtt_s3_multi_clients_comm_manager.py:_on_message_impl)
+                key = obj.get(Message.MSG_ARG_KEY_MODEL_PARAMS, "")
+                if isinstance(key, str) and key.strip():
+                    msg.add_params(Message.MSG_ARG_KEY_MODEL_PARAMS,
+                                   self.store.read_model(key.strip()))
+            else:
+                url = msg.get(Message.MSG_ARG_KEY_MODEL_PARAMS_URL)
+                if url:
+                    msg.add_params(Message.MSG_ARG_KEY_MODEL_PARAMS, self.store.read_model(url))
             self._incoming.put(msg)
 
         if self.is_server:
@@ -94,11 +117,27 @@ class MqttS3MultiClientsCommManager(BaseCommunicationManager):
         topic = (
             self._topic_server_to_client(receiver) if self.is_server else self._topic_client_to_server(self.rank)
         )
+        if self.ref_wire:
+            self._send_ref_wire(msg, topic, params)
+            return
         if params is not None:
             key = f"{self.topic_prefix}_{msg.get_sender_id()}_{receiver}_{msg.get_type()}"
             url = self.store.write_model(key, params)
             msg.add_params(Message.MSG_ARG_KEY_MODEL_PARAMS_URL, url)
         self.mqtt.publish(topic, msg.to_json().encode())
+
+    def _send_ref_wire(self, msg: Message, topic: str, params) -> None:
+        """Reference contract: upload the pickled payload under
+        ``<topic>_<uuid>`` and publish JSON whose model_params is that key
+        (mqtt_s3_multi_clients_comm_manager.py:248 server / :283 client)."""
+        payload = {k: v for k, v in msg.get_params().items()
+                   if k != Message.MSG_ARG_KEY_MODEL_PARAMS}
+        if params is not None:
+            key = f"{topic}_{uuid.uuid4()}"
+            url = self.store.write_model(key, params)
+            payload[Message.MSG_ARG_KEY_MODEL_PARAMS] = key
+            payload[Message.MSG_ARG_KEY_MODEL_PARAMS_URL] = url
+        self.mqtt.publish(topic, json.dumps(payload).encode())
 
     # --- loop ------------------------------------------------------------
     def add_observer(self, observer: Observer) -> None:

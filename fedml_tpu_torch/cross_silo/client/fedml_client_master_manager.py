@@ -9,11 +9,13 @@ Uplink compression (``comm_compressor``: topk, eftopk, quantize, qsgd) runs
 at the upload through the engine's ``compress_upload`` (``client.compress``),
 the whole model as one flat vector (``utils/compression.py``); the server
 decompresses every arrival. The payload is a dict of tensors and a flat spec
-of names, shapes and dtypes. Over MQTT_S3 the npz codec
-(``serialization.py``, no pickle) cannot carry that spec, and the JAX
-package's own codec fails on its payload at the receiver (its treedef
-pickles on the way out and ``allow_pickle=False`` refuses it on the way
-in), so the port refuses ``comm_compressor`` with MQTT_S3 up front.
+of names, shapes and dtypes. Over a byte backend (MQTT_S3, MQTT_WEB3,
+MQTT_THETASTORE, TRPC, GRPC, MPI) the codecs (``serialization.py``, no
+pickle) cannot carry that spec, and the JAX package's own codecs fail on its
+payload at the receiver (ROADMAP.md, Queue 3, R6: over MQTT_S3 its treedef
+pickles on the way out and ``allow_pickle=False`` refuses it on the way in;
+over TRPC the spec's dtype-name array has no raw dtype), so the port refuses
+``comm_compressor`` with a byte backend up front.
 
 Every upload carries the client's telemetry delta (the spans, counters
 and histograms since its last upload, JSON) in the reserved header, as in
@@ -58,7 +60,7 @@ import numpy as np
 
 from ...core import telemetry as tel
 from ...core.distributed.communication.message import Message
-from ...core.distributed.fedml_comm_manager import FedMLCommManager
+from ...core.distributed.fedml_comm_manager import _BYTE_BACKENDS, FedMLCommManager
 from ...core.engine import compress_upload, refuse_chaos_knobs, run_local_round
 from ...core.privacy import (QuantSpec, WindowMember, clip_to_reference, masked_uplink_payload,
                              outbound_delta, privacy_from_args)
@@ -77,12 +79,15 @@ class ClientMasterManager(FedMLCommManager):
         self._comm_compressor = make_comm_compressor(args)
         # under secagg the masked uplink replaces the compressor (its payload
         # is a flat dict the codec carries)
-        if self._comm_compressor is not None and str(backend).upper() == "MQTT_S3" \
+        if self._comm_compressor is not None and str(backend).upper() in _BYTE_BACKENDS \
                 and not privacy_from_args(args).secagg:
+            # JAX's compressed payload fails on every byte backend (its spec
+            # is not a codec leaf: ROADMAP.md, Queue 3, R6); the port adds no
+            # compressed wire that JAX lacks
             raise NotImplementedError(
-                "comm_compressor over MQTT_S3: the npz codec cannot carry the compressed "
-                "payload's spec; compressed uplinks over a byte backend are not ported to "
-                "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+                f"comm_compressor over {str(backend).upper()}: the byte codecs cannot carry "
+                "the compressed payload's spec, in the JAX package too; compressed uplinks "
+                "run over INMEMORY only (see ROADMAP.md, Queue 3, R6)")
         super().__init__(args, comm, rank, size, backend)
         self.trainer_dist_adapter = trainer_dist_adapter
         self.num_rounds = int(getattr(args, "comm_round", 10))

@@ -64,7 +64,9 @@ from fedml_tpu.data import data_loader as jloader
 from fedml_tpu.data.dataset import ArrayDataset as JArrayDataset
 from fedml_tpu_torch.core import telemetry as tel
 from fedml_tpu_torch.core.distributed.communication.inmemory.broker import InMemoryBroker
+from fedml_tpu_torch.core.distributed.communication.ip_config import free_port_block
 from fedml_tpu_torch.core.distributed.communication.mqtt_s3.mqtt_transport import LocalMqttBroker
+from fedml_tpu_torch.core.distributed.fedml_comm_manager import _run_id_offset
 from fedml_tpu_torch.data import data_loader as tloader
 from fedml_tpu_torch.data.dataset import ArrayDataset as TArrayDataset
 from fedml_tpu_torch.models.convert import params_from_jax, params_to_jax
@@ -811,6 +813,9 @@ GATES = {
     "secure_aggregation_secagg": ("server", dict(secure_aggregation="secagg", backend="MQTT_S3")),
     "secure_aggregation_lsa": ("client", dict(secure_aggregation="lsa", backend="MQTT_S3")),
     "comm_compressor": ("client", dict(comm_compressor="eftopk", backend="MQTT_S3")),
+    # JAX's compressed payload fails on every byte backend (ROADMAP.md, Queue 3, R6)
+    **{f"comm_compressor_{b}": ("client", dict(comm_compressor="eftopk", backend=b))
+       for b in ("TRPC", "GRPC", "MPI", "MQTT_WEB3", "MQTT_THETASTORE")},
     "scenario_hierarchical": ("client", dict(scenario="hierarchical")),
     "link_probe_interval_s": ("server", dict(link_probe_interval_s=1.0)),
     "link_wan_health": ("server", dict(link_wan_health=True)),
@@ -824,9 +829,6 @@ GATES = {
     "chaos_split_kill_rank": ("server", dict(chaos_split_kill_rank=1)),
     "mqtt_host": ("client", dict(backend="MQTT_S3", mqtt_host="broker.example")),
     "s3_bucket": ("server", dict(backend="MQTT_S3", s3_bucket="bucket")),
-    "mqtt_s3_wire_fedml": ("server", dict(backend="MQTT_S3", mqtt_s3_wire="fedml")),
-    **{f"backend_{b}": ("server", dict(backend=b))
-       for b in ("GRPC", "MPI", "TRPC", "MQTT_WEB3", "MQTT_THETASTORE")},
 }
 
 # knobs of the resilience, privacy and secure-aggregation slices: each party
@@ -854,15 +856,27 @@ PORTED = {
     # the round-barrier secure fronts, by each of their four names
     **{f"secure_aggregation_{name}_{role}": (role, dict(secure_aggregation=name))
        for name in ("secagg", "sa", "lightsecagg", "lsa") for role in ("server", "client")},
+    # the message plane's other backends and the reference wire
+    # (tests/test_torch_{trpc,grpc,web3,ref_wire}.py run them)
+    "mqtt_s3_wire_fedml": ("server", dict(backend="MQTT_S3", mqtt_s3_wire="fedml",
+                                          mqtt_s3_bucket_dir="bucket")),
+    **{f"backend_{b}": ("server", dict(backend=b))
+       for b in ("GRPC", "MPI", "TRPC", "MQTT_WEB3", "MQTT_THETASTORE")},
 }
 
 
 def _party_args(gate, over, role, tmp_path):
     kw = dict(LR, run_id=f"tcs_gate_{gate}", rank=0 if role == "server" else 1, role=role,
-              backend="INMEMORY", using_gpu=False, object_store_dir=str(tmp_path))
+              backend="INMEMORY", using_gpu=False, object_store_dir=str(tmp_path),
+              cas_root=str(tmp_path / "cas"))
     kw.update(over)
     if "resilience_dir" in kw:
         kw["resilience_dir"] = str(tmp_path / kw["resilience_dir"])
+    if "mqtt_s3_bucket_dir" in kw:
+        kw["mqtt_s3_bucket_dir"] = str(tmp_path / kw["mqtt_s3_bucket_dir"])
+    if kw["backend"] in ("TRPC", "GRPC", "MPI"):  # the party's listener on a free port
+        key = "trpc_base_port" if kw["backend"] == "TRPC" else "grpc_base_port"
+        kw[key] = free_port_block(1) - kw["rank"] - _run_id_offset(kw["run_id"])
     if "fleet_trace" in kw:
         kw["fleet_trace"] = str(tmp_path / kw["fleet_trace"])
     args = fedml_tpu_torch.default_config("cross_silo", **kw)
@@ -876,7 +890,10 @@ def test_ported_resilience_knobs_build(gate, tmp_path):
     args, dataset, model = _party_args(gate, over, role, tmp_path)
     runner = fedml_tpu_torch.FedMLRunner(args, torch.device("cpu"), dataset, model)
     assert runner.runner is not None
+    manager = getattr(runner.runner, "server_manager", None) or runner.runner.client_manager
+    manager.com_manager.stop_receive_message()  # releases a listener's port
     InMemoryBroker.reset(f"tcs_gate_{gate}")
+    LocalMqttBroker.reset(args.run_id)
 
 
 @pytest.mark.parametrize("gate", list(GATES))

@@ -626,3 +626,57 @@ def test_masked_hierarchy_on_the_card_equals_the_honest_quantized_mean(cuda):
     q = sum(m.quantize_vector(d, hp.spec) for d in deltas)
     honest = m.dequantize_sum(m.center_ring(np.mod(q, hp.spec.ring), hp.spec), 4, hp.spec)
     assert np.array_equal(wire_vector(out).cpu().numpy(), honest)
+
+
+@pytest.mark.cuda
+def test_resnet56_state_dict_on_the_card_through_trpc_and_back(cuda):
+    """A ResNet-56 state dict on the card, sent by a port TRPC manager in
+    the wire layout, arrives on the CPU bit-equal: the layout converter and
+    the frame codec take it to the host, and the receiver's state dict is
+    made of CPU tensors."""
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    from fedml_tpu_torch.core.distributed.communication.ip_config import free_port_block
+    from fedml_tpu_torch.core.distributed.communication.message import Message
+    from fedml_tpu_torch.core.distributed.communication.trpc.trpc_comm_manager import (
+        TRPCCommManager)
+    from fedml_tpu_torch.core.distributed.fedml_comm_manager import (from_wire_layout,
+                                                                     to_wire_layout)
+    from fedml_tpu_torch.models.model_hub import create
+
+    args = SimpleNamespace(model="resnet56", dataset="cifar10")
+    state = {k: v.detach().clone() for k, v in
+             create(args, 10, seed=0, device="cuda").module.state_dict().items()}
+    assert all(torch.isfinite(v).all() for v in state.values())
+    assert sum(v.numel() * v.element_size() for v in state.values()) == 3_423_080
+    base = free_port_block(2)
+    m0 = TRPCCommManager(client_id=0, client_num=1, base_port=base)
+    m1 = TRPCCommManager(client_id=1, client_num=1, base_port=base)
+    got = []
+
+    class Inbox:
+        def receive_message(self, msg_type, msg):
+            got.append(msg)
+
+    m1.add_observer(Inbox())
+    t1 = threading.Thread(target=m1.handle_receive_message, daemon=True)
+    t1.start()
+    try:
+        msg = Message(3, 0, 1)
+        msg.add_params(Message.MSG_ARG_KEY_MODEL_PARAMS, to_wire_layout(state))
+        m0.send_message(msg)
+        deadline = time.monotonic() + 60
+        while not got and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert got
+        back = from_wire_layout(got[0].get(Message.MSG_ARG_KEY_MODEL_PARAMS))
+    finally:
+        m0.stop_receive_message()
+        m1.stop_receive_message()
+        t1.join(10)
+    assert sorted(back) == sorted(state)
+    for k, v in state.items():
+        assert back[k].device.type == "cpu" and back[k].dtype == v.dtype, k
+        assert torch.equal(back[k], v.cpu()), k

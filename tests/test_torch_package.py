@@ -403,3 +403,62 @@ def test_resilience_modules_load_no_jax_or_fedml_tpu(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "BAD []" in out.stdout, out.stdout
+
+
+MESSAGE_PLANE_MODULES = (
+    "fedml_tpu_torch.core.distributed.communication.trpc",
+    "fedml_tpu_torch.core.distributed.communication.trpc.trpc_comm_manager",
+    "fedml_tpu_torch.core.distributed.communication.web3",
+    "fedml_tpu_torch.core.distributed.communication.grpc.ref_wire",
+    "fedml_tpu_torch.core.distributed.communication.mqtt_s3.ref_bucket",
+    "fedml_tpu_torch.core.distributed.communication.comm_bench",
+    "fedml_tpu_torch.core.distributed.communication.ip_config",
+)
+
+
+def test_message_plane_modules_load_no_grpc_jax_or_ml_dtypes(tmp_path):
+    """TRPC, web3, the reference wire and the transport bench on their own:
+    importing them, a bf16 frame over a socketpair, a CAS write and read,
+    and a pickled ref-wire message leave no grpc, jax, ml_dtypes or
+    fedml_tpu module loaded (only grpc/grpc_comm_manager.py imports grpc)."""
+    code = (
+        "import importlib, socket, sys\n"
+        f"for m in {MESSAGE_PLANE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "from fedml_tpu_torch.core.distributed.communication.message import Message\n"
+        "from fedml_tpu_torch.core.distributed.communication.trpc import trpc_comm_manager as t\n"
+        "from fedml_tpu_torch.core.distributed.communication.web3 import LocalCASStore\n"
+        "from fedml_tpu_torch.core.distributed.communication.grpc import ref_wire as r\n"
+        "w = torch.arange(6.0).reshape(2, 3).bfloat16()\n"
+        "m = Message(3, 1, 0)\n"
+        "m.add_params(Message.MSG_ARG_KEY_MODEL_PARAMS, {'w': w})\n"
+        "a, b = socket.socketpair()\n"
+        "h, bufs = t.encode_frame(m)\n"
+        "a.sendall(h)\n"
+        "[a.sendall(memoryview(x).cast('B')) for x in bufs]\n"
+        "assert torch.equal(t.recv_frame(b).get(Message.MSG_ARG_KEY_MODEL_PARAMS)['w'], w)\n"
+        f"s = LocalCASStore({str(tmp_path / 'cas')!r})\n"
+        "assert torch.equal(s.read_model(s.write_model('k', {'w': w}))['w'], w)\n"
+        "back = r.decode_ref_message(r.encode_ref_message(m, 1))\n"
+        "assert torch.equal(back.get(Message.MSG_ARG_KEY_MODEL_PARAMS)['w'], w)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('grpc', 'jax', 'jaxlib', 'ml_dtypes', 'fedml_tpu'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("backend", ["TRPC", "GRPC", "MPI", "MQTT_WEB3", "MQTT_THETASTORE"])
+def test_cross_silo_entry_points_on_the_new_backends_raise_without_cuda(no_cuda, backend):
+    """A cross-silo party over each new backend defaults to CUDA and raises
+    before any backend starts."""
+    args = fedml_tpu_torch.default_config("cross_silo", role="server", rank=0, backend=backend,
+                                          dataset="synthetic", client_num_in_total=2,
+                                          client_num_per_round=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fedml_tpu_torch.run_cross_silo_server(args)
