@@ -5,8 +5,9 @@ algorithms, the cross-silo front, async federation with the compressed
 uplink, durable round state, quorum rounds and the chaos drills, private
 aggregation (windowed SecAgg and accounted DP), the round-barrier SecAgg
 and LightSecAgg fronts, and the edge->regional->root aggregation tree with
-its tier-masked SecAgg, and the message plane's other backends (TRPC,
-GRPC and MPI, MQTT_WEB3, the reference wire) on one CUDA card.
+its tier-masked SecAgg, the message plane's other backends (TRPC, GRPC
+and MPI, MQTT_WEB3, the reference wire) and the trust middleware (DP,
+attacks and defenses, contribution) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -122,10 +123,11 @@ exception):
    finite metrics, its client.compress / server.decompress spans and
    payload bytes, and both compressors timed on the card; (e) no flash
    launch;
-12. resilience, ResNet-56 at full width on the CIFAR-10 surrogate: (b)
+12. resilience on the CIFAR-10 surrogate, ResNet-56 at full width in (b),
+   ResNet-20 in the drills: (b)
    first, 16 silo threads over INMEMORY as a quorum federation in this
    process (QUORUM: 12 a round from 16 connected, quorum_frac 0.75, a 20 s
-   deadline under the adaptive rule, over-provisioning by 0.25, 4 rounds;
+   deadline under the adaptive rule, over-provisioning by 0.25, 3 rounds;
    silo 16 raises in round 0, silo 15 sleeps 8 s before each local round):
    the run ends within QUORUM_TIMEOUT_S with the dead party alone failed
    and no deadline timer alive; each round closes complete (12 kept) or
@@ -224,10 +226,29 @@ exception):
    grpc, grpc_wire='fedml', 4 silo threads; (e) comm_bench over INMEMORY,
    TRPC and GRPC at ResNet-56's state dict (3,423,080 bytes) and 64 MB,
    both on the card: round-trip ms and MB/s; (f) no flash launch;
-17. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
-   resilience, privacy, secure_fronts, hierarchy, message_plane and kernels
-   lines (JSON, the kernels line with the design each kernel ran on the
-   main path), the card line, and last the result line.
+17. the trust middleware at ResNet-56's full width on the CIFAR-10
+   surrogate: (b) run_simulation on the sp front, 16 clients, 2 rounds, the
+   first 4 Byzantine random, without a defense and with multi-Krum (which
+   must keep no attacker), test_acc and round s beside phase 7's round;
+   (a) on (b)'s first-round client list, every one of the 22 defense types'
+   three hooks on the card (ms a fold) against the same function on the CPU
+   in float64: the same kept clients, Krum and Bulyan selections, 3-sigma
+   and FoolsGold flags, the fold within TRUST_FOLD_TOL of the update (WeakDP
+   and CRFL: their draws' std within 1% of sigma); multi-Krum and Bulyan
+   keep no attacker; (c) cdp, ldp, nbafl and dp_clip through FedMLRunner,
+   2 rounds each: every draw's std within 1% of its frame's sigma, epsilon
+   equal to the host accountant stepped with the same scales; (d) the
+   vmapped front with cdp and the coordinate median: its fold bit-equal to
+   the hooks over the unstacked list, the fused fold without middleware,
+   R7's refusal; (e) 16 INMEMORY silos, one round of multi-Krum and cdp:
+   the pre-noise fold equal to the defense, clip and fold over the same
+   arrivals; (f) exact Shapley and LOO over 4 clients (efficiency to 1e-6),
+   GTG over 16 (its s); (g) reveal-labels recovers a batch's labels, DLG's
+   match loss falls 100x within 300 iterations; (h) no flash launch;
+18. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+   resilience, privacy, secure_fronts, hierarchy, message_plane, trust and
+   kernels lines (JSON, the kernels line with the design each kernel ran on
+   the main path), the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2320,18 +2341,20 @@ def async_phase() -> dict:
 # (a), (c), (d): the SIGKILL drills of fedml_tpu_torch/tools/resilience_drill.py,
 # each mode a process of its own on the card, deterministic (the tool sets
 # CUBLAS_WORKSPACE_CONFIG, cuDNN deterministic, TF32 off and
-# torch.use_deterministic_algorithms before CUDA initialises): ResNet-56 at
-# full width; sp 16 clients x 3 rounds under FedOpt (Adam), cs a server and
-# 4 silo threads x 3 rounds, cs_async one silo, a publish every 2 merges, 3
-# publishes, a snapshot after every merge
-RES_DRILL_MODEL = "resnet56"
+# torch.use_deterministic_algorithms before CUDA initialises): sp 16 clients
+# x 3 rounds under FedOpt (Adam), cs a server and 4 silo threads x 3 rounds,
+# cs_async one silo, a publish every 2 merges, 3 publishes, a snapshot after
+# every merge. ResNet-20, ResNet-56's widths at a third of its depth: with
+# phase 17 the whole smoke took 1,091 s on the H100, the drills at ResNet-56
+# 196 s of this phase's 256 s (and (b)'s fourth round 20 s)
+RES_DRILL_MODEL = "resnet20"
 RES_DRILL_TIMEOUT_S = 300
 # (b): phase 10's 16 silos as a quorum federation: 12 a round, quorum 0.75,
 # a 20 s deadline shortened by the adaptive rule, over-provisioning by 0.25
 # once health flags a straggler; silo 16 dies in round 0, silo 15 sleeps 8 s
 # before every local round
 QUORUM = dict(CROSS_SILO, client_num_in_total=16, client_num_per_round=12,
-              client_num_connected=16, comm_round=4, frequency_of_the_test=5,
+              client_num_connected=16, comm_round=3, frequency_of_the_test=5,
               quorum_frac=0.75, round_deadline_s=20.0, adaptive_deadline=True,
               overprovision_frac=0.25)
 QUORUM_DEAD, QUORUM_STRAGGLER, QUORUM_DELAY_S = 16, 15, 8.0
@@ -3879,6 +3902,465 @@ def message_plane_phase() -> dict:
     return res
 
 
+# -- phase 17: the trust middleware (DP, attacks and defenses, contribution) --------
+
+# (b)-(c): the sp front at ResNet-56's full width on the CIFAR-10 surrogate,
+# 2 rounds; (b) with 4 Byzantine-random attackers of the 16 clients
+TRUST_SP = dict(RESNET, comm_round=2)
+TRUST_ATTACK = dict(enable_attack=True, attack_type="byzantine", attack_mode="random",
+                    byzantine_client_num=4)
+# (a): each defense type's config on the 16 clients of (b)'s first round.
+# Bulyan needs n >= 4f + 3, so it is told f = 3 of the 4 attackers
+TRUST_DEFENSES = {
+    "krum": {}, "multi_krum": {}, "coordinate_wise_median": {},
+    "coordinate_wise_trimmed_mean": dict(beta=0.25), "rfa": {}, "geometric_median": {},
+    "norm_diff_clipping": dict(norm_bound=5.0), "weak_dp": dict(stddev=0.001), "foolsgold": {},
+    "3sigma": {}, "slsgd": dict(trim_param_b=4, alpha=0.1), "crfl": dict(crfl_sigma=0.01),
+    "bulyan": dict(byzantine_client_num=3), "cclip": dict(tau=10.0, bucket_size=2),
+    "cross_round": {}, "outlier_detection": {}, "residual_reweight": {},
+    "robust_learning_rate": dict(robust_threshold=8), "soteria": {},
+    "wbc": dict(client_idx=0, batch_idx=1), "3sigma_foolsgold": {}, "3sigma_geomedian": {},
+}
+# the card's fold against the same function on the CPU in float64 on the
+# same (f32) inputs: ||card - cpu|| / ||cpu - w_global||. The fold sums in
+# f32 on both (the bucketed engine); the card's medians and sorts are exact
+# picks, its products over D and Bulyan's distances to the median run in
+# float64 as the CPU's. 1e-4 is about 50x the f32 rounding of a 16-term sum
+# relative to one round's update.
+TRUST_FOLD_TOL = 1e-4
+# (c): a draw's std against its sigma over one model's 855,770 coordinates
+# (a standard error of 0.08%)
+TRUST_DP_STD_RTOL = 0.01
+TRUST_DP = {"cdp": dict(epsilon=500.0, clipping_norm=50.0),
+            "ldp": dict(epsilon=500.0, clipping_norm=50.0),
+            "nbafl": dict(epsilon=50.0, nbafl_C=5.0),
+            "dp_clip": dict(clipping_norm=5.0, noise_multiplier=1.0)}
+TRUST_DP_RUN = dict(TRUST_SP, client_num_per_round=4)  # 4 of 16 sampled: q = 0.25
+# (d): the vmapped front, one round, 16 clients
+TRUST_VMAP = dict(RESNET, backend="vmap", comm_round=1)
+# (f): exact Shapley and LOO over 4 clients (16 subsets), GTG over 16, the
+# metric test_acc on the first TRUST_GTG_TEST test images for GTG
+TRUST_SHAPLEY_CLIENTS = 4
+TRUST_GTG_TEST = 512
+TRUST_EFFICIENCY_TOL = 1e-6
+
+
+def _trust_reset() -> None:
+    """Every middleware singleton off again (an init without the knobs)."""
+    import fedml_tpu_torch as fedml
+
+    fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda"))
+
+
+def _trust_sp(over: dict, plain_round_s) -> tuple:
+    """(b): run_simulation on the sp front; the first round's client list as
+    the fold saw it (after the attack), the defense's selections a round,
+    round s from the fedavg spans."""
+    import math
+
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core.security.fedml_defender import FedMLDefender
+    from fedml_tpu_torch.ml.aggregator import DefaultServerAggregator
+
+    first, selections = [], []
+    aggregate = DefaultServerAggregator.aggregate
+
+    def recorded(self, pairs):
+        if not first:
+            first.append(list(pairs))
+        out = aggregate(self, pairs)
+        sel = getattr(FedMLDefender.get_instance().defender, "selected", None)
+        if sel is not None:
+            selections.append(list(sel))
+        return out
+
+    DefaultServerAggregator.aggregate = recorded
+    since = _last_span_seq()
+    try:
+        out = fedml.run_simulation(args=fedml.default_config(
+            "simulation", using_gpu=DEV == "cuda", **over))
+    finally:
+        DefaultServerAggregator.aggregate = aggregate
+    spans = _span_sums(since)
+    rounds = [spans[r]["fedavg.round"] for r in sorted(spans)]
+    check(len(rounds) == 2 and math.isfinite(out["test_loss"]),
+          f"sp run: rounds {rounds}, {out}")
+    return first[0], selections, {"test_acc": out["test_acc"], "test_loss": out["test_loss"],
+                                  "round_s": rounds, "plain_round_s_phase7": plain_round_s}
+
+
+def _trust_fold(name: str, pairs: list, w_global: dict) -> dict:
+    """One defense's three hooks on ``pairs``; what it kept and flagged."""
+    from fedml_tpu_torch.core.aggregation.agg_operator import FedMLAggOperator
+    from fedml_tpu_torch.core.security.fedml_defender import FedMLDefender
+
+    over = {**TRUST_SP, **TRUST_ATTACK, **TRUST_DEFENSES[name]}
+    d = FedMLDefender()
+    d.init(SimpleNamespace(**dict(over, enable_defense=True, defense_type=name)))
+    kept = d.defend_before_aggregation(pairs, w_global)
+    fold = d.defend_on_aggregation(kept, FedMLAggOperator.agg, w_global)
+    out = d.defend_after_aggregation(fold)
+    ids = {id(t): i for i, (_, t) in enumerate(pairs)}
+    defender = d.defender
+    flags = {"kept": [ids.get(id(t)) for _, t in kept],
+             "selected": getattr(defender, "selected", None)}
+    if hasattr(defender, "get_malicious_client_idxs"):
+        flags["three_sigma"] = defender.get_malicious_client_idxs()
+    fg = getattr(defender, "_foolsgold", defender)
+    if hasattr(fg, "memory"):
+        flags["foolsgold_zero"] = [w <= 0 for w in fg.weights]
+    return {"out": out, "kept_pairs": kept, "flags": flags}
+
+
+def _trust_noise_std(name: str, res: dict, pairs: list, w_global: dict) -> float:
+    """WeakDP's and CRFL's draws on the card: std over sigma."""
+    import torch
+
+    from fedml_tpu_torch.utils.pytree import tree_clip_by_global_norm
+
+    if name == "weak_dp":
+        diffs = [torch.cat([(o[k] - i[k]).reshape(-1) for k in i])
+                 for (_, o), (_, i) in zip(res["kept_pairs"], pairs)]
+        sigma = TRUST_DEFENSES[name]["stddev"]
+    else:
+        # the fold is the plain mean; CRFL clips it and adds its noise
+        from fedml_tpu_torch.core.aggregation.agg_operator import FedMLAggOperator
+
+        clean = tree_clip_by_global_norm(FedMLAggOperator.agg(SimpleNamespace(), pairs), 15.0)
+        diffs = [torch.cat([(res["out"][k] - clean[k]).reshape(-1) for k in clean])]
+        sigma = TRUST_DEFENSES[name]["crfl_sigma"]
+    return float(torch.cat(diffs).double().std()) / sigma
+
+
+def trust_defenses(pairs: list, w_global: dict) -> dict:
+    """(a): every defense type's fold on the card (timed, a fresh instance
+    after a warm-up one) against the same function on the CPU in float64."""
+    import torch
+
+    host = [(n, {k: v.detach().to("cpu", torch.float64) for k, v in t.items()})
+            for n, t in pairs]
+    host_g = {k: v.detach().to("cpu", torch.float64) for k, v in w_global.items()}
+    rows = {}
+    for name in TRUST_DEFENSES:
+        _trust_fold(name, pairs, w_global)  # warm-up: first calls of each kernel
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = _trust_fold(name, pairs, w_global)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref = _trust_fold(name, host, host_g)
+        cpu_s = time.perf_counter() - t0
+        row = {"ms": ms, "cpu_f64_s": cpu_s, **card["flags"]}
+        if name in ("weak_dp", "crfl"):
+            ratio = _trust_noise_std(name, card, pairs, w_global)
+            check(abs(ratio - 1) <= TRUST_DP_STD_RTOL, f"{name}: draws' std / sigma {ratio}")
+            row["std_over_sigma"] = ratio
+        else:
+            check(card["flags"] == ref["flags"],
+                  f"{name}: card {card['flags']} != CPU float64 {ref['flags']}")
+            got = {k: v.double().cpu() for k, v in card["out"].items()}
+            num = sum(float(((got[k] - ref["out"][k]) ** 2).sum()) for k in got) ** 0.5
+            den = sum(float(((ref["out"][k] - host_g[k]) ** 2).sum()) for k in got) ** 0.5
+            row["err_of_update"] = num / den
+            check(num <= TRUST_FOLD_TOL * den,
+                  f"{name}: the card's fold is {num / den:.3g} of the update from the CPU's")
+        rows[name] = row
+        say(f"  (a) {name}: {row}")
+    for name in ("multi_krum", "bulyan"):
+        check(min(rows[name]["selected"]) >= TRUST_ATTACK["byzantine_client_num"],
+              f"{name} kept an attacker: {rows[name]['selected']}")
+    return rows
+
+
+def trust_dp() -> dict:
+    """(c): each DP solution through init and FedMLRunner on the sp front;
+    each draw held to its frame's sigma, epsilon to the host accountant
+    stepped with the scale the facade accounted each round."""
+    import math
+
+    import torch
+
+    from fedml_tpu_torch.core.dp.budget_accountant.rdp_accountant import RDPAccountant
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+
+    out = {}
+    for sol, knobs in TRUST_DP.items():
+        args, dataset, model, runner = _fedavg_runner(
+            dict(TRUST_DP_RUN, enable_dp=True, dp_solution_type=sol, **knobs), DEV == "cuda")
+        dp = FedMLDifferentialPrivacy.get_instance()
+        frame = dp.frame
+        draws, scales = [], []
+
+        def local(grad, gen, extra=None, _f=frame.add_local_noise):
+            noised = _f(grad, gen, extra)
+            if sol == "dp_clip":  # the client clips its update and adds no noise
+                return noised
+            if sol == "nbafl":
+                clean = {k: v / torch.clamp(v.abs() / frame.big_c, min=1.0)
+                         for k, v in grad.items()}
+                sigma = frame._sigma_u(int(extra["local_sample_num"]))
+            else:
+                clean, sigma = grad, frame.ldp.sigma
+            draws.append(("local", sigma, torch.cat(
+                [(noised[k] - clean[k]).reshape(-1) for k in grad]).double().std().item()))
+            return noised
+
+        def central(g, gen, _f=frame.add_global_noise):
+            noised = _f(g, gen)
+            scales.append(frame.get_rdp_scale())  # what the facade accounts next
+            sigma = (frame.cdp.sigma if sol == "cdp" else
+                     frame.sigma() if sol == "dp_clip" else frame.sigma_d())
+            if sigma:
+                draws.append(("central", sigma, torch.cat(
+                    [(noised[k] - g[k]).reshape(-1) for k in g]).double().std().item()))
+            return noised
+
+        frame.add_local_noise, frame.add_global_noise = local, central
+        since = _last_span_seq()
+        runner.run()
+        spans = _span_sums(since)
+        hist = runner.runner.fl_trainer.metrics_history
+        check(draws and all(abs(s / sigma - 1) <= TRUST_DP_STD_RTOL for _, sigma, s in draws),
+              f"{sol}: draws' std against sigma {draws}")
+        if sol == "ldp":  # accounted in global_clip, at the mechanism's sigma
+            scales = [frame.get_rdp_scale()] * int(TRUST_DP_RUN["comm_round"])
+        check(len(scales) == int(TRUST_DP_RUN["comm_round"]), f"{sol}: accounted {scales}")
+        ref = RDPAccountant()
+        for scale in scales:
+            ref.step(noise_multiplier=scale, sample_rate=dp.sample_rate)
+        eps = dp.get_epsilon(1e-5)
+        check(eps == ref.get_epsilon(1e-5) and math.isfinite(eps),
+              f"{sol}: epsilon {eps} != the host accountant's {ref.get_epsilon(1e-5)}")
+        out[sol] = {"draws": len(draws), "kinds": sorted({k for k, _, _ in draws}),
+                    "std_over_sigma_max_dev": max(abs(s / sg - 1) for _, sg, s in draws),
+                    "sigma": sorted({sg for _, sg, _ in draws}), "epsilon": eps,
+                    "sample_rate": dp.sample_rate, "rdp_scales": scales,
+                    "test_acc": hist[-1]["test_acc"],
+                    "round_s": [spans[r]["fedavg.round"] for r in sorted(spans)]}
+    say(f"  (c) DP: {out}")
+    return out
+
+
+def trust_vmap() -> dict:
+    """(d): the vmapped front with cdp and the coordinate median: the fold
+    bit-equal to the hooks over the unstacked list, the fused path without
+    middleware, R7's refusal."""
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+    from fedml_tpu_torch.core.engine import StackedBucketedSink
+
+    folds = []
+    fold = StackedBucketedSink.fold
+
+    def recorded(self, round_idx, w_global, result):
+        gen = FedMLDifferentialPrivacy.get_instance().generators.get(DEV)
+        state = gen.get_state()
+        out = fold(self, round_idx, w_global, result)
+        folds.append((self._agg, self._agg.get_model_params(), result, out, state))
+        return out
+
+    StackedBucketedSink.fold = recorded
+    try:
+        over = dict(TRUST_VMAP, enable_dp=True, dp_solution_type="cdp", epsilon=500.0,
+                    clipping_norm=50.0, enable_defense=True, defense_type="coordinate_wise_median")
+        since = _last_span_seq()
+        args, dataset, model, runner = _fedavg_runner(over, DEV == "cuda")
+        runner.run()
+        with_mw = _span_totals(since, ("agg.aggregate_stacked", "fedavg.round"))
+        agg, w_before, result, got, state = folds[0]
+    finally:
+        StackedBucketedSink.fold = fold
+    # the same hooks over the unstacked list, the same draws
+    stacked, weights = result.stacked
+    FedMLDifferentialPrivacy.get_instance().generators.get(DEV).set_state(state)
+    agg.set_model_params(w_before)
+    lst = [(float(weights[i]), {k: v[i] for k, v in stacked.items()}) for i in range(len(weights))]
+    want = agg.on_after_aggregation(agg.aggregate(agg.on_before_aggregation(lst)))
+    check(all(torch_equal(got[k], want[k]) for k in want),
+          "(d) the vmapped fold differs from the hooks over the unstacked list")
+    check(with_mw["agg.aggregate_stacked"]["count"] == 0, f"(d) fused fold ran: {with_mw}")
+    _trust_reset()
+    since = _last_span_seq()
+    _, _, _, plain = _fedavg_runner(dict(TRUST_VMAP, client_num_per_round=4), DEV == "cuda")
+    plain.run()
+    fused = _span_totals(since, ("agg.aggregate_stacked",))["agg.aggregate_stacked"]["count"]
+    check(fused == 1, f"(d) without middleware the fused fold ran {fused} times")
+    refused = None
+    try:
+        fedml.run_simulation(backend="vmap", args=fedml.default_config(
+            "simulation", using_gpu=DEV == "cuda",
+            **dict(PARROT, backend="vmap", enable_dp=True, dp_solution_type="ldp")))
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "R7" in refused, f"(d) R7 not refused: {refused}")
+    res = {"fold_bit_equal_to_hooks": True, "hooked_round_s": with_mw["fedavg.round"]["s"],
+           "fused_folds_without_middleware": fused, "r7_refused": refused.split(":")[0]}
+    say(f"  (d) vmapped: {res}")
+    return res
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def trust_cross_silo() -> dict:
+    """(e): 16 INMEMORY silos, one round, multi-Krum and cdp: the pre-noise
+    fold equal to the defense, the clip and the fold applied to the same
+    arrivals."""
+    from fedml_tpu_torch.core.aggregation.agg_operator import FedMLAggOperator
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+    from fedml_tpu_torch.core.security.fedml_defender import FedMLDefender
+    from fedml_tpu_torch.utils.pytree import tree_clip_by_global_norm
+
+    over = dict(CROSS_SILO, comm_round=1, enable_defense=True, defense_type="multi_krum",
+                enable_dp=True, dp_solution_type="cdp", epsilon=500.0, clipping_norm=50.0)
+    fed = _Federation(over, "smoke_trust_cs")
+    agg = fed.server.aggregator.aggregator
+    seen = []
+    before, aggregate = agg.on_before_aggregation, agg.aggregate
+
+    def rec_before(lst):
+        out = before(lst)
+        seen.append(("arrivals", list(lst)))
+        return out
+
+    def rec_aggregate(lst):
+        out = aggregate(lst)
+        seen.append(("fold", out))
+        return out
+
+    agg.on_before_aggregation, agg.aggregate = rec_before, rec_aggregate
+    since = _last_span_seq()
+    wall = fed.run()
+    arrivals, fold = seen[0][1], seen[1][1]
+    d = FedMLDefender()
+    d.init(SimpleNamespace(**dict(over, client_num_per_round=16)))
+    kept = d.defend_before_aggregation(arrivals)
+    want = FedMLAggOperator.agg(agg.args, [(n, tree_clip_by_global_norm(t, 50.0)) for n, t in kept])
+    check(all(torch_equal(fold[k], want[k]) for k in want),
+          "(e) the cross-silo pre-noise fold differs from the defense over the arrivals")
+    rows = _cs_round_split(since)
+    res = {"silos": 16, "kept": sorted(d.defender.selected), "round_s": rows[0]["round_s"],
+           "wall_s": wall,
+           "epsilon": FedMLDifferentialPrivacy.get_instance().get_epsilon(1e-5)}
+    say(f"  (e) cross-silo: {res}")
+    return res
+
+
+def trust_contribution(pairs: list) -> dict:
+    """(f): exact Shapley and LOO over 4 honest clients, GTG over all 16,
+    the metric the aggregator's test_acc of the subset model."""
+    from fedml_tpu_torch.core.contribution import contribution_assessor_manager as cam
+    from fedml_tpu_torch.data.dataset import ArrayDataset
+    from fedml_tpu_torch.ml.aggregator import DefaultServerAggregator
+
+    args, dataset, model, _ = _fedavg_runner(dict(TRUST_SP, comm_round=1), DEV == "cuda")
+    agg = DefaultServerAggregator(model, args)
+    test = dataset[3]
+
+    def metric(params, data=test):
+        agg.set_model_params(params)
+        return float(agg.test(data, None, args)["test_acc"])
+
+    four = pairs[TRUST_ATTACK["byzantine_client_num"]:][:TRUST_SHAPLEY_CLIENTS]
+    t0 = time.perf_counter()
+    phi = cam.exact_shapley(four, metric, empty_metric=0.0)
+    shapley_s = time.perf_counter() - t0
+    full = metric(cam.weighted_average(four))
+    check(abs(sum(phi) - full) <= TRUST_EFFICIENCY_TOL,
+          f"(f) Shapley efficiency: sum {sum(phi)} != v(all) - v(empty) {full}")
+    loo = cam.leave_one_out(four, metric)
+    small = ArrayDataset(test.x[:TRUST_GTG_TEST], test.y[:TRUST_GTG_TEST])
+    t0 = time.perf_counter()
+    gtg = cam.gtg_shapley(pairs, lambda p: metric(p, small))
+    gtg_s = time.perf_counter() - t0
+    res = {"shapley_4": phi, "loo_4": loo, "v_all": full, "shapley_s": shapley_s,
+           "gtg_16": gtg, "gtg_s": gtg_s, "gtg_test_images": TRUST_GTG_TEST}
+    say(f"  (f) contribution: {res}")
+    return res
+
+
+def trust_inversion() -> dict:
+    """(g): reveal-labels on a batch's LR gradient and DLG on one image, on
+    the card."""
+    import torch
+
+    from fedml_tpu_torch.core.security.attack.gradient_inversion import (
+        dlg_reconstruct, reveal_labels_from_gradients)
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    w = (0.01 * torch.randn(10, 784, generator=gen, device=DEV)).requires_grad_()
+    x = torch.rand(8, 784, generator=gen, device=DEV)  # nonnegative pixels
+    y = torch.randint(0, 10, (8,), generator=gen, device=DEV)
+    loss = torch.nn.functional.cross_entropy(x @ w.T, y)
+    (grad,) = torch.autograd.grad(loss, [w])
+    mask = reveal_labels_from_gradients(grad)
+    present = torch.zeros(10, dtype=torch.bool, device=DEV)
+    present[y] = True
+    check(torch_equal(mask, present), f"(g) revealed {mask.tolist()} for labels {y.tolist()}")
+
+    d, c = 8, 4  # JAX's DLG test problem: one image of an LR
+    rng = torch.Generator(device=DEV).manual_seed(1)
+    p = (0.3 * torch.randn(d, c, generator=rng, device=DEV)).requires_grad_()
+    xt = torch.randn(1, d, generator=rng, device=DEV)
+
+    def grad_fn(params, xx, y_soft):
+        logp = torch.log_softmax(xx.reshape(xx.shape[0], -1) @ params, dim=-1)
+        return torch.autograd.grad(-(y_soft * logp).sum(-1).mean(), [params], create_graph=True)
+
+    observed = [g.detach() for g in grad_fn(p, xt, torch.eye(c, device=DEV)[:1])]
+    history = []
+    t0 = time.perf_counter()
+    rx, _ = dlg_reconstruct(grad_fn, p, observed, (1, d), c, iters=300, lr=0.1, history=history)
+    dlg_s = time.perf_counter() - t0
+    fall = history[0] / max(history[-1], 1e-30)
+    check(fall >= 100, f"(g) DLG's match loss fell {fall:.3g}x, not 100x")
+    corr = float(torch.corrcoef(torch.stack([rx.reshape(-1), xt.reshape(-1)]))[0, 1])
+    res = {"labels_revealed": int(mask.sum()), "dlg_loss_first": history[0],
+           "dlg_loss_last": history[-1], "dlg_fall": fall, "dlg_abs_corr": abs(corr),
+           "dlg_s": dlg_s}
+    say(f"  (g) inversion: {res}")
+    return res
+
+
+def trust_phase(fedavg: dict) -> dict:
+    """Phase 17: the trust middleware at ResNet-56's full width (see the
+    module docstring)."""
+    import torch
+
+    plain = fedavg["resnet56"]["round_s_mean_rounds_2_3"]
+    try:
+        pairs, _, attacked = _trust_sp(dict(TRUST_SP, **TRUST_ATTACK), plain)
+        _, selections, defended = _trust_sp(dict(TRUST_SP, **TRUST_ATTACK, enable_defense=True,
+                                                 defense_type="multi_krum"), plain)
+        check(len(selections) == 2 and all(min(s) >= 4 for s in selections),
+              f"(b) multi-Krum kept an attacker: {selections}")
+        defended["selected"] = selections
+        say(f"  (b) sp, byzantine random x4: no defense {attacked}, multi_krum {defended}")
+        # the first round's global: the seeded model both runs started from
+        _, _, model, _ = _fedavg_runner(dict(TRUST_SP, comm_round=1), DEV == "cuda")
+        res = {"sp": {"byzantine_no_defense": attacked, "byzantine_multi_krum": defended},
+               "defenses": trust_defenses(pairs, model.params)}
+        res["dp"] = trust_dp()
+        _trust_reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["vmap"] = trust_vmap()
+        _trust_reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["cross_silo"] = trust_cross_silo()
+        _trust_reset()
+        res["contribution"] = trust_contribution(pairs)
+        res["inversion"] = trust_inversion()
+    finally:
+        _trust_reset()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4125,7 +4607,23 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the message-plane phase launched flash kernels: {mp_launches}")
 
-    say("== 17. result")
+    say("== 17. the trust middleware: every defense's fold, attacks, DP, the vmapped and "
+        "cross-silo fronts, contribution, gradient inversion (ResNet-56)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    trust = trust_phase(fedavg)
+    trust_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the trust phase: {trust_launches}")
+    # (h) robust statistics, noise draws, ResNet training and the inversion
+    # attacks run no attention
+    check(all(n == 0 for n in trust_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the trust phase launched flash kernels: {trust_launches}")
+
+    say("== 18. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4150,6 +4648,8 @@ def main() -> int:
                                     **hierarchy}}), flush=True)
     print(json.dumps({"message_plane": {"card": card, "flash_launches": mp_launches,
                                         **message_plane}}), flush=True)
+    print(json.dumps({"trust": {"card": card, "flash_launches": trust_launches, **trust}}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,6 +33,11 @@ frames from ``trpc_base_port``) or "GRPC"/"MPI" (from ``grpc_base_port``;
 ``grpc_wire="fedml"`` for the reference's wire; needs ``grpc``);
 ``run_cross_silo_server(args)`` and ``run_cross_silo_client(args)`` are the
 one-liners.
+
+``init`` configures the trust middleware from the config, as the JAX
+package's does: DP (``enable_dp``), attacks (``enable_attack``), defenses
+(``enable_defense``) and contribution assessment (``enable_contribution``),
+run by the trainers' and aggregators' hooks on every front.
 """
 
 from __future__ import annotations
@@ -75,19 +80,21 @@ def _seed_everything(seed: int) -> None:
 
 
 def init(args: Optional[Any] = None, override: Optional[Dict[str, Any]] = None) -> Any:
-    """Parse the config, set up logging and seed the RNGs (Python, numpy,
-    torch), as the JAX package's ``init`` does. The middleware it would
-    start (attacks, defenses, DP, FHE, contribution assessment, mlops) and
-    multi-process runs are not ported: asking for any raises
-    NotImplementedError (ROADMAP.md, Queue 1)."""
-    from .core.alg_frame.server_aggregator import enabled_middleware
+    """Parse the config, set up logging, seed the RNGs (Python, numpy,
+    torch) and configure the trust middleware's singletons (attacker,
+    defender, DP) from ``args``, as the JAX package's ``init`` does
+    (``__init__.py:88-96``). FHE, mlops and multi-process runs are not
+    ported: asking for any raises NotImplementedError (ROADMAP.md, Queue 1)."""
+    from .core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+    from .core.security.fedml_attacker import FedMLAttacker
+    from .core.security.fedml_defender import FedMLDefender
 
     if args is None:
         args = load_arguments(override=override)
     elif override:
         for k, v in override.items():
             setattr(args, k, v)
-    on = enabled_middleware(args) + [f for f in ("using_mlops",) if getattr(args, f, False)]
+    on = [f for f in ("enable_fhe", "using_mlops") if getattr(args, f, False)]
     if int(getattr(args, "num_processes", 0) or 0) > 1:
         on.append("num_processes > 1")
     if on:
@@ -97,6 +104,9 @@ def init(args: Optional[Any] = None, override: Optional[Dict[str, Any]] = None) 
         level=logging.INFO,
         format="[fedml_tpu_torch] %(asctime)s %(levelname)s %(name)s: %(message)s")
     _seed_everything(int(getattr(args, "random_seed", 0)))
+    FedMLAttacker.get_instance().init(args)
+    FedMLDefender.get_instance().init(args)
+    FedMLDifferentialPrivacy.get_instance().init(args)
     return args
 
 

@@ -11,9 +11,11 @@ JAX peer takes. ``models/convert.py`` maps a state dict to the flax layout;
 the FedAvg path needs it only in tests until the message plane is ported
 (ROADMAP.md, Queue 1).
 
-The hooks keep their place in the round (poison before training; local DP
-noise then FHE after), but local DP, attacks and FHE are not ported yet:
-enabling any of them raises NotImplementedError (ROADMAP.md, Queue 1).
+The hooks keep their place in the round (JAX ``client_trainer.py:63-101``):
+before training the round's global model is kept as DP-Clip's anchor and a
+data-poisoning attack may replace the data; after it the local DP frame
+noises the update. FHE is not ported: its branch raises
+NotImplementedError (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -21,7 +23,12 @@ from __future__ import annotations
 import abc
 from typing import Any
 
-_HOOK_FLAGS = ("enable_dp", "enable_attack", "enable_fhe")
+
+def refuse_fhe(args: Any) -> None:
+    """FHE's object leaves are not ported: refuse the knob."""
+    if getattr(args, "enable_fhe", False):
+        raise NotImplementedError(
+            "enable_fhe: FHE is not ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
 
 
 class ClientTrainer(abc.ABC):
@@ -66,18 +73,20 @@ class ClientTrainer(abc.ABC):
         """Install parameters received from the server."""
 
     # --- hook wiring (reference client_trainer.py:37-82) ----------------
-    def _check_hooks(self, args) -> None:
-        if not self.enable_hooks:
-            return
-        on = [f for f in _HOOK_FLAGS if getattr(args, f, False)]
-        if on:
-            raise NotImplementedError(
-                f"{', '.join(on)}: local DP, attack and FHE hooks are not ported "
-                "to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
-
     def on_before_local_training(self, train_data, device, args) -> Any:
-        """Data/model poisoning hooks (reference :37-43)."""
-        self._check_hooks(args)
+        """Data poisoning (reference :37-43); keeps the round's global
+        model as DP-Clip's anchor."""
+        if not self.enable_hooks:
+            return train_data
+        from ..dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+        from ..security.fedml_attacker import FedMLAttacker
+
+        refuse_fhe(args)
+        if FedMLDifferentialPrivacy.get_instance().is_local_dp_enabled():
+            self._dp_global_params = self.get_model_params()
+        attacker = FedMLAttacker.get_instance()
+        if attacker.is_data_poisoning_attack() and attacker.is_to_poison_data():
+            return attacker.poison_data(train_data)
         return train_data
 
     @abc.abstractmethod
@@ -85,8 +94,17 @@ class ClientTrainer(abc.ABC):
         """Run local optimization; must leave updated params in the model."""
 
     def on_after_local_training(self, train_data, device, args) -> None:
-        """Local DP noise then FHE encryption (reference :59-82)."""
-        self._check_hooks(args)
+        """Local DP noise (reference :59-82); FHE would follow it."""
+        if not self.enable_hooks:
+            return
+        from ..dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+
+        refuse_fhe(args)
+        dp = FedMLDifferentialPrivacy.get_instance()
+        if dp.is_local_dp_enabled():
+            extra = {"global_model_params": getattr(self, "_dp_global_params", None),
+                     "local_sample_num": self.local_sample_number or None}
+            self.set_model_params(dp.add_local_noise(self.get_model_params(), extra))
 
     def test(self, test_data, device, args):  # pragma: no cover - optional
         return None

@@ -1,28 +1,31 @@
-"""Abstract server aggregator: counterpart of
-``fedml_tpu/core/alg_frame/server_aggregator.py`` (reference
+"""Abstract server aggregator with the defense, DP and contribution hooks:
+counterpart of ``fedml_tpu/core/alg_frame/server_aggregator.py`` (reference
 ``python/fedml/core/alg_frame/server_aggregator.py:14``).
 
-The hooks keep their place around the fold (``on_before_aggregation``,
-``aggregate``, ``on_after_aggregation``, then ``assess_contribution``), but
-the middleware they call (model attacks, defenses, DP, FHE, contribution
-assessment) is not ported yet: enabling any of it raises
-NotImplementedError (ROADMAP.md, Queue 1). With none enabled the hooks pass
-the client list and the folded model through unchanged, as the JAX
-package's do.
+Hook order as in the JAX package (``:41-124``): ``on_before_aggregation``
+(model attack, defense screening, the DP frame's clip), ``aggregate``
+(defense-wrapped), ``on_after_aggregation`` (central DP noise, the
+defense's post-processing), then ``assess_contribution``. FHE is not
+ported: with ``enable_fhe`` the hooks raise NotImplementedError
+(ROADMAP.md, Queue 1). With no middleware on they pass the client list and
+the folded model through unchanged.
+
+Contribution assessment departs from the JAX package (ROADMAP.md, Queue 3,
+R9): JAX's metric ignores the subset model it is given, its test returns a
+dict the valuations cannot subtract, and on the sp front it finds the
+round's client list only when a model attack put it there. Here
+``on_before_aggregation`` records the screened list whenever contribution
+is on, and the metric is ``test_acc`` of the subset model.
 """
 
 from __future__ import annotations
 
 import abc
+import logging
 from typing import Any, List, Tuple
 
-_HOOK_FLAGS = ("enable_attack", "enable_defense", "enable_dp", "enable_fhe",
-               "enable_contribution")
-
-
-def enabled_middleware(args: Any) -> List[str]:
-    """The middleware flags ``args`` turns on."""
-    return [f for f in _HOOK_FLAGS if getattr(args, f, False)]
+from .client_trainer import refuse_fhe
+from .context import Context
 
 
 class ServerAggregator(abc.ABC):
@@ -45,31 +48,95 @@ class ServerAggregator(abc.ABC):
     def set_model_params(self, model_parameters) -> None:
         ...
 
-    def _check_hooks(self) -> None:
-        on = enabled_middleware(self.args) if self.enable_hooks else []
-        if on:
-            raise NotImplementedError(
-                f"{', '.join(on)}: the server's attack, defense, DP, FHE and contribution "
-                "hooks are not ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
-
+    # --- hooks (reference server_aggregator.py:44-134) ----------------------
     def on_before_aggregation(
         self, raw_client_model_or_grad_list: List[Tuple[float, Any]]
     ) -> List[Tuple[float, Any]]:
-        self._check_hooks()
-        return raw_client_model_or_grad_list
+        if not self.enable_hooks:
+            return raw_client_model_or_grad_list
+        from ..dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+        from ..security.fedml_attacker import FedMLAttacker
+        from ..security.fedml_defender import FedMLDefender
+
+        refuse_fhe(self.args)
+        lst = raw_client_model_or_grad_list
+        attacker = FedMLAttacker.get_instance()
+        if attacker.is_model_attack():
+            lst = attacker.attack_model(lst, extra_auxiliary_info=self.get_model_params())
+            Context().add(Context.KEY_CLIENT_MODEL_LIST, lst)
+        defender = FedMLDefender.get_instance()
+        if defender.is_defense_enabled():
+            lst = defender.defend_before_aggregation(lst,
+                                                     extra_auxiliary_info=self.get_model_params())
+        dp = FedMLDifferentialPrivacy.get_instance()
+        if dp.is_dp_enabled():
+            # always through the frame: it feeds the round's statistics
+            # (NbAFL's m, DPClip's qW), steps the LDP accountant, and clips
+            # only if a norm is configured
+            lst = dp.global_clip(lst)
+        if getattr(self.args, "enable_contribution", False):
+            Context().add(Context.KEY_CLIENT_MODEL_LIST, lst)
+        return lst
 
     def aggregate(self, raw_client_model_or_grad_list: List[Tuple[float, Any]]):
+        """Defense-wrapped aggregation (reference :75-88)."""
         from ..aggregation.agg_operator import FedMLAggOperator
 
-        self._check_hooks()
+        if self.enable_hooks:
+            from ..security.fedml_defender import FedMLDefender
+
+            defender = FedMLDefender.get_instance()
+            if defender.is_defense_enabled():
+                return defender.defend_on_aggregation(
+                    raw_client_model_or_grad_list,
+                    base_aggregation_func=FedMLAggOperator.agg,
+                    extra_auxiliary_info=self.get_model_params())
         return FedMLAggOperator.agg(self.args, raw_client_model_or_grad_list)
 
     def on_after_aggregation(self, aggregated_model_or_grad: Any) -> Any:
-        self._check_hooks()
+        if not self.enable_hooks:
+            return aggregated_model_or_grad
+        from ..dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+        from ..security.fedml_defender import FedMLDefender
+
+        refuse_fhe(self.args)
+        dp = FedMLDifferentialPrivacy.get_instance()
+        if dp.is_central_dp_enabled():
+            logging.info("-----add central DP noise ----")
+            aggregated_model_or_grad = dp.add_global_noise(aggregated_model_or_grad)
+        defender = FedMLDefender.get_instance()
+        if defender.is_defense_enabled():
+            aggregated_model_or_grad = defender.defend_after_aggregation(aggregated_model_or_grad)
         return aggregated_model_or_grad
 
+    def contribution_metric(self, params) -> float:
+        """``test_acc`` of ``params`` on the test data in Context; the
+        aggregator's own model is put back afterwards."""
+        saved = self.get_model_params()
+        self.set_model_params(params)
+        try:
+            metrics = self.test(Context().get(Context.KEY_TEST_DATA), None, self.args)
+        finally:
+            self.set_model_params(saved)
+        return float(metrics["test_acc"]) if isinstance(metrics, dict) else float(metrics)
+
     def assess_contribution(self) -> None:
-        self._check_hooks()
+        """Reference :105-134: Shapley or LOO valuation after the fold."""
+        if not self.enable_hooks:
+            return
+        from ..contribution.contribution_assessor_manager import ContributionAssessorManager
+
+        # one manager for the aggregator's lifetime: the multi-round
+        # accumulation needs the history
+        manager = getattr(self, "_contribution_manager", None)
+        if manager is None:
+            manager = self._contribution_manager = ContributionAssessorManager(self.args)
+        if not manager.is_enabled():
+            return
+        model_list = Context().get(Context.KEY_CLIENT_MODEL_LIST)
+        if model_list is None:
+            return
+        manager.run(model_list, self.get_model_params(), metric_fn=self.contribution_metric)
 
     @abc.abstractmethod
     def test(self, test_data, device, args):

@@ -1,4 +1,5 @@
-"""Differential privacy: the RDP budget accountant behind the accounted DP
-fold (``core/privacy/dp.py``). The DP middleware of the JAX package's
-``fedml_tpu/core/dp`` (``fedml_differential_privacy.py``, ``frames``,
-``mechanisms``) is not ported (ROADMAP.md, Queue 1)."""
+"""Differential privacy: the DP middleware (``fedml_differential_privacy.py``
+with its ``frames`` and ``mechanisms``, turned on by ``enable_dp``) and the
+RDP budget accountant it shares with the accounted DP fold
+(``core/privacy/dp.py``, ``privacy: dp``). The two knobs are independent, as
+in the JAX package."""

@@ -231,6 +231,19 @@ class RemoteCommStrategy(ClientExecutionStrategy):
             "manager's handlers, not a blocking round loop")
 
 
+def middleware_wants_client_trees() -> bool:
+    """True when a model attack, a defense or DP is on: the clients' state
+    dicts must go through the alg-frame hooks one by one instead of the
+    fused stacked fold (JAX ``round_engine.py:271-284``)."""
+    from ..dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+    from ..security.fedml_attacker import FedMLAttacker
+    from ..security.fedml_defender import FedMLDefender
+
+    return (FedMLAttacker.get_instance().is_model_attack()
+            or FedMLDefender.get_instance().is_defense_enabled()
+            or FedMLDifferentialPrivacy.get_instance().is_dp_enabled())
+
+
 class AggregationSink(abc.ABC):
     """Where one round's client results fold into the next global model."""
 
@@ -271,10 +284,13 @@ class HookedAverageSink(AggregationSink):
 
 class StackedBucketedSink(AggregationSink):
     """The vmapped front's fold: the stacked megabatch goes straight into
-    the bucketed engine's ``aggregate_stacked``, then the after-aggregation
-    hook. The JAX package unstacks the clients for the per-client hooks when
-    an attack, defense or DP middleware is on; that middleware is not ported,
-    and asking for it raises in the hook, as at every other."""
+    the bucketed engine's fused ``aggregate_stacked`` unless an attack,
+    defense, DP or contribution middleware needs the clients one by one;
+    then they are unstacked (views of the stack, weights the normalised
+    fractions) and run through the hook pipeline (JAX
+    ``round_engine.py:326-356``). The after-aggregation hook runs on both
+    branches. Contribution is assessed after the fold, as on the sp front
+    (JAX's vmapped front never assesses it; ROADMAP.md, Queue 3, R9)."""
 
     name = "stacked_bucketed"
 
@@ -285,8 +301,18 @@ class StackedBucketedSink(AggregationSink):
         from ..aggregation.bucketed import get_engine
 
         stacked, weights = result.stacked
-        new_w = get_engine().aggregate_stacked(stacked, weights)
-        return self._agg.on_after_aggregation(new_w)
+        contribution = bool(getattr(self._agg.args, "enable_contribution", False))
+        if self._agg.enable_hooks and (middleware_wants_client_trees() or contribution):
+            w_locals = [(float(weights[k]), {name: v[k] for name, v in stacked.items()})
+                        for k in range(len(weights))]
+            lst = self._agg.on_before_aggregation(w_locals)
+            new_w = self._agg.aggregate(lst)
+        else:
+            new_w = get_engine().aggregate_stacked(stacked, weights)
+        new_w = self._agg.on_after_aggregation(new_w)
+        if contribution:
+            self._agg.assess_contribution()
+        return new_w
 
 
 # ---------------------------------------------------------------------------

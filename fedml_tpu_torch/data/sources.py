@@ -121,3 +121,41 @@ def load_synthetic_lr(alpha: float, beta: float, n_clients: int, seed: int = 0, 
         y = np.argmax(logits + rng.gumbel(size=logits.shape), axis=1).astype(np.int64)
         out.append((x, y))
     return out, classes
+
+
+def edge_case_pickle_path(cache_dir: str) -> str:
+    """Where the reference's southwest edge-case pool sits in the data cache:
+    one definition, shared with the edge-case attack's check."""
+    return os.path.join(cache_dir or "", "edge_case_examples",
+                        "southwest_cifar10", "southwest_images_new_train.pkl")
+
+
+def load_edge_case_examples(seed: int = 0, n: int = 256, shape=(28, 28, 1),
+                            target_class: int = 0, cache_dir: str = ""):
+    """Edge-case backdoor pool (reference: data/edge_case_examples/, Wang et
+    al. 2020): the reference's southwest-airplane pickle (a [N, 32, 32, 3]
+    uint8 array) when a user put it in ``cache_dir``, read through the
+    restricted unpickler, every sample labelled ``target_class``; else
+    high-contrast corner-patch patterns far from the benign data, all
+    labelled ``target_class``. Nothing is downloaded."""
+    pkl = edge_case_pickle_path(cache_dir)
+    if cache_dir and os.path.exists(pkl):
+        import pickle
+
+        from ..core.distributed.communication.grpc.ref_wire import unpickle_ref_tree
+
+        try:
+            with open(pkl, "rb") as f:
+                arr = np.asarray(unpickle_ref_tree(f.read(), encoding="bytes"))
+            x = arr.astype(np.float32) / 255.0
+            if n and len(x) > n:
+                x = x[np.random.default_rng(seed).choice(len(x), n, replace=False)]
+            log.info("edge_case_examples: loaded the southwest pool from %s (%d samples)",
+                     pkl, len(x))
+            return x, np.full(len(x), target_class, np.int64)
+        except (OSError, ValueError, KeyError, pickle.UnpicklingError) as e:
+            log.warning("edge_case_examples: %s unreadable (%r); using the surrogate", pkl, e)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 0.1, (n,) + tuple(shape)).astype(np.float32)
+    x[:, : shape[0] // 4, : shape[1] // 4, ...] = 3.0  # trigger patch
+    return x, np.full(n, target_class, np.int64)

@@ -60,6 +60,22 @@ def _is_kernel(name: str) -> bool:
     return name.rsplit(".", 1)[-1] == "weight"
 
 
+def flax_name(name: str) -> str:
+    """The flax path of a state-dict name, ``/``-joined
+    (``Dense_0.weight`` -> ``Dense_0/kernel``)."""
+    return "/".join(_flax_path(name))
+
+
+def flax_leaf(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A state-dict leaf in its flax layout (a view)."""
+    return _weight_to_flax(t) if _is_kernel(name) and t.ndim in (2, 4) else t
+
+
+def torch_leaf(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`flax_leaf`, contiguous."""
+    return (_kernel_to_torch(t) if _is_kernel(name) and t.ndim in (2, 4) else t).contiguous()
+
+
 def wire_order(state: Mapping[str, torch.Tensor]) -> list:
     """The state dict's names in the order the JAX package flattens the
     flax tree: sorted by flax path."""

@@ -18,9 +18,9 @@ clients in flight.
 
 A legacy front in the JAX package: per-arrival mixing has no round boundary
 and no buffer, so neither the engine's loop nor its async sinks describe
-it; the maintained async path is the buffered one (``async_rounds``). The
-JAX package disables cohort defenses around each arrival; the port's
-``init`` refuses ``enable_defense`` (and every other middleware) up front.
+it; the maintained async path is the buffered one (``async_rounds``).
+Cohort defenses are off around each arrival, with one warning (JAX
+``async_fedavg.py:55-90``); the DP and attack hooks still run.
 """
 
 from __future__ import annotations
@@ -37,6 +37,38 @@ log = logging.getLogger(__name__)
 
 
 class AsyncFedAvgAPI(FedAvgAPI):
+    _warned_agg_defense = False
+
+    class _defender_disabled:
+        """Cohort defenses (aggregation rules, paired before/after
+        re-centering like CClip's) are undefined on one arrival: the
+        defender is off around the per-arrival hooks; DP and attacker hooks
+        still run."""
+
+        def __enter__(self):
+            from ...core.security.fedml_defender import FedMLDefender
+
+            self.defender = FedMLDefender.get_instance()
+            self.was_enabled = self.defender.is_enabled
+            self.defender.is_enabled = False
+            return self
+
+        def __exit__(self, *exc):
+            self.defender.is_enabled = self.was_enabled
+            return False
+
+    def _warn_defenses_unsupported(self) -> None:
+        if AsyncFedAvgAPI._warned_agg_defense:
+            return
+        from ...core.security.fedml_defender import FedMLDefender
+
+        defender = FedMLDefender.get_instance()
+        if defender.is_defense_enabled():
+            log.warning("async FedAvg mixes one update at a time: cohort defense %s cannot "
+                        "apply to single arrivals and is DISABLED for this run",
+                        type(defender.defender).__name__)
+        AsyncFedAvgAPI._warned_agg_defense = True
+
     def train(self) -> Dict[str, float]:
         args = self.args
         w_global = self.model_trainer.get_model_params()
@@ -79,17 +111,19 @@ class AsyncFedAvgAPI(FedAvgAPI):
             )
             w_local = client.train(dispatched_w.pop(ev_seq))
             # each arrival is one aggregation event between the alg-frame
-            # hooks (which refuse the middleware the port does not have)
+            # hooks, cohort defenses off
+            self._warn_defenses_unsupported()
             sample_num = float(self.train_data_local_num_dict[client_idx])
-            hooked = self.aggregator.on_before_aggregation([(sample_num, w_local)])
-            if not hooked:
-                dispatch(int(rng.randint(n_total)), now)
-                continue
-            w_local = hooked[0][1]
-            staleness = version - started_version
-            a_t = alpha * (staleness + 1.0) ** (-poly_a)
-            w_global = {k: (1.0 - a_t) * g + a_t * w_local[k] for k, g in w_global.items()}
-            w_global = self.aggregator.on_after_aggregation(w_global)
+            with self._defender_disabled():
+                hooked = self.aggregator.on_before_aggregation([(sample_num, w_local)])
+                if not hooked:
+                    dispatch(int(rng.randint(n_total)), now)
+                    continue
+                w_local = hooked[0][1]
+                staleness = version - started_version
+                a_t = alpha * (staleness + 1.0) ** (-poly_a)
+                w_global = {k: (1.0 - a_t) * g + a_t * w_local[k] for k, g in w_global.items()}
+                w_global = self.aggregator.on_after_aggregation(w_global)
             version += 1
             processed += 1
             if processed % in_flight == 0:

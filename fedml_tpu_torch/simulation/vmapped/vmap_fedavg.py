@@ -12,7 +12,11 @@ batch count to the cohort's largest with zero index rows and zero masks, so
 non-IID shards of any size batch together. As in the JAX package, the
 shuffle seed of a client is ``random_seed + k`` with ``k`` its position in
 the cohort (not its id), so every round repeats the same shuffles, and the
-server rule is the plain sample-weighted fold (no FedOpt step).
+server rule is the plain sample-weighted fold (no FedOpt step). With an
+attack, defense, DP or contribution middleware on, the fold unstacks the
+clients for the server's hooks and assesses contribution after it
+(``StackedBucketedSink``); the client-side middleware is refused
+(:func:`refuse_client_hooks`).
 """
 
 from __future__ import annotations
@@ -41,8 +45,32 @@ def _pad(a: np.ndarray, n: int, axis: int = 0) -> np.ndarray:
     return np.concatenate([a, np.zeros(shape, a.dtype)], axis=axis)
 
 
+def refuse_client_hooks(args: Any) -> None:
+    """The vmapped front trains every client in one program and runs no
+    client hook, in the JAX package too (its ``VmappedMegabatchStrategy``
+    never calls ``on_before_local_training`` or ``on_after_local_training``):
+    JAX draws no local noise for ldp, nbafl or dp_clip and poisons no data
+    there, while its LDP accountant still counts the noise. The port refuses
+    those knobs before any round (ROADMAP.md, Queue 3, R7). Server-side
+    middleware (cdp, model attacks, every defense) runs."""
+    from ...core.dp.fedml_differential_privacy import LOCAL_SOLUTIONS, dp_solution
+    from ...core.security.fedml_attacker import DATA_ATTACKS, attack_type
+
+    bad = []
+    if dp_solution(args) in LOCAL_SOLUTIONS:
+        bad.append(f"dp_solution_type={dp_solution(args)!r}")
+    if attack_type(args) in DATA_ATTACKS:
+        bad.append(f"attack_type={attack_type(args)!r}")
+    if bad:
+        raise ValueError(
+            f"{', '.join(bad)}: the vmapped front runs no client hook, so this client-side "
+            "middleware would never act (the JAX package skips it silently and still "
+            "accounts LDP noise it never drew; ROADMAP.md, Queue 3, R7). Use backend 'sp'.")
+
+
 class VmapFedAvgAPI:
     def __init__(self, args: Any, device: Any, dataset, model):
+        refuse_client_hooks(args)
         self.args = args
         self.device = device
         [

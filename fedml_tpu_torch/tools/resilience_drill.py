@@ -1,7 +1,7 @@
 """The SIGKILL drills of durable round state, one process a run.
 
     python -m fedml_tpu_torch.tools.resilience_drill DRILL MODE DIR \\
-        [--device cuda|cpu] [--model lr|resnet56] [--report FILE]
+        [--device cuda|cpu] [--model lr|resnet20] [--report FILE]
 
 ``DRILL`` is one of three federations, each with its round store in ``DIR``
 (``resilience_dir``):
@@ -25,11 +25,11 @@ compares two).
 ``--model lr`` (the default) is the JAX package's drills (``tests/
 _resilience_sp_run.py``, ``_resilience_cs_cluster.py``, ``_async_buffer_run.py``):
 LR on the synthetic set; ``sp`` 4 clients, 2 a round, 4 rounds; ``cs`` 3
-silos, 4 rounds; ``cs_async`` 3 publishes. ``--model resnet56`` is ResNet-56
-at full width on the CIFAR-10 surrogate (batch 128, SGD lr 0.05, momentum
-0.9, wd 5e-4): ``sp`` 16 clients all in every round under FedOpt (Adam,
-server lr 1e-3, so a server state is persisted), 3 rounds; ``cs`` 4 silos,
-3 rounds; ``cs_async`` 3 publishes.
+silos, 4 rounds; ``cs_async`` 3 publishes. ``--model resnet20`` is
+ResNet-56's widths at ResNet-20's depth on the CIFAR-10 surrogate (batch
+128, SGD lr 0.05, momentum 0.9, wd 5e-4): ``sp`` 16 clients all in every
+round under FedOpt (Adam, server lr 1e-3, so a server state is persisted),
+3 rounds; ``cs`` 4 silos, 3 rounds; ``cs_async`` 3 publishes.
 
 Every run is deterministic: ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA
 initialises, cuDNN deterministic without autotuning, TF32 off and
@@ -60,7 +60,7 @@ KILL_AFTER_MERGES = 3   # first merge of window v1: the buffer holds one pending
 PARTY_TIMEOUT_S = 600
 
 _LR = dict(model="lr", dataset="synthetic", random_seed=0, epochs=1, batch_size=16)
-_RESNET56 = dict(model="resnet56", dataset="cifar10", data_cache_dir="", random_seed=0,
+_RESNET20 = dict(model="resnet20", dataset="cifar10", data_cache_dir="", random_seed=0,
                  partition_method="hetero", partition_alpha=0.5, epochs=1, batch_size=128,
                  client_optimizer="sgd", learning_rate=0.05, momentum=0.9, weight_decay=5e-4)
 # (drill, model) -> the federation's knobs
@@ -68,12 +68,12 @@ CONFIGS: Dict[tuple, Dict[str, Any]] = {
     ("sp", "lr"): dict(_LR, comm_round=4, client_num_in_total=4, client_num_per_round=2),
     ("cs", "lr"): dict(_LR, comm_round=4, client_num_in_total=3, client_num_per_round=3),
     ("cs_async", "lr"): dict(_LR, comm_round=3, client_num_in_total=1, client_num_per_round=1),
-    ("sp", "resnet56"): dict(_RESNET56, comm_round=3, client_num_in_total=16,
+    ("sp", "resnet20"): dict(_RESNET20, comm_round=3, client_num_in_total=16,
                              client_num_per_round=16, federated_optimizer="FedOpt",
                              server_optimizer="adam", server_lr=1e-3),
-    ("cs", "resnet56"): dict(_RESNET56, comm_round=3, client_num_in_total=4,
+    ("cs", "resnet20"): dict(_RESNET20, comm_round=3, client_num_in_total=4,
                              client_num_per_round=4),
-    ("cs_async", "resnet56"): dict(_RESNET56, comm_round=3, client_num_in_total=1,
+    ("cs_async", "resnet20"): dict(_RESNET20, comm_round=3, client_num_in_total=1,
                                    client_num_per_round=1),
 }
 _ASYNC = dict(async_rounds=True, async_publish_k=2, async_staleness_exponent=0.5,
@@ -241,7 +241,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("mode", choices=MODES)
     p.add_argument("dir")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    p.add_argument("--model", choices=("lr", "resnet56"), default="lr")
+    p.add_argument("--model", choices=("lr", "resnet20"), default="lr")
     p.add_argument("--report", default=None)
     a = p.parse_args(argv)
     deterministic()

@@ -34,6 +34,26 @@ class LLMClientTrainer(ClientTrainer):
         super().__init__(self.llm, args)
         self.llm._build(self.llm.init_params())
 
+    # --- hooks ------------------------------------------------------------
+    def _refuse_middleware(self, args: Any) -> None:
+        """The trust middleware works on state dicts of tensors; this client
+        exchanges nested numpy adapter dicts, so it keeps refusing the client
+        middleware (ROADMAP.md, Queue 1)."""
+        if not self.enable_hooks:
+            return
+        on = [f for f in ("enable_dp", "enable_attack", "enable_fhe") if getattr(args, f, False)]
+        if on:
+            raise NotImplementedError(
+                f"{', '.join(on)}: the FedLLM client's DP, attack and FHE hooks are not "
+                "ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+
+    def on_before_local_training(self, train_data, device, args) -> Any:
+        self._refuse_middleware(args)
+        return train_data
+
+    def on_after_local_training(self, train_data, device, args) -> None:
+        self._refuse_middleware(args)
+
     # --- adapter-only exchange -------------------------------------------
     def get_model_params(self) -> Dict:
         return self.llm.adapter_params()

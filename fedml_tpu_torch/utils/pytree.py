@@ -48,6 +48,21 @@ def tree_global_norm(a: StateDict) -> torch.Tensor:
     return torch.sqrt(sum(v.float().square().sum() for v in a.values()))
 
 
+def _acc_dtype(v: torch.Tensor) -> torch.dtype:
+    """The dtype a reduction over ``v`` runs in: float64 stays float64,
+    every other dtype accumulates in f32."""
+    return torch.float64 if v.dtype == torch.float64 else torch.float32
+
+
+def tree_clip_by_global_norm(a: StateDict, max_norm) -> StateDict:
+    """``a`` scaled by ``min(1, max_norm / (||a|| + 1e-12))``, the norm over
+    the whole state dict (JAX ``utils/pytree.py:51``); each leaf keeps its
+    dtype."""
+    norm = torch.sqrt(sum(v.to(_acc_dtype(v)).square().sum() for v in a.values()))
+    scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+    return {k: (v * scale).to(v.dtype) for k, v in a.items()}
+
+
 def tree_clone(a: StateDict) -> StateDict:
     """A copy that shares no storage with ``a`` (tensors are mutable, where
     JAX arrays are not: a state dict handed on must not move with its

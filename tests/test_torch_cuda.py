@@ -680,3 +680,74 @@ def test_resnet56_state_dict_on_the_card_through_trpc_and_back(cuda):
     for k, v in state.items():
         assert back[k].device.type == "cpu" and back[k].dtype == v.dtype, k
         assert torch.equal(back[k], v.cpu()), k
+
+
+# --- the trust middleware (core/dp, core/security) ------------------------------
+
+TRUST_DEFENSES = ("krum", "multi_krum", "coordinate_wise_median", "coordinate_wise_trimmed_mean",
+                  "rfa", "norm_diff_clipping", "foolsgold", "3sigma", "slsgd", "bulyan", "cclip",
+                  "residual_reweight", "robust_learning_rate", "3sigma_geomedian")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TRUST_DEFENSES)
+def test_defense_fold_on_the_card_matches_the_cpu_in_float64(cuda, name):
+    """Each defense's three hooks on 16 LR-sized state dicts (the first 4
+    Byzantine random) on the card, against the same functions on the CPU in
+    float64: the same kept clients and the fold within 1e-5 of its scale."""
+    from types import SimpleNamespace
+
+    from fedml_tpu_torch.core.aggregation.agg_operator import FedMLAggOperator
+    from fedml_tpu_torch.core.security.fedml_defender import FedMLDefender
+
+    rng = np.random.default_rng(0)
+    base = {"linear.weight": rng.normal(size=(10, 784)), "linear.bias": rng.normal(size=(10,))}
+    lst = []
+    for i in range(16):
+        scale = 1.0 if i < 4 else 0.05
+        centre = 0.0 if i < 4 else 1.0
+        lst.append((100.0 + i, {k: centre * v + scale * rng.normal(size=v.shape)
+                                for k, v in base.items()}))
+    cfg = dict(random_seed=0, client_num_per_round=16, byzantine_client_num=3,
+               federated_optimizer="FedAvg", enable_defense=True, defense_type=name,
+               norm_bound=2.0, tau=1.0, bucket_size=2, robust_threshold=12)
+    outs = {}
+    for dev, dtype in ((cuda, torch.float32), (torch.device("cpu"), torch.float64)):
+        d = FedMLDefender()
+        d.init(SimpleNamespace(**cfg))
+        g = {k: torch.tensor(v, dtype=dtype, device=dev) for k, v in base.items()}
+        pairs = [(n, {k: torch.tensor(v, dtype=dtype, device=dev) for k, v in t.items()})
+                 for n, t in lst]
+        kept = d.defend_before_aggregation(pairs, g)
+        ids = [next(i for i, p in enumerate(pairs) if p[1] is t) if any(p[1] is t for p in pairs)
+               else None for _, t in kept]
+        fold = d.defend_after_aggregation(d.defend_on_aggregation(kept, FedMLAggOperator.agg, g))
+        outs[dev.type] = (ids, {k: v.double().cpu() for k, v in fold.items()},
+                          getattr(d.defender, "selected", None))
+    (ids_c, fold_c, sel_c), (ids_h, fold_h, sel_h) = outs["cuda"], outs["cpu"]
+    assert ids_c == ids_h and sel_c == sel_h
+    for k in fold_h:
+        assert (fold_c[k] - fold_h[k]).abs().max() <= 1e-5 * max(1.0, fold_h[k].abs().max()), k
+    if name in ("multi_krum", "bulyan"):
+        assert min(sel_c) >= 4
+
+
+@pytest.mark.cuda
+def test_dp_noise_draws_on_the_tensors_device(cuda):
+    """The DP facade noises a CUDA state dict with a generator on the card
+    (a CPU generator cannot draw there), at the frame's sigma."""
+    from types import SimpleNamespace
+
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+
+    dp = FedMLDifferentialPrivacy()
+    dp.init(SimpleNamespace(enable_dp=True, dp_solution_type="cdp", epsilon=1.0, delta=1e-5,
+                            random_seed=0, client_num_per_round=2, client_num_in_total=4))
+    g = {"w": torch.zeros(1000, 1000, device=cuda)}
+    out = dp.add_global_noise(g)
+    assert out["w"].device.type == "cuda"
+    assert [d.type for d in dp.generators._gens] == ["cuda"]
+    sigma = dp.frame.cdp.sigma
+    n = out["w"].numel()
+    assert abs(float(out["w"].double().std()) / sigma - 1) <= 4 / np.sqrt(2 * n)
+    assert dp.get_epsilon(1e-5) > 0

@@ -454,8 +454,21 @@ def test_run_simulation_on_the_cpu_and_refusals():
             setattr(bad, k, v)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fedml_tpu_torch.FedMLRunner(bad, "cpu", None, None)
-    for flag in ("enable_dp", "enable_defense", "enable_attack", "enable_fhe", "using_mlops"):
+    for flag in ("enable_fhe", "using_mlops"):
         with pytest.raises(NotImplementedError, match=flag):
             fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", **{flag: True}))
+    # the trust middleware is ported: init configures its singletons, and an
+    # init without the flags turns them off again
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+    from fedml_tpu_torch.core.security.fedml_attacker import FedMLAttacker
+    from fedml_tpu_torch.core.security.fedml_defender import FedMLDefender
+
+    for flag, facade, what in (("enable_dp", FedMLDifferentialPrivacy, "frame"),
+                               ("enable_defense", FedMLDefender, "defender"),
+                               ("enable_attack", FedMLAttacker, "attacker")):
+        fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", **{flag: True}))
+        assert facade.get_instance().is_enabled and getattr(facade.get_instance(), what), flag
+        fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation"))
+        assert not facade.get_instance().is_enabled, flag
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fedml_tpu_torch.model.create(_args(model="rnn"), 10, device="cpu")

@@ -121,21 +121,39 @@ def test_aggregate_stacked_matches_jax_and_the_float64_mean(k, bucket):
 
 def test_stacked_sink_folds_and_refuses_middleware():
     """The stacked sink folds through aggregate_stacked and the aggregator's
-    after-hook, which refuses the middleware the port does not have."""
+    after-hook; with a defense or DP on it unstacks the clients and runs
+    the hook pipeline, equal to the hooks applied to the unstacked list."""
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
     from fedml_tpu_torch.core.engine import RoundResult, StackedBucketedSink
     from fedml_tpu_torch.ml.aggregator import DefaultServerAggregator
 
     args = fedml_tpu_torch.default_config("simulation", using_gpu=False)
     model = fedml_tpu_torch.model.create(args, 10, device="cpu")
     stacked = {k: torch.stack([v, 2 * v, 4 * v]) for k, v in model.params.items()}
-    result = RoundResult(stacked=(stacked, np.asarray([0.5, 0.25, 0.25], np.float32)))
+    weights = np.asarray([0.5, 0.25, 0.25], np.float32)
+    result = RoundResult(stacked=(stacked, weights))
     assert result.k == 3
     out = StackedBucketedSink(DefaultServerAggregator(model, args)).fold(0, None, result)
     for k, v in model.params.items():
         assert torch.allclose(out[k], 2 * v, atol=1e-6)
-    args.enable_dp = True
-    with pytest.raises(NotImplementedError, match="enable_dp.*ROADMAP"):
-        StackedBucketedSink(DefaultServerAggregator(model, args)).fold(0, None, result)
+    args = fedml_tpu_torch.init(fedml_tpu_torch.default_config(
+        "simulation", using_gpu=False, enable_dp=True, dp_solution_type="cdp", epsilon=1e3,
+        enable_defense=True, defense_type="coordinate_wise_median"))
+    try:
+        agg = DefaultServerAggregator(model, args)
+        got = StackedBucketedSink(agg).fold(0, None, result)
+        FedMLDifferentialPrivacy.get_instance().init(args)  # the same draws again
+        lst = [(float(weights[i]), {k: v[i] for k, v in stacked.items()}) for i in range(3)]
+        want = agg.on_after_aggregation(agg.aggregate(agg.on_before_aggregation(lst)))
+        for k, v in model.params.items():
+            assert torch.equal(got[k], want[k])
+            assert not torch.equal(got[k], 2 * v)  # the median, noised
+            assert torch.allclose(got[k], 2 * v, atol=0.1)
+        args.enable_fhe = True
+        with pytest.raises(NotImplementedError, match="enable_fhe.*ROADMAP"):
+            StackedBucketedSink(DefaultServerAggregator(model, args)).fold(0, None, result)
+    finally:
+        fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", using_gpu=False))
 
 
 # --- staging: bit for bit ------------------------------------------------------
