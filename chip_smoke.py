@@ -6,8 +6,10 @@ uplink, durable round state, quorum rounds and the chaos drills, private
 aggregation (windowed SecAgg and accounted DP), the round-barrier SecAgg
 and LightSecAgg fronts, and the edge->regional->root aggregation tree with
 its tier-masked SecAgg, the message plane's other backends (TRPC, GRPC
-and MPI, MQTT_WEB3, the reference wire) and the trust middleware (DP,
-attacks and defenses, contribution) on one CUDA card.
+and MPI, MQTT_WEB3, the reference wire), the trust middleware (DP,
+attacks and defenses, contribution), and FHE's ciphertext leaves with the
+sp simulator's other APIs (TurboAggregate, FedAvg_seq, split NN, FedGKT,
+decentralized and vertical FL) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -38,8 +40,9 @@ exception):
    must have run exactly as often as those steps imply, and every launch on
    the design KERNELS names, as the kernels' C entry points count them by
    design (all three bf16 kernels on their wgmma/TMA designs);
-6. serve: Llama-2-7B at full depth (32 layers, max_seq_len 4096), bf16
-   weights drawn on the card from a seed, through every serving entry point.
+6. serve: Llama-2-7B's widths cut to SERVE_LAYERS (4) of its 32 layers
+   (max_seq_len 4096), bf16 weights drawn on the card from a seed, through
+   every serving entry point.
    (a) the keystone: prefill 128 tokens at B=2, then 32 single-token steps,
    each row of logits within KEY_RTOL of the full non-cached forward, and the
    same gate refusing a cache whose write index is off by one either way;
@@ -98,7 +101,9 @@ exception):
    ResNet-56, 2 rounds, cuDNN deterministic and TF32 off: every party on
    the card and exiting 0 within CS_PARTY_TIMEOUT_S, the final params within
    CS_PROC_TOL of the same federation in process over INMEMORY; seconds a
-   round, payload bytes, object-store times, start to ready; (c) card state
+   round, payload bytes, object-store times, start to ready (the processes
+   run beside (a)'s parity gate and the INMEMORY reference, before (a)'s
+   timed rounds); (c) card state
    dicts in f32 and bf16 through the wire layout and the codec bit-exactly,
    and a CPU arrival ingested with one host-to-device copy per dtype group;
    (d) no flash launch;
@@ -117,8 +122,8 @@ exception):
    seconds at each size and their ratio (reported, not gated), and the
    same seed's event trace identical; (d) the cross-silo front over
    INMEMORY: 16 silos in async mode (a publish every 8 merges, 4 publishes),
-   seconds a publish; phase 10's synchronous federation cut to 2 rounds,
-   plain and with comm_compressor eftopk at ratio 1.0, cuDNN deterministic
+   seconds a publish; phase 10's synchronous federation at ResNet-20
+   (SILOS_R20) cut to 2 rounds, plain and with comm_compressor eftopk at ratio 1.0, cuDNN deterministic
    and TF32 off, final params bit-equal; topk at ratio 0.05 to an end with
    finite metrics, its client.compress / server.decompress spans and
    payload bytes, and both compressors timed on the card; (e) no flash
@@ -144,15 +149,16 @@ exception):
    after every merge, killed after merge 3: each crash exits by SIGKILL
    with a complete round short of the end in its store (for (d) a snapshot
    holding a pending arrival), and the resumed store's final state is
-   bit-equal to the baseline's; (a) alone, with its save times (enqueue ms
-   with the card waited for, checkpoint_save_seconds, drops, store bytes,
-   spawn to the first resumed round), then (c) and (d) side by side; (e) no
-   flash launch;
-13. privacy, ResNet-56 at full width on the CIFAR-10 surrogate, 16 silo
+   bit-equal to the baseline's; (a), (c) and (d) side by side, each
+   baseline beside its crash, (a) with its save times (enqueue ms with the card waited for,
+   checkpoint_save_seconds, drops, store bytes, spawn to the first resumed
+   round); (e) no flash launch;
+13. privacy, ResNet-20 (SILOS_R20: ResNet-56's widths at a third of its
+   depth) on the CIFAR-10 surrogate, 16 silo
    threads over INMEMORY (PRIV_*): first the yardstick, the async federation
-   without privacy (a publish every 16 merges, exponent 0, 3 publishes);
+   without privacy (a publish every 16 merges, exponent 0, 2 publishes);
    (a) ``privacy: secagg`` on it (default grid: 13 qbits, clip 3.0, a
-   20-bit ring; threshold 8; 3 windows): every upload that left a client
+   20-bit ring; threshold 8; 2 windows): every upload that left a client
    masked and no masked vector its quantized vector; each publish bit-equal
    to the host reference dequantize_sum(center_ring(sum of quantize_vector
    of the members' vectors, captured at the client before masking, mod
@@ -163,18 +169,18 @@ exception):
    after key exchange, the 10 s window deadline fires, the survivors reveal,
    the window closes partial bit-equal to the 15 survivors' reference,
    secagg.dropouts and secagg.recovered each up by 1, no timer alive; (c)
-   ``privacy: dp`` on phase 10's synchronous federation (3 rounds) and on
+   ``privacy: dp`` on phase 10's synchronous federation (2 rounds) and on
    the async one, and ``secagg+dp`` (2 windows): each release's draws
    (published less the fold's clean vector on the card) with std within
    DP_STD_RTOL of z·C/n and mean within 4 sigma/sqrt(d), epsilon equal to
    a fresh accountant's; (d) secagg on the window's shared topk support at
-   0.05 (2 windows): 42,789 coordinates drawn from each window's nonce, the
+   0.05 (2 windows): 13,624 coordinates drawn from each window's nonce, the
    publish bit-equal to the reference on the support and 0 elsewhere;
    per case the key exchange s, host ms to mask, the fold of a masked
    bucket, ms to unmask, DP noise ms on the card, seconds a window, upload
    bytes, and the cost of privacy against the yardstick; (e) no flash
    launch;
-14. the round-barrier secure-aggregation fronts, ResNet-56 at full width on
+14. the round-barrier secure-aggregation fronts, ResNet-20 (SILOS_R20) on
    the CIFAR-10 surrogate, 16 silo threads over INMEMORY through FedMLRunner
    by role, 2 rounds each (SECURE_FRONTS): ``secure_aggregation: secagg``
    (threshold 8) and ``lightsecagg`` (U 16, T 8), quantize_bits 16, p =
@@ -213,23 +219,26 @@ exception):
    at construction; key exchange s, masking ms a client, the edge publish,
    the regional pass-through and the root's strip and unmask ms, bytes
    forwarded per tier; (c) no flash launch;
-16. the message plane's other backends, phase 10 (b)'s federation
-   (ResNet-56, 4 silos, 2 rounds, cuDNN deterministic, TF32 off) over each,
+16. the message plane's other backends, phase 10 (b)'s federation at
+   ResNet-20 (MP_PROCS: 4 silos, 2 rounds, cuDNN deterministic, TF32 off)
+   over each,
    its final params bit-equal to the same federation over INMEMORY in this
    process: (a) a server and 4 client processes over TRPC on a block of
    ports found free (round s, payload frames and their bytes, spawn to
    ready); (b) the same over MQTT_WEB3 through the socket broker and one
    LocalCASStore directory (cids against uploads: each round's global is
-   one object); (c) GRPC and MPI, 4 silo threads each, when grpc imports
+   one object); (a) and (b) run side by side, beside the INMEMORY reference
+   and (c)-(d) in this process, so their seconds are taken under that
+   load; (c) GRPC and MPI, 4 silo threads each, when grpc imports
    (the JSON says "grpc": "not installed" where it does not; any other
    failure fails); (d) the reference wire, mqtt_s3_wire='fedml' and, with
    grpc, grpc_wire='fedml', 4 silo threads; (e) comm_bench over INMEMORY,
    TRPC and GRPC at ResNet-56's state dict (3,423,080 bytes) and 64 MB,
    both on the card: round-trip ms and MB/s; (f) no flash launch;
-17. the trust middleware at ResNet-56's full width on the CIFAR-10
+17. the trust middleware at ResNet-20 (SP_R20, SILOS_R20) on the CIFAR-10
    surrogate: (b) run_simulation on the sp front, 16 clients, 2 rounds, the
    first 4 Byzantine random, without a defense and with multi-Krum (which
-   must keep no attacker), test_acc and round s beside phase 7's round;
+   must keep no attacker), test_acc and round s;
    (a) on (b)'s first-round client list, every one of the 22 defense types'
    three hooks on the card (ms a fold) against the same function on the CPU
    in float64: the same kept clients, Krum and Bulyan selections, 3-sigma
@@ -245,10 +254,35 @@ exception):
    arrivals; (f) exact Shapley and LOO over 4 clients (efficiency to 1e-6),
    GTG over 16 (its s); (g) reveal-labels recovers a batch's labels, DLG's
    match loss falls 100x within 300 iterations; (h) no flash launch;
-18. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
-   resilience, privacy, secure_fronts, hierarchy, message_plane, trust and
-   kernels lines (JSON, the kernels line with the design each kernel ran on
-   the main path), the card line, and last the result line.
+18. FHE and the sp simulator's other APIs, at phase 7's ResNet-56 width:
+   (a) at N=4096, 4 primes, the card's keygen, encryption under one seeded
+   generator and decryption residues (float64 negacyclic matrices) equal,
+   integer for integer, to the plain np.convolve version over 4 chunks;
+   (b) rlwe through init and FedMLRunner on the sp front, 16 clients, 2
+   rounds: each round's decryption within the worst-case RLWE noise bound
+   sum_i k_i (2N + 1) B / 2^46 (B the run's largest error draw) of the
+   fixed-point sum sum_i k_i rint(2^30 x_i) / 2^46 of the clients'
+   plaintexts, its gap to the f32 fold, encrypt ms and ciphertext bytes a
+   client, fold ms, decryption's card products and CRT ms (the card's
+   Garner CRT held bit-equal to the host's Python-integer CRT, both timed),
+   round s beside phase 7's; (c) 16 INMEMORY silos, one round of rlwe: the server's
+   global is the decryption, within the same bound of its arrivals'
+   fixed-point sum; (d) R7 (backend vmap), R10 (additive_mask on a front)
+   and R11 (a byte backend) refused before any round; (e) TurboAggregate,
+   4 ring groups, 2 rounds: each ring sum bit-equal to the plain field sum
+   of the same quantized updates, the global within K/2 quantization steps
+   of the float fold, round s; (f) FedAvg_seq, 4 workers, 2 rounds: every
+   client in one queue, each fold within FOLD_TOL of the float64 weighted
+   mean, makespan and round s; (g) split NN and FedGKT, 2 rounds at the JAX
+   package's widths: the first round of 2 clients (cut to 256 images) on
+   the card against the CPU, TF32 off, each loss within SPLIT_LOSS_RTOL;
+   test_acc and s a round; (h) DSGD, PushSum and vertical FL on the card
+   against the CPU in float64, each loss falling; (i) no flash launch;
+19. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+   resilience, privacy, secure_fronts, hierarchy, message_plane, trust,
+   fhe_sp_zoo and kernels lines (JSON, the kernels line with the design
+   each kernel ran on the main path), the card line, and last the result
+   line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -590,10 +624,14 @@ def _flat(tree, prefix=()) -> dict:
     return out
 
 
-# -- phase 6: serving at Llama-2-7B, full depth ------------------------------
+# -- phase 6: serving at Llama-2-7B's widths, 4 of its 32 layers ---------------
 
 DEV = "cuda"
 SERVE_SEED = 0
+# phase 4's cut of Llama-2-7B's depth: the decode step is host-bound (63.5
+# ms a token at 32 layers on an H100, 17.2 at 8, PERF.md), and at full depth
+# this phase took about 100 s of a smoke that must end inside 1,200 s
+SERVE_LAYERS = 4
 KEY_B, KEY_P, KEY_STEPS = 2, 128, 32   # the keystone: prefill, then single-token steps
 SERVE_MAX_NEW = 32
 SERVE_SLOTS, SERVE_CHUNK = 8, 8
@@ -602,9 +640,10 @@ SAMPLE_TEMP, SAMPLE_SEEDS = 0.8, (11, 12)
 # Keystone gate, row by row (one row = the logits of one position of one
 # sequence): ||cached_r - full_r|| <= KEY_RTOL * ||full_r||. bf16 decode
 # (cached, one token at a time) and the full forward (all positions at once)
-# round at different GEMM shapes, and a random 32-layer model carries the
-# difference to every logit: worst row 1.79e-2, median 1.59e-2 on an H100
-# (PERF.md), while a write index off by one moves rows by 0.33 or more.
+# round at different GEMM shapes, and a random model carries the
+# difference to every logit: at 32 layers worst row 1.79e-2, median 1.59e-2
+# on an H100 (PERF.md), while a write index off by one moved rows by 0.33 or
+# more.
 KEY_RTOL = 3e-2
 # Greedy consistency: each greedy token's logit, teacher-forced through one
 # full forward, within GREEDY_TOL of its row's max (bf16 paths of other
@@ -624,15 +663,16 @@ CORPUS = (
 
 
 def _serve_model():
-    """Llama-2-7B (32 layers, d_model 4096, 32 heads, d_ff 11008, vocab
-    32000, max_seq_len 4096) as a decode model: bf16 weights drawn on the
-    card from a seeded generator."""
+    """Llama-2-7B's widths (d_model 4096, 32 heads, d_ff 11008, vocab 32000,
+    max_seq_len 4096) at SERVE_LAYERS layers as a decode model: bf16 weights
+    drawn on the card from a seeded generator."""
     import torch
 
     from fedml_tpu_torch.models.transformer import TransformerConfig
     from fedml_tpu_torch.train.llm.generation import decode_model
 
-    cfg = TransformerConfig.llama2_7b(dtype=torch.bfloat16, remat=False)
+    cfg = TransformerConfig.llama2_7b(dtype=torch.bfloat16, remat=False,
+                                      n_layers=SERVE_LAYERS)
     model = decode_model(cfg, None, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(SERVE_SEED)
     model.reset_parameters(gen)
@@ -783,8 +823,9 @@ def _engine_run(engine, ids, sampled_ids, eos_req, eos_id):
 
 
 def serve_phase() -> dict:
-    """Phase 6: the serving path at Llama-2-7B full depth in bf16 on one
-    card, through every serving entry point (see the module docstring)."""
+    """Phase 6: the serving path at Llama-2-7B's widths, SERVE_LAYERS
+    layers, in bf16 on one card, through every serving entry point (see
+    the module docstring)."""
     import torch
 
     from fedml_tpu_torch.core import telemetry as tel
@@ -798,7 +839,8 @@ def serve_phase() -> dict:
     cfg, model = _serve_model()
     mem["weights"] = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(p.numel() for p in model.parameters())
-    say(f"  Llama-2-7B decode model: {n_params} params, {mem['weights']:.2f} GB")
+    say(f"  Llama-2-7B decode model at {cfg.n_layers} layers: {n_params} params, "
+        f"{mem['weights']:.2f} GB")
 
     # (a) the keystone, and the gate refusing a cache off by one position
     torch.cuda.reset_peak_memory_stats()
@@ -948,6 +990,7 @@ def serve_phase() -> dict:
     res["agree_with_generate"] = agree
     res["peak_mem_gb"] = mem
     res["n_params"] = n_params
+    res["n_layers"] = cfg.n_layers
     return res
 
 
@@ -1425,6 +1468,14 @@ def zoo_phase() -> dict:
 # all in every round: phase 7's ResNet-56 config as a cross-silo federation
 # (the server and 16 clients, each a party of its own through FedMLRunner)
 CROSS_SILO = {k: v for k, v in RESNET.items() if k != "backend"}
+# the later phases' federations at ResNet-20, ResNet-56's widths at a third
+# of its depth (272,474 params), as phase 12's drills: phase 11's compressed
+# uplinks, 13, 14, 16's and 17's, to keep the smoke inside its 1,200 s on a
+# host that runs the ResNet-56 round 1.4x slower than another (the smoke
+# took 805-959 s with them at ResNet-56, phases 16-18 at 84-100 s each, on
+# the H100)
+SP_R20 = dict(RESNET, model="resnet20")
+SILOS_R20 = dict(CROSS_SILO, model="resnet20")
 # (b): the same model over 4 silos, 2 rounds, each party a process of its own
 CS_PROCS = dict(CROSS_SILO, client_num_in_total=4, client_num_per_round=4, comm_round=2)
 CS_PARTY_TIMEOUT_S = 420
@@ -1899,22 +1950,13 @@ def _process_report(over: dict, results: dict, spawned: dict, got: dict, ref_w: 
     }
 
 
-def cross_silo_processes(tmp: str) -> dict:
+def cross_silo_processes(procs: tuple, ref_w: dict) -> dict:
     """Phase 10 (b): a server and 4 client processes over the port's
     SocketMqttBroker (hosted here) with one shared object store, ResNet-56,
-    2 rounds, cuDNN deterministic and TF32 off; its final params against the
+    2 rounds, cuDNN deterministic and TF32 off (``procs``, what
+    _party_processes returned); its final params against ``ref_w``, the
     same federation run in this process over INMEMORY."""
-    from fedml_tpu_torch.core.distributed.communication.mqtt_s3.socket_broker import SocketMqttBroker
-
-    ref_w = _inmemory_reference(CS_PROCS, "smoke_cs_ref")
-    broker = SocketMqttBroker(port=0)
-    try:
-        results, spawned, got = _party_processes(
-            tmp, dict(CS_PROCS, mqtt_socket=broker.address,
-                      object_store_dir=os.path.join(tmp, "object_store")),
-            "smoke_cs_procs", "MQTT_S3")
-    finally:
-        broker.stop()
+    results, spawned, got = procs
     res = {**_process_report(CS_PROCS, results, spawned, got, ref_w),
            "backend": "MQTT_S3 over SocketMqttBroker"}
     n, rounds = int(CS_PROCS["client_num_per_round"]), int(CS_PROCS["comm_round"])
@@ -1979,18 +2021,32 @@ def cross_silo_wire(fed) -> dict:
 
 def cross_silo_phase(sp: dict) -> dict:
     """Phase 10: the cross-silo front, (a) in process, (b) across processes,
-    (c) the wire at the card boundary ((d), no flash launch, is main's)."""
-    res = {"parity": cross_silo_parity()}
+    (c) the wire at the card boundary ((d), no flash launch, is main's).
+    (b)'s processes run beside (a)'s parity gate and (b)'s INMEMORY
+    reference, which time nothing; (a)'s timed rounds come after them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fedml_tpu_torch.core.distributed.communication.mqtt_s3.socket_broker import SocketMqttBroker
+
+    tmp = os.path.join(ROOT, ".smoke_run", "cross_silo")
+    shutil.rmtree(tmp, ignore_errors=True)
+    broker = SocketMqttBroker(port=0)
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            procs = pool.submit(_party_processes, tmp, dict(
+                CS_PROCS, mqtt_socket=broker.address,
+                object_store_dir=os.path.join(tmp, "object_store")), "smoke_cs_procs", "MQTT_S3")
+            res = {"parity": cross_silo_parity()}
+            ref_w = _inmemory_reference(CS_PROCS, "smoke_cs_ref")
+            procs = procs.result()
+        res["processes_4"] = cross_silo_processes(procs, ref_w)
+    finally:
+        broker.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
     res["inmemory_16"], fed = cross_silo_timed(sp)
     res["wire"] = cross_silo_wire(fed)
     del fed
     res["inmemory_16"]["training_serialized"] = cross_silo_serialized()
-    tmp = os.path.join(ROOT, ".smoke_run", "cross_silo")
-    shutil.rmtree(tmp, ignore_errors=True)
-    try:
-        res["processes_4"] = cross_silo_processes(tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
     return res
 
 
@@ -2010,7 +2066,7 @@ ASYNC_SIM = dict(publish_k=32, gen_batch=1024, publishes=8, seed=0)
 # merges), then its synchronous federation cut to 2 rounds, plain, eftopk at
 # ratio 1.0 and topk at ratio 0.05
 CS_ASYNC = dict(CROSS_SILO, async_rounds=True, async_publish_k=8, comm_round=4)
-CS_COMPRESSED = dict(CROSS_SILO, comm_round=2)
+CS_COMPRESSED = dict(SILOS_R20, comm_round=2)
 LOSSY_RATIO = 0.05
 # the streaming fold (publish_k 32 = two buckets, scaled after the fold)
 # against the float64 weighted mean of its 32 state dicts: f32 sums of 32
@@ -2385,13 +2441,18 @@ def _drill(name: str, mode: str, rdir: str, expect_kill: bool = False) -> dict:
 
 
 def resilience_drill(name: str, tmp: str) -> dict:
-    """Phase 12 (a), (c), (d): baseline, crash, resume of one drill; the
-    resumed store's final state bit-equal to the baseline's."""
+    """Phase 12 (a), (c), (d): the baseline and the crash of one drill side
+    by side, then the resume; the resumed store's final state bit-equal to
+    the baseline's."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from fedml_tpu_torch.tools import resilience_drill as rd
 
     base, crash = os.path.join(tmp, f"{name}_baseline"), os.path.join(tmp, f"{name}_crash")
-    b = _drill(name, "baseline", base)
-    c = _drill(name, "crash", crash, expect_kill=True)
+    with ThreadPoolExecutor(2) as pool:
+        b = pool.submit(_drill, name, "baseline", base)
+        c = pool.submit(_drill, name, "crash", crash, expect_kill=True)
+        b, c = b.result(), c.result()
     final, partial = rd.final_state(base), rd.final_state(crash)
     check(final is not None and partial is not None, f"{name}: an empty store")
     res = {"baseline_run_s": b["run_s"], "crash_rc": c["rc"],
@@ -2577,10 +2638,10 @@ def quorum_federation() -> dict:
 
 def resilience_phase() -> dict:
     """Phase 12: (b) the quorum federation in this process, then the SIGKILL
-    drills in processes of their own: the sp drill (a) alone (its save
-    times are reported), then the cross-silo (c) and async (d) drills side
-    by side (each a sequence of three processes; only their bit-equality is
-    gated)."""
+    drills in processes of their own, the sp (a), cross-silo (c) and async
+    (d) drills side by side (each its baseline and crash side by side, then
+    its resume; only their bit-equality is gated, and their times are taken
+    beside each other)."""
     from concurrent.futures import ThreadPoolExecutor
 
     tmp = os.path.join(ROOT, ".smoke_run", "resilience")
@@ -2588,25 +2649,24 @@ def resilience_phase() -> dict:
     os.makedirs(tmp)
     out = {"quorum": quorum_federation()}
     t0 = time.time()
-    out["drill_sp"] = resilience_drill("sp", tmp)
-    t1 = time.time()
-    with ThreadPoolExecutor(2) as pool:
-        futures = {name: pool.submit(resilience_drill, name, tmp) for name in ("cs", "cs_async")}
+    with ThreadPoolExecutor(3) as pool:
+        futures = {name: pool.submit(resilience_drill, name, tmp)
+                   for name in ("sp", "cs", "cs_async")}
         for name, fut in futures.items():
             out[f"drill_{name}"] = fut.result()
-    out["drill_wall_s"] = {"sp": t1 - t0, "cs_and_cs_async_side_by_side": time.time() - t1}
+    out["drill_wall_s"] = {"sp_cs_and_cs_async_side_by_side": time.time() - t0}
     shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
 # -- phase 13: privacy: windowed async SecAgg and accounted DP at the fold ------
 
-# phase 10's 16 silos as an async federation whose publish window is the
+# phase 13: the 16 silos as an async federation whose publish window is the
 # whole cohort: a publish every 16 merges at staleness exponent 0 (a masked
-# window folds at unit weight), 3 publishes; the no-privacy run of it is the
+# window folds at unit weight), 2 publishes; the no-privacy run of it is the
 # yardstick of every async case
-PRIV_ASYNC = dict(CROSS_SILO, async_rounds=True, async_publish_k=16,
-                  async_staleness_exponent=0.0, comm_round=3)
+PRIV_ASYNC = dict(SILOS_R20, async_rounds=True, async_publish_k=16,
+                  async_staleness_exponent=0.0, comm_round=2)
 # (a) windowed SecAgg: the default grid (secagg_qbits 13, clip 3.0), a
 # reveal threshold of 8, one window a publish
 PRIV_SECAGG = dict(PRIV_ASYNC, privacy="secagg", secagg_threshold=8)
@@ -2615,16 +2675,16 @@ PRIV_SECAGG = dict(PRIV_ASYNC, privacy="secagg", secagg_threshold=8)
 PRIV_DROP_RANK = 16
 PRIV_DROP = dict(PRIV_SECAGG, comm_round=1, secagg_window_deadline_s=10.0)
 # (c) accounted DP (noise multiplier 0.8, clip 1.0, delta 1e-5, seed 0, the
-# defaults): phase 10's synchronous federation (3 rounds), the async one, and
+# defaults): phase 10's synchronous federation (2 rounds), the async one, and
 # secagg+dp over 2 windows
-PRIV_DP_SYNC = dict(CROSS_SILO, privacy="dp")
+PRIV_DP_SYNC = dict(SILOS_R20, privacy="dp", comm_round=2)
 PRIV_DP_ASYNC = dict(PRIV_ASYNC, privacy="dp")
 PRIV_BOTH = dict(PRIV_SECAGG, privacy="secagg+dp", comm_round=2)
 # (d) the masked uplink on the window's shared rand-k support, topk at 0.05
 PRIV_TOPK = dict(PRIV_SECAGG, comm_round=2, comm_compressor="topk", comm_compressor_ratio=0.05)
 PRIV_TIMEOUT_S = 300
-# the DP draws (published less clean, 855,770 of them a release): std within
-# 2% of the fold's sigma (a 1/sqrt(2d) = 0.08% standard error), mean within
+# the DP draws (published less clean, 272,474 of them a release): std within
+# 2% of the fold's sigma (a 1/sqrt(2d) = 0.14% standard error), mean within
 # 4 sigma/sqrt(d) of 0
 DP_STD_RTOL = 0.02
 
@@ -2911,7 +2971,7 @@ def _alone(fed, probe, template) -> dict:
     """Phase 13's host and card costs taken one at a time after a run, the
     card otherwise idle (in a run, 16 client threads queue their training on
     the card's one default stream, and every synchronising copy waits for
-    it): a member's masking of ResNet-56 (numpy), a client's wire flatten
+    it): a member's masking of ResNet-20 (numpy), a client's wire flatten
     and copy to the host, the fold of a bucket of 16 masked arrivals, the
     unmask of the last window's ring sum (copy down, f64 ring math, copy up,
     unflatten), one DP release's noise, and the server's clip of an arrival
@@ -2962,7 +3022,7 @@ def _mean_after_first(gaps) -> float:
     return sum(gaps[1:]) / (len(gaps) - 1) if len(gaps) > 1 else gaps[0]
 
 
-def privacy_phase(cross_silo: dict) -> dict:
+def privacy_phase() -> dict:
     """Phase 13: the no-privacy async yardstick, (a) windowed SecAgg, (b) the
     dropout drill, (c) DP sync, async and composed with SecAgg, (d) the
     masked uplink on a topk support ((e), no flash launch, is main's)."""
@@ -2977,7 +3037,8 @@ def privacy_phase(cross_silo: dict) -> dict:
                           "upload_bytes": sorted({b for _, _, b in probe.uploads}),
                           "test_loss": [m["test_loss"] for m in evals]}
     del fed
-    say(f"  no privacy, 16 async silos, 3 publishes of 16: {res['plain_async']}")
+    say(f"  no privacy, 16 async silos, {PRIV_ASYNC['comm_round']} publishes of 16: "
+        f"{res['plain_async']}")
 
     fed, probe, evals = _priv_run(PRIV_SECAGG, "smoke_priv_secagg")
     case = _secagg_case(probe, fed, PRIV_SECAGG["comm_round"])
@@ -2986,7 +3047,7 @@ def privacy_phase(cross_silo: dict) -> dict:
     res["secagg"] = case
     res["alone"] = _alone(fed, probe, fed.server.aggregator.get_global_model_params())
     del fed
-    say(f"  (a) windowed SecAgg, 16 silos x 3 windows: {case}")
+    say(f"  (a) windowed SecAgg, 16 silos x {PRIV_SECAGG['comm_round']} windows: {case}")
 
     fed, probe, evals = _priv_run(PRIV_DROP, "smoke_priv_drop",
                                   per_rank={PRIV_DROP_RANK: dict(
@@ -3013,13 +3074,12 @@ def privacy_phase(cross_silo: dict) -> dict:
     case = _dp_case(probe, fed, [k] * int(PRIV_DP_SYNC["comm_round"]))
     rows = _cs_round_split(probe.since)
     case.update(round_s=[r["round_s"] for r in rows],
-                round_s_mean_rounds_2_3=float(np.mean([r["round_s"] for r in rows[1:]])),
-                no_privacy_phase10_round_s_mean_rounds_2_3=cross_silo["inmemory_16"][
-                    "round_s_mean_rounds_2_3"],
+                round_s_mean_after_first=float(np.mean([r["round_s"] for r in rows[1:]])),
                 test_loss=[m["test_loss"] for m in evals])
     res["dp_sync"] = case
     del fed
-    say(f"  (c) DP, the synchronous 16-silo federation x 3 rounds: {case}")
+    say(f"  (c) DP, the synchronous 16-silo federation x {PRIV_DP_SYNC['comm_round']} rounds: "
+        f"{case}")
 
     fed, probe, evals = _priv_run(PRIV_DP_ASYNC, "smoke_priv_dp_async")
     # dp alone: the fold normalizes by the window's weight sum (sample
@@ -3029,7 +3089,7 @@ def privacy_phase(cross_silo: dict) -> dict:
                 weight_sum=fed.server.aggregator.async_buffer.last_publish_weight)
     res["dp_async"] = case
     del fed
-    say(f"  (c) DP, 16 async silos x 3 publishes: {case}")
+    say(f"  (c) DP, 16 async silos x {PRIV_DP_ASYNC['comm_round']} publishes: {case}")
 
     fed, probe, evals = _priv_run(PRIV_BOTH, "smoke_priv_both")
     case = _secagg_case(probe, fed, PRIV_BOTH["comm_round"])
@@ -3042,8 +3102,8 @@ def privacy_phase(cross_silo: dict) -> dict:
     fed, probe, evals = _priv_run(PRIV_TOPK, "smoke_priv_topk")
     from fedml_tpu_torch.utils.compression import secagg_support
 
-    # each window's support: ceil(0.05 d) coordinates (42,789 of ResNet-56's
-    # 855,770), drawn from its nonce
+    # each window's support: ceil(0.05 d) coordinates (13,624 of ResNet-20's
+    # 272,474), drawn from its nonce
     ratio = PRIV_TOPK["comm_compressor_ratio"]
     k = int(np.ceil(probe.d * ratio))
     for w, (nonce, support) in probe.supports.items():
@@ -3063,19 +3123,18 @@ def privacy_phase(cross_silo: dict) -> dict:
         **{f"{name}_{key}": _mean_after_first(res[name][key])
            for name, key in (("secagg", "s_per_window"), ("secagg_dp", "s_per_window"),
                              ("secagg_topk", "s_per_window"), ("dp_async", "s_per_publish"))},
-        "dp_sync_round_s": res["dp_sync"]["round_s_mean_rounds_2_3"],
-        "no_privacy_sync_round_s": res["dp_sync"]["no_privacy_phase10_round_s_mean_rounds_2_3"]}
-    say(f"  cost of privacy (seconds a publish, windows 2-3 / rounds 2-3): {res['cost_of_privacy']}")
+        "dp_sync_round_s": res["dp_sync"]["round_s_mean_after_first"]}
+    say(f"  cost of privacy (seconds a publish or round after the first): {res['cost_of_privacy']}")
     say(f"  costs alone, the card otherwise idle: {res['alone']}")
     return res
 
 
 # -- phase 14: the round-barrier secure-aggregation fronts ----------------------
 
-# phase 10's 16 ResNet-56 silos over INMEMORY through FedMLRunner by role, 2
-# rounds, secure_aggregation secagg (threshold 8, the default client_num // 2)
+# phase 10's 16 silos at ResNet-20 (SILOS_R20) over INMEMORY through
+# FedMLRunner by role, 2 rounds, secure_aggregation secagg (threshold 8, the default client_num // 2)
 # and lightsecagg (U 16, T 8, the defaults); quantize_bits 16, p = 2^31 - 1
-SECURE = dict(CROSS_SILO, comm_round=2, quantize_bits=16, mpc_prime=2**31 - 1)
+SECURE = dict(SILOS_R20, comm_round=2, quantize_bits=16, mpc_prime=2**31 - 1)
 SECURE_FRONTS = {"secagg": dict(SECURE, secure_aggregation="secagg"),
                  "lightsecagg": dict(SECURE, secure_aggregation="lightsecagg")}
 SECURE_TIMEOUT_S = 300
@@ -3179,7 +3238,7 @@ def _plain_quantized_mean(uploads: list, q_bits: int, p: int):
 
 def _secure_alone(front: str, fed, template) -> dict:
     """A front's costs one at a time after its run, the card otherwise idle
-    and waited for: quantizing a ResNet-56 state dict on the card and its
+    and waited for: quantizing a ResNet-20 state dict on the card and its
     copy to the host; a client's masking (SecAgg: its self mask and 15
     pairwise masks; LightSecAgg: one add) and, for LightSecAgg, its mask's
     encoding (host draws, the (16x16)·(16x106,972) product on the card, the
@@ -3250,7 +3309,7 @@ def _secure_alone(front: str, fed, template) -> dict:
 
 
 def _secure_run(front: str) -> dict:
-    """Phase 14 for one front: 16 ResNet-56 silos x 2 rounds under a probe,
+    """Phase 14 for one front: 16 ResNet-20 silos x 2 rounds under a probe,
     then the gates, the figures and the costs alone."""
     import numpy as np
     import torch
@@ -3723,8 +3782,8 @@ def hierarchy_phase(flat: dict) -> dict:
 
 # -- phase 16: the message plane's other backends ----------------------------------
 
-# phase 10 (b)'s federation (ResNet-56, 4 silos, 2 rounds), over each backend
-MP_PROCS = CS_PROCS
+# phase 10 (b)'s federation at ResNet-20 (4 silos, 2 rounds), over each backend
+MP_PROCS = dict(CS_PROCS, model="resnet20")
 # comm_bench payloads: ResNet-56's state dict on the card, and a flat f32
 # tensor of 64 MB on the card (the copy to the host is in every ping)
 MP_BENCH_BIG = 64_000_000
@@ -3746,15 +3805,27 @@ def _grpc_state() -> str:
     return "installed"
 
 
+# every block _on_free_ports has handed out in this process: phase 16 runs
+# federations side by side, and a block drawn for one before another has
+# bound its own is free to bind but taken
+_PORTS_HANDED_OUT: set = set()
+
+
 def _on_free_ports(run_id: str, backend: str, n: int) -> dict:
     """The base-port knob that puts rank r of ``run_id`` at ``b + r`` for a
-    block [b, b + n) that is free now (both backends add the run id's
-    offset)."""
+    block [b, b + n) that is free now and shares no port with a block handed
+    out before (both backends add the run id's offset)."""
     from fedml_tpu_torch.core.distributed.communication.ip_config import free_port_block
     from fedml_tpu_torch.core.distributed.fedml_comm_manager import _run_id_offset
 
     key = "trpc_base_port" if backend == "TRPC" else "grpc_base_port"
-    return {key: free_port_block(n) - _run_id_offset(run_id)}
+    for _ in range(100):
+        base = free_port_block(n)
+        block = set(range(base, base + n))
+        if not block & _PORTS_HANDED_OUT:
+            _PORTS_HANDED_OUT.update(block)
+            return {key: base - _run_id_offset(run_id)}
+    raise SmokeFailure(f"no block of {n} ports apart from those handed out")
 
 
 def _threaded(over: dict, run_id: str, backend: str, ref_w: dict) -> dict:
@@ -3784,21 +3855,41 @@ def _threaded(over: dict, run_id: str, backend: str, ref_w: dict) -> dict:
     return res
 
 
-def message_plane_processes(tmp: str, ref_w: dict) -> dict:
-    """Phase 16 (a) TRPC and (b) MQTT_WEB3: a server and 4 client processes
-    over each, phase 10 (b)'s federation, bit-equal to INMEMORY."""
+def _mp_trpc(tmp: str) -> tuple:
+    """Phase 16 (a): the TRPC federation's processes, to their end."""
+    run_id = "smoke_mp_trpc"
+    over = dict(MP_PROCS, **_on_free_ports(run_id, "TRPC", int(MP_PROCS["client_num_per_round"])
+                                           + 1))
+    return over, _party_processes(os.path.join(tmp, "trpc"), over, run_id, "TRPC")
+
+
+def _mp_web3(tmp: str) -> tuple:
+    """Phase 16 (b): the MQTT_WEB3 federation's processes over a socket
+    broker hosted here, to their end."""
     from fedml_tpu_torch.core.distributed.communication.mqtt_s3.socket_broker import SocketMqttBroker
 
+    broker = SocketMqttBroker(port=0)
+    try:
+        return _party_processes(
+            os.path.join(tmp, "web3"),
+            dict(MP_PROCS, mqtt_socket=broker.address, cas_root=os.path.join(tmp, "web3", "cas")),
+            "smoke_mp_web3", "MQTT_WEB3")
+    finally:
+        broker.stop()
+
+
+def message_plane_processes(tmp: str, trpc: tuple, web3: tuple, ref_w: dict) -> dict:
+    """Phase 16 (a) TRPC and (b) MQTT_WEB3: a server and 4 client processes
+    over each (run by _mp_trpc and _mp_web3), phase 10 (b)'s federation,
+    bit-equal to INMEMORY."""
     n, rounds = int(MP_PROCS["client_num_per_round"]), int(MP_PROCS["comm_round"])
     out = {}
-    run_id = "smoke_mp_trpc"
-    over = dict(MP_PROCS, **_on_free_ports(run_id, "TRPC", n + 1))
-    results, spawned, got = _party_processes(os.path.join(tmp, "trpc"), over, run_id, "TRPC")
+    over, (results, spawned, got) = trpc
     res = {**_process_report(MP_PROCS, results, spawned, got, ref_w),
            "backend": "TRPC, a listener a process",
            "base_port": over["trpc_base_port"]}
     res["frames"] = res.pop("object_store")
-    say(f"  (a) ResNet-56, 4 silos x {rounds} rounds, 5 processes over TRPC: {res}")
+    say(f"  (a) ResNet-20, 4 silos x {rounds} rounds, 5 processes over TRPC: {res}")
     check(res["frames"]["writes"] == 2 * n * rounds,
           f"TRPC payload frames {res['frames']['writes']}, want {2 * n * rounds}")
     check(res["final_params_err_of_scale_vs_inmemory"] <= MP_TOL,
@@ -3807,19 +3898,13 @@ def message_plane_processes(tmp: str, ref_w: dict) -> dict:
     out["trpc_processes_4"] = res
 
     cas = os.path.join(tmp, "web3", "cas")
-    broker = SocketMqttBroker(port=0)
-    try:
-        results, spawned, got = _party_processes(
-            os.path.join(tmp, "web3"), dict(MP_PROCS, mqtt_socket=broker.address, cas_root=cas),
-            "smoke_mp_web3", "MQTT_WEB3")
-    finally:
-        broker.stop()
+    results, spawned, got = web3
     res = {**_process_report(MP_PROCS, results, spawned, got, ref_w),
            "backend": "MQTT_WEB3 over SocketMqttBroker, one LocalCASStore directory"}
     res["cas"] = res.pop("object_store")
     res["cas"]["cids"] = len([f for f in os.listdir(cas) if not f.endswith(".tmp")])
     res["cas"]["uploads"] = res["cas"]["writes"]
-    say(f"  (b) ResNet-56, 4 silos x {rounds} rounds, 5 processes over MQTT_WEB3: {res}")
+    say(f"  (b) ResNet-20, 4 silos x {rounds} rounds, 5 processes over MQTT_WEB3: {res}")
     check(res["cas"]["writes"] == 2 * n * rounds and res["cas"]["reads"] == 2 * n * rounds,
           f"CAS writes {res['cas']['writes']}, reads {res['cas']['reads']}")
     # each round's global goes to 4 clients as one object; the 4 uploads differ
@@ -3884,18 +3969,25 @@ def message_plane_bench(grpc_state: str) -> list:
 
 def message_plane_phase() -> dict:
     """Phase 16: the message plane's other backends, (a) TRPC and (b)
-    MQTT_WEB3 across processes, (c) GRPC and MPI and (d) the reference wire
-    in process, (e) comm_bench ((f), no flash launch, is main's)."""
+    MQTT_WEB3 across processes, side by side and beside the INMEMORY
+    reference, (c) GRPC and MPI and (d) the reference wire in this process,
+    then (e) comm_bench alone ((f), no flash launch, is main's)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     tmp = os.path.join(ROOT, ".smoke_run", "message_plane")
     shutil.rmtree(tmp, ignore_errors=True)
     grpc_state = _grpc_state()
     say(f"  grpc: {grpc_state}")
     try:
-        ref_w = _inmemory_reference(MP_PROCS, "smoke_mp_ref")
+        with ThreadPoolExecutor(2) as pool:
+            trpc, web3 = pool.submit(_mp_trpc, tmp), pool.submit(_mp_web3, tmp)
+            ref_w = _inmemory_reference(MP_PROCS, "smoke_mp_ref")
+            threads = message_plane_threads(tmp, ref_w, grpc_state)
+            trpc, web3 = trpc.result(), web3.result()
         res = {"grpc": grpc_state, "config": {k: MP_PROCS[k] for k in (
             "model", "client_num_per_round", "comm_round", "batch_size")}}
-        res.update(message_plane_processes(tmp, ref_w))
-        res.update(message_plane_threads(tmp, ref_w, grpc_state))
+        res.update(message_plane_processes(tmp, trpc, web3, ref_w))
+        res.update(threads)
         res["comm_bench"] = message_plane_bench(grpc_state)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3904,9 +3996,9 @@ def message_plane_phase() -> dict:
 
 # -- phase 17: the trust middleware (DP, attacks and defenses, contribution) --------
 
-# (b)-(c): the sp front at ResNet-56's full width on the CIFAR-10 surrogate,
-# 2 rounds; (b) with 4 Byzantine-random attackers of the 16 clients
-TRUST_SP = dict(RESNET, comm_round=2)
+# (b)-(c): the sp front at ResNet-20 (SP_R20) on the CIFAR-10 surrogate, 2
+# rounds; (b) with 4 Byzantine-random attackers of the 16 clients
+TRUST_SP = dict(SP_R20, comm_round=2)
 TRUST_ATTACK = dict(enable_attack=True, attack_type="byzantine", attack_mode="random",
                     byzantine_client_num=4)
 # (a): each defense type's config on the 16 clients of (b)'s first round.
@@ -3928,8 +4020,8 @@ TRUST_DEFENSES = {
 # float64 as the CPU's. 1e-4 is about 50x the f32 rounding of a 16-term sum
 # relative to one round's update.
 TRUST_FOLD_TOL = 1e-4
-# (c): a draw's std against its sigma over one model's 855,770 coordinates
-# (a standard error of 0.08%)
+# (c): a draw's std against its sigma over one model's 272,474 coordinates
+# (a standard error of 0.14%)
 TRUST_DP_STD_RTOL = 0.01
 TRUST_DP = {"cdp": dict(epsilon=500.0, clipping_norm=50.0),
             "ldp": dict(epsilon=500.0, clipping_norm=50.0),
@@ -3937,7 +4029,7 @@ TRUST_DP = {"cdp": dict(epsilon=500.0, clipping_norm=50.0),
             "dp_clip": dict(clipping_norm=5.0, noise_multiplier=1.0)}
 TRUST_DP_RUN = dict(TRUST_SP, client_num_per_round=4)  # 4 of 16 sampled: q = 0.25
 # (d): the vmapped front, one round, 16 clients
-TRUST_VMAP = dict(RESNET, backend="vmap", comm_round=1)
+TRUST_VMAP = dict(SP_R20, backend="vmap", comm_round=1)
 # (f): exact Shapley and LOO over 4 clients (16 subsets), GTG over 16, the
 # metric test_acc on the first TRUST_GTG_TEST test images for GTG
 TRUST_SHAPLEY_CLIENTS = 4
@@ -3952,7 +4044,7 @@ def _trust_reset() -> None:
     fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda"))
 
 
-def _trust_sp(over: dict, plain_round_s) -> tuple:
+def _trust_sp(over: dict) -> tuple:
     """(b): run_simulation on the sp front; the first round's client list as
     the fold saw it (after the attack), the defense's selections a round,
     round s from the fedavg spans."""
@@ -3986,7 +4078,7 @@ def _trust_sp(over: dict, plain_round_s) -> tuple:
     check(len(rounds) == 2 and math.isfinite(out["test_loss"]),
           f"sp run: rounds {rounds}, {out}")
     return first[0], selections, {"test_acc": out["test_acc"], "test_loss": out["test_loss"],
-                                  "round_s": rounds, "plain_round_s_phase7": plain_round_s}
+                                  "round_s": rounds}
 
 
 def _trust_fold(name: str, pairs: list, w_global: dict) -> dict:
@@ -4215,7 +4307,7 @@ def trust_cross_silo() -> dict:
     from fedml_tpu_torch.core.security.fedml_defender import FedMLDefender
     from fedml_tpu_torch.utils.pytree import tree_clip_by_global_norm
 
-    over = dict(CROSS_SILO, comm_round=1, enable_defense=True, defense_type="multi_krum",
+    over = dict(SILOS_R20, comm_round=1, enable_defense=True, defense_type="multi_krum",
                 enable_dp=True, dp_solution_type="cdp", epsilon=500.0, clipping_norm=50.0)
     fed = _Federation(over, "smoke_trust_cs")
     agg = fed.server.aggregator.aggregator
@@ -4326,16 +4418,15 @@ def trust_inversion() -> dict:
     return res
 
 
-def trust_phase(fedavg: dict) -> dict:
-    """Phase 17: the trust middleware at ResNet-56's full width (see the
-    module docstring)."""
+def trust_phase() -> dict:
+    """Phase 17: the trust middleware at ResNet-20 (see the module
+    docstring)."""
     import torch
 
-    plain = fedavg["resnet56"]["round_s_mean_rounds_2_3"]
     try:
-        pairs, _, attacked = _trust_sp(dict(TRUST_SP, **TRUST_ATTACK), plain)
+        pairs, _, attacked = _trust_sp(dict(TRUST_SP, **TRUST_ATTACK))
         _, selections, defended = _trust_sp(dict(TRUST_SP, **TRUST_ATTACK, enable_defense=True,
-                                                 defense_type="multi_krum"), plain)
+                                                 defense_type="multi_krum"))
         check(len(selections) == 2 and all(min(s) >= 4 for s in selections),
               f"(b) multi-Krum kept an attacker: {selections}")
         defended["selected"] = selections
@@ -4358,6 +4449,586 @@ def trust_phase(fedavg: dict) -> dict:
         res["inversion"] = trust_inversion()
     finally:
         _trust_reset()
+    return res
+
+
+# -- phase 18: FHE's ciphertext leaves and the sp simulator's other APIs ------------
+
+# (b): phase 7's ResNet-56 sp federation, 16 clients, 2 rounds, rlwe at the
+# JAX package's parameters (N 4096, 4 primes of 20 bits, delta 2^30,
+# sigma 3.2); (c) phase 10's 16 INMEMORY silos, one round
+FHE_SP = dict(RESNET, comm_round=2, enable_fhe=True, fhe_scheme="rlwe")
+FHE_CS = dict(CROSS_SILO, comm_round=1, enable_fhe=True, fhe_scheme="rlwe")
+FHE_PARITY_CHUNKS = 4   # (a): ring products on the card against np.convolve
+FHE_SECRET = "fedml_tpu"  # the default fhe_secret
+# (e), (f): phase 7's federation through TurboAggregate (4 ring groups) and
+# FedAvg_seq (4 workers), 2 rounds each
+TA_RUN = dict(RESNET, federated_optimizer="TA", ta_group_num=4, comm_round=2)
+SEQ_RUN = dict(RESNET, federated_optimizer="FedAvg_seq", worker_num=4, comm_round=2)
+# (g): the split models at the JAX package's widths (split_width 16,
+# gkt_width 8) on phase 7's CIFAR-10 surrogate, 16 clients, 2 rounds; the
+# card-against-CPU gate on the first round of 2 clients cut to 256 images,
+# TF32 off: each step's loss within 1e-3 relative (Adam's steps turn f32
+# noise in a gradient near 0 into up to lr of a weight, tests/test_torch_sp_zoo.py)
+SPLIT_RUN = dict(RESNET, federated_optimizer="split_nn", comm_round=2)
+GKT_RUN = dict(RESNET, federated_optimizer="FedGKT", comm_round=2)
+SPLIT_PARITY_IMAGES = 256
+SPLIT_LOSS_RTOL = 1e-3
+# (h): decentralized online logistic regression, 16 clients streaming 2,000
+# samples of 18 features, 200 iterations of batch 8; vertical FL, a host and
+# two guests (8, 12, 20 features) over 20,000 rows, 3 epochs of batch 256.
+# float64 on both devices: DSGD and VFL within 1e-10 of the CPU's (products
+# summed in other orders), PushSum within 1e-5 (its push weights are
+# float32, as in the JAX package)
+DEC_SHAPE = dict(clients=16, samples=2000, features=18, iterations=200, batch=8)
+VFL_SHAPE = dict(rows=20000, features=(8, 12, 20), epochs=3, batch=256)
+DEC_TOL = {"dsgd": 1e-10, "pushsum": 1e-5}
+VFL_TOL = 1e-10
+
+
+class _Patched:
+    """Replace class attributes for the length of a ``with`` block and put
+    back exactly what was there (an inherited method stays inherited)."""
+
+    def __init__(self, *patches):
+        self.patches = patches  # (cls, name, fn)
+
+    def __enter__(self):
+        self.saved = [(cls, name, cls.__dict__.get(name)) for cls, name, _ in self.patches]
+        for cls, name, fn in self.patches:
+            setattr(cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, old in self.saved:
+            if old is None:
+                delattr(cls, name)
+            else:
+                setattr(cls, name, old)
+        return False
+
+
+def _fhe_key_error_max(params) -> int:
+    """max |e| of the key's error, re-derived from the shared secret as
+    RLWEScheme derives the key (sha256 seed; s, a, then e)."""
+    import hashlib
+
+    import numpy as np
+
+    seed = int.from_bytes(hashlib.sha256(FHE_SECRET.encode()).digest()[:8], "little")
+    rng = np.random.default_rng(seed)
+    rng.integers(-1, 2, params.n)
+    for p in params.primes:
+        rng.integers(0, p, params.n, dtype=np.int64)
+    return int(np.abs(np.rint(rng.normal(0, params.sigma, params.n))).max())
+
+
+def fhe_parity() -> dict:
+    """(a): keygen, encryption under one seeded generator and decryption
+    residues on the card against the plain np.convolve version, N=4096."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core.fhe.rlwe import RLWEContext, RLWEParams
+
+    params = RLWEParams()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    card = RLWEContext(params, seed=7, device=DEV, route="matrix")
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    mats_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+    plain = RLWEContext(params, seed=7, device="cpu")
+    check(card.route == "matrix" and plain.route == "plain", "(a) routes")
+    check(torch.equal(card.s.cpu(), plain.s) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(card.pk, plain.pk)), "(a) keys differ")
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 0.5, FHE_PARITY_CHUNKS * params.n - 100).astype(np.float32))
+    card._rng, plain._rng = np.random.default_rng(3), np.random.default_rng(3)
+    ct_card = card.encrypt(x.to(DEV))
+    ct_plain = plain.encrypt(x)
+    check(ct_card.c0.shape[1] == FHE_PARITY_CHUNKS and torch.equal(ct_card.c0.cpu(), ct_plain.c0)
+          and torch.equal(ct_card.c1.cpu(), ct_plain.c1), "(a) ciphertexts differ")
+    both = ct_card * 0.75 + ct_card * 0.25
+    both_plain = ct_plain * 0.75 + ct_plain * 0.25
+    res_card = card.decrypt_residues([both])
+    res_plain = plain.decrypt_residues([both_plain])
+    check(torch.equal(res_card.cpu(), res_plain), "(a) decryption residues differ")
+    dec = card.decode(res_card, [both])[0]
+    err = float((dec.cpu() - x).abs().max())
+    check(err < 1e-6, f"(a) decryption {err:.3g} from the plaintext")
+    out = {"n": params.n, "primes": params.primes, "chunks": FHE_PARITY_CHUNKS,
+           "keygen_s": keygen_s, "matrices_gb": mats_gb, "max_abs_err": err}
+    del card
+    say(f"  (a) keys, ciphertexts and residues equal to np.convolve's: {out}")
+    return out
+
+
+class _FheProbe:
+    """Class-level wrappers around the port's RLWE scheme and the sp
+    aggregator for (b) and (c): each encryption's plaintext (by the identity
+    of its first ciphertext) and its ms and bytes, the error draws' largest
+    magnitude, each fold's pairs and ms, each decryption's products and CRT
+    ms and its output."""
+
+    def __init__(self):
+        import torch
+
+        from fedml_tpu_torch.core.fhe import rlwe
+        from fedml_tpu_torch.ml.aggregator import DefaultServerAggregator
+
+        self.plain, self.enc_ms, self.ct_bytes, self.folds, self.decrypted = {}, [], [], [], []
+        self.decodes = []
+        self.products_ms, self.crt_ms, self.host_crt_ms, self.fold_ms = [], [], [], []
+        self.err_max = 0
+        targets = [(rlwe.RLWEScheme, "encrypt"), (rlwe.RLWEContext, "_draws"),
+                   (rlwe.RLWEContext, "decrypt_residues"), (rlwe.RLWEContext, "decode"),
+                   (DefaultServerAggregator, "aggregate")]
+        enc, draws, residues, decode, aggregate = [getattr(c, n) for c, n in targets]
+        self._decode = decode  # unwrapped: the host CRT's gate records nothing
+        probe = self
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        def w_encrypt(self_, tree, nonce):
+            out, ms = timed(lambda: enc(self_, tree, nonce))
+            first = next(iter(out.values()))
+            probe.plain[id(first)] = {k: v.detach().clone() for k, v in tree.items()}
+            probe.enc_ms.append(ms)
+            probe.ct_bytes.append(sum(c.nbytes for c in out.values()))
+            return out
+
+        def w_draws(self_, total):
+            u, e1, e2 = draws(self_, total)
+            probe.err_max = max(probe.err_max, int(abs(e1).max()), int(abs(e2).max()))
+            return u, e1, e2
+
+        def w_residues(self_, cts):
+            out, ms = timed(lambda: residues(self_, cts))
+            probe.products_ms.append(ms)
+            return out
+
+        def w_decode(self_, res, cts, host_crt=None):
+            out, ms = timed(lambda: decode(self_, res, cts, host_crt))
+            probe.crt_ms.append(ms)
+            probe.decrypted.append(out)
+            # kept for the host CRT's gate after the run, outside the round
+            probe.decodes.append((self_, res, list(cts)))
+            return out
+
+        def w_aggregate(self_, pairs):
+            out, ms = timed(lambda: aggregate(self_, pairs))
+            probe.fold_ms.append(ms)
+            probe.folds.append(list(pairs))
+            return out
+
+        self._patch = _Patched(*[(c, n, fn) for (c, n), fn in zip(
+            targets, (w_encrypt, w_draws, w_residues, w_decode, w_aggregate))]).__enter__()
+
+    def close(self):
+        self._patch.__exit__(None, None, None)
+
+    def check_fold(self, i: int, what: str, params) -> dict:
+        """Fold i's decryption against sum_i k_i rint(2^30 x_i) / 2^46 of
+        the same plaintexts, within the worst-case noise bound
+        sum_i k_i (2N + 1) B / 2^46 (B the largest error of the run) and half
+        an f32 ulp; and its gap to the plain float64 weighted mean."""
+        import numpy as np
+        import torch
+
+        pairs = self.folds[i]
+        weights = np.asarray([float(n) for n, _ in pairs], np.float32)
+        weights = weights / weights.sum()
+        ks = [int(round(float(w) * 2 ** 16)) for w in weights]
+        plains = [self.plain[id(next(iter(t.values())))] for _, t in pairs]
+        names = list(plains[0])
+        got = dict(zip(names, self.decrypted[i]))
+        # the card's CRT (Garner digits) against the host's Python integers
+        ctx, res, cts = self.decodes[i]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = self._decode(ctx, res, cts, True)
+        self.host_crt_ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(torch.equal(a, b) for a, b in zip(self.decrypted[i], host)),
+              f"{what}: the card's CRT differs from the host's")
+        b = max(self.err_max, _fhe_key_error_max(params))
+        bound = sum(ks) * (2 * params.n + 1) * b / 2 ** 46
+        worst = gap = 0.0
+        for k in names:
+            fixed = sum(kk * torch.round(p[k].double() * 2 ** 30).long()
+                        for kk, p in zip(ks, plains)).double() / 2 ** 46
+            g = got[k].double()
+            ulp = (torch.nextafter(got[k].abs(), torch.tensor(float("inf"), device=g.device))
+                   - got[k].abs()).double() / 2
+            worst = max(worst, float(((g - fixed).abs() - ulp).max()))
+            mean = sum(float(w) * p[k].double() for w, p in zip(weights, plains))
+            gap = max(gap, float((g - mean).abs().max()))
+        check(worst <= bound, f"{what}: decryption {worst:.3g} from the fixed-point sum, "
+                              f"bound {bound:.3g}")
+        return {"clients": len(pairs), "err_vs_fixed_point": worst, "noise_bound": bound,
+                "error_draw_max": b, "gap_to_f32_fold": gap}
+
+
+def fhe_sp(plain_round_s) -> dict:
+    """(b): rlwe through init and FedMLRunner on the sp front."""
+    import math
+
+    import torch
+
+    from fedml_tpu_torch.core.fhe.fhe_agg import FedMLFHE
+
+    probe = _FheProbe()
+    try:
+        args, dataset, model, runner = _fedavg_runner(FHE_SP, DEV == "cuda")
+        ctx = FedMLFHE.get_instance().scheme.ctx
+        check(ctx.device.type == DEV and ctx.route == ("matrix" if DEV == "cuda" else "plain"),
+              f"(b) FHE on {ctx.device}, route {ctx.route}")
+        since = _last_span_seq()
+        runner.run()
+        spans = _span_sums(since)
+        hist = runner.runner.fl_trainer.metrics_history
+        check(len(probe.folds) == 2 and len(probe.decrypted) == 2 and len(probe.enc_ms) == 32,
+              f"(b) {len(probe.folds)} folds, {len(probe.enc_ms)} encryptions")
+        rounds = [probe.check_fold(i, f"(b) round {i}", ctx.params) for i in range(2)]
+        check(all(math.isfinite(m["test_loss"]) for m in hist), f"(b) {hist}")
+        res = {"rounds": rounds, "round_s": [spans[r]["fedavg.round"] for r in sorted(spans)],
+               "plain_round_s_phase7": plain_round_s,
+               "encrypt_ms_client": sum(probe.enc_ms) / len(probe.enc_ms),
+               "ciphertext_bytes_client": probe.ct_bytes[0],
+               "plaintext_bytes_client": sum(v.numel() * 4 for v in model.params.values()),
+               "chunks_client": sum(-(-v.numel() // ctx.params.n) for v in model.params.values()),
+               "fold_ms": probe.fold_ms, "decrypt_products_ms": probe.products_ms,
+               "decrypt_crt_ms": probe.crt_ms, "host_crt_ms": probe.host_crt_ms,
+               "test_acc": [m["test_acc"] for m in hist],
+               "test_loss": [m["test_loss"] for m in hist]}
+    finally:
+        probe.close()
+        _trust_reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"  (b) sp, rlwe, 16 clients x 2 rounds: {res}")
+    return res
+
+
+def fhe_cross_silo() -> dict:
+    """(c): 16 INMEMORY silos, one round of rlwe: the server's global
+    against the fixed-point sum of the arrivals' plaintexts."""
+    import torch
+
+    from fedml_tpu_torch.core.fhe.fhe_agg import FedMLFHE
+
+    probe = _FheProbe()
+    try:
+        fed = _Federation(FHE_CS, "smoke_fhe_cs")
+        params = FedMLFHE.get_instance().scheme.ctx.params
+        since = _last_span_seq()
+        wall = fed.run()
+        glob = fed.server.aggregator.get_global_model_params()
+        check(len(probe.folds) == 1 and len(probe.folds[0]) == 16, "(c) one fold of 16")
+        res = probe.check_fold(0, "(c)", params)
+        check(all(torch.equal(glob[k], v) for k, v in zip(glob, probe.decrypted[0])),
+              "(c) the server's global is not the decryption")
+        res.update(round_s=_cs_round_split(since)[0]["round_s"], wall_s=wall,
+                   fold_ms=probe.fold_ms[0], decrypt_crt_ms=probe.crt_ms[0],
+                   host_crt_ms=probe.host_crt_ms[0])
+    finally:
+        probe.close()
+        _trust_reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"  (c) cross-silo, rlwe, 16 silos: {res}")
+    return res
+
+
+def fhe_refusals() -> dict:
+    """(d): R7 (backend vmap), R10 (additive_mask), R11 (a byte backend)
+    refused with ValueError before any round."""
+    import fedml_tpu_torch as fedml
+
+    since = _last_span_seq()
+    cases = {"R7": lambda: fedml.run_simulation(backend="vmap", args=fedml.default_config(
+                 "simulation", using_gpu=DEV == "cuda", **dict(PARROT, backend="vmap",
+                                                              enable_fhe=True))),
+             "R10": lambda: fedml.run_simulation(args=fedml.default_config(
+                 "simulation", using_gpu=DEV == "cuda",
+                 **dict(PARROT, enable_fhe=True, fhe_scheme="additive_mask"))),
+             "R11": lambda: fedml.FedMLRunner(fedml.default_config(
+                 "cross_silo", using_gpu=DEV == "cuda", enable_fhe=True, backend="MQTT_S3",
+                 role="client", rank=1), DEV, None, None)}
+    out = {}
+    for tag, fn in cases.items():
+        try:
+            fn()
+            out[tag] = "ran"
+        except ValueError as e:
+            out[tag] = "refused" if tag in str(e) else f"other: {e}"
+    _trust_reset()
+    check(all(v == "refused" for v in out.values()), f"(d) {out}")
+    check(_last_span_seq() == since, "(d) a round started before a refusal")
+    say(f"  (d) {out}")
+    return out
+
+
+def ta_run(plain_round_s) -> dict:
+    """(e): TurboAggregate: each ring sum bit-equal to the plain field sum
+    of the same quantized updates; the global within K/2 quantization steps
+    of the float64 fold (each of the K weighted updates rounds by at most
+    half a step) plus an f32 ulp."""
+    import torch
+
+    from fedml_tpu_torch.core.mpc.finite_field import flatten_finite, tree_to_finite
+    from fedml_tpu_torch.simulation.sp import turboaggregate as ta
+    from fedml_tpu_torch.utils.pytree import tree_scale
+
+    rings = []
+    ring_sum, ring_agg = ta.TurboAggregateTrainer._ring_sum, ta.TurboAggregateTrainer._ring_aggregate
+
+    def w_sum(self_, w_locals):
+        out = ring_sum(self_, w_locals)
+        rings.append((list(w_locals), out))
+        return out
+
+    def w_agg(self_, w_locals):
+        out = ring_agg(self_, w_locals)
+        rings[-1] = rings[-1] + (out,)
+        return out
+
+    with _Patched((ta.TurboAggregateTrainer, "_ring_sum", w_sum),
+                  (ta.TurboAggregateTrainer, "_ring_aggregate", w_agg)):
+        _, _, _, runner = _fedavg_runner(TA_RUN, DEV == "cuda")
+        since = _last_span_seq()
+        runner.run()
+        spans = _span_sums(since)
+    check(len(rings) == 2, f"(e) {len(rings)} ring sums")
+    gaps = []
+    for w_locals, partial, glob in rings:
+        total = sum(n for n, _ in w_locals)
+        plain = sum(flatten_finite(tree_to_finite(tree_scale(w, n / total), ta._Q_BITS, ta._P))
+                    for n, w in w_locals) % ta._P
+        check(torch.equal(partial, plain), "(e) the ring sum differs from the field sum")
+        step = 2.0 ** -ta._Q_BITS
+        gap = max(float((glob[k].double() - sum(n / total * w[k].double() for n, w in w_locals))
+                        .abs().max()) for k in glob)
+        check(gap <= len(w_locals) / 2 * step + 1e-6, f"(e) global {gap:.3g} from the float fold")
+        gaps.append(gap / step)
+    res = {"groups": TA_RUN["ta_group_num"], "round_s": [spans[r]["fedavg.round"]
+                                                           for r in sorted(spans)],
+           "plain_round_s_phase7": plain_round_s, "gap_in_steps": gaps,
+           "test_acc": runner.runner.fl_trainer.metrics_history[-1]["test_acc"]}
+    say(f"  (e) TA: {res}")
+    return res
+
+
+def seq_run(plain_round_s) -> dict:
+    """(f): FedAvg_seq with 4 workers: every client in exactly one queue;
+    each round's global the fold of its 16 w_locals (FOLD_TOL of the float64
+    weighted mean, as phase 7's)."""
+    import torch
+
+    from fedml_tpu_torch.simulation.sp.fedavg_seq import FedAvgSeqAPI
+
+    marks, folds = [], []
+    schedule, update = FedAvgSeqAPI._schedule, FedAvgSeqAPI._server_update
+
+    def w_schedule(self_, cohort):
+        marks.append([time.perf_counter()])
+        return schedule(self_, cohort)
+
+    def w_update(self_, w_global, w_locals):
+        out = update(self_, w_global, w_locals)
+        torch.cuda.synchronize()
+        marks[-1].append(time.perf_counter())
+        folds.append((list(w_locals), out))
+        return out
+
+    with _Patched((FedAvgSeqAPI, "_schedule", w_schedule),
+                  (FedAvgSeqAPI, "_server_update", w_update)):
+        _, _, _, runner = _fedavg_runner(SEQ_RUN, DEV == "cuda")
+        runner.run()
+    hist = runner.runner.fl_trainer.metrics_history
+    errs = []
+    for m in hist:
+        check(sorted(i for q in m["schedule"] for i in q) == list(range(16))
+              and len(m["schedule"]) == 4, f"(f) queues {m['schedule']}")
+    for pairs, fold in folds:
+        total = sum(n for n, _ in pairs)
+        err = max(float(((fold[k].double() - sum(n * t[k].double() for n, t in pairs) / total)
+                         .abs().max() / fold[k].double().abs().max().clamp_min(1e-30)))
+                  for k in fold)
+        check(err <= FOLD_TOL, f"(f) the fold is {err:.3g} from the weighted mean")
+        errs.append(err)
+    res = {"workers": SEQ_RUN["worker_num"], "round_s": [b - a for a, b in marks],
+           "plain_round_s_phase7": plain_round_s,
+           "makespan_s": [m["makespan"] for m in hist], "schedule": [m["schedule"] for m in hist],
+           "fold_err_of_scale": errs, "test_acc": hist[-1]["test_acc"]}
+    say(f"  (f) FedAvg_seq: {res}")
+    return res
+
+
+def _split_parity(opt: str) -> dict:
+    """(g)'s gate: the first round of 2 clients cut to SPLIT_PARITY_IMAGES
+    on the card against the CPU, TF32 off, from the same seeded init: each
+    local step's loss within SPLIT_LOSS_RTOL."""
+    import torch
+
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.simulation.sp.fedgkt import FedGKTAPI
+    from fedml_tpu_torch.simulation.sp.split_nn import SplitNNAPI
+
+    over = dict(SPLIT_RUN if opt == "split_nn" else GKT_RUN, client_num_in_total=2,
+                client_num_per_round=2, comm_round=1)
+    args = fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda", **over))
+    dataset, _ = fedml.data.load(args)
+    cut = {c: dataset[5][c].subset(list(range(SPLIT_PARITY_IMAGES))) for c in range(2)}
+    dataset = list(dataset)
+    dataset[5], dataset[4] = cut, {c: SPLIT_PARITY_IMAGES for c in range(2)}
+    losses = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        for where in (DEV, "cpu"):
+            if opt == "split_nn":
+                api = SplitNNAPI(args, where, dataset)
+                step = api._step
+                seen = []
+
+                def rec(x, y, step=step, seen=seen):
+                    out = step(x, y)
+                    seen.append(float(out))
+                    return out
+
+                api._step = rec
+                api._train_client(0)
+                api._train_client(1)
+                losses[where] = seen
+            else:
+                api = FedGKTAPI(args, where, dataset)
+                losses[where] = [api.train()[k] for k in ("client_loss", "server_loss")]
+    card, cpu = losses[DEV], losses["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    check(len(card) == len(cpu) > 0 and rel <= SPLIT_LOSS_RTOL,
+          f"(g) {opt}: card losses {card} against the CPU's {cpu}")
+    return {"losses": card, "cpu_losses": cpu, "max_rel_diff": rel}
+
+
+def split_runs() -> dict:
+    """(g): split NN and FedGKT through FedMLRunner, 2 rounds on the card."""
+    import math
+
+    res = {}
+    for opt, over in (("split_nn", SPLIT_RUN), ("FedGKT", GKT_RUN)):
+        gate = _split_parity(opt)
+        _, _, _, runner = _fedavg_runner(over, DEV == "cuda")
+        t0 = time.perf_counter()
+        runner.run()
+        wall = time.perf_counter() - t0
+        hist = runner.runner.fl_trainer.metrics_history
+        check(len(hist) == 2 and all(math.isfinite(m["test_acc"]) for m in hist),
+              f"(g) {opt}: {hist}")
+        res[opt] = {"parity": gate, "s_a_round": wall / len(hist),
+                    "test_acc": [m["test_acc"] for m in hist],
+                    **{k: [m[k] for m in hist] for k in ("train_loss", "client_loss",
+                                                        "server_loss") if k in hist[0]}}
+    say(f"  (g) split NN and FedGKT: {res}")
+    return res
+
+
+def _dec_data():
+    import numpy as np
+
+    s = DEC_SHAPE
+    rng = np.random.RandomState(0)
+    w_true = rng.randn(s["features"])
+    x = rng.randn(s["clients"], s["samples"], s["features"])
+    return x, (x @ w_true > 0).astype(np.float64)
+
+
+def decentralized_and_vfl() -> dict:
+    """(h): DSGD, PushSum and vertical FL on the card against the CPU in
+    float64; each loss falling."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.simulation.sp.classical_vertical_fl import (VerticalFederatedLearning,
+                                                                     VflFixture)
+    from fedml_tpu_torch.simulation.sp.decentralized import FedML_decentralized_fl
+
+    def loss_fn(params, xb, yb):
+        logit = xb @ params["w"] + params["b"]
+        return torch.mean(torch.clamp(logit, min=0) - logit * yb
+                          + torch.log1p(torch.exp(-torch.abs(logit))))
+
+    s = DEC_SHAPE
+    x, y = _dec_data()
+    res = {}
+    for mode, symmetric in (("dsgd", True), ("pushsum", False)):
+        args = SimpleNamespace(b_symmetric=symmetric, iteration_number=s["iterations"],
+                               learning_rate=0.3, batch_size=s["batch"],
+                               topology_neighbors_num_undirected=4,
+                               topology_neighbors_num_directed=2)
+        runs = {}
+        for where in (DEV, "cpu"):
+            p0 = {"w": torch.zeros(s["features"], dtype=torch.float64),
+                  "b": torch.zeros((), dtype=torch.float64)}
+            t0 = time.perf_counter()
+            out = FedML_decentralized_fl(s["clients"], (x, y), p0, loss_fn, args, device=where)
+            runs[where] = (out, time.perf_counter() - t0)
+        (card, card_s), (cpu, _) = runs[DEV], runs["cpu"]
+        err = max(float((card["params"][k].cpu() - cpu["params"][k]).abs().max()
+                        / cpu["params"][k].abs().max()) for k in cpu["params"])
+        hist = card["loss_history"]
+        check(err <= DEC_TOL[mode] and hist[-1] < hist[0],
+              f"(h) {mode}: {err:.3g} from the CPU, loss {hist[0]:.4g} -> {hist[-1]:.4g}")
+        res[mode] = {"err_of_scale": err, "loss_first": hist[0], "loss_last": hist[-1],
+                     "s": card_s}
+    v = VFL_SHAPE
+    rng = np.random.RandomState(1)
+    xs = [rng.randn(v["rows"], d) for d in v["features"]]
+    yv = (sum(xx @ rng.randn(xx.shape[1]) for xx in xs) > 0).astype(np.float64)
+    n_tr = v["rows"] * 4 // 5
+    runs = {}
+    for where in (DEV, "cpu"):
+        vfl = VerticalFederatedLearning(list(v["features"]), learning_rate=0.5, device=where,
+                                        dtype=torch.float64)
+        fx = VflFixture(vfl)
+        t0 = time.perf_counter()
+        m = fx.fit([xx[:n_tr] for xx in xs], yv[:n_tr], [xx[n_tr:] for xx in xs], yv[n_tr:],
+                   epochs=v["epochs"], batch_size=v["batch"])
+        runs[where] = (vfl, fx, m, time.perf_counter() - t0)
+    (cv, cf, cm, cs), (pv, pf, pm, _) = runs[DEV], runs["cpu"]
+    err = max(float((a[k].cpu() - b[k]).abs().max() / b[k].abs().max().clamp_min(1e-30))
+              for a, b in zip(cv.party_params, pv.party_params) for k in b)
+    check(err <= VFL_TOL and cf.loss_list[-1] < cf.loss_list[0] and cm["test_acc"] == pm["test_acc"],
+          f"(h) vfl: {err:.3g} from the CPU, {cm} against {pm}")
+    res["vfl"] = {"err_of_scale": err, "loss_first": cf.loss_list[0],
+                  "loss_last": cf.loss_list[-1], "test_acc": cm["test_acc"], "s": cs}
+    say(f"  (h) decentralized and vertical FL, card against CPU in float64: {res}")
+    return res
+
+
+def fhe_sp_zoo_phase(fedavg: dict) -> dict:
+    """Phase 18 (see the module docstring)."""
+    import torch
+
+    plain = fedavg["resnet56"]["round_s_mean_rounds_2_3"]
+    res = {"fhe": {"parity": fhe_parity()}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["fhe"]["sp"] = fhe_sp(plain)
+    res["fhe"]["cross_silo"] = fhe_cross_silo()
+    res["fhe"]["refusals"] = fhe_refusals()
+    res["ta"] = ta_run(plain)
+    res["fedavg_seq"] = seq_run(plain)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["split"] = split_runs()
+    res["decentralized_vfl"] = decentralized_and_vfl()
+    _trust_reset()
     return res
 
 
@@ -4396,6 +5067,7 @@ def main() -> int:
     check(not notes, f"ptxas performance advisories: {notes}")
 
     say("== 3. kernels against their plain versions")
+    t0 = time.time()
     bf16, f32 = torch.bfloat16, torch.float32
     errs = kernel_case(fa, B, T, HQ, HQ, D, True, bf16)  # the main path's shape
     kernel_case(fa, B, T, HQ, HQ, D, False, bf16)
@@ -4415,6 +5087,7 @@ def main() -> int:
             f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in gqa[name].items()))
     say(f"  K2+K3 at Hq={HQ} Hkv=8 {gqa['k2_plus_k3_ms']:.4g} ms, SDPA's backward with "
         f"enable_gqa {gqa['sdpa_bwd_ms']:.4g} ms")
+    say(f"  phase {time.time() - t0:.1f}s")
 
     tmp = os.path.join(ROOT, ".smoke_run")
     shutil.rmtree(tmp, ignore_errors=True)
@@ -4423,6 +5096,7 @@ def main() -> int:
         fa.reset_launch_counts()
         by_design0 = {name: libs.design_launches(name) for name in KERNELS}
         say("== 4. train step (LLMTrainer.train)")
+        t0 = time.time()
         trained = train_phase(tmp)
         say("== 5. client round (LLMClientTrainer)")
         client_phase(tmp, trained["adapters"])
@@ -4436,7 +5110,8 @@ def main() -> int:
     # per step and layer: the forward, its recompute under remat, one dQ, one dK/dV
     want = {"flash_fwd": 2 * N_LAYERS * steps, "flash_bwd_dq": N_LAYERS * steps,
             "flash_bwd_dkv": N_LAYERS * steps}
-    say(f"  launches on the main path: {launches} (expected {want})")
+    say(f"  phases 4-5 {time.time() - t0:.1f}s; launches on the main path: {launches} "
+        f"(expected {want})")
     check(launches == want, f"launch counts {launches} != {want}")
     # which instances ran, as the C entry points counted them: the main path is bf16
     say(f"  launches by design: {by_design}")
@@ -4445,12 +5120,14 @@ def main() -> int:
               f"{name}: main-path launches by design {by_design[name]}, "
               f"expected all {want[name]} on {design}")
 
-    say("== 6. serve (Llama-2-7B, 32 layers, bf16, max_seq_len 4096)")
+    say(f"== 6. serve (Llama-2-7B's widths, {SERVE_LAYERS} of its 32 layers, bf16, "
+        "max_seq_len 4096)")
     fa.reset_launch_counts()
     by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
     serve = serve_phase()
     serve_launches = dict(fa.launch_counts)
-    say(f"  flash launches in the serve phase: {serve_launches}")
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the serve phase: {serve_launches}")
     # decode runs the plain masked attention (generation.decode_model forces
     # attention_impl="xla", as the JAX package does): no kernel launches here
     check(all(n == 0 for n in serve_launches.values())
@@ -4514,7 +5191,8 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the cross-silo phase launched flash kernels: {cs_launches}")
 
-    say("== 11. async federation (FedBuff) and the compressed uplink: ResNet-56 x 16")
+    say("== 11. async federation (FedBuff) and the compressed uplink: ResNet-56 x 16 (the "
+        "compressed uplink at ResNet-20)")
     gc.collect()
     torch.cuda.empty_cache()
     fa.reset_launch_counts()
@@ -4545,13 +5223,13 @@ def main() -> int:
           f"the resilience phase launched flash kernels: {res_launches}")
 
     say("== 13. privacy: windowed SecAgg, the dropout drill, DP (sync, async, secagg+dp), the "
-        "masked topk uplink (ResNet-56 x 16 silos)")
+        "masked topk uplink (ResNet-20 x 16 silos)")
     gc.collect()
     torch.cuda.empty_cache()
     fa.reset_launch_counts()
     by_design0 = {name: libs.design_launches(name) for name in KERNELS}
     t0 = time.time()
-    privacy = privacy_phase(cross_silo)
+    privacy = privacy_phase()
     priv_launches = dict(fa.launch_counts)
     say(f"  phase {time.time() - t0:.1f}s; flash launches in the privacy phase: {priv_launches}")
     # (e) masking, the ring fold, unmasking, DP noise and ResNet training run
@@ -4560,7 +5238,7 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the privacy phase launched flash kernels: {priv_launches}")
 
-    say("== 14. secure aggregation fronts: SecAgg and LightSecAgg, ResNet-56 x 16 silos")
+    say("== 14. secure aggregation fronts: SecAgg and LightSecAgg, ResNet-20 x 16 silos")
     gc.collect()
     torch.cuda.empty_cache()
     fa.reset_launch_counts()
@@ -4591,7 +5269,7 @@ def main() -> int:
           f"the hierarchy phase launched flash kernels: {hier_launches}")
 
     say("== 16. the message plane's other backends: TRPC and MQTT_WEB3 across processes, GRPC "
-        "and MPI, the reference wire, comm_bench (ResNet-56)")
+        "and MPI, the reference wire (ResNet-20), comm_bench (ResNet-56's state dict)")
     gc.collect()
     torch.cuda.empty_cache()
     fa.reset_launch_counts()
@@ -4608,13 +5286,13 @@ def main() -> int:
           f"the message-plane phase launched flash kernels: {mp_launches}")
 
     say("== 17. the trust middleware: every defense's fold, attacks, DP, the vmapped and "
-        "cross-silo fronts, contribution, gradient inversion (ResNet-56)")
+        "cross-silo fronts, contribution, gradient inversion (ResNet-20)")
     gc.collect()
     torch.cuda.empty_cache()
     fa.reset_launch_counts()
     by_design0 = {name: libs.design_launches(name) for name in KERNELS}
     t0 = time.time()
-    trust = trust_phase(fedavg)
+    trust = trust_phase()
     trust_launches = dict(fa.launch_counts)
     say(f"  phase {time.time() - t0:.1f}s; flash launches in the trust phase: {trust_launches}")
     # (h) robust statistics, noise draws, ResNet training and the inversion
@@ -4623,7 +5301,24 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the trust phase launched flash kernels: {trust_launches}")
 
-    say("== 18. result")
+    say("== 18. FHE's ciphertext leaves (rlwe on the sp and cross-silo fronts) and the sp "
+        "simulator's other APIs (TA, FedAvg_seq, split NN, FedGKT, decentralized, vertical FL)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    fhe_zoo = fhe_sp_zoo_phase(fedavg)
+    fhe_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the FHE and sp-zoo phase: "
+        f"{fhe_launches}")
+    # (i) ring products, folds, the split models and the decentralized and
+    # vertical learners run no attention
+    check(all(n == 0 for n in fhe_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the FHE and sp-zoo phase launched flash kernels: {fhe_launches}")
+
+    say("== 19. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4649,6 +5344,8 @@ def main() -> int:
     print(json.dumps({"message_plane": {"card": card, "flash_launches": mp_launches,
                                         **message_plane}}), flush=True)
     print(json.dumps({"trust": {"card": card, "flash_launches": trust_launches, **trust}}),
+          flush=True)
+    print(json.dumps({"fhe_sp_zoo": {"card": card, "flash_launches": fhe_launches, **fhe_zoo}}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

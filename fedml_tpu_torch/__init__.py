@@ -36,8 +36,10 @@ one-liners.
 
 ``init`` configures the trust middleware from the config, as the JAX
 package's does: DP (``enable_dp``), attacks (``enable_attack``), defenses
-(``enable_defense``) and contribution assessment (``enable_contribution``),
-run by the trainers' and aggregators' hooks on every front.
+(``enable_defense``), contribution assessment (``enable_contribution``) and
+homomorphic encryption (``enable_fhe`` with ``fhe_scheme: rlwe``, its ring
+products on the card), run by the trainers' and aggregators' hooks on every
+front that supports them.
 """
 
 from __future__ import annotations
@@ -82,10 +84,12 @@ def _seed_everything(seed: int) -> None:
 def init(args: Optional[Any] = None, override: Optional[Dict[str, Any]] = None) -> Any:
     """Parse the config, set up logging, seed the RNGs (Python, numpy,
     torch) and configure the trust middleware's singletons (attacker,
-    defender, DP) from ``args``, as the JAX package's ``init`` does
-    (``__init__.py:88-96``). FHE, mlops and multi-process runs are not
-    ported: asking for any raises NotImplementedError (ROADMAP.md, Queue 1)."""
+    defender, DP, FHE) from ``args``, as the JAX package's ``init`` does
+    (``__init__.py:88-96``); FHE's ring products run on ``get_device(args)``.
+    mlops and multi-process runs are not ported: asking for either raises
+    NotImplementedError (ROADMAP.md, Queue 1)."""
     from .core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+    from .core.fhe.fhe_agg import FedMLFHE
     from .core.security.fedml_attacker import FedMLAttacker
     from .core.security.fedml_defender import FedMLDefender
 
@@ -94,7 +98,7 @@ def init(args: Optional[Any] = None, override: Optional[Dict[str, Any]] = None) 
     elif override:
         for k, v in override.items():
             setattr(args, k, v)
-    on = [f for f in ("enable_fhe", "using_mlops") if getattr(args, f, False)]
+    on = ["using_mlops"] if getattr(args, "using_mlops", False) else []
     if int(getattr(args, "num_processes", 0) or 0) > 1:
         on.append("num_processes > 1")
     if on:
@@ -107,6 +111,8 @@ def init(args: Optional[Any] = None, override: Optional[Dict[str, Any]] = None) 
     FedMLAttacker.get_instance().init(args)
     FedMLDefender.get_instance().init(args)
     FedMLDifferentialPrivacy.get_instance().init(args)
+    FedMLFHE.get_instance().init(
+        args, device=get_device(args) if getattr(args, "enable_fhe", False) else "cpu")
     return args
 
 

@@ -15,8 +15,13 @@ flattens each leaf once to ``[K, n]``, concatenates them to ``[K, P]``, pads K
 to a multiple of the bucket with zero rows of weight 0.0 and sums bucket by
 bucket in f32.
 
-Not ported: the modelwatch fusion, object leaves (FHE ciphertexts) and the
-mesh-sharded engine (ROADMAP.md, Queue 1).
+Object leaves (the FHE ciphertexts of ``core/fhe/rlwe.py``) define their own
+``+`` and ``* w`` and fold with them, leaf by leaf, as in the JAX package
+(``bucketed.py:39-48``): the weights normalised in f32, each passed as
+``float(w)``.
+
+Not ported: the modelwatch fusion and the mesh-sharded engine (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -33,6 +38,18 @@ from .. import telemetry as tel
 StateDict = Dict[str, torch.Tensor]
 
 DEFAULT_BUCKET_SIZE = 16
+
+
+def _is_object_leaf(leaf) -> bool:
+    return not isinstance(leaf, (torch.Tensor, np.ndarray, np.generic, float, int))
+
+
+def _object_fold(trees: Sequence[StateDict], weights: np.ndarray) -> StateDict:
+    """The fold with the leaves' own ``+`` and ``*`` (the FHE path)."""
+    acc = {k: x * float(weights[0]) for k, x in trees[0].items()}
+    for w, t in zip(weights[1:], trees[1:]):
+        acc = {k: a + t[k] * float(w) for k, a in acc.items()}
+    return acc
 
 
 def _flat_f32(tree: StateDict) -> torch.Tensor:
@@ -62,9 +79,9 @@ class BucketedAggregator:
         for tree in chunk:
             bad = [k for k, v in tree.items() if not isinstance(v, torch.Tensor)]
             if bad:
-                raise NotImplementedError(
-                    f"leaves {bad[:3]} are not tensors: the fold of object leaves (FHE "
-                    "ciphertexts) is not ported to fedml_tpu_torch (ROADMAP.md, Queue 1)")
+                raise TypeError(
+                    f"leaves {bad[:3]} are not tensors: object leaves (FHE ciphertexts) "
+                    "fold through aggregate(), not the f32 bucket step")
         dev = next(iter(chunk[0].values())).device
         w = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
         with tel.span("agg.bucket", bucket_size=self.bucket_size, first=acc is None):
@@ -93,6 +110,9 @@ class BucketedAggregator:
         weights = np.asarray([float(w) for w, _ in pairs], dtype=np.float32)
         weights = weights / weights.sum()
         trees = [t for _, t in pairs]
+        if any(_is_object_leaf(v) for v in trees[0].values()):
+            with tel.span("agg.object_fold", k=len(trees)):
+                return _object_fold(trees, weights)
         b = self.bucket_size
         with tel.span("agg.aggregate", k=len(trees), bucket_size=b):
             acc = None

@@ -14,21 +14,15 @@ the FedAvg path needs it only in tests until the message plane is ported
 The hooks keep their place in the round (JAX ``client_trainer.py:63-101``):
 before training the round's global model is kept as DP-Clip's anchor and a
 data-poisoning attack may replace the data; after it the local DP frame
-noises the update. FHE is not ported: its branch raises
-NotImplementedError (ROADMAP.md, Queue 1).
+noises the update, then FHE encrypts it (``core/fhe``): the trainer's
+parameters become a state dict of ciphertexts until the next
+``set_model_params`` of tensors, as the JAX trainer's pytree does.
 """
 
 from __future__ import annotations
 
 import abc
 from typing import Any
-
-
-def refuse_fhe(args: Any) -> None:
-    """FHE's object leaves are not ported: refuse the knob."""
-    if getattr(args, "enable_fhe", False):
-        raise NotImplementedError(
-            "enable_fhe: FHE is not ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
 
 
 class ClientTrainer(abc.ABC):
@@ -81,7 +75,6 @@ class ClientTrainer(abc.ABC):
         from ..dp.fedml_differential_privacy import FedMLDifferentialPrivacy
         from ..security.fedml_attacker import FedMLAttacker
 
-        refuse_fhe(args)
         if FedMLDifferentialPrivacy.get_instance().is_local_dp_enabled():
             self._dp_global_params = self.get_model_params()
         attacker = FedMLAttacker.get_instance()
@@ -94,17 +87,23 @@ class ClientTrainer(abc.ABC):
         """Run local optimization; must leave updated params in the model."""
 
     def on_after_local_training(self, train_data, device, args) -> None:
-        """Local DP noise (reference :59-82); FHE would follow it."""
+        """Local DP noise, then FHE encryption (reference :59-82, JAX
+        ``client_trainer.py:84-101``, the same order)."""
         if not self.enable_hooks:
             return
         from ..dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+        from ..fhe.fhe_agg import FedMLFHE
+        from .context import Context
 
-        refuse_fhe(args)
         dp = FedMLDifferentialPrivacy.get_instance()
         if dp.is_local_dp_enabled():
             extra = {"global_model_params": getattr(self, "_dp_global_params", None),
                      "local_sample_num": self.local_sample_number or None}
             self.set_model_params(dp.add_local_noise(self.get_model_params(), extra))
+        fhe = FedMLFHE.get_instance()
+        if fhe.is_fhe_enabled():
+            Context().add("fhe_encrypted", True)
+            self.set_model_params(fhe.fhe_enc("local", self.get_model_params()))
 
     def test(self, test_data, device, args):  # pragma: no cover - optional
         return None

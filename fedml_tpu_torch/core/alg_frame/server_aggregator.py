@@ -4,11 +4,10 @@ counterpart of ``fedml_tpu/core/alg_frame/server_aggregator.py`` (reference
 
 Hook order as in the JAX package (``:41-124``): ``on_before_aggregation``
 (model attack, defense screening, the DP frame's clip), ``aggregate``
-(defense-wrapped), ``on_after_aggregation`` (central DP noise, the
-defense's post-processing), then ``assess_contribution``. FHE is not
-ported: with ``enable_fhe`` the hooks raise NotImplementedError
-(ROADMAP.md, Queue 1). With no middleware on they pass the client list and
-the folded model through unchanged.
+(defense-wrapped), ``on_after_aggregation`` (FHE decryption when a client
+encrypted, central DP noise, the defense's post-processing), then
+``assess_contribution``. With no middleware on they pass the client list
+and the folded model through unchanged.
 
 Contribution assessment departs from the JAX package (ROADMAP.md, Queue 3,
 R9): JAX's metric ignores the subset model it is given, its test returns a
@@ -24,7 +23,6 @@ import abc
 import logging
 from typing import Any, List, Tuple
 
-from .client_trainer import refuse_fhe
 from .context import Context
 
 
@@ -58,7 +56,6 @@ class ServerAggregator(abc.ABC):
         from ..security.fedml_attacker import FedMLAttacker
         from ..security.fedml_defender import FedMLDefender
 
-        refuse_fhe(self.args)
         lst = raw_client_model_or_grad_list
         attacker = FedMLAttacker.get_instance()
         if attacker.is_model_attack():
@@ -97,9 +94,12 @@ class ServerAggregator(abc.ABC):
         if not self.enable_hooks:
             return aggregated_model_or_grad
         from ..dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+        from ..fhe.fhe_agg import FedMLFHE
         from ..security.fedml_defender import FedMLDefender
 
-        refuse_fhe(self.args)
+        fhe = FedMLFHE.get_instance()
+        if fhe.is_fhe_enabled() and Context().get("fhe_encrypted"):
+            aggregated_model_or_grad = fhe.fhe_dec("global", aggregated_model_or_grad)
         dp = FedMLDifferentialPrivacy.get_instance()
         if dp.is_central_dp_enabled():
             logging.info("-----add central DP noise ----")

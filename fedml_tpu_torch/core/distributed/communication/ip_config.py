@@ -33,6 +33,10 @@ def read_ip_config(path: Optional[str], size: int) -> Dict[int, str]:
 # so outgoing connections do not take the ports, and above the backends'
 # default bases (GRPC 8890, TRPC 9890, each plus a run-id offset below 1000)
 _PORT_RANGE = (13000, 19000)
+# a generator of its own, seeded from the OS: ``fedml_tpu_torch.init`` seeds
+# the global ``random`` with the run's seed, after which two callers drawing
+# from it would pick the same block
+_PORT_RNG = random.Random()
 
 
 def free_port_block(n: int) -> int:
@@ -41,7 +45,7 @@ def free_port_block(n: int) -> int:
     caller that binds later retries on ``EADDRINUSE``."""
     lo, hi = _PORT_RANGE
     for _ in range(200):
-        base = random.randrange(lo, hi - n)
+        base = _PORT_RNG.randrange(lo, hi - n)
         held = []
         try:
             for p in range(base, base + n):

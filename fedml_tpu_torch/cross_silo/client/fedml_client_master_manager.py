@@ -62,6 +62,7 @@ from ...core import telemetry as tel
 from ...core.distributed.communication.message import Message
 from ...core.distributed.fedml_comm_manager import _BYTE_BACKENDS, FedMLCommManager
 from ...core.engine import compress_upload, refuse_chaos_knobs, run_local_round
+from ...core.fhe.fhe_agg import refuse_fhe_front
 from ...core.privacy import (QuantSpec, WindowMember, clip_to_reference, masked_uplink_payload,
                              outbound_delta, privacy_from_args)
 from ...core.telemetry import trace_context
@@ -74,6 +75,9 @@ log = logging.getLogger(__name__)
 class ClientMasterManager(FedMLCommManager):
     def __init__(self, args: Any, trainer_dist_adapter, comm=None, rank=0, size=0, backend="INMEMORY"):
         refuse_chaos_knobs(args)
+        # ciphertext objects ride INMEMORY only (ROADMAP.md, Queue 3, R11,
+        # beside R6's compressed payload below)
+        refuse_fhe_front(args, "cross_silo", backend)
         # opt-in uplink compression at the flat-vector boundary; eftopk keeps
         # its residual here
         self._comm_compressor = make_comm_compressor(args)

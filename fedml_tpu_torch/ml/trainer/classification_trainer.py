@@ -13,7 +13,10 @@ plumbing copies where the JAX package could share:
   client's ``w_local`` would be the one module, and the fold would return
   the last client.
 
-The parameters stay on the trainer's device between clients.
+The parameters stay on the trainer's device between clients. A state dict
+of object leaves (FHE ciphertexts, set by the encryption hook) is kept as it
+is and handed back by ``get_model_params`` until the next state dict of
+tensors, as the JAX trainer's pytree would be.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ class ClassificationTrainer(ClientTrainer):
         self._local_train = make_local_train_fn(model, args)
         self._eval_batch = make_eval_fn(model)
         self._round = 0
+        self._sealed = None  # a state dict of ciphertexts, after the FHE hook
         self.last_loss = float("nan")
         self.last_steps = 0
         if model.params is not None:
@@ -56,10 +60,16 @@ class ClassificationTrainer(ClientTrainer):
 
     # --- params ----------------------------------------------------------
     def get_model_params(self) -> Dict[str, torch.Tensor]:
+        if self._sealed is not None:
+            return dict(self._sealed)
         return tree_clone(dict(self.model.module.named_parameters()))
 
     @torch.no_grad()
     def set_model_params(self, model_parameters) -> None:
+        if not all(isinstance(v, torch.Tensor) for v in model_parameters.values()):
+            self._sealed = dict(model_parameters)
+            return
+        self._sealed = None
         for k, p in self.model.module.named_parameters():
             p.copy_(model_parameters[k])
 

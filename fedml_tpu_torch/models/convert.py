@@ -12,6 +12,10 @@ only layout change is the kernel, which the port calls ``weight``:
   ``weight [out, in, kh, kw]`` (OIHW) as ``F.conv2d`` takes it:
   ``transpose(3, 2, 0, 1)``, and back ``transpose(2, 3, 1, 0)``.
 
+The split halves of split NN and FedGKT (``models/split_model.py``) carry
+flax's names too (``Conv_0``, ``BasicBlock_i``, ``client_head``,
+``Dense_0``), so each half converts the same way.
+
 Everything else keeps its name and shape: the embedding ``[V, D]``, norm
 scales ``[D]`` (flax's GroupNorm ``scale``/``bias`` are the port's
 GroupNorm's own names, models/layers.py), biases, and the LoRA factors

@@ -55,7 +55,10 @@ class FedMLRunner:
 
     @staticmethod
     def _init_cross_silo_runner(args, device, dataset, model, client_trainer, server_aggregator):
+        from .core.fhe.fhe_agg import refuse_fhe_front
+
         role = getattr(args, "role", "client")
+        refuse_fhe_front(args, "cross_silo", str(getattr(args, "backend", COMM_BACKEND_INMEMORY)))
         secure = str(getattr(args, "secure_aggregation", "") or "").lower()
         if secure in ("lightsecagg", "lsa", "secagg", "sa"):
             backend = str(getattr(args, "backend", COMM_BACKEND_INMEMORY))

@@ -3,11 +3,14 @@
 
 ``SimulatorSingleProcess`` wraps the sp FedAvg-family API (FedAvg, FedProx,
 FedOpt, FedNova, SCAFFOLD, FedDyn, Mime), the hierarchical trainer
-(``HierarchicalFL``) and async FedAvg (``Async_FedAvg``); ``SimulatorVmap``
-the client-batched simulator (backend ``vmap``) and, with ``async_rounds``,
-its event-driven async driver. The other sp algorithms (TurboAggregate,
-FedGAN, FedGKT, FedNAS, split NN, FedSeg, FedAvg_seq) and the collective and
-MPI simulators are not ported yet (ROADMAP.md, Queue 1).
+(``HierarchicalFL``), async FedAvg (``Async_FedAvg``), FedAvg_seq,
+TurboAggregate (``TA``), split NN (``split_nn``) and FedGKT;
+``SimulatorVmap`` the client-batched simulator (backend ``vmap``) and, with
+``async_rounds``, its event-driven async driver. FedGAN, FedNAS and FedSeg
+and the collective and MPI simulators are not ported yet (ROADMAP.md,
+Queue 1); decentralized and vertical FL are library APIs
+(``sp/decentralized.py``, ``sp/classical_vertical_fl.py``), outside this
+dispatch as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,28 +30,35 @@ from ..constants import (
 )
 
 _OTHER_SP_APIS = (
-    FEDML_FEDERATED_OPTIMIZER_TURBO_AGGREGATE,
     FEDML_FEDERATED_OPTIMIZER_FEDGAN,
-    FEDML_FEDERATED_OPTIMIZER_FEDGKT,
     FEDML_FEDERATED_OPTIMIZER_FEDNAS,
-    FEDML_FEDERATED_OPTIMIZER_SPLIT_NN,
     FEDML_FEDERATED_OPTIMIZER_FEDSEG,
-    FEDML_FEDERATED_OPTIMIZER_FEDAVG_SEQ,
 )
 
 
 class SimulatorSingleProcess:
     def __init__(self, args: Any, device: Any, dataset, model, client_trainer=None,
                  server_aggregator=None):
+        from ..core.fhe.fhe_agg import refuse_fhe_front
+
         opt = str(getattr(args, "federated_optimizer", "FedAvg"))
         if opt in _OTHER_SP_APIS:
             raise NotImplementedError(
                 f"federated_optimizer {opt!r}: its sp simulator is not ported to "
                 "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+        refuse_fhe_front(args, "sp")
         if opt == FEDML_FEDERATED_OPTIMIZER_HIERACHICAL_FL:
             from .sp.hierarchical_fl import HierarchicalTrainer as API
         elif opt == FEDML_FEDERATED_OPTIMIZER_ASYNC_FEDAVG:
             from .sp.async_fedavg import AsyncFedAvgAPI as API
+        elif opt == FEDML_FEDERATED_OPTIMIZER_TURBO_AGGREGATE:
+            from .sp.turboaggregate import TurboAggregateTrainer as API
+        elif opt == FEDML_FEDERATED_OPTIMIZER_FEDGKT:
+            from .sp.fedgkt import FedGKTAPI as API
+        elif opt == FEDML_FEDERATED_OPTIMIZER_SPLIT_NN:
+            from .sp.split_nn import SplitNNAPI as API
+        elif opt == FEDML_FEDERATED_OPTIMIZER_FEDAVG_SEQ:
+            from .sp.fedavg_seq import FedAvgSeqAPI as API
         else:
             from .sp.fedavg_api import FedAvgAPI as API
 
@@ -68,6 +78,9 @@ class SimulatorSingleProcess:
 class SimulatorVmap:
     def __init__(self, args: Any, device: Any, dataset, model, client_trainer=None,
                  server_aggregator=None):
+        from ..core.fhe.fhe_agg import refuse_fhe_front
+
+        refuse_fhe_front(args, "vmap")
         if getattr(args, "async_rounds", False):
             # non-barrier variant: event-driven async federation, a publish
             # every args.async_publish_k merges (comm_round counts publishes)

@@ -51,11 +51,14 @@ def refuse_client_hooks(args: Any) -> None:
     never calls ``on_before_local_training`` or ``on_after_local_training``):
     JAX draws no local noise for ldp, nbafl or dp_clip and poisons no data
     there, while its LDP accountant still counts the noise. The port refuses
-    those knobs before any round (ROADMAP.md, Queue 3, R7). Server-side
-    middleware (cdp, model attacks, every defense) runs."""
+    those knobs before any round (ROADMAP.md, Queue 3, R7), and FHE, whose
+    encryption is a client hook (JAX's vmapped front never encrypts).
+    Server-side middleware (cdp, model attacks, every defense) runs."""
     from ...core.dp.fedml_differential_privacy import LOCAL_SOLUTIONS, dp_solution
+    from ...core.fhe.fhe_agg import refuse_fhe_front
     from ...core.security.fedml_attacker import DATA_ATTACKS, attack_type
 
+    refuse_fhe_front(args, "vmap")
     bad = []
     if dp_solution(args) in LOCAL_SOLUTIONS:
         bad.append(f"dp_solution_type={dp_solution(args)!r}")

@@ -95,8 +95,12 @@ def test_unported_rules_raise():
     # every rule of the JAX package's table is ported; an unknown name is refused as there
     with pytest.raises(ValueError, match="unknown federated optimizer"):
         FedMLAggOperator.agg(type("A", (), {"federated_optimizer": "FedNovel"})(), [])
-    with pytest.raises(NotImplementedError, match="FHE"):
+    # object leaves fold with their own + and * (FHE ciphertexts,
+    # tests/test_torch_fhe.py); a leaf that defines neither is refused
+    with pytest.raises(TypeError):
         bucketed.BucketedAggregator(1).aggregate([(1.0, {"a": object()})])
+    with pytest.raises(TypeError, match="object leaves"):
+        bucketed.BucketedAggregator(1).accumulate_bucket(None, [{"a": object()}], [1.0])
 
 
 def test_pytree_helpers():

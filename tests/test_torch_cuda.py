@@ -751,3 +751,69 @@ def test_dp_noise_draws_on_the_tensors_device(cuda):
     n = out["w"].numel()
     assert abs(float(out["w"].double().std()) / sigma - 1) <= 4 / np.sqrt(2 * n)
     assert dp.get_epsilon(1e-5) > 0
+
+
+def test_rlwe_on_the_card_equals_the_plain_version(cuda):
+    """The card's float64 negacyclic matrices against np.convolve at the
+    default ring (N 4096, 4 primes): keys, ciphertexts of several leaves
+    under one seeded generator, their fold and the decryption residues,
+    integer for integer."""
+    from fedml_tpu_torch.core.fhe.rlwe import RLWEContext, RLWEParams
+
+    card = RLWEContext(RLWEParams(), seed=5, device=cuda)
+    plain = RLWEContext(RLWEParams(), seed=5, device="cpu")
+    assert card.route == "matrix" and plain.route == "plain"
+    assert torch.equal(card.s.cpu(), plain.s)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card.pk, plain.pk))
+    rng = np.random.default_rng(0)
+    xs = [torch.from_numpy(rng.normal(0, 0.5, s).astype(np.float32)) for s in ((5000,), (3, 7))]
+    card._rng, plain._rng = np.random.default_rng(1), np.random.default_rng(1)
+    cc, cp = card.encrypt_many([x.to(cuda) for x in xs]), plain.encrypt_many(xs)
+    for a, b in zip(cc, cp):
+        assert torch.equal(a.c0.cpu(), b.c0) and torch.equal(a.c1.cpu(), b.c1)
+    fc = [c * 0.3 + c * 0.7 for c in cc]
+    fp = [c * 0.3 + c * 0.7 for c in cp]
+    assert torch.equal(card.decrypt_residues(fc).cpu(), plain.decrypt_residues(fp))
+    for got, x in zip(card.decrypt_many(fc), xs):
+        assert got.device.type == "cuda" and torch.allclose(got.cpu(), x, atol=1e-5)
+
+
+def test_rlwe_sp_round_on_the_card(cuda):
+    """rlwe through init and FedMLRunner on the sp front, LR, 2 clients, 2
+    rounds on the card: the model trains as the plain run does."""
+    import fedml_tpu_torch
+
+    from fedml_tpu_torch.core.fhe.fhe_agg import FedMLFHE
+
+    kw = dict(model="lr", dataset="mnist", comm_round=2, epochs=1, client_num_in_total=2,
+              client_num_per_round=2, frequency_of_the_test=1, data_cache_dir="")
+
+    def run(**over):
+        args = fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", **kw, **over))
+        if over:  # the encryption generator seeded: no draw from OS entropy
+            FedMLFHE.get_instance().scheme.ctx._rng = np.random.default_rng(0)
+        dataset, dim = fedml_tpu_torch.data.load(args)
+        model = fedml_tpu_torch.model.create(args, dim)
+        return fedml_tpu_torch.FedMLRunner(args, fedml_tpu_torch.get_device(args), dataset,
+                                           model).run()
+
+    try:
+        out = run(enable_fhe=True, fhe_scheme="rlwe")
+        plain = run()
+    finally:
+        fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", using_gpu=False))
+    assert abs(out["test_loss"] - plain["test_loss"]) <= 1e-3 * plain["test_loss"]
+
+
+@pytest.mark.parametrize("opt", ["TA", "FedAvg_seq", "split_nn", "FedGKT"])
+def test_sp_apis_run_on_the_card(cuda, opt):
+    """The ported sp APIs through run_simulation on the card, 2 rounds."""
+    import math
+
+    import fedml_tpu_torch
+
+    kw = dict(model="lr", dataset="mnist", comm_round=2, epochs=1, client_num_in_total=4,
+              client_num_per_round=4, frequency_of_the_test=1, data_cache_dir="",
+              federated_optimizer=opt, batch_size=64)
+    out = fedml_tpu_torch.run_simulation(args=fedml_tpu_torch.default_config("simulation", **kw))
+    assert math.isfinite(out["test_acc"]) and out["test_acc"] > 0.1

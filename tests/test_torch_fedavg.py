@@ -442,7 +442,7 @@ def test_run_simulation_on_the_cpu_and_refusals():
                        (dict(backend="NCCL"), "NCCL"),
                        (dict(client_execution="pipelined"), "pipelined"),
                        (dict(modelwatch_quarantine=True), "modelwatch_quarantine"),
-                       (dict(federated_optimizer="TA"), "federated_optimizer .TA.")]:
+                       (dict(federated_optimizer="FedGAN"), "federated_optimizer .FedGAN.")]:
         bad = copy.copy(args)
         for k, v in over.items():
             setattr(bad, k, v)
@@ -454,9 +454,18 @@ def test_run_simulation_on_the_cpu_and_refusals():
             setattr(bad, k, v)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fedml_tpu_torch.FedMLRunner(bad, "cpu", None, None)
-    for flag in ("enable_fhe", "using_mlops"):
-        with pytest.raises(NotImplementedError, match=flag):
-            fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", **{flag: True}))
+    with pytest.raises(NotImplementedError, match="using_mlops"):
+        fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", using_mlops=True))
+    # FHE is ported: init configures its facade (the ring products on the
+    # CPU when asked for it), and an init without the flag turns it off
+    from fedml_tpu_torch.core.fhe.fhe_agg import FedMLFHE
+
+    fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", using_gpu=False,
+                                                        enable_fhe=True))
+    fhe = FedMLFHE.get_instance()
+    assert fhe.is_fhe_enabled() and fhe.scheme.ctx.device.type == "cpu"
+    fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", using_gpu=False))
+    assert not fhe.is_fhe_enabled() and fhe.scheme is None
     # the trust middleware is ported: init configures its singletons, and an
     # init without the flags turns them off again
     from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy

@@ -462,3 +462,61 @@ def test_cross_silo_entry_points_on_the_new_backends_raise_without_cuda(no_cuda,
                                           client_num_per_round=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fedml_tpu_torch.run_cross_silo_server(args)
+
+
+FHE_SP_ZOO_MODULES = (
+    "fedml_tpu_torch.core.fhe.rlwe", "fedml_tpu_torch.core.fhe.fhe_agg",
+    "fedml_tpu_torch.core.schedule", "fedml_tpu_torch.core.distributed.topology",
+    "fedml_tpu_torch.models.split_model", "fedml_tpu_torch.simulation.sp.fedavg_seq",
+    "fedml_tpu_torch.simulation.sp.turboaggregate", "fedml_tpu_torch.simulation.sp.split_nn",
+    "fedml_tpu_torch.simulation.sp.fedgkt", "fedml_tpu_torch.simulation.sp.decentralized",
+    "fedml_tpu_torch.simulation.sp.classical_vertical_fl",
+)
+
+
+def test_fhe_and_sp_zoo_modules_load_no_jax_or_fedml_tpu():
+    """FHE and the other sp APIs on their own: importing them and one
+    encrypt, fold and decrypt on the CPU leave no jax or fedml_tpu module
+    loaded and build no kernel."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {FHE_SP_ZOO_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "from fedml_tpu_torch.core.fhe.rlwe import RLWEParams, RLWEScheme\n"
+        "import numpy as np\n"
+        "s = RLWEScheme(b'k', RLWEParams(n=256), device='cpu')\n"
+        "s.ctx._rng = np.random.default_rng(0)\n"
+        "c = s.encrypt({'w': torch.ones(5)}, 1)\n"
+        "got = s.decrypt_sum({'w': c['w'] * 0.5 + c['w'] * 0.5})['w']\n"
+        "assert torch.allclose(got, torch.ones(5), atol=1e-6)\n"
+        "from fedml_tpu_torch.ops import _build\n"
+        "assert _build.kernels.cache_info().currsize == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fedml_tpu'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_fhe_and_sp_zoo_entry_points_raise_without_cuda(no_cuda):
+    """The RLWE context, init with enable_fhe, the decentralized and vertical
+    FL APIs default to CUDA and raise without it."""
+    from fedml_tpu_torch.core.fhe.rlwe import RLWEContext, RLWEParams
+    from fedml_tpu_torch.simulation.sp.classical_vertical_fl import VerticalFederatedLearning
+    from fedml_tpu_torch.simulation.sp.decentralized import FedML_decentralized_fl
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RLWEContext(RLWEParams(n=256))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", enable_fhe=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VerticalFederatedLearning([3, 2])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FedML_decentralized_fl(2, (np.zeros((2, 4, 3)), np.zeros((2, 4))),
+                               {"w": torch.zeros(3)}, lambda p, x, y: (x @ p["w"]).mean(),
+                               SimpleNamespace())
+    fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", using_gpu=False))

@@ -393,7 +393,8 @@ def test_a_taken_port_raises_naming_the_backend():
         m0 = ttrpc.TRPCCommManager(client_id=0, client_num=1, base_port=base)
         return base, m0
 
-    base, m0 = on_free_ports(build, 1)
+    # the block holds base + 1 too: the port the test takes itself
+    base, m0 = on_free_ports(build, 2)
     try:
         with socket.socket() as s:
             s.bind(("0.0.0.0", base + 1))
@@ -456,6 +457,18 @@ def test_ip_config_reads_as_jax_reads_it(tmp_path):
     assert read_ip_config(str(path), 4) == jread(str(path), 4) == \
         {0: "10.0.0.1", 1: "127.0.0.1", 2: "10.0.0.3", 3: "127.0.0.1"}
     assert read_ip_config(None, 2) == {0: "127.0.0.1", 1: "127.0.0.1"}
+
+
+def test_free_port_block_draws_apart_from_the_seeded_global_random():
+    """fedml_tpu_torch.init seeds the global random with the run's seed: a
+    block drawn from it would repeat after every init, and two federations
+    started side by side would bind the same ports."""
+    import random
+
+    random.seed(0)
+    state = random.getstate()
+    free_port_block(3)
+    assert random.getstate() == state
 
 
 def test_free_port_block_is_bindable_and_below_the_ephemeral_range():

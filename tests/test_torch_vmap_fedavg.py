@@ -126,6 +126,7 @@ def test_stacked_sink_folds_and_refuses_middleware():
     from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
     from fedml_tpu_torch.core.engine import RoundResult, StackedBucketedSink
     from fedml_tpu_torch.ml.aggregator import DefaultServerAggregator
+    from fedml_tpu_torch.simulation.vmapped.vmap_fedavg import refuse_client_hooks
 
     args = fedml_tpu_torch.default_config("simulation", using_gpu=False)
     model = fedml_tpu_torch.model.create(args, 10, device="cpu")
@@ -149,9 +150,11 @@ def test_stacked_sink_folds_and_refuses_middleware():
             assert torch.equal(got[k], want[k])
             assert not torch.equal(got[k], 2 * v)  # the median, noised
             assert torch.allclose(got[k], 2 * v, atol=0.1)
+        # R7: FHE's encryption is a client hook, which the vmapped front
+        # never runs; the port refuses the knob before any round
         args.enable_fhe = True
-        with pytest.raises(NotImplementedError, match="enable_fhe.*ROADMAP"):
-            StackedBucketedSink(DefaultServerAggregator(model, args)).fold(0, None, result)
+        with pytest.raises(ValueError, match="enable_fhe.*R7"):
+            refuse_client_hooks(args)
     finally:
         fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", using_gpu=False))
 
