@@ -7,9 +7,11 @@ aggregation (windowed SecAgg and accounted DP), the round-barrier SecAgg
 and LightSecAgg fronts, and the edge->regional->root aggregation tree with
 its tier-masked SecAgg, the message plane's other backends (TRPC, GRPC
 and MPI, MQTT_WEB3, the reference wire), the trust middleware (DP,
-attacks and defenses, contribution), and FHE's ciphertext leaves with the
+attacks and defenses, contribution), FHE's ciphertext leaves with the
 sp simulator's other APIs (TurboAggregate, FedAvg_seq, split NN, FedGKT,
-decentralized and vertical FL) on one CUDA card.
+decentralized and vertical FL), and FedGAN, FedNAS, FedSeg with the rest
+of the model hub (MobileNet, EfficientNet-lite, the LSTMs, the text
+classifier) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -278,11 +280,32 @@ exception):
    the card against the CPU, TF32 off, each loss within SPLIT_LOSS_RTOL;
    test_acc and s a round; (h) DSGD, PushSum and vertical FL on the card
    against the CPU in float64, each loss falling; (i) no flash launch;
-19. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+19. FedGAN, FedNAS, FedSeg and the rest of the model hub, through the
+   entry points, at each model's default widths: (a) FedGAN on the MNIST
+   surrogate, 4 clients, 2 rounds: round 0 on shards cut to 64 images on
+   the card against the CPU in float64 (the same seeded pair, the same z:
+   the latents come from a CPU generator), the pair and the losses within
+   F64_TOL; finite losses, generated images in [-1, 1], each round's s;
+   (b) FedNAS on the CIFAR-10 surrogate, DARTS width 16, 3 cells of 3
+   steps, 4 clients, 1 round: round 0 of 2 clients cut to 32 images on the
+   card against the CPU in float64 within F64_TOL, the genotypes equal;
+   the full round's s, losses, test accuracy and genotype; (c) FedSeg on
+   pascal_voc with unet, 4 clients, 2 rounds, card against CPU in f32 with
+   TF32 off: the update within SEG_UPDATE_TOL, the confusion matrices
+   within SEG_CM_PIXELS; (d) one sp FedAvg round, 2 clients of HUB_SHARD
+   examples, of mobilenet, mobilenet_v3 and efficientnet on cifar10, rnn
+   on shakespeare, rnn_stackoverflow on stackoverflow_nwp, distilbert on
+   20news (T=128, d 256, 4 layers) and lr on stackoverflow_lr and
+   lending_club, card against CPU from the same seeded params in float64
+   (the text classifier's dropout off): the first batch's logits and the
+   update within HUB_F64_TOL; then the round in float32 on the card
+   (dropout on), finite, its s; (e) no flash launch (the text classifier's attention is
+   plain einsums, as in the JAX package);
+20. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
    resilience, privacy, secure_fronts, hierarchy, message_plane, trust,
-   fhe_sp_zoo and kernels lines (JSON, the kernels line with the design
-   each kernel ran on the main path), the card line, and last the result
-   line.
+   fhe_sp_zoo, gan_nas_seg_hub and kernels lines (JSON, the kernels line
+   with the design each kernel ran on the main path), the card line, and
+   last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -5032,6 +5055,310 @@ def fhe_sp_zoo_phase(fedavg: dict) -> dict:
     return res
 
 
+# -- phase 19: FedGAN, FedNAS, FedSeg and the rest of the model hub ----------------
+
+# (a) FedGAN on the MNIST surrogate (28x28x1, 12,000 images), 4 clients of
+# 3,000, all in every round, 2 rounds, Adam(2e-4, b1 0.5), batches of 64
+GAN_RUN = dict(random_seed=0, dataset="mnist", data_cache_dir="", partition_method="homo",
+               model="gan", federated_optimizer="FedGAN", client_num_in_total=4,
+               client_num_per_round=4, comm_round=2, epochs=1, batch_size=64,
+               learning_rate=2e-4, backend="sp")
+# (b) FedNAS on the CIFAR-10 surrogate: the DARTS supernet at the hub's
+# defaults (width 16, 3 cells of 3 steps), 4 clients of 3,000, 1 round
+NAS_RUN = dict(random_seed=0, dataset="cifar10", data_cache_dir="", partition_method="homo",
+               model="darts", federated_optimizer="FedNAS", client_num_in_total=4,
+               comm_round=1, epochs=1, batch_size=64, learning_rate=0.025, darts_width=16,
+               darts_layers=3, darts_steps=3, backend="sp")
+# (c) FedSeg on the pascal_voc surrogate with unet (SegNetLite), 4 clients of
+# 16 images, 2 rounds
+SEG_RUN = dict(random_seed=0, dataset="pascal_voc", data_cache_dir="", model="unet",
+               federated_optimizer="FedSeg", client_num_in_total=4, comm_round=2, epochs=1,
+               batch_size=8, learning_rate=0.05, backend="sp")
+# (a), (b): round 0 on the card against the CPU in float64, on shards cut to
+# this many images (the run's code path at a size the host's CPU runs in
+# seconds; FedNAS with 2 of its clients and batches of 16); the pair, the
+# supernet and the losses within F64_TOL (relative to each leaf's scale)
+GAN_PARITY_IMAGES, NAS_PARITY_IMAGES, NAS_PARITY_BATCH = 64, 32, 16
+F64_TOL = 1e-9
+# (c) card against CPU in float32, TF32 off: the params' update after 2
+# rounds (4 SGD steps a client) within SEG_UPDATE_TOL (relative L2), the
+# confusion matrices within SEG_CM_PIXELS of the 16,384 test pixels
+SEG_UPDATE_TOL, SEG_CM_PIXELS = 1e-3, 16
+# (d) one FedAvg round of each remaining hub model on its dataset, 2 clients,
+# each shard cut to HUB_SHARD examples (one SGD step of 32) and the test set to
+# HUB_TEST. Card against CPU from the same seeded params in float64 (params
+# and float features): the forward on the first client's first batch and
+# the round's update (relative L2) within HUB_F64_TOL. In float32 the round
+# measures the dynamics, not the port: on the CPU, a client's 4-step
+# EfficientNet-lite update moves by 15% when its params move by 1e-7
+# (relative), and the card's f32 round of 4 steps read 7.6% from the CPU's
+# while its logits read 3.3e-6. In float64 the card's round equals the
+# CPU's: an ulp of gradient times the rate is below an ulp of the weight.
+# Then the round in float32 on the card, timed. The text classifier's
+# dropout is off in the comparison (the card's and the CPU's generators draw
+# different masks); its timed round keeps it.
+HUB_FEDAVG = dict(random_seed=0, data_cache_dir="", partition_method="homo",
+                  federated_optimizer="FedAvg", client_num_in_total=2, client_num_per_round=2,
+                  comm_round=1, epochs=1, batch_size=32, client_optimizer="sgd",
+                  learning_rate=0.01, frequency_of_the_test=1, backend="sp")
+HUB_RUNS = (("mobilenet", "cifar10"), ("mobilenet_v3", "cifar10"), ("efficientnet", "cifar10"),
+            ("rnn", "shakespeare"), ("rnn_stackoverflow", "stackoverflow_nwp"),
+            ("distilbert", "20news"), ("lr", "stackoverflow_lr"), ("lr", "lending_club"))
+HUB_SHARD, HUB_TEST = 32, 256
+HUB_F64_TOL = 1e-8
+
+
+class _TimedHistory(list):
+    """A metrics_history that records the time of each append: an API
+    appends once a round, after the round's metrics are read back."""
+
+    def __init__(self):
+        super().__init__()
+        self.times = [time.perf_counter()]
+
+    def append(self, item):
+        self.times.append(time.perf_counter())
+        super().append(item)
+
+    @property
+    def round_s(self) -> list:
+        return [b - a for a, b in zip(self.times, self.times[1:])]
+
+
+def _as_f64(dataset):
+    """The dataset tuple with its float arrays in float64 (token ids stay
+    integers)."""
+    from fedml_tpu_torch.data.dataset import ArrayDataset
+
+    def f64(ds):
+        x, y = (a.astype("float64") if a.dtype.kind == "f" else a for a in (ds.x, ds.y))
+        return ArrayDataset(x, y)
+
+    d = list(dataset)
+    d[2], d[3] = f64(d[2]), f64(d[3])
+    d[5] = {c: f64(ds) for c, ds in d[5].items()}
+    d[6] = {c: f64(ds) for c, ds in d[6].items()}
+    return tuple(d)
+
+
+def _cut_shards(dataset, n: int, n_test: int = 0, clients: int = 0):
+    """The dataset tuple with each train shard cut to its first ``n``
+    examples (and the first ``clients`` shards, the test set to ``n_test``)."""
+    import numpy as np
+
+    d = list(dataset)
+    keep = sorted(d[5])[:clients or None]
+    d[5] = {c: d[5][c].subset(np.arange(min(n, len(d[5][c])))) for c in keep}
+    d[4] = {c: len(d[5][c]) for c in keep}
+    if n_test:
+        d[3] = d[3].subset(np.arange(min(n_test, len(d[3]))))
+    return tuple(d)
+
+
+def _api_run(over: dict, dataset, dim: int, where: str, f64: bool = False,
+             prepare=None) -> dict:
+    """init, model.create on ``where``, FedMLRunner over ``dataset``; the
+    API after the run, the start params, the wall and each round's s."""
+    import torch
+
+    import fedml_tpu_torch as fedml
+
+    args = fedml.init(fedml.default_config("simulation", using_gpu=where == "cuda", **over))
+    model = fedml.model.create(args, dim, device=where)
+    if f64:
+        model.module.to(torch.float64)
+        model.params = {k: v.to(torch.float64) for k, v in model.params.items()}
+    if prepare is not None:
+        prepare(model)
+    p0 = _cpu(model.params)
+    runner = fedml.FedMLRunner(args, torch.device(where), dataset, model)
+    api = runner.runner.fl_trainer
+    api.metrics_history = hist = _TimedHistory()
+    t0 = time.perf_counter()
+    runner.run()
+    if where == "cuda":
+        torch.cuda.synchronize()
+    return {"api": api, "model": model, "p0": p0, "s": time.perf_counter() - t0,
+            "round_s": hist.round_s, "hist": list(hist)}
+
+
+def _of_scale(a: dict, b: dict) -> float:
+    """max over leaves of max|a - b| / max|b|."""
+    return max((a[k].double() - b[k].double()).abs().max().item()
+               / max(b[k].double().abs().max().item(), 1e-30) for k in b)
+
+
+def _f64_parity(name: str, over: dict, dataset, dim: int, params_of) -> dict:
+    """Round 0 on the card and on the CPU in float64 from the same params."""
+    import torch
+
+    runs = {where: _api_run(over, dataset, dim, where, f64=True) for where in (DEV, "cpu")}
+    card, cpu = runs[DEV], runs["cpu"]
+    check(all(torch.equal(card["p0"][k], cpu["p0"][k]) for k in cpu["p0"]),
+          f"{name}: the card and the CPU started from different params")
+    err = _of_scale(_cpu(params_of(card["api"])), _cpu(params_of(cpu["api"])))
+    losses = [(k, card["hist"][0][k], cpu["hist"][0][k]) for k in cpu["hist"][0]
+              if k.endswith("loss")]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for _, a, b in losses)
+    check(err <= F64_TOL and loss_rel <= F64_TOL,
+          f"{name}: card against CPU in float64, params {err:.3g} of their scale, "
+          f"losses {losses}")
+    return {"params_of_scale": err, "loss_rel": loss_rel, "card_s": card["s"],
+            "cpu_s": cpu["s"], "runs": runs}
+
+
+def gan_run() -> dict:
+    """(a): FedGAN through FedMLRunner."""
+    import math
+
+    import fedml_tpu_torch as fedml
+
+    args = fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda", **GAN_RUN))
+    dataset, dim = fedml.data.load(args)
+    par = _f64_parity("(a) FedGAN", dict(GAN_RUN, comm_round=1),
+                      _cut_shards(dataset, GAN_PARITY_IMAGES), dim, lambda api: api.model.params)
+    par.pop("runs")
+    run = _api_run(GAN_RUN, dataset, dim, DEV)
+    hist = run["hist"]
+    images = run["api"].generate(16)
+    check(len(hist) == 2 and all(math.isfinite(m[k]) for m in hist for k in ("d_loss", "g_loss"))
+          and images.shape == (16, 28, 28, 1) and abs(images).max() <= 1.0,
+          f"(a) FedGAN: {hist}, images {images.shape}")
+    res = {"parity_f64": par, "round_s": run["round_s"],
+           "d_loss": [m["d_loss"] for m in hist], "g_loss": [m["g_loss"] for m in hist]}
+    say(f"  (a) FedGAN: {res}")
+    return res
+
+
+def nas_run() -> dict:
+    """(b): FedNAS through FedMLRunner."""
+    import math
+
+    import fedml_tpu_torch as fedml
+
+    args = fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda", **NAS_RUN))
+    dataset, dim = fedml.data.load(args)
+    par = _f64_parity("(b) FedNAS", dict(NAS_RUN, client_num_in_total=2,
+                                         batch_size=NAS_PARITY_BATCH),
+                      _cut_shards(dataset, NAS_PARITY_IMAGES, NAS_PARITY_IMAGES, clients=2), dim,
+                      lambda api: api.model.params)
+    runs = par.pop("runs")
+    genos = {w: runs[w]["api"].genotype() for w in runs}
+    check(genos[DEV] == genos["cpu"], f"(b) FedNAS genotypes: {genos}")
+    run = _api_run(NAS_RUN, dataset, dim, DEV)
+    m = run["hist"][0]
+    check(math.isfinite(m["weight_loss"]) and math.isfinite(m["arch_loss"]),
+          f"(b) FedNAS: {m}")
+    res = {"parity_f64": par, "parity_genotype": [list(g) for g in genos[DEV]],
+           "round_s": run["round_s"], "test_acc": m["test_acc"],
+           "weight_loss": m["weight_loss"], "arch_loss": m["arch_loss"],
+           "genotype": [list(g) for g in run["api"].genotype()]}
+    say(f"  (b) FedNAS: {res}")
+    return res
+
+
+def seg_run() -> dict:
+    """(c): FedSeg through FedMLRunner, card against CPU in float32."""
+    import math
+
+    import torch
+
+    import fedml_tpu_torch as fedml
+
+    args = fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda", **SEG_RUN))
+    dataset, dim = fedml.data.load(args)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+        runs = {where: _api_run(SEG_RUN, dataset, dim, where) for where in (DEV, "cpu")}
+    card, cpu = runs[DEV], runs["cpu"]
+    update = _rel(_cpu(card["api"].params), _cpu(cpu["api"].params), cpu["p0"])
+    cm_diff = int((card["api"].last_confusion.cpu() - cpu["api"].last_confusion).abs().sum())
+    hist = card["hist"]
+    check(update <= SEG_UPDATE_TOL and cm_diff <= SEG_CM_PIXELS
+          and all(math.isfinite(m["test_loss"]) for m in hist),
+          f"(c) FedSeg: update {update:.3g} of the CPU's, confusion matrices {cm_diff} pixels "
+          f"apart, {hist}")
+    res = {"update_rel": update, "confusion_pixels_apart": cm_diff, "round_s": card["round_s"],
+           "cpu_round_s": cpu["round_s"], "mIoU": [m["mIoU"] for m in hist],
+           "pixel_acc": [m["pixel_acc"] for m in hist],
+           "confusion": card["api"].last_confusion.cpu().tolist()}
+    say(f"  (c) FedSeg: {res}")
+    return res
+
+
+def _dropout_off(model) -> None:
+    """The text classifier's dropout sites at rate 0 (the parity round)."""
+    for sub in model.module.modules():
+        if hasattr(sub, "dropout_rate"):
+            sub.dropout_rate = 0.0
+        if hasattr(sub, "rate"):
+            sub.rate = 0.0
+
+
+def hub_round(name: str, dataset_name: str) -> dict:
+    """(d): one FedAvg round of ``name`` on ``dataset_name``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import fedml_tpu_torch as fedml
+
+    over = dict(HUB_FEDAVG, model=name, dataset=dataset_name)
+    args = fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda", **over))
+    t0 = time.perf_counter()
+    dataset, dim = fedml.data.load(args)
+    load_s = time.perf_counter() - t0
+    over["input_shape"] = getattr(args, "input_shape", None)  # the table's width (R13)
+    dataset = _cut_shards(dataset, HUB_SHARD, HUB_TEST)
+    f64 = _as_f64(dataset)
+    x = torch.from_numpy(np.ascontiguousarray(f64[5][0].x[:HUB_FEDAVG["batch_size"]]))
+    logits = {}
+
+    def first_batch(where):
+        def prepare(model):
+            _dropout_off(model)
+            with torch.no_grad():
+                logits[where] = model.module(x.to(where)).cpu()
+        return prepare
+
+    runs = {where: _api_run(over, f64, dim, where, f64=True, prepare=first_batch(where))
+            for where in (DEV, "cpu")}
+    card, cpu = runs[DEV], runs["cpu"]
+    check(all(torch.equal(card["p0"][k], cpu["p0"][k]) for k in cpu["p0"]),
+          f"(d) {name}: the card and the CPU started from different params")
+    logit_err = (logits[DEV] - logits["cpu"]).abs().max().item() / \
+        logits["cpu"].abs().max().item()
+    update = _rel(_cpu(card["api"].model_trainer.get_model_params()),
+                  _cpu(cpu["api"].model_trainer.get_model_params()), cpu["p0"])
+    timed = _api_run(over, dataset, dim, DEV)  # float32, dropout on
+    m, mc, mt = card["hist"][0], cpu["hist"][0], timed["hist"][0]
+    check(logit_err <= HUB_F64_TOL and update <= HUB_F64_TOL
+          and math.isfinite(mt["test_loss"]),
+          f"(d) {name} on {dataset_name}: in float64 logits {logit_err:.3g} of their scale, "
+          f"update {update:.3g} of the CPU's; float32 {mt}")
+    res = {"params": timed["model"].num_params, "input_shape": list(timed["model"].input_shape),
+           "f64_logits_of_scale": logit_err, "f64_update_rel": update,
+           "f64_test_loss": m["test_loss"], "f64_cpu_test_loss": mc["test_loss"],
+           "f64_card_s": card["s"], "f64_cpu_s": cpu["s"], "round_s": timed["round_s"],
+           "test_loss": mt["test_loss"], "load_s": load_s}
+    say(f"  (d) {name} on {dataset_name}: {res}")
+    return res
+
+
+def gan_nas_seg_hub_phase() -> dict:
+    """Phase 19 (see the module docstring)."""
+    import torch
+
+    res = {"fedgan": gan_run(), "fednas": nas_run(), "fedseg": seg_run(), "hub": {}}
+    for name, dataset_name in HUB_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["hub"][f"{name}/{dataset_name}"] = hub_round(name, dataset_name)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -5318,7 +5645,24 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the FHE and sp-zoo phase launched flash kernels: {fhe_launches}")
 
-    say("== 19. result")
+    say("== 19. FedGAN, FedNAS and FedSeg, and one FedAvg round of each remaining hub model "
+        "(MobileNet v1/v3, EfficientNet-lite, the LSTMs, the text classifier, LR on "
+        "stackoverflow_lr and lending_club)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    hub = gan_nas_seg_hub_phase()
+    hub_launches = dict(fa.launch_counts)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches in the hub phase: {hub_launches}")
+    # (e) convolutions, LSTMs and the text classifier's plain attention run
+    # no flash kernel
+    check(all(n == 0 for n in hub_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the hub phase launched flash kernels: {hub_launches}")
+
+    say("== 20. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5347,6 +5691,8 @@ def main() -> int:
           flush=True)
     print(json.dumps({"fhe_sp_zoo": {"card": card, "flash_launches": fhe_launches, **fhe_zoo}}),
           flush=True)
+    print(json.dumps({"gan_nas_seg_hub": {"card": card, "flash_launches": hub_launches,
+                                          **hub}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

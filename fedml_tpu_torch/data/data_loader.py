@@ -8,10 +8,17 @@ Same return tuple as the JAX package:
      class_num)
 
 with :class:`ArrayDataset` shards (numpy; the trainers move them to the
-device). The synthetic (LEAF synthetic(a, b)) and image datasets are ported,
-from their surrogates or a ``{cache}/{name}.npz``; the shards are
-bit-identical to the JAX package's. Text, tabular and segmentation datasets,
-native file formats and downloads raise NotImplementedError.
+device). The synthetic (LEAF synthetic(a, b)), image, text, FedNLP text
+classification, tabular, stackoverflow_lr and segmentation datasets are
+ported, from their surrogates, a ``{cache}/{name}.npz`` or the tabular
+CSVs; the shards are bit-identical to the JAX package's. Native file
+formats (LEAF json, TFF h5, image archives) and downloads raise
+NotImplementedError.
+
+One departure: for the tabular sets the loader records the table's width in
+``args.input_shape``, so ``lr`` on ``lending_club`` or ``uci`` builds its
+input layer at the data's width. The JAX hub sizes it from the 28x28x1
+default and fails at the first step (ROADMAP.md, Queue 3, R13).
 """
 
 from __future__ import annotations
@@ -27,9 +34,23 @@ from ..core.data.noniid_partition import (
     record_data_stats,
 )
 from .dataset import ArrayDataset
-from .sources import IMAGE_SPECS, load_image_dataset, load_synthetic_lr
+from .sources import (
+    IMAGE_SPECS,
+    load_image_dataset,
+    load_stackoverflow_lr,
+    load_synthetic_lr,
+    load_tabular_dataset,
+    load_text_classification_dataset,
+    load_text_dataset,
+    reference_format_files,
+)
 
 log = logging.getLogger(__name__)
+
+TEXT_DATASETS = {"shakespeare", "fed_shakespeare", "stackoverflow_nwp", "reddit"}
+TEXT_CLS_DATASETS = {"20news", "agnews", "sst2", "semeval_2010_task8"}  # FedNLP family
+TABULAR_DATASETS = {"lending_club", "uci"}
+SEGMENTATION_DATASETS = {"pascal_voc", "coco_seg", "cityscapes"}  # FedSeg family
 
 FedDataset = Tuple[int, int, ArrayDataset, ArrayDataset, Dict[int, int], Dict[int, ArrayDataset],
                    Dict[int, ArrayDataset], int]
@@ -37,8 +58,9 @@ FedDataset = Tuple[int, int, ArrayDataset, ArrayDataset, Dict[int, int], Dict[in
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported to fedml_tpu_torch yet; the port loads the synthetic and "
-        f"image datasets ({', '.join(sorted(IMAGE_SPECS))}) (see ROADMAP.md, Queue 1)")
+        f"{what} is not ported to fedml_tpu_torch yet; the port loads the synthetic, image, "
+        "text, tabular and segmentation datasets from their surrogates or a "
+        "{cache}/{name}.npz (see ROADMAP.md, Queue 1)")
 
 
 def load(args: Any) -> FedDataset:
@@ -69,9 +91,38 @@ def load(args: Any) -> FedDataset:
 
     if getattr(args, "allow_download", False):
         raise _not_ported("allow_download (fetching a dataset's reference archives)")
-    if dataset not in IMAGE_SPECS:
-        raise _not_ported(f"dataset {dataset!r}")
-    x_tr, y_tr, x_te, y_te, class_num = load_image_dataset(dataset, cache, seed)
+    fmt = reference_format_files(dataset, cache)
+    if fmt:
+        raise _not_ported(f"dataset {dataset}: reference-format files under "
+                          f"{cache}/{dataset}, which the JAX package reads; reading them")
+    if dataset in TEXT_CLS_DATASETS:
+        x_tr, y_tr, x_te, y_te, class_num = load_text_classification_dataset(dataset, cache, seed)
+    elif dataset in TEXT_DATASETS:
+        x_tr, y_tr, x_te, y_te, class_num = load_text_dataset(dataset, cache, seed)
+    elif dataset in IMAGE_SPECS:
+        x_tr, y_tr, x_te, y_te, class_num = load_image_dataset(dataset, cache, seed)
+    elif dataset in TABULAR_DATASETS:
+        x_tr, y_tr, x_te, y_te, class_num = load_tabular_dataset(dataset, cache, seed)
+        args.input_shape = (1,) + tuple(x_tr.shape[1:])  # R13, see the module docstring
+    elif dataset == "stackoverflow_lr":
+        x_tr, y_tr, x_te, y_te, class_num = load_stackoverflow_lr(cache, seed)
+    elif dataset in SEGMENTATION_DATASETS:
+        # the reference's fedseg reads pascal_voc/coco; the shapes surrogate
+        # of sp/fedseg.py stands in
+        from ..simulation.sp.fedseg import make_segmentation_data
+
+        clients, (x_te, y_te) = make_segmentation_data(client_num, seed=seed)
+        train_local = {cid: ArrayDataset(x, y) for cid, (x, y) in clients.items()}
+        test_local = {cid: ArrayDataset(x_te, y_te) for cid in clients}
+        train_num = {cid: len(ds) for cid, ds in train_local.items()}
+        xg = np.concatenate([c[0] for c in clients.values()])
+        yg = np.concatenate([c[1] for c in clients.values()])
+        class_num = int(yg.max()) + 1
+        args.output_dim = class_num
+        return (len(xg), len(x_te), ArrayDataset(xg, yg), ArrayDataset(x_te, y_te),
+                train_num, train_local, test_local, class_num)
+    else:
+        raise ValueError(f"unknown dataset {dataset!r}")
 
     label_for_partition = y_tr if y_tr.ndim == 1 else y_tr[:, 0]
     if method == "hetero" and y_tr.ndim == 1 and y_tr.dtype.kind in "iu":

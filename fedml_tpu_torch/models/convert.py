@@ -16,6 +16,10 @@ The split halves of split NN and FedGKT (``models/split_model.py``) carry
 flax's names too (``Conv_0``, ``BasicBlock_i``, ``client_head``,
 ``Dense_0``), so each half converts the same way.
 
+- a kernel of any other rank keeps flax's layout: the attention's
+  ``DenseGeneral`` kernels ``[d, H, hd]`` and ``[H, hd, d]``
+  (``models/layers.py``), which the port contracts as they are.
+
 Everything else keeps its name and shape: the embedding ``[V, D]``, norm
 scales ``[D]`` (flax's GroupNorm ``scale``/``bias`` are the port's
 GroupNorm's own names, models/layers.py), biases, and the LoRA factors
@@ -48,11 +52,15 @@ from torch import nn
 
 
 def _kernel_to_torch(t: torch.Tensor) -> torch.Tensor:
-    return t.T if t.ndim == 2 else t.permute(3, 2, 0, 1)
+    if t.ndim == 2:
+        return t.T
+    return t.permute(3, 2, 0, 1) if t.ndim == 4 else t
 
 
 def _weight_to_flax(t: torch.Tensor) -> torch.Tensor:
-    return t.T if t.ndim == 2 else t.permute(2, 3, 1, 0)
+    if t.ndim == 2:
+        return t.T
+    return t.permute(2, 3, 1, 0) if t.ndim == 4 else t
 
 
 def _flax_path(name: str) -> tuple:
@@ -72,12 +80,12 @@ def flax_name(name: str) -> str:
 
 def flax_leaf(name: str, t: torch.Tensor) -> torch.Tensor:
     """A state-dict leaf in its flax layout (a view)."""
-    return _weight_to_flax(t) if _is_kernel(name) and t.ndim in (2, 4) else t
+    return _weight_to_flax(t) if _is_kernel(name) else t
 
 
 def torch_leaf(name: str, t: torch.Tensor) -> torch.Tensor:
     """The inverse of :func:`flax_leaf`, contiguous."""
-    return (_kernel_to_torch(t) if _is_kernel(name) and t.ndim in (2, 4) else t).contiguous()
+    return (_kernel_to_torch(t) if _is_kernel(name) else t).contiguous()
 
 
 def wire_order(state: Mapping[str, torch.Tensor]) -> list:

@@ -3,10 +3,11 @@
 ``python/fedml/model/model_hub.py:19``).
 
 :func:`create` returns a :class:`FedModel`: a torch module on the run's
-device, the state dict it was created with, and the input spec. Parameters
-travel as state dicts (``utils/pytree.py``), so aggregation never touches
-the module. The port has the vision and linear models of the FedAvg path;
-every other name of the JAX hub raises NotImplementedError.
+device, the state dict it was created with, and the input spec with its
+dtype. Parameters travel as state dicts (``utils/pytree.py``), so
+aggregation never touches the module. The port has every vision, text,
+GAN, DARTS and segmentation model of the JAX hub; the LLM names
+(``llama``, ``gpt``, ``transformer``) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ class FedModel:
     module: nn.Module
     params: Optional[StateDict]
     input_shape: Tuple[int, ...]
+    input_dtype: torch.dtype = torch.float32
     name: str = "model"
 
     @property
@@ -62,58 +64,130 @@ class FedModel:
         return sum(p.numel() for p in self.module.parameters())
 
 
+_F32, _I32 = torch.float32, torch.int32
+
 _INPUT_SPECS = {
-    # dataset -> example input shape [B=1] (NHWC images, flat features)
-    "mnist": (1, 28, 28, 1),
-    "femnist": (1, 28, 28, 1),
-    "fashion_mnist": (1, 28, 28, 1),
-    "cifar10": (1, 32, 32, 3),
-    "cifar100": (1, 32, 32, 3),
-    "cinic10": (1, 32, 32, 3),
-    "fed_cifar100": (1, 32, 32, 3),
-    "synthetic": (1, 60),
+    # dataset -> (example input shape [B=1], dtype): NHWC images, flat
+    # features, int token ids
+    "mnist": ((1, 28, 28, 1), _F32),
+    "femnist": ((1, 28, 28, 1), _F32),
+    "fashion_mnist": ((1, 28, 28, 1), _F32),
+    "cifar10": ((1, 32, 32, 3), _F32),
+    "cifar100": ((1, 32, 32, 3), _F32),
+    "cinic10": ((1, 32, 32, 3), _F32),
+    "fed_cifar100": ((1, 32, 32, 3), _F32),
+    "synthetic": ((1, 60), _F32),
+    "shakespeare": ((1, 80), _I32),
+    "fed_shakespeare": ((1, 80), _I32),
+    "stackoverflow_nwp": ((1, 20), _I32),
+    "reddit": ((1, 64), _I32),
+    "stackoverflow_lr": ((1, 10000), _F32),
+    # FedNLP text classification (BASELINE config 3)
+    "20news": ((1, 128), _I32),
+    "agnews": ((1, 64), _I32),
+    "sst2": ((1, 32), _I32),
+    "semeval_2010_task8": ((1, 64), _I32),
     # the surrogates' 64x64 sets: torch sizes the stem by its input channels
     # up front, where flax sizes itself at its first call
-    "imagenet": (1, 64, 64, 3),
-    "gld23k": (1, 64, 64, 3),
-    "landmarks": (1, 64, 64, 3),
+    "imagenet": ((1, 64, 64, 3), _F32),
+    "gld23k": ((1, 64, 64, 3), _F32),
+    "landmarks": ((1, 64, 64, 3), _F32),
 }
 
-_PORTED = ("lr", "logistic_regression", "mlp", "two_nn", "cnn", "cnn_dropout", "cnn_cifar",
-           "resnet56", "resnet", "resnet20", "resnet18", "resnet18_gn")
+# vocab sizes of data/sources.py load_text_classification_dataset's specs
+_TEXT_CLS_VOCAB = {"20news": 5000, "agnews": 5000, "sst2": 3000, "semeval_2010_task8": 4000}
 
-# the rest of the JAX hub, not ported yet
-_NOT_PORTED = ("distilbert", "bert", "text_classifier", "transformer_cls", "rnn", "rnn_fedavg",
-               "rnn_stackoverflow", "rnn_nwp", "mobilenet", "mobilenet_v3", "gan", "cgan",
-               "dcgan", "darts", "nas", "fednas", "unet", "segnet", "deeplab", "llama", "gpt",
-               "transformer")
+_IMAGE_MODELS = ("cnn", "cnn_dropout", "cnn_cifar", "resnet56", "resnet", "resnet20", "resnet18",
+                 "resnet18_gn", "mobilenet", "mobilenet_v3", "darts", "nas", "fednas")
+_PORTED = ("lr", "logistic_regression", "mlp", "two_nn") + _IMAGE_MODELS + (
+    "distilbert", "bert", "text_classifier", "transformer_cls", "rnn", "rnn_fedavg",
+    "rnn_stackoverflow", "rnn_nwp", "efficientnet*", "gan", "cgan", "dcgan", "unet", "segnet",
+    "deeplab")
+
+# the LLM names of the JAX hub, not ported yet
+_NOT_PORTED = ("llama", "gpt", "transformer")
 
 
-def input_spec_for(dataset: str) -> Tuple[int, ...]:
-    return _INPUT_SPECS.get(dataset, (1, 28, 28, 1))
+def input_spec_for(dataset: str) -> Tuple[Tuple[int, ...], torch.dtype]:
+    return _INPUT_SPECS.get(dataset, ((1, 28, 28, 1), _F32))
 
 
-def _build(model_name: str, num_classes: int, in_shape: Tuple[int, ...]) -> nn.Module:
+def _build(model_name: str, num_classes: int, in_shape: Tuple[int, ...], args: Any,
+           dataset: str) -> Tuple[nn.Module, Optional[Tuple[Tuple[int, ...], torch.dtype]]]:
+    """The module, and the input spec when the model fixes its own."""
     image = len(in_shape) == 4
     flat = int(np.prod(in_shape[1:]))
     if model_name in ("lr", "logistic_regression"):
-        return LogisticRegression(flat, num_classes)
+        return LogisticRegression(flat, num_classes), None
     if model_name in ("mlp", "two_nn"):
-        return TwoNN(flat, num_classes=num_classes)
-    if model_name in ("cnn", "cnn_dropout", "cnn_cifar", "resnet56", "resnet", "resnet20",
-                      "resnet18", "resnet18_gn") and not image:
+        return TwoNN(flat, num_classes=num_classes), None
+    if (model_name in _IMAGE_MODELS or model_name.startswith("efficientnet")) and not image:
         raise ValueError(f"model {model_name!r} needs NHWC image inputs, got shape {in_shape}")
     hwc = tuple(in_shape[1:])
     if model_name in ("cnn", "cnn_dropout"):
         cls = CNNDropOut if in_shape[1] == 28 else CNNCifar
-        return cls(num_classes=num_classes, in_shape=hwc)
+        return cls(num_classes=num_classes, in_shape=hwc), None
     if model_name == "cnn_cifar":
-        return CNNCifar(num_classes=num_classes, in_shape=hwc)
+        return CNNCifar(num_classes=num_classes, in_shape=hwc), None
     if model_name in ("resnet56", "resnet"):
-        return resnet56(num_classes=num_classes, in_channels=hwc[-1])
+        return resnet56(num_classes=num_classes, in_channels=hwc[-1]), None
     if model_name == "resnet20":
-        return resnet20(num_classes=num_classes, in_channels=hwc[-1])
-    return ResNet18GN(num_classes=num_classes, in_channels=hwc[-1])
+        return resnet20(num_classes=num_classes, in_channels=hwc[-1]), None
+    if model_name in ("resnet18", "resnet18_gn"):
+        return ResNet18GN(num_classes=num_classes, in_channels=hwc[-1]), None
+    if model_name in ("distilbert", "bert", "text_classifier", "transformer_cls"):
+        from .text_classifier import distilbert_shape
+
+        return distilbert_shape(
+            num_classes=num_classes,
+            vocab_size=int(getattr(args, "vocab_size", 0) or _TEXT_CLS_VOCAB.get(dataset, 5000)),
+            max_seq_len=in_shape[1],
+            d_model=int(getattr(args, "text_d_model", 256)),
+            n_layers=int(getattr(args, "text_n_layers", 4)),
+            n_heads=int(getattr(args, "text_n_heads", 4)),
+            d_ff=int(getattr(args, "text_d_ff", 1024)),
+        ), None
+    if model_name in ("rnn", "rnn_fedavg"):
+        from .rnn import RNNOriginalFedAvg
+
+        # the vocab follows the loaded data (output_dim is the vocab of a
+        # language-model dataset), as in the JAX hub
+        return RNNOriginalFedAvg(vocab_size=num_classes), None
+    if model_name in ("rnn_stackoverflow", "rnn_nwp"):
+        from .rnn import RNNStackOverflow
+
+        return RNNStackOverflow(), None
+    if model_name == "mobilenet":
+        from .mobilenet import MobileNetV1
+
+        return MobileNetV1(num_classes=num_classes, in_channels=hwc[-1]), None
+    if model_name == "mobilenet_v3":
+        from .mobilenet import MobileNetV3Small
+
+        return MobileNetV3Small(num_classes=num_classes, in_channels=hwc[-1]), None
+    if model_name.startswith("efficientnet"):
+        from .efficientnet import efficientnet_lite0
+
+        return efficientnet_lite0(num_classes=num_classes, in_channels=hwc[-1]), None
+    if model_name in ("gan", "cgan", "dcgan"):
+        from .gan import GANPair
+
+        hw = in_shape[1] if image else 28
+        ch = in_shape[-1] if image else 1
+        return GANPair(image_hw=hw, channels=ch), ((1, 64), _F32)  # the latent z
+    if model_name in ("darts", "nas", "fednas"):
+        from .darts import DARTSNetwork
+
+        return DARTSNetwork(
+            num_classes=num_classes,
+            width=int(getattr(args, "darts_width", 16)),
+            layers=int(getattr(args, "darts_layers", 3)),
+            steps=int(getattr(args, "darts_steps", 3)),
+            in_channels=hwc[-1],
+        ), None
+    from .segmentation import SegNetLite  # unet, segnet, deeplab
+
+    return SegNetLite(num_classes=num_classes), ((1, 32, 32, 3), _F32)
 
 
 def create(args: Any, output_dim: Optional[int] = None, seed: Optional[int] = None,
@@ -124,12 +198,15 @@ def create(args: Any, output_dim: Optional[int] = None, seed: Optional[int] = No
     dataset = str(getattr(args, "dataset", "mnist")).lower()
     num_classes = int(output_dim or getattr(args, "output_dim", 10))
     seed = int(seed if seed is not None else getattr(args, "random_seed", 0))
-    in_shape = tuple(getattr(args, "input_shape", None) or input_spec_for(dataset))
+    in_shape, in_dtype = input_spec_for(dataset)
+    # the loader records the loaded table's width where it differs from the
+    # dataset's preset (models/model_hub.py in the JAX package)
+    in_shape = tuple(getattr(args, "input_shape", None) or in_shape)
     if model_name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {model_name!r} is not ported to fedml_tpu_torch yet; the port has "
             f"{', '.join(_PORTED)} (see ROADMAP.md, Queue 1)")
-    if model_name not in _PORTED:
+    if model_name not in _PORTED and not model_name.startswith("efficientnet"):
         raise ValueError(f"unknown model {model_name!r}")
     if getattr(args, "pretrained_path", None):
         raise NotImplementedError(
@@ -139,7 +216,10 @@ def create(args: Any, output_dim: Optional[int] = None, seed: Optional[int] = No
         from ..device import get_device
 
         device = get_device(args)
-    module = _build(model_name, num_classes, in_shape).to(device)
-    model = FedModel(module=module, params=None, input_shape=in_shape, name=model_name)
+    module, spec = _build(model_name, num_classes, in_shape, args, dataset)
+    if spec is not None:
+        in_shape, in_dtype = spec
+    model = FedModel(module=module.to(device), params=None, input_shape=in_shape,
+                     input_dtype=in_dtype, name=model_name)
     model.params = model.init_params(seed)
     return model

@@ -4,13 +4,14 @@
 ``SimulatorSingleProcess`` wraps the sp FedAvg-family API (FedAvg, FedProx,
 FedOpt, FedNova, SCAFFOLD, FedDyn, Mime), the hierarchical trainer
 (``HierarchicalFL``), async FedAvg (``Async_FedAvg``), FedAvg_seq,
-TurboAggregate (``TA``), split NN (``split_nn``) and FedGKT;
-``SimulatorVmap`` the client-batched simulator (backend ``vmap``) and, with
-``async_rounds``, its event-driven async driver. FedGAN, FedNAS and FedSeg
-and the collective and MPI simulators are not ported yet (ROADMAP.md,
-Queue 1); decentralized and vertical FL are library APIs
-(``sp/decentralized.py``, ``sp/classical_vertical_fl.py``), outside this
-dispatch as in the JAX package.
+TurboAggregate (``TA``), split NN (``split_nn``), FedGKT, FedGAN, FedNAS
+and FedSeg; ``SimulatorVmap`` the client-batched simulator (backend
+``vmap``) and, with ``async_rounds``, its event-driven async driver. The
+collective and MPI simulators are not ported yet (ROADMAP.md, Queue 1);
+decentralized and vertical FL are library APIs (``sp/decentralized.py``,
+``sp/classical_vertical_fl.py``), outside this dispatch as in the JAX
+package. Per-pixel labels reach only FedSeg: any other optimizer refuses
+them before its first round, with the JAX package's error.
 """
 
 from __future__ import annotations
@@ -29,12 +30,6 @@ from ..constants import (
     FEDML_FEDERATED_OPTIMIZER_TURBO_AGGREGATE,
 )
 
-_OTHER_SP_APIS = (
-    FEDML_FEDERATED_OPTIMIZER_FEDGAN,
-    FEDML_FEDERATED_OPTIMIZER_FEDNAS,
-    FEDML_FEDERATED_OPTIMIZER_FEDSEG,
-)
-
 
 class SimulatorSingleProcess:
     def __init__(self, args: Any, device: Any, dataset, model, client_trainer=None,
@@ -42,10 +37,6 @@ class SimulatorSingleProcess:
         from ..core.fhe.fhe_agg import refuse_fhe_front
 
         opt = str(getattr(args, "federated_optimizer", "FedAvg"))
-        if opt in _OTHER_SP_APIS:
-            raise NotImplementedError(
-                f"federated_optimizer {opt!r}: its sp simulator is not ported to "
-                "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
         refuse_fhe_front(args, "sp")
         if opt == FEDML_FEDERATED_OPTIMIZER_HIERACHICAL_FL:
             from .sp.hierarchical_fl import HierarchicalTrainer as API
@@ -59,10 +50,16 @@ class SimulatorSingleProcess:
             from .sp.split_nn import SplitNNAPI as API
         elif opt == FEDML_FEDERATED_OPTIMIZER_FEDAVG_SEQ:
             from .sp.fedavg_seq import FedAvgSeqAPI as API
+        elif opt == FEDML_FEDERATED_OPTIMIZER_FEDGAN:
+            from .sp.fedgan import FedGANAPI as API
+        elif opt == FEDML_FEDERATED_OPTIMIZER_FEDNAS:
+            from .sp.fednas import FedNASAPI as API
+        elif opt == FEDML_FEDERATED_OPTIMIZER_FEDSEG:
+            from .sp.fedseg import FedSegAPI as API
         else:
             from .sp.fedavg_api import FedAvgAPI as API
 
-        if dataset is not None:
+        if opt != FEDML_FEDERATED_OPTIMIZER_FEDSEG and dataset is not None:
             y = getattr(dataset[2], "y", None)  # train_global labels
             if y is not None and getattr(y, "ndim", 0) >= 3:
                 raise ValueError(

@@ -79,6 +79,19 @@ def weighted_average(pairs: Sequence[Tuple[float, StateDict]]) -> StateDict:
     return bucketed_weighted_average(pairs)
 
 
+def stacked_weighted_average(states: Sequence[StateDict], weights: torch.Tensor) -> StateDict:
+    """``sum_k weights[k] * states[k]`` for every leaf, as the JAX package's
+    ``stacked_weighted_average`` computes it: each leaf rounded to float32,
+    contracted with the weights in the wider of their dtype and float32
+    (float32 weights for a float32 model, float64 for a float64 one, as
+    JAX's x64 mode gives), and cast back to the leaf's dtype."""
+    acc = torch.promote_types(weights.dtype, torch.float32)
+    w = weights.to(acc)
+    return {k: torch.tensordot(w, torch.stack([s[k] for s in states]).to(torch.float32).to(acc),
+                               dims=1).to(v.dtype)
+            for k, v in states[0].items()}
+
+
 def tree_flatten_to_vector(a: StateDict, dtype=torch.float32
                            ) -> Tuple[torch.Tensor, Tuple[List[str], List[torch.Size], List[torch.dtype]]]:
     """One contiguous vector of ``dtype`` (in the state dict's order) and the

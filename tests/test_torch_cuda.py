@@ -817,3 +817,58 @@ def test_sp_apis_run_on_the_card(cuda, opt):
               federated_optimizer=opt, batch_size=64)
     out = fedml_tpu_torch.run_simulation(args=fedml_tpu_torch.default_config("simulation", **kw))
     assert math.isfinite(out["test_acc"]) and out["test_acc"] > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,stride", [(4, 2), (3, 2)])
+def test_conv_transpose_on_the_card_matches_the_cpu(cuda, kernel, stride):
+    """Both SAME paddings of flax's transposed convolution: (2, 2), torch's
+    padding=1 (the GAN), and (2, 1), cropped (SegNetLite's decoder); the
+    forward and the gradients, TF32 off, against the same module on the CPU."""
+    from fedml_tpu_torch.models import layers
+
+    gen = torch.Generator().manual_seed(0)
+    cpu = layers.flax_init_(layers.ConvTranspose(16, 8, (kernel, kernel), (stride, stride)), gen)
+    card = layers.ConvTranspose(16, 8, (kernel, kernel), (stride, stride)).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(4, 16, 9, 9, generator=gen)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs = []
+        for mod, dev in ((cpu, "cpu"), (card, cuda)):
+            xi = x.to(dev).detach().requires_grad_(True)
+            y = mod(xi)
+            (y * torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)).sum().backward()
+            outs.append([y.detach(), xi.grad, mod.weight.grad, mod.bias.grad])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert outs[0][0].shape == (4, 8, 18, 18)
+    for a, b in zip(*outs):
+        assert torch.allclose(b.cpu(), a, rtol=1e-4, atol=1e-4 * float(a.abs().max())), \
+            float((a - b.cpu()).abs().max())
+
+
+@pytest.mark.cuda
+def test_lstm_on_the_card_matches_the_cpu(cuda):
+    """The flax LSTM leaves through torch.lstm (cuDNN on the card): the
+    hidden states and every leaf's gradient, TF32 off, against the CPU."""
+    from fedml_tpu_torch.models import layers, rnn
+
+    cpu = layers.flax_init_(rnn.RNNOriginalFedAvg(hidden_size=64), torch.Generator().manual_seed(0))
+    card = rnn.RNNOriginalFedAvg(hidden_size=64).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randint(0, 90, (8, 40), generator=torch.Generator().manual_seed(1))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        grads = []
+        for mod, dev in ((cpu, "cpu"), (card, cuda)):
+            y = mod(x.to(dev))
+            (y * torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)).mean().backward()
+            grads.append([y.detach()] + [p.grad for p in mod.parameters()])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    for a, b in zip(*grads):
+        assert torch.allclose(b.cpu(), a, rtol=1e-4, atol=1e-4 * float(a.abs().max())), \
+            float((a - b.cpu()).abs().max())

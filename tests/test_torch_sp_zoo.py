@@ -116,7 +116,10 @@ def _assert_history_close(t_api, j_api):
 @pytest.mark.parametrize("opt,cls", [("TA", "TurboAggregateTrainer"),
                                      ("FedAvg_seq", "FedAvgSeqAPI"),
                                      ("split_nn", "SplitNNAPI"),
-                                     ("FedGKT", "FedGKTAPI")])
+                                     ("FedGKT", "FedGKTAPI"),
+                                     ("FedGAN", "FedGANAPI"),
+                                     ("FedNAS", "FedNASAPI"),
+                                     ("FedSeg", "FedSegAPI")])
 def test_simulator_dispatches_the_ported_apis(opt, cls):
     from fedml_tpu.simulation.simulator import SimulatorSingleProcess as JSim
     from fedml_tpu_torch.simulation.simulator import SimulatorSingleProcess
@@ -131,15 +134,6 @@ def test_simulator_dispatches_the_ported_apis(opt, cls):
     jdata, jdim = fedml_tpu.data.load(jargs)
     jsim = JSim(jargs, "cpu", jdata, fedml_tpu.model.create(jargs, jdim))
     assert type(jsim.fl_trainer).__name__ == cls
-
-
-@pytest.mark.parametrize("opt", ["FedGAN", "FedNAS", "FedSeg"])
-def test_unported_sp_apis_still_refused(opt):
-    from fedml_tpu_torch.simulation.simulator import SimulatorSingleProcess
-
-    args = fedml_tpu_torch.default_config("simulation", using_gpu=False, federated_optimizer=opt)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SimulatorSingleProcess(args, torch.device("cpu"), None, None)
 
 
 # --- FedAvg_seq --------------------------------------------------------------------------
