@@ -9,9 +9,10 @@ its tier-masked SecAgg, the message plane's other backends (TRPC, GRPC
 and MPI, MQTT_WEB3, the reference wire), the trust middleware (DP,
 attacks and defenses, contribution), FHE's ciphertext leaves with the
 sp simulator's other APIs (TurboAggregate, FedAvg_seq, split NN, FedGKT,
-decentralized and vertical FL), and FedGAN, FedNAS, FedSeg with the rest
+decentralized and vertical FL), FedGAN, FedNAS, FedSeg with the rest
 of the model hub (MobileNet, EfficientNet-lite, the LSTMs, the text
-classifier) on one CUDA card.
+classifier), and a user's own files (the dataset readers, the C++ data
+plane, HF llama checkpoints) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -301,11 +302,36 @@ exception):
    update within HUB_F64_TOL; then the round in float32 on the card
    (dropout on), finite, its s; (e) no flash launch (the text classifier's attention is
    plain einsums, as in the JAX package);
-20. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+20. a user's own files, through the entry points: (a) each dataset
+   format written at its real widths, cut only in count (CIFAR-10 python
+   batches, a fashion_mnist idx-ubyte drop, a LEAF femnist json; with
+   h5py a TFF fed_shakespeare h5 and the FedNLP 20news pair; with PIL a
+   cinic10 image folder; the formats a missing package leaves to the CPU
+   tests are printed), loaded twice through data_loader.load (bit-equal),
+   its load s and MB/s, then one sp FedAvg round of 2 clients (ResNet-20,
+   LR, the CNN, the LSTM, the text classifier, the CNN) card against CPU
+   in float64 (HUB_F64_TOL, dropout off) and in float32 on the card,
+   timed; (b) the C++ data plane built from native/dataplane/src into
+   fedml_tpu_torch/ops/_build/dataplane (available() must be true), the
+   CIFAR arrays tiled to STREAM_SAMPLES streamed through save_shards and
+   ArrayDataset.stream: each batch of 2 epochs equal to the memmap of the
+   same files gathered in the prefetcher's order, the memmap path's epoch
+   holding the same samples, batches/s; (c) an HF llama checkpoint at
+   Llama-2-7B's widths cut to HF_LAYERS layers, exported bf16 from seeded
+   params with a tokenizer.json trained on a written corpus, imported
+   equal to the written tensors, re-exported byte for byte, its logits on
+   the card within HF_LOGITS_TOL of the CPU's (f32, TF32 off); then
+   LLMTrainer with model_name_or_path and dataset_path, HF_STEPS LoRA
+   steps (bf16, seq 2048, batch 2, rank 8): K1-K3 launched exactly as
+   the steps need, all on the wgmma design, the base embedding the
+   checkpoint's; then LLMPredictor.from_checkpoint decodes HF_DECODE
+   tokens with no flash launch; export and import s and GB/s, step ms,
+   first token and decode ms; (a) and (b) launch no flash kernel;
+21. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
    resilience, privacy, secure_fronts, hierarchy, message_plane, trust,
-   fhe_sp_zoo, gan_nas_seg_hub and kernels lines (JSON, the kernels line
-   with the design each kernel ran on the main path), the card line, and
-   last the result line.
+   fhe_sp_zoo, gan_nas_seg_hub, files and kernels lines (JSON, the kernels
+   line with the design each kernel ran on the main path), the card line,
+   and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -5296,21 +5322,21 @@ def _dropout_off(model) -> None:
             sub.rate = 0.0
 
 
-def hub_round(name: str, dataset_name: str) -> dict:
-    """(d): one FedAvg round of ``name`` on ``dataset_name``."""
+def _card_cpu_round(tag: str, over: dict, dataset, dim: int) -> dict:
+    """One FedAvg round on ``dataset`` (its shards cut to HUB_SHARD, the test
+    set to HUB_TEST): card against CPU in float64 from the same seeded
+    params, the first client's first batch's logits and the round's update
+    within HUB_F64_TOL, then the round in float32 on the card, timed. The
+    comparison runs without dropout (the card's and the CPU's generators
+    draw different masks: the CNN's sites are calls of cnn.dropout, the text
+    classifier's are rates, _dropout_off); the timed round keeps it."""
     import math
 
     import numpy as np
     import torch
 
-    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.models import cnn
 
-    over = dict(HUB_FEDAVG, model=name, dataset=dataset_name)
-    args = fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda", **over))
-    t0 = time.perf_counter()
-    dataset, dim = fedml.data.load(args)
-    load_s = time.perf_counter() - t0
-    over["input_shape"] = getattr(args, "input_shape", None)  # the table's width (R13)
     dataset = _cut_shards(dataset, HUB_SHARD, HUB_TEST)
     f64 = _as_f64(dataset)
     x = torch.from_numpy(np.ascontiguousarray(f64[5][0].x[:HUB_FEDAVG["batch_size"]]))
@@ -5323,11 +5349,15 @@ def hub_round(name: str, dataset_name: str) -> dict:
                 logits[where] = model.module(x.to(where)).cpu()
         return prepare
 
-    runs = {where: _api_run(over, f64, dim, where, f64=True, prepare=first_batch(where))
-            for where in (DEV, "cpu")}
+    keep, cnn.dropout = cnn.dropout, lambda x, rate, train, rng: x
+    try:
+        runs = {where: _api_run(over, f64, dim, where, f64=True, prepare=first_batch(where))
+                for where in (DEV, "cpu")}
+    finally:
+        cnn.dropout = keep
     card, cpu = runs[DEV], runs["cpu"]
     check(all(torch.equal(card["p0"][k], cpu["p0"][k]) for k in cpu["p0"]),
-          f"(d) {name}: the card and the CPU started from different params")
+          f"{tag}: the card and the CPU started from different params")
     logit_err = (logits[DEV] - logits["cpu"]).abs().max().item() / \
         logits["cpu"].abs().max().item()
     update = _rel(_cpu(card["api"].model_trainer.get_model_params()),
@@ -5336,13 +5366,28 @@ def hub_round(name: str, dataset_name: str) -> dict:
     m, mc, mt = card["hist"][0], cpu["hist"][0], timed["hist"][0]
     check(logit_err <= HUB_F64_TOL and update <= HUB_F64_TOL
           and math.isfinite(mt["test_loss"]),
-          f"(d) {name} on {dataset_name}: in float64 logits {logit_err:.3g} of their scale, "
+          f"{tag}: in float64 logits {logit_err:.3g} of their scale, "
           f"update {update:.3g} of the CPU's; float32 {mt}")
-    res = {"params": timed["model"].num_params, "input_shape": list(timed["model"].input_shape),
-           "f64_logits_of_scale": logit_err, "f64_update_rel": update,
-           "f64_test_loss": m["test_loss"], "f64_cpu_test_loss": mc["test_loss"],
-           "f64_card_s": card["s"], "f64_cpu_s": cpu["s"], "round_s": timed["round_s"],
-           "test_loss": mt["test_loss"], "load_s": load_s}
+    return {"params": timed["model"].num_params, "input_shape": list(timed["model"].input_shape),
+            "train_examples": int(sum(dataset[4].values())),
+            "f64_logits_of_scale": logit_err, "f64_update_rel": update,
+            "f64_test_loss": m["test_loss"], "f64_cpu_test_loss": mc["test_loss"],
+            "f64_card_s": card["s"], "f64_cpu_s": cpu["s"], "round_s": timed["round_s"],
+            "test_loss": mt["test_loss"]}
+
+
+def hub_round(name: str, dataset_name: str) -> dict:
+    """(d): one FedAvg round of ``name`` on ``dataset_name``."""
+    import fedml_tpu_torch as fedml
+
+    over = dict(HUB_FEDAVG, model=name, dataset=dataset_name)
+    args = fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda", **over))
+    t0 = time.perf_counter()
+    dataset, dim = fedml.data.load(args)
+    load_s = time.perf_counter() - t0
+    over["input_shape"] = getattr(args, "input_shape", None)  # the table's width (R13)
+    res = {**_card_cpu_round(f"(d) {name} on {dataset_name}", over, dataset, dim),
+           "load_s": load_s}
     say(f"  (d) {name} on {dataset_name}: {res}")
     return res
 
@@ -5356,6 +5401,426 @@ def gan_nas_seg_hub_phase() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         res["hub"][f"{name}/{dataset_name}"] = hub_round(name, dataset_name)
+    return res
+
+
+# -- phase 20: a user's own files: dataset readers, the data plane, HF llama ------------
+
+# (a) each format written at its real widths, cut only in count: CIFAR-10
+# python batches (5 of FILES_CIFAR_PER_BATCH 32x32x3 images, a test batch of
+# as many), a fashion_mnist idx-ubyte drop (28x28), a LEAF femnist json
+# (FILES_LEAF_WRITERS writers of 784 floats), with h5py a TFF
+# fed_shakespeare h5 and the FedNLP 20news pair, with PIL a cinic10 image
+# folder (10 classes of 32x32 png). Each loads twice through data_loader.load
+# (the two bit-equal), then one sp FedAvg round of 2 clients on its model
+# as phase 19 (d) runs one (_card_cpu_round).
+FILES_RUNS = (("cifar10", "resnet20"), ("fashion_mnist", "lr"), ("femnist", "cnn"),
+              ("fed_shakespeare", "rnn"), ("20news", "distilbert"), ("cinic10", "cnn"))
+FILES_NEEDS = {"fed_shakespeare": "h5py", "20news": "h5py", "cinic10": "PIL"}
+FILES_CIFAR_PER_BATCH, FILES_IDX_TRAIN, FILES_LEAF_WRITERS = 200, 600, 8
+# (b) the C++ data plane: the CIFAR arrays tiled to STREAM_SAMPLES, streamed
+# in batches of STREAM_BATCH for STREAM_EPOCHS epochs (the first 2 checked
+# against a gather from the same files in the prefetcher's order)
+STREAM_SAMPLES, STREAM_BATCH, STREAM_EPOCHS = 10_240, 128, 3  # whole batches: no tail
+# (c) an HF llama checkpoint at Llama-2-7B's widths (BASELINE.md config 4),
+# cut to HF_LAYERS layers, bf16 on disk; its logits on HF_LOGIT_TOKENS
+# tokens on the card against the CPU in f32 (TF32 off) within HF_LOGITS_TOL
+# of their scale (two f32 summation orders over K = 4096 and 11008); then
+# HF_STEPS LoRA steps from dataset_path (bf16, seq 2048, batch 2, rank 8)
+# and a greedy decode of HF_DECODE tokens through from_checkpoint
+HF_LAYERS, HF_STEPS, HF_LOGIT_TOKENS, HF_DECODE = 2, 2, 16, 16
+HF_LOGITS_TOL = 1e-4
+HF_TOKENIZER_VOCAB = 512
+HF_WORDS = ("federated", "silos", "train", "adapters", "on", "their", "own", "text", "and",
+            "send", "only", "the", "low", "rank", "factors", "to", "a", "server", "that",
+            "folds", "them", "into", "one", "global", "model", "each", "round")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _write_dataset_files(root: str, have: set) -> dict:
+    """Each format's files under ``root`` (the cache dir); -> {dataset: the
+    path its loader reads}."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    out = {}
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (FILES_CIFAR_PER_BATCH, 3072),
+                                               dtype=np.uint8),
+                         b"labels": rng.integers(0, 10, FILES_CIFAR_PER_BATCH).tolist()}, f)
+    out["cifar10"] = d
+    d = os.path.join(root, "fashion_mnist")
+    os.makedirs(d)
+    for stem, arr in (("train-images-idx3-ubyte", rng.integers(0, 256, (FILES_IDX_TRAIN, 28, 28))),
+                      ("train-labels-idx1-ubyte", rng.integers(0, 10, FILES_IDX_TRAIN)),
+                      ("t10k-images-idx3-ubyte", rng.integers(0, 256, (100, 28, 28))),
+                      ("t10k-labels-idx1-ubyte", rng.integers(0, 10, 100))):
+        arr = np.asarray(arr, np.uint8)
+        head = (0x0800 | arr.ndim).to_bytes(4, "big") + b"".join(
+            int(n).to_bytes(4, "big") for n in arr.shape)
+        with open(os.path.join(d, stem), "wb") as f:
+            f.write(head + arr.tobytes())
+    out["fashion_mnist"] = d
+    d = os.path.join(root, "femnist")
+    for split, n in (("train", 20), ("test", 5)):
+        os.makedirs(os.path.join(d, split))
+        users = {f"f_{i:04d}": {"x": np.round(rng.random((n, 784)), 4).tolist(),
+                                "y": rng.integers(0, 62, n).tolist()}
+                 for i in range(FILES_LEAF_WRITERS)}
+        with open(os.path.join(d, split, "all_data_0.json"), "w") as f:
+            json.dump({"users": list(users), "num_samples": [n] * len(users),
+                       "user_data": users}, f)
+    out["femnist"] = d
+    text = " ".join(HF_WORDS)
+    if "h5py" in have:
+        import h5py
+
+        d = os.path.join(root, "fed_shakespeare")
+        os.makedirs(d)
+        for split in ("train", "test"):
+            with h5py.File(os.path.join(d, f"shakespeare_{split}.h5"), "w") as h5:
+                for c in range(4):
+                    snippets = [text[(c * 7 + j) % 40:] + " " + text for j in range(6)]
+                    h5.create_dataset(f"examples/CLIENT_{c}/snippets",
+                                      data=np.array([s.encode() for s in snippets], dtype="S300"))
+        out["fed_shakespeare"] = d
+        d = os.path.join(root, "20news")
+        os.makedirs(d)
+        labels = ["alt.atheism", "sci.space", "rec.autos", "comp.graphics"]
+        n_train, n_test = 96, 32
+        with h5py.File(os.path.join(d, "20news_data.h5"), "w") as f:
+            f.create_dataset("attributes", data=json.dumps({"task_type": "text_classification"}))
+            X, Y = f.create_group("X"), f.create_group("Y")
+            for i in range(n_train + n_test):
+                lab = labels[i % len(labels)]
+                X.create_dataset(str(i), data=f"{lab.split('.')[-1]} {text} {i}".encode())
+                Y.create_dataset(str(i), data=lab.encode())
+        with h5py.File(os.path.join(d, "20news_partition.h5"), "w") as f:
+            g = f.create_group("uniform")
+            g.create_dataset("n_clients", data=2)
+            pd = g.create_group("partition_data")
+            for c in range(2):
+                cg = pd.create_group(str(c))
+                cg.create_dataset("train", data=np.arange(n_train)[c::2])
+                cg.create_dataset("test", data=np.arange(n_train, n_train + n_test)[c::2])
+        out["20news"] = d
+    if "PIL" in have:
+        from PIL import Image
+
+        d = os.path.join(root, "cinic10")
+        for split, n in (("train", 10), ("test", 2)):
+            for c in range(10):
+                cdir = os.path.join(d, split, f"class{c}")
+                os.makedirs(cdir)
+                for i in range(n):
+                    Image.fromarray(rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)).save(
+                        os.path.join(cdir, f"img{i}.png"))
+        out["cinic10"] = d
+    return out
+
+
+def _loads_equal(a, b) -> bool:
+    import numpy as np
+
+    same = a[0] == b[0] and a[1] == b[1] and a[4] == b[4] and a[7] == b[7]
+    pairs = [(a[2], b[2]), (a[3], b[3])] + [(a[5][c], b[5][c]) for c in a[5]] + \
+        [(a[6][c], b[6][c]) for c in a[6]]
+    return same and sorted(a[5]) == sorted(b[5]) and all(
+        x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y)
+        for p, q in pairs for x, y in ((p.x, q.x), (p.y, q.y)))
+
+
+def files_round(dataset_name: str, model: str, cache: str, path: str) -> dict:
+    """(a): the files of ``dataset_name`` through data_loader.load (twice),
+    then one FedAvg round of ``model`` on them."""
+    import fedml_tpu_torch as fedml
+
+    over = dict(HUB_FEDAVG, model=model, dataset=dataset_name, data_cache_dir=cache)
+    args = fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda", **over))
+    t0 = time.perf_counter()
+    dataset, dim = fedml.data.load(args)
+    load_s = time.perf_counter() - t0
+    again, _ = fedml.data.load(fedml.init(fedml.default_config(
+        "simulation", using_gpu=DEV == "cuda", **over)))
+    check(_loads_equal(dataset, again), f"(a) {dataset_name}: two loads of the files differ")
+    check(dataset[0] > 0 and len(dataset[5]) == 2, f"(a) {dataset_name}: {dataset[0]} examples")
+    for k in ("input_shape", "vocab_size"):  # the loader's side effects, as in the JAX package
+        if getattr(args, k, None) is not None:
+            over[k] = getattr(args, k)
+    mb = _dir_bytes(path) / 1e6
+    res = {"model": model, "files_MB": mb, "load_s": load_s, "load_MB_per_s": mb / load_s,
+           "output_dim": dim,
+           **_card_cpu_round(f"(a) {model} on {dataset_name} files", over, dataset, dim)}
+    say(f"  (a) {model} on {dataset_name} files: {res}")
+    return res
+
+
+def dataplane_run(x, y, tmp: str) -> dict:
+    """(b): the C++ prefetcher over shards of the CIFAR arrays."""
+    import numpy as np
+
+    from fedml_tpu_torch.data import native_loader as nl
+    from fedml_tpu_torch.data.dataset import ArrayDataset
+
+    t0 = time.perf_counter()
+    ok = nl.NativeBatchLoader.available()
+    build_s = time.perf_counter() - t0
+    check(ok, f"(b) the data plane did not build: {nl.build_error()}")
+    reps = -(-STREAM_SAMPLES // len(x))
+    ds = ArrayDataset(np.concatenate([x] * reps)[:STREAM_SAMPLES],
+                      np.concatenate([y] * reps)[:STREAM_SAMPLES])
+    t0 = time.perf_counter()
+    paths = ds.save_shards(os.path.join(tmp, "cifar"))
+    write_s = time.perf_counter() - t0
+    n, bs = len(ds), STREAM_BATCH
+    per_epoch = n // bs
+    specs = [nl.shard_info(p) for p in paths]
+    maps = [np.memmap(p, dtype=dt, mode="r", shape=dims, offset=16 + 8 * len(dims))
+            for p, (dt, dims) in zip(paths, specs)]
+    t0 = time.perf_counter()
+    got = list(ArrayDataset.stream(paths, bs, seed=7, epochs=STREAM_EPOCHS))
+    stream_s = time.perf_counter() - t0
+    check(len(got) == STREAM_EPOCHS * per_epoch, f"(b) {len(got)} batches")
+    for e in range(2):
+        perm = nl.native_permutation(n, 7, e)
+        for b in range(per_epoch):
+            sel = perm[b * bs:(b + 1) * bs]
+            bx, by = got[e * per_epoch + b]
+            check(np.array_equal(bx, maps[0][sel]) and np.array_equal(by, maps[1][sel]),
+                  f"(b) epoch {e} batch {b}: not the memmap's samples in the prefetcher's order")
+    # the memmap path (the fallback without a toolchain) over the same files
+    saved = nl._lib, nl._build_error
+    nl._lib, nl._build_error = None, "the fallback, asked for"
+    try:
+        fb = list(ArrayDataset.stream(paths, bs, seed=7, epochs=1))
+    finally:
+        nl._lib, nl._build_error = saved
+    def rows(batches):  # each sample as (its pixels' float64 sum, its label), sorted
+        xs = np.concatenate([b[0] for b in batches]).reshape(n, -1).sum(axis=1, dtype=np.float64)
+        return np.sort(xs + 1e6 * np.concatenate([b[1] for b in batches]))
+
+    check(len(fb) == per_epoch and np.array_equal(rows(fb), rows(got[:per_epoch])),
+          "(b) the memmap path's epoch holds other samples than the prefetcher's")
+    mb = sum(os.path.getsize(p) for p in paths) / 1e6
+    res = {"samples": n, "batch": bs, "epochs": STREAM_EPOCHS, "build_s": build_s,
+           "shards_MB": mb, "write_s": write_s, "stream_s": stream_s,
+           "batches_per_s": len(got) / stream_s, "MB_per_s": STREAM_EPOCHS * per_epoch * bs
+           / n * mb / stream_s, "library": os.path.relpath(nl.lib_path(), ROOT)}
+    say(f"  (b) data plane: {res}")
+    return res
+
+
+def hf_run(tmp: str, libs) -> dict:
+    """(c): an HF llama checkpoint at Llama-2-7B's widths through
+    model_name_or_path, dataset_path and from_checkpoint."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.models.convert import params_from_jax, params_to_jax
+    from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.serving import LLMPredictor
+    from fedml_tpu_torch.train.llm.checkpoint_import import (config_from_hf,
+                                                             export_hf_checkpoint,
+                                                             import_hf_checkpoint)
+    from fedml_tpu_torch.train.llm.configurations import (DatasetArguments,
+                                                          ExperimentArguments, ModelArguments)
+    from fedml_tpu_torch.train.llm.llm_trainer import LLMTrainer
+    from fedml_tpu_torch.train.llm.tokenizer import train_bpe
+
+    cfg = TransformerConfig.llama2_7b(n_layers=HF_LAYERS, max_seq_len=T, dtype=torch.float32)
+    ckpt, again = os.path.join(tmp, "llama"), os.path.join(tmp, "llama_again")
+    corpus = os.path.join(tmp, "corpus")
+    os.makedirs(corpus)
+    rng = np.random.default_rng(0)
+    lines = [" ".join(HF_WORDS[i] for i in rng.integers(0, len(HF_WORDS), 24))
+             for _ in range(1500)]
+    with open(os.path.join(corpus, "silo.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    times, mark = {}, [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        times[what] = now - mark[0]
+        mark[0] = now
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    seeded = TransformerLM(cfg, device=DEV)
+    seeded.reset_parameters(gen)
+    params = params_to_jax(seeded)
+    del seeded
+    n_params = sum(v.size for v in _flat(params).values())
+    lap("corpus_and_seeded_params")
+    export_hf_checkpoint(params, cfg, ckpt, dtype=torch.bfloat16)
+    lap("export")
+    export_s = times["export"]
+    train_bpe(lines, vocab_size=HF_TOKENIZER_VOCAB).save(os.path.join(ckpt, "tokenizer.json"))
+    gb = os.path.getsize(os.path.join(ckpt, "model.safetensors")) / 1e9
+    lap("tokenizer")
+    imported = import_hf_checkpoint(ckpt)
+    lap("import")
+    import_s = times["import"]
+    written, got = _flat(params), _flat(imported)
+    check(written.keys() == got.keys(), "(c) the import's names differ from the export's")
+    for k, v in written.items():  # compared as torch tensors: every core, not one
+        check(got[k].dtype == np.float32 and torch.equal(
+            torch.from_numpy(got[k]), torch.from_numpy(v).to(torch.bfloat16).float()),
+            f"(c) imported {'/'.join(k)} differs from the written bf16 tensor")
+    del params, written
+    lap("import_check")
+    export_hf_checkpoint(imported, config_from_hf(ckpt), again, dtype=torch.bfloat16)
+    for name in ("model.safetensors", "config.json"):
+        with open(os.path.join(ckpt, name), "rb") as a, open(os.path.join(again, name), "rb") as b:
+            check(a.read() == b.read(), f"(c) re-exported {name} differs from the checkpoint's")
+    shutil.rmtree(again)
+    lap("reexport_and_compare")
+    # the card's logits against the CPU's, f32, from the same import
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, HF_LOGIT_TOKENS)))
+    state = params_from_jax(imported)
+    logits = {}
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for where in (DEV, "cpu"):
+                m = TransformerLM(dataclasses.replace(cfg, attention_impl="xla", remat=False),
+                                  device=where)
+                m.load_state_dict(state)
+                with torch.no_grad():
+                    logits[where] = m(toks.to(where)).cpu()
+                del m
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    logits_err = (logits[DEV] - logits["cpu"]).abs().max().item() / \
+        logits["cpu"].abs().max().item()
+    check(logits_err <= HF_LOGITS_TOL, f"(c) card logits {logits_err:.3g} of the CPU's scale")
+    emb = torch.from_numpy(imported["embed"]["embedding"])
+    del state, imported, logits
+    gc.collect()
+    lap("logits_card_and_cpu")
+    # LoRA steps from the checkpoint and the corpus: the main path's kernels
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    trainer = LLMTrainer(
+        ModelArguments(model_name_or_path=ckpt, seq_len=T, lora_rank=8, remat=True),
+        DatasetArguments(dataset_path=corpus),
+        ExperimentArguments(max_steps=HF_STEPS, per_device_batch_size=B, learning_rate=1e-4,
+                            warmup_steps=1, output_dir=os.path.join(tmp, "trainer")),
+        device=DEV)
+    check(all(getattr(trainer.cfg, f) == getattr(cfg, f) for f in
+              ("vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads", "d_ff")),
+          f"(c) the trainer's geometry is not config.json's: {trainer.cfg}")
+    metrics = trainer.train()  # builds the model: the import and overlay are in this lap
+    lap("import_train_and_final_save")
+    train_launches = dict(fa.launch_counts)
+    by_design = {name: {d: n - by_design0[name][d] for d, n in libs.design_launches(name).items()
+                        if n > by_design0[name][d]} for name in KERNELS}
+    want = {"flash_fwd": 2 * HF_LAYERS * HF_STEPS, "flash_bwd_dq": HF_LAYERS * HF_STEPS,
+            "flash_bwd_dkv": HF_LAYERS * HF_STEPS}
+    check(train_launches == want, f"(c) flash launches {train_launches} != {want}")
+    for name, (_, _, design) in KERNELS.items():
+        check(by_design[name] == {design: want[name]},
+              f"(c) {name}: launches by design {by_design[name]}, expected {design}")
+    check(metrics["steps"] == HF_STEPS and np.isfinite(metrics["final_loss"]),
+          f"(c) LoRA steps: {metrics}")
+    check(torch.equal(trainer.model.embed.embedding.detach().cpu(), emb),
+          "(c) the trained model's base embedding is not the checkpoint's")
+    step_ms = B * T / metrics["tokens_per_sec"] * 1e3
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    # serving the checkpoint: the decode path launches no flash kernel
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred = LLMPredictor.from_checkpoint(ckpt, device=DEV)
+    load_pred_s = time.perf_counter() - t0
+    lap("from_checkpoint")
+    prompt = " ".join(HF_WORDS[:12])
+    text = pred.predict({"prompt": prompt, "max_new_tokens": HF_DECODE})["text"]
+    eos = pred._eos_id
+    # timed without a stop token, so every request decodes all its tokens.
+    # The decode loop runs to a multiple of 16 tokens (generation.generate),
+    # so a token's ms is the difference of 2 * HF_DECODE and HF_DECODE tokens
+    # over HF_DECODE, and the first token the HF_DECODE request less its
+    # HF_DECODE - 1 later tokens
+    pred._eos_id = None
+    one_ms = _time_ms(lambda: pred.predict({"prompt": prompt, "max_new_tokens": HF_DECODE}), 3)
+    two_ms = _time_ms(lambda: pred.predict({"prompt": prompt,
+                                            "max_new_tokens": 2 * HF_DECODE}), 3)
+    token_ms = (two_ms - one_ms) / HF_DECODE
+    lap("decode")
+    decode_launches = dict(fa.launch_counts)
+    check(all(n == 0 for n in decode_launches.values()),
+          f"(c) from_checkpoint's decode launched flash kernels: {decode_launches}")
+    check(isinstance(text, str), "(c) from_checkpoint returned no text")
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"layers": HF_LAYERS, "params": int(n_params), "checkpoint_GB": gb,
+           "export_s": export_s, "export_GB_per_s": gb / export_s, "import_s": import_s,
+           "import_GB_per_s": gb / import_s, "logits_of_scale": logits_err,
+           "train": metrics, "step_ms": step_ms, "train_flash_launches": train_launches,
+           "train_by_design": by_design, "from_checkpoint_s": load_pred_s,
+           "first_token_ms": one_ms - (HF_DECODE - 1) * token_ms,
+           "decode_ms_per_token": token_ms, "request_ms": {HF_DECODE: one_ms,
+                                                            2 * HF_DECODE: two_ms},
+           "times_s": times,
+           "decode_flash_launches": decode_launches, "eos_id": eos, "decoded": text}
+    say(f"  (c) HF import: {res}")
+    return res
+
+
+def files_phase(libs) -> dict:
+    """Phase 20 (see the module docstring)."""
+    import importlib.util
+
+    import torch
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    have = {m for m in ("h5py", "PIL") if importlib.util.find_spec(m) is not None}
+    runs = [(d, m) for d, m in FILES_RUNS if FILES_NEEDS.get(d, "numpy") in have | {"numpy"}]
+    left = {d: f"{FILES_NEEDS[d]} is not installed" for d, m in FILES_RUNS
+            if (d, m) not in runs}
+    say(f"  formats on the card: {[d for d, _ in runs]}; left to the CPU tests: {left}")
+    tmp = os.path.join(ROOT, ".smoke_run", "files")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        cache = os.path.join(tmp, "cache")
+        t0 = time.perf_counter()
+        paths = _write_dataset_files(cache, have)
+        res = {"packages": sorted(have), "on_card": [d for d, _ in runs], "left_to_cpu": left,
+               "write_s": time.perf_counter() - t0, "formats": {}}
+        fa.reset_launch_counts()
+        for dataset_name, model in runs:
+            gc.collect()
+            res["formats"][dataset_name] = files_round(dataset_name, model, cache,
+                                                      paths[dataset_name])
+        import fedml_tpu_torch as fedml
+
+        args = fedml.default_config("simulation", dataset="cifar10", data_cache_dir=cache,
+                                    client_num_in_total=2, using_gpu=False)
+        cifar = fedml.data.load(args)[0][2]
+        res["dataplane"] = dataplane_run(cifar.x, cifar.y, tmp)
+        ab = dict(fa.launch_counts)
+        check(all(n == 0 for n in ab.values()), f"(a), (b) launched flash kernels: {ab}")
+        res["flash_launches_a_b"] = ab
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["hf"] = hf_run(tmp, libs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return res
 
 
@@ -5662,7 +6127,18 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the hub phase launched flash kernels: {hub_launches}")
 
-    say("== 20. result")
+    say("== 20. a user's own files: the native dataset readers into FedAvg rounds, the C++ data "
+        "plane, an HF llama checkpoint at Llama-2-7B's widths (2 layers) into LoRA steps and "
+        "from_checkpoint")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    files = files_phase(libs)
+    say(f"  phase {time.time() - t0:.1f}s; flash launches: (a)-(b) {files['flash_launches_a_b']}, "
+        f"(c) LoRA steps {files['hf']['train_flash_launches']}, (c) decode "
+        f"{files['hf']['decode_flash_launches']}")
+
+    say("== 21. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5693,6 +6169,7 @@ def main() -> int:
           flush=True)
     print(json.dumps({"gan_nas_seg_hub": {"card": card, "flash_launches": hub_launches,
                                           **hub}}), flush=True)
+    print(json.dumps({"files": {"card": card, **files}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

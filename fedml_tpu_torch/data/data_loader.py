@@ -8,12 +8,14 @@ Same return tuple as the JAX package:
      class_num)
 
 with :class:`ArrayDataset` shards (numpy; the trainers move them to the
-device). The synthetic (LEAF synthetic(a, b)), image, text, FedNLP text
-classification, tabular, stackoverflow_lr and segmentation datasets are
-ported, from their surrogates, a ``{cache}/{name}.npz`` or the tabular
-CSVs; the shards are bit-identical to the JAX package's. Native file
-formats (LEAF json, TFF h5, image archives) and downloads raise
-NotImplementedError.
+device). Every dataset of the JAX loader is ported: from the reference's
+files where a user put them under ``data_cache_dir`` (LEAF json, TFF and
+FedNLP h5, the landmarks csv, reddit text, the SBD, cityscapes and COCO
+drops through ``formats.py`` with the file's own client partition; CIFAR
+batches, idx-ubyte files, image folders, an npz and the tabular CSVs through
+``sources.py``), else from the deterministic surrogates; the shards are
+bit-identical to the JAX package's. Downloads (``allow_download``) raise
+NotImplementedError: nothing is fetched.
 
 One departure: for the tabular sets the loader records the table's width in
 ``args.input_shape``, so ``lr`` on ``lending_club`` or ``uci`` builds its
@@ -42,7 +44,6 @@ from .sources import (
     load_tabular_dataset,
     load_text_classification_dataset,
     load_text_dataset,
-    reference_format_files,
 )
 
 log = logging.getLogger(__name__)
@@ -58,9 +59,8 @@ FedDataset = Tuple[int, int, ArrayDataset, ArrayDataset, Dict[int, int], Dict[in
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported to fedml_tpu_torch yet; the port loads the synthetic, image, "
-        "text, tabular and segmentation datasets from their surrogates or a "
-        "{cache}/{name}.npz (see ROADMAP.md, Queue 1)")
+        f"{what} is not ported to fedml_tpu_torch; the port reads a dataset's files "
+        "from data_cache_dir or loads its surrogate (see ROADMAP.md)")
 
 
 def load(args: Any) -> FedDataset:
@@ -89,12 +89,45 @@ def load(args: Any) -> FedDataset:
         args.output_dim = class_num
         return (len(train_g), len(test_g), train_g, test_g, train_num_dict, train_local, test_local, class_num)
 
-    if getattr(args, "allow_download", False):
+    from .formats import FedDataConfigError, detect_format_files, load_native_format
+
+    fmt = detect_format_files(dataset, cache)
+    if not fmt and getattr(args, "allow_download", False):
         raise _not_ported("allow_download (fetching a dataset's reference archives)")
-    fmt = reference_format_files(dataset, cache)
     if fmt:
-        raise _not_ported(f"dataset {dataset}: reference-format files under "
-                          f"{cache}/{dataset}, which the JAX package reads; reading them")
+        # the reference-format files (LEAF json, TFF h5, ...) with the file's
+        # own client partition
+        try:
+            fed = load_native_format(
+                dataset, cache, client_num,
+                partition_method=getattr(args, "fednlp_partition_method", None),
+                partition_alpha=alpha, seed=seed,
+            )
+        except FedDataConfigError:
+            raise  # the files are fine and the config is wrong: tell the user
+        except (OSError, ValueError, KeyError) as e:
+            # detection only probes for the files; a truncated or corrupt
+            # drop falls back to the surrogate, loudly, as in the JAX package
+            log.warning("dataset %s: native-format files detected but "
+                        "unparseable (%r) — falling back to surrogate", dataset, e)
+            fmt = None
+    if fmt:
+        args.output_dim = fed[-1]
+        if dataset == "cityscapes":
+            # trainId masks carry 255 for void classes; the fedseg loss
+            # masks that label (reference CE ignore_index=255)
+            args.seg_ignore_label = 255
+        # the files' own feature shape (e.g. a truncated word_count sidecar),
+        # so the hub builds a matching input layer
+        args.input_shape = (1,) + tuple(np.asarray(fed[2].x).shape[1:])
+        if dataset in TEXT_CLS_DATASETS:
+            # the hash tokenizer's ids lie in [0, FEDNLP_HASH_VOCAB): the
+            # embedding must cover them
+            from .formats import FEDNLP_HASH_VOCAB
+
+            args.vocab_size = FEDNLP_HASH_VOCAB
+        return fed
+
     if dataset in TEXT_CLS_DATASETS:
         x_tr, y_tr, x_te, y_te, class_num = load_text_classification_dataset(dataset, cache, seed)
     elif dataset in TEXT_DATASETS:

@@ -3,19 +3,24 @@
 The JAX package looks for a dataset's files under ``data_cache_dir`` and
 otherwise synthesises a deterministic surrogate with the real dataset's
 shapes and class count (class-dependent means, so accuracy means
-something). The port copies the surrogates, the ``{cache}/{name}.npz``
-branch and the tabular CSV readers (lending club's ``loan.csv``, UCI's
-SUSY and room-occupancy files) bit for bit; the native formats (CIFAR batch
-pickles, idx-ubyte, image folders, LEAF json and TFF h5 files) and
-downloads raise NotImplementedError, so a run never falls back to a
-surrogate where the JAX package would have read real files (ROADMAP.md,
-Queue 1). :func:`reference_format_files` is the JAX loader's probe for the
-LEAF/TFF/SBD layouts (``fedml_tpu/data/formats.py`` ``detect_format_files``).
+something). The port copies all of it bit for bit: the surrogates, the
+``{cache}/{name}.npz`` branch, the reference's native files (CIFAR
+python-batch pickles through the restricted unpickler, idx-ubyte drops,
+class-per-directory image folders, the NUS-WIDE trio) and the tabular CSV
+readers (lending club's ``loan.csv``, UCI's SUSY and room-occupancy files).
+The LEAF, TFF, FedNLP, reddit and segmentation layouts are
+``formats.py``'s. Nothing is downloaded.
+
+Canonical local files recognized:
+  - mnist:   ``{cache}/mnist.npz``       (keys x_train,y_train,x_test,y_test)
+  - cifar10: ``{cache}/cifar10.npz``     (same keys, NHWC uint8), or the
+    extracted ``cifar-10-batches-py`` (``cifar-100-python`` for cifar100)
+  - fashion_mnist: the four idx-ubyte files (optionally gzipped)
+  - cinic10 / imagenet: ``{cache}/{name}/train/<class>/*.png|jpg``
 """
 
 from __future__ import annotations
 
-import glob
 import logging
 import os
 from typing import Optional, Tuple
@@ -37,26 +42,6 @@ IMAGE_SPECS = {
     "gld23k": ((64, 64, 3), 203, 23000, 2000),
     "landmarks": ((64, 64, 3), 203, 23000, 2000),
 }
-
-# where the JAX loader finds a dataset's native files, besides
-# {cache}/{name}/ (its LEAF, TFF, image-folder and archive layouts)
-_NATIVE_AT_ROOT = {
-    "cifar10": ("cifar-10-batches-py",),
-    "cifar100": ("cifar-100-python",),
-    "fashion_mnist": ("train-images-idx3-ubyte", "train-images-idx3-ubyte.gz"),
-}
-
-
-def native_files(name: str, cache_dir: str):
-    """The path of ``name``'s native files under ``cache_dir``, or None."""
-    if not cache_dir:
-        return None
-    for rel in (name,) + _NATIVE_AT_ROOT.get(name, ()):
-        path = os.path.join(cache_dir, rel)
-        if os.path.exists(path):
-            return path
-    return None
-
 
 def _synthetic_classification(
     n: int, shape: Tuple[int, ...], classes: int, proto_seed: int, sample_seed: int
@@ -83,14 +68,271 @@ def _load_npz(path: str):
         )
 
 
+# --- CIFAR python-batch binaries (the reference's native on-disk layout) -----
+
+def _cifar_batch_dir(name: str, cache_dir: str) -> Optional[str]:
+    """Locate the extracted CIFAR archive dir (``cifar-10-batches-py`` /
+    ``cifar-100-python`` — what the reference's torchvision-backed loaders
+    read after ``download_cifar10.sh``), under the cache root or the
+    dataset's subdir."""
+    sub = "cifar-10-batches-py" if name == "cifar10" else "cifar-100-python"
+    probe = "data_batch_1" if name == "cifar10" else "train"
+    candidates = [
+        os.path.join(cache_dir, sub),
+        os.path.join(cache_dir, name, sub),
+        # downloads._flatten_single_dir hoists a lone wrapper dir, leaving
+        # the batch files directly under {cache}/{name}
+        os.path.join(cache_dir, name),
+    ]
+    for d in candidates:
+        if os.path.exists(os.path.join(d, probe)):
+            return d
+    return None
+
+
+def _read_cifar_pickle(path: str) -> dict:
+    """CIFAR batches are pickles; load through the restricted unpickler
+    (numpy/builtins allowlist — a hostile 'dataset' file must not execute).
+    encoding='bytes' because the canonical Krizhevsky archives are
+    Python-2 pickles whose payload strings are raw image bytes."""
+    from ..core.distributed.communication.grpc.ref_wire import unpickle_ref_tree
+
+    with open(path, "rb") as f:
+        return unpickle_ref_tree(f.read(), encoding="bytes")
+
+
+def load_cifar_batches(name: str, batch_dir: str):
+    """Parse the reference CIFAR binary layout: ``data_batch_1..5`` +
+    ``test_batch`` (cifar10, key b'labels') or ``train``/``test`` (cifar100,
+    key b'fine_labels'); rows are [3072] uint8 CHW
+    (reference ``data/cifar10/datasets.py:45-57`` via torchvision CIFAR10,
+    same files)."""
+    if name == "cifar10":
+        train_files = [f"data_batch_{i}" for i in range(1, 6)]
+        test_files, label_key, classes = ["test_batch"], b"labels", 10
+    else:
+        train_files, test_files, label_key, classes = ["train"], ["test"], b"fine_labels", 100
+
+    def read(files):
+        xs, ys = [], []
+        for fname in files:
+            d = _read_cifar_pickle(os.path.join(batch_dir, fname))
+            # py2-era archives give bytes keys; a py3 re-pickle gives str
+            data = d.get(b"data", d.get("data"))
+            labels = d.get(label_key, d.get(label_key.decode()))
+            xs.append(np.asarray(data, np.uint8))
+            ys.append(np.asarray(labels, np.int64))
+        x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        return x.astype(np.float32) / 255.0, np.concatenate(ys)
+
+    x_tr, y_tr = read(train_files)
+    x_te, y_te = read(test_files)
+    log.info("dataset %s: loaded NATIVE binary batches from %s (%d train / %d test)",
+             name, batch_dir, len(x_tr), len(x_te))
+    return x_tr, y_tr, x_te, y_te, classes
+
+
+# --- idx-ubyte (the canonical MNIST-family distribution format) --------------
+
+def _read_idx(path: str) -> np.ndarray:
+    """One idx-ubyte file (optionally gzipped): big-endian magic whose low
+    byte is the rank, then rank u32 dims, then uint8 payload (the format
+    fashion-mnist ships in; reference consumes it via torchvision
+    FashionMNIST, same files)."""
+    import gzip
+    import struct
+
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        data = f.read()
+    (magic,) = struct.unpack(">I", data[:4])
+    if magic >> 8 != 0x08:  # 0x08 == unsigned byte element type
+        raise ValueError(f"{path}: not an idx-ubyte file (magic {magic:#x})")
+    ndim = magic & 0xFF
+    dims = struct.unpack(">" + "I" * ndim, data[4:4 + 4 * ndim])
+    return np.frombuffer(data, np.uint8, offset=4 + 4 * ndim).reshape(dims)
+
+
+def _idx_file(d: str, stem: str) -> Optional[str]:
+    for suffix in ("", ".gz"):
+        p = os.path.join(d, stem + suffix)
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def _idx_dir(name: str, cache_dir: str) -> Optional[str]:
+    """Locate the 4 idx files directly under {cache}/{name}, {cache}, or the
+    torchvision-style {cache}/{name}/raw."""
+    for d in (os.path.join(cache_dir, name), cache_dir,
+              os.path.join(cache_dir, name, "raw")):
+        if _idx_file(d, "train-images-idx3-ubyte"):
+            return d
+    return None
+
+
+def load_idx_ubyte(idx_dir: str):
+    """Parse train/t10k idx pairs -> (x_tr [N,28,28,1] f32, y_tr, x_te, y_te, 10)."""
+    parts = {}
+    for split, stem in (("train_x", "train-images-idx3-ubyte"),
+                        ("train_y", "train-labels-idx1-ubyte"),
+                        ("test_x", "t10k-images-idx3-ubyte"),
+                        ("test_y", "t10k-labels-idx1-ubyte")):
+        path = _idx_file(idx_dir, stem)
+        if path is None:
+            raise FileNotFoundError(f"{idx_dir}: missing {stem}[.gz]")
+        parts[split] = _read_idx(path)
+    x_tr = parts["train_x"].astype(np.float32)[..., None] / 255.0
+    x_te = parts["test_x"].astype(np.float32)[..., None] / 255.0
+    log.info("loaded NATIVE idx-ubyte files from %s (%d train / %d test)",
+             idx_dir, len(x_tr), len(x_te))
+    return x_tr, parts["train_y"].astype(np.int64), x_te, parts["test_y"].astype(np.int64), 10
+
+
+# --- class-per-directory image folders (cinic10 / imagenet layout) -----------
+
+def max_images_per_class(n_classes: int = 1, default: int = 1000,
+                         total_default: int = 50_000) -> int:
+    """In-memory cap per (split, class): the reference streams these trees
+    through a lazy torchvision ImageFolder; our ArrayDataset holds arrays,
+    so unbounded parsing would eat the host. Knobs:
+    FEDML_MAX_IMAGES_PER_CLASS (default 1000 — sized for CINIC's 10
+    classes) and FEDML_MAX_IMAGES_TOTAL per split (default 50k — a
+    1000-class imagenet drop would otherwise admit 1M images at the
+    per-class cap alone and OOM the host). Defaults combine tighter-wins;
+    an EXPLICIT per-class setting is taken as the user sizing for their
+    RAM and BYPASSES the default total cap (set both knobs to combine
+    explicit values)."""
+    per_class_env = os.environ.get("FEDML_MAX_IMAGES_PER_CLASS")
+    total_env = os.environ.get("FEDML_MAX_IMAGES_TOTAL")
+    per_class = int(per_class_env) if per_class_env else default
+    if per_class_env and not total_env:
+        # an EXPLICIT per-class override is the user sizing for their RAM;
+        # the total default must not silently tighten it back down
+        return max(1, per_class)
+    total = int(total_env) if total_env else total_default
+    return max(1, min(per_class, total // max(1, n_classes)))
+
+
+def _image_folder_root(name: str, cache_dir: str) -> Optional[str]:
+    """{cache}/{name}/train/<class>/*.png|jpg — the CINIC-10 archive layout
+    (reference data/cinic10/data_loader.py:123-128 points ImageFolder at
+    datadir/train and datadir/test)."""
+    root = os.path.join(cache_dir, name)
+    train = os.path.join(root, "train")
+    try:
+        if os.path.isdir(train) and any(
+            os.path.isdir(os.path.join(train, c)) for c in os.listdir(train)
+        ):
+            return root
+    except OSError:
+        pass
+    return None
+
+
+def load_image_folder(root: str, size: Tuple[int, int], test_split: str = "test"):
+    """Parse a class-per-directory tree -> the standard 5-tuple. Class ids
+    follow sorted directory names (torchvision ImageFolder's convention, so
+    labels match the reference's). Images are resized to ``size`` (CINIC is
+    already 32x32; a stray odd-sized file must not break the batch shape)."""
+    from PIL import Image
+
+    # class ids come from the TRAIN split's sorted dirs and are REUSED for
+    # test: re-deriving them per split silently misaligns every label when a
+    # partial drop is missing (or grew) a class dir in one split
+    train_dir = os.path.join(root, "train")
+    class_names = sorted(
+        c for c in os.listdir(train_dir) if os.path.isdir(os.path.join(train_dir, c))
+    )
+    class_ids = {c: i for i, c in enumerate(class_names)}
+
+    def read_split(split: str):
+        split_dir = os.path.join(root, split)
+        present = [c for c in class_names if os.path.isdir(os.path.join(split_dir, c))]
+        if not present:
+            raise FileNotFoundError(f"{split_dir}: none of the train classes present")
+        extra = sorted(
+            set(c for c in os.listdir(split_dir) if os.path.isdir(os.path.join(split_dir, c)))
+            - set(class_names)
+        )
+        if extra:
+            log.warning("image folder %s/%s: ignoring %d class dirs absent from "
+                        "train (%s...)", root, split, len(extra), extra[0])
+        cap = max_images_per_class(n_classes=len(class_names))
+        xs, ys, truncated = [], [], 0
+        for cname in present:
+            cdir = os.path.join(split_dir, cname)
+            files = sorted(f for f in os.listdir(cdir)
+                           if f.lower().endswith((".png", ".jpg", ".jpeg")))
+            if len(files) > cap:
+                truncated += len(files) - cap
+                files = files[:cap]
+            for fname in files:
+                img = Image.open(os.path.join(cdir, fname)).convert("RGB")
+                if img.size != size:
+                    img = img.resize(size)
+                xs.append(np.asarray(img, np.uint8))
+                ys.append(class_ids[cname])
+        if truncated:
+            log.warning(
+                "image folder %s/%s: capped at %d images/class (%d skipped) — "
+                "raise FEDML_MAX_IMAGES_PER_CLASS / FEDML_MAX_IMAGES_TOTAL "
+                "to parse more", root, split, cap, truncated,
+            )
+        if not xs:
+            # a partially-extracted drop can leave class dirs with no images;
+            # FileNotFoundError (not np.stack's ValueError) so the test-split
+            # holdout fallback below — and the surrogate fallback in
+            # load_image_dataset — both see it as "split absent"
+            raise FileNotFoundError(f"{split_dir}: no image files in any class dir")
+        x = np.stack(xs).astype(np.float32) / 255.0
+        return x, np.asarray(ys, np.int64), len(class_names)
+
+    x_tr, y_tr, n_classes = read_split("train")
+    try:
+        x_te, y_te, _ = read_split(test_split)
+    except (FileNotFoundError, OSError):
+        # CINIC has train/valid/test; some drops carry only train — hold out
+        # a SHUFFLED tenth (read_split's output is class-ordered: a prefix
+        # slice would make train and test class-disjoint)
+        perm = np.random.default_rng(0).permutation(len(x_tr))
+        n_hold = max(1, len(x_tr) // 10)
+        hold, keep = perm[:n_hold], perm[n_hold:]
+        x_te, y_te = x_tr[hold], y_tr[hold]
+        x_tr, y_tr = x_tr[keep], y_tr[keep]
+    log.info("loaded NATIVE image folder %s (%d train / %d test, %d classes)",
+             root, len(x_tr), len(x_te), n_classes)
+    return x_tr, y_tr, x_te, y_te, n_classes
+
+
 def load_image_dataset(name: str, cache_dir: str, seed: int = 0):
     """-> (x_train, y_train, x_test, y_test, num_classes)."""
     shape, classes, n_train, n_test = IMAGE_SPECS[name]
-    native = native_files(name, cache_dir)
-    if native:
-        raise NotImplementedError(
-            f"dataset {name}: native files at {native}; reading them is not ported to "
-            "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+    if name in ("cifar10", "cifar100") and cache_dir:
+        batch_dir = _cifar_batch_dir(name, cache_dir)
+        if batch_dir:
+            return load_cifar_batches(name, batch_dir)
+    if name == "fashion_mnist" and cache_dir:
+        idx_dir = _idx_dir(name, cache_dir)
+        if idx_dir:
+            try:
+                return load_idx_ubyte(idx_dir)
+            except (OSError, ValueError) as e:
+                log.warning("fashion_mnist: idx files at %s unreadable (%r) — "
+                            "falling back to surrogate", idx_dir, e)
+    if name in ("cinic10", "imagenet") and cache_dir:
+        folder = _image_folder_root(name, cache_dir)
+        if folder:
+            # CINIC's held-out split is named "test"; a downsampled-imagenet
+            # drop usually ships "val"
+            split = "test" if name == "cinic10" else "val"
+            try:
+                return load_image_folder(folder, size=shape[:2], test_split=split)
+            except (OSError, ValueError) as e:
+                # an empty or partly extracted tree falls back to the
+                # surrogate, as in the JAX package
+                log.warning("%s: image folder at %s unreadable (%r) — "
+                            "falling back to surrogate", name, folder, e)
     path = os.path.join(cache_dir or "", f"{name}.npz")
     if cache_dir and os.path.exists(path):
         x_tr, y_tr, x_te, y_te = _load_npz(path)
@@ -163,55 +405,6 @@ def load_edge_case_examples(seed: int = 0, n: int = 256, shape=(28, 28, 1),
     x = rng.normal(0, 0.1, (n,) + tuple(shape)).astype(np.float32)
     x[:, : shape[0] // 4, : shape[1] // 4, ...] = 3.0  # trigger patch
     return x, np.full(n, target_class, np.int64)
-
-
-# --- reference-format files the port cannot read yet ---------------------------------
-
-def _reddit_txt_files(data_dir: str, split: str):
-    """One ``.txt`` per user: ``{d}/{split}/*.txt`` or, for train, ``{d}/*.txt``."""
-    for d in [os.path.join(data_dir, split)] + ([data_dir] if split == "train" else []):
-        files = sorted(glob.glob(os.path.join(d, "*.txt")))
-        if files:
-            return files
-    return []
-
-
-def reference_format_files(dataset: str, cache: str) -> Optional[str]:
-    """The JAX loader's probe for the text, FedNLP, stackoverflow_lr and
-    segmentation datasets: ``dataset`` when its LEAF json, TFF h5, FedNLP h5,
-    reddit text or segmentation layout sits under ``{cache}/{dataset}``, the
-    files the JAX package reads in place of the surrogate; else None."""
-    if not cache:
-        return None
-    d = os.path.join(cache, dataset)
-    has = os.path.exists
-    checks = {
-        "shakespeare": lambda: os.path.isdir(os.path.join(d, "train")),
-        "fed_shakespeare": lambda: has(os.path.join(d, "shakespeare_train.h5")),
-        "stackoverflow_nwp": lambda: has(os.path.join(d, "stackoverflow_train.h5")),
-        "stackoverflow_lr": lambda: all(
-            has(os.path.join(d, f))
-            for f in ("stackoverflow_train.h5", "stackoverflow.word_count",
-                      "stackoverflow.tag_count")),
-        **{name: (lambda name=name: has(os.path.join(d, f"{name}_data.h5"))
-                  and has(os.path.join(d, f"{name}_partition.h5")))
-           for name in ("20news", "agnews", "sst2", "semeval_2010_task8")},
-        "reddit": lambda: bool(_reddit_txt_files(d, "train")),
-        "pascal_voc": lambda: (has(os.path.join(d, "dataset", "train.txt"))
-                               and os.path.isdir(os.path.join(d, "dataset", "img"))
-                               and os.path.isdir(os.path.join(d, "dataset", "cls"))),
-        "cityscapes": lambda: (os.path.isdir(os.path.join(d, "leftImg8bit", "train"))
-                               and (os.path.isdir(os.path.join(d, "gtFine"))
-                                    or os.path.isdir(os.path.join(d, "gtCoarse")))),
-        "coco_seg": lambda: any(
-            has(os.path.join(d, y, "annotations", f"instances_train{y}.json"))
-            and os.path.isdir(os.path.join(d, y, f"train{y}")) for y in ("2017", "2014")),
-    }
-    fn = checks.get(dataset)
-    try:
-        return dataset if fn and fn() else None
-    except OSError:
-        return None
 
 
 # --- text, text classification, tabular, stackoverflow_lr ----------------------------
@@ -495,3 +688,120 @@ def load_uci_csv(csv_path: str, kind: str, seed: int = 0, test_frac: float = 0.1
     log.info("dataset uci (%s): parsed %s (%d rows, %d features)", kind, csv_path, len(x),
              x.shape[1])
     return x[n_test:], y[n_test:], x[:n_test], y[:n_test], 2
+
+
+# --- NUS-WIDE (the vertical-FL source) ----------------------------------------------
+
+def _read_space_dat(path: str, sep: Optional[str] = None,
+                    max_rows: Optional[int] = None) -> np.ndarray:
+    """One NUS-WIDE .dat table -> float matrix; columns containing ANY NaN
+    (trailing separators, ragged empty fields) are dropped — pandas
+    ``df.dropna(axis=1)`` semantics, which the reference relies on. A kept
+    column is therefore guaranteed NaN-free: a scattered-NaN column must
+    not survive into standardize() where it would turn the whole feature
+    NaN silently. ``max_rows`` stops the (pure-Python) parse early — the
+    real Tags1k.dat is ~161k rows x 1000 fields and float()ing the unused
+    tail would dominate load time."""
+    rows = []
+    with open(path) as f:
+        for i, line in enumerate(f):
+            if max_rows is not None and i >= max_rows:
+                break
+            parts = line.split(sep) if sep else line.split()
+            rows.append([float(p) if p.strip() else np.nan for p in parts] if sep
+                        else [float(p) for p in parts])
+    arr = np.asarray(rows, np.float32)
+    if arr.ndim == 2:
+        keep = ~np.any(np.isnan(arr), axis=0)
+        arr = arr[:, keep]
+    return arr
+
+
+def load_nus_wide_files(data_dir: str, n_parties: int = 2, dtype: str = "Train",
+                        top_k: int = 2, max_rows: int = 20_000):
+    """NUS-WIDE from the reference's own on-disk trio
+    (``data/NUS_WIDE/nus_wide_dataset.py:23-71``):
+    ``Groundtruth/TrainTestLabels/Labels_<label>_<dtype>.txt`` (one 0/1 per
+    line), ``Low_Level_Features/<dtype>_Normalized_*.dat`` (space-separated
+    image features, 634 columns across files), and
+    ``NUS_WID_Tags/<dtype>_Tags1k.dat`` (tab-separated 1k tag indicators).
+    Selected labels = the reference's top-k-by-positive-count rule
+    (``get_top_k_labels``); rows with exactly one selected label kept; y = 1
+    for the first label, 0 otherwise (reference uses -1 for neg; our VFL
+    consumers expect {0,1}). Party 0 = image features, party 1 = tags;
+    n_parties > 2 splits the tag columns. Columns standardized like the
+    reference's StandardScaler."""
+    import glob as _glob
+
+    label_files = sorted(_glob.glob(os.path.join(
+        data_dir, "Groundtruth", "TrainTestLabels", f"Labels_*_{dtype}.txt")))
+    if not label_files:
+        raise FileNotFoundError(f"{data_dir}: no TrainTestLabels for {dtype}")
+    counts = {}
+    columns = {}
+    for path in label_files:
+        label = os.path.basename(path)[len("Labels_"):-(len(dtype) + 5)]
+        col = np.loadtxt(path, dtype=np.int64, max_rows=max_rows)
+        columns[label] = col
+        counts[label] = int(col.sum())
+    selected = [lbl for lbl, _ in sorted(counts.items(), key=lambda kv: -kv[1])[:top_k]]
+    lab = np.stack([columns[lbl] for lbl in selected], axis=1)
+    mask = lab.sum(axis=1) == 1 if len(selected) > 1 else np.ones(len(lab), bool)
+
+    feat_files = sorted(_glob.glob(os.path.join(
+        data_dir, "Low_Level_Features", f"{dtype}_Normalized_*.dat")))
+    if not feat_files:
+        raise FileNotFoundError(f"{data_dir}: no {dtype}_Normalized_*.dat features")
+    xa = np.concatenate([_read_space_dat(p, max_rows=max_rows) for p in feat_files], axis=1)
+    tags_path = os.path.join(data_dir, "NUS_WID_Tags", f"{dtype}_Tags1k.dat")
+    xb = _read_space_dat(tags_path, sep="\t", max_rows=max_rows)
+
+    n = min(len(xa), len(xb), len(lab))
+    xa, xb, lab, mask = xa[:n], xb[:n], lab[:n], mask[:n]
+    xa, xb, lab = xa[mask], xb[mask], lab[mask]
+    y = (lab[:, 0] == 1).astype(np.int64)
+
+    def standardize(m):
+        std = m.std(axis=0)
+        std[std == 0] = 1.0
+        return ((m - m.mean(axis=0)) / std).astype(np.float32)
+
+    xa, xb = standardize(xa), standardize(xb)
+    if n_parties <= 2:
+        xs = [xa, xb][:max(1, n_parties)]
+    else:
+        xs = [xa] + [np.ascontiguousarray(part)
+                     for part in np.array_split(xb, n_parties - 1, axis=1)]
+    log.info("dataset nus_wide: parsed NATIVE files from %s (%d rows, labels %s)",
+             data_dir, len(y), selected)
+    return xs, y
+
+
+def load_nus_wide_vertical(cache_dir: str, n_parties: int = 2, seed: int = 0, n: int = 4000):
+    """NUS-WIDE style vertical-FL source (reference: data/NUS_WIDE/
+    nus_wide_dataset.py feeds classical_vertical_fl): the SAME samples'
+    features split across parties (image features vs text tags). Returns
+    (party_xs: list of [n, d_i], y [n] binary)."""
+    party_dims = [634, 1000] + [128] * max(0, n_parties - 2)
+    party_dims = party_dims[:n_parties]
+    path = os.path.join(cache_dir or "", "nus_wide.npz")
+    if cache_dir and os.path.exists(path):
+        with np.load(path) as z:
+            xs = [z[f"x{i}"].astype(np.float32) for i in range(n_parties)]
+            return xs, z["y"].astype(np.int64)
+    native = os.path.join(cache_dir or "", "nus_wide")
+    if cache_dir and os.path.isdir(os.path.join(native, "Groundtruth")):
+        try:
+            return load_nus_wide_files(native, n_parties)
+        except (OSError, ValueError) as e:
+            log.warning("nus_wide: native files unreadable (%r) — falling back "
+                        "to surrogate", e)
+    log.warning("dataset nus_wide: no local file — synthetic vertical surrogate")
+    rng = np.random.default_rng(seed)
+    latent = rng.normal(0, 1, (n, 16)).astype(np.float32)
+    y = (latent @ rng.normal(0, 1, 16) > 0).astype(np.int64)
+    xs = []
+    for i, d in enumerate(party_dims):
+        proj = rng.normal(0, 1, (16, d)).astype(np.float32)
+        xs.append((latent @ proj + 0.5 * rng.normal(0, 1, (n, d))).astype(np.float32))
+    return xs, y

@@ -5,15 +5,18 @@
 :func:`create` returns a :class:`FedModel`: a torch module on the run's
 device, the state dict it was created with, and the input spec with its
 dtype. Parameters travel as state dicts (``utils/pytree.py``), so
-aggregation never touches the module. The port has every vision, text,
-GAN, DARTS and segmentation model of the JAX hub; the LLM names
-(``llama``, ``gpt``, ``transformer``) raise NotImplementedError.
+aggregation never touches the module. The port has every model of the JAX
+hub: vision, text, GAN, DARTS, segmentation and the LLM names (``llama``,
+``gpt``, ``transformer``: ``TransformerLM`` from
+``TransformerConfig.from_args``). ``pretrained_path`` loads weights over
+the fresh ones (:func:`load_pretrained`).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -25,6 +28,7 @@ from .layers import flax_init_
 from .linear import LogisticRegression, TwoNN
 from ..utils.pytree import tree_clone
 from .resnet import ResNet18GN, resnet20, resnet56
+from .transformer import TransformerConfig, TransformerLM
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -99,13 +103,11 @@ _TEXT_CLS_VOCAB = {"20news": 5000, "agnews": 5000, "sst2": 3000, "semeval_2010_t
 
 _IMAGE_MODELS = ("cnn", "cnn_dropout", "cnn_cifar", "resnet56", "resnet", "resnet20", "resnet18",
                  "resnet18_gn", "mobilenet", "mobilenet_v3", "darts", "nas", "fednas")
+_LLM_MODELS = ("llama", "gpt", "transformer")
 _PORTED = ("lr", "logistic_regression", "mlp", "two_nn") + _IMAGE_MODELS + (
     "distilbert", "bert", "text_classifier", "transformer_cls", "rnn", "rnn_fedavg",
     "rnn_stackoverflow", "rnn_nwp", "efficientnet*", "gan", "cgan", "dcgan", "unet", "segnet",
-    "deeplab")
-
-# the LLM names of the JAX hub, not ported yet
-_NOT_PORTED = ("llama", "gpt", "transformer")
+    "deeplab") + _LLM_MODELS
 
 
 def input_spec_for(dataset: str) -> Tuple[Tuple[int, ...], torch.dtype]:
@@ -117,6 +119,9 @@ def _build(model_name: str, num_classes: int, in_shape: Tuple[int, ...], args: A
     """The module, and the input spec when the model fixes its own."""
     image = len(in_shape) == 4
     flat = int(np.prod(in_shape[1:]))
+    if model_name in _LLM_MODELS:
+        return _HubTransformerLM(TransformerConfig.from_args(args)), \
+            ((1, int(getattr(args, "seq_len", 128))), _I32)
     if model_name in ("lr", "logistic_regression"):
         return LogisticRegression(flat, num_classes), None
     if model_name in ("mlp", "two_nn"):
@@ -202,16 +207,8 @@ def create(args: Any, output_dim: Optional[int] = None, seed: Optional[int] = No
     # the loader records the loaded table's width where it differs from the
     # dataset's preset (models/model_hub.py in the JAX package)
     in_shape = tuple(getattr(args, "input_shape", None) or in_shape)
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {model_name!r} is not ported to fedml_tpu_torch yet; the port has "
-            f"{', '.join(_PORTED)} (see ROADMAP.md, Queue 1)")
     if model_name not in _PORTED and not model_name.startswith("efficientnet"):
         raise ValueError(f"unknown model {model_name!r}")
-    if getattr(args, "pretrained_path", None):
-        raise NotImplementedError(
-            "pretrained_path: loading pretrained weights is not ported to fedml_tpu_torch "
-            "yet (see ROADMAP.md, Queue 1)")
     if device is None:
         from ..device import get_device
 
@@ -222,4 +219,89 @@ def create(args: Any, output_dim: Optional[int] = None, seed: Optional[int] = No
     model = FedModel(module=module.to(device), params=None, input_shape=in_shape,
                      input_dtype=in_dtype, name=model_name)
     model.params = model.init_params(seed)
+    pretrained = getattr(args, "pretrained_path", None)
+    if pretrained:
+        model.params = load_pretrained(model.params, str(pretrained))
+        model.module.load_state_dict(model.params)
     return model
+
+
+class _HubTransformerLM(TransformerLM):
+    """``TransformerLM`` under the hub's contract: ``FedModel.apply`` passes
+    ``train``/``rng`` (the LM has no dropout), and ``flax_init_`` draws its
+    parameters through ``flax_init`` (``TransformerLM.reset_parameters``)."""
+
+    def forward(self, tokens: torch.Tensor, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        return super().forward(tokens)
+
+    def flax_init(self, generator: torch.Generator) -> None:
+        self.reset_parameters(generator)
+
+
+def load_pretrained(template: StateDict, path: str) -> StateDict:
+    """Pretrained weights over ``template`` (a state dict), as the JAX hub's
+    ``load_pretrained`` takes them: an HF llama safetensors directory (has a
+    ``config.json``; through ``train/llm/checkpoint_import``), a flat
+    ``.npz`` keyed by the JAX package's '/'-joined flax paths (JAX's
+    ``save_pretrained_npz``; each kernel in flax's layout, mapped through
+    ``models/convert.py``), or a directory of this package's
+    ``utils/checkpoint.CheckpointManager`` (its newest step: a state dict, or
+    a flax-layout tree of tensors as the LLM trainer saves). Returns a new
+    state dict on the template's devices and dtypes.
+
+    A JAX (orbax) checkpoint directory cannot be read without orbax, which
+    the port does not load: it raises ValueError (ROADMAP.md, Queue 3)."""
+    from .convert import flax_leaf, flax_name, params_from_jax, torch_leaf
+
+    if os.path.isdir(path):
+        if os.path.exists(os.path.join(path, "config.json")):
+            from ..train.llm.checkpoint_import import config_from_hf, import_hf_checkpoint
+
+            loaded = params_from_jax(import_hf_checkpoint(path, config_from_hf(path)))
+        else:
+            loaded = _restore_checkpoint_dir(path)
+    elif path.endswith(".npz"):
+        loaded = {}
+        with np.load(path) as z:
+            for name, leaf in template.items():
+                key = flax_name(name)
+                if key not in z:
+                    raise KeyError(f"pretrained npz missing {key!r}")
+                arr = z[key]
+                want = tuple(flax_leaf(name, leaf).shape)
+                if tuple(arr.shape) != want:
+                    raise ValueError(f"{key}: shape {arr.shape} != {want}")
+                loaded[name] = torch_leaf(name, torch.from_numpy(np.array(arr)))
+    else:
+        raise ValueError(f"unsupported pretrained weight source {path!r}")
+    out = {}
+    for name, leaf in template.items():
+        value = loaded.get(name, leaf)
+        if tuple(value.shape) != tuple(leaf.shape):
+            raise ValueError(f"{name}: shape {tuple(value.shape)} != {tuple(leaf.shape)}")
+        out[name] = value.to(device=leaf.device, dtype=leaf.dtype).clone()
+    unknown = sorted(set(loaded) - set(template))
+    if unknown:
+        raise KeyError(f"pretrained weights hold names the model lacks: {unknown[:5]}")
+    return out
+
+
+def _restore_checkpoint_dir(path: str) -> StateDict:
+    from ..utils.checkpoint import CheckpointManager
+    from .convert import params_from_jax
+
+    names = os.listdir(path)
+    if not any(n.startswith("step_") and n.endswith(".pt") for n in names):
+        if any(n.isdigit() and os.path.isdir(os.path.join(path, n)) for n in names):
+            raise ValueError(
+                f"{path} is a JAX (orbax) checkpoint directory; fedml_tpu_torch does not read "
+                "orbax checkpoints (see ROADMAP.md, Queue 3): save the params with the JAX "
+                "package's save_pretrained_npz and pass the .npz")
+        raise FileNotFoundError(f"no checkpoint found under {path}")
+    restored = CheckpointManager(path).restore()
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint found under {path}")
+    if any(isinstance(v, dict) for v in restored.values()):
+        return params_from_jax(restored)  # a flax-layout tree (the LLM trainer's saves)
+    return dict(restored)

@@ -139,13 +139,39 @@ class LLMPredictor(FedMLPredictor):
 
     @classmethod
     def from_checkpoint(cls, path: str, quantize: str = "none", **kw) -> "LLMPredictor":
-        """HF checkpoint import (and ``quantize="int8"``, weight-only int8
-        decode) are not ported yet."""
-        raise NotImplementedError(
-            "LLMPredictor.from_checkpoint (HF checkpoint import"
-            + (", weight-only int8" if quantize == "int8" else "")
-            + ") is not ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1); "
-            "build the predictor from (params, cfg, tokenizer)")
+        """Serve an HF llama checkpoint directory: geometry from its
+        ``config.json`` (``eos_token_id`` too, a list for llama-3's several
+        stop tokens, unless ``eos_id`` is given), weights through
+        ``checkpoint_import``, the tokenizer from ``tokenizer.json``; ``kw``
+        goes to the constructor (``device`` among them). ``quantize="int8"``
+        (weight-only int8 decode) is not ported: it waits for an int8 GEMM
+        (ROADMAP.md, Queue 1)."""
+        import json
+
+        from ..train.llm.checkpoint_import import config_from_hf, import_hf_checkpoint
+        from ..train.llm.data import load_or_train_tokenizer
+
+        # the mode is checked before the (possibly multi-GB) import
+        if quantize not in ("none", "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        if quantize == "int8":
+            raise NotImplementedError(
+                "LLMPredictor.from_checkpoint(quantize='int8'), weight-only int8 decode, is not "
+                "ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+        cfg = config_from_hf(path)
+        params = import_hf_checkpoint(path, cfg)
+        tok = load_or_train_tokenizer(None, os.path.join(path, "tokenizer.json"))
+        if "eos_id" not in kw:
+            # config.json's eos_token_id is authoritative (token strings vary
+            # across llama generations; the id does not)
+            with open(os.path.join(path, "config.json")) as f:
+                eos = json.load(f).get("eos_token_id")
+            if isinstance(eos, list) and eos:
+                # llama-3 style multi-EOS: generation stops on any of them
+                kw["eos_id"] = tuple(int(e) for e in eos)
+            elif isinstance(eos, int):
+                kw["eos_id"] = eos
+        return cls(params, cfg, tok, **kw)
 
     def warmup(self, example_prompt: str = "warmup") -> None:
         """Serve one request before readiness is reported (the first request

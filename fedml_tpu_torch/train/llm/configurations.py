@@ -6,8 +6,7 @@ subclasses there; plain dataclasses here with the same role: one object per
 concern, buildable from the flat Arguments namespace.
 
 A copy of ``fedml_tpu/train/llm/configurations.py``, so one args namespace
-drives both packages. Import of an HF checkpoint (``model_name_or_path``)
-is not ported yet and raises.
+drives both packages.
 """
 
 from __future__ import annotations
@@ -47,12 +46,18 @@ class ModelArguments:
         return cls(**{k: getattr(args, k) for k in fields if hasattr(args, k)})
 
     def resolve_pretrained(self) -> "ModelArguments":
-        """Geometry from a local HF checkpoint's config.json: not ported yet."""
+        """Overwrite geometry from the local checkpoint's config.json."""
         if not self.model_name_or_path:
             return self
-        raise NotImplementedError(
-            "model_name_or_path (HF checkpoint import) is not ported to "
-            "fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+        from .checkpoint_import import config_from_hf
+
+        cfg = config_from_hf(self.model_name_or_path)
+        return dataclasses.replace(
+            self,
+            vocab_size=cfg.vocab_size, d_model=cfg.d_model, n_layers=cfg.n_layers,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+            rope_theta=cfg.rope_theta,
+        )
 
 
 @dataclasses.dataclass

@@ -4,8 +4,7 @@ Counterpart of ``fedml_tpu/train/llm/data.py``: read local text files, load
 or train the BPE tokenizer, pack token streams into fixed ``[N, seq_len]``
 blocks, yield deterministic shuffled (tokens, loss_mask) batches, and split
 blocks across clients. The numpy draws are the JAX module's, so both
-packages see bit-identical batches from one seed. ``TextDataset.from_path``
-(text files into the trainer) waits for a later slice (ROADMAP.md).
+packages see bit-identical batches from one seed.
 """
 
 from __future__ import annotations
@@ -91,6 +90,26 @@ class TextDataset:
 
     def __init__(self, blocks: np.ndarray):
         self.blocks = blocks
+
+    @classmethod
+    def from_path(
+        cls,
+        dataset_path: str,
+        tokenizer: BPETokenizer,
+        seq_len: int,
+        *,
+        text_key: str = "text",
+        max_lines: Optional[int] = None,
+    ) -> "TextDataset":
+        """The text under ``dataset_path`` (``read_text_files``), each line
+        encoded and followed by the tokenizer's ``</s>`` if it has one, packed
+        into [N, seq_len] blocks."""
+        lines = read_text_files(dataset_path, text_key=text_key, max_lines=max_lines)
+        if not lines:
+            raise ValueError(f"no text found under {dataset_path}")
+        eos = tokenizer.special_tokens.get("</s>")
+        streams = [tokenizer.encode(ln) for ln in lines]
+        return cls(pack_tokens(streams, seq_len, eos_id=eos))
 
     def __len__(self) -> int:
         return len(self.blocks)

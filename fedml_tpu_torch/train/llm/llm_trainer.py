@@ -5,15 +5,21 @@ transformer from the experiment arguments, trains with the optax-equivalent
 chain of ``optim.py`` (LoRA: only adapters train, base weights are frozen
 and get no gradient) and checkpoints the named (flax path) layout.
 
+``model_name_or_path`` (an HF llama checkpoint directory) sets the geometry
+from its ``config.json`` and overlays its weights on the base (fresh LoRA
+adapters kept); ``dataset_path`` trains on local text through
+``TextDataset.from_path``, with the checkpoint's ``tokenizer.json`` or one
+trained on the corpus, as in the JAX package.
+
 This slice is one device: any mesh axis above 1 (dp, fsdp, tp, sp, ep, pp)
-raises NotImplementedError, as do text datasets (``TextDataset.from_path``)
-and HF checkpoint import. Telemetry (spans, devperf, modelwatch) waits for a
-later slice (ROADMAP.md).
+raises NotImplementedError. Telemetry (spans, devperf, modelwatch) waits for
+a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Dict, Iterator, Optional, Tuple
 
@@ -104,7 +110,9 @@ class LLMTrainer:
     # --- setup -----------------------------------------------------------
     def init_params(self, seed: Optional[int] = None, *, from_jax=None) -> TransformerLM:
         """A model on this trainer's device: random from ``seed`` (default
-        exp_args.seed), or the JAX params ``from_jax`` (nested numpy dict)."""
+        exp_args.seed), or the JAX params ``from_jax`` (nested numpy dict);
+        then, with ``model_name_or_path``, the checkpoint's base weights over
+        it (the adapters, and anything the checkpoint lacks, kept)."""
         model = TransformerLM(self.cfg, device=self.device)
         if from_jax is not None:
             missing, unexpected = model.load_state_dict(params_from_jax(from_jax), strict=False)
@@ -115,6 +123,12 @@ class LLMTrainer:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed if seed is not None else self.exp_args.seed)
             model.reset_parameters(gen)
+        if self.model_args.model_name_or_path:
+            from .checkpoint_import import import_hf_checkpoint
+
+            pretrained = import_hf_checkpoint(self.model_args.model_name_or_path, self.cfg)
+            overlay_(model, params_from_jax(pretrained))
+            log.info("loaded pretrained weights from %s", self.model_args.model_name_or_path)
         return model
 
     def _build(self, model: TransformerLM) -> None:
@@ -142,18 +156,10 @@ class LLMTrainer:
         the base weights off the device."""
         return params_to_jax({n: t for n, t in self.model.state_dict().items() if is_lora_name(n)})
 
-    @torch.no_grad()
     def set_named_params(self, named: Dict) -> None:
         """Copy a named-layout tree, whole or partial (e.g. adapters only),
         into the model in place."""
-        own = dict(self.model.named_parameters())
-        for name, value in params_from_jax(named).items():
-            if name not in own:
-                raise KeyError(f"no parameter {name!r} in the model")
-            if own[name].shape != value.shape:
-                raise ValueError(f"shape mismatch for {name}: {tuple(own[name].shape)} vs "
-                                 f"{tuple(value.shape)}")
-            own[name].copy_(value)
+        overlay_(self.model, params_from_jax(named))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -169,13 +175,11 @@ class LLMTrainer:
         exp = self.exp_args
         if batches is None:
             if self.data_args.dataset_path:
-                raise NotImplementedError(
-                    "dataset_path (text files through the tokenizer into "
-                    "TextDataset.from_path) is not ported to fedml_tpu_torch yet "
-                    "(see ROADMAP.md, Queue 1)")
-            batches = synthetic_token_batches(
-                self.cfg.vocab_size, self.model_args.seq_len, exp.per_device_batch_size,
-                exp.max_steps, exp.seed)
+                batches = self.text_batches(exp.per_device_batch_size, exp.max_steps)
+            else:
+                batches = synthetic_token_batches(
+                    self.cfg.vocab_size, self.model_args.seq_len, exp.per_device_batch_size,
+                    exp.max_steps, exp.seed)
         losses, tokens_seen, step = [], 0, 0
         self._sync()
         t0 = time.perf_counter()
@@ -199,6 +203,29 @@ class LLMTrainer:
         self.save(step + 1)
         return metrics
 
+    def text_batches(self, global_batch: int, steps: Optional[int] = None, *,
+                     seed: Optional[int] = None):
+        """The text of data_args.dataset_path, tokenized (tokenizer_path,
+        else the checkpoint's tokenizer.json, else a BPE of at most
+        min(vocab_size, 4096) trained on the corpus), packed to seq_len:
+        (tokens, mask) batches."""
+        from .data import TextDataset, load_or_train_tokenizer
+
+        da = self.data_args
+        tok_path = da.tokenizer_path
+        if tok_path is None and self.model_args.model_name_or_path:
+            cand = os.path.join(self.model_args.model_name_or_path, "tokenizer.json")
+            if os.path.exists(cand):
+                tok_path = cand
+        tok = load_or_train_tokenizer(da.dataset_path, tok_path,
+                                      vocab_size=min(self.cfg.vocab_size, 4096))
+        if tok.vocab_size > self.cfg.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab {tok.vocab_size} exceeds model vocab {self.cfg.vocab_size}")
+        ds = TextDataset.from_path(da.dataset_path, tok, self.model_args.seq_len,
+                                   text_key=da.text_key)
+        return ds.batches(global_batch, steps, seed=self.exp_args.seed if seed is None else seed)
+
     # --- checkpointing ----------------------------------------------------
     def save(self, step: int) -> None:
         """Checkpoint the named layout (loadable by any later layout)."""
@@ -212,6 +239,20 @@ class LLMTrainer:
             return False
         self.set_named_params(_to_numpy(restored))
         return True
+
+
+@torch.no_grad()
+def overlay_(model: torch.nn.Module, state: Dict[str, torch.Tensor]) -> None:
+    """Copy ``state`` over the model's matching parameters in place; a name
+    the model lacks raises KeyError, a shape it does not have ValueError."""
+    own = dict(model.named_parameters())
+    for name, value in state.items():
+        if name not in own:
+            raise KeyError(f"no parameter {name!r} in the model")
+        if own[name].shape != value.shape:
+            raise ValueError(f"shape mismatch for {name}: {tuple(own[name].shape)} vs "
+                             f"{tuple(value.shape)}")
+        own[name].copy_(value)
 
 
 def _to_tensors(tree: Dict) -> Dict:

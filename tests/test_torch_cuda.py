@@ -872,3 +872,57 @@ def test_lstm_on_the_card_matches_the_cpu(cuda):
     for a, b in zip(*grads):
         assert torch.allclose(b.cpu(), a, rtol=1e-4, atol=1e-4 * float(a.abs().max())), \
             float((a - b.cpu()).abs().max())
+
+
+@pytest.mark.cuda
+def test_data_plane_builds_on_the_cards_machine(cuda, tmp_path):
+    """The C++ prefetcher builds from native/dataplane/src into the port's
+    own build dir; its batches are the shard's samples in the order its
+    shuffle's Python re-derivation gives, and move to the card whole."""
+    from fedml_tpu_torch.data import native_loader as nl
+    from fedml_tpu_torch.data.dataset import ArrayDataset
+
+    assert nl.NativeBatchLoader.available(), nl.build_error()
+    assert "/ops/_build/dataplane/" in nl.lib_path()
+    rng = np.random.default_rng(0)
+    x = rng.random((64, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, 64)
+    paths = ArrayDataset(x, y).save_shards(str(tmp_path / "d"))
+    batches = list(ArrayDataset.stream(paths, 16, seed=9, epochs=1))
+    perm = nl.native_permutation(64, 9, 0)
+    assert np.array_equal(np.concatenate([b[0] for b in batches]), x[perm])
+    on_card = torch.from_numpy(batches[0][0]).to(cuda)
+    assert torch.equal(on_card.cpu(), torch.from_numpy(x[perm[:16]]))
+
+
+@pytest.mark.cuda
+def test_hf_import_placed_on_the_card(cuda, tmp_path):
+    """An HF checkpoint exported in bf16 and imported into a model on the
+    card: the weights equal the written ones, the f32 logits the CPU's."""
+    from fedml_tpu_torch.models.convert import params_from_jax, params_to_jax
+    from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from fedml_tpu_torch.train.llm import checkpoint_import as ci
+
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                            d_ff=256, max_seq_len=64, dtype=torch.float32, attention_impl="xla",
+                            remat=False)
+    src = TransformerLM(cfg)
+    src.reset_parameters(torch.Generator().manual_seed(0))
+    ci.export_hf_checkpoint(params_to_jax(src), cfg, str(tmp_path), dtype=torch.bfloat16)
+    state = params_from_jax(ci.import_hf_checkpoint(str(tmp_path)))
+    models = {}
+    for dev in ("cpu", cuda):
+        models[str(dev)] = TransformerLM(cfg, device=dev)
+        models[str(dev)].load_state_dict(state)
+    for name, w in src.state_dict().items():
+        assert torch.equal(models["cuda"].state_dict()[name].cpu(),
+                           w.to(torch.bfloat16).float()), name
+    toks = torch.randint(0, 512, (2, 16), generator=torch.Generator().manual_seed(1))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            ref, got = models["cpu"](toks), models["cuda"](toks.to(cuda)).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()

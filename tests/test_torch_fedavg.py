@@ -106,12 +106,23 @@ def test_data_load_shards_are_bit_identical(dataset, method, clients):
 
 
 def test_data_load_refuses_what_is_not_ported(tmp_path):
-    (tmp_path / "shakespeare" / "train").mkdir(parents=True)  # LEAF json, which JAX reads
+    """Downloads stay refused where no files are found; the LEAF json and
+    CIFAR batch files JAX reads, the port reads as JAX does (bit-equal; every
+    format in tests/test_torch_data_formats.py). JAX is never asked to
+    download: it would probe the network."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloader.load(_args(dataset="shakespeare", data_cache_dir=str(tmp_path)))
-    (tmp_path / "cifar-10-batches-py").mkdir()
-    with pytest.raises(NotImplementedError, match="native files"):
-        tloader.load(_args(dataset="cifar10", data_cache_dir=str(tmp_path)))
+        tloader.load(_args(dataset="shakespeare", data_cache_dir=str(tmp_path),
+                           allow_download=True))
+    from tests.test_torch_data_formats import WRITERS
+
+    for dataset in ("shakespeare", "cifar10"):
+        WRITERS[dataset](tmp_path)
+        over = dict(dataset=dataset, data_cache_dir=str(tmp_path))
+        ref = jloader.load(fedml_tpu.default_config("simulation", **{**PARROT, **over}))
+        got = tloader.load(_args(**over, allow_download=dataset == "shakespeare"))
+        assert got[0] == ref[0] and got[4] == ref[4]
+        for c in ref[5]:
+            assert np.array_equal(got[5][c].x, ref[5][c].x)
 
 
 def test_data_load_reads_an_npz_as_jax_does(tmp_path):
@@ -425,7 +436,7 @@ def test_small_resnet_federation_tracks_jax(fed_opt):
 
 # --- entry points and what is not ported ----------------------------------------
 
-def test_run_simulation_on_the_cpu_and_refusals():
+def test_run_simulation_on_the_cpu_and_refusals(tmp_path_factory):
     args = fedml_tpu_torch.default_config("simulation", **{**PARROT, "comm_round": 1,
                                                             "batch_size": 100,
                                                             "using_gpu": False})
@@ -480,5 +491,12 @@ def test_run_simulation_on_the_cpu_and_refusals():
         assert facade.get_instance().is_enabled and getattr(facade.get_instance(), what), flag
         fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation"))
         assert not facade.get_instance().is_enabled, flag
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fedml_tpu_torch.model.create(_args(model="llama"), 10, device="cpu")
+    # the hub builds the LLM names; a JAX orbax dir as pretrained_path stays
+    # refused (the port does not load orbax)
+    orbax = tmp_path_factory.mktemp("orbax")
+    (orbax / "1").mkdir()
+    with pytest.raises(ValueError, match="ROADMAP"):
+        fedml_tpu_torch.model.create(_args(model="llama", dataset="shakespeare", vocab_size=96,
+                                           d_model=32, n_layers=1, n_heads=2, d_ff=64,
+                                           seq_len=16, pretrained_path=str(orbax)), 10,
+                                     device="cpu")

@@ -354,9 +354,21 @@ def test_hub_builds_the_jax_model(name, dataset):
 
 
 @pytest.mark.parametrize("name", ["llama", "gpt", "transformer"])
-def test_hub_refuses_only_the_llm_names(name):
-    args = fedml_tpu_torch.default_config("simulation", model=name, dataset="shakespeare")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_hub_refuses_only_the_llm_names(name, tmp_path):
+    """The hub builds the LLM names (tests/test_torch_llm_files.py holds them
+    to JAX); what it still refuses for them is a JAX orbax checkpoint as
+    ``pretrained_path``, which the port cannot read without orbax."""
+    (tmp_path / "orbax" / "1").mkdir(parents=True)
+    kw = dict(model=name, dataset="shakespeare", vocab_size=96, d_model=32, n_layers=1,
+              n_heads=2, n_kv_heads=2, d_ff=64, seq_len=16)
+    args = fedml_tpu_torch.default_config("simulation", **kw)
+    model = fedml_tpu_torch.model.create(args, 90, device="cpu")
+    from fedml_tpu_torch.models.transformer import TransformerLM
+
+    assert isinstance(model.module, TransformerLM)
+    args = fedml_tpu_torch.default_config("simulation", pretrained_path=str(tmp_path / "orbax"),
+                                          **kw)
+    with pytest.raises(ValueError, match="ROADMAP"):
         fedml_tpu_torch.model.create(args, 90, device="cpu")
 
 
@@ -478,18 +490,48 @@ def _reference_layout(root, dataset):
         (d / f).write_bytes(b"")
 
 
+class _Surrogate(Exception):
+    """Raised by the stubbed surrogate loaders: the loader fell back."""
+
+
+def _load_outcome(load, args):
+    try:
+        load(args)
+    except _Surrogate:
+        return "surrogate"
+    except Exception as e:  # noqa: BLE001 - the exception type is what is compared
+        return type(e).__name__
+    return "read"
+
+
 @pytest.mark.parametrize("dataset", ["shakespeare", "fed_shakespeare", "stackoverflow_nwp",
                                      "stackoverflow_lr", "20news", "reddit", "pascal_voc",
                                      "cityscapes", "coco_seg"])
-def test_reference_format_files_raise_where_jax_reads_them(tmp_path, dataset):
-    """Where JAX's probe finds LEAF/TFF/FedNLP/segmentation files it reads
-    them; the port has no reader yet and must not fall to a surrogate."""
+def test_reference_format_files_raise_where_jax_reads_them(tmp_path, dataset, monkeypatch):
+    """Where JAX's probe finds LEAF/TFF/FedNLP/segmentation files the port
+    reads them too (tests/test_torch_data_formats.py holds the readers to
+    JAX's). On these empty files each package does what the other does:
+    both log the fallback to the surrogate, or both raise the same error.
+    The surrogates are stubbed with a sentinel in both packages."""
+    import fedml_tpu.simulation.sp.fedseg as jfedseg
+    import fedml_tpu_torch.simulation.sp.fedseg as tfedseg
+
     _reference_layout(tmp_path, dataset)
     assert jformats.detect_format_files(dataset, str(tmp_path)) == dataset
-    args = fedml_tpu_torch.default_config("simulation", dataset=dataset,
-                                          data_cache_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloader.load(args)
+
+    def sentinel(*a, **k):
+        raise _Surrogate
+
+    for mod in (jloader, tloader):
+        for name in ("load_text_dataset", "load_text_classification_dataset",
+                     "load_stackoverflow_lr"):
+            monkeypatch.setattr(mod, name, sentinel)
+    for mod in (jfedseg, tfedseg):
+        monkeypatch.setattr(mod, "make_segmentation_data", sentinel)
+    kw = dict(dataset=dataset, data_cache_dir=str(tmp_path))
+    ref = _load_outcome(jloader.load, fedml_tpu.default_config("simulation", **kw))
+    got = _load_outcome(tloader.load, fedml_tpu_torch.default_config("simulation", **kw))
+    assert got == ref
 
 
 def test_r13_lr_on_a_table_sizes_its_input_from_the_data():

@@ -273,14 +273,25 @@ def test_mesh_axes_raise(tmp_path, over):
 
 
 def test_unported_model_and_data_options_raise(tmp_path):
+    """model_name_or_path and dataset_path are ported: on a directory with no
+    config.json, and on one with no text, the port raises what JAX raises.
+    MoE stays refused."""
     exp = tc.ExperimentArguments(output_dir=str(tmp_path), **EXP)
-    with pytest.raises(NotImplementedError, match="model_name_or_path"):
-        tlt.LLMTrainer(tc.ModelArguments(model_name_or_path=str(tmp_path), **MODEL),
-                       tc.DatasetArguments(), exp, device="cpu")
+    jexp = jc.ExperimentArguments(output_dir=str(tmp_path / "jax"), **EXP)
+    for tr, mc, e, kw in ((tlt, tc, exp, {"device": "cpu"}), (jlt, jc, jexp, {})):
+        with pytest.raises(FileNotFoundError, match="config.json"):
+            tr.LLMTrainer(mc.ModelArguments(model_name_or_path=str(tmp_path), **MODEL),
+                          mc.DatasetArguments(), e, **kw)
     with pytest.raises(NotImplementedError, match="moe"):
         tlt.LLMTrainer(tc.ModelArguments(**{**MODEL, "moe_experts": 2}), tc.DatasetArguments(),
                        exp, device="cpu")
+    (tmp_path / "no_text").mkdir()
     ttr = tlt.LLMTrainer(tc.ModelArguments(**MODEL),
-                         tc.DatasetArguments(dataset_path=str(tmp_path)), exp, device="cpu")
-    with pytest.raises(NotImplementedError, match="tokenizer"):
+                         tc.DatasetArguments(dataset_path=str(tmp_path / "no_text")), exp,
+                         device="cpu")
+    jtr = jlt.LLMTrainer(jc.ModelArguments(**MODEL),
+                         jc.DatasetArguments(dataset_path=str(tmp_path / "no_text")), jexp)
+    with pytest.raises(ValueError, match="no tokenizer_path and no corpus"):
         ttr.train()
+    with pytest.raises(ValueError, match="no tokenizer_path and no corpus"):
+        jtr.text_batches(2, 1)  # what JAX's train() reads its batches from

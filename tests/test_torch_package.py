@@ -520,3 +520,41 @@ def test_fhe_and_sp_zoo_entry_points_raise_without_cuda(no_cuda):
                                {"w": torch.zeros(3)}, lambda p, x, y: (x @ p["w"]).mean(),
                                SimpleNamespace())
     fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", using_gpu=False))
+
+
+FILE_MODULES = ["fedml_tpu_torch.data.formats", "fedml_tpu_torch.data.native_loader",
+                "fedml_tpu_torch.data.sources", "fedml_tpu_torch.data.data_loader",
+                "fedml_tpu_torch.train.llm.safetensors_io",
+                "fedml_tpu_torch.train.llm.checkpoint_import",
+                "fedml_tpu_torch.serving.fedml_predictor", "fedml_tpu_torch.models.model_hub"]
+
+
+def test_file_readers_load_no_jax_ml_dtypes_or_the_jax_dataplane(tmp_path):
+    """The dataset readers, the data plane's bridge and the HF import on
+    their own: importing them, streaming a shard through the port's C++
+    build (or its fallback) and reading a bf16 safetensors file leave no jax,
+    ml_dtypes or fedml_tpu module loaded, and map no library from
+    native/dataplane/build/ (the JAX package's build)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {FILE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import numpy as np, torch\n"
+        "from fedml_tpu_torch.data.dataset import ArrayDataset\n"
+        f"p = ArrayDataset(np.zeros((8, 3), np.float32), np.arange(8)).save_shards({str(tmp_path / 's')!r})\n"
+        "assert len(list(ArrayDataset.stream(p, 4, epochs=1))) == 2\n"
+        "from fedml_tpu_torch.train.llm import safetensors_io as st\n"
+        f"st.save_safetensors({{'w': torch.ones(3, dtype=torch.bfloat16)}}, {str(tmp_path / 'w')!r})\n"
+        f"assert st.load_safetensors({str(tmp_path / 'w')!r})['w'].dtype == torch.bfloat16\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'native/dataplane/build' not in maps\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'fedml_tpu'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout, out.stdout
+    assert "fedml_tpu_torch/ops/_build/" in (ROOT / ".gitignore").read_text().splitlines()

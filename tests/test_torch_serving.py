@@ -151,9 +151,14 @@ def test_llm_predictor_environment_seams(toks, served, monkeypatch):
 
 
 def test_from_checkpoint_and_int8_raise_not_implemented(toks, served, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """from_checkpoint is ported (tests/test_torch_llm_files.py): on a dir
+    with no checkpoint it raises JAX's FileNotFoundError; int8 weights stay
+    refused, checked before any import."""
+    with pytest.raises(FileNotFoundError, match="config.json"):
         LLMPredictor.from_checkpoint(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        JPredictor.from_checkpoint(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="int8.*ROADMAP"):
         LLMPredictor.from_checkpoint(str(tmp_path), quantize="int8")
     jparams, _, tcfg = served
     with pytest.raises(NotImplementedError, match="weight_quant"):
