@@ -11,8 +11,10 @@ attacks and defenses, contribution), FHE's ciphertext leaves with the
 sp simulator's other APIs (TurboAggregate, FedAvg_seq, split NN, FedGKT,
 decentralized and vertical FL), FedGAN, FedNAS, FedSeg with the rest
 of the model hub (MobileNet, EfficientNet-lite, the LSTMs, the text
-classifier), and a user's own files (the dataset readers, the C++ data
-plane, HF llama checkpoints) on one CUDA card.
+classifier), a user's own files (the dataset readers, the C++ data
+plane, HF llama checkpoints), and serving's front door (the HTTP runner,
+subprocess replicas behind the gateway, int8 decode through the int8
+GEMM) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -327,11 +329,33 @@ exception):
    checkpoint's; then LLMPredictor.from_checkpoint decodes HF_DECODE
    tokens with no flash launch; export and import s and GB/s, step ms,
    first token and decode ms; (a) and (b) launch no flash kernel;
-21. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+21. the serving front door: (a) the int8 GEMM (ops/csrc/int8_gemm.cu)
+   against its plain version on the card at Llama-2-7B's projection shapes
+   (K x N 4096x4096, 4096x11008, 11008x4096, 4096x32000) at M 1, 8 and 512
+   in bf16 and one f32 case (INT8_RTOL, relative over the output), each
+   timed over INT8_ITERS back-to-back launches queued behind a sleep (the
+   device's time, weights rotated through copies past the 50 MB L2) beside
+   its plain version, its bound and torch._weight_int8pack_mm (the bf16
+   matmul where that raises); (b) in-process int8 decode at Llama-2-7B's
+   widths at SERVE_LAYERS from phase 6's seeded bf16 weights:
+   quantize_params_int8 on the card bit-equal to the CPU's, the first
+   token's logits within KEY_RTOL of the plain int8 path's on the card, the
+   kernel launched on every projection and no flash launch, the no-copy
+   gate (a B=1 decode step's extra peak memory below one bf16 copy of the
+   smallest projection), resident weight bytes and ms a decoded token int8
+   against bf16 at B=1 and 8; (c) EndpointManager.deploy_isolated with 2
+   flagship bf16 replicas and 1 int8 replica (children on the card): every
+   reply equal to an in-process LLMPredictor of the same seed and geometry,
+   /metrics parsed (the serving families, the int8 replica's launches),
+   /statusz's replicas section on the gateway's StatuszServer, a replica
+   SIGKILLed with every request still answered and the corpse evicted, one
+   AutoScaler.tick, spawn-to-ready s, requests/s and p50/p99 latency
+   through the gateway; every child reaped;
+22. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
    resilience, privacy, secure_fronts, hierarchy, message_plane, trust,
-   fhe_sp_zoo, gan_nas_seg_hub, files and kernels lines (JSON, the kernels
-   line with the design each kernel ran on the main path), the card line,
-   and last the result line.
+   fhe_sp_zoo, gan_nas_seg_hub, files, front_door and kernels lines (JSON,
+   the kernels line with the design each kernel ran on the main path), the
+   card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -5824,6 +5848,628 @@ def files_phase(libs) -> dict:
     return res
 
 
+# -- phase 21: the serving front door --------------------------------------------------------
+
+# (a) the int8 GEMM at Llama-2-7B's projection shapes, (K, N): q/k/v/o,
+# gate/up, down, lm_head
+INT8_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+INT8_MS = (1, 8, 512)
+INT8_F32_CASE = (8, 4096, 4096)  # (M, K, N)
+# kernel against plain version, ||y - y_ref|| / ||y_ref|| over the output:
+# bf16 outputs differ where the one cast of an f32 result rounds the other
+# way after another summation order (at most one bf16 ulp, 2^-8 relative,
+# an element, far less in norm); f32 outputs by summation order only
+INT8_RTOL = {"bfloat16": 4e-3, "float32": 1e-5}
+INT8_ITERS = 50
+INT8_ROTATE_BYTES = 100e6  # weight copies cycled per timing: twice the 50 MB L2
+INT8_ROW = (1, 4096, 11008)  # the kernels line's row: one decode step's gate/up projection
+# (b) the no-copy gate: a B=1 decode step may allocate less than one bf16
+# copy of the smallest projection (4096 x 4096 x 2 B)
+NO_COPY_BYTES = 4096 * 4096 * 2
+NO_COPY_CACHE = 512  # the cache length of that step (the attention's own scratch stays small)
+# (c) the endpoint: the bench factory, deployed as a user deploys it
+FRONT_SPEC = "fedml_tpu_torch.serving.bench_predictors:llm_bench_predictor"
+FRONT_PROMPTS = ("federated benchmark serving", "endpoint throughput measure",
+                 "serving endpoint", "measure federated throughput benchmark")
+FRONT_MAX_NEW = 16
+# the endpoint bench's batching (JAX's bench.py, _bench_llm_serving): each
+# replica coalesces a 10 ms window of requests, up to 4, into one
+# predict_many
+FRONT_BATCH = {"FEDML_SERVE_MAX_BATCH": "4", "FEDML_SERVE_BATCH_WINDOW_MS": "10"}
+# name -> (replicas, environment over the base). The flagship's 32000-entry
+# head mostly emits ids past the bench tokenizer's 305, which decode to
+# nothing, so its replies are held to the in-process predictor's beside a
+# default-geometry endpoint (the tokenizer's vocab) whose texts must not be
+# empty; that one serves each request through predict (no batching)
+FRONT_ENDPOINTS = {
+    "flagship": (2, {"FEDML_BENCH_FLAGSHIP": "1", **FRONT_BATCH}),
+    "flagship_int8": (1, {"FEDML_BENCH_FLAGSHIP": "1", "FEDML_BENCH_INT8": "1", **FRONT_BATCH}),
+    "default": (1, {"FEDML_SERVE_MAX_BATCH": "1"}),
+}
+# the load on the flagship's 2 replicas: the endpoint bench's 4 closed-loop
+# clients, 256 requests, so that the p99 is a percentile of 256 latencies
+FRONT_LOAD = dict(clients=4, requests_per_client=64)
+FRONT_MEM_FRACTION = "0.1"
+
+
+def device_ms(fn, iters: int = INT8_ITERS) -> float:
+    """The device's ms a call: the mean over one window of ``iters``
+    back-to-back calls, enqueued behind a sleep kernel so the host's launch
+    cost is hidden (a decode-size call takes less time on the card than its
+    launch takes on the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # about 30 ms of cycles: the host queues the window meanwhile
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def int8_case(im, m: int, k: int, n: int, dtype, seed: int) -> dict:
+    """One shape: the kernel against its plain version, then the times."""
+    import itertools
+
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+    copies = max(1, int(-(-INT8_ROTATE_BYTES // (n * k))))
+    ws = [(torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8),
+           torch.rand(n, generator=g, device="cuda") * 1e-2 + 1e-4) for _ in range(copies)]
+    wq, scale = ws[0]
+    y = im.int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    ref = im.int8_matmul_reference(x, wq, scale)
+    name = str(dtype).split(".")[-1]
+    label = f"int8 GEMM M={m} K={k} N={n} {name}"
+    check(bool(torch.isfinite(y).all().item()), f"{label}: not finite")
+    rel = ((y.float() - ref.float()).norm() / ref.float().norm()).item()
+    check(rel <= INT8_RTOL[name], f"{label}: relative error {rel:.3g} > {INT8_RTOL[name]}")
+    cyc = itertools.cycle(ws)
+    ms = device_ms(lambda: im.int8_matmul(x, *next(cyc)))
+    plain_ms = device_ms(lambda: im.int8_matmul_reference(x, *next(cyc)), 3)
+    library, library_ms = "torch._weight_int8pack_mm", None
+    lib_iters = INT8_ITERS if m <= 8 else 5  # it takes 19-146 ms a call at M=512
+    try:
+        lib_s = [(w, s.to(dtype)) for w, s in ws]
+        cyc_l = itertools.cycle(lib_s)
+        torch._weight_int8pack_mm(x, *lib_s[0])
+        torch.cuda.synchronize()
+        library_ms = device_ms(lambda: torch._weight_int8pack_mm(x, *next(cyc_l)), lib_iters)
+    except (RuntimeError, NotImplementedError) as e:
+        # no CUDA kernel for it in this torch: the bf16 product of the same
+        # shape stands beside it, which is what bf16 decode pays
+        library = f"torch.matmul on {name} weights (torch._weight_int8pack_mm raised: " \
+                  f"{str(e).splitlines()[0][:120]})"
+        wf = [w.to(dtype) for w, _ in ws[:max(1, int(-(-INT8_ROTATE_BYTES // (2 * n * k))))]]
+        cyc_f = itertools.cycle(wf)
+        library_ms = device_ms(lambda: torch.matmul(x, next(cyc_f).T))
+    # what a bf16 (or f32) model pays for the same projection: F.linear on
+    # weights already in x's dtype
+    wd = [w.to(dtype) for w, _ in ws[:max(1, int(-(-INT8_ROTATE_BYTES // (2 * n * k))))]]
+    cyc_d = itertools.cycle(wd)
+    dense_ms = device_ms(lambda: torch.nn.functional.linear(x, next(cyc_d)))
+    del wd
+    esize = x.element_size()
+    nbytes = n * k + m * k * esize + m * n * esize + n * 4  # wq, x, y, scale
+    row = {"m": m, "k": k, "n": n, "dtype": name, "rel_err": rel, "library_iters": lib_iters,
+           "max_abs_err": (y.float() - ref.float()).abs().max().item(), "ms": ms,
+           "plain_ms": plain_ms, **_bound(2.0 * m * n * k, nbytes, dtype),
+           "library_ms": library_ms, "library": library, "weight_copies": copies,
+           "dense_ms": dense_ms}
+    row["share_of_bound"] = row["bound_ms"] / ms
+    say(f"  {label}: rel {rel:.3g}, {ms * 1e3:.2f} us (bound {row['bound_ms'] * 1e3:.2f} us by "
+        f"{row['bound_by']}, {row['share_of_bound']:.1%}), plain {plain_ms * 1e3:.1f} us, "
+        f"library {library_ms * 1e3:.2f} us, dense {dense_ms * 1e3:.2f} us")
+    return row
+
+
+# projections of one Llama-2-7B layer by (K, N): q, k, v, o; gate, up; down
+INT8_LAYER = {(4096, 4096): 4, (4096, 11008): 2, (11008, 4096): 1}
+
+
+def int8_sweep(im) -> list:
+    import torch
+
+    rows = []
+    for i, (k, n) in enumerate(INT8_SHAPES):
+        for m in INT8_MS:
+            rows.append(int8_case(im, m, k, n, torch.bfloat16, seed=100 + 10 * i + m))
+    m, k, n = INT8_F32_CASE
+    rows.append(int8_case(im, m, k, n, torch.float32, seed=7))
+    return rows
+
+
+def int8_forward_gemm_ms(rows: list, m: int) -> dict:
+    """The GEMMs of one SERVE_LAYERS-layer forward of M tokens (prefill
+    logits for every position, as ``_prefill`` takes them), summed from the
+    sweep's bf16 rows: the kernel, its plain version and F.linear on bf16
+    weights."""
+    by = {(r["k"], r["n"]): r for r in rows if r["m"] == m and r["dtype"] == "bfloat16"}
+    counts = {**{kn: SERVE_LAYERS * c for kn, c in INT8_LAYER.items()}, (4096, 32000): 1}
+    return {key: sum(c * by[kn][key] for kn, c in counts.items())
+            for key in ("ms", "plain_ms", "dense_ms")}
+
+
+def _state_bytes(model) -> int:
+    return sum(t.numel() * t.element_size() for t in model.state_dict().values())
+
+
+def _decode_step_extra_peak(model, cfg) -> float:
+    """Bytes a B=1 decode step allocates beyond what lies on the card before
+    it (a prompt prefilled into a NO_COPY_CACHE-long cache, then one step)."""
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.models.transformer import init_cache
+
+    with torch.inference_mode():
+        cache = init_cache(dataclasses.replace(cfg, max_seq_len=NO_COPY_CACHE), 1, DEV)
+        toks = torch.arange(1, 65, device=DEV)[None]
+        model(toks, torch.arange(64, device=DEV)[None], cache=cache)
+        step = torch.tensor([[7]], device=DEV)
+        pos = torch.tensor([[64]], device=DEV)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = model(step, pos, cache=cache)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out, cache
+    return float(peak)
+
+
+def int8_decode(im, libs) -> dict:
+    """(b): in-process int8 decode at Llama-2-7B's widths, SERVE_LAYERS."""
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.serving.quant import quantize_params_int8
+    from fedml_tpu_torch.train.llm.generation import decode_model, generate_batch
+
+    out = {}
+    cfg, bf16 = _serve_model()
+    state = bf16.state_dict()
+    t0 = time.perf_counter()
+    q_card = quantize_params_int8(state)
+    torch.cuda.synchronize()
+    out["quantize_card_s"] = time.perf_counter() - t0
+    # the CPU quantizes layer 0 and lm_head: every projection shape, a
+    # quarter of the time of the whole model
+    t0 = time.perf_counter()
+    q_cpu = quantize_params_int8({k: v.cpu() for k, v in state.items()
+                                  if k.startswith(("layer_0.", "lm_head."))})
+    out["quantize_cpu_s"] = time.perf_counter() - t0
+    check(sum(name.endswith("kernel_q") for name in q_cpu) == 8,
+          f"{len(q_cpu)} tensors of layer 0 and lm_head out of the CPU's quantization")
+    for name, t in q_cpu.items():
+        check(torch.equal(q_card[name].cpu(), t) and q_card[name].dtype == t.dtype,
+              f"quantize_params_int8 on the card differs from the CPU's at {name}")
+    n_q = sum(name.endswith("kernel_q") for name in q_card)
+    check(n_q == 7 * cfg.n_layers + 1, f"{n_q} projections quantized")
+    del q_cpu
+    qcfg = dataclasses.replace(cfg, weight_quant="int8")
+    int8 = decode_model(qcfg, q_card, device=DEV)
+    del q_card
+    out["resident_bytes"] = {"bf16": _state_bytes(bf16), "int8": _state_bytes(int8)}
+    say(f"  quantized {n_q} projections on the card in {out['quantize_card_s']:.2f}s "
+        f"(CPU, layer 0 and lm_head, {out['quantize_cpu_s']:.2f}s), bit-equal; resident weights "
+        f"{out['resident_bytes']['int8'] / 1e9:.3f} GB int8 against "
+        f"{out['resident_bytes']['bf16'] / 1e9:.3f} GB bf16")
+
+    im.reset_launch_counts()
+    fa.reset_launch_counts()
+    designs0 = libs.int8_design_launches()
+    g = torch.Generator(device=DEV).manual_seed(SERVE_SEED + 21)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 48), generator=g, device=DEV)
+    with torch.inference_mode():
+        logits = int8(prompt)[:, -1]
+        torch.cuda.synchronize()
+        per_forward = im.launch_counts["int8_gemm"]
+        kernel = im.int8_matmul
+        # the plain int8 path, on the card
+        im.int8_matmul = lambda x, wq, scale, **_: im.int8_matmul_reference(x, wq, scale)
+        try:
+            plain = int8(prompt)[:, -1]
+        finally:
+            im.int8_matmul = kernel
+    rel = _row_rel(logits, plain)
+    out["first_token_vs_plain_worst_rel"] = rel.max().item()
+    say(f"  first token's logits against the plain int8 path: worst row "
+        f"{out['first_token_vs_plain_worst_rel']:.3g} (rtol {KEY_RTOL}); "
+        f"{per_forward} int8 launches a forward")
+    check(bool((rel <= KEY_RTOL).all().item()),
+          f"int8 logits {rel.max().item():.3g} from the plain int8 path's")
+    check(per_forward == 7 * cfg.n_layers + 1,
+          f"{per_forward} int8 launches a forward, not one a projection")
+
+    out["decode_step_extra_peak_bytes"] = {"int8": _decode_step_extra_peak(int8, qcfg),
+                                           "bf16": _decode_step_extra_peak(bf16, cfg)}
+    say(f"  B=1 decode step's extra peak: int8 {out['decode_step_extra_peak_bytes']['int8'] / 1e6:.2f}"
+        f" MB, bf16 {out['decode_step_extra_peak_bytes']['bf16'] / 1e6:.2f} MB "
+        f"(gate: int8 below {NO_COPY_BYTES / 1e6:.1f} MB)")
+    check(out["decode_step_extra_peak_bytes"]["int8"] < NO_COPY_BYTES,
+          "an int8 decode step allocated a widened copy's worth of memory")
+
+    tok_ids = [list(range(3 + i, 40 + 3 * i)) for i in range(8)]
+    ms_tok = {}
+    for name, model, c in (("int8", int8, qcfg), ("bf16", bf16, cfg)):
+        for b in (1, 8):
+            prompts = tok_ids[:b]
+            t16 = _time_ms(lambda: generate_batch(model, c, prompts, 16, device=DEV), 2)
+            t48 = _time_ms(lambda: generate_batch(model, c, prompts, 48, device=DEV), 2)
+            ms_tok[f"{name}_b{b}"] = (t48 - t16) / 32
+    out["decode_ms_per_token"] = ms_tok
+    say(f"  ms a decoded token (generate_batch): {ms_tok}")
+    out["launches"] = dict(im.launch_counts)
+    # each launch's design, as the C entry point counted it: decode rows
+    # (M <= 8) and the prefills (M = B x the prompt's bucket)
+    designs1 = libs.int8_design_launches()
+    out["design_launches"] = {d: designs1[d] - designs0[d] for d in designs1}
+    say(f"  int8 launches in (b) by design: {out['design_launches']}")
+    check(sum(out["design_launches"].values()) == out["launches"]["int8_gemm"],
+          f"the designs' launches {out['design_launches']} do not add up to the wrapper's "
+          f"{out['launches']}")
+    out["flash_launches"] = dict(fa.launch_counts)
+    check(out["launches"]["int8_gemm"] > 0, "the int8 kernel never launched in (b)")
+    check(all(n == 0 for n in out["flash_launches"].values()),
+          f"int8 decode launched flash kernels: {out['flash_launches']}")
+    del int8, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _prom_samples(text: str) -> dict:
+    """Prometheus 0.0.4 text -> {name{labels}: value}; fails on a sample
+    whose family no TYPE line declared before it."""
+    typed, out = set(), {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            typed.add(line.split()[2])
+            continue
+        if not line or line.startswith("#"):
+            continue
+        key, value = line.rsplit(" ", 1)
+        name = key.split("{", 1)[0]
+        base = next((name[:-len(s)] for s in ("_bucket", "_sum", "_count")
+                     if name.endswith(s) and name[:-len(s)] in typed), name)
+        check(base in typed, f"/metrics sample of an undeclared family: {line!r}")
+        out[key] = float(value)
+    return out
+
+
+def _http_get(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read().decode()
+
+
+def _front_env(**over):
+    """os.environ with ``over`` set (None removes), restored on exit."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+        saved = {k: os.environ.get(k) for k in over}
+        for k, v in over.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return scope()
+
+
+def _dir_mtimes(path) -> dict:
+    return {p.name: p.stat().st_mtime_ns for p in path.iterdir()} if path.is_dir() else {}
+
+
+def _front_envs(tmp: str) -> dict:
+    """Each endpoint's environment: this process's without the bench's and
+    the replicas' knobs, then the endpoint's own."""
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("FEDML_BENCH_", "FEDML_SERVE_", "FEDML_REPLICA_"))}
+    base.update(FEDML_REPLICA_MEM_FRACTION=FRONT_MEM_FRACTION,
+                FEDML_FR_DIR=os.path.join(tmp, "crash"))
+    return {name: {**base, **over} for name, (_, over) in FRONT_ENDPOINTS.items()}
+
+
+def _front_references(envs: dict) -> dict:
+    """The in-process LLMPredictor of each endpoint's seed and geometry, and
+    its replies to FRONT_PROMPTS one at a time: through ``predict`` where
+    the endpoint serves without batching, else through ``predict_many`` of
+    the one request (what a replica's micro-batcher calls for a lone
+    request)."""
+    import torch
+
+    from fedml_tpu_torch.serving.bench_predictors import llm_bench_predictor
+
+    want = {}
+    for name, env in envs.items():
+        knobs = ("FEDML_BENCH_", "FEDML_SERVE_")
+        over = {k: None for k in os.environ if k.startswith(knobs)}
+        over.update({k: v for k, v in env.items() if k.startswith(knobs)})
+        with _front_env(**over):
+            ref = llm_bench_predictor()
+        batched = env.get("FEDML_SERVE_MAX_BATCH", "1") != "1"
+        reqs = [{"prompt": p, "max_new_tokens": FRONT_MAX_NEW} for p in FRONT_PROMPTS]
+        want[name] = [ref.predict_many([r])[0] if batched else ref.predict(r) for r in reqs]
+        del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
+
+
+def _post_json(url: str, payload: dict, timeout: float = 120.0) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _front_load(gw) -> dict:
+    """FRONT_LOAD's closed-loop clients through the gateway: requests/s and
+    the latency percentiles."""
+    import threading
+
+    import numpy as np
+
+    lat, fails = [], []
+
+    def client(c):
+        for r in range(FRONT_LOAD["requests_per_client"]):
+            t0 = time.perf_counter()
+            try:
+                out = gw.predict({"prompt": f"measure endpoint run {c} req {r}",
+                                  "max_new_tokens": FRONT_MAX_NEW}, timeout_s=120.0)
+                check("text" in out, f"a reply without text: {out}")
+                lat.append(time.perf_counter() - t0)
+            except Exception as e:  # noqa: BLE001 - counted and failed on below
+                fails.append(repr(e))
+
+    gw.reset_window()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(FRONT_LOAD["clients"])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not fails and not any(t.is_alive() for t in threads), f"load requests failed: {fails}")
+    lat_ms = np.asarray(lat) * 1e3
+    return {**FRONT_LOAD, "max_new_tokens": FRONT_MAX_NEW, "requests": len(lat),
+            "wall_s": wall, "requests_per_s": len(lat) / wall,
+            "tokens_per_s": len(lat) * FRONT_MAX_NEW / wall,
+            **{f"p{q}_ms": float(np.percentile(lat_ms, q)) for q in (50, 90, 99)},
+            "max_ms": float(lat_ms.max()), "gateway_qps": gw.signals()["qps"]}
+
+
+def _deploy_side_by_side(mgr, envs: dict) -> tuple:
+    """deploy_isolated of every endpoint at once, each in its environment;
+    -> ({name: gateway}, {name: spawn-to-ready s}, the in-process replies,
+    computed meanwhile)."""
+    import threading
+
+    deployed, spawn_s, errors = {}, {}, {}
+
+    def deploy(name):
+        t0 = time.perf_counter()
+        try:
+            deployed[name] = mgr.deploy_isolated(name, FRONT_SPEC, FRONT_ENDPOINTS[name][0],
+                                                 env=envs[name])
+            spawn_s[name] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 - raised below, after every thread ended
+            errors[name] = e
+
+    threads = [threading.Thread(target=deploy, args=(name,)) for name in FRONT_ENDPOINTS]
+    for t in threads:
+        t.start()
+    try:
+        want = _front_references(envs)
+    finally:
+        for t in threads:
+            t.join()
+    for name, e in errors.items():
+        raise SmokeFailure(f"deploy_isolated({name!r}) failed: {e!r}") from e
+    return deployed, spawn_s, want
+
+
+def endpoint_run(tmp: str) -> dict:
+    """(c): deploy_isolated of the bench factory: 2 flagship bf16 replicas,
+    1 flagship int8 replica and 1 default-geometry replica, all on the card."""
+    import signal
+
+    from fedml_tpu_torch.core.telemetry import statusz
+    from fedml_tpu_torch.ops import _build
+    from fedml_tpu_torch.serving.endpoint import EndpointManager
+    from fedml_tpu_torch.serving.replica_controller import AutoScaler
+
+    out = {}
+    envs = _front_envs(tmp)
+    libs_before = _dir_mtimes(_build.BUILD_DIR)
+    mgr = EndpointManager()
+    try:
+        deployed, spawn_s, want = _deploy_side_by_side(mgr, envs)
+        out["spawn_to_ready_s"] = spawn_s
+        say(f"  deploy_isolated of the three endpoints side by side, spawn-to-ready: {spawn_s} s")
+        # every reply, from every replica, equals the in-process predictor's
+        for name, g in deployed.items():
+            got = [g.predict({"prompt": p, "max_new_tokens": FRONT_MAX_NEW}) for p in FRONT_PROMPTS]
+            check(got == want[name], f"{name}: the replicas' replies differ from the in-process "
+                                     f"LLMPredictor's: {got} != {want[name]}")
+            for r in g.replica_set.healthy():
+                check(_post_json(r.url + "/predict", {"prompt": FRONT_PROMPTS[0],
+                                                      "max_new_tokens": FRONT_MAX_NEW})
+                      == want[name][0], f"{name}: replica {r.id} answers otherwise")
+        check(all(w["text"] for w in want["default"]),
+              f"a default-geometry text is empty: {want['default']}")
+        out["text_chars"] = {name: [len(w["text"]) for w in ws] for name, ws in want.items()}
+        say(f"  replies equal to the in-process LLMPredictor's ({len(FRONT_PROMPTS)} prompts an "
+            f"endpoint, {FRONT_MAX_NEW} tokens; predict_many of one request where the replica "
+            f"batches, predict where not); characters of text: {out['text_chars']}")
+        gw, gw8 = deployed["flagship"], deployed["flagship_int8"]
+
+        # load through the gateway at the bench's batching: requests/s and latency
+        out["load"] = _front_load(gw)
+        say(f"  load through the gateway (2 flagship bf16 replicas): {out['load']}")
+        batches = {}
+        for r in gw.replica_set.healthy():
+            doc = json.loads(_http_get(r.url + "/statusz"))
+            batches[r.id] = doc["batching"]["recent_batch_sizes"]
+        out["recent_batch_sizes"] = batches
+        say(f"  the replicas' last batches under that load: {batches}")
+        check(max(max(b) for b in batches.values()) >= 2,
+              f"no replica coalesced requests under the load: {batches}")
+
+        # the telemetry the processes expose
+        gw.replica_set.register_statusz()
+        server = statusz.StatuszServer(
+            port=0, service="gateway",
+            gauges_fn=lambda: gw.prom_gauges() + gw.replica_set.prom_gauges())
+        server.start()
+        try:
+            doc = json.loads(_http_get(f"http://127.0.0.1:{server.port}/statusz"))
+            check(doc["sections"]["replicas"]["desired"] == 2
+                  and len(doc["sections"]["replicas"]["replicas"]) == 2,
+                  f"/statusz replicas section: {doc['sections'].get('replicas')}")
+            gw_samples = _prom_samples(_http_get(f"http://127.0.0.1:{server.port}/metrics"))
+        finally:
+            server.stop()
+        for key in ('fedml_serving_replicas{state="ready"}', "fedml_serving_gateway_qps",
+                    "fedml_serving_request_seconds_count"):
+            check(key in gw_samples, f"the gateway's /metrics lacks {key}")
+        check(gw_samples['fedml_serving_replicas{state="ready"}'] == 2.0, "2 ready replicas")
+        replica_metrics = {}
+        for name, g in deployed.items():
+            for r in g.replica_set.healthy():
+                samples = _prom_samples(_http_get(r.url + "/metrics"))
+                check(samples.get("fedml_predictor_ready") == 1.0
+                      and 'fedml_alert_active{slo="ttft_p99_seconds"}' in samples,
+                      f"{name} replica {r.id}: /metrics lacks the serving families")
+                check(("fedml_serving_last_batch_size" in samples)
+                      == (FRONT_ENDPOINTS[name][1].get("FEDML_SERVE_MAX_BATCH") != "1"),
+                      f"{name} replica {r.id}: the batch-size gauge does not match its batching")
+                doc = json.loads(_http_get(r.url + "/statusz"))
+                check(doc["service"] == "inference_runner" and doc["flight_recorder"]["installed"],
+                      f"{name} replica {r.id}: /statusz {doc}")
+                replica_metrics[r.id] = {
+                    "endpoint": name, "int8_gemm_launches": samples.get(
+                        "fedml_ops_int8_gemm_launches_total", 0.0),
+                    "last_batch_size": samples.get("fedml_serving_last_batch_size"),
+                    "alerts_firing": sum(v for k, v in samples.items()
+                                         if k.startswith("fedml_alert_active"))}
+        out["replica_metrics"] = replica_metrics
+        say(f"  replicas' /metrics: {replica_metrics}")
+        for rid, row in replica_metrics.items():
+            check((row["int8_gemm_launches"] > 0) == (row["endpoint"] == "flagship_int8"),
+                  f"replica {rid} ({row['endpoint']}): {row['int8_gemm_launches']} int8 launches")
+        # the children loaded the kernels the parent had built: none rebuilt
+        # one (they run with NO_BUILD_ENV, under which a missing library raises)
+        check(_dir_mtimes(_build.BUILD_DIR) == libs_before, "a replica child wrote into the kernels' build directory")
+
+        # a replica dies: every request is still answered, the corpse evicted
+        victim = gw.replica_set.healthy()[0]
+        os.kill(victim.proc.pid, signal.SIGKILL)
+        victim.proc.wait(timeout=30)
+        got = [gw.predict({"prompt": p, "max_new_tokens": FRONT_MAX_NEW}) for p in FRONT_PROMPTS]
+        check(got == want["flagship"], "replies after the SIGKILL differ")
+        t0 = time.perf_counter()
+        gw.replica_set.reconcile()
+        out["respawn_s"] = time.perf_counter() - t0
+        check(victim not in gw.replica_set.replicas and len(gw.replica_set.healthy()) == 2,
+              "the killed replica was not evicted and replaced")
+        got = [gw.predict({"prompt": p, "max_new_tokens": FRONT_MAX_NEW}) for p in FRONT_PROMPTS]
+        check(got == want["flagship"], "replies after the replacement differ")
+        say(f"  SIGKILL of replica {victim.id}: every request answered, corpse evicted, "
+            f"replacement ready in {out['respawn_s']:.1f}s")
+
+        # one autoscaler tick maps the observed QPS to a count
+        gw.reset_window()
+        for p in FRONT_PROMPTS:
+            gw.predict({"prompt": p, "max_new_tokens": 4})
+        qps = gw.signals()["qps"]
+        scaler = AutoScaler(gw, target_qps_per_replica=qps / 1.5, min_replicas=1, max_replicas=2,
+                            cooldown_s=0.0)
+        want_n = scaler.desired_replicas()
+        got_n = scaler.tick()
+        out["autoscaler"] = {"observed_qps": qps, "target_qps_per_replica": qps / 1.5,
+                             "desired": want_n, "after_tick": got_n}
+        say(f"  AutoScaler.tick: {out['autoscaler']}")
+        check(want_n == got_n == 2, f"the autoscaler tick gave {got_n}, its policy {want_n}")
+    finally:
+        gateways = list(mgr.endpoints.values())
+        children = [r for g in gateways for r in g.replica_set.replicas]
+        for name in list(mgr.endpoints):
+            mgr.undeploy(name)
+        for r in children:
+            if r.proc.poll() is None:
+                r.proc.kill()
+                r.proc.wait(timeout=30)
+    check(all(r.proc.poll() is not None for r in children), "a replica child outlived the phase")
+    out["children_reaped"] = len(children)
+    return out
+
+
+def front_door_phase(libs) -> dict:
+    """Phase 21: the int8 GEMM, in-process int8 decode, the endpoint."""
+    import torch
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import int8_matmul as im
+
+    res = {}
+    t0 = time.time()
+    say("  (a) the int8 GEMM against its plain version")
+    res["int8_gemm"] = int8_sweep(im)
+    res["int8_gemm_s"] = time.time() - t0
+    res["forward_gemm_ms"] = {f"m{m}": int8_forward_gemm_ms(res["int8_gemm"], m) for m in INT8_MS}
+    say(f"  the GEMMs of one {SERVE_LAYERS}-layer forward (int8 kernel, plain, bf16 F.linear), "
+        f"ms: {res['forward_gemm_ms']}")
+    res["int8_designs_after_sweep"] = libs.int8_design_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    say(f"  (b) in-process int8 decode at Llama-2-7B's widths, {SERVE_LAYERS} layers")
+    res["decode"] = int8_decode(im, libs)
+    res["decode_s"] = time.time() - t0
+    tmp = os.path.join(ROOT, ".smoke_run", "front_door")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp, exist_ok=True)
+    t0 = time.time()
+    say("  (c) the endpoint: deploy_isolated of the bench factory, 2 flagship bf16 replicas, "
+        "1 flagship int8 replica, 1 default-geometry replica")
+    fa.reset_launch_counts()
+    try:
+        res["endpoint"] = endpoint_run(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["endpoint_s"] = time.time() - t0
+    res["endpoint_parent_flash_launches"] = dict(fa.launch_counts)
+    check(all(n == 0 for n in fa.launch_counts.values()),
+          f"the endpoint phase launched flash kernels: {fa.launch_counts}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -6138,12 +6784,38 @@ def main() -> int:
         f"(c) LoRA steps {files['hf']['train_flash_launches']}, (c) decode "
         f"{files['hf']['decode_flash_launches']}")
 
-    say("== 21. result")
+    say("== 21. the serving front door: the int8 GEMM, int8 decode at Llama-2-7B's widths "
+        f"({SERVE_LAYERS} layers), deploy_isolated of the bench factory (flagship bf16 and int8, "
+        "default geometry)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    front = front_door_phase(libs)
+    say(f"  phase {time.time() - t0:.1f}s; int8 launches in (b) {front['decode']['launches']}, "
+        f"flash launches in (b) {front['decode']['flash_launches']}, in (c)'s parent "
+        f"{front['endpoint_parent_flash_launches']}")
+
+    say("== 22. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": errs[name], **timing[name],
                      "design": "+".join(sorted(by_design[name]))})
+    int8_row = next(r for r in front["int8_gemm"]
+                    if (r["m"], r["k"], r["n"]) == INT8_ROW and r["dtype"] == "bfloat16")
+    rows.append({"name": "int8_gemm", "route": "cuda",
+                 "source": "fedml_tpu_torch/ops/csrc/int8_gemm.cu",
+                 "replaces": "none: no TPU kernel (fedml_tpu/models/transformer.py:149, "
+                             "lax.dot_general on the int8 operand)",
+                 "launches": front["decode"]["launches"]["int8_gemm"],
+                 "max_abs_err": max(r["max_abs_err"] for r in front["int8_gemm"]),
+                 "ms": int8_row["ms"], "plain_ms": int8_row["plain_ms"],
+                 "bound_ms": int8_row["bound_ms"], "bound_by": int8_row["bound_by"],
+                 "library_ms": int8_row["library_ms"],
+                 "shape": f"M={INT8_ROW[0]} K={INT8_ROW[1]} N={INT8_ROW[2]} bf16",
+                 "design": "+".join(sorted(d for d, n in front["decode"]["design_launches"].items()
+                                           if n)),
+                 "design_launches": front["decode"]["design_launches"]})
     say(f"  total {time.time() - t_start:.1f}s")
     print(json.dumps({"serve": {"card": card, **serve}}), flush=True)
     print(json.dumps({"fedavg": {"card": card, "flash_launches": fedavg_launches,
@@ -6170,6 +6842,7 @@ def main() -> int:
     print(json.dumps({"gan_nas_seg_hub": {"card": card, "flash_launches": hub_launches,
                                           **hub}}), flush=True)
     print(json.dumps({"files": {"card": card, **files}}), flush=True)
+    print(json.dumps({"front_door": {"card": card, **front}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

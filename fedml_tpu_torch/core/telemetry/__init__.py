@@ -1,12 +1,15 @@
-"""Telemetry: spans, counters, histograms and the time-series store.
+"""Telemetry: spans, counters, histograms, the time-series store, and the
+surfaces a process exposes (Prometheus text, `/statusz`, SLO alerts, the
+flight recorder).
 
-Counterpart of ``fedml_tpu/core/telemetry``: ``core``, ``trace_context``
-and ``sketches`` (the mergeable fleet sketches) are copies of the JAX
-package's framework-free modules, ``health`` a copy but for its
-``/metrics`` gauges, ``fleet`` (the server's fleet view: client telemetry
-deltas, the health tracker, the fleet sketches and their child-tier slots,
-the fleet trace) JAX's but for modelwatch's ledger and netlink, ``tsdb``
-the part of its store that serving reads. Typical use::
+Counterpart of ``fedml_tpu/core/telemetry``: ``core``, ``trace_context``,
+``sketches`` (the mergeable fleet sketches), ``health`` and ``tsdb`` are
+copies of the JAX package's framework-free modules; ``prom``, ``statusz``,
+``flight_recorder`` and ``slo`` are copies but for their netlink, devperf,
+modelwatch, server-mesh and mlops parts; ``fleet`` (the server's fleet
+view: client telemetry deltas, the health tracker, the fleet sketches and
+their child-tier slots, the fleet trace) is JAX's but for modelwatch's
+ledger and netlink. Typical use::
 
     from fedml_tpu_torch.core import telemetry as tel
 
@@ -16,11 +19,11 @@ the part of its store that serving reads. Typical use::
     tel.histogram("serving.cb.ttft_seconds").observe(sp.duration_s)
 
 The rest of the JAX package's telemetry (``devperf``'s compiled-program
-costs, the flight recorder, netlink, modelwatch, SLOs, Prometheus and
-statusz) waits for the port's telemetry slice (ROADMAP.md, Queue 1).
+costs, netlink, modelwatch and the link probe) waits for later slices
+(ROADMAP.md, Queue 1).
 """
 
-from . import sketches, tsdb
+from . import flight_recorder, prom, sketches, slo, statusz, tsdb
 from .core import (
     Counter,
     Histogram,
@@ -38,6 +41,7 @@ from .core import (
     timed,
 )
 from .fleet import FleetTelemetry
+from .flight_recorder import FlightRecorder
 from .sketches import (
     CardinalitySketch,
     FleetSketches,
@@ -45,6 +49,8 @@ from .sketches import (
     TelemetryCardinalityBudget,
     TopK,
 )
+from .slo import SLOEngine, SLOSpec
+from .statusz import StatuszServer
 from .trace_context import TraceContext, activated, new_trace_id
 from .tsdb import TimeSeriesStore
 
@@ -56,13 +62,21 @@ __all__ = [
     "CardinalitySketch",
     "FleetSketches",
     "FleetTelemetry",
+    "FlightRecorder",
+    "SLOEngine",
+    "SLOSpec",
+    "StatuszServer",
     "QuantileSketch",
     "TelemetryCardinalityBudget",
     "TopK",
     "TraceContext",
     "activated",
     "new_trace_id",
+    "flight_recorder",
+    "prom",
     "sketches",
+    "slo",
+    "statusz",
     "counter",
     "disabled_span_overhead_ns",
     "export_chrome_trace",

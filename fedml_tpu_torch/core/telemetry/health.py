@@ -1,9 +1,6 @@
 """Per-client health scoring and straggler detection for synchronous FL.
 
-A copy of ``fedml_tpu/core/telemetry/health.py`` (framework-free) but for
-``prom_gauges``, the per-rank ``/metrics`` gauges, which wait with the
-fleet sketches' exposition budget and the Prometheus page (ROADMAP.md,
-Queue 1).
+A copy of ``fedml_tpu/core/telemetry/health.py`` (framework-free).
 
 A synchronous round is gated by its slowest member (Holmes, arxiv 2312.03549;
 PiPar, arxiv 2302.12803 quantifies the idle-time cost), so the server needs a
@@ -28,7 +25,9 @@ keeps one :class:`ClientHealth` record per rank, fed from the same
 
 ``end_round`` folds the round's observations into a :class:`HealthReport`
 (the dict the server ships through the mlops uplink and `/statusz` renders),
-and bumps the ``straggler`` counter.
+bumps the ``straggler`` counter (rendered as ``fedml_straggler_total`` on
+`/metrics`), and ``prom_gauges`` exposes the 0..1 health score per rank as
+``fedml_client_health{rank=...}``.
 """
 
 from __future__ import annotations
@@ -329,3 +328,26 @@ class HealthTracker:
                     "silence_s": self.silence_threshold_s,
                 },
             }
+
+    def prom_gauges(self) -> List[tuple]:
+        """``(name, labels, value)`` triples for ``prom.render(gauges=...)``:
+        per-rank ``client_health`` score and ``client_straggler`` 0/1.
+
+        Cardinality-bounded: the family consults the telemetry series budget
+        and degrades to NOTHING per-rank when a fleet-scale cohort would blow
+        the exposition (the ``fedml_fleet_*`` sketch gauges carry the signal
+        instead). Below the budget the output is bit-identical to the
+        un-budgeted code."""
+        from . import sketches as _sketches
+
+        with self._lock:
+            clients = sorted(self._clients.items())
+        if not _sketches.get_budget().admit("client_health", 2 * len(clients)):
+            return []
+        with self._lock:
+            out: List[tuple] = []
+            for r, c in clients:
+                labels = {"rank": str(r)}
+                out.append(("client_health", labels, c.score(self.silence_threshold_s)))
+                out.append(("client_straggler", labels, 1.0 if c.flagged else 0.0))
+            return out

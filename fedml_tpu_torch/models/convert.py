@@ -16,6 +16,10 @@ The split halves of split NN and FedGKT (``models/split_model.py``) carry
 flax's names too (``Conv_0``, ``BasicBlock_i``, ``client_head``,
 ``Dense_0``), so each half converts the same way.
 
+- an int8 dense (``serving/quant.py``) keeps its names, ``kernel_q`` and
+  ``kernel_scale``; ``kernel_q`` is transposed as a 2-D kernel is (flax
+  ``[in, out]``, the port ``[out, in]``), ``kernel_scale [out]`` is not;
+
 - a kernel of any other rank keeps flax's layout: the attention's
   ``DenseGeneral`` kernels ``[d, H, hd]`` and ``[H, hd, d]``
   (``models/layers.py``), which the port contracts as they are.
@@ -69,7 +73,7 @@ def _flax_path(name: str) -> tuple:
 
 
 def _is_kernel(name: str) -> bool:
-    return name.rsplit(".", 1)[-1] == "weight"
+    return name.rsplit(".", 1)[-1] in ("weight", "kernel_q")
 
 
 def flax_name(name: str) -> str:
@@ -145,7 +149,7 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 arr = np.array(v)  # writable: JAX hands out read-only arrays
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) \
                     if arr.dtype.name == "bfloat16" else torch.from_numpy(arr)
-            if k == "kernel":
+            if k in ("kernel", "kernel_q"):
                 t = _kernel_to_torch(t)
             # a contiguous copy that shares no storage with the input
             out[_torch_name(path + [k])] = t.clone(memory_format=torch.contiguous_format)
@@ -164,6 +168,8 @@ def params_to_jax(model: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict:
         t = t.detach().cpu()
         if leaf == "weight":
             leaf, t = "kernel", _weight_to_flax(t)
+        elif leaf == "kernel_q":
+            t = _weight_to_flax(t)
         # a contiguous copy that shares no storage with the model
         t = t.clone(memory_format=torch.contiguous_format)
         node = out

@@ -34,8 +34,16 @@ on every call; the f32 -> bf16 cast rounds to nearest even either way, so
 both multiply the same bf16 values, and decode reads half the bytes per
 token.
 
-This slice is one device, dense and not quantised: ring attention, MoE and
-int8 weights raise NotImplementedError (see ROADMAP.md).
+Weight-only int8 (``weight_quant="int8"``, serving/quant.py): each dense
+holds ``kernel_q`` int8 ``[out, in]`` and ``kernel_scale`` f32 ``[out]``
+(buffers) in place of ``weight``, and its product runs through the int8
+GEMM (ops/int8_matmul.py: the CUDA kernel on the card, its plain version
+on the CPU), as JAX's ``dot_general`` on the int8 operand. Its backward is
+not ported: an int8 forward whose input needs a gradient raises
+NotImplementedError, as JAX serves int8 only on the decode path.
+
+This slice is one device and dense: ring attention and MoE raise
+NotImplementedError (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..ops import int8_matmul as int8_ops
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -121,8 +131,8 @@ class TransformerConfig:
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
         if self.moe_experts > 0:
             raise _unsupported("moe_experts > 0 (the MoE MLP)")
-        if self.weight_quant != "none":
-            raise _unsupported(f"weight_quant={self.weight_quant!r}")
+        if self.weight_quant not in ("none", "int8"):
+            raise ValueError(f"weight_quant must be 'none' or 'int8', got {self.weight_quant!r}")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"remat_policy must be 'full' or 'dots', got {self.remat_policy!r}")
 
@@ -166,14 +176,23 @@ def _weight_dtype(cfg: TransformerConfig) -> torch.dtype:
 class LoRALinear(nn.Module):
     """Dense with an optional low-rank adapter: x.W + (alpha/r)·((x.A).B),
     everything in the activation dtype. The adapter exists only where the
-    layer's name contains one of ``cfg.lora_targets``."""
+    layer's name contains one of ``cfg.lora_targets``. Under
+    ``weight_quant="int8"`` W is ``kernel_q`` (int8 ``[out, in]``) times
+    ``kernel_scale`` (f32 ``[out]``), JAX's zeros and ones until loaded."""
 
     def __init__(self, in_dim: int, features: int, cfg: TransformerConfig, name: str,
                  device=None):
         super().__init__()
         self.cfg = cfg
         dtype = _weight_dtype(cfg)
-        self.weight = nn.Parameter(torch.empty(features, in_dim, device=device, dtype=dtype))
+        self.int8 = cfg.weight_quant == "int8"
+        if self.int8:
+            self.register_buffer("kernel_q", torch.zeros(features, in_dim, device=device,
+                                                         dtype=torch.int8))
+            self.register_buffer("kernel_scale", torch.ones(features, device=device))
+            self._int8_checked = None  # the weights check_weights last passed
+        else:
+            self.weight = nn.Parameter(torch.empty(features, in_dim, device=device, dtype=dtype))
         r = cfg.lora_rank
         self.has_lora = r > 0 and _lora_target(name, cfg)
         if self.has_lora:
@@ -184,14 +203,31 @@ class LoRALinear(nn.Module):
         """flax's defaults in distribution: lecun-normal kernel (std
         1/sqrt(in)), A ~ N(0, 0.02), B = 0."""
         with torch.no_grad():
-            self.weight.normal_(0.0, self.weight.shape[1] ** -0.5, generator=generator)
+            if not self.int8:
+                self.weight.normal_(0.0, self.weight.shape[1] ** -0.5, generator=generator)
             if self.has_lora:
                 self.lora_a.normal_(0.0, 0.02, generator=generator)
                 self.lora_b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # a no-op for a decode model, whose weights already are x's dtype
-        y = F.linear(x, self.weight.to(x.dtype))
+        if self.int8:
+            if torch.is_grad_enabled() and x.requires_grad:
+                raise NotImplementedError(
+                    "the int8 GEMM's backward is not ported to fedml_tpu_torch yet (see "
+                    "ROADMAP.md, Queue 1): run int8 weights without a gradient, as decoding does")
+            kq, ks = self.kernel_q, self.kernel_scale
+            if x.is_cuda:
+                # the weights are checked for the kernel once, not on every call
+                key = (id(kq), id(ks), kq.data_ptr(), ks.data_ptr())
+                if key != self._int8_checked:
+                    int8_ops.check_weights(kq, ks)
+                    self._int8_checked = key
+            # x . kernel_q^T accumulated in f32, times the f32 scale, then
+            # one cast to x's dtype (JAX's dot_general on the int8 operand)
+            y = int8_ops.int8_matmul(x, kq, ks, weights_checked=True)
+        else:
+            # a no-op for a decode model, whose weights already are x's dtype
+            y = F.linear(x, self.weight.to(x.dtype))
         if self.has_lora:
             scale = self.cfg.lora_alpha / self.cfg.lora_rank
             y = y + scale * ((x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype))

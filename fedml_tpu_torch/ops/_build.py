@@ -1,10 +1,15 @@
-"""Build the flash-attention kernels at first use.
+"""Build the port's CUDA kernels at first use: the three flash-attention
+kernels and the weight-only int8 GEMM.
 
-The CUDA sources (``csrc/flash_*.cu``) have a plain C interface and include
-no PyTorch header. ``nvcc`` compiles each source into its own shared library
+The CUDA sources (``csrc/*.cu``) have a plain C interface and include no
+PyTorch header. ``nvcc`` compiles each source into its own shared library
 (one process per source, all started together) and the libraries are loaded
 with ``ctypes``. They land in ``ops/_build/``, which ``.gitignore`` lists,
-named by a digest of the sources and flags, so a checkout builds once.
+named by a digest of the sources and flags, so a checkout builds once: a
+process that finds every library of its digest built runs no ``nvcc``. A
+serving ``ReplicaSet`` calls ``build()`` before it starts children that go
+on the card, and starts them with ``NO_BUILD_ENV`` set: a child that found
+a library missing would raise rather than run ``nvcc`` itself.
 ptxas's report of every kernel (registers, spills) is kept beside each
 library and read back by ``ptxas_report()`` and ``ptxas_notes()``. A build
 or launch error raises: nothing falls back to the plain PyTorch versions.
@@ -21,13 +26,14 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu")
+KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu", "int8_gemm.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
@@ -39,10 +45,18 @@ _C_SIGNATURES = {
     "fedml_flash_bwd_dq": [_P] * 7 + [_I] * 9 + [_P],
     # q, k, v, dout, lse, delta, dk, dv, bhkv, hq, hkv, t, d, causal, bq, bk, is_bf16, stream
     "fedml_flash_bwd_dkv": [_P] * 8 + [_I] * 9 + [_P],
+    # x, wq, scale, y, m, n, k, is_bf16, stream
+    "fedml_int8_gemm": [_P] * 4 + [_I] * 4 + [_P],
 }
 # The kernel designs in csrc/, indexed as flash_common.cuh's enum Design; each
 # library counts its successful launches of each (``_Kernels.design_launches``).
 DESIGNS = ("simt_f32_fma", "sm90_wgmma_tma")
+# The int8 GEMM's designs (int8_gemm.cu's enum Design): decode rows (M <= 8)
+# and the tiled prefill.
+INT8_DESIGNS = ("gemv_warp", "tiled_simt")
+# Set to 1 in a process whose parent built the libraries: it loads them and
+# never runs nvcc.
+NO_BUILD_ENV = "FEDML_TORCH_KERNELS_PREBUILT"
 
 
 def _nvcc() -> str:
@@ -50,7 +64,7 @@ def _nvcc() -> str:
 
     found = shutil.which("nvcc") or (CUDA_HOME and os.path.join(CUDA_HOME, "bin", "nvcc"))
     if not found or not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the flash kernels need the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
     return found
 
 
@@ -68,25 +82,31 @@ def _lib_path(src: str, digest: str) -> Path:
 
 def _build_libs(csrc: Path) -> list[Path]:
     """nvcc for every source whose library is missing, all in parallel."""
-    nvcc = _nvcc()
     digest = _source_digest(csrc)
+    missing = [src for src in KERNEL_SOURCES if not _lib_path(src, digest).exists()]
+    if missing and os.environ.get(NO_BUILD_ENV) == "1":
+        raise RuntimeError(
+            f"{', '.join(missing)} not built in {BUILD_DIR} (digest {digest}), and this process "
+            f"runs with {NO_BUILD_ENV}=1: its parent builds the kernels (ops/_build.build())")
+    nvcc = _nvcc() if missing else None
     jobs = {}
-    for src in KERNEL_SOURCES:
+    for src in missing:
         lib = _lib_path(src, digest)
-        if not lib.exists():
-            # written under a temporary name, so a cut build leaves no library
-            cmd = [nvcc, *CUDA_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-I", str(csrc),
-                   "-o", str(lib) + ".tmp", str(csrc / src)]
-            jobs[lib] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                         text=True)
+        # written under a temporary name of this process, so a cut build
+        # leaves no library and two processes building at once never mix
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [nvcc, *CUDA_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-I", str(csrc),
+               "-o", tmp, str(csrc / src)]
+        jobs[lib] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True))
     failed = []
-    for lib, proc in jobs.items():
+    for lib, (tmp, proc) in jobs.items():
         out, _ = proc.communicate()
         lib.with_suffix(".log").write_text(out)
         if proc.returncode:
             failed.append(f"{lib.name}:\n{out}")
         else:
-            os.replace(str(lib) + ".tmp", lib)
+            os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return [_lib_path(src, digest) for src in KERNEL_SOURCES]
@@ -134,11 +154,13 @@ def _demangle(names: list[str]) -> list[str]:
         return names
     if len(full) != len(names):
         return names
-    return [re.sub(r"^(?:void )?fedml_flash::(?:sm90::)?", "", f.split("(")[0]) for f in full]
+    return [re.sub(r"^(?:void )?fedml_(?:flash|int8)::(?:sm90::)?", "", f.split("(")[0])
+            for f in full]
 
 
 class _Kernels:
-    """fwd / bwd_dq / bwd_dkv over the C functions, taking tensors."""
+    """fwd / bwd_dq / bwd_dkv / int8_gemm over the C functions, taking
+    tensors."""
 
     def __init__(self, libs):
         self._libs = libs  # keep the libraries loaded
@@ -159,6 +181,14 @@ class _Kernels:
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
         return {design: fn(i) for i, design in enumerate(DESIGNS)}
+
+    def int8_design_launches(self) -> dict[str, int]:
+        """{design: launches since the library was loaded} of the int8 GEMM,
+        as its C entry point counted them (``INT8_DESIGNS``)."""
+        lib = next(lib for lib in self._libs if hasattr(lib, "fedml_int8_gemm_launches"))
+        fn = lib.fedml_int8_gemm_launches
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+        return {design: fn(i) for i, design in enumerate(INT8_DESIGNS)}
 
     def _call(self, name, q, *args):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -183,12 +213,28 @@ class _Kernels:
                    bq, bk)
 
 
+    def int8_gemm(self, x, wq, scale, y):
+        """y [M, N] = x [M, K] . wq [N, K]^T * scale [N] on x's card."""
+        self._call("fedml_int8_gemm", x, x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                   y.data_ptr(), x.shape[0], wq.shape[0], x.shape[1])
+
+
+_BUILD_LOCK = threading.Lock()  # threads of one process build one after another
+
+
+def build(csrc: Path = CSRC) -> list[Path]:
+    """Build every library of the sources in ``csrc`` that is not built yet,
+    without loading any; -> the libraries' paths."""
+    with _BUILD_LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        return _build_libs(csrc)
+
+
 def load(csrc: Path = CSRC) -> _Kernels:
     """The kernels of the sources in ``csrc``, built into BUILD_DIR unless a
     library of the same sources and flags is there already (the libraries
     are named by that digest, so other sources never collide with these)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    return _Kernels([ctypes.CDLL(str(lib)) for lib in _build_libs(csrc)])
+    return _Kernels([ctypes.CDLL(str(lib)) for lib in build(csrc)])
 
 
 @functools.cache

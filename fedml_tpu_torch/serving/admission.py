@@ -1,8 +1,6 @@
 """Session-aware multi-tenant admission control for the serving engines.
 
-A copy of ``fedml_tpu/serving/admission.py`` (framework-free). The labeled
-Prometheus family of rejects waits for the port's HTTP front and its
-``prom`` module (ROADMAP.md); the counters themselves are kept.
+A copy of ``fedml_tpu/serving/admission.py`` (framework-free).
 
 The front door runs BEFORE a request costs anything: prefill FLOPs, KV
 pages, and a decode slot are only spent on requests that pass. Three
@@ -28,8 +26,9 @@ mechanisms, in decision order:
    engine dequeues the smallest eligible tag. A flooding tenant's tags
    race ahead so its backlog waits behind everyone else's fresh arrivals.
 
-Every admission-path reject increments the counter
-``serving.admission.rejected.<tenant>.<reason>`` (``count_reject``).
+Every admission-path reject increments the labeled family
+``fedml_serving_admission_rejected_total{tenant=,reason=}`` (``count_reject``;
+every reject path routes there).
 """
 
 from __future__ import annotations
@@ -44,6 +43,8 @@ from ..core import telemetry as tel
 from ..core.telemetry import tsdb
 
 #: labeled-counter family: "serving.admission.rejected.<tenant>.<reason>"
+#: collapses to fedml_serving_admission_rejected_total{tenant=,reason=}
+#: (prom.register_prefix_family below)
 REJECT_PREFIX = "serving.admission.rejected."
 
 DEFAULT_TENANT = "default"
@@ -63,6 +64,22 @@ class AdmissionError(RuntimeError):
         super().__init__(f"admission rejected for tenant {tenant!r}: {reason}")
         self.tenant = tenant
         self.reason = reason
+
+
+_PROM_REGISTERED = False
+
+
+def _register_prom_family() -> None:
+    global _PROM_REGISTERED
+    if _PROM_REGISTERED:
+        return
+    from ..core.telemetry import prom
+
+    # the tenant set is the configured policy table, not the client population
+    prom.register_prefix_family(
+        REJECT_PREFIX, ("tenant", "reason"),
+        "admission-path rejects by tenant and reason")
+    _PROM_REGISTERED = True
 
 
 def count_reject(tenant: str, reason: str) -> None:
@@ -107,6 +124,7 @@ class AdmissionController:
         if not 0.0 < defer_burn <= shed_burn:
             raise ValueError(
                 f"need 0 < defer_burn <= shed_burn, got {defer_burn}/{shed_burn}")
+        _register_prom_family()
         self.policies = dict(policies or {})
         self.default = default or TenantPolicy()
         self.ttft_target_s = float(ttft_target_s)

@@ -29,7 +29,9 @@ and the engine refuses further work: after a device error it never
 carries on.
 
 Telemetry: TTFT/TPOT histograms, token/request counters, and a ``stats()``
-snapshot (slot occupancy, queue depth).
+snapshot (slot occupancy, queue depth) that the inference runner exports
+as Prometheus gauges and ``/statusz`` fields (the paged engine adds its
+page, prefix-cache and per-tenant gauges through ``prom_gauges``).
 """
 
 from __future__ import annotations

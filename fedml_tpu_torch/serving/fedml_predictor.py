@@ -79,8 +79,9 @@ class LLMPredictor(FedMLPredictor):
     int?, "temperature": float?, "seed": int?} -> {"text": str}.
 
     ``params`` is anything ``generation.decode_model`` takes; the decode
-    model (weights in ``cfg.dtype``) is built once, on ``device``, and
-    shared by every request and engine."""
+    model (weights in ``cfg.dtype``, or int8 under ``weight_quant="int8"``:
+    ``serving/quant.py``) is built once, on ``device``, and shared by every
+    request and engine."""
 
     def __init__(self, params, cfg, tokenizer, default_max_new_tokens: int = 64,
                  eos_id: "int | tuple | None" = None,
@@ -103,6 +104,10 @@ class LLMPredictor(FedMLPredictor):
         self._eos_id = eos_id if eos_id is not None else getattr(
             tokenizer, "special_tokens", {}
         ).get("</s>")
+        # pool role under disaggregated serving (DisaggregatedReplicaSet
+        # children get FEDML_SERVE_ROLE=prefill|decode): prefill replicas
+        # exist to absorb cold long prompts and cache warming
+        self.role = os.environ.get("FEDML_SERVE_ROLE", "mixed")
         self._ready = True  # flips False->True around warmup() when used
         # continuous batching (serving/continuous_batching.py): requests
         # stream through a slotted decode engine. Explicit arg wins; the
@@ -144,8 +149,9 @@ class LLMPredictor(FedMLPredictor):
         stop tokens, unless ``eos_id`` is given), weights through
         ``checkpoint_import``, the tokenizer from ``tokenizer.json``; ``kw``
         goes to the constructor (``device`` among them). ``quantize="int8"``
-        (weight-only int8 decode) is not ported: it waits for an int8 GEMM
-        (ROADMAP.md, Queue 1)."""
+        serves the checkpoint with weight-only int8 weights
+        (``serving/quant.py``), quantized on the serving device: half the
+        decode bytes of bf16, activations and KV cache unchanged."""
         import json
 
         from ..train.llm.checkpoint_import import config_from_hf, import_hf_checkpoint
@@ -154,12 +160,15 @@ class LLMPredictor(FedMLPredictor):
         # the mode is checked before the (possibly multi-GB) import
         if quantize not in ("none", "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        if quantize == "int8":
-            raise NotImplementedError(
-                "LLMPredictor.from_checkpoint(quantize='int8'), weight-only int8 decode, is not "
-                "ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
         cfg = config_from_hf(path)
         params = import_hf_checkpoint(path, cfg)
+        if quantize == "int8":
+            from ..device import resolve_device
+            from ..models.convert import params_from_jax
+            from .quant import quantize_model_int8
+
+            cfg, params = quantize_model_int8(cfg, params_from_jax(params),
+                                              device=resolve_device(kw.get("device", "cuda")))
         tok = load_or_train_tokenizer(None, os.path.join(path, "tokenizer.json"))
         if "eos_id" not in kw:
             # config.json's eos_token_id is authoritative (token strings vary

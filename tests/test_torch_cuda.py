@@ -926,3 +926,116 @@ def test_hf_import_placed_on_the_card(cuda, tmp_path):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+# the int8 GEMM against its plain version (ops/int8_matmul.py), relative
+# error over the whole output: bf16 outputs differ where the one cast of an
+# f32 result rounds the other way after another summation order (at most a
+# bf16 ulp, 2^-8, an element, far fewer in norm); f32 by summation order only.
+# The limits are chip_smoke.py's (INT8_RTOL).
+INT8_RTOL = {torch.bfloat16: 4e-3, torch.float32: 1e-5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (8, 4096, 11008), (77, 1024, 1000),
+                                   (512, 512, 256)])
+def test_int8_gemm_matches_plain_version(cuda, dtype, m, k, n):
+    from fedml_tpu_torch.ops import int8_matmul as im
+
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda, dtype)
+    wq = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8)).to(cuda)
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, n).astype(np.float32)).to(cuda)
+    before = im.launch_counts["int8_gemm"]
+    got = im.int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert im.launch_counts["int8_gemm"] == before + 1
+    ref = im.int8_matmul_reference(x, wq, scale)
+    assert got.dtype == dtype and got.shape == (m, n) and torch.isfinite(got).all()
+    rel = ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= INT8_RTOL[dtype], rel
+
+
+@pytest.mark.cuda
+def test_int8_gemm_refuses_what_the_kernel_does_not_take(cuda):
+    from fedml_tpu_torch.ops import int8_matmul as im
+
+    wq = torch.zeros(8, 24, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        im.int8_matmul(torch.zeros(1, 24, device=cuda), wq, torch.ones(8, device=cuda))
+    with pytest.raises(ValueError, match="takes x in"):
+        im.int8_matmul(torch.zeros(1, 16, device=cuda, dtype=torch.float16),
+                       wq[:, :16].contiguous(), torch.ones(8, device=cuda))
+
+
+@pytest.mark.cuda
+def test_int8_decode_on_cuda_matches_the_cpu(cuda):
+    """A tiny f32 int8 model decodes the same greedy tokens through the
+    kernel on the card as through the plain version on the CPU."""
+    from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from fedml_tpu_torch.serving.quant import quantize_model_int8
+    from fedml_tpu_torch.train.llm import generation as tg
+
+    cfg = TransformerConfig(vocab_size=96, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                            d_ff=128, max_seq_len=32, remat=False, lora_rank=0,
+                            dtype=torch.float32)
+    model = TransformerLM(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    qcfg, qstate = quantize_model_int8(cfg, model)
+    prompts = [[1, 5, 9, 3], [7, 2, 2, 8]]
+    cpu = tg.generate(tg.decode_model(qcfg, qstate, device="cpu"), qcfg, prompts, 8, device="cpu")
+    card = tg.generate(tg.decode_model(qcfg, qstate, device=cuda), qcfg, prompts, 8, device=cuda)
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_a_fresh_checkout_s_card_replica_loads_the_kernels_its_parent_built(cuda, tmp_path):
+    """deploy_isolated from a checkout that has built no kernel: the
+    ReplicaSet builds them once, in the deploying process, before its child
+    starts; the child (an int8 replica, which launches the GEMM) loads them
+    under the flag that makes a missing library raise, so it ran no nvcc."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+    import textwrap
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    shutil.copytree(root / "fedml_tpu_torch", tmp_path / "fedml_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    script = textwrap.dedent("""
+        import json, os, urllib.request
+        from fedml_tpu_torch.ops import _build
+        from fedml_tpu_torch.serving.endpoint import EndpointManager
+
+        assert not _build.BUILD_DIR.exists()
+        env = dict(os.environ, FEDML_BENCH_TINY="1", FEDML_BENCH_INT8="1",
+                   FEDML_REPLICA_MEM_FRACTION="0.05")
+        mgr = EndpointManager()
+        gw = mgr.deploy_isolated(
+            "fresh", "fedml_tpu_torch.serving.bench_predictors:llm_bench_predictor", 1, env=env)
+        try:
+            built = {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.iterdir()}
+            out = gw.predict({"prompt": "federated", "max_new_tokens": 4})
+            url = gw.replica_set.healthy()[0].url
+            metrics = urllib.request.urlopen(url + "/metrics", timeout=30).read().decode()
+            after = {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.iterdir()}
+        finally:
+            mgr.undeploy("fresh")
+        launches = [float(line.split()[-1]) for line in metrics.splitlines()
+                    if line.startswith("fedml_ops_int8_gemm_launches_total")]
+        print(json.dumps({"libs": sorted(n for n in built if n.endswith(".so")),
+                          "unchanged": built == after, "launches": launches,
+                          "text": out["text"]}))
+    """)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("FEDML_")}
+    env["PYTHONPATH"] = str(tmp_path)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(res["libs"]) == len(_build.KERNEL_SOURCES), res
+    assert res["unchanged"] and res["launches"] and res["launches"][0] > 0, res

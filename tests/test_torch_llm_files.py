@@ -350,8 +350,13 @@ def test_from_checkpoint_reads_eos_from_config(ckpt, tmp_path, monkeypatch):
 
 
 def test_from_checkpoint_refuses_int8_before_the_import(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMPredictor.from_checkpoint(str(tmp_path), quantize="int8")  # an empty dir: no import
+    """int8 is a known mode now (tests/test_torch_serving_quant.py serves
+    it): on an empty dir it reaches the import and fails there, as JAX
+    does; an unknown mode is still refused before any import."""
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        LLMPredictor.from_checkpoint(str(tmp_path), quantize="int8", device="cpu")
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        JPredictor.from_checkpoint(str(tmp_path), quantize="int8")
     with pytest.raises(ValueError, match="unknown quantize mode"):
         LLMPredictor.from_checkpoint(str(tmp_path), quantize="fp4")
 

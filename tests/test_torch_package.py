@@ -61,13 +61,18 @@ def test_importing_builds_nothing():
 
 
 def test_kernel_sources_and_build_dir():
-    """Three CUDA kernels with a plain C interface, built by nvcc alone: no
-    source includes PyTorch's headers, ptxas reports registers and spills;
-    the build dir is ignored."""
+    """The CUDA kernels (the three flash kernels and the int8 GEMM) have a
+    plain C interface and are built by nvcc alone: no source includes
+    PyTorch's headers, ptxas reports registers and spills; the build dir is
+    ignored. Each source names the TPU kernel it replaces, or says that it
+    replaces none and why it exists."""
     for src in _build.KERNEL_SOURCES:
         text = (_build.CSRC / src).read_text()
         assert 'extern "C"' in text
-        assert "Replaces: fedml_tpu/ops/flash_attention.py:" in text
+        if src.startswith("flash_"):
+            assert "Replaces: fedml_tpu/ops/flash_attention.py:" in text
+        else:
+            assert "Replaces: no TPU kernel." in text and "transformer.py:149-155" in text
     for path in _build.CSRC.iterdir():
         assert path.suffix in (".cu", ".cuh"), path.name
         assert "torch/" not in path.read_text(), path.name
@@ -558,3 +563,91 @@ def test_file_readers_load_no_jax_ml_dtypes_or_the_jax_dataplane(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     assert "BAD []" in out.stdout, out.stdout
     assert "fedml_tpu_torch/ops/_build/" in (ROOT / ".gitignore").read_text().splitlines()
+
+
+FRONT_DOOR_MODULES = (
+    "fedml_tpu_torch.core.telemetry.prom", "fedml_tpu_torch.core.telemetry.statusz",
+    "fedml_tpu_torch.core.telemetry.slo", "fedml_tpu_torch.core.telemetry.flight_recorder",
+    "fedml_tpu_torch.core.telemetry.tsdb", "fedml_tpu_torch.ops.int8_matmul",
+    "fedml_tpu_torch.serving.quant", "fedml_tpu_torch.serving.fedml_inference_runner",
+    "fedml_tpu_torch.serving.endpoint", "fedml_tpu_torch.serving.replica_main",
+    "fedml_tpu_torch.serving.replica_controller", "fedml_tpu_torch.serving.bench_predictors",
+)
+
+
+def test_front_door_modules_load_no_jax_or_fedml_tpu():
+    """The serving front door and its telemetry on their own: importing
+    them, one int8 product on the CPU and one rendered /metrics page leave
+    no jax or fedml_tpu module loaded and build no kernel."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {FRONT_DOOR_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "from fedml_tpu_torch.ops.int8_matmul import int8_matmul\n"
+        "y = int8_matmul(torch.ones(2, 16), torch.ones(3, 16, dtype=torch.int8), torch.ones(3))\n"
+        "assert torch.equal(y, torch.full((2, 3), 16.0))\n"
+        "from fedml_tpu_torch.core.telemetry import prom\n"
+        "assert prom.render().endswith('\\n')\n"
+        "from fedml_tpu_torch.ops import _build\n"
+        "assert _build.kernels.cache_info().currsize == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fedml_tpu'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_a_replica_child_loads_no_jax_or_fedml_tpu(monkeypatch):
+    """A replica child started by SubprocessReplica (replica_main, the
+    runner, the tiny bench predictor on the CPU) answers a request with no
+    jax or fedml_tpu module loaded in it."""
+    import json
+    import urllib.request
+
+    from fedml_tpu_torch.serving.replica_controller import SubprocessReplica
+
+    monkeypatch.setenv("FEDML_REPLICA_PLATFORM", "cpu")
+    monkeypatch.setenv("FEDML_BENCH_TINY", "1")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.delenv("PYTHONPATH", raising=False)
+    replica = SubprocessReplica("tests._replica_probe:probe_predictor", startup_timeout_s=120)
+    try:
+        req = urllib.request.Request(
+            replica.url + "/predict", data=json.dumps({"prompt": "serving", "max_new_tokens": 2})
+            .encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            out = json.loads(r.read())
+        assert isinstance(out["text"], str) and out["foreign_modules"] == []
+    finally:
+        replica.stop()
+    assert not replica.alive()
+
+
+def test_front_door_entry_points_raise_without_cuda(no_cuda, monkeypatch):
+    """The int8 path and the bench predictor default to the card and raise
+    without it; asked for the CPU they run."""
+    from fedml_tpu_torch.models.transformer import TransformerConfig
+    from fedml_tpu_torch.serving.bench_predictors import llm_bench_predictor
+    from fedml_tpu_torch.serving.quant import quantize_model_int8
+    from fedml_tpu_torch.train.llm import generation as tg
+
+    monkeypatch.setenv("FEDML_BENCH_TINY", "1")
+    monkeypatch.delenv("FEDML_REPLICA_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        llm_bench_predictor()
+    monkeypatch.setenv("FEDML_REPLICA_PLATFORM", "cpu")
+    n = torch.get_num_threads()
+    try:
+        assert llm_bench_predictor().ready()
+    finally:
+        torch.set_num_threads(n)
+    cfg, model = _tiny_lm(dtype=torch.float32)
+    qcfg, qstate = quantize_model_int8(cfg, model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tg.decode_model(qcfg, qstate)
+    assert tg.decode_model(qcfg, qstate, device="cpu").lm_head.kernel_q.dtype == torch.int8
+    assert isinstance(qcfg, TransformerConfig)

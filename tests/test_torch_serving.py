@@ -151,19 +151,26 @@ def test_llm_predictor_environment_seams(toks, served, monkeypatch):
 
 
 def test_from_checkpoint_and_int8_raise_not_implemented(toks, served, tmp_path):
-    """from_checkpoint is ported (tests/test_torch_llm_files.py): on a dir
-    with no checkpoint it raises JAX's FileNotFoundError; int8 weights stay
-    refused, checked before any import."""
+    """from_checkpoint and int8 weights are ported (tests/test_torch_llm_files.py,
+    tests/test_torch_serving_quant.py): on a dir with no checkpoint both
+    modes raise JAX's FileNotFoundError; an int8 config beside float
+    weights is refused at load, and with the weights quantized it serves."""
     with pytest.raises(FileNotFoundError, match="config.json"):
         LLMPredictor.from_checkpoint(str(tmp_path))
     with pytest.raises(FileNotFoundError, match="config.json"):
         JPredictor.from_checkpoint(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="int8.*ROADMAP"):
-        LLMPredictor.from_checkpoint(str(tmp_path), quantize="int8")
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        LLMPredictor.from_checkpoint(str(tmp_path), quantize="int8", device="cpu")
     jparams, _, tcfg = served
-    with pytest.raises(NotImplementedError, match="weight_quant"):
+    with pytest.raises(RuntimeError, match="kernel_q"):
         LLMPredictor(jparams, dataclasses.replace(tcfg, weight_quant="int8"), toks[0],
                      device="cpu")
+    from fedml_tpu_torch.models.convert import params_from_jax
+    from fedml_tpu_torch.serving.quant import quantize_model_int8
+
+    qcfg, qstate = quantize_model_int8(tcfg, params_from_jax(jparams))
+    pred = LLMPredictor(qstate, qcfg, toks[0], default_max_new_tokens=4, device="cpu")
+    assert isinstance(pred.predict({"prompt": "the quick"})["text"], str)
 
 
 def test_torch_predictor_serves_like_jax_predictor():
