@@ -22,10 +22,12 @@ Phases, in order (any failed check exits non-zero; no phase swallows an
 exception):
 
 1. device: the card's name and power limit (nvidia-smi) and the versions;
-2. build: the three flash-attention kernels from ops/csrc with nvcc, at
-   first use, with the build time and ptxas's registers and spills of every
-   kernel; every wgmma kernel must build without spills and without a ptxas
-   performance advisory (C75xx, such as "wgmma serialized");
+2. build: the three flash-attention kernels and the int8 GEMM from
+   ops/csrc with nvcc, at first use, with the build time and ptxas's
+   registers and spills of every kernel; every wgmma kernel and every
+   tensor-core instance of the int8 GEMM must build without spills, and no
+   kernel with a ptxas performance advisory (C75xx, such as "wgmma
+   serialized");
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the slice shapes (B=2, T=2048, Hq=32, D=128, bf16; causal, dense, GQA with
    Hkv=8, ragged T=2000, f32) and then every compiled instance (both dtypes,
@@ -331,8 +333,10 @@ exception):
    first token and decode ms; (a) and (b) launch no flash kernel;
 21. the serving front door: (a) the int8 GEMM (ops/csrc/int8_gemm.cu)
    against its plain version on the card at Llama-2-7B's projection shapes
-   (K x N 4096x4096, 4096x11008, 11008x4096, 4096x32000) at M 1, 8 and 512
-   in bf16 and one f32 case (INT8_RTOL, relative over the output), each
+   (K x N 4096x4096, 4096x11008, 11008x4096, 4096x32000) at M 1, 8 (decode
+   rows), 16, 64, 128 (short prompts' prefills) and 512 in bf16 and two f32
+   cases (INT8_RTOL, relative over the output), each launch through the
+   design int8_matmul.design_for names (the C entry point's counters), each
    timed over INT8_ITERS back-to-back launches queued behind a sleep (the
    device's time, weights rotated through copies past the 50 MB L2) beside
    its plain version, its bound and torch._weight_int8pack_mm (the bf16
@@ -340,7 +344,9 @@ exception):
    widths at SERVE_LAYERS from phase 6's seeded bf16 weights:
    quantize_params_int8 on the card bit-equal to the CPU's, the first
    token's logits within KEY_RTOL of the plain int8 path's on the card, the
-   kernel launched on every projection and no flash launch, the no-copy
+   kernel launched on every projection and no flash launch, every launch
+   on the design design_for names (bf16 prefills on sm90_wgmma_tma, decode
+   rows on the mma.sync design; a bf16 tiled_simt launch fails), the no-copy
    gate (a B=1 decode step's extra peak memory below one bf16 copy of the
    smallest projection), resident weight bytes and ms a decoded token int8
    against bf16 at B=1 and 8; (c) EndpointManager.deploy_isolated with 2
@@ -5853,14 +5859,16 @@ def files_phase(libs) -> dict:
 # (a) the int8 GEMM at Llama-2-7B's projection shapes, (K, N): q/k/v/o,
 # gate/up, down, lm_head
 INT8_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
-INT8_MS = (1, 8, 512)
-INT8_F32_CASE = (8, 4096, 4096)  # (M, K, N)
+INT8_MS = (1, 8, 16, 64, 128, 512)
+INT8_NEW_MS = (16, 64, 128)  # short prompts' prefills: the library call gets INT8_LIB_ITERS_NEW
+INT8_F32_CASES = ((8, 4096, 4096), (64, 4096, 4096))  # (M, K, N): gemv_warp, tiled_simt
 # kernel against plain version, ||y - y_ref|| / ||y_ref|| over the output:
 # bf16 outputs differ where the one cast of an f32 result rounds the other
 # way after another summation order (at most one bf16 ulp, 2^-8 relative,
 # an element, far less in norm); f32 outputs by summation order only
 INT8_RTOL = {"bfloat16": 4e-3, "float32": 1e-5}
 INT8_ITERS = 50
+INT8_LIB_ITERS_NEW = 3  # torch._weight_int8pack_mm takes 19-146 ms a call at M=512
 INT8_ROTATE_BYTES = 100e6  # weight copies cycled per timing: twice the 50 MB L2
 INT8_ROW = (1, 4096, 11008)  # the kernels line's row: one decode step's gate/up projection
 # (b) the no-copy gate: a B=1 decode step may allocate less than one bf16
@@ -5917,17 +5925,25 @@ def int8_case(im, m: int, k: int, n: int, dtype, seed: int) -> dict:
 
     import torch
 
+    from fedml_tpu_torch.ops import _build
+
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
     copies = max(1, int(-(-INT8_ROTATE_BYTES // (n * k))))
     ws = [(torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8),
            torch.rand(n, generator=g, device="cuda") * 1e-2 + 1e-4) for _ in range(copies)]
     wq, scale = ws[0]
-    y = im.int8_matmul(x, wq, scale)
-    torch.cuda.synchronize()
-    ref = im.int8_matmul_reference(x, wq, scale)
     name = str(dtype).split(".")[-1]
     label = f"int8 GEMM M={m} K={k} N={n} {name}"
+    libs = _build.kernels()
+    d0 = libs.int8_design_launches()
+    y = im.int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    d1 = libs.int8_design_launches()
+    ran = [d for d in d1 if d1[d] != d0[d]]
+    design = im.design_for(m, dtype)
+    check(ran == [design], f"{label}: launched {ran}, design_for names {design}")
+    ref = im.int8_matmul_reference(x, wq, scale)
     check(bool(torch.isfinite(y).all().item()), f"{label}: not finite")
     rel = ((y.float() - ref.float()).norm() / ref.float().norm()).item()
     check(rel <= INT8_RTOL[name], f"{label}: relative error {rel:.3g} > {INT8_RTOL[name]}")
@@ -5935,7 +5951,7 @@ def int8_case(im, m: int, k: int, n: int, dtype, seed: int) -> dict:
     ms = device_ms(lambda: im.int8_matmul(x, *next(cyc)))
     plain_ms = device_ms(lambda: im.int8_matmul_reference(x, *next(cyc)), 3)
     library, library_ms = "torch._weight_int8pack_mm", None
-    lib_iters = INT8_ITERS if m <= 8 else 5  # it takes 19-146 ms a call at M=512
+    lib_iters = INT8_ITERS if m <= 8 else INT8_LIB_ITERS_NEW if m in INT8_NEW_MS else 5
     try:
         lib_s = [(w, s.to(dtype)) for w, s in ws]
         cyc_l = itertools.cycle(lib_s)
@@ -5958,13 +5974,14 @@ def int8_case(im, m: int, k: int, n: int, dtype, seed: int) -> dict:
     del wd
     esize = x.element_size()
     nbytes = n * k + m * k * esize + m * n * esize + n * 4  # wq, x, y, scale
-    row = {"m": m, "k": k, "n": n, "dtype": name, "rel_err": rel, "library_iters": lib_iters,
+    row = {"m": m, "k": k, "n": n, "dtype": name, "design": design, "rel_err": rel,
+           "library_iters": lib_iters,
            "max_abs_err": (y.float() - ref.float()).abs().max().item(), "ms": ms,
            "plain_ms": plain_ms, **_bound(2.0 * m * n * k, nbytes, dtype),
            "library_ms": library_ms, "library": library, "weight_copies": copies,
            "dense_ms": dense_ms}
     row["share_of_bound"] = row["bound_ms"] / ms
-    say(f"  {label}: rel {rel:.3g}, {ms * 1e3:.2f} us (bound {row['bound_ms'] * 1e3:.2f} us by "
+    say(f"  {label} ({design}): rel {rel:.3g}, {ms * 1e3:.2f} us (bound {row['bound_ms'] * 1e3:.2f} us by "
         f"{row['bound_by']}, {row['share_of_bound']:.1%}), plain {plain_ms * 1e3:.1f} us, "
         f"library {library_ms * 1e3:.2f} us, dense {dense_ms * 1e3:.2f} us")
     return row
@@ -5981,8 +5998,8 @@ def int8_sweep(im) -> list:
     for i, (k, n) in enumerate(INT8_SHAPES):
         for m in INT8_MS:
             rows.append(int8_case(im, m, k, n, torch.bfloat16, seed=100 + 10 * i + m))
-    m, k, n = INT8_F32_CASE
-    rows.append(int8_case(im, m, k, n, torch.float32, seed=7))
+    for m, k, n in INT8_F32_CASES:
+        rows.append(int8_case(im, m, k, n, torch.float32, seed=7 + m))
     return rows
 
 
@@ -6034,7 +6051,7 @@ def int8_decode(im, libs) -> dict:
 
     from fedml_tpu_torch.ops import flash_attention as fa
     from fedml_tpu_torch.serving.quant import quantize_params_int8
-    from fedml_tpu_torch.train.llm.generation import decode_model, generate_batch
+    from fedml_tpu_torch.train.llm.generation import decode_model
 
     out = {}
     cfg, bf16 = _serve_model()
@@ -6069,6 +6086,62 @@ def int8_decode(im, libs) -> dict:
     im.reset_launch_counts()
     fa.reset_launch_counts()
     designs0 = libs.int8_design_launches()
+    # the design and rows M of every call in (b): a Python call and a dict
+    # update a projection, under a microsecond of a token's milliseconds
+    by_rows = {}
+    wrapper = im.int8_matmul
+
+    def tallied(x, wq, scale, **kw):
+        m = x.numel() // x.shape[-1]
+        key = f"{im.design_for(m, x.dtype)} M={m}"
+        by_rows[key] = by_rows.get(key, 0) + 1
+        return wrapper(x, wq, scale, **kw)
+
+    im.int8_matmul = tallied
+    try:
+        _int8_decode_runs(im, out, cfg, qcfg, int8, bf16)
+    finally:
+        im.int8_matmul = wrapper
+    out["launches_by_design_and_rows"] = dict(sorted(by_rows.items()))
+    say(f"  int8 calls in (b) by design and rows: {out['launches_by_design_and_rows']}")
+    out["launches"] = dict(im.launch_counts)
+    check(sum(by_rows.values()) == out["launches"]["int8_gemm"],
+          f"{sum(by_rows.values())} calls tallied, {out['launches']} launched")
+    # each launch's design, as the C entry point counted it: decode rows
+    # (M <= 8) and the prefills (M = B x the prompt's bucket)
+    designs1 = libs.int8_design_launches()
+    out["design_launches"] = {d: designs1[d] - designs0[d] for d in designs1}
+    say(f"  int8 launches in (b) by design: {out['design_launches']}")
+    check(sum(out["design_launches"].values()) == out["launches"]["int8_gemm"],
+          f"the designs' launches {out['design_launches']} do not add up to the wrapper's "
+          f"{out['launches']}")
+    # each launch on the design design_for names for its rows: the wrapper's
+    # tally by that rule against the C entry point's own counters
+    check(out["design_launches"] == im.design_counts,
+          f"launches by design {out['design_launches']}, design_for's {im.design_counts}")
+    check(out["design_launches"]["tiled_simt"] == 0,
+          f"a bf16 prefill launched tiled_simt: {out['design_launches']}")
+    prefill = out["design_launches"]["sm90_wgmma_tma"]
+    decode = out["design_launches"][im.design_for(im.GEMV_MAX_M, torch.bfloat16)]
+    check(prefill > 0 and decode > 0,
+          f"(b) ran {prefill} wgmma prefills and {decode} mma.sync decodes")
+    out["flash_launches"] = dict(fa.launch_counts)
+    check(out["launches"]["int8_gemm"] > 0, "the int8 kernel never launched in (b)")
+    check(all(n == 0 for n in out["flash_launches"].values()),
+          f"int8 decode launched flash kernels: {out['flash_launches']}")
+    del int8, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _int8_decode_runs(im, out: dict, cfg, qcfg, int8, bf16) -> None:
+    """(b)'s int8 work: the first token against the plain int8 path, the
+    no-copy gate, ms a decoded token int8 against bf16."""
+    import torch
+
+    from fedml_tpu_torch.train.llm.generation import generate_batch
+
     g = torch.Generator(device=DEV).manual_seed(SERVE_SEED + 21)
     prompt = torch.randint(0, cfg.vocab_size, (2, 48), generator=g, device=DEV)
     with torch.inference_mode():
@@ -6110,23 +6183,6 @@ def int8_decode(im, libs) -> dict:
             ms_tok[f"{name}_b{b}"] = (t48 - t16) / 32
     out["decode_ms_per_token"] = ms_tok
     say(f"  ms a decoded token (generate_batch): {ms_tok}")
-    out["launches"] = dict(im.launch_counts)
-    # each launch's design, as the C entry point counted it: decode rows
-    # (M <= 8) and the prefills (M = B x the prompt's bucket)
-    designs1 = libs.int8_design_launches()
-    out["design_launches"] = {d: designs1[d] - designs0[d] for d in designs1}
-    say(f"  int8 launches in (b) by design: {out['design_launches']}")
-    check(sum(out["design_launches"].values()) == out["launches"]["int8_gemm"],
-          f"the designs' launches {out['design_launches']} do not add up to the wrapper's "
-          f"{out['launches']}")
-    out["flash_launches"] = dict(fa.launch_counts)
-    check(out["launches"]["int8_gemm"] > 0, "the int8 kernel never launched in (b)")
-    check(all(n == 0 for n in out["flash_launches"].values()),
-          f"int8 decode launched flash kernels: {out['flash_launches']}")
-    del int8, bf16
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
 
 
 def _prom_samples(text: str) -> dict:
@@ -6434,10 +6490,13 @@ def front_door_phase(libs) -> dict:
     """Phase 21: the int8 GEMM, in-process int8 decode, the endpoint."""
     import torch
 
+    from fedml_tpu_torch.ops import _build
     from fedml_tpu_torch.ops import flash_attention as fa
     from fedml_tpu_torch.ops import int8_matmul as im
 
-    res = {}
+    # registers, spills and shared memory of each instance (phase 2 prints them)
+    res = {"int8_ptxas": [line for line in _build.ptxas_report()
+                          if line.startswith(("gemv", "tiled", "wgmma_kernel"))]}
     t0 = time.time()
     say("  (a) the int8 GEMM against its plain version")
     res["int8_gemm"] = int8_sweep(im)
@@ -6501,6 +6560,11 @@ def main() -> int:
     sm90 = [line for line in report if "_sm90<" in line]
     check(len(sm90) == 2 * len(KERNELS), f"expected two wgmma instances per kernel: {sm90}")
     check(all("spill stores 0 B, loads 0 B" in line for line in sm90), "a wgmma kernel spills")
+    # the int8 GEMM's tensor-core designs (gemv_mma, sm90_wgmma_tma)
+    int8_tc = [line for line in report if line.startswith(("gemv_mma_kernel", "wgmma_kernel"))]
+    check(len(int8_tc) >= 2, f"the int8 GEMM's tensor-core instances are missing: {int8_tc}")
+    check(all("spill stores 0 B, loads 0 B" in line for line in int8_tc),
+          "an int8 tensor-core kernel spills")
     notes = _build.ptxas_notes()
     check(not notes, f"ptxas performance advisories: {notes}")
 
@@ -6801,21 +6865,26 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": errs[name], **timing[name],
                      "design": "+".join(sorted(by_design[name]))})
-    int8_row = next(r for r in front["int8_gemm"]
-                    if (r["m"], r["k"], r["n"]) == INT8_ROW and r["dtype"] == "bfloat16")
-    rows.append({"name": "int8_gemm", "route": "cuda",
-                 "source": "fedml_tpu_torch/ops/csrc/int8_gemm.cu",
-                 "replaces": "none: no TPU kernel (fedml_tpu/models/transformer.py:149, "
-                             "lax.dot_general on the int8 operand)",
-                 "launches": front["decode"]["launches"]["int8_gemm"],
-                 "max_abs_err": max(r["max_abs_err"] for r in front["int8_gemm"]),
-                 "ms": int8_row["ms"], "plain_ms": int8_row["plain_ms"],
-                 "bound_ms": int8_row["bound_ms"], "bound_by": int8_row["bound_by"],
-                 "library_ms": int8_row["library_ms"],
-                 "shape": f"M={INT8_ROW[0]} K={INT8_ROW[1]} N={INT8_ROW[2]} bf16",
-                 "design": "+".join(sorted(d for d, n in front["decode"]["design_launches"].items()
-                                           if n)),
-                 "design_launches": front["decode"]["design_launches"]})
+    # the int8 GEMM: one row a design that (b)'s int8 decode launched, its
+    # times at gate/up's shape (K 4096, N 11008): a decode row at M=1, the
+    # prefill at M=512; launches are (b)'s by design
+    for design, n_launched in front["decode"]["design_launches"].items():
+        if not n_launched:
+            continue
+        mine = [r for r in front["int8_gemm"] if r["design"] == design]
+        at = [r for r in mine if (r["k"], r["n"]) == INT8_ROW[1:] and r["dtype"] == "bfloat16"]
+        int8_row = min(at, key=lambda r: r["m"]) if at[0]["m"] <= 8 else max(at, key=lambda r: r["m"])
+        rows.append({"name": f"int8_gemm.{design}", "route": "cuda",
+                     "source": "fedml_tpu_torch/ops/csrc/int8_gemm.cu",
+                     "replaces": "none: no TPU kernel (fedml_tpu/models/transformer.py:149, "
+                                 "lax.dot_general on the int8 operand)",
+                     "launches": n_launched,
+                     "max_abs_err": max(r["max_abs_err"] for r in mine),
+                     "ms": int8_row["ms"], "plain_ms": int8_row["plain_ms"],
+                     "bound_ms": int8_row["bound_ms"], "bound_by": int8_row["bound_by"],
+                     "library_ms": int8_row["library_ms"],
+                     "shape": f"M={int8_row['m']} K={int8_row['k']} N={int8_row['n']} bf16",
+                     "design": design})
     say(f"  total {time.time() - t_start:.1f}s")
     print(json.dumps({"serve": {"card": card, **serve}}), flush=True)
     print(json.dumps({"fedavg": {"card": card, "flash_launches": fedavg_launches,

@@ -51,9 +51,10 @@ _C_SIGNATURES = {
 # The kernel designs in csrc/, indexed as flash_common.cuh's enum Design; each
 # library counts its successful launches of each (``_Kernels.design_launches``).
 DESIGNS = ("simt_f32_fma", "sm90_wgmma_tma")
-# The int8 GEMM's designs (int8_gemm.cu's enum Design): decode rows (M <= 8)
-# and the tiled prefill.
-INT8_DESIGNS = ("gemv_warp", "tiled_simt")
+# The int8 GEMM's designs (int8_gemm.cu's enum Design): the SIMT decode rows
+# (M <= 8) and tiled prefill of the f32 path, then the bf16 path's
+# mma.sync decode rows and wgmma/TMA prefill (ops/int8_matmul.py design_for).
+INT8_DESIGNS = ("gemv_warp", "tiled_simt", "gemv_mma", "sm90_wgmma_tma")
 # Set to 1 in a process whose parent built the libraries: it loads them and
 # never runs nvcc.
 NO_BUILD_ENV = "FEDML_TORCH_KERNELS_PREBUILT"

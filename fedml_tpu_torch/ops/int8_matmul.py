@@ -6,9 +6,9 @@ int8 operand with f32 accumulation (``fedml_tpu/models/transformer.py``),
 outside any Pallas kernel, and XLA widens the int8 operand inside its
 matmul. PyTorch has no mixed bf16 x s8 product: ``F.linear`` on
 ``wq.to(bf16)`` would write a bf16 copy of every weight on every decoded
-token. ``csrc/int8_gemm.cu`` is a hand-written kernel that reads the int8
-weights once and widens them in registers (its header gives the design
-and the bound).
+token. ``csrc/int8_gemm.cu`` holds hand-written kernels that read the int8
+weights once and widen them on chip (its header gives each design and its
+bound); ``design_for`` says which design a call launches.
 
 ``int8_matmul(x, wq, scale)`` computes ``cast(scale[n] * sum_k x[..., k] *
 float(wq[n, k]))``: x ``[..., K]`` in bf16 or f32, wq ``[N, K]`` int8
@@ -24,9 +24,12 @@ from __future__ import annotations
 import torch
 
 from ..core import telemetry as tel
+from ._build import INT8_DESIGNS
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 K_MULTIPLE = 16  # the kernel reads 16 int8 of a row with one 128-bit load
+GEMV_MAX_M = 8  # rows up to this M are decode rows (int8_gemm.cu kGemvMaxM)
+MMA_MIN_M = 2  # bf16 decode rows from this M up take gemv_mma (kMmaMinM)
 
 # Launches of the kernel; the wrapper adds one where it launches it and
 # nowhere else. The plain version is not counted. Each launch also adds one
@@ -34,11 +37,36 @@ K_MULTIPLE = 16  # the kernel reads 16 int8 of a row with one 128-bit load
 # shows its own launches (fedml_ops_int8_gemm_launches_total).
 launch_counts = {"int8_gemm": 0}
 LAUNCH_COUNTER = "ops.int8_gemm.launches"
+# The same launches by the design ``design_for`` names for each; the C entry
+# point counts its own (``_build.kernels().int8_design_launches()``), and the
+# card holds the two against each other.
+design_counts = {name: 0 for name in INT8_DESIGNS}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, design_counts):
+        for name in counts:
+            counts[name] = 0
+
+
+def design_for(m: int, dtype: torch.dtype) -> str:
+    """The design (``INT8_DESIGNS``) the kernel launches for x [m, K] of
+    ``dtype``, as int8_gemm.cu's ``design_for`` picks it: bf16 decode rows
+    2 <= m <= 8 on ``gemv_mma`` (mma.sync), bf16 prefills (m > 8) on
+    ``sm90_wgmma_tma``, bf16 m = 1 on ``gemv_warp`` (``gemv_mma`` measured
+    3% slower there at 4096 x 32000 on an H100, PERF.md); f32 stays on the
+    SIMT designs
+    (``gemv_warp`` for m <= 8, ``tiled_simt`` above), since the tensor cores
+    would need TF32."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the int8 GEMM takes x in {KERNEL_DTYPES}, got {dtype}")
+    if m < 1:
+        raise ValueError(f"no design launches for m = {m}")
+    if dtype == torch.float32:
+        return "gemv_warp" if m <= GEMV_MAX_M else "tiled_simt"
+    if m > GEMV_MAX_M:
+        return "sm90_wgmma_tma"
+    return "gemv_mma" if m >= MMA_MIN_M else "gemv_warp"
 
 
 def int8_matmul_reference(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -115,5 +143,6 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
             with torch.cuda.device(x.device):  # launch on x's card, not the current one
                 _kernels().int8_gemm(x2, wq, scale, y)
         launch_counts["int8_gemm"] += 1
+        design_counts[design_for(x2.shape[0], x2.dtype)] += 1
         tel.counter(LAUNCH_COUNTER).add(1)
     return y.reshape(*lead, wq.shape[0])

@@ -934,13 +934,21 @@ def test_hf_import_placed_on_the_card(cuda, tmp_path):
 # bf16 ulp, 2^-8, an element, far fewer in norm); f32 by summation order only.
 # The limits are chip_smoke.py's (INT8_RTOL).
 INT8_RTOL = {torch.bfloat16: 4e-3, torch.float32: 1e-5}
+# the tile edges of the bf16 designs: M around the decode limit of 8 and the
+# prefill's token tiles (16, 32, 64, 128; two consumers above 128), N 1000
+# (not a multiple of the 64- and 128-channel tiles), K 48 and 1040 (multiples
+# of 16, not of the prefill's 128-column stage; 48 leaves one stage, 1040 a
+# K split over a cluster with a ragged end); f32 stays on the SIMT designs
+INT8_CASES = [(torch.bfloat16, m, n, k)
+              for m in (1, 2, 7, 8, 9, 16, 63, 64, 65, 77, 130, 512, 1000)
+              for n in (1000, 4096) for k in (48, 1040, 4096)] + \
+             [(torch.float32, m, n, k) for m in (1, 7, 8, 9, 77, 512)
+              for n, k in ((1000, 1040), (4096, 4096))]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (8, 4096, 11008), (77, 1024, 1000),
-                                   (512, 512, 256)])
-def test_int8_gemm_matches_plain_version(cuda, dtype, m, k, n):
+@pytest.mark.parametrize("dtype,m,n,k", INT8_CASES)
+def test_int8_gemm_matches_plain_version(cuda, dtype, m, n, k):
     from fedml_tpu_torch.ops import int8_matmul as im
 
     rng = np.random.default_rng(m + k + n)
@@ -948,9 +956,13 @@ def test_int8_gemm_matches_plain_version(cuda, dtype, m, k, n):
     wq = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8)).to(cuda)
     scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, n).astype(np.float32)).to(cuda)
     before = im.launch_counts["int8_gemm"]
+    designs_before = _build.kernels().int8_design_launches()
     got = im.int8_matmul(x, wq, scale)
     torch.cuda.synchronize()
     assert im.launch_counts["int8_gemm"] == before + 1
+    designs = _build.kernels().int8_design_launches()
+    ran = {d: designs[d] - designs_before[d] for d in designs if designs[d] != designs_before[d]}
+    assert ran == {im.design_for(m, dtype): 1}, ran
     ref = im.int8_matmul_reference(x, wq, scale)
     assert got.dtype == dtype and got.shape == (m, n) and torch.isfinite(got).all()
     rel = ((got.float() - ref.float()).norm() / ref.float().norm()).item()
