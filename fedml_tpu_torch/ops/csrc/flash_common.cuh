@@ -1,11 +1,14 @@
 // Shared pieces of the three flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu): the arguments, and the SIMT kernels'
-// tiles (all three in f32; in bf16 all three are wgmma kernels built from
-// flash_sm90.cuh).
+// flash_bwd_dq.cu, flash_bwd_dkv.cu): the arguments, the dtype codes, the
+// padded widths, and the SIMT kernels' tiles (all three in f32; in bf16 and
+// f16 all three are wgmma kernels built from flash_sm90.cuh).
 //
-// Layout: q and dO are [B*Hq, T, D], k and v [B*Hkv, T, D], all contiguous,
+// Layout: q and dO are [B*Hq, T, d], k and v [B*Hkv, T, d], all contiguous,
 // lse and delta [B*Hq, T] f32. Query head h of batch b reads KV head
-// h / (Hq/Hkv) of the same batch; K and V are never repeated.
+// h / (Hq/Hkv) of the same batch; K and V are never repeated. The head dim d
+// is any multiple of 8 from 8 to 256; every kernel is compiled at the padded
+// width D (Dp), the smallest of 64, 128 and 256 that is at least d, reads
+// columns at or past d as zero and stores only columns below d.
 //
 // Every SIMT kernel runs 256 threads (8 warps). A tile of rows is staged in
 // shared memory as f32 with a row stride of D+1 floats, so that 32 lanes
@@ -40,9 +43,23 @@ struct FlashArgs {
   int hq;
   int hkv;
   int t;
+  int d;       // the head dim: the row stride of every [*, T, d] tensor
   int causal;
-  float scale;
+  float scale;  // d^-1/2
 };
+
+// The dtype codes of the C entry points (ops/_build.py DTYPE_CODES).
+enum DtypeCode { kF32 = 0, kBf16 = 1, kF16 = 2 };
+
+// The padded width D a head dim d runs at, or 0 for a d no kernel takes
+// (not a multiple of 8, or outside 8 .. 256).
+inline int padded_width(int d) {
+  if (d % 8 || d < 8 || d > 256) return 0;
+  return d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
+// The dynamic shared memory a block can have on the H100 (227 KB).
+constexpr size_t kMaxSmem = 232448;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -61,15 +78,16 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
 
-// Stage rows [row0, row0 + R) of a [T, D] matrix as f32 rows of stride
-// D + 1; rows at or past T read as zero.
+// Stage rows [row0, row0 + R) of a [T, d] matrix as f32 rows of stride
+// D + 1 (D the padded width); rows at or past T and columns at or past d
+// read as zero.
 template <typename T, int R, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int t) {
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int t, int d) {
   for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
     const int g = row0 + r;
-    dst[r * (D + 1) + c] = g < t ? to_f32(src[(size_t)g * D + c]) : 0.f;
+    dst[r * (D + 1) + c] = g < t && c < d ? to_f32(src[(size_t)g * d + c]) : 0.f;
   }
 }
 
@@ -163,24 +181,35 @@ __device__ __forceinline__ int num_k_tiles(int q0, int t, int causal) {
   return c < n ? c : n;
 }
 
-// Runs L<T, D, BQ, BK>::run(a, stream) of a SIMT kernel for the runtime choice
-// of head dim and tiles. A combination with no instance returns
-// cudaErrorInvalidValue (the Python wrappers refuse those before they get
-// here).
+// Runs a SIMT kernel for the runtime choice of head dim and tiles. A
+// combination with no instance returns cudaErrorInvalidValue (the Python
+// wrappers refuse those before they get here). Widths 64 and 128 have four
+// tile pairs; width 256 one, the widest whose tiles fit the shared memory
+// (64 x 64 in the forward, 64 x 32 in the backward kernels, which stage
+// two more tiles).
 template <template <typename, int, int, int> class L, typename T, int D>
 cudaError_t dispatch_tiles(const FlashArgs& a, int bh, int bq, int bk, cudaStream_t s) {
-  if (bq == 64 && bk == 64) return L<T, D, 64, 64>::run(a, bh, s);
-  if (bq == 64 && bk == 32) return L<T, D, 64, 32>::run(a, bh, s);
-  if (bq == 32 && bk == 64) return L<T, D, 32, 64>::run(a, bh, s);
-  if (bq == 32 && bk == 32) return L<T, D, 32, 32>::run(a, bh, s);
+  if constexpr (D == 256) {
+    constexpr int kBK = L<T, D, 64, 64>::kSmem <= kMaxSmem ? 64 : 32;
+    static_assert(L<T, D, 64, kBK>::kSmem <= kMaxSmem, "no SIMT tile fits at width 256");
+    if (bq == 64 && bk == kBK) return L<T, D, 64, kBK>::run(a, bh, s);
+  } else {
+    if (bq == 64 && bk == 64) return L<T, D, 64, 64>::run(a, bh, s);
+    if (bq == 64 && bk == 32) return L<T, D, 64, 32>::run(a, bh, s);
+    if (bq == 32 && bk == 64) return L<T, D, 32, 64>::run(a, bh, s);
+    if (bq == 32 && bk == 32) return L<T, D, 32, 32>::run(a, bh, s);
+  }
   return cudaErrorInvalidValue;
 }
 
 template <template <typename, int, int, int> class L, typename T>
-cudaError_t dispatch_simt(const FlashArgs& a, int bh, int d, int bq, int bk, cudaStream_t s) {
-  if (d == 64) return dispatch_tiles<L, T, 64>(a, bh, bq, bk, s);
-  if (d == 128) return dispatch_tiles<L, T, 128>(a, bh, bq, bk, s);
-  return cudaErrorInvalidValue;
+cudaError_t dispatch_simt(const FlashArgs& a, int bh, int bq, int bk, cudaStream_t s) {
+  switch (padded_width(a.d)) {
+    case 64: return dispatch_tiles<L, T, 64>(a, bh, bq, bk, s);
+    case 128: return dispatch_tiles<L, T, 128>(a, bh, bq, bk, s);
+    case 256: return dispatch_tiles<L, T, 256>(a, bh, bq, bk, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Successful launches of each design in this library, so a caller can tell

@@ -1,13 +1,18 @@
-// Hopper (sm_90a) building blocks of the bf16 flash-attention kernels
-// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu): TMA tile loads with mbarrier
-// completion, warpgroup matrix multiplies (wgmma) with shared-memory
-// descriptors, register reallocation between warpgroups, and the host-side
-// tensor maps.
+// Hopper (sm_90a) building blocks of the 16-bit (bf16 and f16)
+// flash-attention kernels (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu):
+// TMA tile loads with mbarrier completion, warpgroup matrix multiplies
+// (wgmma) with shared-memory descriptors, register reallocation between
+// warpgroups, and the host-side tensor maps. The element type E
+// (__nv_bfloat16 or __half) picks the wgmma type, the tensor map's type and
+// the rounding of the P and dS fragments; the layouts are the same.
 //
 // Layouts, pinned on the card against torch.matmul:
-// * A tile of R rows of a [heads, T, D] bf16 tensor lands in shared memory as
-//   D/64 sub-tiles of [R][64] (128 bytes a row, the 128-byte swizzle of TMA),
-//   each sub-tile 1024-byte aligned. Rows at or past T read as zero.
+// * A tile of R rows of a [heads, T, d] 16-bit tensor lands in shared memory
+//   as Dp/64 sub-tiles of [R][64] (128 bytes a row, the 128-byte swizzle of
+//   TMA), each sub-tile 1024-byte aligned, where Dp, the padded width, is
+//   the smallest of 64, 128 and 256 that is at least d. Rows at or past T
+//   and columns at or past d read as zero, so the padding adds nothing to a
+//   product over the head dim, and output columns past d are never stored.
 // * K-major operand (the reduction runs along a row, e.g. Q or K in q.k^T):
 //   descriptor SBO = 1024 bytes (8 rows), LBO unused; the k-th 16-column step
 //   adds 32 bytes to the start address inside a sub-tile.
@@ -16,7 +21,7 @@
 //   between two 64-column sub-tiles; the k-th 16-row step adds 2048 bytes.
 // * Accumulator of m64nNk16, f32: thread t of the warpgroup (warp w = t/32,
 //   lane l) holds d[4j + e] at row 16w + l/4 + 8(e/2), column
-//   8j + 2(l%4) + (e%2). Registers d[8k .. 8k+7], rounded to bf16 and packed
+//   8j + 2(l%4) + (e%2). Registers d[8k .. 8k+7], rounded to E and packed
 //   in pairs, are exactly the A fragment of the k-th 16-wide step of a
 //   following register-A wgmma: no shuffles between the two products.
 //
@@ -27,11 +32,17 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace fedml_flash {
 namespace sm90 {
+
+template <typename E>
+constexpr bool kIsBf16 = std::is_same<E, __nv_bfloat16>::value;
 
 // --- shared memory and mbarriers -------------------------------------------
 
@@ -116,10 +127,11 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// every 64-column sub-tile of `rows` rows starting at row `row0` of head `head`
-template <int D, int ROWS>
-__device__ __forceinline__ void tma_load_rows(__nv_bfloat16* dst, const CUtensorMap* map,
-                                              uint64_t* bar, int row0, int head) {
+// every 64-column sub-tile of a D-wide (padded) tile of `rows` rows starting
+// at row `row0` of head `head`
+template <int D, int ROWS, typename E>
+__device__ __forceinline__ void tma_load_rows(E* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int row0, int head) {
 #pragma unroll
   for (int s = 0; s < D / 64; ++s) tma_load_3d(dst + s * ROWS * 64, map, bar, 64 * s, row0, head);
 }
@@ -180,7 +192,7 @@ __device__ __forceinline__ uint64_t opaque(uint64_t d) {
 }
 
 // K-major operand: a [ROWS][D] tile held as 64-column sub-tiles...
-__device__ __forceinline__ uint64_t desc_k_major(const __nv_bfloat16* tile) {
+__device__ __forceinline__ uint64_t desc_k_major(const void* tile) {
   return opaque(desc(tile, 16, 1024));
 }
 // ...and its 16-column step k (start address in 16-byte units)
@@ -191,7 +203,7 @@ __device__ __forceinline__ uint64_t k_step(uint64_t base, int k) {
 
 // MN-major operand: a [ROWS][D] tile held as 64-column sub-tiles...
 template <int ROWS>
-__device__ __forceinline__ uint64_t desc_mn_major(const __nv_bfloat16* tile) {
+__device__ __forceinline__ uint64_t desc_mn_major(const void* tile) {
   return opaque(desc(tile, ROWS * 128, 1024));
 }
 // ...and its 16-row step k
@@ -205,90 +217,113 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two f32 values rounded to the 16-bit element type E (bf16 or f16) and
+// packed in one register, the low one first: a pair of an A fragment, or
+// two neighbouring columns of an output row.
+template <typename E>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (kIsBf16<E>) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// D[64 x N] (+)= A[64 x 16] * B[16 x N], A and B K-major in shared memory
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
-// D[64 x N] (+)= A[64 x 16] * B[16 x N], A in registers, B MN-major in shared memory
-template <int N>
+// The operand lists of the wgmma instructions below: the accumulator
+// registers d[i] .. d[i + n - 1] and their placeholders %0 .. %(n-1).
+#define FEDML_ACC8(i)                                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FEDML_ACC16(i) FEDML_ACC8(i), FEDML_ACC8(i + 8)
+#define FEDML_ACC32(i) FEDML_ACC16(i), FEDML_ACC16(i + 16)
+#define FEDML_ACC64(i) FEDML_ACC32(i), FEDML_ACC32(i + 32)
+#define FEDML_ACC128(i) FEDML_ACC64(i), FEDML_ACC64(i + 64)
+#define FEDML_REG16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define FEDML_REG32 \
+  FEDML_REG16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define FEDML_REG64                                                                          \
+  FEDML_REG32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47" \
+              ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define FEDML_REG128                                                                          \
+  FEDML_REG64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79" \
+              ", %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95" \
+              ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109" \
+              ", %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122"     \
+              ", %123, %124, %125, %126, %127"
+
+// m64nNk16 with A and B from shared memory (both K-major); the operands
+// after the N/2 accumulators are %NA (A), %NB (B) and %NP (accumulate or not)
+#define FEDML_WGMMA_SS(N, TY, REGS, NA, NB, NP, ACC)                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" NP ", 0;\n"                        \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" REGS    \
+               "}, %" NA ", %" NB ", p, 1, 1, 0, 0;\n}\n"                              \
+               : ACC                                                                    \
+               : "l"(da), "l"(db), "r"(acc))
+// m64nNk16 with A from registers (%A0 .. %A3) and B from shared memory
+// (MN-major, through the transpose bit)
+#define FEDML_WGMMA_RS(N, TY, REGS, A0, A1, A2, A3, NB, NP, ACC)                         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" NP ", 0;\n"                          \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" REGS      \
+               "}, {%" A0 ", %" A1 ", %" A2 ", %" A3 "}, %" NB ", p, 1, 1, 1;\n}\n"       \
+               : ACC                                                                      \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc))
+
+// D[64 x N] (+)= A[64 x 16] * B[16 x N] in E (bf16 or f16) with f32 sums, A
+// and B K-major in shared memory; N is 32, 64 or 128
+template <typename E, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: no instance for this N");
+  if constexpr (N == 32) {
+    if constexpr (kIsBf16<E>) FEDML_WGMMA_SS(32, "bf16", FEDML_REG16, "16", "17", "18", FEDML_ACC16(0));
+    else FEDML_WGMMA_SS(32, "f16", FEDML_REG16, "16", "17", "18", FEDML_ACC16(0));
+  } else if constexpr (N == 64) {
+    if constexpr (kIsBf16<E>) FEDML_WGMMA_SS(64, "bf16", FEDML_REG32, "32", "33", "34", FEDML_ACC32(0));
+    else FEDML_WGMMA_SS(64, "f16", FEDML_REG32, "32", "33", "34", FEDML_ACC32(0));
+  } else {
+    if constexpr (kIsBf16<E>) FEDML_WGMMA_SS(128, "bf16", FEDML_REG64, "64", "65", "66", FEDML_ACC64(0));
+    else FEDML_WGMMA_SS(128, "f16", FEDML_REG64, "64", "65", "66", FEDML_ACC64(0));
+  }
+}
+
+// D[64 x N] (+)= A[64 x 16] * B[16 x N], A in registers, B MN-major in
+// shared memory; N is 64, 128 or 256
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
-                                         int acc);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
+                                         int acc) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_rs: no instance for this N");
+  if constexpr (N == 64) {
+    if constexpr (kIsBf16<E>)
+      FEDML_WGMMA_RS(64, "bf16", FEDML_REG32, "32", "33", "34", "35", "36", "37", FEDML_ACC32(0));
+    else
+      FEDML_WGMMA_RS(64, "f16", FEDML_REG32, "32", "33", "34", "35", "36", "37", FEDML_ACC32(0));
+  } else if constexpr (N == 128) {
+    if constexpr (kIsBf16<E>)
+      FEDML_WGMMA_RS(128, "bf16", FEDML_REG64, "64", "65", "66", "67", "68", "69", FEDML_ACC64(0));
+    else
+      FEDML_WGMMA_RS(128, "f16", FEDML_REG64, "64", "65", "66", "67", "68", "69", FEDML_ACC64(0));
+  } else {
+    if constexpr (kIsBf16<E>)
+      FEDML_WGMMA_RS(256, "bf16", FEDML_REG128, "128", "129", "130", "131", "132", "133",
+                     FEDML_ACC128(0));
+    else
+      FEDML_WGMMA_RS(256, "f16", FEDML_REG128, "128", "129", "130", "131", "132", "133",
+                     FEDML_ACC128(0));
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
+#undef FEDML_WGMMA_RS
+#undef FEDML_WGMMA_SS
+#undef FEDML_REG128
+#undef FEDML_REG64
+#undef FEDML_REG32
+#undef FEDML_REG16
+#undef FEDML_ACC128
+#undef FEDML_ACC64
+#undef FEDML_ACC32
+#undef FEDML_ACC16
+#undef FEDML_ACC8
 
 // --- host: tensor maps -------------------------------------------------------
 
@@ -313,18 +348,23 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// [heads, t, d] contiguous bf16 as the 3-D map (d, t, heads) with boxes of
-// (64, rows, 1) and the 128-byte swizzle; reads past t fill with zeros, so a
-// ragged tile never touches the next head's rows.
-inline cudaError_t rows_map(CUtensorMap* map, const void* base, int heads, int t, int d,
-                            int rows) {
+// [heads, t, d] contiguous E as the 3-D map (d, t, heads) with boxes of
+// (64, rows, 1) and the 128-byte swizzle; reads past t or past d fill with
+// zeros, so a ragged tile never touches the next head's rows, and a box of 64
+// columns over a row narrower than its sub-tile (d < 64, or the last
+// sub-tiles of the padded width) lands with zeros past d. d is a multiple of
+// 8, so a row's stride is a multiple of the 16 bytes the map needs.
+template <typename E>
+cudaError_t rows_map(CUtensorMap* map, const void* base, int heads, int t, int d, int rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn || (reinterpret_cast<uintptr_t>(base) & 15)) return cudaErrorInvalidValue;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+  const CUtensorMapDataType type =
+      kIsBf16<E> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -625,8 +625,8 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUt
       if (vec && n + 3 < N) {
         const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + n));
         uint2 p;
-        p.x = pack_bf16(v.x * sc.x, v.y * sc.y);
-        p.y = pack_bf16(v.z * sc.z, v.w * sc.w);
+        p.x = pack16<__nv_bfloat16>(v.x * sc.x, v.y * sc.y);
+        p.y = pack16<__nv_bfloat16>(v.z * sc.z, v.w * sc.w);
         *reinterpret_cast<uint2*>(out) = p;
       } else {
         const float vs[4] = {v.x, v.y, v.z, v.w};

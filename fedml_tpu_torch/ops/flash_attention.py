@@ -11,10 +11,13 @@ kernels become hand-written CUDA C++ kernels for Hopper (``csrc/``):
   group are a loop inside the block (the TPU's sequential grid axis), summed
   in f32 registers and written once.
 
-In bf16 all three run on the tensor cores (``wgmma`` fed by TMA,
+In bf16 and float16 all three run on the tensor cores (``wgmma`` fed by TMA,
 warp-specialised, ``csrc/flash_sm90.cuh``); in f32 they run f32 FMAs from
-shared memory (tensor cores would need TF32). Each kernel's compiled tiles
-are listed in ``TILES``.
+shared memory (tensor cores would need TF32). They take every head dim that
+is a multiple of 8 from 8 to 256 and any B*Hq: each is compiled at the
+padded widths 64, 128 and 256 (``padded_width``), reads the columns past
+the head dim as zeros and stores only the head dim's. Each kernel's compiled
+tiles, by dtype and padded width, are listed in ``TILES``.
 
 The [T, T] score matrix never reaches device memory. K/V are consumed at
 their own head count: query head ``h`` reads KV head ``h // (Hq // Hkv)``.
@@ -39,21 +42,42 @@ import torch
 
 NEG_INF = -1e30
 
-# The compiled (block_q, block_k) tile pairs of each kernel, by dtype: the one
-# record of the instances in csrc/ (flash_fwd.cu fwd_dispatch, flash_bwd_dq.cu
-# dq_dispatch, flash_bwd_dkv.cu dkv_dispatch, flash_common.cuh dispatch_tiles
-# for the SIMT kernels). The first pair is the kernel's default. block_q/block_k
-# name the rows of a q and a k tile; the plain versions are untiled and ignore
-# them.
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# The head dims the kernels take: every multiple of HEAD_DIM_STEP from
+# MIN_HEAD_DIM to MAX_HEAD_DIM (a row of 16-bit elements is then a multiple of
+# the 16 bytes a TMA row stride needs).
+MIN_HEAD_DIM, MAX_HEAD_DIM, HEAD_DIM_STEP = 8, 256, 8
+PADDED_WIDTHS = (64, 128, 256)
+
+
+def padded_width(head_dim: int) -> int:
+    """The width a head dim runs at: the smallest of ``PADDED_WIDTHS`` that
+    holds it (csrc/flash_common.cuh padded_width)."""
+    for width in PADDED_WIDTHS:
+        if head_dim <= width:
+            return width
+    raise ValueError(f"head dim {head_dim} is wider than the widest kernel ({MAX_HEAD_DIM})")
+
+
+# The compiled (block_q, block_k) tile pairs of each kernel, by dtype and
+# padded width: the one record of the instances in csrc/ (flash_fwd.cu
+# FwdTiles, flash_bwd_dq.cu DqTiles, flash_bwd_dkv.cu DkvTiles for bf16 and
+# f16; flash_common.cuh dispatch_tiles for the f32 SIMT kernels, one pair at
+# width 256, the widest that fits the shared memory). The first pair is the
+# kernel's default. block_q/block_k name the rows of a q and a k tile; the
+# plain versions are untiled and ignore them.
 _SIMT_TILES = ((64, 64), (64, 32), (32, 64), (32, 32))
-TILES = {
-    "flash_fwd": {torch.bfloat16: ((128, 128),), torch.float32: _SIMT_TILES},
-    "flash_bwd_dq": {torch.bfloat16: ((128, 128),), torch.float32: _SIMT_TILES},
-    "flash_bwd_dkv": {torch.bfloat16: ((64, 128),), torch.float32: _SIMT_TILES},
+_WGMMA_TILES = {
+    "flash_fwd": {64: ((128, 128),), 128: ((128, 128),), 256: ((128, 64),)},
+    "flash_bwd_dq": {64: ((128, 128),), 128: ((128, 128),), 256: ((128, 32),)},
+    "flash_bwd_dkv": {64: ((64, 128),), 128: ((64, 128),), 256: ((64, 64),)},
 }
-HEAD_DIMS = (64, 128)
-MAX_HEAD_ROWS = 65535  # B*H is the f32 SIMT kernels' grid.y, which CUDA caps here
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+TILES = {
+    name: {torch.bfloat16: wgmma, torch.float16: wgmma,
+           torch.float32: {64: _SIMT_TILES, 128: _SIMT_TILES,
+                           256: ((64, 64),) if name == "flash_fwd" else ((64, 32),)}}
+    for name, wgmma in _WGMMA_TILES.items()
+}
 
 # Tile overrides for callers that pass none (the JAX module's
 # FEDML_FLASH_BLOCK_Q/K), both set to one compiled pair. A choice that names
@@ -83,33 +107,36 @@ def _env_block(name: str) -> int | None:
 
 
 def resolve_blocks(kernel: str, dtype: torch.dtype, block_q: int | None = None,
-                   block_k: int | None = None) -> tuple[int, int]:
-    """The (block_q, block_k) tiles a launch of ``kernel`` on ``dtype`` uses.
-    An explicit pair must be one of the kernel's compiled pairs, else
-    ValueError. With none, the pair FEDML_FLASH_BLOCK_Q/K name is taken if it
-    is compiled; otherwise the override warns and the default runs, so the
-    override only has an effect on kernels with more than one compiled pair
-    (the f32 SIMT kernels, not the bf16 wgmma kernels)."""
-    pairs = TILES[kernel][dtype]
+                   block_k: int | None = None, *, head_dim: int) -> tuple[int, int]:
+    """The (block_q, block_k) tiles a launch of ``kernel`` on ``dtype`` at
+    ``head_dim`` uses (the pairs of its padded width). An explicit pair must
+    be one of the kernel's compiled pairs, else ValueError. With none, the
+    pair FEDML_FLASH_BLOCK_Q/K name is taken if it is compiled; otherwise the
+    override warns and the default runs, so the override only has an effect
+    on kernels with more than one compiled pair (the f32 SIMT kernels, not
+    the 16-bit wgmma kernels)."""
+    width = padded_width(head_dim)
+    pairs = TILES[kernel][dtype][width]
     if block_q is None and block_k is None:
         env = (_env_block(_BLOCK_Q_ENV), _env_block(_BLOCK_K_ENV))
         if env in pairs:
             return env
         if env != (None, None):
             warnings.warn(f"{_BLOCK_Q_ENV}/{_BLOCK_K_ENV}={env} names no {kernel} tile for "
-                          f"{dtype} (compiled: {pairs}); using default {pairs[0]}")
+                          f"{dtype} at width {width} (compiled: {pairs}); using default "
+                          f"{pairs[0]}")
         return pairs[0]
     if (block_q, block_k) not in pairs:
         raise ValueError(f"block_q={block_q}, block_k={block_k} names no compiled {kernel} "
-                         f"tile for {dtype}: {pairs}")
+                         f"tile for {dtype} at width {width}: {pairs}")
     return block_q, block_k
 
 
 # --- plain versions on [B*H, T, D] -------------------------------------------
 
 def _acc(x: torch.Tensor) -> torch.Tensor:
-    """x in the plain versions' working type: f32 for bf16 and f32 inputs, as
-    the kernels accumulate, and f64 for f64 inputs (a reference free of f32
+    """x in the plain versions' working type: f32 for bf16, f16 and f32
+    inputs, as the kernels accumulate, and f64 for f64 inputs (a reference free of f32
     rounding, for tests of the f32 kernels)."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
@@ -199,11 +226,18 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, causal: bool, hq: int, h
 
 # --- kernel wrappers -----------------------------------------------------------
 
-def kernels_take(batch: int, hq: int, head_dim: int, dtype: torch.dtype) -> bool:
-    """Whether the CUDA kernels have an instance for attention of this shape
-    and dtype: head dim in ``HEAD_DIMS``, dtype in ``KERNEL_DTYPES``, B*Hq
-    at most ``MAX_HEAD_ROWS``."""
-    return head_dim in HEAD_DIMS and dtype in KERNEL_DTYPES and batch * hq <= MAX_HEAD_ROWS
+def kernels_take(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA kernels have an instance for attention of this head
+    dim and dtype: a multiple of 8 from 8 to 256, a dtype of
+    ``KERNEL_DTYPES``. Any B*Hq and T run."""
+    return (head_dim % HEAD_DIM_STEP == 0 and MIN_HEAD_DIM <= head_dim <= MAX_HEAD_DIM
+            and dtype in KERNEL_DTYPES)
+
+
+def kernel_rule() -> str:
+    """What the kernels take, in words, for the errors that refuse the rest."""
+    return (f"head dims that are multiples of {HEAD_DIM_STEP} from {MIN_HEAD_DIM} to "
+            f"{MAX_HEAD_DIM} and a dtype of {KERNEL_DTYPES}")
 
 
 def check_kernel_inputs(q, k, v, *, hq: int, hkv: int) -> None:
@@ -215,10 +249,8 @@ def check_kernel_inputs(q, k, v, *, hq: int, hkv: int) -> None:
     if hq <= 0 or hkv <= 0 or hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     bhq, t, d = q.shape
-    if not kernels_take(bhq // hq, hq, d, q.dtype):
-        raise ValueError(f"flash kernels take head dims {HEAD_DIMS}, a dtype of {KERNEL_DTYPES} "
-                         f"and B*Hq <= {MAX_HEAD_ROWS} (the grid limit), got head dim {d}, "
-                         f"{q.dtype}, B*Hq={bhq}")
+    if not kernels_take(d, q.dtype):
+        raise ValueError(f"flash kernels take {kernel_rule()}, got head dim {d}, {q.dtype}")
     if bhq % hq or k.shape != (bhq // hq * hkv, t, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} for hq={hq}, hkv={hkv}")
@@ -258,7 +290,7 @@ def flash_fwd(q, k, v, *, causal: bool, hq: int, hkv: int,
     if not _on_cuda(q):
         return flash_fwd_reference(q, k, v, causal=causal, hq=hq, hkv=hkv)
     check_kernel_inputs(q, k, v, hq=hq, hkv=hkv)
-    bq, bk = resolve_blocks("flash_fwd", q.dtype, block_q, block_k)
+    bq, bk = resolve_blocks("flash_fwd", q.dtype, block_q, block_k, head_dim=q.shape[-1])
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):  # launch on q's card, not the current one
@@ -276,7 +308,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, hq: int, hkv: int,
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
         raise ValueError("dO must be a contiguous tensor shaped and typed like q")
     _check_stats(q, lse, delta)
-    bq, bk = resolve_blocks("flash_bwd_dq", q.dtype, block_q, block_k)
+    bq, bk = resolve_blocks("flash_bwd_dq", q.dtype, block_q, block_k, head_dim=q.shape[-1])
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _kernels().bwd_dq(q, k, v, do, lse, delta, dq, causal, hq, hkv, bq, bk)
@@ -293,7 +325,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, hq: int, hkv: int,
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
         raise ValueError("dO must be a contiguous tensor shaped and typed like q")
     _check_stats(q, lse, delta)
-    bq, bk = resolve_blocks("flash_bwd_dkv", q.dtype, block_q, block_k)
+    bq, bk = resolve_blocks("flash_bwd_dkv", q.dtype, block_q, block_k, head_dim=q.shape[-1])
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -333,8 +365,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """[B, T, Hq, D], [B, T, Hkv, D] x2 -> [B, T, Hq, D]. GQA-native: Hkv may
     divide Hq; K/V are consumed at their own head count (no repeat). On CUDA
     tensors each kernel runs with (block_q, block_k) tiles, which must name
-    one of its compiled pairs (``TILES``); None takes FEDML_FLASH_BLOCK_Q/K
-    or each kernel's own default. On CPU tensors the plain versions run and
+    one of its compiled pairs at the head dim's padded width (``TILES``);
+    None takes FEDML_FLASH_BLOCK_Q/K or each kernel's own default. On CPU tensors the plain versions run and
     the blocks are unused."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]

@@ -1,16 +1,22 @@
-"""Time the port's hand-written kernels on one CUDA card: the bf16 flash
-kernels (forward, dQ, dK/dV) against SDPA, and the int8 GEMM against
-``F.linear`` on bf16 weights; optionally each against the same kernels
-built from another copy of the sources.
+"""Time the port's hand-written kernels on one CUDA card: the flash kernels
+(forward, dQ, dK/dV) against SDPA, and the int8 GEMM against ``F.linear`` on
+bf16 weights; optionally each against the same kernels built from another
+copy of the sources.
 
     python -m fedml_tpu_torch.tools.compare_kernels [--kernels flash,int8]
-        [--against DIR] [--rounds N]
+        [--against DIR] [--rounds N] [--head-dim D] [--kv-heads H]
+        [--dtype bfloat16|float16|float32]
 
-Flash: for each shape (the slice's B=2 T=2048 H=32 D=128 causal and dense, a
-long T=8192 and a short T=512 one, all causal unless marked dense) it times
-each kernel of this checkout's ``ops/csrc`` and
+Flash: for each shape (the slice's B=2 T=2048 H=32 causal and dense, a
+long T=8192 and a short T=512 one, all causal unless marked dense) at head
+dim ``--head-dim`` (128; any multiple of 8 up to 256 runs on the instance of
+its padded width), ``--kv-heads`` KV heads (H: no grouping) and ``--dtype``
+(bfloat16) it times each kernel of this checkout's ``ops/csrc`` and
 ``torch.nn.functional.scaled_dot_product_attention`` (forward, or the
-backward's dQ+dK+dV), a yardstick the port never calls. Int8: the bf16 GEMM
+backward's dQ+dK+dV), a yardstick the port never calls, and the kernel's
+plain PyTorch version where T <= PLAIN_MAX_T (it holds [B*H, T, T] scores);
+each row's bound is reckoned from the real head dim, so a padded instance's
+wasted products show as a lower share of it. Int8: the bf16 GEMM
 ``y = x . wq^T * scale`` at Llama-2-7B's four projection shapes (K x N) and M
 1, 8, 16, 128 and 512, with the design this checkout launches
 (``int8_matmul.design_for``), its bound (bytes over 3.35 TB/s or operations
@@ -34,13 +40,14 @@ import subprocess
 from pathlib import Path
 
 SHAPES = ((2, 2048, 32, True), (2, 2048, 32, False), (1, 8192, 32, True), (8, 512, 32, True))
-D = 128
 ITERS = 50
+PLAIN_MAX_T = 2048
 # the int8 GEMM: Llama-2-7B's projections (K, N) and the rows M of a call
 INT8_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
 INT8_MS = (1, 8, 16, 128, 512)
 INT8_ROTATE_BYTES = 100e6  # weight copies cycled per timing: twice the 50 MB L2
 PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12  # H100 SXM: HBM3 bytes/s, dense bf16 FLOP/s
+PEAK_FLOPS = {"bfloat16": PEAK_BF16, "float16": PEAK_BF16, "float32": 67e12}  # f32: no tensor cores
 
 
 def cuda_ms(fn, iters: int, behind_sleep: bool = False) -> float:
@@ -78,45 +85,55 @@ def work(name: str, b: int, t: int, hq: int, hkv: int, d: int, esize: int,
     }[name]
 
 
-def _cases(kern, b: int, t: int, h: int, causal: bool):
-    """{kernel: (launch(kernels), sdpa call, operations)} on seeded inputs;
-    the backward reads O and lse from `kern`'s forward."""
+def _cases(kern, b: int, t: int, h: int, causal: bool, d: int = 128, hkv: int | None = None,
+           dtype: str = "bfloat16"):
+    """{kernel: (launch(kernels), sdpa call, (operations, bytes), plain
+    call)} on seeded inputs of head dim ``d``, ``hkv`` KV heads (``h`` by
+    default) and ``dtype``; the backward reads O and lse from `kern`'s
+    forward."""
     import torch
     import torch.nn.functional as F
 
     from ..ops import flash_attention as fa
 
+    hkv = hkv or h
+    dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    q, k, v, do = (torch.randn(b * h, t, D, generator=g, device="cuda").bfloat16()
-                   for _ in range(4))
-    fwd_tiles = fa.resolve_blocks("flash_fwd", torch.bfloat16)
-    dq_tiles = fa.resolve_blocks("flash_bwd_dq", torch.bfloat16)
-    dkv_tiles = fa.resolve_blocks("flash_bwd_dkv", torch.bfloat16)
+    q, k, v, do = (torch.randn(b * rows, t, d, generator=g, device="cuda").to(dt)
+                   for rows in (h, hkv, hkv, h))
+    fwd_tiles = fa.resolve_blocks("flash_fwd", dt, head_dim=d)
+    dq_tiles = fa.resolve_blocks("flash_bwd_dq", dt, head_dim=d)
+    dkv_tiles = fa.resolve_blocks("flash_bwd_dkv", dt, head_dim=d)
     o, lse = torch.empty_like(q), torch.empty(b * h, t, device="cuda")
-    kern.fwd(q, k, v, o, lse, causal, h, h, *fwd_tiles)
+    kern.fwd(q, k, v, o, lse, causal, h, hkv, *fwd_tiles)
     delta = (do.float() * o.float()).sum(-1)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     out, stats = torch.empty_like(o), torch.empty_like(lse)
-    q4, k4, v4 = (x.view(b, h, t, D) for x in (q, k, v))
+    q4, k4, v4 = (x.view(b, -1, t, d) for x in (q, k, v))
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-    flops = {name: work(name, b, t, h, h, D, 2, causal)[0]
-             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    gqa = hkv != h
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=gqa)
+    cost = {name: work(name, b, t, h, hkv, d, q.element_size(), causal)
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     def sdpa_bwd():
-        return torch.autograd.grad(sdpa_out, (qg, kg, vg), do.view(b, h, t, D), retain_graph=True)
+        return torch.autograd.grad(sdpa_out, (qg, kg, vg), do.view(b, h, t, d), retain_graph=True)
 
+    kw = dict(causal=causal, hq=h, hkv=hkv)
     return {
-        "flash_fwd": (lambda kn: kn.fwd(q, k, v, out, stats, causal, h, h, *fwd_tiles),
-                      lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
-                      flops["flash_fwd"]),
-        "flash_bwd_dq": (lambda kn: kn.bwd_dq(q, k, v, do, lse, delta, dq, causal, h, h,
+        "flash_fwd": (lambda kn: kn.fwd(q, k, v, out, stats, causal, h, hkv, *fwd_tiles),
+                      lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                                             enable_gqa=gqa),
+                      cost["flash_fwd"], lambda: fa.flash_fwd_reference(q, k, v, **kw)),
+        "flash_bwd_dq": (lambda kn: kn.bwd_dq(q, k, v, do, lse, delta, dq, causal, h, hkv,
                                               *dq_tiles),
-                         sdpa_bwd, flops["flash_bwd_dq"]),
-        "flash_bwd_dkv": (lambda kn: kn.bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal, h, h,
+                         sdpa_bwd, cost["flash_bwd_dq"],
+                         lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)),
+        "flash_bwd_dkv": (lambda kn: kn.bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal, h, hkv,
                                                 *dkv_tiles),
-                          sdpa_bwd, flops["flash_bwd_dkv"]),
+                          sdpa_bwd, cost["flash_bwd_dkv"],
+                          lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)),
     }
 
 
@@ -192,6 +209,12 @@ def main() -> None:
                         help="comma-separated: flash (K1-K3), int8 (the int8 GEMM)")
     parser.add_argument("--int8-ms", default=",".join(map(str, INT8_MS)),
                         help="comma-separated rows M of the int8 GEMM's calls")
+    parser.add_argument("--head-dim", type=int, default=128,
+                        help="the flash kernels' head dim: a multiple of 8 from 8 to 256")
+    parser.add_argument("--kv-heads", type=int, default=None,
+                        help="the flash kernels' KV heads (default: as many as query heads)")
+    parser.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float16", "float32"),
+                        help="the flash kernels' dtype")
     args = parser.parse_args()
     which = set(args.kernels.split(","))
 
@@ -208,10 +231,15 @@ def main() -> None:
             print(json.dumps(row), flush=True)
     if "flash" not in which:
         return
+    d, hkv, dtype = args.head_dim, args.kv_heads, args.dtype
     for b, t, h, causal in SHAPES:
-        for name, (launch, sdpa, flops) in _cases(builds["checkout"], b, t, h, causal).items():
-            row = {"kernel": name, "B": b, "T": t, "H": h, "D": D, "causal": causal,
-                   "sdpa_ms": cuda_ms(sdpa, ITERS)}
+        for name, (launch, sdpa, (flops, nbytes), plain) in _cases(
+                builds["checkout"], b, t, h, causal, d, hkv, dtype).items():
+            bound = max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES) * 1e3
+            row = {"kernel": name, "B": b, "T": t, "H": h, "Hkv": hkv or h, "D": d,
+                   "dtype": dtype, "causal": causal, "bound_ms": bound,
+                   "sdpa_ms": cuda_ms(sdpa, ITERS),
+                   "plain_ms": cuda_ms(plain, 3) if t <= PLAIN_MAX_T else None}
             if args.against:
                 times = {n: [] for n in builds}
                 for r in range(args.rounds):
@@ -223,6 +251,7 @@ def main() -> None:
             else:
                 row["checkout_ms"] = cuda_ms(lambda: launch(builds["checkout"]), ITERS)
             row["checkout_tflops"] = flops / row["checkout_ms"] / 1e9
+            row["checkout_share_of_bound"] = bound / row["checkout_ms"]
             print(json.dumps(row), flush=True)
 
 

@@ -19,10 +19,18 @@ from fedml_tpu_torch.ops import flash_attention as fa
 # kernel vs plain version, row by row (one position of one head):
 # ||got_r - ref_r|| <= rtol * ||ref_r|| + 1e-6 (+ floor_r). bf16 outputs
 # differ by one bf16 ulp (2^-8 relative) an element where a cast rounds the
-# other way, f32 by summation order only; bf16 dQ rows are also allowed the
-# f32 rounding of dP, which the tensor cores sum in another order
+# other way, f16 by one f16 ulp (2^-11: bf16's limit times 2^-3), f32 by
+# summation order only; 16-bit dQ rows are also allowed the f32 rounding of
+# dP, which the tensor cores sum in another order
 # (flash_bwd_dq_rounding_floor); the limits are those of chip_smoke.py
-RTOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+RTOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2 * 2.0 ** -3, torch.float32: 1e-5}
+# a row of the gate holds at least this many elements: below d = 64,
+# ceil(64 / d) consecutive positions (chip_smoke.py GATE_ROW: the limits were
+# set on rows of 64 and more elements, over which the roundings average)
+GATE_ROW = 64
+# head dims: below a 64-column sub-tile, inside a 128-column tile, a 256-wide
+# tile whose last sub-tile lies wholly past d, and each padded width
+HEAD_DIMS = (8, 16, 64, 80, 96, 128, 136, 256)
 
 
 @pytest.fixture
@@ -37,17 +45,30 @@ def _rows(rng, rows, t, d, dtype):
     return torch.from_numpy(x).to("cuda", dtype)
 
 
+def _gate_rows(x, d, width):
+    """``width`` values a position (d, or 1 for a floor), ceil(GATE_ROW / d)
+    consecutive positions a row, zero positions filling the last."""
+    group = -(-GATE_ROW // d)
+    flat = x.reshape(-1, width)
+    pad = (-flat.shape[0]) % group
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad, width)])
+    return flat.reshape(-1, group * width)
+
+
 def _close(got, ref, dtype, floor=0.0):
     d = got.shape[-1]
-    err = (got.float() - ref.float()).reshape(-1, d).norm(dim=-1)
-    size = ref.float().reshape(-1, d).norm(dim=-1)
-    limit = RTOL[dtype] * size + 1e-6 + (floor.reshape(-1) if torch.is_tensor(floor) else floor)
+    err = _gate_rows(got.float() - ref.float(), d, d).norm(dim=-1)
+    size = _gate_rows(ref.float(), d, d).norm(dim=-1)
+    if torch.is_tensor(floor):
+        floor = _gate_rows(floor, d, 1).norm(dim=-1)
+    limit = RTOL[dtype] * size + 1e-6 + floor
     assert not (err > limit).any(), (err / limit).max().item()
 
 
 def _dq_floor(q, k, v, do, lse, dtype, **kw):
-    """The bf16 dQ kernel's allowance for the order of its f32 dP sums."""
-    if dtype != torch.bfloat16:
+    """The 16-bit dQ kernel's allowance for the order of its f32 dP sums."""
+    if dtype == torch.float32:
         return 0.0
     return fa.flash_bwd_dq_rounding_floor(q, k, v, do, lse, **kw)
 
@@ -60,6 +81,7 @@ def _check_kernels(b, t, hq, hkv, d, causal, dtype, tiles=None):
     kw = dict(causal=causal, hq=hq, hkv=hkv)
     blocks = {name: dict(zip(("block_q", "block_k"), (tiles or {}).get(name, (None, None))))
               for name in fa.TILES}
+    assert fa.kernels_take(d, dtype)
     o, lse = fa.flash_fwd(q, k, v, **kw, **blocks["flash_fwd"])
     o_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
     delta = (do.float() * o_r.float()).sum(-1)
@@ -76,14 +98,16 @@ def _check_kernels(b, t, hq, hkv, d, causal, dtype, tiles=None):
 
 
 def _instances():
-    """Every compiled instance: per dtype and head dim, each kernel's tile
-    pairs (ops/flash_attention.py TILES) cycled so that each runs once."""
+    """Every compiled instance at every head dim of HEAD_DIMS: per dtype and
+    head dim, each kernel's tile pairs at its padded width (ops/
+    flash_attention.py TILES) cycled so that each runs once."""
     out = []
     for dtype in fa.KERNEL_DTYPES:
-        n = max(len(pairs[dtype]) for pairs in fa.TILES.values())
-        for d in fa.HEAD_DIMS:
+        for d in HEAD_DIMS:
+            width = fa.padded_width(d)
+            n = max(len(pairs[dtype][width]) for pairs in fa.TILES.values())
             for i in range(n):
-                tiles = {name: pairs[dtype][i % len(pairs[dtype])]
+                tiles = {name: pairs[dtype][width][i % len(pairs[dtype][width])]
                          for name, pairs in fa.TILES.items()}
                 out.append(pytest.param(dtype, d, tiles, id=f"{str(dtype)[6:]}-d{d}-{i}"))
     return out
@@ -93,10 +117,20 @@ def _instances():
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,d,tiles", _instances())
 def test_kernels_match_plain_versions(cuda, dtype, d, tiles, causal):
-    """GQA 8/2 at a ragged T=200 and at T=96, below one tile: the bf16
-    wgmma kernels and the f32 SIMT kernels' tiles."""
-    for t in (96, 200):
-        _check_kernels(2, t, 8, 2, d, causal, dtype, tiles)
+    """GQA 8/2 and MQA 8/1 at a ragged T=200 and at T=96, below one tile:
+    the bf16 and f16 wgmma kernels and the f32 SIMT kernels' tiles at each
+    padded width."""
+    for hkv in (2, 1):
+        for t in (96, 200):
+            _check_kernels(2, t, 8, hkv, d, causal, dtype, tiles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", fa.KERNEL_DTYPES, ids=lambda x: str(x)[6:])
+def test_kernels_take_more_head_rows_than_grid_y(cuda, dtype):
+    """B*Hq = 65,536, one past CUDA's grid.y limit: every kernel of each
+    dtype puts heads on grid.x (or walks them in a persistent grid)."""
+    _check_kernels(4096, 24, 16, 4, 64, True, dtype)
 
 
 @pytest.mark.cuda
@@ -106,6 +140,18 @@ def test_bf16_kernels_at_long_ragged_t(cuda, d, causal):
     """The bf16 kernels at the default tiles over many tiles, GQA 8/2,
     T=2000 (not a multiple of any tile)."""
     _check_kernels(1, 2000, 8, 2, d, causal, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,hkv,dtype", [(96, 8, torch.bfloat16), (256, 1, torch.bfloat16),
+                                         (96, 8, torch.float16), (16, 2, torch.float16),
+                                         (256, 1, torch.float32)], ids=str)
+def test_new_instances_at_long_ragged_t(cuda, d, hkv, dtype, causal):
+    """The padded instances over many tiles at T=2000: Phi-3-mini's head dim
+    96, Gemma-2B's 256 over one KV head, JAX's test head dim 16 in f16, and
+    the f32 SIMT kernels at width 256."""
+    _check_kernels(1, 2000, 8, hkv, d, causal, dtype)
 
 
 @pytest.mark.cuda
@@ -161,13 +207,14 @@ def test_nvcc_route_builds_and_matches(cuda):
                  "flash_bwd_dkv_kernel_sm90<", "flash_bwd_dq_kernel<float"):
         assert any(line.startswith(name) for line in report), name
     sm90 = [line for line in report if "_sm90<" in line]
-    assert len(sm90) == 6 and all("spill stores 0 B, loads 0 B" in line for line in sm90), sm90
+    # bf16 and f16 at the padded widths 64, 128 and 256, for each of the three kernels
+    assert len(sm90) == 18 and all("spill stores 0 B, loads 0 B" in line for line in sm90), sm90
     assert _build.ptxas_notes() == []
     rng = np.random.default_rng(1)
     q, k, v = (_rows(rng, 2 * h, 130, 128, torch.bfloat16) for h in (4, 2, 2))
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device="cuda")
-    libs.fwd(q, k, v, o, lse, True, 4, 2, *fa.TILES["flash_fwd"][torch.bfloat16][0])
+    libs.fwd(q, k, v, o, lse, True, 4, 2, *fa.TILES["flash_fwd"][torch.bfloat16][128][0])
     torch.cuda.synchronize()
     o_r, lse_r = fa.flash_fwd_reference(q, k, v, causal=True, hq=4, hkv=2)
     _close(o, o_r, torch.bfloat16)
@@ -176,13 +223,14 @@ def test_nvcc_route_builds_and_matches(cuda):
 
 @pytest.mark.cuda
 def test_launches_run_the_design_of_their_dtype(cuda):
-    """The public op in bf16 runs all three kernels on their wgmma/TMA
-    designs, as the C entry points count them by design; in f32 all three
-    run the SIMT kernels. At B=1, whose [B*H, T, D] reshape is a strided
-    view the op makes contiguous."""
+    """The public op in bf16 and f16 runs all three kernels on their
+    wgmma/TMA designs, as the C entry points count them by design; in f32
+    all three run the SIMT kernels. At B=1, whose [B*H, T, D] reshape is a
+    strided view the op makes contiguous."""
     libs = _build.kernels()
     rng = np.random.default_rng(2)
     for dtype, want in ((torch.bfloat16, dict.fromkeys(fa.TILES, "sm90_wgmma_tma")),
+                        (torch.float16, dict.fromkeys(fa.TILES, "sm90_wgmma_tma")),
                         (torch.float32, dict.fromkeys(fa.TILES, "simt_f32_fma"))):
         before = {name: libs.design_launches(name) for name in fa.TILES}
         q, k, v = (torch.from_numpy(rng.standard_normal((1, 130, h, 64)).astype(np.float32))
@@ -197,10 +245,10 @@ def test_launches_run_the_design_of_their_dtype(cuda):
 
 @pytest.mark.cuda
 def test_wrappers_refuse_what_kernels_do_not_take(cuda):
-    x = torch.zeros(2, 16, 96, device="cuda")
+    x = torch.zeros(2, 16, 100, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_fwd(x, x, x, causal=True, hq=1, hkv=1)
-    y = torch.zeros(2, 16, 64, device="cuda", dtype=torch.float16)
+    y = torch.zeros(2, 16, 64, device="cuda", dtype=torch.float64)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_fwd(y, y, y, causal=True, hq=1, hkv=1)
     z = torch.zeros(2, 16, 64, device="cuda")
@@ -216,10 +264,14 @@ def test_wrappers_refuse_what_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="names no compiled"):
         fa.flash_bwd_dq(zb, zb, zb, zb, stats, stats, causal=True, hq=1, hkv=1,
                         block_q=128, block_k=64)
-    # below the wrapper, the C entry point refuses a pair it has no instance of
+    # below the wrapper, the C entry point refuses a pair it has no instance of,
+    # and a head dim off the rule
     with pytest.raises(RuntimeError, match="launch failed"):
         _build.kernels().bwd_dq(zb, zb, zb, zb, stats, stats, torch.empty_like(zb), True, 1, 1,
                                 128, 64)
+    w = torch.zeros(2, 16, 100, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.kernels().fwd(w, w, w, torch.empty_like(w), stats, True, 1, 1, 128, 128)
 
 
 @pytest.mark.cuda
@@ -248,39 +300,43 @@ def test_llm_trainer_steps_on_cuda(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-def test_transformer_with_head_dim_16_trains_on_cuda_without_the_kernels(cuda):
-    """A TransformerLM whose head dim (16) the flash kernels have no
-    instance for: "auto" refuses it on the card (NotImplementedError naming
-    ROADMAP.md) before any launch; asked for the plain attention
-    (attention_impl="xla"), its forward and backward on the card match the
-    CPU's (f32, TF32 off), and no kernel launches."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=str)
+def test_transformer_with_head_dim_16_trains_on_cuda_through_the_kernels(cuda, dtype):
+    """JAX's own test model (tests/test_llm.py: head dim 16) trains on the
+    card through "auto": one forward and backward launches each kernel once
+    a layer, and its logits and gradients match the same weights through
+    attention_impl="xla" on the card (f32: summation order, TF32 off; f16:
+    the plain path rounds its scores to f16 before the softmax, chip_smoke.py
+    TINY_TOL). The loss is a sum, not a mean: a mean's activation gradients
+    (about 1e-6 here) would be f16 subnormals, rounded to a few per cent."""
     import dataclasses
 
     from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     auto = TransformerConfig(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
-                             d_ff=128, max_seq_len=32, remat=False, dtype=torch.float32)
+                             d_ff=128, max_seq_len=32, remat=False, dtype=dtype)
     assert auto.attention_impl == "auto" and auto.head_dim == 16
-    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 32)))
-    fa.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TransformerLM(auto).to("cuda")(toks.to("cuda"))
-    cfg = dataclasses.replace(auto, attention_impl="xla")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 32))).to("cuda")
     torch.manual_seed(0)
-    cpu = TransformerLM(cfg)
-    for p in cpu.parameters():
+    model = TransformerLM(auto).to("cuda")
+    for p in model.parameters():
         torch.nn.init.normal_(p, 0.0, 0.05)
-    gpu = TransformerLM(cfg).to("cuda")
-    gpu.load_state_dict(cpu.state_dict())
+    plain = TransformerLM(dataclasses.replace(auto, attention_impl="xla")).to("cuda")
+    plain.load_state_dict(model.state_dict())
     outs = {}
-    for name, model in (("cpu", cpu), ("cuda", gpu)):
-        logits = model(toks.to(name))
-        logits.float().square().mean().backward()
-        outs[name] = [logits.detach().cpu()] + [p.grad.cpu() for p in model.parameters()]
-    assert fa.launch_counts == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    for a, b in zip(outs["cuda"], outs["cpu"]):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    fa.reset_launch_counts()
+    for name, m in (("auto", model), ("xla", plain)):
+        logits = m(toks)
+        logits.float().square().sum().backward()
+        outs[name] = [logits.detach().float()] + [p.grad.float() for p in m.parameters()]
+        if name == "auto":
+            assert fa.launch_counts == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert fa.launch_counts == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(outs["auto"], outs["xla"]):
+        assert torch.isfinite(a).all()
+        assert ((a - b).norm() / b.norm().clamp_min(1e-30)).item() <= tol
 
 
 # --- serving (the decode modes, the predictor) on the card ----------------------

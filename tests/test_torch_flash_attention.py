@@ -181,50 +181,68 @@ def test_block_env_override(monkeypatch):
     """FEDML_FLASH_BLOCK_Q/K choose among each kernel's compiled tiles for
     callers that pass none; a choice that names no pair of a kernel (one of
     the two alone included) warns and keeps that kernel's default; explicit
-    caller values win. The f32 kernels have four pairs each, the bf16 ones
-    one."""
-    bf16, f32 = torch.bfloat16, torch.float32
+    caller values win. The f32 kernels have four pairs each (three for the
+    backward at width 256), the 16-bit ones one."""
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    d = 64
     monkeypatch.setenv("FEDML_FLASH_BLOCK_Q", "32")
     monkeypatch.setenv("FEDML_FLASH_BLOCK_K", "64")
-    assert tfa.resolve_blocks("flash_bwd_dq", f32) == (32, 64)
-    assert tfa.resolve_blocks("flash_fwd", f32) == (32, 64)
-    assert tfa.resolve_blocks("flash_bwd_dq", f32, 64, 32) == (64, 32)
+    assert tfa.resolve_blocks("flash_bwd_dq", f32, head_dim=d) == (32, 64)
+    assert tfa.resolve_blocks("flash_fwd", f32, head_dim=d) == (32, 64)
+    assert tfa.resolve_blocks("flash_bwd_dq", f32, 64, 32, head_dim=d) == (64, 32)
     with pytest.warns(UserWarning, match="FEDML_FLASH_BLOCK_Q"):
-        assert tfa.resolve_blocks("flash_fwd", bf16) == tfa.TILES["flash_fwd"][bf16][0]
+        assert (tfa.resolve_blocks("flash_fwd", bf16, head_dim=d)
+                == tfa.TILES["flash_fwd"][bf16][d][0])
     with pytest.warns(UserWarning, match="names no flash_bwd_dq tile"):
-        assert tfa.resolve_blocks("flash_bwd_dq", bf16) == tfa.TILES["flash_bwd_dq"][bf16][0]
+        assert (tfa.resolve_blocks("flash_bwd_dq", f16, head_dim=d)
+                == tfa.TILES["flash_bwd_dq"][f16][d][0])
     monkeypatch.setenv("FEDML_FLASH_BLOCK_K", "100")
     with pytest.warns(UserWarning, match="names no flash_bwd_dq tile"):
-        assert tfa.resolve_blocks("flash_bwd_dq", f32) == tfa.TILES["flash_bwd_dq"][f32][0]
+        assert (tfa.resolve_blocks("flash_bwd_dq", f32, head_dim=d)
+                == tfa.TILES["flash_bwd_dq"][f32][d][0])
     monkeypatch.delenv("FEDML_FLASH_BLOCK_Q")
     monkeypatch.setenv("FEDML_FLASH_BLOCK_K", "32")
     with pytest.warns(UserWarning, match=r"\(None, 32\) names no flash_bwd_dq tile"):
-        assert tfa.resolve_blocks("flash_bwd_dq", f32) == tfa.TILES["flash_bwd_dq"][f32][0]
+        assert (tfa.resolve_blocks("flash_bwd_dq", f32, head_dim=d)
+                == tfa.TILES["flash_bwd_dq"][f32][d][0])
     monkeypatch.setenv("FEDML_FLASH_BLOCK_Q", "64")
-    assert tfa.resolve_blocks("flash_bwd_dq", f32) == (64, 32)
+    assert tfa.resolve_blocks("flash_bwd_dq", f32, head_dim=d) == (64, 32)
     with pytest.raises(ValueError, match="block_q=16"):
-        tfa.resolve_blocks("flash_bwd_dq", f32, 16, 64)
+        tfa.resolve_blocks("flash_bwd_dq", f32, 16, 64, head_dim=d)
 
 
 @pytest.mark.parametrize("kernel", sorted(tfa.TILES))
 def test_tile_table_defaults(kernel, monkeypatch):
-    """Each kernel and dtype has its own compiled tiles, the first the
-    default; in bf16 each kernel is its wgmma kernel's one pair (128-row
-    tiles of the rows it owns), in f32 the SIMT kernels' four pairs."""
+    """Each kernel, dtype and padded width has its own compiled tiles, the
+    first the default, and every head dim of a width resolves to its pairs;
+    in bf16 and f16 each kernel is its wgmma kernel's one pair (128-row
+    tiles of the rows it owns at widths 64 and 128; at 256 64-row k tiles in
+    the forward, 32-row ones in dQ and one 64-row k tile shared by both
+    consumers in dK/dV), in f32 the SIMT kernels' four pairs (at width 256
+    one, the widest whose tiles fit the shared memory: 64 x 32 in the
+    backward kernels)."""
     monkeypatch.delenv("FEDML_FLASH_BLOCK_Q", raising=False)
     monkeypatch.delenv("FEDML_FLASH_BLOCK_K", raising=False)
     for dtype in tfa.KERNEL_DTYPES:
-        pairs = tfa.TILES[kernel][dtype]
-        assert pairs and len(set(pairs)) == len(pairs)
-        assert tfa.resolve_blocks(kernel, dtype) == pairs[0]
-        for bq, bk in pairs:
-            assert tfa.resolve_blocks(kernel, dtype, bq, bk) == (bq, bk)
-            with pytest.raises(ValueError, match="names no compiled"):
-                tfa.resolve_blocks(kernel, dtype, bq)  # a pair or nothing
-    assert tfa.TILES[kernel][torch.float32] == ((64, 64), (64, 32), (32, 64), (32, 32))
-    wgmma = {"flash_fwd": ((128, 128),), "flash_bwd_dq": ((128, 128),),
-             "flash_bwd_dkv": ((64, 128),)}
-    assert tfa.TILES[kernel][torch.bfloat16] == wgmma[kernel]
+        assert tuple(tfa.TILES[kernel][dtype]) == tfa.PADDED_WIDTHS
+        for width, pairs in tfa.TILES[kernel][dtype].items():
+            assert pairs and len(set(pairs)) == len(pairs)
+            for d in (width - 56 if width == 64 else width // 2 + 8, width):
+                assert tfa.padded_width(d) == width
+                assert tfa.resolve_blocks(kernel, dtype, head_dim=d) == pairs[0]
+            for bq, bk in pairs:
+                assert tfa.resolve_blocks(kernel, dtype, bq, bk, head_dim=width) == (bq, bk)
+                with pytest.raises(ValueError, match="names no compiled"):
+                    tfa.resolve_blocks(kernel, dtype, bq, head_dim=width)  # a pair or nothing
+    simt = ((64, 64), (64, 32), (32, 64), (32, 32))
+    assert tfa.TILES[kernel][torch.float32][64] == tfa.TILES[kernel][torch.float32][128] == simt
+    assert tfa.TILES[kernel][torch.float32][256] == (((64, 64),) if kernel == "flash_fwd"
+                                                     else ((64, 32),))
+    wgmma = {"flash_fwd": ((128, 128), (128, 64)), "flash_bwd_dq": ((128, 128), (128, 32)),
+             "flash_bwd_dkv": ((64, 128), (64, 64))}
+    for dtype in (torch.bfloat16, torch.float16):
+        got = tfa.TILES[kernel][dtype]
+        assert got[64] == got[128] == wgmma[kernel][:1] and got[256] == wgmma[kernel][1:]
 
 
 @pytest.mark.parametrize("kernel,dtype,tiles", [
@@ -241,21 +259,23 @@ def test_tile_pair_without_instance_is_refused(kernel, dtype, tiles):
     there are, and so does one value alone, even one a compiled pair has;
     nothing is silently replaced."""
     with pytest.raises(ValueError, match="names no compiled"):
-        tfa.resolve_blocks(kernel, dtype, *tiles)
+        tfa.resolve_blocks(kernel, dtype, *tiles, head_dim=64)
 
 
 @pytest.mark.parametrize("case", ["head_dim", "dtype", "mixed_dtype", "gqa", "shape",
-                                  "contiguous", "grid"])
+                                  "contiguous", "head_dim_above_256"])
 def test_kernel_input_checks(case):
-    """What the CUDA kernels do not take is refused before any launch."""
+    """What the CUDA kernels do not take is refused before any launch: a
+    head dim that is not a multiple of 8 or is above 256, a dtype other than
+    bf16, f16 and f32 (any B*Hq runs)."""
     q = torch.zeros(4, 32, 64)
     k = torch.zeros(2, 32, 64)
     v = torch.zeros(2, 32, 64)
     hq, hkv = 2, 1
     if case == "head_dim":
-        q, k, v = q[..., :16].contiguous(), k[..., :16].contiguous(), v[..., :16].contiguous()
+        q, k, v = (torch.zeros(x.shape[0], 32, 100) for x in (q, k, v))
     elif case == "dtype":
-        q, k, v = q.half(), k.half(), v.half()
+        q, k, v = q.double(), k.double(), v.double()
     elif case == "mixed_dtype":
         k = k.bfloat16()
     elif case == "gqa":
@@ -264,9 +284,8 @@ def test_kernel_input_checks(case):
         k = torch.zeros(3, 32, 64)
     elif case == "contiguous":
         q = torch.zeros(4, 64, 32).transpose(1, 2)
-    elif case == "grid":
-        q = k = v = torch.zeros(tfa.MAX_HEAD_ROWS + 1, 1, 64)
-        hq = hkv = 1
+    elif case == "head_dim_above_256":
+        q, k, v = (torch.zeros(x.shape[0], 32, 264) for x in (q, k, v))
     with pytest.raises(ValueError):
         tfa.check_kernel_inputs(q, k, v, hq=hq, hkv=hkv)
     tfa.check_kernel_inputs(torch.zeros(4, 32, 64), torch.zeros(2, 32, 64),

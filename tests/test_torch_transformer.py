@@ -221,20 +221,21 @@ def test_lora_split_matches_jax(jax_params):
 
 @pytest.mark.parametrize("b,hq,d,dtype,takes", [
     (2, 32, 128, torch.bfloat16, True), (2, 4, 64, torch.float32, True),
-    (2, 4, 16, torch.float32, False), (2, 4, 80, torch.bfloat16, False),
-    (2, 4, 256, torch.bfloat16, False), (2, 4, 64, torch.float16, False),
-    (1, 65535, 64, torch.float32, True), (1, 65536, 64, torch.float32, False)])
+    (2, 4, 100, torch.float32, False), (2, 4, 264, torch.bfloat16, False),
+    (2, 4, 4, torch.bfloat16, False), (2, 4, 64, torch.float64, False),
+    (1, 65535, 64, torch.float32, True), (2, 4, 60, torch.float16, False)])
 def test_attention_dispatch_takes_the_kernels_only_where_they_take_the_shape(b, hq, d, dtype,
                                                                              takes):
     """The rule on the shape beside check_kernel_inputs: "auto" picks the
     flash kernels on CUDA exactly where check_kernel_inputs accepts the
-    inputs (head dim, dtype, B*Hq) and raises NotImplementedError naming
-    ROADMAP.md elsewhere (no kernel instance yet; the JAX package's kernel
-    runs such shapes, so the plain attention is never swapped in unasked);
-    on the CPU always the plain one; an explicit choice stands."""
+    inputs (a head dim that is a multiple of 8 from 8 to 256, a dtype of
+    bf16, f16, f32; any B*Hq) and raises NotImplementedError naming
+    ROADMAP.md elsewhere (no kernel instance, and the plain attention is
+    never swapped in unasked); on the CPU always the plain one; an explicit
+    choice stands."""
     from fedml_tpu_torch.ops import flash_attention as fa
 
-    assert fa.kernels_take(b, hq, d, dtype) is takes
+    assert fa.kernels_take(d, dtype) is takes
     q = torch.zeros(b * hq, 1, d, dtype=dtype)
     try:
         fa.check_kernel_inputs(q, q, q, hq=hq, hkv=hq)
@@ -243,10 +244,10 @@ def test_attention_dispatch_takes_the_kernels_only_where_they_take_the_shape(b, 
         accepted = False
     assert accepted is takes
     if takes:
-        assert tt.pick_attention("auto", True, b, hq, d, dtype) == "pallas"
+        assert tt.pick_attention("auto", True, d, dtype) == "pallas"
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tt.pick_attention("auto", True, b, hq, d, dtype)
-    assert tt.pick_attention("auto", False, b, hq, d, dtype) == "xla"
-    assert tt.pick_attention("xla", True, b, hq, d, dtype) == "xla"
-    assert tt.pick_attention("pallas", False, b, hq, d, dtype) == "pallas"
+            tt.pick_attention("auto", True, d, dtype)
+    assert tt.pick_attention("auto", False, d, dtype) == "xla"
+    assert tt.pick_attention("xla", True, d, dtype) == "xla"
+    assert tt.pick_attention("pallas", False, d, dtype) == "pallas"
