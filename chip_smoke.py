@@ -16,7 +16,8 @@ plane, HF llama checkpoints), serving's front door (the HTTP runner,
 subprocess replicas behind the gateway, int8 decode through the int8
 GEMM), and the LoRA step at Phi-3-mini's and Gemma-2B's attention widths
 (head dims 96 and 256) and JAX's own test geometry (16) in f32 and
-float16, on one CUDA card.
+float16, and a FedLLM federation under local DP with devperf's MFU, the
+server's /statusz and its SLO engine, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -384,12 +385,35 @@ exception):
    bit-unchanged, K1-K3 launched exactly as its steps need, every bf16 and
    f16 launch on sm90_wgmma_tma and every f32 one on simt_f32_fma (the C
    counters);
-23. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+23. a FedLLM federation at Llama-2-7B's widths (FEDLLM: 1 of its 32
+   layers, rank 8, seq 2048, batch 2). (a) FedMLRunner cross-silo over
+   INMEMORY, 2 LLMClientTrainer silos (4 and 6 token blocks) x 2 rounds
+   under dp_clip, the server holding the adapters in the smoke's
+   AdapterAggregator: each upload within the clip of the round's global,
+   each fold within FEDLLM_FOLD_REL of the float64 sample-weighted mean of
+   the uploads as received, the published model the fold plus noise whose
+   std over sigma lies in tests/test_torch_dp.py's band, the silos' base
+   weights bit-unchanged; then one ldp and one nbafl client round through
+   the hooks, their noise in the same band; K1-K3 launched exactly as
+   those steps need, all on sm90_wgmma_tma; enable_fhe and label_flipping
+   refused naming R14 and R15. (b) devperf: the card matched to an H100
+   row (printed beside the card line), llm_train's MFU after phases 4-5
+   equal to phase 5's tokens/s x FLOPs a token / the bf16 peak within
+   FEDLLM_MFU_REL and in (0, 1), cb_step and paged_step folded in phase 6,
+   and the HBM high water over (a) (HbmSampler every HBM_INTERVAL_S)
+   positive, at most the card's memory and at least the allocated bytes
+   seen at its samples. (c) (a)'s federation again with statusz_port 0, an
+   slo_spec file and the server's accounted DP (privacy "dp"): /statusz
+   read in the last round has the round, health, privacy, devperf and
+   alerts sections, /metrics has fedml_device_mfu{program="llm_train"} and
+   the DP budget series, and the SLO engine ticked;
+24. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
    resilience, privacy, secure_fronts, hierarchy, message_plane, trust,
-   fhe_sp_zoo, gan_nas_seg_hub, files, front_door, head_dims and kernels
-   lines (JSON, the kernels line with the design each kernel ran on the
-   main path and a row for each kernel at phase 22's head dims 96 and
-   256), the card line, and last the result line.
+   fhe_sp_zoo, gan_nas_seg_hub, files, front_door, head_dims, fedllm and
+   kernels lines (JSON, the kernels line with the design each kernel ran
+   on the main path, its launches in phase 23, and a row for each kernel
+   at phase 22's head dims 96 and 256), the card line, and last the result
+   line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -6787,6 +6811,402 @@ def front_door_phase(libs) -> dict:
     return res
 
 
+# -- phase 23: the FedLLM silo under local DP, devperf, statusz and the SLO engine --------
+
+# Llama-2-7B's widths at 1 of its 32 layers (as phase 20 (c)), rank 8, seq T,
+# batch B; 2 silos x 2 rounds of ROUND_STEPS local steps. Most of the phase is
+# the trainer's final checkpoint of its whole model (1.9 GB) each silo round.
+FEDLLM = dict(LLAMA7B, n_layers=1)
+FEDLLM_ROUNDS = 2
+FEDLLM_BLOCKS = (4, 6)  # each silo's token blocks: the fold's sample weights
+FEDLLM_DP = dict(enable_dp=True, dp_solution_type="dp_clip", clipping_norm=0.05,
+                 noise_multiplier=1.0)
+# one client round each, through the hooks (LDP adds the Gaussian
+# mechanism's sigma to the adapters; NbAFL clips each coordinate to C, then
+# adds 2cC/(m eps))
+FEDLLM_LOCAL_DP = {
+    "ldp": dict(enable_dp=True, dp_solution_type="ldp", mechanism_type="gaussian", epsilon=1.0,
+                delta=1e-5, sensitivity=1.0),
+    "nbafl": dict(enable_dp=True, dp_solution_type="nbafl", epsilon=1.0, delta=1e-5,
+                  nbafl_C=0.05, comm_round=FEDLLM_ROUNDS, client_num_per_round=2,
+                  client_num_in_total=2),
+}
+# (c): the server's accounted DP (privacy "dp") feeds the privacy section,
+# the DP budget series and the dp_budget_exhaustion row
+FEDLLM_PRIVACY = dict(privacy="dp", dp_l2_clip=0.05, dp_noise_multiplier=1.0, dp_seed=23)
+FEDLLM_FOLD_REL = 1e-6  # a two-upload f32 fold against the float64 mean
+FEDLLM_MFU_REL = 1e-6
+HBM_INTERVAL_S = 0.1
+FEDLLM_JOIN_S = 300
+
+
+def _tree_copy(tree):
+    import numpy as np
+
+    return {k: _tree_copy(v) if isinstance(v, dict) else np.array(v, copy=True)
+            for k, v in tree.items()}
+
+
+def _adapter_aggregator():
+    """A ServerAggregator that holds the federation's adapters, as JAX's
+    cross_cloud/__init__.py:10-15 tells a FedLLM user to write one: the
+    adapters in the layout the clients exchange (nested numpy), the uploads
+    folded as state dicts on the card; it records each round's uploads as
+    received, its fold and the published model."""
+    from fedml_tpu_torch.core.alg_frame.server_aggregator import ServerAggregator
+    from fedml_tpu_torch.models.convert import params_from_jax, params_to_jax
+
+    class AdapterAggregator(ServerAggregator):
+        def __init__(self, adapters, args):
+            super().__init__(None, args)
+            self.adapters = adapters
+            self.uploads, self.folds, self.published = [], [], []
+
+        def get_model_params(self):
+            return self.adapters
+
+        def set_model_params(self, model_parameters) -> None:
+            if not any(isinstance(v, dict) for v in model_parameters.values()):
+                self.published.append({k: v.detach().cpu().clone()
+                                       for k, v in model_parameters.items()})
+                model_parameters = params_to_jax(model_parameters)
+            self.adapters = model_parameters
+
+        def on_before_aggregation(self, raw):
+            self.uploads.append([(n, _tree_copy(m)) for n, m in raw])
+            return super().on_before_aggregation(
+                [(n, {k: v.to(DEV) for k, v in params_from_jax(m).items()}) for n, m in raw])
+
+        def aggregate(self, raw):
+            out = super().aggregate(raw)
+            self.folds.append({k: v.detach().cpu().clone() for k, v in out.items()})
+            return out
+
+        def test(self, test_data, device, args):
+            return {"adapter_l2": float(sum(float((v.astype("float64") ** 2).sum())
+                                            for v in _flat(self.adapters).values())) ** 0.5}
+
+    return AdapterAggregator
+
+
+def fedllm_federation(tmp: str, run_id: str, over: dict, probe=None) -> dict:
+    """FedMLRunner cross-silo over INMEMORY: the server and FEDLLM_BLOCKS'
+    LLMClientTrainer silos, each a thread of this process, FEDLLM_ROUNDS
+    rounds; ``probe(round_idx, server_manager)`` runs in each server eval."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core.distributed.communication.inmemory.broker import InMemoryBroker
+    from fedml_tpu_torch.train.llm.fed_llm_trainer import LLMClientTrainer
+    from fedml_tpu_torch.train.llm.llm_trainer import is_lora_name
+
+    n = len(FEDLLM_BLOCKS)
+    blocks = {i: np.random.default_rng(23 + i).integers(0, FEDLLM["vocab_size"], (k, T),
+                                                        dtype=np.int32)
+              for i, k in enumerate(FEDLLM_BLOCKS)}
+    dataset = [sum(FEDLLM_BLOCKS), 0, None, None, {i: len(b) for i, b in blocks.items()}, blocks,
+               {i: None for i in blocks}, 0]
+    InMemoryBroker.reset(run_id)
+    runners, clients, errors = {}, {}, {}
+    for rank in list(range(1, n + 1)) + [0]:
+        role = "server" if rank == 0 else "client"
+        args = fedml.default_config(
+            "cross_silo", run_id=run_id, rank=rank, role=role, backend="INMEMORY",
+            client_num_in_total=n, client_num_per_round=n, comm_round=FEDLLM_ROUNDS,
+            frequency_of_the_test=1, random_seed=0, using_gpu=DEV == "cuda",
+            **FEDLLM, per_device_batch_size=B, local_steps=ROUND_STEPS, learning_rate=1e-4,
+            warmup_steps=1, output_dir=os.path.join(tmp, f"{run_id}_{rank}"), **over)
+        args = fedml.init(args)
+        dev = torch.device(DEV)
+        if rank:
+            clients[rank] = LLMClientTrainer(args, device=DEV)
+            runners[rank] = fedml.FedMLRunner(args, dev, dataset, None,
+                                              client_trainer=clients[rank])
+        else:
+            agg = _adapter_aggregator()(clients[1].get_model_params(), args)
+            runners[0] = fedml.FedMLRunner(args, dev, dataset, None, server_aggregator=agg)
+    start = agg.get_model_params()
+    base0 = {r: {k: p.detach().clone() for k, p in c.llm.model.named_parameters()
+                 if not is_lora_name(k)} for r, c in clients.items()}
+    manager = runners[0].runner.server_manager
+    if probe is not None:
+        test = manager.aggregator.test_on_server_for_all_clients
+
+        def probed(round_idx):
+            probe(round_idx, manager)
+            return test(round_idx)
+
+        manager.aggregator.test_on_server_for_all_clients = probed
+
+    def party(rank):
+        try:
+            runners[rank].run()
+        except BaseException as e:  # reported below; the thread must not hang the phase
+            errors[rank] = e
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=party, args=(r,), daemon=True, name=f"fedllm-{r}")
+               for r in runners]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(FEDLLM_JOIN_S)
+        check(not t.is_alive(), f"{run_id}: {t.name} still running after {FEDLLM_JOIN_S}s")
+    check(not errors, f"{run_id}: a party failed: {errors!r}")
+    InMemoryBroker.reset(run_id)
+    return {"agg": agg, "clients": clients, "base0": base0, "start": start, "blocks": blocks,
+            "run_s": time.perf_counter() - t0}
+
+
+def _flat_vec(tree):
+    import numpy as np
+
+    leaves = _flat(tree)
+    return np.concatenate([np.asarray(leaves[p], np.float64).ravel() for p in sorted(leaves)])
+
+
+def _check_draws(part: str, noise, sigma: float) -> dict:
+    """tests/test_torch_dp.py's band: std within 4/sqrt(2n) of sigma, mean
+    within 4 sigma/sqrt(n)."""
+    import math
+
+    n = noise.size
+    ratio = float(noise.std()) / sigma
+    check(abs(ratio - 1) <= 4 / math.sqrt(2 * n),
+          f"{part}: noise std / sigma {ratio:.6f}, band 1 +- {4 / math.sqrt(2 * n):.6f}")
+    check(abs(float(noise.mean())) <= 4 * sigma / math.sqrt(n),
+          f"{part}: noise mean {float(noise.mean()):.3g} beyond 4 sigma/sqrt(n)")
+    return {"sigma": sigma, "std_over_sigma": ratio, "draws": n,
+            "band": 4 / math.sqrt(2 * n)}
+
+
+def fedllm_dp_round(client, solution: str, global_adapters, blocks) -> dict:
+    """One client round under ``solution`` through the hooks: the noise of
+    the upload against the trained adapters (clipped as the frame clips)
+    held to the band."""
+    import numpy as np
+
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+    from fedml_tpu_torch.models.convert import params_to_jax
+
+    fedml.init(fedml.default_config("cross_silo", random_seed=0, using_gpu=DEV == "cuda",
+                                    **FEDLLM_LOCAL_DP[solution]))
+    dp = FedMLDifferentialPrivacy.get_instance()
+    client.set_model_params(global_adapters)
+    client.update_dataset(blocks, None, len(blocks))
+    data = client.on_before_local_training(blocks, None, client.args)
+    client.train(data, None, client.args)
+    trained = _flat_vec(params_to_jax(client._adapter_state()))
+    client.on_after_local_training(data, None, client.args)
+    out = _flat_vec(client.get_model_params())
+    if solution == "ldp":
+        base, sigma = trained, dp.frame.ldp.sigma
+    else:
+        c = dp.frame.big_c
+        base, sigma = trained / np.maximum(np.abs(trained) / c, 1.0), dp.frame._sigma_u(len(blocks))
+    return _check_draws(f"(a) {solution}", out - base, sigma)
+
+
+def fedllm_phase(libs, lora: dict, serve_programs: dict) -> dict:
+    """Phase 23 (see the module docstring). ``lora``: devperf's llm_train
+    record after phases 4-5 and phase 5's tokens/s; ``serve_programs``:
+    the decode records after phase 6."""
+    import json as _json
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core.distributed import device_specs
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+    from fedml_tpu_torch.core.telemetry import devperf
+    from fedml_tpu_torch.models.convert import params_to_jax
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    tmp = os.path.join(ROOT, ".smoke_run", "fedllm")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    res: dict = {"geometry": FEDLLM, "silos": len(FEDLLM_BLOCKS), "rounds": FEDLLM_ROUNDS,
+                 "local_steps": ROUND_STEPS}
+    try:
+        # (a) the federation under dp_clip, then one ldp and one nbafl client round
+        samples = []
+
+        def stats():
+            out = devperf.device_memory_stats()
+            samples.append((out, torch.cuda.memory_allocated() if DEV == "cuda" else 0))
+            return out
+
+        sampler = devperf.HbmSampler(interval_s=HBM_INTERVAL_S, stats_fn=stats)
+
+        def part_a():
+            if DEV == "cuda":  # the high water of (a) alone
+                torch.cuda.reset_peak_memory_stats()
+            sampler.start()
+            try:
+                fed = fedllm_federation(tmp, "fedllm_a", FEDLLM_DP)
+                client = fed["clients"][1]
+                local = {s: fedllm_dp_round(client, s, fed["agg"].get_model_params(),
+                                            fed["blocks"][0]) for s in FEDLLM_LOCAL_DP}
+            finally:
+                sampler.stop()
+            return fed, local
+
+        t0 = time.perf_counter()
+        (fed, local), launches, by_design = _launched(fa, libs, part_a)
+        res["a_s"] = time.perf_counter() - t0
+        res["federation_run_s"] = fed["run_s"]
+        agg = fed["agg"]
+        check(len(agg.uploads) == len(agg.folds) == len(agg.published) == FEDLLM_ROUNDS,
+              f"(a) rounds: {len(agg.uploads)} uploads, {len(agg.folds)} folds, "
+              f"{len(agg.published)} publishes")
+        dp = FedMLDifferentialPrivacy.get_instance()
+        weights = list(FEDLLM_BLOCKS)
+        sigma = FEDLLM_DP["clipping_norm"] * FEDLLM_DP["noise_multiplier"] / sum(weights)
+        incoming, rounds = fed["start"], []
+        for r in range(FEDLLM_ROUNDS):
+            ups = agg.uploads[r]
+            check([n for n, _ in ups] == weights, f"(a) round {r}: sample weights {ups}")
+            norms = [float(np.linalg.norm(_flat_vec(up) - _flat_vec(incoming))) for _, up in ups]
+            check(all(x <= FEDLLM_DP["clipping_norm"] * (1 + 1e-6) for x in norms),
+                  f"(a) round {r}: an upload left the clip: {norms}")
+            mean = sum(n * _flat_vec(up) for n, up in ups) / sum(weights)
+            fold = _flat_vec(params_to_jax(agg.folds[r]))
+            fold_err = float(np.abs(fold - mean).max() / np.abs(mean).max())
+            check(fold_err <= FEDLLM_FOLD_REL,
+                  f"(a) round {r}: fold {fold_err:.3g} of scale from the plain mean")
+            pub = _flat_vec(params_to_jax(agg.published[r]))
+            rounds.append({"upload_delta_norms": norms, "fold_err_of_scale": fold_err,
+                           "noise": _check_draws(f"(a) round {r}", pub - fold, sigma)})
+            incoming = params_to_jax(agg.published[r])
+        res["rounds_a"] = rounds
+        res["local_dp"] = local
+        for rank, client in fed["clients"].items():
+            same = all(torch.equal(p, fed["base0"][rank][k])
+                       for k, p in client.llm.model.named_parameters() if k in fed["base0"][rank])
+            check(same, f"(a) silo {rank}: base weights changed")
+        steps = len(FEDLLM_BLOCKS) * FEDLLM_ROUNDS * ROUND_STEPS + len(FEDLLM_LOCAL_DP) * ROUND_STEPS
+        _check_launches("phase 23 (a)", launches, by_design, FEDLLM["n_layers"], steps, 2,
+                        "sm90_wgmma_tma")
+        res["flash_launches"], res["by_design"] = launches, by_design
+        # R14 and R15 before the first local step
+        client = fed["clients"][1]
+        for flag, over, rule in (("enable_fhe", {}, "R14"),
+                                 ("enable_attack", {"attack_type": "label_flipping"}, "R15")):
+            refused = SimpleNamespace(**{**vars(client.args), flag: True, **over})
+            try:
+                client.on_before_local_training(None, None, refused)
+                check(False, f"(a) {flag} was not refused")
+            except ValueError as e:
+                check(rule in str(e), f"(a) {flag}: {e}")
+        res["refused"] = ["R14", "R15"]
+        epsilon = float(dp.get_epsilon(1e-5))
+        res["dp_clip_epsilon"] = epsilon
+        del fed, client, agg
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) devperf on the card
+        card = card_line()
+        name = torch.cuda.get_device_name(0) if DEV == "cuda" else "cpu"
+        row = device_specs.device_row(name)
+        check(DEV != "cuda" or row in ("h100", "h100 pcie", "h100 nvl"),
+              f"(b) {name!r} matched no H100 row ({row})")
+        check(lora["record"]["device_kind"] == name, f"(b) llm_train on {lora['record']}")
+        peak = device_specs.peak_flops_per_sec(name, torch.bfloat16)
+        rec = lora["record"]
+        check(rec["peak_flops_per_sec"] == peak and rec["dtype"] == "bfloat16",
+              f"(b) llm_train's peak {rec['peak_flops_per_sec']} != {peak}")
+        want = lora["tokens_per_sec"] * rec["flops_per_token_hint"] / peak
+        check(abs(rec["mfu"] - want) <= FEDLLM_MFU_REL * want,
+              f"(b) llm_train MFU {rec['mfu']} != tokens/s x FLOPs/token / peak {want}")
+        check(0 < rec["mfu"] < 1, f"(b) llm_train MFU {rec['mfu']} outside (0, 1)")
+        say(f"  (b) {card}: device row {row!r}, bf16 peak {peak / 1e12:.1f} TFLOP/s; "
+            f"llm_train MFU {rec['mfu']:.6f} (phase 5: {lora['tokens_per_sec']:.1f} tokens/s x "
+            f"{rec['flops_per_token_hint']:.6g} FLOPs/token)")
+        for label in ("cb_step", "paged_step"):
+            p = serve_programs.get(label) or {}
+            check(p.get("steps", 0) > 0 and p.get("mfu") is not None,
+                  f"(b) {label} after phase 6: {p}")
+            say(f"  (b) {label}: {p['steps']} chunks, {p['tokens']} tokens, MFU "
+                f"{p['mfu']:.3g} at the last chunk, {p['achieved_flops_per_sec'] / 1e12:.3g} "
+                "TFLOP/s")
+        hbm = devperf.get_registry().snapshot()["hbm"]
+        total = torch.cuda.get_device_properties(0).total_memory if DEV == "cuda" else 0
+        if DEV == "cuda":
+            check(len(samples) >= 2 and "cuda:0" in hbm, f"(b) HBM samples: {len(samples)}")
+            high = max(float(st["peak_bytes_in_use"]) for out, _ in samples for _, st in out)
+            seen = max(alloc for _, alloc in samples)
+            check(0 < high <= total and high >= seen,
+                  f"(b) HBM high water {high} against total {total}, allocated seen {seen}")
+        else:
+            high, seen = 0.0, 0
+        res["devperf"] = {"card": card, "device_row": row, "peak_bf16_flops_per_sec": peak,
+                          "llm_train": rec, "llm_train_phase5_tokens_per_sec":
+                              lora["tokens_per_sec"], "decode": serve_programs,
+                          "hbm_high_water_bytes": high, "hbm_total_bytes": total,
+                          "hbm_allocated_max_seen": seen, "hbm_samples": len(samples)}
+        say(f"  (b) HBM high water over (a) {high / 1e9:.3f} GB of {total / 1e9:.3f} GB "
+            f"({len(samples)} samples, allocated at most {seen / 1e9:.3f} GB at a sample)")
+
+        # (c) the federation again, serving /statusz, its SLO engine on a spec file
+        port_file = os.path.join(tmp, "statusz.port")
+        spec = os.path.join(tmp, "slo.json")
+        with open(spec, "w") as f:
+            _json.dump({"slos": [{"name": "round_p99_seconds", "series": "engine.round_seconds",
+                                  "signal": "quantile", "q": 0.99, "comparator": "<=",
+                                  "target": 600.0}]}, f)
+        pages = {}
+
+        def probe(round_idx, manager):
+            if round_idx != FEDLLM_ROUNDS - 1:
+                return
+            with open(port_file) as f:
+                port = int(f.read())
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/statusz", timeout=30) as r:
+                pages["statusz"] = _json.loads(r.read())
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+                pages["metrics"] = r.read().decode()
+            pages["ticks"] = manager._slo.tick_count if manager._slo is not None else 0
+
+        t0 = time.perf_counter()
+        fed = fedllm_federation(tmp, "fedllm_c", {**FEDLLM_DP, **FEDLLM_PRIVACY,
+                                                  "statusz_port": 0,
+                                                  "statusz_port_file": port_file,
+                                                  "slo_spec": spec}, probe=probe)
+        res["c_s"] = time.perf_counter() - t0
+        del fed
+        gc.collect()
+        torch.cuda.empty_cache()
+        check("statusz" in pages, "(c) the server's pages were not read")
+        sections = pages["statusz"]["sections"]
+        for s in ("round", "health", "privacy", "devperf", "alerts"):
+            check(s in sections, f"(c) /statusz has no {s!r} section: {sorted(sections)}")
+        check(sections["round"]["round_idx"] == FEDLLM_ROUNDS - 1, f"(c) {sections['round']}")
+        check("llm_train" in sections["devperf"]["programs"], "(c) devperf has no llm_train")
+        metrics = pages["metrics"]
+        for fam in ('fedml_device_mfu{program="llm_train"}', "fedml_dp_epsilon_spent",
+                    "fedml_dp_budget_frac", "fedml_alert_active"):
+            check(fam in metrics, f"(c) /metrics has no {fam}")
+        check(pages["ticks"] >= 1 and sections["alerts"]["tick_count"] >= 1,
+              f"(c) the SLO engine did not tick: {pages['ticks']}")
+        check("round_p99_seconds" in sections["alerts"]["slos"], "(c) the slo_spec row is missing")
+        res["statusz"] = {"sections": sorted(sections), "slo_ticks": pages["ticks"],
+                          "slos": sorted(sections["alerts"]["slos"]),
+                          "privacy": sections["privacy"],
+                          "metrics_lines": len(metrics.splitlines())}
+    finally:
+        FedMLDifferentialPrivacy.get_instance().init(SimpleNamespace())
+        fedml.init(fedml.default_config("cross_silo", using_gpu=DEV == "cuda"))
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -6867,13 +7287,19 @@ def main() -> int:
         say("== 4. train step (LLMTrainer.train)")
         trained = train_phase(tmp)
         say("== 5. client round (LLMClientTrainer)")
-        client_phase(tmp, trained["adapters"])
+        return client_phase(tmp, trained["adapters"])
+
+    from fedml_tpu_torch.core.telemetry import devperf
 
     t0 = time.time()
     try:
-        _, launches, by_design = _launched(fa, libs, lora_main_path)
+        client_metrics, launches, by_design = _launched(fa, libs, lora_main_path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # devperf's llm_train row as phases 4-5 left it: phase 23 (b) holds its
+    # MFU to phase 5's tokens/s (later phases train other geometries)
+    lora_devperf = {"record": devperf.snapshot()["programs"]["llm_train"],
+                    "tokens_per_sec": client_metrics["tokens_per_sec"]}
     say(f"  phases 4-5 {time.time() - t0:.1f}s; launches on the main path: {launches}; "
         f"by design (the C entry points' counts): {by_design}")
     # per step and layer: the forward, its recompute under remat, one dQ, one
@@ -6888,6 +7314,8 @@ def main() -> int:
     t0 = time.time()
     serve = serve_phase()
     serve_launches = dict(fa.launch_counts)
+    serve_programs = {k: v for k, v in devperf.snapshot()["programs"].items()
+                      if k in ("cb_step", "paged_step")}
     say(f"  phase {time.time() - t0:.1f}s; flash launches in the serve phase: {serve_launches}")
     # decode runs the plain masked attention (generation.decode_model forces
     # attention_impl="xla", as the JAX package does): no kernel launches here
@@ -7126,12 +7554,24 @@ def main() -> int:
     head_dims = head_dims_phase(libs)
     say(f"  phase {time.time() - t0:.1f}s; (c) {head_dims['tiny_s']:.1f}s")
 
-    say("== 23. result")
+    say(f"== 23. a FedLLM federation at Llama-2-7B's widths ({FEDLLM['n_layers']} layer): "
+        f"{len(FEDLLM_BLOCKS)} silos x {FEDLLM_ROUNDS} rounds under dp_clip, ldp and nbafl "
+        "rounds, devperf on the card, the server's /statusz and SLO engine")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    fedllm = fedllm_phase(libs, lora_devperf, serve_programs)
+    fedllm["phase_s"] = time.time() - t0
+    say(f"  phase {fedllm['phase_s']:.1f}s ((a) {fedllm['a_s']:.1f}s, (c) {fedllm['c_s']:.1f}s); "
+        f"flash launches in (a) {fedllm['flash_launches']}")
+
+    say("== 24. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": errs[name], **timing[name],
-                     "design": "+".join(sorted(by_design[name]))})
+                     "design": "+".join(sorted(by_design[name])),
+                     "launches_phase23": fedllm["flash_launches"][name]})
     # the instances at phase 22's head dims: launches in its (a) and (b),
     # error and times at their attention shapes in phase 3
     for label, part in (("d96", "phi3"), ("d256", "gemma2b")):
@@ -7191,6 +7631,7 @@ def main() -> int:
     print(json.dumps({"files": {"card": card, **files}}), flush=True)
     print(json.dumps({"front_door": {"card": card, **front}}), flush=True)
     print(json.dumps({"head_dims": {"card": card, **head_dims}}), flush=True)
+    print(json.dumps({"fedllm": {"card": card, **fedllm}}, default=str), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,9 +20,10 @@ seam at :204-207). Backends, each the JAX package's:
 
 A backend that cannot start raises, naming itself; no backend stands in for
 another. The INMEMORY link throttle (``chaos_link_throttle``) raises
-NotImplementedError: it needs telemetry.netlink (ROADMAP.md, Queue 1). The
-JAX manager books every message to the flight recorder and to netlink's
-per-pair accounting; neither is ported (ROADMAP.md, Queue 1, telemetry).
+NotImplementedError: it needs telemetry.netlink (ROADMAP.md, Queue 1).
+Every message sent or received is booked to the flight recorder (a None
+check when no recorder is installed), as in the JAX manager; netlink's
+per-pair accounting is not ported (ROADMAP.md, Queue 1, telemetry).
 
 **The weight layout on the wire.** A model payload that leaves the process
 (every backend but INMEMORY: each makes bytes) travels in the JAX package's
@@ -50,6 +51,7 @@ from ...constants import (
     COMM_BACKEND_TRPC,
 )
 from ..resilience.retry import RetryPolicy, retry_call
+from ..telemetry import flight_recorder
 from .communication.base_com_manager import BaseCommunicationManager, Observer
 from .communication.message import Message
 
@@ -129,6 +131,9 @@ class FedMLCommManager(Observer):
         return self.rank
 
     def receive_message(self, msg_type, msg_params: Message) -> None:
+        # every backend dispatches through here, so the flight recorder's
+        # comm breadcrumbs cover them all
+        flight_recorder.record_comm("recv", msg_params)
         if self._wire_layout:
             params = msg_params.get(Message.MSG_ARG_KEY_MODEL_PARAMS)
             if params is not None:
@@ -142,6 +147,7 @@ class FedMLCommManager(Observer):
         handler(msg_params)
 
     def send_message(self, message: Message) -> None:
+        flight_recorder.record_comm("send", message)
         if self._wire_layout:
             params = message.get(Message.MSG_ARG_KEY_MODEL_PARAMS)
             if params is not None:

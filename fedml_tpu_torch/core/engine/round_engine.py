@@ -20,10 +20,13 @@ chaos knobs (the cross-silo front, with its ``server.broadcast`` and
 resume, checkpoint and finalize hooks, ``RoundCheckpointer`` (durable round
 state and the SIGKILL drills), the async sinks over the FedBuff buffer and
 the edge->regional->root tree (``AsyncSink``, ``AsyncBufferSink``,
-``HierarchySink``, ``as_async_sink``) and the uplink compressor's
-boundaries (``compress_upload``, ``decompress_arrival``). Not ported yet
-(ROADMAP.md, Queue 1): the pipelined strategy, the stacked sink's per-client middleware branch (the middleware itself is not
-ported), the link and split-learning chaos knobs (asking for one raises), the SLO engine, ``devperf``, the flight recorder and the mlops
+``HierarchySink``, ``as_async_sink``), the uplink compressor's boundaries
+(``compress_upload``, ``decompress_arrival``) and the shared round
+services: ``RoundEngine.run`` activates the SLO engine (``front="engine"``,
+one tick a round) and runs devperf's HBM sampler around its rounds, and
+``flight_recorded`` is where fronts install the flight recorder. Not
+ported yet (ROADMAP.md, Queue 1): the pipelined strategy, the link and
+split-learning chaos knobs (asking for one raises) and the mlops
 summaries.
 """
 
@@ -550,35 +553,53 @@ class RoundEngine:
 
     def run(self, w_global: StateDict) -> StateDict:
         from ..alg_frame.context import Context
+        from ..telemetry import devperf, slo
 
         comm_round = int(getattr(self.args, "comm_round", 10))
         start_round = 0
         if self.resume_fn is not None:
             w_global, start_round = self.resume_fn(w_global)
         freq = int(getattr(self.args, "frequency_of_the_test", 5))
-        for round_idx in range(start_round, comm_round):
-            log.info("================ Communication round : %d", round_idx)
-            t0 = time.perf_counter()
-            with tel.span("fedavg.round", round=round_idx, **self.round_span_attrs):
-                with tel.span("fedavg.sample", round=round_idx):
-                    cohort = self.sample_fn(round_idx)
-                Context().add("client_indexes_of_round", cohort)
-                result = self.strategy.run_round(round_idx, w_global, cohort)
-                with tel.span("fedavg.aggregate", round=round_idx, k=result.k):
-                    w_global = self.sink.fold(round_idx, w_global, result)
-                self.install_fn(w_global)
-                if self.checkpoint_fn is not None:
-                    self.checkpoint_fn(round_idx, w_global, cohort, round_idx == comm_round - 1)
-                if eval_due(round_idx, comm_round, freq):
-                    with tel.span("fedavg.eval", round=round_idx):
-                        metrics = self.eval_fn(round_idx)
-                    if metrics is not None:
-                        self.metrics_history.append(metrics)
-            tel.counter("engine.rounds").add(1)
-            tel.histogram("engine.round_seconds").observe(time.perf_counter() - t0)
+        slo_engine = slo.activate(self.args, front="engine")
+        devperf.start_hbm_sampler()
+        try:
+            for round_idx in range(start_round, comm_round):
+                log.info("================ Communication round : %d", round_idx)
+                t0 = time.perf_counter()
+                with tel.span("fedavg.round", round=round_idx, **self.round_span_attrs):
+                    with tel.span("fedavg.sample", round=round_idx):
+                        cohort = self.sample_fn(round_idx)
+                    Context().add("client_indexes_of_round", cohort)
+                    result = self.strategy.run_round(round_idx, w_global, cohort)
+                    with tel.span("fedavg.aggregate", round=round_idx, k=result.k):
+                        w_global = self.sink.fold(round_idx, w_global, result)
+                    self.install_fn(w_global)
+                    if self.checkpoint_fn is not None:
+                        self.checkpoint_fn(round_idx, w_global, cohort,
+                                           round_idx == comm_round - 1)
+                    if eval_due(round_idx, comm_round, freq):
+                        with tel.span("fedavg.eval", round=round_idx):
+                            metrics = self.eval_fn(round_idx)
+                        if metrics is not None:
+                            self.metrics_history.append(metrics)
+                tel.counter("engine.rounds").add(1)
+                tel.histogram("engine.round_seconds").observe(time.perf_counter() - t0)
+                if slo_engine is not None:
+                    slo_engine.maybe_tick()
+        finally:
+            devperf.stop_hbm_sampler()
+            slo.deactivate(slo_engine)
         if self.finalize_fn is not None:
             self.finalize_fn(w_global)
         return w_global
+
+
+def flight_recorded(role: str):
+    """The one place fronts install the flight recorder (crash forensics:
+    the last spans, comm events and marks, dumped on an unhandled error)."""
+    from ..telemetry import flight_recorder
+
+    return flight_recorder.installed(role=role)
 
 
 def knob_set(v: Any) -> bool:

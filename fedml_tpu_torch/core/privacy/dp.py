@@ -16,22 +16,26 @@ seeded from ``dp_seed``: a run is reproducible on one device, but its draws
 are not JAX's (no PRNG matches across frameworks), so tests hold the noise
 to its statistics.
 
-Every noised release steps the RDP accountant (``core/dp/budget_accountant``).
-Not ported (ROADMAP.md, Queue 1): the accountant's flight-recorder marks, its
-Prometheus gauges and the tsdb series behind the ``dp_budget_exhaustion``
-SLO row; :meth:`DPAccountant.statusz` keeps the numbers those surfaces read.
+Every noised release steps the RDP accountant (``core/dp/budget_accountant``):
+spent epsilon at the configured delta surfaces as ``fedml_dp_epsilon_spent``
+/ ``fedml_dp_budget_frac`` gauges, a `/statusz` ``privacy`` section entry,
+the ``privacy.dp_epsilon_spent`` / ``privacy.dp_budget_frac`` tsdb series
+(behind the ``dp_budget_exhaustion`` SLO row, which fires while budget_frac
+is still below 1.0), and a ``dp.accountant_step`` flight-recorder mark per
+accountant step, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from .. import telemetry as tel
 from ..dp.budget_accountant.rdp_accountant import RDPAccountant
+from ..telemetry import flight_recorder
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -79,6 +83,12 @@ def clip_update(tree: StateDict, l2_clip: float) -> StateDict:
     return {k: v * scale if v.is_floating_point() else v for k, v in tree.items()}
 
 
+def _is_nested(tree: Any) -> bool:
+    """A flax-layout tree (nested dicts of arrays: the FedLLM client's
+    adapters), not a flat state dict."""
+    return any(isinstance(v, Mapping) for v in tree.values())
+
+
 def clip_to_reference(tree: StateDict, reference: StateDict, l2_clip: float) -> StateDict:
     """Clip the UPDATE ``tree - reference`` onto the L2 ball of radius
     ``l2_clip`` and return ``reference + clipped_update``: the enforcement
@@ -91,7 +101,20 @@ def clip_to_reference(tree: StateDict, reference: StateDict, l2_clip: float) -> 
     dtype (f32 on the main path), as in the JAX package. The floating leaves
     go through as one flat vector on their device (a few ops, not a few a
     leaf); the norm is summed there in f64 in another order than JAX's host
-    sum, so the clipped leaves can differ from JAX's by one f32 ulp."""
+    sum, so the clipped leaves can differ from JAX's by one f32 ulp.
+
+    Either side may instead be a flax-layout tree of numpy arrays (what the
+    FedLLM client exchanges; JAX's function takes any pytree): it is clipped
+    as the state dict it converts to and comes back in its own layout."""
+    if _is_nested(tree) or _is_nested(reference):
+        from ...models.convert import params_from_jax, params_to_jax
+
+        state = params_from_jax(tree) if _is_nested(tree) else tree
+        ref = params_from_jax(reference) if _is_nested(reference) else reference
+        out = clip_to_reference(state, ref, l2_clip)
+        if out is state:
+            return tree
+        return params_to_jax(out) if _is_nested(tree) else out
     keys = _float_keys(tree)
     dev = tree[keys[0]].device
     x = torch.cat([tree[k].reshape(-1) for k in keys]).double()
@@ -104,7 +127,8 @@ def clip_to_reference(tree: StateDict, reference: StateDict, l2_clip: float) -> 
 
 
 class DPAccountant:
-    """RDP/moments accounting for the fold's Gaussian mechanism."""
+    """RDP/moments accounting for the fold's Gaussian mechanism, plus every
+    observability surface the budget must reach."""
 
     def __init__(self, noise_multiplier: float = DEFAULT_NOISE_MULTIPLIER,
                  delta: float = DEFAULT_DELTA,
@@ -122,15 +146,18 @@ class DPAccountant:
         self.epsilon_spent = 0.0
 
     def step(self, steps: int = 1) -> float:
-        """Account ``steps`` more releases of the mechanism. Returns the
-        spent ε at the configured δ. (The JAX package also marks the flight
-        recorder here; it is not ported.)"""
+        """Account ``steps`` more releases of the mechanism and mark the
+        flight recorder. Returns the spent ε at the configured δ."""
         with self._lock:
             self._rdp.step(noise_multiplier=self.noise_multiplier,
                            sample_rate=self.sample_rate, steps=int(steps))
             self.steps += int(steps)
             self.epsilon_spent = float(self._rdp.get_epsilon(self.delta))
-            return self.epsilon_spent
+            eps, frac = self.epsilon_spent, self.budget_frac_locked()
+        flight_recorder.mark("dp.accountant_step", steps=self.steps,
+                             epsilon=round(eps, 6), budget_frac=round(frac, 6),
+                             noise_multiplier=self.noise_multiplier)
+        return eps
 
     def budget_frac_locked(self) -> float:
         return self.epsilon_spent / self.epsilon_budget if self.epsilon_budget > 0 else 0.0
@@ -153,6 +180,21 @@ class DPAccountant:
                 "epsilon_budget": self.epsilon_budget,
                 "budget_frac": self.budget_frac_locked(),
             }
+
+    def prom_gauges(self) -> List[tuple]:
+        with self._lock:
+            return [
+                ("dp_epsilon_spent", {}, float(self.epsilon_spent)),
+                ("dp_budget_frac", {}, float(self.budget_frac_locked())),
+            ]
+
+    def tsdb_collector(self, store) -> None:
+        """Gauge feed for ``store.add_collector``: the series the
+        ``dp_budget_exhaustion`` SLO row watches."""
+        with self._lock:
+            eps, frac = self.epsilon_spent, self.budget_frac_locked()
+        store.record_gauge("privacy.dp_epsilon_spent", float(eps))
+        store.record_gauge("privacy.dp_budget_frac", float(frac))
 
 
 class DPFold:
@@ -230,3 +272,6 @@ class DPFold:
         doc = self.accountant.statusz()
         doc["l2_clip"] = self.l2_clip
         return doc
+
+    def prom_gauges(self) -> List[tuple]:
+        return self.accountant.prom_gauges()

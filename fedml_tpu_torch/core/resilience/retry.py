@@ -13,9 +13,8 @@ Semantics:
   from retrying in lockstep;
 - **budget-capped**: both an attempt cap and an elapsed-time budget; the
   budget wins (a slow failing call does not get its full attempt count);
-- **observable**: each retry bumps ``comm.retry.<label>`` and logs a
-  warning. (The JAX package also books a flight-recorder event; the flight
-  recorder is not ported: ROADMAP.md, Queue 1.)
+- **observable**: each retry bumps ``comm.retry.<label>``, books a
+  flight-recorder ``retry`` event and logs a warning.
 
 The success path is one ``try`` — no clock read, no allocation beyond the
 generator frame — so wrapping a healthy send costs nothing measurable.
@@ -33,6 +32,8 @@ log = logging.getLogger(__name__)
 
 # counter("comm.retry.<backend>"), the JAX package's name
 RETRY_COUNTER_PREFIX = "comm.retry."
+
+EVENT_RETRY = "retry"
 
 
 def transient_error(exc: BaseException) -> bool:
@@ -117,8 +118,12 @@ def retry_call(
 
 
 def _book_retry(label: str, attempt: int, delay_s: float, exc: BaseException) -> None:
-    """Counter + log line for one retry decision."""
+    """Counter + flight-recorder breadcrumb for one retry decision."""
+    from ..telemetry import flight_recorder
     from ..telemetry.core import get_telemetry
 
     get_telemetry().counter(RETRY_COUNTER_PREFIX + label).add(1)
+    flight_recorder.record_event(
+        EVENT_RETRY, label, attempt=attempt, delay_s=round(delay_s, 4), error=repr(exc)
+    )
     log.warning("%s failed (%r); retry %d in %.2fs", label, exc, attempt, delay_s)

@@ -5,8 +5,10 @@ flight recorder).
 Counterpart of ``fedml_tpu/core/telemetry``: ``core``, ``trace_context``,
 ``sketches`` (the mergeable fleet sketches), ``health`` and ``tsdb`` are
 copies of the JAX package's framework-free modules; ``prom``, ``statusz``,
-``flight_recorder`` and ``slo`` are copies but for their netlink, devperf,
-modelwatch, server-mesh and mlops parts; ``fleet`` (the server's fleet
+``flight_recorder`` and ``slo`` are copies but for their netlink,
+modelwatch, server-mesh and mlops parts; ``devperf`` (the program cost
+registry: MFU against the card's peak, the HBM sampler) is JAX's with the
+caller's analytic FLOPs in place of XLA's cost analysis; ``fleet`` (the server's fleet
 view: client telemetry deltas, the health tracker, the fleet sketches and
 their child-tier slots, the fleet trace) is JAX's but for modelwatch's
 ledger and netlink. Typical use::
@@ -18,12 +20,11 @@ ledger and netlink. Typical use::
         ...
     tel.histogram("serving.cb.ttft_seconds").observe(sp.duration_s)
 
-The rest of the JAX package's telemetry (``devperf``'s compiled-program
-costs, netlink, modelwatch and the link probe) waits for later slices
-(ROADMAP.md, Queue 1).
+The rest of the JAX package's telemetry (netlink, modelwatch and the link
+probe) waits for later slices (ROADMAP.md, Queue 1).
 """
 
-from . import flight_recorder, prom, sketches, slo, statusz, tsdb
+from . import devperf, flight_recorder, prom, sketches, slo, statusz, tsdb
 from .core import (
     Counter,
     Histogram,
@@ -40,6 +41,7 @@ from .core import (
     summary,
     timed,
 )
+from .devperf import CompiledProgramRegistry, HbmSampler
 from .fleet import FleetTelemetry
 from .flight_recorder import FlightRecorder
 from .sketches import (
@@ -60,9 +62,11 @@ __all__ = [
     "Histogram",
     "TimeSeriesStore",
     "CardinalitySketch",
+    "CompiledProgramRegistry",
     "FleetSketches",
     "FleetTelemetry",
     "FlightRecorder",
+    "HbmSampler",
     "SLOEngine",
     "SLOSpec",
     "StatuszServer",
@@ -72,6 +76,7 @@ __all__ = [
     "TraceContext",
     "activated",
     "new_trace_id",
+    "devperf",
     "flight_recorder",
     "prom",
     "sketches",

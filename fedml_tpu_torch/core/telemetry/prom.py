@@ -5,9 +5,9 @@ byte for byte what the JAX module renders for the same registry. The
 ``jax.compiles.`` family keeps its rendering rule under this module's own
 ``COMPILE_COUNTER_PREFIX`` (the port traces nothing, so nothing counts
 there unless a caller does). The JAX module's optional ride-along gauges
-of the server mesh, netlink and devperf are left out until those modules
-are ported (ROADMAP.md, Queue 1); the SLO engine's and the fleet sketches'
-ride along as in JAX.
+of the server mesh and netlink are left out until those modules are
+ported (ROADMAP.md, Queue 1); the SLO engine's, devperf's and the fleet
+sketches' ride along as in JAX.
 
 Dependency-free (no ``prometheus_client``): renders the 0.0.4 text format
 from a ``Telemetry`` registry so the serving layer can expose ``GET /metrics``
@@ -232,6 +232,16 @@ def render(telemetry: Optional[Telemetry] = None,
         slo_gauges = []
     if slo_gauges:
         gauges = list(gauges) + slo_gauges if gauges else slo_gauges
+    # device-performance gauges (fedml_device_mfu{program=}, per-device HBM
+    # live/high-water bytes) ride along once any instrumented program ran
+    try:
+        from . import devperf as _devperf
+
+        devperf_gauges = _devperf.prom_gauges()
+    except Exception:  # noqa: BLE001 - metrics must render without devperf
+        devperf_gauges = []
+    if devperf_gauges:
+        gauges = list(gauges) + devperf_gauges if gauges else devperf_gauges
     # fleet sketch gauges (fedml_fleet_*{q=} quantiles, top-k offenders,
     # distinct-clients estimate) + the cardinality budget's live-series
     # accounting (fedml_telemetry_series_live{family=,state=}) ride along

@@ -2,9 +2,9 @@
 
 A copy of ``fedml_tpu/core/telemetry/statusz.py`` (framework-free). Of the
 JAX page's always-on sections it keeps ``resilience``, ``alerts`` (the SLO
-engine) and ``fleet_sketches``; ``sharding``, ``links``, ``devperf`` and
-``modelwatch`` are left out until the server mesh, netlink, devperf and
-modelwatch are ported (ROADMAP.md, Queue 1).
+engine), ``devperf`` and ``fleet_sketches``; ``sharding``, ``links`` and
+``modelwatch`` are left out until the server mesh, netlink and modelwatch
+are ported (ROADMAP.md, Queue 1).
 
 Borrowed from the Google-style z-pages idiom: every long-running fedml
 process (cross-silo server, serving replica, gateway) exposes a single
@@ -108,6 +108,17 @@ def render(service: Optional[str] = None,
             doc["sections"]["alerts"] = alerts
     except Exception as e:  # noqa: BLE001 - status page must not throw
         doc["sections"]["alerts"] = {"error": repr(e)}
+    # the devperf section (per-program achieved FLOPs/s, MFU, HBM gauges) is
+    # always-on: any process that ran an instrumented step has programs to
+    # show
+    try:
+        from . import devperf as _devperf
+
+        dev = _devperf.statusz_snapshot()
+        if dev:
+            doc["sections"]["devperf"] = dev
+    except Exception as e:  # noqa: BLE001 - status page must not throw
+        doc["sections"]["devperf"] = {"error": repr(e)}
     # fleet sketches (bounded quantile/offender/cardinality summary + the
     # series budget's live/degraded accounting): shows whenever a fleet view
     # is active — the million-client replacement for per-rank sections

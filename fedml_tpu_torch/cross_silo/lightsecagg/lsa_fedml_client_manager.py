@@ -15,8 +15,9 @@ the trainer's device, and the shares come back to the host in one copy, so
 this client masks and encodes as a JAX client of the same seed does. The
 masking and the sum of the received shares are host numpy
 (``client.train``, ``lsa.quantize``, ``lsa.encode``, ``lsa.mask`` spans).
-The JAX manager's flight recorder and mlops events are not ported
-(ROADMAP.md, Queue 1).
+The JAX manager also runs under the flight recorder and logs mlops
+events; this one does neither (the server managers run under the
+recorder; mlops is ROADMAP.md, Queue 4).
 """
 
 from __future__ import annotations

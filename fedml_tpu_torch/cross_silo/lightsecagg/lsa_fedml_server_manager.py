@@ -3,9 +3,9 @@
 
 Reference: ``cross_silo/lightsecagg/lsa_fedml_server_manager.py`` — routes
 encoded-mask shares between clients, gates on all masked models, queries the
-active set for aggregate masks, then reconstructs + syncs. The JAX
-manager's flight recorder and mlops events are not ported (ROADMAP.md,
-Queue 1); the port's plain managers run without them too.
+active set for aggregate masks, then reconstructs + syncs. ``run`` runs
+under the flight recorder, as the JAX manager's does; its mlops events are
+not ported (ROADMAP.md, Queue 4).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional
 
 from ...core.distributed.communication.message import Message
 from ...core.distributed.fedml_comm_manager import FedMLCommManager
+from ...core.engine import flight_recorded
 from .lsa_message_define import MyMessage
 
 log = logging.getLogger(__name__)
@@ -30,6 +31,12 @@ class LightSecAggServerManager(FedMLCommManager):
         self.is_initialized = False
         self.mask_request_sent = False
         self.final_metrics: Optional[Dict[str, float]] = None
+
+    def run(self) -> None:
+        # a handler exception (mid share routing, mid reconstruction) writes
+        # one flight-recorder dump with the comm breadcrumbs attached
+        with flight_recorded(role="lightsecagg_server"):
+            super().run()
 
     def register_message_receive_handlers(self) -> None:
         self.register_message_receive_handler(MyMessage.MSG_TYPE_C2S_CLIENT_STATUS, self.handle_message_client_status)

@@ -12,8 +12,9 @@ The trained state dict is quantized on its device in the JAX flat order
 to the host in one copy; keys, shares and masks are host numpy from JAX's
 generator (``random_seed * 977 + rank``), so this client masks as a JAX
 client of the same seed does (``client.train``, ``sa.quantize``,
-``sa.mask`` spans). The JAX manager's flight recorder and mlops events are
-not ported (ROADMAP.md, Queue 1).
+``sa.mask`` spans). The JAX manager also runs under the flight recorder
+and logs mlops events; this one does neither (the server managers run
+under the recorder; mlops is ROADMAP.md, Queue 4).
 """
 
 from __future__ import annotations

@@ -3,8 +3,7 @@
 
 Reference: ``cross_silo/secagg/sa_fedml_server_manager.py`` — key-directory
 broadcast, share routing, masked-model gating, reveal round, reconstruction,
-sync. The JAX manager runs inside the flight recorder, which is not ported
-(ROADMAP.md, Queue 1); the port's plain managers run without it too.
+sync. ``run`` runs under the flight recorder, as the JAX manager's does.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from typing import Any, Dict, Optional
 
 from ...core.distributed.communication.message import Message
 from ...core.distributed.fedml_comm_manager import FedMLCommManager
+from ...core.engine import flight_recorded
 from .sa_message_define import MyMessage
 
 log = logging.getLogger(__name__)
@@ -30,6 +30,12 @@ class SecAggServerManager(FedMLCommManager):
         self.directory_sent = False
         self.unmask_requested = False
         self.final_metrics: Optional[Dict[str, float]] = None
+
+    def run(self) -> None:
+        # a handler exception (mid share routing, mid reconstruction) writes
+        # one flight-recorder dump with the comm breadcrumbs attached
+        with flight_recorded(role="secagg_server"):
+            super().run()
 
     def register_message_receive_handlers(self) -> None:
         self.register_message_receive_handler(MyMessage.MSG_TYPE_C2S_CLIENT_STATUS, self.handle_message_client_status)

@@ -57,12 +57,24 @@ its quorum of shares. As for the round deadline, the callback takes the
 round lock and the server's device and compares window ids, and the timer
 is cancelled when the run ends.
 
+Telemetry (JAX ``:140-240``): ``run`` runs under the flight recorder
+(``flight_recorded(role="cross_silo_server")``: an exception in any
+handler writes one crash dump with the open round span), activates the
+SLO engine (``front="cross_silo"``, ticked once a round after the health
+round closes, and every ``slo_tick_s`` when set) with the health, fleet
+sketch and DP accountant collectors, and with ``statusz_port`` (0: an
+ephemeral port, written to ``statusz_port_file``) serves `/statusz` (the
+``round``, ``health``, ``async`` and ``privacy`` sections beside the
+always-on ones, devperf's among them) and `/metrics`. Under
+``statusz_port``, ``slo_spec`` or ``slo_tick_s`` the fleet view is read, so
+the clients' telemetry deltas are merged.
+
 Not ported, each raising NotImplementedError when its knob is set
 (ROADMAP.md, Queue 1): link-cost admission (``async_link_admission``) and
 the link-cost deadline (``quorum_link_cost``), link probing and WAN-aware
-health, statusz, the SLO engine and the link and split-learning chaos
-knobs. The JAX package also logs the SecAgg dropouts and aborts to mlops;
-that is not ported.
+health (``link_probe_interval_s``, ``link_wan_health``: netlink's), and the
+link and split-learning chaos knobs. The JAX package also logs the SecAgg
+dropouts and aborts to mlops; that is not ported.
 """
 
 from __future__ import annotations
@@ -78,13 +90,13 @@ from ...core import telemetry as tel
 from ...core.distributed.communication.message import Message
 from ...core.distributed.fedml_comm_manager import FedMLCommManager
 from ...core.engine import (RemoteCommStrategy, RoundCheckpointer, decompress_arrival,
-                            knob_set, refuse_chaos_knobs, refuse_knobs)
+                            flight_recorded, knob_set, refuse_chaos_knobs, refuse_knobs)
 from ...core.privacy import is_masked_payload, submit_masked_payload
 from ...core.resilience import (QuorumPolicy, RoundQuorum, RoundStateStore, note,
                                 overprovisioned_cohort_size)
 from ...core.resilience import quorum as quorum_mod
 from ...core.resilience.round_state import restore_numpy_rng
-from ...core.telemetry import trace_context
+from ...core.telemetry import slo, statusz, trace_context
 from ..message_define import MyMessage
 
 log = logging.getLogger(__name__)
@@ -94,16 +106,12 @@ _KNOBS = (
     ("quorum_link_cost", knob_set),
     ("link_probe_interval_s", knob_set),
     ("link_wan_health", knob_set),
-    ("statusz_port", lambda v: v is not None),
-    ("slo_spec", knob_set),
-    ("slo_tick_s", knob_set),
 )
 
 
 class FedMLServerManager(FedMLCommManager):
     def __init__(self, args: Any, aggregator, comm=None, client_rank=0, client_num=0, backend="INMEMORY"):
-        refuse_knobs(args, _KNOBS, "link-cost admission and deadlines, link probing, statusz "
-                                   "and the SLO engine are")
+        refuse_knobs(args, _KNOBS, "link-cost admission and deadlines and link probing are")
         refuse_chaos_knobs(args)
         super().__init__(args, comm, client_rank, client_num + 1, backend)
         self.aggregator = aggregator
@@ -145,11 +153,17 @@ class FedMLServerManager(FedMLCommManager):
         rdir = getattr(args, "resilience_dir", None)
         # the fleet view has readers only under these knobs: the quorum
         # (failures, adaptive deadline, over-provisioning), the async
-        # buffer's straggler grace, the round state's health and the fleet
-        # trace. Without them the clients' deltas are not merged and the
-        # round runs as it does without resilience.
+        # buffer's straggler grace, the round state's health, the fleet
+        # trace, /statusz's health section and the SLO rows an operator
+        # configured. Without them the clients' deltas are not merged and
+        # the round runs as it does without resilience.
         self._fleet_read = bool(self._quorum_policy.enabled or self._async_mode or rdir
-                                or getattr(args, "fleet_trace", None))
+                                or getattr(args, "fleet_trace", None)
+                                or getattr(args, "statusz_port", None) is not None
+                                or knob_set(getattr(args, "slo_spec", None))
+                                or knob_set(getattr(args, "slo_tick_s", None)))
+        self._slo: Optional[slo.SLOEngine] = None
+        self._statusz_server: Optional[statusz.StatuszServer] = None
         if rdir:
             self._round_store = RoundStateStore(str(rdir))
             self._checkpointer = RoundCheckpointer(self._round_store, args,
@@ -191,6 +205,126 @@ class FedMLServerManager(FedMLCommManager):
         self.aggregator.fleet.health.restore_state(rs.meta.get("health"))
         log.info("server resumed: round %d complete, restarting at round %d",
                  rs.round_idx, self.args.round_idx)
+
+    def run(self) -> None:
+        from ...core.telemetry import sketches as fleet_sketches
+
+        # the whole receive loop runs under the flight recorder: an exception
+        # in any handler produces one crash dump with the open round span
+        with flight_recorded(role="cross_silo_server"):
+            self._slo = slo.activate(self.args, front="cross_silo")
+            fleet = self.aggregator.fleet
+            # the fleet's merged sketch view feeds /metrics, /statusz, crash
+            # dumps and the tsdb series the fleet SLO rows watch
+            fleet_sketches.set_active_provider(fleet.sketch_view)
+            if self._slo is not None:
+                self._slo.store.add_collector(self._slo_health_collector)
+                self._slo.store.add_collector(fleet_sketches.tsdb_collector)
+                accountant = self._dp_accountant
+                if accountant is not None:
+                    # privacy.dp_epsilon_spent / dp_budget_frac: the
+                    # dp_budget_exhaustion row fires before the budget is
+                    # crossed
+                    self._slo.store.add_collector(accountant.tsdb_collector)
+            self._start_statusz_if_configured()
+            try:
+                super().run()
+            finally:
+                self._stop_statusz()
+                slo.deactivate(self._slo)
+                self._slo = None
+                fleet_sketches.set_active_provider(None)
+
+    @property
+    def _dp_accountant(self):
+        dp = getattr(self.aggregator, "dp_fold", None)
+        return dp.accountant if dp is not None else None
+
+    # --- statusz and the SLO engine ------------------------------------------
+    def _start_statusz_if_configured(self) -> None:
+        """Serve `/statusz` + `/metrics` when ``args.statusz_port`` is set
+        (0: an ephemeral port; the bound port is written to
+        ``args.statusz_port_file`` if given)."""
+        port = getattr(self.args, "statusz_port", None)
+        if port is None:
+            return
+        fleet = self.aggregator.fleet
+        buf = getattr(self.aggregator, "async_buffer", None)
+        statusz.register_section("round", self._statusz_round_section)
+        statusz.register_section("health", fleet.health.statusz)
+        if buf is not None:
+            statusz.register_section("async", buf.statusz)
+        if self.aggregator.privacy_cfg.enabled:
+            statusz.register_section("privacy", self._statusz_privacy_section)
+
+        def gauges():
+            out = list(fleet.health.prom_gauges())
+            if buf is not None:
+                out.extend(buf.prom_gauges())
+            co = self._secagg
+            if co is not None:
+                out.extend(co.prom_gauges())
+            dp = getattr(self.aggregator, "dp_fold", None)
+            if dp is not None:
+                out.extend(dp.prom_gauges())
+            return out
+
+        port_file = getattr(self.args, "statusz_port_file", None)
+        self._statusz_server = statusz.StatuszServer(
+            port=int(port), service="cross_silo_server", gauges_fn=gauges,
+            port_file=str(port_file) if port_file else None)
+        bound = self._statusz_server.start()
+        log.info("statusz serving on http://127.0.0.1:%d/statusz", bound)
+
+    def _stop_statusz(self) -> None:
+        if self._statusz_server is None:
+            return
+        for name in ("round", "health", "async", "privacy"):
+            statusz.unregister_section(name)
+        self._statusz_server.stop()
+        self._statusz_server = None
+
+    def _statusz_privacy_section(self) -> dict:
+        doc: Dict[str, Any] = {"mode": self.aggregator.privacy_cfg.mode}
+        co = self._secagg
+        if co is not None:
+            doc["secagg"] = co.statusz()
+        dp = getattr(self.aggregator, "dp_fold", None)
+        if dp is not None:
+            doc["dp"] = dp.statusz()
+        return doc
+
+    def _statusz_round_section(self) -> dict:
+        doc = {
+            "round_idx": int(self.args.round_idx),
+            "round_num": self.round_num,
+            "initialized": self.is_initialized,
+            "clients_online": len(self.client_online_status),
+            "cohort": list(self.client_id_list_in_this_round or []),
+        }
+        # no _round_lock: the receive loop holds it across aggregation, and a
+        # status page that blocks on a live round is useless mid-round
+        q = self._round_quorum
+        if q is not None:
+            doc["quorum"] = q.statusz()
+        return doc
+
+    def _slo_tick(self) -> None:
+        """The per-round SLO evaluator tick (a no-op with SLOs disabled)."""
+        if self._slo is not None:
+            self._slo.tick()
+
+    def _slo_health_collector(self, store) -> None:
+        """Feed the live straggler ratio (flagged / cohort size from the
+        fleet's latest health report) into the tsdb each tick, for the
+        ``straggler_ratio`` SLO."""
+        report = self.aggregator.fleet.health.report()
+        if not report:
+            return
+        n = int((report.get("cohort") or {}).get("n") or 0)
+        if n > 0:
+            store.record_gauge("health.straggler_ratio",
+                               len(report.get("stragglers") or ()) / n)
 
     def _begin_round_trace(self) -> None:
         self._end_round_trace()
@@ -412,6 +546,8 @@ class FedMLServerManager(FedMLCommManager):
             report = fleet.health.end_round(round_idx)
             if report.stragglers:
                 log.warning("round %d stragglers: %s", round_idx, report.stragglers)
+        # the evaluator ticks after end_round: a fresh straggler ratio
+        self._slo_tick()
         self._save_round_state(round_idx, global_model_params,
                                final=(round_idx + 1 >= self.round_num))
         self.args.round_idx += 1
@@ -501,6 +637,7 @@ class FedMLServerManager(FedMLCommManager):
         tel.counter("engine.rounds").add(1)
         if self.aggregator.fleet.merges:
             self.aggregator.fleet.health.end_round(round_idx)
+        self._slo_tick()
         final = buf.version >= self.round_num
         self._save_round_state(round_idx, global_model_params, final=final)
         if final:

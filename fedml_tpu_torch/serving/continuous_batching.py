@@ -31,7 +31,11 @@ carries on.
 Telemetry: TTFT/TPOT histograms, token/request counters, and a ``stats()``
 snapshot (slot occupancy, queue depth) that the inference runner exports
 as Prometheus gauges and ``/statusz`` fields (the paged engine adds its
-page, prefix-cache and per-tenant gauges through ``prom_gauges``).
+page, prefix-cache and per-tenant gauges through ``prom_gauges``). Each
+chunk is folded into devperf at its token sync, which already waits on the
+card: program ``cb_step`` (``paged_step`` for the paged engine), its FLOPs
+counted by :func:`decode_flops` (JAX's decode steps read XLA's count;
+ROADMAP.md, Queue 3, P3).
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ import torch
 
 from ..core import telemetry as tel
 from ..core.pipeline.executor import PipelinedExecutor, PipelineError, StageSpec
-from ..core.telemetry import tsdb
+from ..core.telemetry import devperf, tsdb
 from ..models.transformer import TransformerConfig, TransformerLM, init_cache
 from ..train.llm.generation import _eos_tuple, _prefill_padded, _sample, decode_model
 from .admission import DEFAULT_TENANT, AdmissionController, AdmissionError
@@ -87,6 +91,26 @@ def _sample_rows(logits: torch.Tensor, temps: np.ndarray,
         drawn = torch.cat([_sample(logits[b:b + 1], gens[b], float(temps[b])) for b in rows])
         out[torch.tensor(rows, device=logits.device)] = drawn
     return out
+
+
+def matmul_params(model: TransformerLM) -> int:
+    """The decode model's matmul weights: every parameter and int8
+    ``kernel_q`` buffer but the embedding table (the LLM trainer's count)."""
+    n = sum(p.numel() for p in model.parameters())
+    n += sum(b.numel() for name, b in model.named_buffers() if name.endswith("kernel_q"))
+    return n - model.cfg.vocab_size * model.cfg.d_model
+
+
+def decode_flops(cfg: TransformerConfig, n_matmul: int, lengths: np.ndarray,
+                 active: np.ndarray, C: int) -> float:
+    """Analytic FLOPs of one chunk: each live slot's C tokens take 2 x the
+    matmul params, and each attends over its context (the cached tokens and
+    itself), QK^T and PV at 2 x d_model FLOPs a position a layer."""
+    ctx = lengths[active].astype(np.float64)
+    n = float(active.sum()) * C
+    # sum over slots and steps c of (length + c + 1) positions
+    positions = float((ctx * C).sum()) + n * (C + 1) / 2.0
+    return 2.0 * n_matmul * n + 4.0 * cfg.n_layers * cfg.d_model * positions
 
 
 def _cb_step(model: TransformerLM, cache: dict, tok: np.ndarray, lengths: np.ndarray,
@@ -182,6 +206,9 @@ class ContinuousBatchingEngine:
     ``generation.decode_model`` takes) become one decode model on
     ``device``, shared read-only."""
 
+    #: devperf registry label for the decode step this engine drives
+    _devperf_label = "cb_step"
+
     def __init__(
         self,
         params,
@@ -202,6 +229,9 @@ class ContinuousBatchingEngine:
         self._B = int(num_slots)
         self._C = int(chunk)
         self._max_queue = int(max_queue)
+        self._n_matmul = matmul_params(self._model)
+        devperf.instrument(_cb_step, self._devperf_label, device=self._dev,
+                           dtype=self._model.cfg.dtype)
 
         with _on_device(self._dev):
             self._cache = self._build_cache()
@@ -452,10 +482,13 @@ class ContinuousBatchingEngine:
                 [s is not None for s in self._slots], bool
             )
         n_live = int(active_mask.sum())
-        with tel.timed("serving.cb.chunk", slots=n_live):
+        with tel.timed("serving.cb.chunk", slots=n_live) as sp:
             toks = _cb_step(self._model, self._cache, self._tok, self._lengths,
                             self._temps, self._gens, active_mask, self._C,
                             self._block_tables())  # [B, C]
+        devperf.observe_step(self._devperf_label, sp.duration_s, tokens=n_live * self._C,
+                             flops=decode_flops(self._model.cfg, self._n_matmul, self._lengths,
+                                                active_mask, self._C))
         self._tok = toks[:, -1].copy()
         self._lengths = self._lengths + active_mask * self._C
         now = time.perf_counter()
@@ -593,6 +626,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                          max_queue=max_queue, device=device)
 
     # -- cache + step wiring ------------------------------------------------
+
+    _devperf_label = "paged_step"
 
     def _build_cache(self) -> dict:
         return paged_pool_init(self._paged_cfg, self._dev)

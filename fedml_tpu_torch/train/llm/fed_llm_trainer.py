@@ -6,6 +6,24 @@ weights). The client holds the full frozen base model on its device;
 get/set_model_params move the adapter subtree only, as nested numpy dicts in
 the flax path layout (``layer_0/attn/q_proj/lora_a``), so a 7B base ships
 about 0.1% of its bytes per round and a JAX server can fold the result.
+
+The client hooks (JAX ``core/alg_frame/client_trainer.py:63-101``) run on the
+adapters. Under local DP (``enable_dp`` with ``dp_solution_type`` ``ldp``,
+``nbafl`` or ``dp_clip``) the adapters go to the DP frame as a state dict of
+tensors on the trainer's device, and the frame's output comes back as the
+flax-layout tree in JAX's flat order; DP-Clip's anchor is the round's
+incoming adapters, kept before the first local step. Two hooks are refused
+before the first local step, where the JAX client fails:
+
+- ``enable_fhe`` (ROADMAP.md, Queue 3, R14): JAX's ``set_model_params``
+  merges the ``Ciphertext`` leaves into the model and raises
+  ``AttributeError`` after the round has trained;
+- a data-poisoning attack (``label_flipping``, ``edge_case_backdoor``; R15):
+  JAX's poisoning unpacks the client's data as a pair and raises
+  ``TypeError``, and a causal LM reads no labels to poison.
+
+Any other attack type is the server's (a model attack) and passes the client
+untouched, as in JAX.
 """
 
 from __future__ import annotations
@@ -14,11 +32,13 @@ import logging
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from ...core.alg_frame.client_trainer import ClientTrainer
+from ...models.convert import params_to_jax, wire_order
 from .configurations import DatasetArguments, ExperimentArguments, ModelArguments
 from .data import TextDataset
-from .llm_trainer import LLMTrainer, synthetic_token_batches
+from .llm_trainer import LLMTrainer, is_lora_name, synthetic_token_batches
 
 log = logging.getLogger(__name__)
 
@@ -35,24 +55,56 @@ class LLMClientTrainer(ClientTrainer):
         self.llm._build(self.llm.init_params())
 
     # --- hooks ------------------------------------------------------------
-    def _refuse_middleware(self, args: Any) -> None:
-        """The trust middleware works on state dicts of tensors; this client
-        exchanges nested numpy adapter dicts, so it keeps refusing the client
-        middleware (ROADMAP.md, Queue 1)."""
-        if not self.enable_hooks:
-            return
-        on = [f for f in ("enable_dp", "enable_attack", "enable_fhe") if getattr(args, f, False)]
-        if on:
-            raise NotImplementedError(
-                f"{', '.join(on)}: the FedLLM client's DP, attack and FHE hooks are not "
-                "ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+    def _refuse_hooks(self, args: Any) -> None:
+        """R14 and R15: FHE and data poisoning on the FedLLM client, where
+        the JAX client fails after (FHE) or at (poisoning) its round."""
+        from ...core.fhe.fhe_agg import FedMLFHE
+        from ...core.security.fedml_attacker import DATA_ATTACKS, FedMLAttacker, attack_type
+
+        if getattr(args, "enable_fhe", False) or FedMLFHE.get_instance().is_fhe_enabled():
+            raise ValueError(
+                "enable_fhe on the FedLLM client: the JAX client merges the ciphertext "
+                "leaves into its model and fails after the round has trained "
+                "(AttributeError; ROADMAP.md, Queue 3, R14)")
+        atk = attack_type(args)
+        if atk in DATA_ATTACKS or FedMLAttacker.get_instance().is_data_poisoning_attack():
+            raise ValueError(
+                f"attack_type {atk or FedMLAttacker.get_instance().attack_type!r} poisons labels, "
+                "which a causal LM never reads, and the JAX client fails unpacking its data "
+                "(TypeError; ROADMAP.md, Queue 3, R15)")
+
+    def _adapter_state(self) -> Dict[str, torch.Tensor]:
+        """The adapters as the DP frames take them: a state dict of copies
+        on the trainer's device."""
+        return {n: p.detach().clone() for n, p in self.llm.model.named_parameters()
+                if is_lora_name(n)}
 
     def on_before_local_training(self, train_data, device, args) -> Any:
-        self._refuse_middleware(args)
+        """Refuse R14/R15; under local DP keep the round's incoming
+        adapters as DP-Clip's anchor."""
+        if not self.enable_hooks:
+            return train_data
+        from ...core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+
+        self._refuse_hooks(args or self.args)
+        if FedMLDifferentialPrivacy.get_instance().is_local_dp_enabled():
+            self._dp_global_params = self._adapter_state()
         return train_data
 
     def on_after_local_training(self, train_data, device, args) -> None:
-        self._refuse_middleware(args)
+        """Local DP on the trained adapters (JAX ``client_trainer.py:84-101``):
+        the frame's output, in JAX's flat order, becomes the upload."""
+        if not self.enable_hooks:
+            return
+        from ...core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+
+        self._refuse_hooks(args or self.args)
+        dp = FedMLDifferentialPrivacy.get_instance()
+        if dp.is_local_dp_enabled():
+            extra = {"global_model_params": getattr(self, "_dp_global_params", None),
+                     "local_sample_num": self.local_sample_number or None}
+            noised = dp.add_local_noise(self._adapter_state(), extra)
+            self.set_model_params(params_to_jax({k: noised[k] for k in wire_order(noised)}))
 
     # --- adapter-only exchange -------------------------------------------
     def get_model_params(self) -> Dict:

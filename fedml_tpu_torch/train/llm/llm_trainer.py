@@ -11,21 +11,32 @@ adapters kept); ``dataset_path`` trains on local text through
 ``TextDataset.from_path``, with the checkpoint's ``tokenizer.json`` or one
 trained on the corpus, as in the JAX package.
 
+Telemetry as in the JAX package: the loop runs under the ``llm.train`` span
+(its synchronised wall time is the tokens/s window and lands in the
+``llm.tokens_per_sec`` histogram), the step is registered with devperf as
+``llm_train`` with JAX's analytic FLOPs a token, and the window's wall time
+is folded into its MFU against the card's peak in the compute dtype.
+Mid-training ``save_steps`` checkpoints are enqueued asynchronously
+(``wait=False``: the host snapshot is taken, the write runs behind the next
+steps) and ``train`` returns only once every save is on disk. The JAX
+loop's modelwatch guard (a NaN count and the param norm at the window's
+end) waits for modelwatch's slice (ROADMAP.md, Queue 1).
+
 This slice is one device: any mesh axis above 1 (dp, fsdp, tp, sp, ep, pp)
-raises NotImplementedError. Telemetry (spans, devperf, modelwatch) waits for
-a later slice (ROADMAP.md).
+raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import time
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...core import telemetry as tel
+from ...core.telemetry import devperf
 from ...device import resolve_device
 from ...models.convert import params_from_jax, params_to_jax
 from ...models.lora import LORA_KEYS
@@ -145,7 +156,20 @@ class LLMTrainer:
         self.model = model
         self.optimizer = AdamW(trainable, self.schedule, grad_clip=self.exp_args.grad_clip,
                                weight_decay=self.exp_args.weight_decay)
-        self._step_fn = make_train_step(model, self.optimizer)
+        self._devperf_label = "llm_train"
+        self._step_fn = devperf.instrument(
+            make_train_step(model, self.optimizer), self._devperf_label,
+            flops_per_token_hint=self._flops_per_token_hint(model),
+            device=self.device, dtype=self.cfg.dtype)
+
+    def _flops_per_token_hint(self, model: TransformerLM) -> float:
+        """Analytic model FLOPs a token, the JAX trainer's: 6 x the matmul
+        params (every param but the embedding table) plus the causal
+        attention term; devperf's MFU numerator."""
+        n_params = sum(p.numel() for p in model.parameters())
+        n_matmul = n_params - self.cfg.vocab_size * self.cfg.d_model
+        return (6.0 * n_matmul
+                + 6.0 * self.cfg.n_layers * self.cfg.d_model * self.cfg.max_seq_len)
 
     def named_params(self) -> Dict:
         """All params as a nested numpy dict in the flax path layout."""
@@ -169,7 +193,9 @@ class LLMTrainer:
     def train(self, batches: Optional[Iterator] = None) -> Dict[str, float]:
         """Run up to exp_args.max_steps steps over ``batches`` of (tokens,
         mask) numpy arrays (default: the synthetic stream). Returns
-        final_loss, steps and tokens_per_sec over the synchronised window."""
+        final_loss, steps and tokens_per_sec over the synchronised window,
+        once the final checkpoint and every mid-training save are on
+        disk."""
         if self.model is None:
             self._build(self.init_params())
         exp = self.exp_args
@@ -182,25 +208,35 @@ class LLMTrainer:
                     exp.max_steps, exp.seed)
         losses, tokens_seen, step = [], 0, 0
         self._sync()
-        t0 = time.perf_counter()
-        for step, (toks, mask) in enumerate(batches):
-            tokens = torch.from_numpy(np.asarray(toks, np.int32)).to(self.device)
-            mask_t = torch.from_numpy(np.asarray(mask, np.float32)).to(self.device)
-            losses.append(self._step_fn(tokens, mask_t))
-            tokens_seen += int(np.size(toks))
-            if exp.save_steps and (step + 1) % exp.save_steps == 0:
-                self.save(step + 1)
-            if step + 1 >= exp.max_steps:
-                break
-        self._sync()
-        dt = time.perf_counter() - t0
+        # the span's synchronised wall time is the tokens/s window; the span
+        # itself shows the whole local-training window in round traces
+        with tel.timed("llm.train", max_steps=exp.max_steps) as sp:
+            for step, (toks, mask) in enumerate(batches):
+                tokens = torch.from_numpy(np.asarray(toks, np.int32)).to(self.device)
+                mask_t = torch.from_numpy(np.asarray(mask, np.float32)).to(self.device)
+                losses.append(self._step_fn(tokens, mask_t))
+                tokens_seen += int(np.size(toks))
+                if exp.save_steps and (step + 1) % exp.save_steps == 0:
+                    # async enqueue: the host snapshot is taken now, the write
+                    # runs behind the next steps and commits the watermark
+                    self.save(step + 1, wait=False)
+                if step + 1 >= exp.max_steps:
+                    break
+            self._sync()
+        dt = sp.duration_s
+        tokens_per_sec = tokens_seen / dt if dt > 0 else 0.0
+        tel.histogram("llm.tokens_per_sec").observe(tokens_per_sec)
+        devperf.observe_window(self._devperf_label, dt, steps=step + 1, tokens=tokens_seen)
         metrics = {
             "final_loss": float(losses[-1]) if losses else float("nan"),
             "steps": step + 1,
-            "tokens_per_sec": tokens_seen / dt if dt > 0 else 0.0,
+            "tokens_per_sec": tokens_per_sec,
         }
         log.info("LLM train done: %s", metrics)
         self.save(step + 1)
+        # drain any mid-training save still in flight: a returned train()
+        # is durable
+        self.ckpt.wait_until_finished()
         return metrics
 
     def text_batches(self, global_batch: int, steps: Optional[int] = None, *,
@@ -227,9 +263,10 @@ class LLMTrainer:
         return ds.batches(global_batch, steps, seed=self.exp_args.seed if seed is None else seed)
 
     # --- checkpointing ----------------------------------------------------
-    def save(self, step: int) -> None:
-        """Checkpoint the named layout (loadable by any later layout)."""
-        self.ckpt.save(step, _to_tensors(self.named_params()))
+    def save(self, step: int, *, wait: bool = True) -> None:
+        """Checkpoint the named layout (loadable by any later layout);
+        ``wait=False`` enqueues it behind the training steps."""
+        self.ckpt.save(step, _to_tensors(self.named_params()), wait=wait)
 
     def restore(self, step: Optional[int] = None) -> bool:
         if self.model is None:

@@ -48,7 +48,10 @@ joined within JOIN_S and a party still alive fails the test. Tolerances:
 """
 
 import copy
+import json
 import threading
+import time
+import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -819,9 +822,6 @@ GATES = {
     "scenario_hierarchical": ("client", dict(scenario="hierarchical")),
     "link_probe_interval_s": ("server", dict(link_probe_interval_s=1.0)),
     "link_wan_health": ("server", dict(link_wan_health=True)),
-    "statusz": ("server", dict(statusz_port=0)),
-    "slo": ("server", dict(slo_spec="x")),
-    "slo_tick_s": ("server", dict(slo_tick_s=1.0)),
     "server_mesh": ("server", dict(server_mesh="1x1")),
     "modelwatch_quarantine": ("server", dict(modelwatch_quarantine=True)),
     "chaos_link_throttle": ("client", dict(chaos_link_throttle=1e6)),
@@ -903,3 +903,93 @@ def test_unported_knobs_and_backends_raise(gate, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fedml_tpu_torch.FedMLRunner(args, torch.device("cpu"), dataset, model)
     LocalMqttBroker.reset(args.run_id)
+
+
+# the server's telemetry front: statusz alone, with an slo_spec file, with an
+# slo_tick_s ticker (each also an SLO engine ticked once a round)
+STATUSZ_CASES = ("statusz", "slo", "slo_tick_s")
+# /metrics families the server's own gauges and its SLO engine put there
+SERVER_FAMILIES = ("fedml_client_", "fedml_dp_", "fedml_alert_", "fedml_slo_")
+# the JAX server's modelwatch contribution ledger (modelwatch is not ported)
+MODELWATCH_FAMILIES = {"fedml_client_delta_norm", "fedml_client_outlier_score",
+                       "fedml_client_contribution"}
+
+
+def _serve_statusz(pkg, case, tmp_path):
+    """A dp federation (LR, 2 clients, 2 rounds) whose server serves
+    /statusz; the pages are read during round 1's evaluation."""
+    run_id = f"tcs_statusz_{case}_{pkg.__name__}"
+    port_file = tmp_path / f"{pkg.__name__}.port"
+    kw = dict(LR, privacy="dp", dp_l2_clip=0.05, dp_noise_multiplier=0.5, dp_seed=3,
+              statusz_port=0, statusz_port_file=str(port_file))
+    if case == "slo":
+        spec = tmp_path / f"{pkg.__name__}_slo.json"
+        spec.write_text(json.dumps({"replace": True, "slos": [
+            {"name": "round_p99_seconds", "series": "engine.round_seconds",
+             "signal": "quantile", "q": 0.99, "comparator": "<=", "target": 600.0}]}))
+        kw["slo_spec"] = str(spec)
+    if case == "slo_tick_s":
+        kw["slo_tick_s"] = 0.02
+    (JBroker if pkg is fedml_tpu else InMemoryBroker).reset(run_id)
+    fed = Federation(pkg, run_id, kw)
+    agg = fed.server.aggregator
+    test = agg.test_on_server_for_all_clients
+    pages = {}
+
+    def probed(round_idx):
+        if round_idx == 1:
+            port = int(port_file.read_text())
+            deadline = time.monotonic() + 10
+            while True:  # a ticker ticks on its own, beside the per-round tick
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/statusz", timeout=10) as r:
+                    doc = json.loads(r.read())
+                ticks = doc["sections"]["alerts"]["tick_count"]
+                if case != "slo_tick_s" or ticks >= 3 or time.monotonic() > deadline:
+                    break
+                time.sleep(0.02)
+            pages["statusz"] = doc
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+                pages["metrics"] = r.read().decode()
+        return test(round_idx)
+
+    agg.test_on_server_for_all_clients = probed
+    fed.run()
+    (JBroker if pkg is fedml_tpu else InMemoryBroker).reset(run_id)
+    return pages
+
+
+def _families(text):
+    return {line.split()[2] for line in text.splitlines()
+            if line.startswith("# TYPE ") and line.split()[2].startswith(SERVER_FAMILIES)}
+
+
+@pytest.mark.parametrize("case", STATUSZ_CASES)
+def test_server_statusz_metrics_and_slo_tick(case, tmp_path):
+    """``statusz_port``, ``slo_spec`` and ``slo_tick_s`` on the cross-silo
+    server, over INMEMORY, against JAX's server in the same federation: the
+    server's sections (round, health, privacy) with JAX's keys, the SLO
+    engine's alerts section with the same SLOs ticked at least once a round
+    (and by the ticker under slo_tick_s), and the same /metrics families of
+    the server's gauges (client health, the DP budget) and its SLO engine
+    (JAX's modelwatch ledger families aside: modelwatch is not ported)."""
+    got = {pkg: _serve_statusz(pkg, case, tmp_path) for pkg in (fedml_tpu, fedml_tpu_torch)}
+    jdoc, tdoc = got[fedml_tpu]["statusz"], got[fedml_tpu_torch]["statusz"]
+    assert tdoc["service"] == jdoc["service"] == "cross_silo_server"
+    for name in ("round", "health", "privacy"):
+        assert name in tdoc["sections"] and name in jdoc["sections"], name
+        assert sorted(tdoc["sections"][name]) == sorted(jdoc["sections"][name]), name
+    assert tdoc["sections"]["round"]["round_idx"] == jdoc["sections"]["round"]["round_idx"] == 1
+    assert tdoc["sections"]["privacy"]["mode"] == jdoc["sections"]["privacy"]["mode"] == "dp"
+    assert sorted(tdoc["sections"]["privacy"]["dp"]) == sorted(jdoc["sections"]["privacy"]["dp"])
+    assert tdoc["sections"]["privacy"]["dp"]["steps"] == jdoc["sections"]["privacy"]["dp"]["steps"]
+    talerts, jalerts = tdoc["sections"]["alerts"], jdoc["sections"]["alerts"]
+    assert talerts["front"] == jalerts["front"] == "cross_silo"
+    assert sorted(talerts["slos"]) == sorted(jalerts["slos"])
+    if case == "slo":
+        assert sorted(talerts["slos"]) == ["round_p99_seconds"]
+    assert talerts["tick_count"] >= (3 if case == "slo_tick_s" else 1)
+    assert jalerts["tick_count"] >= (3 if case == "slo_tick_s" else 1)
+    tfam, jfam = _families(got[fedml_tpu_torch]["metrics"]), _families(got[fedml_tpu]["metrics"])
+    assert tfam == jfam - MODELWATCH_FAMILIES
+    assert {"fedml_dp_epsilon_spent", "fedml_dp_budget_frac", "fedml_client_health",
+            "fedml_alert_active"} <= tfam

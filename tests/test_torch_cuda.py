@@ -1107,3 +1107,32 @@ def test_a_fresh_checkout_s_card_replica_loads_the_kernels_its_parent_built(cuda
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(res["libs"]) == len(_build.KERNEL_SOURCES), res
     assert res["unchanged"] and res["launches"] and res["launches"][0] > 0, res
+
+
+@pytest.mark.cuda
+def test_devperf_reads_the_card(cuda):
+    """devperf on the card: the card matches an H100 row (never the unknown
+    default), a fold on a CUDA program records its allocated bytes without
+    resetting the peak, and the sampler reads the card's memory."""
+    from fedml_tpu_torch.core.distributed import device_specs
+    from fedml_tpu_torch.core.telemetry import devperf
+
+    devperf.reset()
+    try:
+        name = torch.cuda.get_device_name(0)
+        assert device_specs.device_row(name) in ("h100", "h100 pcie", "h100 nvl")
+        x = torch.ones(1024, 1024, device=cuda)
+        peak = torch.cuda.max_memory_allocated()
+        devperf.instrument(lambda: None, "t_card", flops_hint=2 * 1024 ** 3, device=cuda)
+        mfu = devperf.observe_step("t_card", 1e-3)
+        rec = devperf.snapshot()["programs"]["t_card"]
+        assert rec["device_kind"] == name and rec["dtype"] == "bfloat16"
+        assert rec["peak_flops_per_sec"] == device_specs.peak_flops_per_sec(name, torch.bfloat16)
+        assert mfu == pytest.approx(2 * 1024 ** 3 / 1e-3 / rec["peak_flops_per_sec"])
+        assert rec["memory"]["allocated_bytes"] >= x.numel() * 4
+        assert torch.cuda.max_memory_allocated() == peak  # not reset
+        ((label, st),) = devperf.device_memory_stats()[:1]
+        assert label == "cuda:0" and 0 < st["peak_bytes_in_use"] <= st["bytes_limit"]
+        assert st["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
+    finally:
+        devperf.reset()

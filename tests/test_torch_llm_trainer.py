@@ -253,15 +253,38 @@ def test_client_trainer_requires_lora(tmp_path):
         LLMClientTrainer(_client_args(tmp_path, lora_rank=0), device="cpu")
 
 
-@pytest.mark.parametrize("flag", ["enable_dp", "enable_attack", "enable_fhe"])
-def test_unported_hooks_raise(tmp_path, flag):
-    args = _client_args(tmp_path, **{flag: True})
+@pytest.mark.parametrize("flag,over,refusal", [
+    ("enable_dp", dict(dp_solution_type="dp_clip", clipping_norm=0.5), None),
+    ("enable_attack", dict(attack_type="label_flipping"), "R15"),
+    ("enable_fhe", dict(fhe_scheme="rlwe"), "R14"),
+])
+def test_client_hooks_run_or_refuse(tmp_path, flag, over, refusal):
+    """The client hooks on the adapters: local DP runs (DP-Clip's upload
+    within the clip of the incoming adapters); FHE and data poisoning raise
+    naming their R-number (ROADMAP.md, Queue 3) before the first step."""
+    from fedml_tpu_torch.core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
+
+    args = _client_args(tmp_path, **{flag: True}, **over)
     client = LLMClientTrainer(args, device="cpu")
-    with pytest.raises(NotImplementedError, match=flag):
-        client.on_before_local_training(None, None, args)
-    with pytest.raises(NotImplementedError, match=flag):
-        client.on_after_local_training(None, None, args)
     assert client.is_main_process()
+    if refusal is not None:
+        with pytest.raises(ValueError, match=refusal):
+            client.on_before_local_training(None, None, args)
+        with pytest.raises(ValueError, match=refusal):
+            client.on_after_local_training(None, None, args)
+        return
+    dp = FedMLDifferentialPrivacy.get_instance()
+    dp.init(args)
+    try:
+        before = np.concatenate([v.ravel() for _, v in sorted(_leaves(client.get_model_params()))])
+        blocks = np.random.default_rng(4).integers(0, 256, (5, 32)).astype(np.int32)
+        data = client.on_before_local_training(blocks, None, args)
+        client.train(data, None, args)
+        client.on_after_local_training(data, None, args)
+        after = np.concatenate([v.ravel() for _, v in sorted(_leaves(client.get_model_params()))])
+        assert 0 < np.linalg.norm(after.astype(np.float64) - before) <= 0.5 * (1 + 1e-6)
+    finally:
+        dp.init(SimpleNamespace())
 
 
 @pytest.mark.parametrize("over", [dict(dp=2), dict(fsdp=2), dict(tp=2), dict(sp=2), dict(ep=2),

@@ -5,8 +5,9 @@ Each side gets the same inputs: the same counters, histograms, gauges and
 prefix families in a fresh registry; the same sections on the status page;
 the same samples at the same times in a fresh time-series store, ticked at
 the same clock. Process-wide ride-alongs that earlier tests in a worker may
-have left behind (the JAX package's mesh, netlink and devperf gauges, an
-active SLO engine or fleet view, the global resilience state) are switched
+have left behind (the JAX package's mesh, netlink and devperf gauges, the
+port's devperf gauges, an active SLO engine or fleet view, the global
+resilience state) are switched
 off on both sides for the comparison, and both default registries are
 enabled for it (a test that ran earlier in the worker may have left one
 disabled). Tolerances: the Prometheus text
@@ -61,10 +62,11 @@ def quiet_ride_alongs(monkeypatch, registries_on):
     import fedml_tpu.core.telemetry.modelwatch as jmw
     import fedml_tpu.core.telemetry.netlink as jnet
     import fedml_tpu_torch.core.resilience as tres
+    import fedml_tpu_torch.core.telemetry.devperf as tdev
 
-    for mod in (jmesh, jnet, jdev, jslo, jsk, tslo, tsk):
+    for mod in (jmesh, jnet, jdev, jslo, jsk, tslo, tsk, tdev):
         monkeypatch.setattr(mod, "prom_gauges", lambda: [])
-    for mod in (jmesh, jnet, jdev, jmw, jslo, jsk, jres, tslo, tsk, tres):
+    for mod in (jmesh, jnet, jdev, jmw, jslo, jsk, jres, tslo, tsk, tres, tdev):
         monkeypatch.setattr(mod, "statusz_snapshot", lambda: {})
     for fr in (jfr, tfr):
         monkeypatch.setattr(fr, "active", lambda: None)
