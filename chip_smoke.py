@@ -16,8 +16,10 @@ plane, HF llama checkpoints), serving's front door (the HTTP runner,
 subprocess replicas behind the gateway, int8 decode through the int8
 GEMM), and the LoRA step at Phi-3-mini's and Gemma-2B's attention widths
 (head dims 96 and 256) and JAX's own test geometry (16) in f32 and
-float16, and a FedLLM federation under local DP with devperf's MFU, the
-server's /statusz and its SLO engine, on one CUDA card.
+float16, a FedLLM federation under local DP with devperf's MFU, the
+server's /statusz and its SLO engine, and the link layer (pipelined sp
+rounds, netlink, link probes, the link throttle and the link knobs), on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -149,7 +151,7 @@ exception):
 12. resilience on the CIFAR-10 surrogate, ResNet-56 at full width in (b),
    ResNet-20 in the drills: (b)
    first, 16 silo threads over INMEMORY as a quorum federation in this
-   process (QUORUM: 12 a round from 16 connected, quorum_frac 0.75, a 15 s
+   process (QUORUM: 12 a round from 16 connected, quorum_frac 0.75, a 12 s
    deadline under the adaptive rule, over-provisioning by 0.25, 2 rounds;
    silo 16 raises in round 0, silo 15 sleeps 8 s before each local round):
    the run ends within QUORUM_TIMEOUT_S with the dead party alone failed
@@ -407,10 +409,33 @@ exception):
    read in the last round has the round, health, privacy, devperf and
    alerts sections, /metrics has fedml_device_mfu{program="llm_train"} and
    the DP budget series, and the SLO engine ticked;
-24. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+24. the link layer, no flash kernel on its path: (a) phase 7's sp round
+   (ResNet-56 x 16 clients) once from the seeded global sequentially, again
+   sequentially (the card's own spread), with client_execution pipelined
+   (fold-at-arrival) and pipelined under FedOpt (pairs mode): each
+   pipelined round's published model bit-equal to its uploads folded again
+   through the sequential sink, within PIPE_SPREAD_MULT x the sequential
+   pair's distance of the sequential round, its overlap fraction in [0, 1],
+   the planner's reason and every round's seconds printed; (b) a cross-silo
+   federation over INMEMORY at ResNet-20, 4 silos x 3 rounds, silo 2 behind
+   chaos_link_throttle 8e6 B/s with a 10 ms base delay, link probes every
+   0.25 s, link_wan_health, quorum_link_cost and statusz_port: the
+   throttled pair's predicted upload between half the byte term of the
+   broker's delay for its last upload and twice the whole delay, and the
+   other pairs' at least 10x faster, probes
+   echoed on every pair with no loss on the unthrottled ones, the throttled
+   rank's deadline budget stretched past the others' (budget less health
+   EWMA) and its WAN round time above theirs, /statusz's
+   links and link_probe sections, fedml_link_* gauges for every pair on
+   /metrics and a link.loss_ratio series in the SLO engine's store; (c)
+   FedBuff over the same silos with the same probes (publish_k 2, 6
+   publishes) under async_link_admission: the throttled silo's admission
+   cut at least the others' and its uploads folded. A prober or a throttle timer that fails
+   fails the phase;
+25. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
    resilience, privacy, secure_fronts, hierarchy, message_plane, trust,
-   fhe_sp_zoo, gan_nas_seg_hub, files, front_door, head_dims, fedllm and
-   kernels lines (JSON, the kernels line with the design each kernel ran
+   fhe_sp_zoo, gan_nas_seg_hub, files, front_door, head_dims, fedllm,
+   link_layer and kernels lines (JSON, the kernels line with the design each kernel ran
    on the main path, its launches in phase 23, and a row for each kernel
    at phase 22's head dims 96 and 256), the card line, and last the result
    line.
@@ -2765,13 +2790,14 @@ def async_phase() -> dict:
 RES_DRILL_MODEL = "resnet20"
 RES_DRILL_TIMEOUT_S = 300
 # (b): phase 10's 16 silos as a quorum federation: 12 a round, quorum 0.75,
-# a 15 s deadline shortened by the adaptive rule, over-provisioning by 0.25
+# a 12 s deadline shortened by the adaptive rule, over-provisioning by 0.25
 # once health flags a straggler; silo 16 dies in round 0, silo 15 sleeps 8 s
-# before every local round (it arrives at about 8.2 s, well inside the
-# deadline that round 0 waits out for the dead silo)
+# before every local round (it arrives at about 8.2 s, inside the deadline
+# that round 0 waits out for the dead silo; a 4 s sleep is not always
+# flagged against 16 silo threads' own spread of round times)
 QUORUM = dict(CROSS_SILO, client_num_in_total=16, client_num_per_round=12,
               client_num_connected=16, comm_round=2, frequency_of_the_test=5,
-              quorum_frac=0.75, round_deadline_s=15.0, adaptive_deadline=True,
+              quorum_frac=0.75, round_deadline_s=12.0, adaptive_deadline=True,
               overprovision_frac=0.25)
 QUORUM_DEAD, QUORUM_STRAGGLER, QUORUM_DELAY_S = 16, 15, 8.0
 QUORUM_TIMEOUT_S = 300
@@ -7207,6 +7233,388 @@ def fedllm_phase(libs, lora: dict, serve_programs: dict) -> dict:
     return res
 
 
+# -- phase 24: the link layer and pipelined client execution -------------------
+
+# (a) phase 7's sp FedAvg round (ResNet-56 x 16 clients, the CIFAR-10
+# surrogate, hetero 0.5, bs 128, SGD 0.05/0.9/5e-4), one round from the
+# seeded global: sequential twice (the card's own spread: cuDNN's backward
+# need not repeat bit for bit), client_execution pipelined (fold-at-arrival)
+# and pipelined under FedOpt (pairs mode; the default server SGD, lr 1.0,
+# momentum 0.9, whose first step from zero state is the plain mean up to
+# f32 rounding). Each pipelined round within PIPE_SPREAD_MULT x the
+# sequential pair's distance of the first sequential round, or within
+# PIPE_F32_FLOOR of it where the card repeated the round bit for bit (the
+# server step's f32 rounding, relative to the update)
+PIPE = dict(RESNET, comm_round=1)
+PIPE_SPREAD_MULT, PIPE_F32_FLOOR = 3.0, 1e-6
+# (b) a cross-silo federation over INMEMORY at ResNet-20, 4 silos x 3
+# rounds, silo LINK_THROTTLED behind an 8 MB/s link with a 10 ms base delay;
+# probes every 0.25 s, WAN-aware health, the link-cost deadline (over the
+# adaptive deadline) and /statusz. The third round's deadline is the first
+# the link cost can stretch: a pair needs two bandwidth samples for a
+# confident prediction (support n/(n+3) times freshness >= 0.25), and a
+# silo's probe echoes wait in its queue while it trains, so the throttled
+# pair has one sample (its upload) when round 1's deadline is armed. A
+# probe expires after 40 intervals (it waits out a silo's local round). The
+# sized probe is 1 MiB, about the upload's size: netlink predicts a transfer
+# as bytes over its bandwidth estimate, and on an in-process link a 64 KiB
+# pad times the receiver's fixed per-message wait more than bytes (with the
+# default pad an unthrottled 1.09 MB upload read 17-25 ms on the H100's
+# host). The silos' shards are equal (homo partition), so a round-time gap
+# between silos is the link's, not the data's
+LINK_FED = dict(SILOS_R20, client_num_in_total=4, client_num_per_round=4, comm_round=3,
+                partition_method="homo", adaptive_deadline=True, quorum_link_cost=True,
+                link_wan_health=True, link_probe_interval_s=0.25,
+                link_probe_timeout_intervals=40, link_probe_payload_bytes=1 << 20)
+LINK_THROTTLED, LINK_BPS, LINK_BASE_S = 2, 8e6, 0.01
+# the predicted upload on the throttled pair against the broker's own delay
+# for its last upload, base + bytes/rate: at most 2x it, and at least half
+# its bytes' term. netlink's estimator subtracts at most half a sample's
+# latency as its floor, so its bandwidth reads up to 2x fast, and where the
+# pair has no RTT estimate (the client->server pair: probes time the other
+# direction) its prediction is bytes over bandwidth with no latency term,
+# so the base drops out (the prediction read 0.518 x the whole delay, 0.556
+# x its bytes' term, on the H100's host). An unthrottled pair's prediction
+# at least LINK_FAST_X times faster
+LINK_PRED_BAND, LINK_FAST_X = (0.5, 2.0), 10.0
+# the silos here are threads of this process, where a deployment runs each
+# in a process of its own: a receive loop woken while three silos train
+# waits out the interpreter lock's switch slices (5 ms by default), and a
+# passive sample times that wait beside the link. (b) and (c) run at this
+# switch interval, so the samples read the link
+LINK_SWITCH_INTERVAL_S = 0.0005
+# (c) FedBuff over the same 4 silos with (b)'s probes, a publish every 2
+# merges, 6 publishes (with one publish the run ends before the throttled
+# silo's first upload lands, so its fold could not be seen),
+# async_link_admission on. Without the probes the throttled pair has one
+# bandwidth sample (its one upload) and no confident prediction, so its cut
+# gets no stretch, while a fast pair's confident microseconds stretch its
+# cut by one version (the stretch is a ceiling of predicted seconds over
+# the publish interval)
+LINK_ASYNC = dict(LINK_FED, async_rounds=True, async_publish_k=2, comm_round=6,
+                  async_link_admission=True)
+for _k in ("adaptive_deadline", "quorum_link_cost", "link_wan_health"):
+    LINK_ASYNC.pop(_k)
+
+
+def _sp_round(over: dict, dataset, output_dim) -> dict:
+    """One sp round through FedMLRunner from the seeded global: the
+    published model, the uploads it folded as the sink received them, the
+    strategy and the round's seconds."""
+    import copy
+
+    import torch
+
+    import fedml_tpu_torch as fedml
+
+    args = fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda", **over))
+    model = fedml.model.create(args, output_dim)
+    runner = fedml.FedMLRunner(args, fedml.get_device(args), dataset, model)
+    api = runner.runner.fl_trainer
+    seen = {"uploads": [], "p0": _cpu(model.params)}
+    build = api._build_execution
+
+    def built():
+        strategy, sink = build()
+        seen["strategy"] = strategy
+        if hasattr(strategy, "_make_round_buffer"):
+            make = strategy._make_round_buffer
+
+            def make_recording(n):
+                buf = make(n)
+                submit = buf.submit
+
+                def recorded(rank, tree, weight, client_version=None):
+                    seen["uploads"].append((weight, tree))  # the fold's own references
+                    return submit(rank, tree, weight, client_version=client_version)
+
+                buf.submit = recorded
+                return buf
+
+            strategy._make_round_buffer = make_recording
+        fold = sink.fold
+
+        def folding(round_idx, w_global, result):
+            if result.pairs is not None:
+                seen["uploads"] = list(result.pairs)
+            opt = api._fedopt_server
+            seen["fedopt_state"] = copy.deepcopy(opt.state) if opt is not None else None
+            seen["w_global"] = w_global
+            seen["out"] = out = fold(round_idx, w_global, result)
+            return out
+
+        sink.fold = folding
+        return strategy, sink
+
+    api._build_execution = built
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    since = _last_span_seq()
+    runner.run()
+    seen["round_s"] = _span_sums(since)[0]["fedavg.round"]
+    seen["w"] = _cpu(api.model_trainer.get_model_params())
+    seen["api"] = api
+    return seen
+
+
+def _refold(run: dict):
+    """The round's uploads folded again through the sequential round's sink
+    (``AlgFrameSink`` over the front's server rule) from the same global and
+    server state."""
+    from fedml_tpu_torch.core.engine import AlgFrameSink, RoundResult
+
+    api = run["api"]
+    if run["fedopt_state"] is not None:
+        api._fedopt_server.state = run["fedopt_state"]
+    return AlgFrameSink(api._server_update).fold(0, run["w_global"],
+                                                 RoundResult(pairs=run["uploads"]))
+
+
+def pipelined_rounds() -> dict:
+    """Phase 24 (a); see PIPE."""
+    import torch
+
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core.pipeline import PipelinedBufferSink, PipelinedExecution
+
+    args = fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda", **PIPE))
+    dataset, output_dim = fedml.data.load(args)
+    runs = {"sequential": _sp_round(PIPE, dataset, output_dim),
+            "sequential_again": _sp_round(PIPE, dataset, output_dim),
+            "pipelined": _sp_round(dict(PIPE, client_execution="pipelined"), dataset, output_dim),
+            "pipelined_fedopt": _sp_round(dict(PIPE, client_execution="pipelined",
+                                               federated_optimizer="FedOpt"),
+                                          dataset, output_dim)}
+    seq, p0 = runs["sequential"]["w"], runs["sequential"]["p0"]
+    for name, run in runs.items():
+        check(all(torch.equal(run["p0"][k], p0[k]) for k in p0),
+              f"(a) {name} started from another global model")
+        check(len(run["uploads"]) == PIPE["client_num_per_round"],
+              f"(a) {name} folded {len(run['uploads'])} uploads")
+    spread = _rel(runs["sequential_again"]["w"], seq, p0)
+    res = {"config": {k: PIPE[k] for k in ("model", "client_num_per_round", "batch_size",
+                                          "learning_rate", "momentum", "weight_decay")},
+           "spread_sequential": spread}
+    for name in ("pipelined", "pipelined_fedopt"):
+        run = runs[name]
+        strategy, report, plan = run["strategy"], run["strategy"].last_report, \
+            run["strategy"].last_plan
+        check(isinstance(strategy, PipelinedExecution), f"(a) {name} ran {strategy}")
+        fold_at_arrival = name == "pipelined"
+        check(strategy.fold_at_arrival is fold_at_arrival,
+              f"(a) {name}: fold_at_arrival {strategy.fold_at_arrival}")
+        refold = _refold(run)
+        out = _cpu(run["out"])
+        bit_equal = all(torch.equal(_cpu(refold)[k], out[k]) for k in out) and \
+            all(torch.equal(run["w"][k], out[k]) for k in out)
+        dist = _rel(run["w"], seq, p0)
+        limit = max(PIPE_SPREAD_MULT * spread, PIPE_F32_FLOOR)
+        res[name] = {"mode": "fold_at_arrival" if fold_at_arrival else "pairs",
+                     "bit_equal_to_refold": bit_equal, "distance_to_sequential": dist,
+                     "limit": limit, "overlap_frac": report.overlap_frac,
+                     "bottleneck": report.bottleneck, "wall_s": report.wall_s,
+                     "serial_s": report.serial_s, "plan": plan.as_dict(),
+                     "round_s": run["round_s"]}
+        say(f"  (a) {name}: {res[name]}")
+        check(bit_equal, f"(a) {name}: the published model differs from the fold of its uploads")
+        check(0.0 <= report.overlap_frac <= 1.0, f"(a) {name}: overlap {report.overlap_frac}")
+        check(dist <= limit, f"(a) {name} is {dist:.3g} from the sequential round, outside "
+                             f"{limit:.3g} (the sequential pair's spread {spread:.3g})")
+    for name in ("sequential", "sequential_again"):
+        res[f"{name}_round_s"] = runs[name]["round_s"]
+    say(f"  (a) round seconds: sequential {res['sequential_round_s']:.3f} / "
+        f"{res['sequential_again_round_s']:.3f}, pipelined {res['pipelined']['round_s']:.3f}, "
+        f"pipelined FedOpt {res['pipelined_fedopt']['round_s']:.3f}; spread of the sequential "
+        f"pair {spread:.3g}; the planner's reason {res['pipelined']['plan']['reason']!r}")
+    del runs
+    gc.collect()
+    return res
+
+
+def _link_fed(over: dict, run_id: str, probe=None):
+    """A federation with silo LINK_THROTTLED behind the throttle; records
+    each sender's last upload size (as the broker sized its delay) and the
+    quorum budgets of every armed deadline. ``probe(server)`` runs inside
+    the last round's evaluation."""
+    from fedml_tpu_torch.core.distributed.communication.inmemory.broker import InMemoryBroker
+    from fedml_tpu_torch.core.telemetry import netlink
+
+    throttle = {LINK_THROTTLED: dict(chaos_link_throttle=LINK_BPS,
+                                     chaos_link_base_delay_s=LINK_BASE_S)}
+    fed = _Federation(over, run_id, per_rank=throttle)
+    broker = InMemoryBroker.get(run_id)
+    server = fed.server
+    seen = {"nbytes": {}, "budgets": []}
+    receive, arm = server.handle_message_receive_model_from_client, server._arm_deadline_timer
+
+    def received(msg):
+        seen["nbytes"][int(msg.get_sender_id())] = netlink.payload_nbytes(msg)
+        receive(msg)
+
+    def armed():
+        arm()
+        # each rank's budget beside its health EWMA: the difference is the
+        # link-cost stretch
+        ewma = {r: c.ewma_s for r, c in server.aggregator.fleet.health._clients.items()}
+        seen["budgets"].append({r: (b, ewma[r]) for r, b in server.deadline_budgets.items()})
+
+    server.handle_message_receive_model_from_client = received
+    server._arm_deadline_timer = armed
+    if probe is not None:
+        test = server.aggregator.test_on_server_for_all_clients
+
+        def probed(round_idx):
+            if round_idx == int(over["comm_round"]) - 1:
+                probe(server)
+            return test(round_idx)
+
+        server.aggregator.test_on_server_for_all_clients = probed
+    seen["wall_s"] = fed.run()
+    check(broker.timer_error is None, f"{run_id}: a throttled delivery failed: "
+                                      f"{broker.timer_error!r}")
+    return fed, seen
+
+
+def link_federation(tmp: str) -> dict:
+    """Phase 24 (b); see LINK_FED."""
+    from fedml_tpu_torch.core.telemetry import netlink, slo
+
+    netlink.reset()
+    port_file = os.path.join(tmp, "statusz.port")
+    pages = {}
+
+    def probe(server):
+        with open(port_file) as f:
+            port = int(f.read())
+        pages["statusz"] = json.loads(_http_get(f"http://127.0.0.1:{port}/statusz"))
+        pages["metrics"] = _http_get(f"http://127.0.0.1:{port}/metrics")
+        engine = slo.get_engine()
+        pages["series"] = engine.store.series_names() if engine is not None else []
+
+    over = dict(LINK_FED, statusz_port=0, statusz_port_file=port_file)
+    fed, seen = _link_fed(over, "smoke_link", probe=probe)
+    reg = netlink.get_registry()
+    silos = range(1, int(LINK_FED["client_num_per_round"]) + 1)
+    fast = [r for r in silos if r != LINK_THROTTLED]
+    nbytes = seen["nbytes"]
+    transfer = nbytes[LINK_THROTTLED] / LINK_BPS
+    delay = LINK_BASE_S + transfer
+    slow = netlink.make_upload_predictor(lambda r: nbytes[r])(LINK_THROTTLED)
+    fast_pred = {r: netlink.make_upload_predictor(lambda r: nbytes[r], min_confidence=0.0)(r)
+                 for r in fast}
+    probes = {r: reg.pair((0, r), create=False).as_dict() for r in silos}
+    # the WAN round time: broadcast to arrival on the server's clock, the
+    # health tracker's last observation of each rank
+    health = fed.server.aggregator.fleet.health._clients
+    round_time = {r: health[r].last_s for r in silos}
+    budgets = seen["budgets"][-1] if seen["budgets"] else {}
+    stretch = {r: b - e for r, (b, e) in budgets.items()}
+    sections = pages.get("statusz", {}).get("sections", {})
+    samples = _prom_samples(pages.get("metrics", ""))
+    pairs = sorted(reg.pairs())
+    missing_gauges = [p for p in pairs if not any(
+        k.startswith("fedml_link_bytes_sent{") and f'src="{p[0]}",dst="{p[1]}"' in k
+        for k in samples)]
+    res = {"config": {k: LINK_FED[k] for k in ("model", "client_num_per_round", "comm_round",
+                                              "link_probe_interval_s")},
+           "throttled": LINK_THROTTLED, "bytes_per_s": LINK_BPS, "base_delay_s": LINK_BASE_S,
+           "upload_nbytes": nbytes, "broker_delay_s": delay, "broker_bytes_s": transfer,
+           "predicted_upload_s": slow,
+           "predicted_upload_s_fast": fast_pred,
+           "probes": {r: {"answered": p["probes"]["answered"], "lost": p["probes"]["lost"],
+                          "loss_ratio": p["loss_ratio"], "rtt_s": p["rtt_s"]["value"]}
+                      for r, p in probes.items()},
+           "quorum_budgets_s": {r: b for r, (b, _) in budgets.items()},
+           "quorum_link_stretch_s": stretch, "wan_round_time_s": round_time,
+           "statusz_sections": sorted(sections), "link_gauge_pairs": len(pairs),
+           "slo_series_link": "link.loss_ratio" in pages.get("series", []),
+           "run_wall_s": seen["wall_s"]}
+    say(f"  (b) the link federation: {res}")
+    lo, hi = LINK_PRED_BAND
+    check(slow is not None and lo * transfer <= slow <= hi * delay,
+          f"(b) predicted upload {slow} on the throttled pair, the broker's delay {delay:.4f}s "
+          f"({transfer:.4f}s of it for the bytes)")
+    check(all(p is not None and p * LINK_FAST_X <= slow for p in fast_pred.values()),
+          f"(b) an unthrottled pair's prediction is not {LINK_FAST_X}x faster: {fast_pred}")
+    check(all(p["probes"]["answered"] > 0 for p in probes.values()),
+          f"(b) a pair's probes were never echoed: {res['probes']}")
+    check(all(probes[r]["loss_ratio"] == 0.0 for r in fast),
+          f"(b) probe loss on an unthrottled pair: {res['probes']}")
+    check(stretch and stretch[LINK_THROTTLED] > max(stretch[r] for r in fast),
+          f"(b) the throttled rank's deadline budget is not stretched past the others': "
+          f"{seen['budgets']}")
+    check(round_time[LINK_THROTTLED] > max(round_time[r] for r in fast),
+          f"(b) WAN-aware health: {round_time}")
+    check("links" in sections and "link_probe" in sections,
+          f"(b) /statusz sections {sorted(sections)}")
+    check(pairs and not missing_gauges, f"(b) /metrics lacks fedml_link_* for {missing_gauges}")
+    check(res["slo_series_link"], "(b) the SLO engine's store has no link.loss_ratio series")
+    return res
+
+
+def link_admission() -> dict:
+    """Phase 24 (c); see LINK_ASYNC. The buffer judges arrivals by silo
+    index (rank - 1)."""
+    from fedml_tpu_torch.core.distributed.communication.inmemory.broker import InMemoryBroker
+    from fedml_tpu_torch.core.telemetry import netlink
+
+    netlink.reset()
+    throttle = {LINK_THROTTLED: dict(chaos_link_throttle=LINK_BPS,
+                                     chaos_link_base_delay_s=LINK_BASE_S)}
+    fed = _Federation(LINK_ASYNC, "smoke_link_async", per_rank=throttle)
+    broker = InMemoryBroker.get("smoke_link_async")
+    buf = fed.server.aggregator.async_buffer
+    submit, verdicts = buf.submit, {}
+
+    def recorded(index, tree, weight, client_version=None):
+        verdict = submit(index, tree, weight, client_version)
+        verdicts.setdefault(int(index) + 1, []).append(verdict)
+        return verdict
+
+    buf.submit = recorded
+    wall = fed.run()
+    check(broker.timer_error is None, f"(c) a throttled delivery failed: {broker.timer_error!r}")
+    silos = range(1, int(LINK_ASYNC["client_num_per_round"]) + 1)
+    cuts = {r: buf.policy.admission_cut(r - 1) for r in silos}
+    res = {"publish_k": LINK_ASYNC["async_publish_k"], "publishes": buf.publishes_total,
+           "admission_cut": cuts, "verdicts": verdicts,
+           "link_wired": buf.policy.as_dict()["link_wired"],
+           "publish_interval_ewma_s": buf.publish_interval_ewma_s, "run_wall_s": wall}
+    say(f"  (c) async link admission: {res}")
+    check(res["link_wired"], "(c) the admission policy has no link predictor")
+    check(cuts[LINK_THROTTLED] >= max(cuts[r] for r in silos if r != LINK_THROTTLED),
+          f"(c) the throttled rank's admission cut is below another's: {cuts}")
+    mine = verdicts.get(LINK_THROTTLED, [])
+    check(mine and all(v in ("accept", "stale_accepted") for v in mine),
+          f"(c) the throttled rank's uploads were not folded: {verdicts}")
+    return res
+
+
+def link_phase() -> dict:
+    """Phase 24: (a) pipelined sp rounds, (b) the link layer on a cross-silo
+    federation, (c) link-aware async admission."""
+    tmp = os.path.join(ROOT, ".smoke_run", "link")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    res = {}
+    t0 = time.time()
+    res["pipelined"] = pipelined_rounds()
+    res["a_s"] = time.time() - t0
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(LINK_SWITCH_INTERVAL_S)
+    try:
+        t0 = time.time()
+        res["federation"] = link_federation(tmp)
+        res["b_s"] = time.time() - t0
+        t0 = time.time()
+        res["admission"] = link_admission()
+        res["c_s"] = time.time() - t0
+    finally:
+        sys.setswitchinterval(switch)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -7565,7 +7973,25 @@ def main() -> int:
     say(f"  phase {fedllm['phase_s']:.1f}s ((a) {fedllm['a_s']:.1f}s, (c) {fedllm['c_s']:.1f}s); "
         f"flash launches in (a) {fedllm['flash_launches']}")
 
-    say("== 24. result")
+    say("== 24. the link layer: pipelined sp rounds (ResNet-56 x 16 clients), netlink, link "
+        "probes, the link throttle and the four link knobs on a cross-silo federation "
+        "(ResNet-20 x 4 silos)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    link = link_phase()
+    link_launches = dict(fa.launch_counts)
+    link["phase_s"] = time.time() - t0
+    say(f"  phase {link['phase_s']:.1f}s ((a) {link['a_s']:.1f}s, (b) {link['b_s']:.1f}s, "
+        f"(c) {link['c_s']:.1f}s); flash launches in the link phase: {link_launches}")
+    # ResNet training, folds, probes and the link estimators run no attention
+    check(all(n == 0 for n in link_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the link phase launched flash kernels: {link_launches}")
+
+    say("== 25. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -7632,6 +8058,8 @@ def main() -> int:
     print(json.dumps({"front_door": {"card": card, **front}}), flush=True)
     print(json.dumps({"head_dims": {"card": card, **head_dims}}), flush=True)
     print(json.dumps({"fedllm": {"card": card, **fedllm}}, default=str), flush=True)
+    print(json.dumps({"link_layer": {"card": card, "flash_launches": link_launches, **link}},
+                     default=str), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

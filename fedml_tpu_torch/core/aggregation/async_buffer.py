@@ -37,9 +37,12 @@ to ``session.on_publish(acc, weight_sum, merges, template, engine)``, which
 owns unmasking, noising and normalization. :meth:`discard` drops an epoch
 without publishing (an aborted SecAgg window).
 
+``async_link_admission``: :meth:`StalenessPolicy.set_link_predictor` wires
+netlink's cost model in, and the admission cut stretches by the model
+versions a rank's predicted upload spans.
+
 Not ported (ROADMAP.md, Queue 1): modelwatch's fused statistics and
-quarantine, the link-cost admission (``async_link_admission``) and the
-mesh-sharded engine.
+quarantine and the mesh-sharded engine.
 """
 
 from __future__ import annotations
@@ -74,7 +77,9 @@ class StalenessPolicy:
     ``weight(s) = (1 + s) ** -exponent`` (exponent 0: unit weight, the
     synchronous parity configuration). ``admit`` refuses arrivals staler than
     ``max_staleness``; when a health tracker is wired in and flags the rank
-    as a straggler, the cut stretches by ``straggler_grace``."""
+    as a straggler, the cut stretches by ``straggler_grace``; with a link
+    predictor wired in (``async_link_admission``) it stretches further by
+    the versions the rank's predicted upload spans."""
 
     def __init__(self, exponent: float = DEFAULT_STALENESS_EXPONENT,
                  max_staleness: int = DEFAULT_MAX_STALENESS,
@@ -86,6 +91,12 @@ class StalenessPolicy:
         self.max_staleness = int(max_staleness)
         self.straggler_grace = float(straggler_grace)
         self.health = health  # a HealthTracker (duck-typed) or None
+        # args.async_link_admission: rank -> predicted upload seconds (the
+        # netlink cost model) + a publish-interval estimate convert measured
+        # WAN transfer time into extra tolerated staleness versions
+        self._link_predict = None
+        self._publish_interval_fn = None
+        self.link_grace_cap = 0
 
     @classmethod
     def from_args(cls, args: Any, health: Any = None) -> "StalenessPolicy":
@@ -110,11 +121,37 @@ class StalenessPolicy:
             return False
         return bool(c is not None and c.flagged)
 
+    def set_link_predictor(self, link_predict: Any, publish_interval_fn: Any,
+                           grace_cap: Optional[int] = None) -> None:
+        """Wire the netlink cost model into admission (``args.async_link_admission``).
+
+        ``link_predict(rank)`` returns predicted upload seconds (None when the
+        estimate isn't confident); ``publish_interval_fn()`` the server's mean
+        seconds between publishes. Their ratio is how many model versions a
+        delta ages **in flight** — lateness the link explains, so the cut
+        stretches by that many versions (capped at ``grace_cap``, default
+        ``max_staleness``, so a wild estimate can at most double the cut)."""
+        self._link_predict = link_predict
+        self._publish_interval_fn = publish_interval_fn
+        self.link_grace_cap = int(self.max_staleness if grace_cap is None else grace_cap)
+
+    def _link_extra(self, rank: Optional[int]) -> int:
+        if rank is None or self._link_predict is None or self._publish_interval_fn is None:
+            return 0
+        try:
+            pred_s = self._link_predict(int(rank))
+            interval_s = self._publish_interval_fn()
+        except Exception:  # noqa: BLE001 - duck-typed predictor: no stretch, as in JAX
+            return 0
+        if not pred_s or not interval_s or interval_s <= 0:
+            return 0
+        return min(int(math.ceil(float(pred_s) / float(interval_s))), self.link_grace_cap)
+
     def admission_cut(self, rank: Optional[int] = None) -> int:
         cut = self.max_staleness
         if self._rank_flagged(rank):
             cut = int(math.ceil(cut * self.straggler_grace))
-        return cut
+        return cut + self._link_extra(rank)
 
     def admit(self, staleness: int, rank: Optional[int] = None) -> bool:
         return int(staleness) <= self.admission_cut(rank)
@@ -125,6 +162,7 @@ class StalenessPolicy:
             "max_staleness": self.max_staleness,
             "straggler_grace": self.straggler_grace,
             "health_wired": self.health is not None,
+            "link_wired": self._link_predict is not None,
         }
 
 

@@ -19,11 +19,13 @@ seam at :204-207). Backends, each the JAX package's:
   (``communication/grpc/``; the only module that needs ``grpc``).
 
 A backend that cannot start raises, naming itself; no backend stands in for
-another. The INMEMORY link throttle (``chaos_link_throttle``) raises
-NotImplementedError: it needs telemetry.netlink (ROADMAP.md, Queue 1).
-Every message sent or received is booked to the flight recorder (a None
-check when no recorder is installed), as in the JAX manager; netlink's
-per-pair accounting is not ported (ROADMAP.md, Queue 1, telemetry).
+another. ``chaos_link_throttle`` (bytes/s) with ``chaos_link_base_delay_s``
+degrades this party's link in the INMEMORY broker (``set_throttle``), as in
+the JAX manager; it does nothing on the byte backends. Every message sent
+or received is booked to the flight recorder (a None check when no
+recorder is installed) and to netlink's per-pair accounting, whose send
+hook stamps the send time (``ts``) into the reserved telemetry header, the
+receiver's latency sample, as the JAX manager does on every backend.
 
 **The weight layout on the wire.** A model payload that leaves the process
 (every backend but INMEMORY: each makes bytes) travels in the JAX package's
@@ -51,7 +53,7 @@ from ...constants import (
     COMM_BACKEND_TRPC,
 )
 from ..resilience.retry import RetryPolicy, retry_call
-from ..telemetry import flight_recorder
+from ..telemetry import flight_recorder, netlink
 from .communication.base_com_manager import BaseCommunicationManager, Observer
 from .communication.message import Message
 
@@ -132,8 +134,9 @@ class FedMLCommManager(Observer):
 
     def receive_message(self, msg_type, msg_params: Message) -> None:
         # every backend dispatches through here, so the flight recorder's
-        # comm breadcrumbs cover them all
+        # comm breadcrumbs and netlink's per-pair accounting cover them all
         flight_recorder.record_comm("recv", msg_params)
+        netlink.record_recv(msg_params, backend=self.backend.lower())
         if self._wire_layout:
             params = msg_params.get(Message.MSG_ARG_KEY_MODEL_PARAMS)
             if params is not None:
@@ -148,6 +151,9 @@ class FedMLCommManager(Observer):
 
     def send_message(self, message: Message) -> None:
         flight_recorder.record_comm("send", message)
+        # books the pair's outgoing bytes and stamps the send time into the
+        # reserved header (the receiver's latency sample)
+        netlink.record_send(message, backend=self.backend.lower())
         if self._wire_layout:
             params = message.get(Message.MSG_ARG_KEY_MODEL_PARAMS)
             if params is not None:
@@ -175,13 +181,16 @@ class FedMLCommManager(Observer):
     def _init_manager(self) -> None:
         run_id = getattr(self.args, "run_id", 0)
         if self.backend == COMM_BACKEND_INMEMORY:
-            if getattr(self.args, "chaos_link_throttle", None):
-                raise NotImplementedError(
-                    "chaos_link_throttle: the INMEMORY link throttle needs telemetry.netlink, "
-                    "which is not ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
             from .communication.inmemory.inmemory_comm_manager import InMemoryCommManager
 
             self.com_manager = InMemoryCommManager(str(getattr(self.args, "run_id", "0")), self.rank, self.size)
+            # chaos_link_throttle: degrade THIS party's link in the broker
+            # (fault injection for the netlink estimators)
+            throttle = getattr(self.args, "chaos_link_throttle", None)
+            if throttle:
+                self.com_manager.broker.set_throttle(
+                    self.rank, float(throttle),
+                    base_delay_s=float(getattr(self.args, "chaos_link_base_delay_s", 0.0) or 0.0))
         elif self.backend == COMM_BACKEND_TRPC:
             from ...constants import TRPC_BASE_PORT
             from .communication.trpc.trpc_comm_manager import TRPCCommManager

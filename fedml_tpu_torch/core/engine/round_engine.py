@@ -618,21 +618,21 @@ def refuse_knobs(args: Any, checks: Sequence[Tuple[str, Callable[[Any], bool]]],
             f"{', '.join(on)}: {what} not ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
 
 
-# the chaos knobs whose subsystems are not ported: the INMEMORY link throttle
-# and delay (netlink) and the split-learning kills and send failures
-_DEFERRED_CHAOS_PREFIXES = ("chaos_link_", "chaos_split_")
+# the chaos knobs whose subsystem is not ported: the split-learning kills and
+# send failures
+_DEFERRED_CHAOS_PREFIXES = ("chaos_split_",)
 
 
 def refuse_chaos_knobs(args: Any) -> None:
     """Refuse the JAX package's fault-injection knobs that are not ported:
-    the link throttle and delay and the split-learning kills
-    (``chaos_link_*``, ``chaos_split_*``). The straggler delay, scheduled
-    raise, NaN poison, delta scaling, the SecAgg upload drop
-    (``chaos_secagg_drop_upload_at_round``, the cross-silo client's) and the
-    SIGKILL drills run."""
+    the split-learning kills (``chaos_split_*``). The INMEMORY link throttle
+    and delay (``chaos_link_throttle``, ``chaos_link_base_delay_s``), the
+    straggler delay, scheduled raise, NaN poison, delta scaling, the SecAgg
+    upload drop (``chaos_secagg_drop_upload_at_round``, the cross-silo
+    client's) and the SIGKILL drills run."""
     refuse_knobs(args, [(k, lambda v: v is not None and v is not False)
                         for k in sorted(vars(args)) if k.startswith(_DEFERRED_CHAOS_PREFIXES)],
-                 "the link and split-learning chaos knobs are")
+                 "the split-learning chaos knobs are")
 
 
 def run_local_round(train_fn: Callable[[], Any], args: Any, round_idx: int, *,

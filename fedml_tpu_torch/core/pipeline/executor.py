@@ -1,11 +1,19 @@
 """Micro-batched pipelined stage executor (PiPar family).
 
-A copy of ``fedml_tpu/core/pipeline/executor.py`` (framework-free) without
-its flight-recorder and trace-context marks, which wait for the port's
-telemetry slice (ROADMAP.md, item 16). Stages run on worker threads joined
-by bounded FIFO queues, so stage ``k`` of item ``i`` overlaps stage ``k-1``
-of item ``i+1``; the paged serving engine's admission wave (prefill ->
-transfer -> admit) rides it.
+A copy of ``fedml_tpu/core/pipeline/executor.py`` (framework-free), its
+flight-recorder marks and trace-context activation included.
+
+A client's local round is four serial phases — train, compress, uplink,
+fold — and the wall-clock is their sum even though they use disjoint
+resources (device compute, host CPU, the WAN link, the server). This
+module runs the phases as *stages* on worker threads connected by bounded
+FIFO queues, so stage ``k`` of work item ``i`` overlaps stage ``k-1`` of
+item ``i+1``, and the round engine's ``PipelinedExecution`` strategy
+(``core/pipeline/strategy.py``) rides this executor unchanged.
+
+Work items are opaque: the sp strategy feeds one item per cohort client,
+and the paged serving engine's admission wave (prefill -> transfer ->
+admit) one item per admitted request.
 
 Measured, not assumed: every stage books busy seconds (inside the stage
 fn), stall seconds (blocked on an empty input or full output queue) and
@@ -16,7 +24,15 @@ queue depth high-water; :class:`PipelineReport` folds them into the
     overlap_frac = (serial_s - wall_s) / (serial_s - max_stage_busy_s)
 
 clipped to [0, 1]; 0 means fully serial, 1 means the wall-clock collapsed
-to the bottleneck stage.
+to the bottleneck stage. The ``pipeline_overlap_frac`` SLO fires when a
+live pipeline collapses back to serial.
+
+Telemetry: per-item ``pipeline.<stage>`` spans nest under the caller's
+round trace (the captured trace context is re-activated on every worker),
+``fedml_pipeline_*`` series export stage seconds / stalls / queue depth /
+overlap, and the flight recorder gets one breadcrumb per run plus one per
+stage drain. A stage that raises aborts the run: every worker stops, and
+:meth:`PipelinedExecutor.run` raises :class:`PipelineError`.
 """
 
 from __future__ import annotations
@@ -28,6 +44,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Sequence
 
 from .. import telemetry as tel
+from ..telemetry import flight_recorder, trace_context
 
 # one queue.get/put timeout slice: long enough to stay off the scheduler's
 # back, short enough that an abort (failed stage) unblocks everyone fast
@@ -138,7 +155,9 @@ class PipelinedExecutor:
 
     One executor instance is single-use per :meth:`run` call but may be
     reused sequentially (stats reset each run). Worker threads are daemons
-    named ``pipeline-<stage>``.
+    named ``pipeline-<stage>`` and re-activate the trace context captured
+    at :meth:`run` entry, so stage spans nest under the caller's round
+    span even though they execute off-thread.
     """
 
     def __init__(self, stages: Sequence[StageSpec], *, name: str = "pipeline"):
@@ -166,35 +185,40 @@ class PipelinedExecutor:
 
     def _worker(self, idx: int, q_in: "queue.Queue", q_out: Optional["queue.Queue"],
                 outputs: List[Any], stats: StageStats, abort: threading.Event,
-                errors: List[PipelineError]) -> None:
+                errors: List[PipelineError], ctx: Any) -> None:
         spec = self.stages[idx]
-        while True:
-            t0 = time.perf_counter()
-            item = self._get(q_in, abort)
-            stats.stall_in_s += time.perf_counter() - t0
-            if item is _DONE:
-                break
-            try:
-                t1 = time.perf_counter()
-                with tel.span(f"{self.name}.{spec.name}", item=stats.items):
-                    out = spec.fn(item)
-                dt = time.perf_counter() - t1
-                stats.busy_s += dt
-                stats.items += 1
-                tel.histogram(STAGE_SECONDS).observe(dt)
-            except BaseException as e:  # noqa: BLE001 - reported via PipelineError
-                errors.append(PipelineError(spec.name, e))
-                abort.set()
-                break
+        with trace_context.activated(ctx):
+            while True:
+                t0 = time.perf_counter()
+                item = self._get(q_in, abort)
+                stats.stall_in_s += time.perf_counter() - t0
+                if item is _DONE:
+                    break
+                try:
+                    t1 = time.perf_counter()
+                    with tel.span(f"{self.name}.{spec.name}", item=stats.items):
+                        out = spec.fn(item)
+                    dt = time.perf_counter() - t1
+                    stats.busy_s += dt
+                    stats.items += 1
+                    tel.histogram(STAGE_SECONDS).observe(dt)
+                except BaseException as e:  # noqa: BLE001 - reported via PipelineError
+                    errors.append(PipelineError(spec.name, e))
+                    abort.set()
+                    break
+                if q_out is not None:
+                    t2 = time.perf_counter()
+                    self._put(q_out, out, abort)
+                    stats.stall_out_s += time.perf_counter() - t2
+                    stats.queue_high_water = max(stats.queue_high_water, q_out.qsize())
+                else:
+                    outputs.append(out)
             if q_out is not None:
-                t2 = time.perf_counter()
-                self._put(q_out, out, abort)
-                stats.stall_out_s += time.perf_counter() - t2
-                stats.queue_high_water = max(stats.queue_high_water, q_out.qsize())
-            else:
-                outputs.append(out)
-        if q_out is not None:
-            self._put(q_out, _DONE, abort)
+                self._put(q_out, _DONE, abort)
+        flight_recorder.record_event(
+            "pipeline", f"{self.name}.{spec.name}.drained",
+            items=stats.items, busy_s=round(stats.busy_s, 4),
+            stall_s=round(stats.stall_in_s + stats.stall_out_s, 4))
 
     def run(self, items: Sequence[Any]) -> PipelineReport:
         """Feed ``items`` through every stage; block until drained.
@@ -203,18 +227,21 @@ class PipelinedExecutor:
         every worker — a failed stage never leaves threads blocked on the
         bounded queues."""
         items = list(items)
+        ctx = trace_context.current()
         abort = threading.Event()
         errors: List[PipelineError] = []
         outputs: List[Any] = []
         stats = [StageStats(name=s.name) for s in self.stages]
         queues: List["queue.Queue"] = [queue.Queue(maxsize=max(1, s.maxsize))
                                        for s in self.stages]
+        flight_recorder.mark(f"{self.name}_run",
+                             stages=[s.name for s in self.stages], items=len(items))
         workers = []
         for i, _spec in enumerate(self.stages):
             q_out = queues[i + 1] if i + 1 < len(self.stages) else None
             t = threading.Thread(
                 target=self._worker,
-                args=(i, queues[i], q_out, outputs, stats[i], abort, errors),
+                args=(i, queues[i], q_out, outputs, stats[i], abort, errors, ctx),
                 name=f"pipeline-{self.stages[i].name}",
                 daemon=True,
             )
@@ -239,7 +266,13 @@ class PipelinedExecutor:
             tel.histogram(STAGE_STALL_SECONDS).observe(s.stall_in_s + s.stall_out_s)
             tel.histogram(QUEUE_DEPTH).observe(float(s.queue_high_water))
         if errors:
+            flight_recorder.mark(f"{self.name}_failed", stage=errors[0].stage,
+                                 cause=repr(errors[0].cause))
             raise errors[0]
         tel.counter(ITEMS_COUNTER).add(len(outputs))
         tel.histogram(OVERLAP_FRAC).observe(report.overlap_frac)
+        flight_recorder.mark(f"{self.name}_done",
+                             wall_s=round(wall, 4),
+                             overlap_frac=round(report.overlap_frac, 4),
+                             bottleneck=report.bottleneck)
         return report

@@ -27,10 +27,11 @@ tracker; thread-safe because deltas arrive on the receive loop while the
 deadline timer fires on its own thread. The server manager owns the timer;
 this module owns the decisions.
 
-Not copied: the link-cost stretch of the adaptive deadline (JAX's
-``use_link_cost`` and ``link_predict``, ``args.quorum_link_cost``), which
-reads ``telemetry.netlink``; the server manager refuses the knob until
-netlink is ported (ROADMAP.md, Queue 1).
+``quorum_link_cost`` (``use_link_cost``): the adaptive deadline stretches
+each rank's EWMA by its predicted upload seconds (netlink's cost model,
+through the ``link_predict`` the server hands in) before the cohort max, so
+one rank behind a slow WAN link widens the deadline by its own transfer
+cost; :meth:`QuorumPolicy.rank_budgets` shows each rank's stretched EWMA.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import logging
 import math
 import threading
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 log = logging.getLogger(__name__)
 
@@ -84,6 +85,10 @@ class QuorumPolicy:
     adaptive_mult: float = 3.0               # deadline = mult * max healthy EWMA
     min_deadline_s: float = 1.0              # adaptive floor
     overprovision_frac: float = 0.0
+    # args.quorum_link_cost: stretch the adaptive deadline by each rank's
+    # measured upload time (the netlink cost model) so a slow WAN link
+    # widens the deadline instead of being misread as slow compute
+    use_link_cost: bool = False
 
     @property
     def enabled(self) -> bool:
@@ -100,23 +105,44 @@ class QuorumPolicy:
             adaptive_mult=float(getattr(args, "adaptive_deadline_mult", 3.0)),
             min_deadline_s=float(getattr(args, "adaptive_deadline_min_s", 1.0)),
             overprovision_frac=float(getattr(args, "overprovision_frac", 0.0)),
+            use_link_cost=bool(getattr(args, "quorum_link_cost", False)),
         )
 
     def min_quorum(self, keep_k: int) -> int:
         return max(1, int(math.ceil(float(self.quorum_frac) * int(keep_k))))
 
-    def deadline_for_round(self, health: Any = None) -> Optional[float]:
+    def rank_budgets(self, health: Any = None, link_predict: Any = None) -> Dict[int, float]:
+        """Each rank's seconds the adaptive deadline budgets for: its health
+        EWMA, plus its predicted upload seconds under ``use_link_cost``
+        (``link_predict(rank)``, None where netlink has no confident
+        estimate; a predictor that raises leaves the rank's EWMA as it is,
+        as in JAX). Ranks without an EWMA are left out."""
+        try:
+            ewmas = {r: c.ewma_s for r, c in health._clients.items() if c.ewma_s is not None}
+        except AttributeError:  # no health tracker wired in
+            return {}
+        if not (self.use_link_cost and link_predict is not None):
+            return dict(ewmas)
+        out = {}
+        for rank, ewma in ewmas.items():
+            try:
+                extra = link_predict(rank)
+            except Exception:  # noqa: BLE001 - duck-typed predictor: its rank keeps the EWMA
+                extra = None
+            out[rank] = ewma + (float(extra) if extra else 0.0)
+        return out
+
+    def deadline_for_round(self, health: Any = None,
+                           link_predict: Any = None) -> Optional[float]:
         """Seconds until this round's deadline (None = wait forever). The
         adaptive mode needs at least one EWMA observation; until then the
-        static deadline (or none) applies."""
+        static deadline (or none) applies. With ``use_link_cost`` each
+        rank's EWMA is stretched by its ``link_predict`` seconds before the
+        cohort max (:meth:`rank_budgets`)."""
         if self.adaptive and health is not None:
-            try:
-                ewmas = {r: c.ewma_s for r, c in health._clients.items()
-                         if c.ewma_s is not None}
-            except Exception:  # noqa: BLE001 - duck-typed health object
-                ewmas = {}
-            if ewmas:
-                adaptive = max(self.min_deadline_s, self.adaptive_mult * max(ewmas.values()))
+            per_rank = self.rank_budgets(health, link_predict)
+            if per_rank:
+                adaptive = max(self.min_deadline_s, self.adaptive_mult * max(per_rank.values()))
                 return adaptive if self.deadline_s is None else min(adaptive, self.deadline_s)
         return self.deadline_s
 

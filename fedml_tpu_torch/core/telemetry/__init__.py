@@ -3,15 +3,17 @@ surfaces a process exposes (Prometheus text, `/statusz`, SLO alerts, the
 flight recorder).
 
 Counterpart of ``fedml_tpu/core/telemetry``: ``core``, ``trace_context``,
-``sketches`` (the mergeable fleet sketches), ``health`` and ``tsdb`` are
-copies of the JAX package's framework-free modules; ``prom``, ``statusz``,
-``flight_recorder`` and ``slo`` are copies but for their netlink,
+``sketches`` (the mergeable fleet sketches), ``health``, ``tsdb`` and
+``netlink`` (per-pair link accounting, estimators and the link cost model)
+are copies of the JAX package's framework-free modules; ``prom``,
+``statusz``, ``flight_recorder`` and ``slo`` are copies but for their
 modelwatch, server-mesh and mlops parts; ``devperf`` (the program cost
 registry: MFU against the card's peak, the HBM sampler) is JAX's with the
-caller's analytic FLOPs in place of XLA's cost analysis; ``fleet`` (the server's fleet
-view: client telemetry deltas, the health tracker, the fleet sketches and
-their child-tier slots, the fleet trace) is JAX's but for modelwatch's
-ledger and netlink. Typical use::
+caller's analytic FLOPs in place of XLA's cost analysis; ``fleet`` (the
+server's fleet view: client telemetry deltas and their link blocks, the
+health tracker, the fleet sketches and their child-tier slots, the fleet
+trace with its link flows) is JAX's but for modelwatch's ledger. Typical
+use::
 
     from fedml_tpu_torch.core import telemetry as tel
 
@@ -20,11 +22,11 @@ ledger and netlink. Typical use::
         ...
     tel.histogram("serving.cb.ttft_seconds").observe(sp.duration_s)
 
-The rest of the JAX package's telemetry (netlink, modelwatch and the link
-probe) waits for later slices (ROADMAP.md, Queue 1).
+The link prober is ``core/distributed/link_probe.py``; modelwatch waits for
+a later slice (ROADMAP.md, Queue 1).
 """
 
-from . import devperf, flight_recorder, prom, sketches, slo, statusz, tsdb
+from . import devperf, flight_recorder, netlink, prom, sketches, slo, statusz, tsdb
 from .core import (
     Counter,
     Histogram,

@@ -1,10 +1,10 @@
 """Fleet telemetry: merge per-client delta snapshots into one cohort view.
 
-A copy of ``fedml_tpu/core/telemetry/fleet.py`` but for two readers that
-come with later slices (ROADMAP.md, Queue 1): modelwatch's contribution
-ledger (``ledger``) and netlink's per-pair link estimates (a delta's
-``link`` block is a known key and is not read; the exported trace has no
-message-flow arrows). The fleet sketches are here (``sketches.py``): every
+A copy of ``fedml_tpu/core/telemetry/fleet.py`` but for modelwatch's
+contribution ledger (``ledger``), which comes with a later slice
+(ROADMAP.md, Queue 1). A delta's ``link`` block (the client's netlink
+pairs) is merged into this process's netlink registry, and the exported
+trace carries netlink's message-flow arrows. The fleet sketches are here (``sketches.py``): every
 view feeds its own :class:`~.sketches.FleetSketches`, past the exact-rank
 threshold new ranks feed the sketches only, a hierarchy child's merged
 sketch wire replaces that child's slot, and a trace above the lane budget
@@ -48,7 +48,7 @@ TRAIN_SPAN_NAME = "client.train"
 # newer client's stat block — skipped and counted, never a crash (mixed
 # fleets upgrade one party at a time). "sketches" is a child tier's merged
 # FleetSketches wire dict riding the same vocabulary (hierarchy forwards one
-# hop per publish); "link" is JAX's netlink block, known and not read here.
+# hop per publish); "link" is the client's netlink pair snapshot.
 _KNOWN_DELTA_KEYS = frozenset({
     "spans", "counters", "histograms", "span_stats", "thread_names",
     "epoch_unix_ns", "dropped", "link", "sketches",
@@ -191,6 +191,16 @@ class FleetTelemetry:
                     "fleet: skipping unknown delta key(s) %s from rank %d "
                     "(newer client version? merge continues without them)",
                     sorted(new), rank)
+        link = delta.get("link")
+        if isinstance(link, dict) and link:
+            # client-observed per-pair link estimates: fold into the server's
+            # netlink registry (it only adopts pairs it cannot measure itself)
+            from . import netlink
+
+            try:
+                netlink.get_registry().merge_remote(rank, link)
+            except (TypeError, ValueError):  # a junk estimator summary
+                log.warning("fleet: link snapshot from rank %d unusable", rank)
         self.merges += 1
         self.health.heartbeat(rank)
         return True
@@ -325,6 +335,11 @@ class FleetTelemetry:
                 shift_ns = ent["epoch_unix_ns"] - server_epoch
             for r in ent["spans"]:
                 events.append(_span_event(r, pid=pid, shift_ns=shift_ns))
+        # measured message flows: arrows from sender lane to receiver lane
+        # carrying bytes + the pair's live bandwidth/RTT estimates
+        from . import netlink
+
+        events.extend(netlink.get_registry().flow_events(server_epoch))
         doc = {"traceEvents": events, "displayTimeUnit": "ms"}
         with open(path, "w") as f:
             json.dump(doc, f)

@@ -3,8 +3,8 @@
 A copy of ``fedml_tpu/core/telemetry/flight_recorder.py`` (framework-free)
 over the port's ``core.py``: the same ring, span hooks, excepthooks and
 dump records (the JAX dump's ``mesh`` record is left out until the server
-mesh is ported; a comm event's byte estimate is this module's own copy of
-netlink's ``payload_nbytes``). Dumps land in ``~/.fedml_tpu_torch/crash``
+mesh is ported; a comm event's byte estimate is netlink's
+``payload_nbytes``). Dumps land in ``~/.fedml_tpu_torch/crash``
 unless ``FEDML_FR_DIR`` names another directory.
 
 The telemetry registry answers "where did the time go" for runs that *finish*.
@@ -322,8 +322,11 @@ def _json_safe_dict(d: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
 # --- process-wide active recorder --------------------------------------------
 _ACTIVE: Optional[FlightRecorder] = None
 _install_lock = threading.Lock()
-_prev_sys_hook = None
-_prev_threading_hook = None
+# the live install's hooks and what each found on top (put back on uninstall)
+_sys_hook: Optional["_ChainedHook"] = None
+_sys_restore: Any = None
+_threading_hook: Optional["_ChainedHook"] = None
+_threading_restore: Any = None
 _install_depth = 0
 
 
@@ -337,23 +340,41 @@ def _span_hook(opened: bool, span: Any, exc_type) -> None:
         r.on_span(opened, span, exc_type is not None)
 
 
-def _sys_excepthook(etype, evalue, etb):
-    r = _ACTIVE
-    if r is not None:
-        r.record_exception(etype, evalue, etb)
-        r.dump(reason="unhandled_exception", exc_info=(etype, evalue, etb))
-    if _prev_sys_hook is not None:
-        _prev_sys_hook(etype, evalue, etb)
+class _ChainedHook:
+    """One install's ``sys.excepthook`` or ``threading.excepthook``.
 
+    While it is the live install's hook it records the exception and dumps;
+    once that install is undone it only passes the exception on. Either way
+    it then calls ``prev``: the hook it found at install time, with any hook
+    of this module skipped, else the interpreter's default. So this module's
+    hooks never chain to one another or to themselves, and a hook that an
+    uninstall could not take off the stack (another recorder, the JAX
+    package's, installed over it and later put it back) still reaches the
+    default hook."""
 
-def _threading_excepthook(args):
-    r = _ACTIVE
-    if r is not None:
-        r.record_exception(args.exc_type, args.exc_value, args.exc_traceback)
-        r.dump(reason="unhandled_thread_exception",
-               exc_info=(args.exc_type, args.exc_value, args.exc_traceback))
-    if _prev_threading_hook is not None:
-        _prev_threading_hook(args)
+    __slots__ = ("prev", "threaded")
+
+    def __init__(self, prev: Any, threaded: bool):
+        while isinstance(prev, _ChainedHook):
+            prev = prev.prev
+        self.prev = prev
+        self.threaded = threaded
+
+    def __call__(self, *args) -> None:
+        r = _ACTIVE
+        if r is not None and (self is _sys_hook or self is _threading_hook):
+            if self.threaded:
+                a = args[0]
+                exc_info = (a.exc_type, a.exc_value, a.exc_traceback)
+                reason = "unhandled_thread_exception"
+            else:
+                exc_info, reason = args, "unhandled_exception"
+            r.record_exception(*exc_info)
+            r.dump(reason=reason, exc_info=exc_info)
+        prev = self.prev
+        if prev is None:
+            prev = threading.__excepthook__ if self.threaded else sys.__excepthook__
+        prev(*args)
 
 
 def install(role: Optional[str] = None,
@@ -363,24 +384,30 @@ def install(role: Optional[str] = None,
     unhandled exception writes a crash dump. Idempotent and refcounted —
     nested installs share the one active recorder; :func:`uninstall` restores
     the previous hooks when the last install exits."""
-    global _ACTIVE, _prev_sys_hook, _prev_threading_hook, _install_depth
+    global _ACTIVE, _sys_hook, _sys_restore, _threading_hook, _threading_restore
+    global _install_depth
     with _install_lock:
         _install_depth += 1
         if _ACTIVE is None:
             _ACTIVE = recorder or FlightRecorder(role=role)
             _core._span_event_hook = _span_hook
-            _prev_sys_hook = sys.excepthook
-            sys.excepthook = _sys_excepthook
-            _prev_threading_hook = threading.excepthook
-            threading.excepthook = _threading_excepthook
+            _sys_restore = sys.excepthook
+            _sys_hook = _ChainedHook(_sys_restore, threaded=False)
+            sys.excepthook = _sys_hook
+            _threading_restore = threading.excepthook
+            _threading_hook = _ChainedHook(_threading_restore, threaded=True)
+            threading.excepthook = _threading_hook
         elif role and _ACTIVE.role is None:
             _ACTIVE.role = role
         return _ACTIVE
 
 
 def uninstall() -> None:
-    """Undo one :func:`install`; hooks are restored when the depth hits 0."""
-    global _ACTIVE, _prev_sys_hook, _prev_threading_hook, _install_depth
+    """Undo one :func:`install`; when the depth hits 0 each hook is taken
+    off the top if it is still there (under another recorder's hook it
+    stays, passing exceptions down its chain)."""
+    global _ACTIVE, _sys_hook, _sys_restore, _threading_hook, _threading_restore
+    global _install_depth
     with _install_lock:
         if _install_depth == 0:
             return
@@ -388,12 +415,11 @@ def uninstall() -> None:
         if _install_depth > 0:
             return
         _core._span_event_hook = None
-        if sys.excepthook is _sys_excepthook:
-            sys.excepthook = _prev_sys_hook
-        if threading.excepthook is _threading_excepthook:
-            threading.excepthook = _prev_threading_hook
-        _prev_sys_hook = None
-        _prev_threading_hook = None
+        if sys.excepthook is _sys_hook:
+            sys.excepthook = _sys_restore
+        if threading.excepthook is _threading_hook:
+            threading.excepthook = _threading_restore
+        _sys_hook = _sys_restore = _threading_hook = _threading_restore = None
         _ACTIVE = None
 
 
@@ -439,52 +465,20 @@ def record_comm(direction: str, message: Any) -> None:
     try:
         sender = message.get_sender_id()
         receiver = message.get_receiver_id()
+        from . import netlink
+
         fields = {
             "sender": sender,
             "receiver": receiver,
             # who was talking to whom, and how much: the peer is the far end
             # of this event's direction, the bytes are the payload estimate
             "peer": receiver if direction == "send" else sender,
-            "bytes": payload_nbytes(message),
+            "bytes": netlink.payload_nbytes(message),
         }
         name = str(message.get_type())
     except Exception:  # noqa: BLE001 - diagnostics must not throw
         fields, name = None, "unknown"
     r.record(kind, name, fields)
-
-
-_NUM_NBYTES = 8  # scalars serialize as 8-byte floats/ints
-_MAX_WALK_DEPTH = 6
-
-
-def payload_nbytes(message: Any) -> int:
-    """Approximate wire size of a message's payload (the JAX package's
-    ``netlink.payload_nbytes``): tensor and array leaves by their buffer
-    size, strings/bytes by length, scalars by 8. Never raises."""
-    try:
-        params = message.get_params()
-    except Exception:  # noqa: BLE001 - duck-typed message
-        return 0
-    return _tree_nbytes(params, _MAX_WALK_DEPTH)
-
-
-def _tree_nbytes(obj: Any, depth: int) -> int:
-    if obj is None or depth < 0:
-        return 0
-    nb = getattr(obj, "nbytes", None)
-    if isinstance(nb, int):       # numpy arrays and torch tensors
-        return nb
-    if isinstance(obj, (bytes, bytearray, str)):
-        return len(obj)
-    if isinstance(obj, bool):
-        return 1
-    if isinstance(obj, (int, float)):
-        return _NUM_NBYTES
-    if isinstance(obj, dict):
-        return sum(_tree_nbytes(v, depth - 1) for v in obj.values())
-    if isinstance(obj, (list, tuple)):
-        return sum(_tree_nbytes(v, depth - 1) for v in obj)
-    return 0
 
 
 # --- overhead probes ----------------------------------------------------------

@@ -5,9 +5,9 @@ byte for byte what the JAX module renders for the same registry. The
 ``jax.compiles.`` family keeps its rendering rule under this module's own
 ``COMPILE_COUNTER_PREFIX`` (the port traces nothing, so nothing counts
 there unless a caller does). The JAX module's optional ride-along gauges
-of the server mesh and netlink are left out until those modules are
-ported (ROADMAP.md, Queue 1); the SLO engine's, devperf's and the fleet
-sketches' ride along as in JAX.
+of the server mesh are left out until the mesh is ported (ROADMAP.md,
+Queue 1); netlink's per-pair link gauges, the SLO engine's, devperf's and
+the fleet sketches' ride along as in JAX.
 
 Dependency-free (no ``prometheus_client``): renders the 0.0.4 text format
 from a ``Telemetry`` registry so the serving layer can expose ``GET /metrics``
@@ -222,6 +222,16 @@ def render(telemetry: Optional[Telemetry] = None,
         )
 
     # --- caller gauges ---------------------------------------------------
+    # per-pair link gauges (fedml_link_*{src,dst,backend}) ride along on
+    # every /metrics surface once any message has moved
+    try:
+        from . import netlink as _netlink
+
+        link_gauges = _netlink.prom_gauges()
+    except Exception:  # noqa: BLE001 - metrics must render without netlink
+        link_gauges = []
+    if link_gauges:
+        gauges = list(gauges) + link_gauges if gauges else link_gauges
     # SLO alert gauges (fedml_alert_active{slo=}, fedml_slo_burn_rate) ride
     # along whenever an SLO engine is active in the process
     try:

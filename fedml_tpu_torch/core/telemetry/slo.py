@@ -3,9 +3,9 @@ policy with a pending → firing → resolved state machine.
 
 A copy of ``fedml_tpu/core/telemetry/slo.py`` (framework-free) over the
 port's ``tsdb``: the same specs, packs, burn rates, state machine and
-surfaces. Not ported: the ``mlops.log_alert`` uplink (the port has no
-mlops), the netlink collector (until netlink is ported, the
-``link_loss_ratio`` spec sees no series, as in JAX with no link pairs), and
+surfaces, and the netlink collector that feeds the ``link_loss_ratio``
+row the worst pair's probe loss each tick. Not ported: the
+``mlops.log_alert`` uplink (the port has no mlops) and
 ``alert_profile_capture`` (JAX's ``mlops.start_profiler_trace``), which
 raises NotImplementedError when set (ROADMAP.md, Queue 1).
 
@@ -601,6 +601,7 @@ def activate(args: Any = None, front: str = "engine") -> Optional[SLOEngine]:
         old = _ENGINE
         store = tsdb.install()
         engine = SLOEngine(specs, store=store, front=front, args=args)
+        engine.store.add_collector(_netlink_collector)
         _ENGINE = engine
     if old is not None:
         old.stop()
@@ -649,3 +650,15 @@ def prom_gauges() -> List[tuple]:
     """``fedml_alert_*`` / ``fedml_slo_*`` ride-along for ``prom.render``."""
     engine = _ENGINE
     return engine.prom_gauges() if engine is not None else []
+
+
+def _netlink_collector(store: tsdb.TimeSeriesStore) -> None:
+    """Feed the worst per-pair link loss ratio into the tsdb each tick —
+    the ``link_loss_ratio`` SLO keys on the fleet's worst link."""
+    from . import netlink
+
+    pairs = netlink.get_registry().pairs()
+    if not pairs:
+        return
+    worst = max(s.loss_ratio() for s in pairs.values())
+    store.record_gauge("link.loss_ratio", float(worst))

@@ -1,10 +1,10 @@
 """`/statusz`: one JSON page answering "what is this process doing right now".
 
 A copy of ``fedml_tpu/core/telemetry/statusz.py`` (framework-free). Of the
-JAX page's always-on sections it keeps ``resilience``, ``alerts`` (the SLO
-engine), ``devperf`` and ``fleet_sketches``; ``sharding``, ``links`` and
-``modelwatch`` are left out until the server mesh, netlink and modelwatch
-are ported (ROADMAP.md, Queue 1).
+JAX page's always-on sections it keeps ``resilience``, ``links`` (netlink's
+per-pair estimates), ``alerts`` (the SLO engine), ``devperf`` and
+``fleet_sketches``; ``sharding`` and ``modelwatch`` are left out until the
+server mesh and modelwatch are ported (ROADMAP.md, Queue 1).
 
 Borrowed from the Google-style z-pages idiom: every long-running fedml
 process (cross-silo server, serving replica, gateway) exposes a single
@@ -97,6 +97,17 @@ def render(service: Optional[str] = None,
             doc["sections"]["resilience"] = res
     except Exception as e:  # noqa: BLE001 - status page must not throw
         doc["sections"]["resilience"] = {"error": repr(e)}
+    # the links section (per-pair bandwidth/RTT estimates, bytes in/out,
+    # probe ages) is always-on: any process whose comm manager moved a
+    # message has pairs to show
+    try:
+        from . import netlink as _netlink
+
+        links = _netlink.statusz_snapshot()
+        if links:
+            doc["sections"]["links"] = links
+    except Exception as e:  # noqa: BLE001 - status page must not throw
+        doc["sections"]["links"] = {"error": repr(e)}
     # the alerts section (per-SLO state, burn rates, recent transitions,
     # tsdb ingest stats) is always-on: any process with an active SLO
     # engine shows its alerts without per-process wiring

@@ -43,10 +43,12 @@ support. ``core.privacy.outbound_delta`` gates every upload.
 ``chaos_secagg_drop_upload_at_round`` drops the masked upload of that round
 after key exchange (the reveal drill).
 
-Not ported (ROADMAP.md, Queue 1): the link-probe handler is absent, and the
-delta carries no link estimates (netlink). ``init`` refuses
-``num_processes > 1``, so a silo is one process and there are no slave
-processes to synchronise.
+The link layer (JAX ``:78``, ``:164-182``, ``:364-369``): the client echoes
+each ``MSG_TYPE_LINK_PROBE`` straight back (its timestamp, sequence and an
+equal-size pad), so the server's prober measures a symmetric round trip on
+its own clock, and every telemetry delta carries this process's netlink
+pair snapshot (``delta["link"]``). ``init`` refuses ``num_processes > 1``,
+so a silo is one process and there are no slave processes to synchronise.
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ from ...core.engine import compress_upload, refuse_chaos_knobs, run_local_round
 from ...core.fhe.fhe_agg import refuse_fhe_front
 from ...core.privacy import (QuantSpec, WindowMember, clip_to_reference, masked_uplink_payload,
                              outbound_delta, privacy_from_args)
-from ...core.telemetry import trace_context
+from ...core.telemetry import netlink, trace_context
 from ...utils.compression import make_comm_compressor, secagg_support
 from ..message_define import MyMessage
 
@@ -130,6 +132,7 @@ class ClientMasterManager(FedMLCommManager):
             MyMessage.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT, self.handle_message_receive_model_from_server
         )
         self.register_message_receive_handler(MyMessage.MSG_TYPE_S2C_FINISH, self.handle_message_finish)
+        self.register_message_receive_handler(MyMessage.MSG_TYPE_LINK_PROBE, self.handle_message_link_probe)
         self.register_message_receive_handler(
             MyMessage.MSG_TYPE_S2C_SECAGG_ANNOUNCE, self.handle_message_secagg_announce)
         self.register_message_receive_handler(
@@ -203,6 +206,24 @@ class ClientMasterManager(FedMLCommManager):
     def handle_message_finish(self, msg_params: Message) -> None:
         log.info("====== training finished ======")
         self.finish()
+
+    def handle_message_link_probe(self, msg_params: Message) -> None:
+        """Echo a link probe: bounce the originator's opaque timestamp and an
+        equal-size pad straight back, so the server measures a symmetric
+        round trip on its own clock (core/distributed/link_probe.py)."""
+        nbytes = int(msg_params.get(MyMessage.MSG_ARG_KEY_PROBE_NBYTES) or 0)
+        pad = msg_params.get(MyMessage.MSG_ARG_KEY_PROBE_PAD)
+        echo = Message(MyMessage.MSG_TYPE_LINK_PROBE_ECHO, self.client_real_id,
+                       msg_params.get_sender_id())
+        echo.add_params(MyMessage.MSG_ARG_KEY_PROBE_SEQ,
+                        int(msg_params.get(MyMessage.MSG_ARG_KEY_PROBE_SEQ)))
+        echo.add_params(MyMessage.MSG_ARG_KEY_PROBE_T_SEND_NS,
+                        int(msg_params.get(MyMessage.MSG_ARG_KEY_PROBE_T_SEND_NS)))
+        echo.add_params(MyMessage.MSG_ARG_KEY_PROBE_NBYTES, nbytes)
+        if nbytes > 0:
+            echo.add_params(MyMessage.MSG_ARG_KEY_PROBE_PAD,
+                            pad if pad is not None else np.zeros(nbytes, dtype=np.uint8))
+        self.send_message(echo)
 
     # --- windowed SecAgg (the client side of core/privacy) -----------------
     def handle_message_secagg_announce(self, msg_params: Message) -> None:
@@ -357,6 +378,11 @@ class ClientMasterManager(FedMLCommManager):
         delta = t.delta_snapshot(self._tel_cursor, tid=tid)
         self._tel_cursor = delta.pop("cursor")
         delta["rank"] = int(self.client_real_id)
+        # client-observed link estimates ride along; the server's fleet view
+        # merges them for pairs it cannot measure itself
+        link = netlink.get_registry().delta_snapshot()
+        if link:
+            delta[trace_context.LINK_FIELD] = link
         message.add_params(Message.MSG_ARG_KEY_TELEMETRY, {trace_context.DELTA_FIELD: delta})
 
     def __train(self) -> None:

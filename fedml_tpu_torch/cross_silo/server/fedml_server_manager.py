@@ -69,12 +69,27 @@ always-on ones, devperf's among them) and `/metrics`. Under
 ``statusz_port``, ``slo_spec`` or ``slo_tick_s`` the fleet view is read, so
 the clients' telemetry deltas are merged.
 
-Not ported, each raising NotImplementedError when its knob is set
-(ROADMAP.md, Queue 1): link-cost admission (``async_link_admission``) and
-the link-cost deadline (``quorum_link_cost``), link probing and WAN-aware
-health (``link_probe_interval_s``, ``link_wan_health``: netlink's), and the
-link and split-learning chaos knobs. The JAX package also logs the SecAgg
-dropouts and aborts to mlops; that is not ported.
+The link layer (JAX ``:76-92``, ``:275-320``, ``:622-625``, ``:714-725``,
+``:1011-1020``): every message is booked into netlink by the comm manager.
+``link_probe_interval_s`` starts a ``LinkProber`` once the fleet is online
+(every connected client, a zero and a ``link_probe_payload_bytes`` probe a
+tick; the clients echo them, the echo handler feeds the RTT, the
+``link_probe`` statusz section shows it; a failed tick fails the run when
+the prober stops). ``link_wan_health`` observes each client's round as
+broadcast to arrival on the server's monotonic clock, booked after the
+delta merge, so a slow link flags in health as a slow trainer does.
+``quorum_link_cost`` stretches each rank's adaptive-deadline budget by its
+predicted upload seconds (``deadline_budgets`` keeps the last round's), and
+``async_link_admission`` stretches the staleness admission cut by the
+publish windows a silo's predicted upload spans; both predict the last
+broadcast's byte count on the (client, server) pair. The buffer judges an
+arrival by silo index (rank - 1); the port's predictor maps it to the
+silo's rank, where JAX's reads the previous rank's link (ROADMAP.md,
+Queue 3).
+
+Not ported: the split-learning chaos knobs (``chaos_split_*``) raise
+NotImplementedError (ROADMAP.md, Queue 1). The JAX package also logs the
+SecAgg dropouts and aborts to mlops; that is not ported.
 """
 
 from __future__ import annotations
@@ -82,36 +97,31 @@ from __future__ import annotations
 import contextlib
 import logging
 import threading
+import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ...core import telemetry as tel
+from ...core.distributed import link_probe
 from ...core.distributed.communication.message import Message
 from ...core.distributed.fedml_comm_manager import FedMLCommManager
 from ...core.engine import (RemoteCommStrategy, RoundCheckpointer, decompress_arrival,
-                            flight_recorded, knob_set, refuse_chaos_knobs, refuse_knobs)
+                            flight_recorded, knob_set, refuse_chaos_knobs)
 from ...core.privacy import is_masked_payload, submit_masked_payload
 from ...core.resilience import (QuorumPolicy, RoundQuorum, RoundStateStore, note,
                                 overprovisioned_cohort_size)
 from ...core.resilience import quorum as quorum_mod
 from ...core.resilience.round_state import restore_numpy_rng
-from ...core.telemetry import slo, statusz, trace_context
+from ...core.telemetry import netlink, slo, statusz, trace_context
 from ..message_define import MyMessage
 
 log = logging.getLogger(__name__)
 
-_KNOBS = (
-    ("async_link_admission", knob_set),
-    ("quorum_link_cost", knob_set),
-    ("link_probe_interval_s", knob_set),
-    ("link_wan_health", knob_set),
-)
-
 
 class FedMLServerManager(FedMLCommManager):
     def __init__(self, args: Any, aggregator, comm=None, client_rank=0, client_num=0, backend="INMEMORY"):
-        refuse_knobs(args, _KNOBS, "link-cost admission and deadlines and link probing are")
         refuse_chaos_knobs(args)
         super().__init__(args, comm, client_rank, client_num + 1, backend)
         self.aggregator = aggregator
@@ -150,14 +160,39 @@ class FedMLServerManager(FedMLCommManager):
         self._secagg_deadline_attempts = 0
         self._round_store: Optional[RoundStateStore] = None
         self._checkpointer: Optional[RoundCheckpointer] = None
+        # --- link telemetry ------------------------------------------------
+        # active probing is opt-in (args.link_probe_interval_s > 0); passive
+        # per-pair accounting in FedMLCommManager is always on
+        self._link_prober: Optional[link_probe.LinkProber] = None
+        # WAN-aware health (args.link_wan_health): each client's round as
+        # broadcast->arrival on the server's monotonic clock
+        self._link_wan_health = bool(getattr(args, "link_wan_health", False))
+        self._bcast_sent_mono: Dict[int, float] = {}
+        self._last_bcast_nbytes = 0
+        # quorum_link_cost: each rank's budget behind the last armed deadline
+        self.deadline_budgets: Dict[int, float] = {}
+        if self._async_mode and bool(getattr(args, "async_link_admission", False)):
+            # the staleness admission cut stretches for ranks whose predicted
+            # upload time spans publish windows
+            buf = aggregator.async_buffer
+            predict = netlink.make_upload_predictor(lambda _r: self._last_bcast_nbytes)
+            # the buffer judges an arrival by its silo index (rank - 1), as
+            # the aggregator hands it over; the link is the silo's rank's
+            # (JAX predicts the previous rank's link: ROADMAP.md, Queue 3)
+            buf.policy.set_link_predictor(
+                lambda index: predict(int(index) + 1),
+                lambda: buf.publish_interval_ewma_s,
+            )
         rdir = getattr(args, "resilience_dir", None)
         # the fleet view has readers only under these knobs: the quorum
         # (failures, adaptive deadline, over-provisioning), the async
         # buffer's straggler grace, the round state's health, the fleet
-        # trace, /statusz's health section and the SLO rows an operator
-        # configured. Without them the clients' deltas are not merged and
-        # the round runs as it does without resilience.
+        # trace, /statusz's health section, the SLO rows an operator
+        # configured and the WAN-aware health. Without them the clients'
+        # deltas are not merged and the round runs as it does without
+        # resilience.
         self._fleet_read = bool(self._quorum_policy.enabled or self._async_mode or rdir
+                                or self._link_wan_health
                                 or getattr(args, "fleet_trace", None)
                                 or getattr(args, "statusz_port", None) is not None
                                 or knob_set(getattr(args, "slo_spec", None))
@@ -230,6 +265,7 @@ class FedMLServerManager(FedMLCommManager):
             try:
                 super().run()
             finally:
+                self._stop_link_prober()
                 self._stop_statusz()
                 slo.deactivate(self._slo)
                 self._slo = None
@@ -239,6 +275,51 @@ class FedMLServerManager(FedMLCommManager):
     def _dp_accountant(self):
         dp = getattr(self.aggregator, "dp_fold", None)
         return dp.accountant if dp is not None else None
+
+    # --- link probing ------------------------------------------------------
+    def _start_link_prober(self) -> None:
+        """Start the active prober once the fleet is online (configured via
+        ``args.link_probe_interval_s``; default off). Probes every connected
+        client, not just the round's cohort: a link estimate is most useful
+        for the clients about to be re-admitted."""
+        cfg = link_probe.probe_config(self.args)
+        if cfg is None or self._link_prober is not None:
+            return
+        self._link_prober = link_probe.LinkProber(
+            local_rank=self.rank,
+            send_probe=self._send_link_probe,
+            peers=lambda: range(1, self.size),
+            registry=netlink.get_registry(),
+            backend=self.backend.lower(),
+            **cfg,
+        )
+        self._link_prober.start()
+        statusz.register_section("link_probe", self._link_prober.statusz)
+
+    def _stop_link_prober(self) -> None:
+        """Stop the prober; raises the error that ended its thread, if any."""
+        prober, self._link_prober = self._link_prober, None
+        if prober is None:
+            return
+        statusz.unregister_section("link_probe")
+        prober.stop()
+
+    def _send_link_probe(self, peer: int, seq: int, t_send_ns: int, nbytes: int) -> None:
+        message = Message(MyMessage.MSG_TYPE_LINK_PROBE, self.get_sender_id(), peer)
+        message.add_params(MyMessage.MSG_ARG_KEY_PROBE_SEQ, int(seq))
+        message.add_params(MyMessage.MSG_ARG_KEY_PROBE_T_SEND_NS, int(t_send_ns))
+        message.add_params(MyMessage.MSG_ARG_KEY_PROBE_NBYTES, int(nbytes))
+        if nbytes > 0:
+            message.add_params(MyMessage.MSG_ARG_KEY_PROBE_PAD, np.zeros(int(nbytes), dtype=np.uint8))
+        self.send_message(message)
+
+    def handle_message_link_probe_echo(self, msg_params: Message) -> None:
+        if self._link_prober is not None:
+            self._link_prober.observe_echo(
+                msg_params.get_sender_id(),
+                msg_params.get(MyMessage.MSG_ARG_KEY_PROBE_SEQ),
+                msg_params.get(MyMessage.MSG_ARG_KEY_PROBE_T_SEND_NS),
+            )
 
     # --- statusz and the SLO engine ------------------------------------------
     def _start_statusz_if_configured(self) -> None:
@@ -367,6 +448,8 @@ class FedMLServerManager(FedMLCommManager):
             MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, self.handle_message_receive_model_from_client
         )
         self.register_message_receive_handler(
+            MyMessage.MSG_TYPE_LINK_PROBE_ECHO, self.handle_message_link_probe_echo)
+        self.register_message_receive_handler(
             MyMessage.MSG_TYPE_C2S_SECAGG_PUBKEY, self.handle_message_secagg_pubkey)
         self.register_message_receive_handler(
             MyMessage.MSG_TYPE_C2S_SECAGG_SHARES, self.handle_message_secagg_shares)
@@ -423,7 +506,14 @@ class FedMLServerManager(FedMLCommManager):
             self._arm_deadline_timer()
 
     def _arm_deadline_timer(self) -> None:
-        deadline_s = self._quorum_policy.deadline_for_round(self.aggregator.fleet.health)
+        health = self.aggregator.fleet.health
+        link_predict = None
+        if self._quorum_policy.use_link_cost:
+            # stretch each rank's EWMA by its predicted upload time; the last
+            # broadcast's size is the best estimate of the symmetric upload
+            link_predict = netlink.make_upload_predictor(lambda _r: self._last_bcast_nbytes)
+            self.deadline_budgets = self._quorum_policy.rank_budgets(health, link_predict)
+        deadline_s = self._quorum_policy.deadline_for_round(health, link_predict=link_predict)
         if deadline_s is None:
             return
         t = threading.Timer(deadline_s, self._on_round_deadline, args=(int(self.args.round_idx),))
@@ -478,6 +568,7 @@ class FedMLServerManager(FedMLCommManager):
         all_online = all(self.client_online_status.get(cid, False) for cid in range(1, self.size))
         if all_online and not self.is_initialized:
             self.is_initialized = True
+            self._start_link_prober()
             if int(self.args.round_idx) >= self.round_num:
                 # resumed from a store whose last complete round was the
                 # final one: nothing left to train, release the fleet
@@ -495,6 +586,16 @@ class FedMLServerManager(FedMLCommManager):
             header = trace_context.telemetry_header(msg_params)
             if header is not None and trace_context.DELTA_FIELD in header:
                 self.aggregator.merge_client_telemetry(sender_id, header[trace_context.DELTA_FIELD])
+        if self._link_wan_health:
+            # WAN-aware round time: broadcast->arrival on this clock. Booked
+            # after the delta merge so it supersedes the train-span
+            # observation for this round: a throttled link then flags in
+            # health exactly like a slow trainer would
+            sent_mono = self._bcast_sent_mono.pop(int(sender_id), None)
+            if sent_mono is not None:
+                self.aggregator.fleet.health.observe_round(
+                    int(sender_id), time.monotonic() - sent_mono,
+                    None if delta_round is None else int(delta_round))
         if self._async_mode:
             model_params = decompress_arrival(msg_params.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS),
                                               sender_id)
@@ -860,6 +961,7 @@ class FedMLServerManager(FedMLCommManager):
         # a resumed server's first round is not round 0: clients adopt this
         message.add_params(MyMessage.MSG_ARG_KEY_ROUND_IDX, int(self.args.round_idx))
         message.add_params(MyMessage.MSG_ARG_KEY_MODEL_VERSION, self._model_version())
+        self._note_model_broadcast(receive_id, message)
         self.send_message(message)
 
     def send_message_sync_model_to_client(self, receive_id: int, global_model_params, client_index) -> None:
@@ -868,7 +970,16 @@ class FedMLServerManager(FedMLCommManager):
         message.add_params(MyMessage.MSG_ARG_KEY_CLIENT_INDEX, int(client_index))
         message.add_params(MyMessage.MSG_ARG_KEY_ROUND_IDX, self.args.round_idx)
         message.add_params(MyMessage.MSG_ARG_KEY_MODEL_VERSION, self._model_version())
+        self._note_model_broadcast(receive_id, message)
         self.send_message(message)
+
+    def _note_model_broadcast(self, receive_id: int, message: Message) -> None:
+        """Remember the broadcast size (the link cost model's payload
+        estimate for the symmetric upload) and, under WAN-aware health, when
+        this rank's round started on the server's clock."""
+        self._last_bcast_nbytes = netlink.payload_nbytes(message)
+        if self._link_wan_health:
+            self._bcast_sent_mono[int(receive_id)] = time.monotonic()
 
     def send_finish_to_all(self) -> None:
         for client_id in range(1, self.size):

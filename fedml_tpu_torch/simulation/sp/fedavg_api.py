@@ -17,10 +17,16 @@ each round boundary is saved async through the engine's
 round counter in the sidecar), the final round synchronously; ``resume``
 restarts from the last complete round and replays the rest bit for bit.
 
-Not ported yet, each raising NotImplementedError (ROADMAP.md, Queue 1): the
-pipelined client execution and modelwatch's quarantine. Modelwatch's fold
-statistics, on by default in the JAX package, change nothing the round
-computes; the port runs without them.
+``client_execution: pipelined`` (JAX ``:196-209``) runs the cohort through
+the staged pipeline (``core/pipeline``): one client trains while the last
+one's upload compresses and folds, folded at arrival for plain FedAvg
+(bit-exact with the sequential round), else in pairs mode behind the same
+``AlgFrameSink``. Any other value than ``sequential`` and ``pipelined``
+raises NotImplementedError.
+
+Not ported yet, raising NotImplementedError (ROADMAP.md, Queue 1):
+modelwatch's quarantine. Modelwatch's fold statistics, on by default in the
+JAX package, change nothing the round computes; the port runs without them.
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ def _not_ported(what: str) -> NotImplementedError:
 class FedAvgAPI:
     def __init__(self, args: Any, device: Any, dataset, model, client_trainer=None,
                  server_aggregator=None):
-        if str(getattr(args, "client_execution", "sequential") or "sequential") != "sequential":
+        if str(getattr(args, "client_execution", "sequential") or "sequential") \
+                not in ("sequential", "pipelined"):
             raise _not_ported(f"client_execution={args.client_execution!r}")
         if getattr(args, "modelwatch_quarantine", False):
             raise _not_ported("modelwatch_quarantine")
@@ -180,11 +187,27 @@ class FedAvgAPI:
             final=final,
         )
 
+    def _build_execution(self):
+        """Strategy + sink for the engine. ``client_execution: pipelined``
+        swaps in the staged pipeline (core.pipeline): train/compress/fold
+        overlap across the cohort, fold-at-arrival when the optimizer's
+        semantics allow it (plain FedAvg, no middleware), else pairs mode
+        behind the same AlgFrameSink as the sequential path."""
+        mode = str(getattr(self.args, "client_execution", "sequential") or "sequential")
+        if mode == "pipelined":
+            # lazy: core.pipeline pulls aggregation and compression, and the
+            # engine package stays an import-time leaf
+            from ...core.pipeline import build_pipelined_execution
+
+            return build_pipelined_execution(self)
+        return InProcessSequentialStrategy(self), AlgFrameSink(self._server_update)
+
     def train(self) -> Dict[str, float]:
+        strategy, sink = self._build_execution()
         engine = RoundEngine(
             self.args,
-            InProcessSequentialStrategy(self),
-            AlgFrameSink(self._server_update),
+            strategy,
+            sink,
             sample_fn=lambda r: self._client_sampling(
                 r, int(self.args.client_num_in_total), int(self.args.client_num_per_round)
             ),

@@ -810,8 +810,6 @@ def test_sync_dp_federation_clean_mean_tracks_jax():
 # --- what is not ported raises ---------------------------------------------------
 
 GATES = {
-    "async_link_admission": ("server", dict(async_rounds=True, async_link_admission=True)),
-    "quorum_link_cost": ("server", dict(quorum_frac=0.5, quorum_link_cost=True)),
     # the secure fronts run over INMEMORY only (ROADMAP.md, Queue 3, R4)
     "secure_aggregation_secagg": ("server", dict(secure_aggregation="secagg", backend="MQTT_S3")),
     "secure_aggregation_lsa": ("client", dict(secure_aggregation="lsa", backend="MQTT_S3")),
@@ -820,12 +818,8 @@ GATES = {
     **{f"comm_compressor_{b}": ("client", dict(comm_compressor="eftopk", backend=b))
        for b in ("TRPC", "GRPC", "MPI", "MQTT_WEB3", "MQTT_THETASTORE")},
     "scenario_hierarchical": ("client", dict(scenario="hierarchical")),
-    "link_probe_interval_s": ("server", dict(link_probe_interval_s=1.0)),
-    "link_wan_health": ("server", dict(link_wan_health=True)),
     "server_mesh": ("server", dict(server_mesh="1x1")),
     "modelwatch_quarantine": ("server", dict(modelwatch_quarantine=True)),
-    "chaos_link_throttle": ("client", dict(chaos_link_throttle=1e6)),
-    "chaos_link_base_delay_s": ("client", dict(chaos_link_base_delay_s=0.1)),
     "chaos_split_kill_rank": ("server", dict(chaos_split_kill_rank=1)),
     "mqtt_host": ("client", dict(backend="MQTT_S3", mqtt_host="broker.example")),
     "s3_bucket": ("server", dict(backend="MQTT_S3", s3_bucket="bucket")),
@@ -856,6 +850,13 @@ PORTED = {
     # the round-barrier secure fronts, by each of their four names
     **{f"secure_aggregation_{name}_{role}": (role, dict(secure_aggregation=name))
        for name in ("secagg", "sa", "lightsecagg", "lsa") for role in ("server", "client")},
+    # the link layer (tests/test_torch_netlink.py runs them)
+    "async_link_admission": ("server", dict(async_rounds=True, async_link_admission=True)),
+    "quorum_link_cost": ("server", dict(quorum_frac=0.5, quorum_link_cost=True)),
+    "link_probe_interval_s": ("server", dict(link_probe_interval_s=1.0)),
+    "link_wan_health": ("server", dict(link_wan_health=True)),
+    "chaos_link_throttle": ("client", dict(chaos_link_throttle=1e6)),
+    "chaos_link_base_delay_s": ("client", dict(chaos_link_base_delay_s=0.1)),
     # the message plane's other backends and the reference wire
     # (tests/test_torch_{trpc,grpc,web3,ref_wire}.py run them)
     "mqtt_s3_wire_fedml": ("server", dict(backend="MQTT_S3", mqtt_s3_wire="fedml",

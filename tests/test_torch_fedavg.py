@@ -452,7 +452,7 @@ def test_run_simulation_on_the_cpu_and_refusals(tmp_path_factory):
     for over, what in [(dict(backend="vmap", async_rounds=True, hierarchy_edges=2),
                         "hierarchy_edges.*HierarchyTree"),
                        (dict(backend="NCCL"), "NCCL"),
-                       (dict(client_execution="pipelined"), "pipelined"),
+                       (dict(client_execution="threaded"), "threaded"),
                        (dict(modelwatch_quarantine=True), "modelwatch_quarantine"),
                        (dict(allow_download=True), "allow_download")]:
         bad = copy.copy(args)

@@ -613,9 +613,10 @@ def test_run_local_round_delay_raise_and_refusals():
         tengine.run_local_round(lambda: {}, args, 3, rank=1)
     ok = fedml_tpu_torch.default_config("cross_silo", chaos_train_delay_s=1.0, chaos_nan_at_round=0,
                                         chaos_kill_after_round=1, chaos_scale_delta=2.0,
-                                        chaos_secagg_drop_upload_at_round=0)
+                                        chaos_secagg_drop_upload_at_round=0,
+                                        chaos_link_throttle=1e6, chaos_link_base_delay_s=0.1)
     tengine.refuse_chaos_knobs(ok)
-    for knob in ("chaos_link_throttle", "chaos_link_base_delay_s", "chaos_split_kill_rank"):
+    for knob in ("chaos_split_kill_rank", "chaos_split_send_fail_n"):
         with pytest.raises(NotImplementedError, match=knob):
             tengine.refuse_chaos_knobs(fedml_tpu_torch.default_config("cross_silo", **{knob: 1}))
 
