@@ -78,7 +78,7 @@ exception):
 7. FedAvg: the sp simulator's round through the user's entry points (init,
    get_device, data.load, model.create, FedMLRunner). (a) Parrot config 1
    (examples/quick_start/parrot/fedml_config.yaml: LR, MNIST surrogate, 2
-   clients, 10 rounds) on the card and on the CPU from the same seeded
+   clients, cut to PARROT_SMOKE_ROUNDS of its 10 rounds) on the card and on the CPU from the same seeded
    params, every eval round and the final params within PARROT_* of each
    other; (b) ResNet-56 at full width on the CIFAR-10 surrogate: one
    client's local round on the card against the CPU with cuDNN's TF32 off
@@ -115,8 +115,8 @@ exception):
    within CS_MEAN_TOL of the float64 weighted mean of its arrivals; then 3
    rounds in the port's documented precision: round seconds, rounds/hr, the
    split from the server.* and client.train spans, peak memory, beside
-   phase 7's sp round, and the same federation with the local rounds taken
-   one at a time (a diagnostic); (b) a server and 4 client processes over
+   phase 7's sp round, and the same federation, 2 rounds, with the local
+   rounds taken one at a time (a diagnostic); (b) a server and 4 client processes over
    the port's SocketMqttBroker (hosted here) with one object store,
    ResNet-56, 2 rounds, cuDNN deterministic and TF32 off: every party on
    the card and exiting 0 within CS_PARTY_TIMEOUT_S, the final params within
@@ -141,7 +141,7 @@ exception):
    card waited for after each submit and publish: rounds/hr of server
    seconds at each size and their ratio (reported, not gated), and the
    same seed's event trace identical; (d) the cross-silo front over
-   INMEMORY: 16 silos in async mode (a publish every 8 merges, 4 publishes),
+   INMEMORY: 16 ResNet-20 silos in async mode (a publish every 8 merges, 4 publishes),
    seconds a publish; phase 10's synchronous federation at ResNet-20
    (SILOS_R20) cut to 2 rounds, plain and with comm_compressor eftopk at ratio 1.0, cuDNN deterministic
    and TF32 off, final params bit-equal; topk at ratio 0.05 to an end with
@@ -170,7 +170,9 @@ exception):
    with a complete round short of the end in its store (for (d) a snapshot
    holding a pending arrival), and the resumed store's final state is
    bit-equal to the baseline's; (a), (c) and (d) side by side, each
-   baseline beside its crash, (a) with its save times (enqueue ms with the card waited for,
+   baseline beside its crash, all of them beside phases 18 and 19 (which
+   gate nothing on time; the drills are read after phase 19), (a) with its
+   save times (enqueue ms with the card waited for,
    checkpoint_save_seconds, drops, store bytes, spawn to the first resumed
    round); (e) no flash launch;
 13. privacy, ResNet-20 (SILOS_R20: ResNet-56's widths at a third of its
@@ -253,8 +255,8 @@ exception):
    (the JSON says "grpc": "not installed" where it does not; any other
    failure fails); (d) the reference wire, mqtt_s3_wire='fedml' and, with
    grpc, grpc_wire='fedml', 4 silo threads; (e) comm_bench over INMEMORY,
-   TRPC and GRPC at ResNet-56's state dict (3,423,080 bytes) and 64 MB,
-   both on the card: round-trip ms and MB/s; (f) no flash launch;
+   TRPC and GRPC at ResNet-56's state dict (3,423,080 bytes, 20 round
+   trips) and 64 MB (5), both on the card: round-trip ms and MB/s; (f) no flash launch;
 17. the trust middleware at ResNet-20 (SP_R20, SILOS_R20) on the CIFAR-10
    surrogate: (b) run_simulation on the sp front, 16 clients, 2 rounds, the
    first 4 Byzantine random, without a defense and with multi-Krum (which
@@ -274,7 +276,8 @@ exception):
    arrivals; (f) exact Shapley and LOO over 4 clients (efficiency to 1e-6),
    GTG over 16 (its s); (g) reveal-labels recovers a batch's labels, DLG's
    match loss falls 100x within 300 iterations; (h) no flash launch;
-18. FHE and the sp simulator's other APIs, at phase 7's ResNet-56 width:
+18. FHE and the sp simulator's other APIs, at phase 7's ResNet-56 width
+   ((b), (c), (e) and (f) at ResNet-20, its widths at a third of its depth):
    (a) at N=4096, 4 primes, the card's keygen, encryption under one seeded
    generator and decryption residues (float64 negacyclic matrices) equal,
    integer for integer, to the plain np.convolve version over 4 chunks;
@@ -285,7 +288,7 @@ exception):
    plaintexts, its gap to the f32 fold, encrypt ms and ciphertext bytes a
    client, fold ms, decryption's card products and CRT ms (the card's
    Garner CRT held bit-equal to the host's Python-integer CRT, both timed),
-   round s beside phase 7's; (c) 16 INMEMORY silos, one round of rlwe: the server's
+   round s; (c) 16 INMEMORY silos, one round of rlwe: the server's
    global is the decryption, within the same bound of its arrivals'
    fixed-point sum; (d) R7 (backend vmap), R10 (additive_mask on a front)
    and R11 (a byte backend) refused before any round; (e) TurboAggregate,
@@ -305,7 +308,7 @@ exception):
    the latents come from a CPU generator), the pair and the losses within
    F64_TOL; finite losses, generated images in [-1, 1], each round's s;
    (b) FedNAS on the CIFAR-10 surrogate, DARTS width 16, 3 cells of 3
-   steps, 4 clients, 1 round: round 0 of 2 clients cut to 32 images on the
+   steps, NAS_CLIENTS of 4 clients, 1 round: round 0 of 2 clients cut to 32 images on the
    card against the CPU in float64 within F64_TOL, the genotypes equal;
    the full round's s, losses, test accuracy and genotype; (c) FedSeg on
    pascal_voc with unet, 4 clients, 2 rounds, card against CPU in f32 with
@@ -373,7 +376,7 @@ exception):
 22. head dims and dtypes beyond 64/128 and bf16, through the normal entry
    points with attention_impl="auto" on the card: (a) LLMTrainer.train for
    TRAIN_STEPS steps at Phi-3-mini-4k's published widths (PHI3: d_model
-   3072, 32 heads and 32 KV heads of 96, d_ff 8192, vocab 32064) cut to 4
+   3072, 32 heads and 32 KV heads of 96, d_ff 8192, vocab 32064) cut to 2
    of its 32 layers, bf16, seq 2048, batch 2, LoRA rank 8, then one
    LLMClientTrainer round as in phase 5; (b) LLMTrainer.train for
    GEMMA_STEPS steps at Gemma-2B's published attention widths (GEMMA2B:
@@ -432,10 +435,33 @@ exception):
    publishes) under async_link_admission: the throttled silo's admission
    cut at least the others' and its uploads folded. A prober or a throttle timer that fails
    fails the phase;
-25. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+25. modelwatch, no flash kernel on (a)-(b)'s path: (a) phase 7's sp round
+   (ResNet-56 x 16 clients) for 2 rounds, slot MW_SCALED's upload scaled
+   MW_SCALE-fold every round and slot MW_NAN's NaN-poisoned in round 1 (at
+   the server rule: the sp simulator reads no chaos knob): with quarantine
+   off, 16 rows a round, the scaled slot an outlier, the NaN round's row
+   and aggregate counting NaN, each publish bit-equal to the round's
+   uploads folded unwatched, the fused watched fold bit-equal too with as
+   many synchronising calls (torch.cuda.set_sync_debug_mode) as the
+   unwatched fold; with modelwatch_quarantine, one round with both
+   poisoned uploads: both dropped and the publish bit-equal to the fold of
+   the uploads kept; the
+   ms of a plain, a watched and the sp front's screened fold; (b) JAX's
+   modelwatch drill on the cross-silo front over INMEMORY (LR, 3 silos x 4
+   rounds, silo 2 chaos_nan_at_round 2, silo 3 chaos_scale_delta 50,
+   statusz_port 0): client_outlier_rate and then nan_storm firing with one
+   flight-recorder snapshot each, the outlier snapshot's rows rank 3
+   "outlier" and rank 1 "ok", /statusz's modelwatch section and /metrics'
+   fedml_client_{delta_norm,contribution,outlier_score}; then FedBuff with
+   modelwatch_quarantine: silo 3's 50x uploads outlier_rejected; (c) the
+   LLM guard: param_norm of every LoRA window of phases 4-5 and 22 within
+   GUARD_NORM_RTOL of a plain f32 norm of the same params (the guard's ms
+   printed), and one step with a NaN planted in an adapter marks the
+   flight recorder (modelwatch_train_guard);
+26. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
    resilience, privacy, secure_fronts, hierarchy, message_plane, trust,
    fhe_sp_zoo, gan_nas_seg_hub, files, front_door, head_dims, fedllm,
-   link_layer and kernels lines (JSON, the kernels line with the design each kernel ran
+   link_layer, modelwatch and kernels lines (JSON, the kernels line with the design each kernel ran
    on the main path, its launches in phase 23, and a row for each kernel
    at phase 22's head dims 96 and 256), the card line, and last the result
    line.
@@ -761,13 +787,14 @@ def _snapshot(model, adapters: bool):
 # The LoRA step's geometries (ModelArguments fields), each cut only in depth:
 # Llama-2-7B's widths (phases 4-5), and phase 22's Phi-3-mini-4k
 # (microsoft/Phi-3-mini-4k-instruct config.json: hidden 3072, 32 heads and
-# 32 KV heads, so head dim 96, intermediate 8192, vocab 32064; 4 of 32
-# layers) and Gemma-2B's attention widths (google/gemma-2b config.json:
-# hidden 2048, 8 heads of 256 over 1 KV head, intermediate 16384, vocab
-# 256000; 2 of 18 layers), both through the repo's llama block.
+# 32 KV heads, so head dim 96, intermediate 8192, vocab 32064; 2 of 32
+# layers, 4 before the smoke made room for modelwatch) and Gemma-2B's
+# attention widths (google/gemma-2b config.json: hidden 2048, 8 heads of
+# 256 over 1 KV head, intermediate 16384, vocab 256000; 2 of 18 layers),
+# both through the repo's llama block.
 LLAMA7B = dict(vocab_size=32000, d_model=4096, n_layers=N_LAYERS, n_heads=HQ, n_kv_heads=HQ,
                d_ff=11008, seq_len=T, lora_rank=8, remat=True)
-PHI3 = dict(vocab_size=32064, d_model=3072, n_layers=4, n_heads=32, n_kv_heads=32, d_ff=8192,
+PHI3 = dict(vocab_size=32064, d_model=3072, n_layers=2, n_heads=32, n_kv_heads=32, d_ff=8192,
             seq_len=T, lora_rank=8, remat=True)
 GEMMA2B = dict(vocab_size=256000, d_model=2048, n_layers=2, n_heads=8, n_kv_heads=1,
                d_ff=16384, seq_len=T, lora_rank=8, remat=True)
@@ -799,6 +826,7 @@ def train_phase(tmp: str, geom: dict = LLAMA7B, steps: int = TRAIN_STEPS) -> dic
     metrics = trainer.train(TextDataset(blocks).batches(B, steps, seed=0))
     check(metrics["steps"] == steps, f"trainer ran {metrics['steps']} steps")
     check(np.isfinite(metrics["final_loss"]), f"loss not finite: {metrics['final_loss']}")
+    _guard_reading(f"{geom['d_model']}x{geom['n_layers']}", trainer.model, metrics)
     after_base, after_lora = _snapshot(trainer.model, False), _snapshot(trainer.model, True)
     check(all(torch.equal(base0[n], after_base[n]) for n in base0), "base weights changed")
     check(any(not torch.equal(lora0[n], after_lora[n]) for n in lora0), "adapters did not move")
@@ -809,6 +837,46 @@ def train_phase(tmp: str, geom: dict = LLAMA7B, steps: int = TRAIN_STEPS) -> dic
     del trainer, base0, lora0, after_base, after_lora
     torch.cuda.empty_cache()
     return {"metrics": metrics, "adapters": adapters, "n_params": n_params}
+
+
+# modelwatch's guard at each LoRA window's end: its param_norm against a
+# plain f32 norm of the same params (each leaf's squares summed in f32 by
+# torch, the leaves' sums added in float64): two f32 summation orders over up
+# to 0.6e9 squares. Each train_phase appends its reading; phase 25 (c)
+# reports them.
+GUARD_NORM_RTOL = 1e-4
+GUARD_REPS = 3
+GUARD_READINGS = []
+
+
+def _guard_reading(part: str, model, metrics: dict) -> dict:
+    """Hold the window's param_norm to a plain f32 norm of the model's
+    params and time one guard pass (the fastest of GUARD_REPS) on them."""
+    import math
+
+    import torch
+
+    from fedml_tpu_torch.core.telemetry import modelwatch
+
+    sd = model.state_dict()
+    plain = math.sqrt(sum(float(v.detach().float().pow(2).sum()) for v in sd.values()))
+    got = metrics.get("param_norm")
+    check(got is not None and abs(got - plain) <= GUARD_NORM_RTOL * plain,
+          f"{part}: the guard's param_norm {got} against the plain norm {plain:.8g}")
+    times = []
+    for _ in range(GUARD_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        modelwatch.train_guard(sd)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    reading = {"part": part, "param_norm": got, "plain_norm": plain,
+               "rel": abs(got - plain) / plain, "guard_ms": min(times),
+               "n_params": sum(v.numel() for v in sd.values())}
+    GUARD_READINGS.append(reading)
+    say(f"  guard: param_norm {got:.8g} (plain {plain:.8g}, rel {reading['rel']:.3g}); "
+        f"a guard pass {reading['guard_ms']:.3f} ms over {reading['n_params']} params")
+    return reading
 
 
 def client_phase(tmp: str, global_adapters: dict, geom: dict = LLAMA7B) -> dict:
@@ -835,6 +903,8 @@ def client_phase(tmp: str, global_adapters: dict, geom: dict = LLAMA7B) -> dict:
     metrics = client.train(blocks)
     out = _flat(client.get_model_params())
     check(np.isfinite(metrics["final_loss"]), "client loss not finite")
+    check(np.isfinite(metrics.get("param_norm", float("nan"))),
+          f"the client round's guard gave no finite param_norm: {metrics.get('param_norm')}")
     check(any(not np.array_equal(out[p], sent[p]) for p in sent),
           "the round did not move the adapters")
     say(f"  client round: steps={metrics['steps']} final_loss={metrics['final_loss']:.6f} "
@@ -1407,6 +1477,10 @@ RESNET = dict(random_seed=0, dataset="cifar10", data_cache_dir="", partition_met
 # 2 of 2,000; the final params within 1e-4 of their largest magnitude (the
 # tolerances tests/test_torch_fedavg.py holds the CPU port to against JAX)
 PARROT_LOSS_RTOL, PARROT_ACC_SLACK, PARROT_PARAM_TOL = 1e-4, 2, 1e-4
+# Parrot's rounds on each side, of the config's 10: its card and CPU runs
+# are host-bound, 21-49 s of phase 7 between H100 hosts at 10 rounds; the
+# config evaluates every 5th round and the last, so rounds 0 and 4
+PARROT_SMOKE_ROUNDS = 5
 # ResNet-56, card against CPU, cuDNN's TF32 off: the forward of the seeded
 # params on the client's first batch within 1e-4 of the logits' scale (56
 # f32 conv layers summed in other orders); the client's local round (3
@@ -1452,7 +1526,8 @@ def parrot_parity() -> dict:
     out = {}
     for where in (DEV, "cpu"):
         t0 = time.perf_counter()
-        _, _, model, runner = _fedavg_runner(PARROT, where == "cuda")
+        _, _, model, runner = _fedavg_runner(dict(PARROT, comm_round=PARROT_SMOKE_ROUNDS),
+                                             where == "cuda")
         check(model.device.type == where, f"Parrot model on {model.device}, wanted {where}")
         p0 = _cpu(model.params)
         runner.run()
@@ -1462,8 +1537,8 @@ def parrot_parity() -> dict:
     gpu, cpu = out[DEV], out["cpu"]
     check(all(torch.equal(gpu["p0"][k], cpu["p0"][k]) for k in cpu["p0"]),
           "Parrot: the card and the CPU started from different params")
-    check([m["round"] for m in gpu["hist"]] == [m["round"] for m in cpu["hist"]] == [0, 5, 9],
-          f"Parrot eval rounds {[m['round'] for m in gpu['hist']]}")
+    check([m["round"] for m in gpu["hist"]] == [m["round"] for m in cpu["hist"]]
+          == [0, PARROT_SMOKE_ROUNDS - 1], f"Parrot eval rounds {[m['round'] for m in gpu['hist']]}")
     rows = []
     for g, c in zip(gpu["hist"], cpu["hist"]):
         rel = abs(g["test_loss"] - c["test_loss"]) / abs(c["test_loss"])
@@ -1477,7 +1552,8 @@ def parrot_parity() -> dict:
     param_err = max((gpu["w"][k] - cpu["w"][k]).abs().max().item()
                     / cpu["w"][k].abs().max().item() for k in cpu["w"])
     check(param_err <= PARROT_PARAM_TOL, f"Parrot final params {param_err:.3g} of their scale apart")
-    say(f"  Parrot config 1 (LR, 2 clients, 10 rounds): card {gpu['s']:.1f}s, CPU {cpu['s']:.1f}s; "
+    say(f"  Parrot config 1 (LR, 2 clients, {PARROT_SMOKE_ROUNDS} rounds): card {gpu['s']:.1f}s, "
+        f"CPU {cpu['s']:.1f}s; "
         f"eval rounds {rows}; final params {param_err:.3g} of their scale apart")
     return {"rounds": rows, "final_param_err_of_scale": param_err, "card_s": gpu["s"],
             "cpu_s": cpu["s"]}
@@ -2124,13 +2200,13 @@ def cross_silo_timed(sp: dict) -> tuple:
 
 
 def cross_silo_serialized() -> dict:
-    """Phase 10 (a), a diagnostic: the same 16-silo federation with the
-    clients' local rounds taken one at a time (a lock shared by the client
+    """Phase 10 (a), a diagnostic: the same 16-silo federation, 2 rounds,
+    with the clients' local rounds taken one at a time (a lock shared by the client
     threads around each), so the round's excess over the sp round splits
     into the clients training at once and the rest of the front."""
     import threading
 
-    fed = _Federation(CROSS_SILO, "smoke_cs_serial")
+    fed = _Federation(dict(CROSS_SILO, comm_round=2), "smoke_cs_serial")
     lock = threading.Lock()
     for rank, runner in fed.runners.items():
         if rank == 0:
@@ -2145,10 +2221,8 @@ def cross_silo_serialized() -> dict:
     since = _last_span_seq()
     fed.run()
     rows = _cs_round_split(since)
-    steady = rows[1:]
-    res = {"round_s_mean_rounds_2_3": sum(r["round_s"] for r in steady) / len(steady),
-           "client_train_wall_s_mean_rounds_2_3":
-               sum(r["client_train_wall_s"] for r in steady) / len(steady),
+    res = {"round_s_round_2": rows[1]["round_s"],
+           "client_train_wall_s_round_2": rows[1]["client_train_wall_s"],
            "per_round_s": [r["round_s"] for r in rows]}
     say(f"  the same federation with the local rounds one at a time: {res}")
     return res
@@ -2446,10 +2520,11 @@ ASYNC_VMAP = dict(RESNET, backend="vmap", async_rounds=True, async_publish_k=8, 
 # simulate_async_rounds at two fleet sizes over the ResNet-56 state dict
 ASYNC_SIM_CLIENTS = (1000, 10000)
 ASYNC_SIM = dict(publish_k=32, gen_batch=1024, publishes=8, seed=0)
-# the cross-silo front: phase 10's 16 silos in async mode (4 publishes of 8
-# merges), then its synchronous federation cut to 2 rounds, plain, eftopk at
-# ratio 1.0 and topk at ratio 0.05
-CS_ASYNC = dict(CROSS_SILO, async_rounds=True, async_publish_k=8, comm_round=4)
+# the cross-silo front: phase 10's 16 silos at ResNet-20 in async mode (4
+# publishes of 8 merges; 27 s at ResNet-56 on the H100's slower host), then
+# its synchronous federation cut to 2 rounds, plain, eftopk at ratio 1.0 and
+# topk at ratio 0.05
+CS_ASYNC = dict(SILOS_R20, async_rounds=True, async_publish_k=8, comm_round=4)
 CS_COMPRESSED = dict(SILOS_R20, comm_round=2)
 LOSSY_RATIO = 0.05
 # the streaming fold (publish_k 32 = two buckets, scaled after the fold)
@@ -2672,14 +2747,14 @@ def cross_silo_async() -> dict:
     check(all(torch.isfinite(v).all() for v in w.values()), "async w_global not finite")
     check(max(float((w[k] - p0[k]).abs().max()) for k in w) > 0, "async w_global did not move")
     gaps = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
-    res = {"config": {k: CS_ASYNC[k] for k in ("client_num_per_round", "async_publish_k",
-                                               "comm_round")},
+    res = {"config": {k: CS_ASYNC[k] for k in ("model", "client_num_per_round",
+                                               "async_publish_k", "comm_round")},
            "run_wall_s": wall, "s_per_publish": gaps, "s_per_publish_mean": wall / len(stamps),
            "statusz": {k: v for k, v in buf.statusz().items() if k != "client_versions"},
            "spans": _span_totals(since, ("server.async_receive", "async.merge", "async.publish",
                                          "server.eval", "client.train")),
            "test_loss": [m["test_loss"] for m in evals]}
-    say(f"  (d) cross-silo async rounds, 16 silos: {res}")
+    say(f"  (d) cross-silo async rounds, 16 {CS_ASYNC['model']} silos: {res}")
     return res
 
 
@@ -2869,8 +2944,6 @@ def resilience_drill(name: str, tmp: str) -> dict:
         res[f"{key}_checkpoint_dropped"] = rep["checkpoint_dropped"]
     res["enqueue_ms"] = [row["ms"] for row in b["saves"] if not row["wait"]]
     res["store_bytes"] = b["store_bytes"]
-    say(f"  ({ {'sp': 'a', 'cs': 'c', 'cs_async': 'd'}[name] }) {name} drill: {res}")
-    check(res["bit_equal"], f"{name}: the resumed run's final state differs from the baseline's")
     return res
 
 
@@ -3023,25 +3096,42 @@ def quorum_federation() -> dict:
 
 
 def resilience_phase() -> dict:
-    """Phase 12: (b) the quorum federation in this process, then the SIGKILL
-    drills in processes of their own, the sp (a), cross-silo (c) and async
-    (d) drills side by side (each its baseline and crash side by side, then
-    its resume; only their bit-equality is gated, and their times are taken
-    beside each other)."""
+    """Phase 12 (b): the quorum federation in this process. The SIGKILL
+    drills (a), (c), (d) run in processes of their own beside phases 18 and
+    19, which gate nothing on time (:func:`resilience_drills_start`)."""
+    return {"quorum": quorum_federation()}
+
+
+def resilience_drills_start() -> dict:
+    """Phase 12 (a), (c), (d), started in the background: the sp,
+    cross-silo and async drills side by side, each its baseline and crash
+    side by side, then its resume (only their bit-equality is gated; their
+    times are taken beside each other and beside phases 18 and 19)."""
     from concurrent.futures import ThreadPoolExecutor
 
     tmp = os.path.join(ROOT, ".smoke_run", "resilience")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    out = {"quorum": quorum_federation()}
-    t0 = time.time()
-    with ThreadPoolExecutor(3) as pool:
-        futures = {name: pool.submit(resilience_drill, name, tmp)
-                   for name in ("sp", "cs", "cs_async")}
-        for name, fut in futures.items():
-            out[f"drill_{name}"] = fut.result()
-    out["drill_wall_s"] = {"sp_cs_and_cs_async_side_by_side": time.time() - t0}
-    shutil.rmtree(tmp, ignore_errors=True)
+    pool = ThreadPoolExecutor(3)
+    futures = {name: pool.submit(resilience_drill, name, tmp) for name in ("sp", "cs", "cs_async")}
+    return {"pool": pool, "futures": futures, "tmp": tmp, "t0": time.time()}
+
+
+def resilience_drills_finish(drills: dict) -> dict:
+    """Wait for the drills of :func:`resilience_drills_start`, say their
+    reports in phase 12's order and gate each one's bit-equality."""
+    out = {}
+    try:
+        for name, fut in drills["futures"].items():
+            res = fut.result()
+            say(f"  ({ {'sp': 'a', 'cs': 'c', 'cs_async': 'd'}[name] }) {name} drill: {res}")
+            check(res["bit_equal"],
+                  f"{name}: the resumed run's final state differs from the baseline's")
+            out[f"drill_{name}"] = res
+    finally:
+        drills["pool"].shutdown(wait=True)
+        shutil.rmtree(drills["tmp"], ignore_errors=True)
+    out["drill_wall_s"] = {"sp_cs_and_cs_async_side_by_side": time.time() - drills["t0"]}
     return out
 
 
@@ -4175,7 +4265,7 @@ MP_PROCS = dict(CS_PROCS, model="resnet20")
 # tensor of 64 MB on the card (the copy to the host is in every ping)
 MP_BENCH_BIG = 64_000_000
 MP_RESNET56_BYTES = 3_423_080  # 855,770 f32 params
-MP_BENCH_REPS = {"resnet56": 20, "64mb": 10}
+MP_BENCH_REPS = {"resnet56": 20, "64mb": 5}
 # bit-equal to INMEMORY: every wire carries f32 exactly (phase 10 (b)'s limit)
 MP_TOL = CS_PROC_TOL
 
@@ -4841,17 +4931,21 @@ def trust_phase() -> dict:
 
 # -- phase 18: FHE's ciphertext leaves and the sp simulator's other APIs ------------
 
-# (b): phase 7's ResNet-56 sp federation, 16 clients, 2 rounds, rlwe at the
-# JAX package's parameters (N 4096, 4 primes of 20 bits, delta 2^30,
-# sigma 3.2); (c) phase 10's 16 INMEMORY silos, one round
-FHE_SP = dict(RESNET, comm_round=2, enable_fhe=True, fhe_scheme="rlwe")
-FHE_CS = dict(CROSS_SILO, comm_round=1, enable_fhe=True, fhe_scheme="rlwe")
+# (b): phase 7's sp federation at ResNet-20 (ResNet-56's widths at a third
+# of its depth: 120 ciphertext chunks a client where ResNet-56 has 348), 16
+# clients, 2 rounds, rlwe at the JAX package's parameters (N 4096, 4 primes
+# of 20 bits, delta 2^30, sigma 3.2); (c) phase 10's 16 INMEMORY silos at
+# ResNet-20, one round. At ResNet-56, (b) and (c) took 46 s of the smoke on
+# the H100's slower host
+FHE_SP = dict(SP_R20, comm_round=2, enable_fhe=True, fhe_scheme="rlwe")
+FHE_CS = dict(SILOS_R20, comm_round=1, enable_fhe=True, fhe_scheme="rlwe")
 FHE_PARITY_CHUNKS = 4   # (a): ring products on the card against np.convolve
 FHE_SECRET = "fedml_tpu"  # the default fhe_secret
-# (e), (f): phase 7's federation through TurboAggregate (4 ring groups) and
-# FedAvg_seq (4 workers), 2 rounds each
-TA_RUN = dict(RESNET, federated_optimizer="TA", ta_group_num=4, comm_round=2)
-SEQ_RUN = dict(RESNET, federated_optimizer="FedAvg_seq", worker_num=4, comm_round=2)
+# (e), (f): phase 7's federation at ResNet-20 through TurboAggregate (4
+# ring groups) and FedAvg_seq (4 workers), 2 rounds each (at ResNet-56 they
+# took 22-29 s of the smoke on the H100)
+TA_RUN = dict(SP_R20, federated_optimizer="TA", ta_group_num=4, comm_round=2)
+SEQ_RUN = dict(SP_R20, federated_optimizer="FedAvg_seq", worker_num=4, comm_round=2)
 # (g): the split models at the JAX package's widths (split_width 16,
 # gkt_width 8) on phase 7's CIFAR-10 surrogate, 16 clients, 2 rounds; the
 # card-against-CPU gate on the first round of 2 clients cut to 256 images,
@@ -5062,7 +5156,7 @@ class _FheProbe:
                 "error_draw_max": b, "gap_to_f32_fold": gap}
 
 
-def fhe_sp(plain_round_s) -> dict:
+def fhe_sp() -> dict:
     """(b): rlwe through init and FedMLRunner on the sp front."""
     import math
 
@@ -5085,8 +5179,7 @@ def fhe_sp(plain_round_s) -> dict:
         rounds = [probe.check_fold(i, f"(b) round {i}", ctx.params) for i in range(2)]
         check(all(math.isfinite(m["test_loss"]) for m in hist), f"(b) {hist}")
         res = {"rounds": rounds, "round_s": [spans[r]["fedavg.round"] for r in sorted(spans)],
-               "plain_round_s_phase7": plain_round_s,
-               "encrypt_ms_client": sum(probe.enc_ms) / len(probe.enc_ms),
+               "model": FHE_SP["model"], "encrypt_ms_client": sum(probe.enc_ms) / len(probe.enc_ms),
                "ciphertext_bytes_client": probe.ct_bytes[0],
                "plaintext_bytes_client": sum(v.numel() * 4 for v in model.params.values()),
                "chunks_client": sum(-(-v.numel() // ctx.params.n) for v in model.params.values()),
@@ -5162,7 +5255,7 @@ def fhe_refusals() -> dict:
     return out
 
 
-def ta_run(plain_round_s) -> dict:
+def ta_run() -> dict:
     """(e): TurboAggregate: each ring sum bit-equal to the plain field sum
     of the same quantized updates; the global within K/2 quantization steps
     of the float64 fold (each of the K weighted updates rounds by at most
@@ -5206,13 +5299,13 @@ def ta_run(plain_round_s) -> dict:
         gaps.append(gap / step)
     res = {"groups": TA_RUN["ta_group_num"], "round_s": [spans[r]["fedavg.round"]
                                                            for r in sorted(spans)],
-           "plain_round_s_phase7": plain_round_s, "gap_in_steps": gaps,
+           "model": TA_RUN["model"], "gap_in_steps": gaps,
            "test_acc": runner.runner.fl_trainer.metrics_history[-1]["test_acc"]}
     say(f"  (e) TA: {res}")
     return res
 
 
-def seq_run(plain_round_s) -> dict:
+def seq_run() -> dict:
     """(f): FedAvg_seq with 4 workers: every client in exactly one queue;
     each round's global the fold of its 16 w_locals (FOLD_TOL of the float64
     weighted mean, as phase 7's)."""
@@ -5251,7 +5344,7 @@ def seq_run(plain_round_s) -> dict:
         check(err <= FOLD_TOL, f"(f) the fold is {err:.3g} from the weighted mean")
         errs.append(err)
     res = {"workers": SEQ_RUN["worker_num"], "round_s": [b - a for a, b in marks],
-           "plain_round_s_phase7": plain_round_s,
+           "model": SEQ_RUN["model"],
            "makespan_s": [m["makespan"] for m in hist], "schedule": [m["schedule"] for m in hist],
            "fold_err_of_scale": errs, "test_acc": hist[-1]["test_acc"]}
     say(f"  (f) FedAvg_seq: {res}")
@@ -5398,19 +5491,18 @@ def decentralized_and_vfl() -> dict:
     return res
 
 
-def fhe_sp_zoo_phase(fedavg: dict) -> dict:
+def fhe_sp_zoo_phase() -> dict:
     """Phase 18 (see the module docstring)."""
     import torch
 
-    plain = fedavg["resnet56"]["round_s_mean_rounds_2_3"]
     res = {"fhe": {"parity": fhe_parity()}}
     gc.collect()
     torch.cuda.empty_cache()
-    res["fhe"]["sp"] = fhe_sp(plain)
+    res["fhe"]["sp"] = fhe_sp()
     res["fhe"]["cross_silo"] = fhe_cross_silo()
     res["fhe"]["refusals"] = fhe_refusals()
-    res["ta"] = ta_run(plain)
-    res["fedavg_seq"] = seq_run(plain)
+    res["ta"] = ta_run()
+    res["fedavg_seq"] = seq_run()
     gc.collect()
     torch.cuda.empty_cache()
     res["split"] = split_runs()
@@ -5428,11 +5520,14 @@ GAN_RUN = dict(random_seed=0, dataset="mnist", data_cache_dir="", partition_meth
                client_num_per_round=4, comm_round=2, epochs=1, batch_size=64,
                learning_rate=2e-4, backend="sp")
 # (b) FedNAS on the CIFAR-10 surrogate: the DARTS supernet at the hub's
-# defaults (width 16, 3 cells of 3 steps), 4 clients of 3,000, 1 round
+# defaults (width 16, 3 cells of 3 steps), 1 round of NAS_CLIENTS of the
+# homo partition's 4 clients of 3,000 (a cut in fleet size: the timed round
+# is host-bound, 13.5 s at 4 clients on the H100)
 NAS_RUN = dict(random_seed=0, dataset="cifar10", data_cache_dir="", partition_method="homo",
                model="darts", federated_optimizer="FedNAS", client_num_in_total=4,
                comm_round=1, epochs=1, batch_size=64, learning_rate=0.025, darts_width=16,
                darts_layers=3, darts_steps=3, backend="sp")
+NAS_CLIENTS = 2
 # (c) FedSeg on the pascal_voc surrogate with unet (SegNetLite), 4 clients of
 # 16 images, 2 rounds
 SEG_RUN = dict(random_seed=0, dataset="pascal_voc", data_cache_dir="", model="unet",
@@ -5609,7 +5704,8 @@ def nas_run() -> dict:
     runs = par.pop("runs")
     genos = {w: runs[w]["api"].genotype() for w in runs}
     check(genos[DEV] == genos["cpu"], f"(b) FedNAS genotypes: {genos}")
-    run = _api_run(NAS_RUN, dataset, dim, DEV)
+    run = _api_run(dict(NAS_RUN, client_num_in_total=NAS_CLIENTS),
+                   _cut_shards(dataset, len(dataset[5][0]), clients=NAS_CLIENTS), dim, DEV)
     m = run["hist"][0]
     check(math.isfinite(m["weight_loss"]) and math.isfinite(m["arch_loss"]),
           f"(b) FedNAS: {m}")
@@ -6861,6 +6957,7 @@ FEDLLM_LOCAL_DP = {
 # the DP budget series and the dp_budget_exhaustion row
 FEDLLM_PRIVACY = dict(privacy="dp", dp_l2_clip=0.05, dp_noise_multiplier=1.0, dp_seed=23)
 FEDLLM_FOLD_REL = 1e-6  # a two-upload f32 fold against the float64 mean
+FEDLLM_WATCH_REL = 1e-5  # modelwatch's f32 delta norms against float64 ones
 FEDLLM_MFU_REL = 1e-6
 HBM_INTERVAL_S = 0.1
 FEDLLM_JOIN_S = 300
@@ -6958,6 +7055,16 @@ def fedllm_federation(tmp: str, run_id: str, over: dict, probe=None) -> dict:
     base0 = {r: {k: p.detach().clone() for k, p in c.llm.model.named_parameters()
                  if not is_lora_name(k)} for r, c in clients.items()}
     manager = runners[0].runner.server_manager
+    # modelwatch watches the federation: the ranks of each round's rows
+    ledger, rows_seen, norms_seen = manager.aggregator.fleet.ledger, [], []
+    observe = ledger.observe_round
+
+    def observed(version, stats):
+        rows_seen.append(sorted(r["rank"] for r in stats.rows))
+        norms_seen.append({r["rank"]: r["norm"] for r in stats.rows})
+        return observe(version, stats)
+
+    ledger.observe_round = observed
     if probe is not None:
         test = manager.aggregator.test_on_server_for_all_clients
 
@@ -6982,9 +7089,12 @@ def fedllm_federation(tmp: str, run_id: str, over: dict, probe=None) -> dict:
         t.join(FEDLLM_JOIN_S)
         check(not t.is_alive(), f"{run_id}: {t.name} still running after {FEDLLM_JOIN_S}s")
     check(not errors, f"{run_id}: a party failed: {errors!r}")
+    check(rows_seen == [list(range(1, n + 1))] * FEDLLM_ROUNDS,
+          f"{run_id}: modelwatch rows by round {rows_seen}, expected ranks 1-{n} in each of "
+          f"{FEDLLM_ROUNDS} rounds")
     InMemoryBroker.reset(run_id)
     return {"agg": agg, "clients": clients, "base0": base0, "start": start, "blocks": blocks,
-            "run_s": time.perf_counter() - t0}
+            "run_s": time.perf_counter() - t0, "modelwatch_norms": norms_seen}
 
 
 def _flat_vec(tree):
@@ -7106,8 +7216,13 @@ def fedllm_phase(libs, lora: dict, serve_programs: dict) -> dict:
             fold_err = float(np.abs(fold - mean).max() / np.abs(mean).max())
             check(fold_err <= FEDLLM_FOLD_REL,
                   f"(a) round {r}: fold {fold_err:.3g} of scale from the plain mean")
+            # modelwatch's delta norms (f32 on the card) against these (f64)
+            watched = [fed["modelwatch_norms"][r][rank] for rank in range(1, len(ups) + 1)]
+            check(all(abs(w - x) <= FEDLLM_WATCH_REL * x for w, x in zip(watched, norms)),
+                  f"(a) round {r}: modelwatch's norms {watched} against {norms}")
             pub = _flat_vec(params_to_jax(agg.published[r]))
-            rounds.append({"upload_delta_norms": norms, "fold_err_of_scale": fold_err,
+            rounds.append({"upload_delta_norms": norms, "modelwatch_norms": watched,
+                           "fold_err_of_scale": fold_err,
                            "noise": _check_draws(f"(a) round {r}", pub - fold, sigma)})
             incoming = params_to_jax(agg.published[r])
         res["rounds_a"] = rounds
@@ -7615,6 +7730,419 @@ def link_phase() -> dict:
     return res
 
 
+# -- phase 25: modelwatch ---------------------------------------------------------
+
+# (a) phase 7's round (ResNet-56 x 16 clients) through the sp front, 2
+# rounds with quarantine off, then 1 with modelwatch_quarantine. The sp
+# simulator reads no chaos knob (the cross-silo client's run_local_round
+# does), so the server rule's inputs are poisoned as those knobs poison a
+# silo's upload: cohort slot MW_SCALED's upload times MW_SCALE every round
+# (chaos_scale_delta) and the first element of each leaf of slot MW_NAN's
+# upload NaN in round MW_NAN_ROUND of the unquarantined run, in round 0 of
+# the quarantined one (chaos_nan_at_round)
+MW_SP = dict(RESNET, comm_round=2, frequency_of_the_test=5)
+MW_SCALED, MW_NAN, MW_SCALE, MW_NAN_ROUND = 3, 5, 50.0, 1
+MW_FOLD_REPS = 5
+# (b) JAX's end-to-end modelwatch drill (tests/test_modelwatch.py): LR on
+# the synthetic set, 3 silos x 4 rounds over INMEMORY, silo 2 NaN-poisons its
+# round-2 upload, silo 3 uploads 50x weights every round
+MW_CS = dict(random_seed=0, dataset="synthetic", data_cache_dir="", model="lr",
+             scenario="horizontal", client_num_in_total=3, client_num_per_round=3,
+             comm_round=4, epochs=1, batch_size=16, frequency_of_the_test=1)
+MW_CS_CHAOS = {2: dict(chaos_nan_at_round=2), 3: dict(chaos_scale_delta=50.0)}
+# then FedBuff over the same silos with modelwatch_quarantine, a publish
+# every 2 merges, 12 publishes. The quarantine judges an arrival against a
+# window of recent accepted norms and has no opinion below 3 of them, so
+# silo 3's first local round waits MW_ASYNC_FIRST_S (chaos_train_delay_s for
+# round 0 only) while the honest silos fill the window, and the honest silos
+# wait MW_ASYNC_HONEST_S before each local round, so the 24 merges outlast
+# silo 3's first upload
+MW_ASYNC = dict(MW_CS, async_rounds=True, async_publish_k=2, comm_round=12,
+                async_staleness_exponent=0.0, modelwatch_quarantine=True)
+MW_ASYNC_FIRST_S, MW_ASYNC_HONEST_S = 0.5, 0.1
+
+
+def _bits_equal(a: dict, b: dict) -> bool:
+    """Equal bit for bit (NaN included), leaf by leaf."""
+    import torch
+
+    def bits(x):
+        return x.detach().contiguous().view(torch.int32 if x.element_size() == 4 else
+                                            torch.int16 if x.element_size() == 2 else
+                                            torch.int64)
+    return a.keys() == b.keys() and all(torch.equal(bits(a[k]), bits(b[k])) for k in b)
+
+
+def _mw_sp_run(over: dict, dataset, output_dim, nan_round: int) -> dict:
+    """Phase 25 (a)'s sp run: the rounds' poisoned inputs, rows, the
+    ledger's verdicts and publishes."""
+    import torch
+
+    import fedml_tpu_torch as fedml
+
+    args = fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda", **over))
+    model = fedml.model.create(args, output_dim)
+    runner = fedml.FedMLRunner(args, fedml.get_device(args), dataset, model)
+    api = runner.runner.fl_trainer
+    rounds = []
+    update, observe = api._server_update, api._mw_ledger.observe_round
+
+    def poisoned(w_global, w_locals):
+        w_locals = list(w_locals)
+        n, tree = w_locals[MW_SCALED]
+        w_locals[MW_SCALED] = (n, {k: v * MW_SCALE for k, v in tree.items()})
+        if len(rounds) == nan_round:
+            n, tree = w_locals[MW_NAN]
+            tree = {k: v.clone() for k, v in tree.items()}
+            for v in tree.values():
+                v.view(-1)[0] = float("nan")
+            w_locals[MW_NAN] = (n, tree)
+        rec = {"w_global": w_global, "pairs": w_locals}
+        rounds.append(rec)
+        rec["out"] = update(w_global, w_locals)
+        return rec["out"]
+
+    def observed(round_idx, stats):
+        rounds[-1]["stats"] = stats
+        rounds[-1]["verdict"] = observe(round_idx, stats)
+        return rounds[-1]["verdict"]
+
+    api._server_update = poisoned
+    api._mw_ledger.observe_round = observed
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run()
+    return {"api": api, "rounds": rounds, "wall_s": time.perf_counter() - t0}
+
+
+def _sync_calls(fn):
+    """(fn(), the synchronising CUDA calls it made, as
+    torch.cuda.set_sync_debug_mode("warn") reports them)."""
+    import warnings
+
+    import torch
+
+    if DEV != "cuda":
+        return fn(), []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message) for w in caught if str(w.message).startswith("called a synchronizing")]
+
+
+def _timed_ms(fn) -> float:
+    import torch
+
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _mw_fold_costs(rec: dict) -> dict:
+    """The fold of one round's 16 uploads three ways: plain, fused with a
+    watch session (its stats stay on the card), and the sp front's path
+    (screen_cohort's stats-only blocks, the plain fold, finish). Turns in
+    one loop, the median of MW_FOLD_REPS each."""
+    import statistics
+
+    from fedml_tpu_torch.core.aggregation.bucketed import get_engine
+    from fedml_tpu_torch.core.telemetry import modelwatch
+
+    engine = get_engine()
+    pairs, w_global = rec["pairs"], rec["w_global"]
+
+    def plain():
+        return engine.aggregate(pairs)
+
+    def watched():
+        sess = modelwatch.WatchSession(w_global)
+        return engine.aggregate(pairs, watch=sess), sess
+
+    def sp_path():
+        sess = modelwatch.WatchSession(w_global)
+        kept = modelwatch.screen_cohort(sess, pairs)
+        out = engine.aggregate(kept)
+        return sess.finish(out)
+
+    for _ in range(2):  # warm both (and the caching allocator's pools) before counting
+        plain()
+        watched()
+    (ref, sync_plain), ((out, sess), sync_watched) = _sync_calls(plain), _sync_calls(watched)
+    n_plain, n_watched = len(sync_plain), len(sync_watched)
+    check(_bits_equal(out, ref), "(a) the fused watched fold differs from the unwatched fold")
+    check(n_watched == n_plain, f"(a) the watched fold made {n_watched} synchronising calls "
+                                f"{sync_watched}, the unwatched {n_plain} {sync_plain}")
+    rows = sess.finish(out).rows
+    check(len(rows) == len(pairs), f"(a) the fused fold gave {len(rows)} rows")
+    times = {"plain": [], "watched": [], "sp_path": []}
+    for _ in range(MW_FOLD_REPS):
+        for name, fn in (("plain", plain), ("watched", watched), ("sp_path", sp_path)):
+            times[name].append(_timed_ms(fn))
+    med = {f"{k}_ms": statistics.median(v) for k, v in times.items()}
+    res = {"sync_calls_plain": n_plain, "sync_calls_watched": n_watched, **med,
+           "watch_extra_ms": med["watched_ms"] - med["plain_ms"],
+           "sp_path_extra_ms": med["sp_path_ms"] - med["plain_ms"]}
+    say(f"  (a) 16 x ResNet-56 uploads: plain fold {med['plain_ms']:.3f} ms, fused watched "
+        f"{med['watched_ms']:.3f}, the sp front's screened path {med['sp_path_ms']:.3f} "
+        f"(medians of {MW_FOLD_REPS}); synchronising calls {n_plain} / {n_watched}")
+    return res
+
+
+def modelwatch_sp() -> dict:
+    """Phase 25 (a); see MW_SP."""
+    import math
+    import statistics
+
+    import fedml_tpu_torch as fedml
+
+    args = fedml.init(fedml.default_config("simulation", using_gpu=DEV == "cuda", **MW_SP))
+    dataset, output_dim = fedml.data.load(args)
+    n = MW_SP["client_num_per_round"]
+    off = _mw_sp_run(MW_SP, dataset, output_dim, MW_NAN_ROUND)
+    res = {"config": {k: MW_SP[k] for k in ("model", "client_num_per_round", "comm_round")},
+           "off_wall_s": off["wall_s"]}
+    for r, rec in enumerate(off["rounds"]):
+        rows, verdict = rec["stats"].rows, rec["verdict"]
+        check([row["rank"] for row in rows] == list(range(n)),
+              f"(a) round {r}: rows for {[row['rank'] for row in rows]}")
+        check(_bits_equal(rec["out"], off["api"].aggregator.aggregate(rec["pairs"])),
+              f"(a) round {r}: the watched round's publish differs from its uploads folded "
+              "unwatched")
+        if r == 0:
+            check(MW_SCALED in verdict["outliers"],
+                  f"(a) round 0: the scaled slot is not an outlier: {verdict['outliers']}")
+        if r == MW_NAN_ROUND:
+            check(rows[MW_NAN]["nan"] > 0 and verdict["nan"] > 0,
+                  f"(a) round {r}: NaN row {rows[MW_NAN]['nan']}, aggregate {verdict['nan']}")
+        res[f"off_round_{r}"] = {
+            "outliers": verdict["outliers"], "nan": verdict["nan"],
+            "update_norm": verdict["update_norm"],
+            "scaled_norm": rows[MW_SCALED]["norm"],
+            "median_norm": statistics.median(row["norm"] for row in rows
+                                             if math.isfinite(row["norm"]))}
+    res["fold"] = _mw_fold_costs(off["rounds"][0])
+    del off
+    gc.collect()
+    on = _mw_sp_run(dict(MW_SP, comm_round=1, modelwatch_quarantine=True), dataset, output_dim,
+                    0)
+    res["on_wall_s"] = on["wall_s"]
+    check(len(on["rounds"]) == 1, f"(a) quarantine: {len(on['rounds'])} rounds")
+    for r, rec in enumerate(on["rounds"]):
+        dropped = sorted(row["rank"] for row in rec["stats"].rows if row["quarantined"])
+        want = {MW_SCALED, MW_NAN}
+        check(want <= set(dropped), f"(a) quarantine, round {r}: dropped {dropped}, expected "
+                                    f"{sorted(want)} among them")
+        kept = [p for i, p in enumerate(rec["pairs"]) if i not in dropped]
+        check(_bits_equal(rec["out"], on["api"].aggregator.aggregate(kept)),
+              f"(a) quarantine, round {r}: the publish differs from the fold of the kept uploads")
+        check(rec["verdict"]["nan"] == 0, f"(a) quarantine, round {r}: the publish has NaN")
+        res[f"on_round_{r}"] = {"dropped": dropped, "update_norm": rec["verdict"]["update_norm"]}
+    say(f"  (a) quarantine off: {[res[f'off_round_{r}'] for r in range(2)]}")
+    say(f"  (a) quarantine on: {res['on_round_0']}; rounds' wall "
+        f"{res['off_wall_s']:.2f} s off, {res['on_wall_s']:.2f} s on")
+    del on
+    gc.collect()
+    return res
+
+
+def modelwatch_cross_silo(tmp: str) -> dict:
+    """Phase 25 (b); see MW_CS."""
+    from fedml_tpu_torch.core import telemetry as tel
+    from fedml_tpu_torch.core.resilience import quorum
+    from fedml_tpu_torch.core.telemetry import modelwatch, slo
+
+    fr_dir, port_file = os.path.join(tmp, "fr"), os.path.join(tmp, "statusz.port")
+    per_rank = {**MW_CS_CHAOS, 0: dict(statusz_port=0, statusz_port_file=port_file)}
+    pages = {}
+    registry = tel.get_telemetry()
+    was = registry.enabled
+    registry.set_enabled(True)
+    try:
+        with _front_env(FEDML_FR_DIR=fr_dir):
+            fed = _Federation(MW_CS, "smoke_modelwatch", per_rank=per_rank)
+            server = fed.server
+            tick = server._slo_tick
+
+            def probed():
+                tick()
+                if int(server.args.round_idx) == MW_CS["comm_round"] - 1:
+                    port = int(open(port_file).read())
+                    pages["statusz"] = json.loads(_http_get(f"http://127.0.0.1:{port}/statusz"))
+                    pages["metrics"] = _http_get(f"http://127.0.0.1:{port}/metrics")
+                    pages["engine"] = slo.get_engine()
+
+            server._slo_tick = probed
+            wall = fed.run()
+    finally:
+        registry.set_enabled(was)
+    check("statusz" in pages, "(b) the last round's pages were not read")
+    alerts, mw = pages["statusz"]["sections"]["alerts"], pages["statusz"]["sections"].get("modelwatch")
+    check(alerts["slos"]["nan_storm"]["state"] == "firing",
+          f"(b) nan_storm is {alerts['slos']['nan_storm']['state']}")
+    check(mw is not None and mw["rounds"] == MW_CS["comm_round"] and mw["nan_rounds"] >= 1
+          and set(mw["clients"]) == {"1", "2", "3"}, f"(b) /statusz modelwatch section: {mw}")
+    for fam, rank in (("delta_norm", 1), ("contribution", 3), ("outlier_score", 3)):
+        check(f'fedml_client_{fam}{{rank="{rank}"}}' in pages["metrics"],
+              f"(b) /metrics lacks fedml_client_{fam} for rank {rank}")
+    by_reason = {}
+    for name in sorted(os.listdir(fr_dir)):
+        with open(os.path.join(fr_dir, name)) as f:
+            recs = [json.loads(line) for line in f]
+        by_reason.setdefault(recs[0]["reason"], []).append(recs)
+    snaps = {k: len(v) for k, v in by_reason.items()}
+    check(snaps.get("slo_alert:nan_storm") == 1 and
+          snaps.get("slo_alert:client_outlier_rate") == 1, f"(b) snapshots {snaps}")
+    (out_alert,) = [r for r in by_reason["slo_alert:client_outlier_rate"][0]
+                    if r["type"] == "alert"]
+    rows = {c["rank"]: c for c in out_alert["clients"]}
+    check(rows["3"]["verdict"] == "outlier" and rows["1"]["verdict"] == "ok",
+          f"(b) the outlier snapshot's rows: {rows}")
+    order = [tr["slo"] for tr in pages["engine"].history if tr["to"] == "firing"]
+    check(order.index("client_outlier_rate") < order.index("nan_storm"),
+          f"(b) firing order {order}")
+    res = {"wall_s": wall, "snapshots": snaps, "firing_order": order,
+           "outlier_rows": rows, "statusz_modelwatch_rounds": mw["rounds"]}
+    say(f"  (b) sync: {wall:.2f} s; fired {order}; snapshots {snaps}; rank 3 z "
+        f"{rows['3']['z']}, rank 1 {rows['1']['verdict']}")
+
+    async_per_rank = {r: dict(chaos_train_delay_s=MW_ASYNC_HONEST_S) for r in (1, 2)}
+    async_per_rank[3] = dict(MW_CS_CHAOS[3], chaos_train_delay_s=MW_ASYNC_FIRST_S,
+                             chaos_train_delay_rounds=1)
+    fed = _Federation(MW_ASYNC, "smoke_modelwatch_async", per_rank=async_per_rank)
+    agg = fed.server.aggregator
+    submit, verdicts = agg.submit_async_result, []
+
+    def recorded(index, *a):
+        verdicts.append((index + 1, submit(index, *a)))
+        return verdicts[-1][1]
+
+    agg.submit_async_result = recorded
+    wall = fed.run()
+    by_rank = {r: [v for rr, v in verdicts if rr == r] for r in (1, 2, 3)}
+    st = agg.async_buffer.statusz()
+    rejected = {r: v.count(quorum.OUTLIER_REJECTED) for r, v in by_rank.items()}
+    check(rejected[3] >= 1, f"(b) async: silo 3's verdicts {by_rank[3]}")
+    check(st["modelwatch"] and st["modelwatch_quarantine"]
+          and st["quarantined_total"] == sum(rejected.values()), f"(b) async statusz {st}")
+    check(modelwatch.get_active() is None, "(b) the server left its ledger active")
+    res["async"] = {"wall_s": wall, "verdicts": by_rank, "outlier_rejected": rejected,
+                    "publishes": st["publishes_total"]}
+    say(f"  (b) async: {wall:.2f} s; outlier_rejected by rank {rejected}; silo 3's verdicts "
+        f"{by_rank[3]}")
+    return res
+
+
+def modelwatch_guard() -> dict:
+    """Phase 25 (c): the guard readings of phases 4-5 and 22, then one LoRA
+    step of JAX's test geometry on the card with a NaN planted in an
+    adapter: the window's modelwatch_train_guard mark."""
+    import math
+
+    import torch
+
+    from fedml_tpu_torch.core.telemetry import flight_recorder
+    from fedml_tpu_torch.train.llm.configurations import (DatasetArguments,
+                                                          ExperimentArguments, ModelArguments)
+    from fedml_tpu_torch.train.llm.llm_trainer import LLMTrainer, synthetic_token_batches
+
+    parts = [r["part"] for r in GUARD_READINGS]
+    check(len(GUARD_READINGS) >= 1, f"(c) no guard readings from the LoRA phases: {parts}")
+    tmp = os.path.join(ROOT, ".smoke_run", "modelwatch_guard")
+    shutil.rmtree(tmp, ignore_errors=True)
+    geom = {k: v for k, v in TINY.items() if k != "max_seq_len"}
+    trainer = LLMTrainer(ModelArguments(**geom, seq_len=TINY["max_seq_len"]), DatasetArguments(),
+                         ExperimentArguments(max_steps=1, per_device_batch_size=2,
+                                             learning_rate=1e-3, warmup_steps=0,
+                                             output_dir=tmp), device=DEV)
+    trainer._build(trainer.init_params())
+    name = next(n for n in trainer.model.state_dict() if n.endswith("lora_a"))
+    with torch.no_grad():
+        trainer.model.state_dict()[name].view(-1)[0] = float("nan")
+    with flight_recorder.installed(role="chip_smoke", dump_on_error=False) as rec:
+        metrics = trainer.train(synthetic_token_batches(TINY["vocab_size"], TINY["max_seq_len"],
+                                                        2, 1, seed=0))
+        marks = [e[3] for e in rec.events() if e[2] == "modelwatch_train_guard"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    check(len(marks) == 1 and marks[0]["nan"] > 0,
+          f"(c) the NaN window's guard marks: {marks}")
+    check(math.isnan(metrics["param_norm"]), f"(c) param_norm {metrics['param_norm']}")
+    say(f"  (c) guard readings {GUARD_READINGS}; the planted NaN's window marked {marks[0]}")
+    return {"readings": list(GUARD_READINGS), "nan_mark": marks[0], "planted_in": name}
+
+
+def modelwatch_phase() -> dict:
+    """Phase 25: (a) the sp front, (b) the cross-silo front, (c) the LLM
+    guard."""
+    tmp = os.path.join(ROOT, ".smoke_run", "modelwatch")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    out = {}
+    t0 = time.time()
+    out["sp"] = modelwatch_sp()
+    out["a_s"] = time.time() - t0
+    t0 = time.time()
+    out["cross_silo"] = modelwatch_cross_silo(tmp)
+    out["b_s"] = time.time() - t0
+    t0 = time.time()
+    out["guard"] = modelwatch_guard()
+    out["c_s"] = time.time() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def modelwatch_ab() -> int:
+    """``python3 chip_smoke.py --modelwatch-ab``: what the default-on
+    statistics cost the sp and cross-silo fronts. Phases 7 and 10, as the
+    smoke runs them, four times in one process on one card with
+    ``FEDML_MODELWATCH`` 1, 0, 0, 1 (phase 10's silo processes inherit it):
+    each pass's phase seconds, the rounds' mean seconds and their
+    aggregate split. Prints one ``modelwatch_ab`` JSON line and the card
+    line; builds no kernel (neither phase launches one)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this measurement needs one CUDA card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    card = card_line()
+    passes = []
+    for flag in ("1", "0", "0", "1"):
+        os.environ["FEDML_MODELWATCH"] = flag
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        fedavg = fedavg_phase()
+        t7 = time.time() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        cs = cross_silo_phase(fedavg["resnet56"])
+        t10 = time.time() - t0
+        sp, inmem = fedavg["resnet56"], cs["inmemory_16"]
+        row = {"modelwatch": flag, "phase7_s": t7, "phase10_s": t10,
+               "sp_round_s": sp["round_s_mean_rounds_2_3"],
+               "sp_aggregate_s": sp["split_s_mean_rounds_2_3"]["aggregate"],
+               "cs_round_s": inmem["round_s_mean_rounds_2_3"],
+               "cs_aggregate_s": inmem["split_s_mean_rounds_2_3"]["aggregate"]}
+        say(f"  pass FEDML_MODELWATCH={flag}: {row}")
+        passes.append(row)
+    os.environ.pop("FEDML_MODELWATCH")
+    print(json.dumps({"modelwatch_ab": {"card": card, "order": "ABBA", "passes": passes}}),
+          flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -7803,8 +8331,8 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the async phase launched flash kernels: {async_launches}")
 
-    say("== 12. resilience: a 16-silo quorum federation, the sp, cross-silo and async SIGKILL "
-        "drills (ResNet-56)")
+    say("== 12. resilience: a 16-silo quorum federation (ResNet-56; the sp, cross-silo and async "
+        "SIGKILL drills run beside phases 18 and 19)")
     gc.collect()
     torch.cuda.empty_cache()
     fa.reset_launch_counts()
@@ -7898,39 +8426,55 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the trust phase launched flash kernels: {trust_launches}")
 
-    say("== 18. FHE's ciphertext leaves (rlwe on the sp and cross-silo fronts) and the sp "
-        "simulator's other APIs (TA, FedAvg_seq, split NN, FedGKT, decentralized, vertical FL)")
-    gc.collect()
-    torch.cuda.empty_cache()
-    fa.reset_launch_counts()
-    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
-    t0 = time.time()
-    fhe_zoo = fhe_sp_zoo_phase(fedavg)
-    fhe_launches = dict(fa.launch_counts)
-    say(f"  phase {time.time() - t0:.1f}s; flash launches in the FHE and sp-zoo phase: "
-        f"{fhe_launches}")
-    # (i) ring products, folds, the split models and the decentralized and
-    # vertical learners run no attention
-    check(all(n == 0 for n in fhe_launches.values())
-          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
-          f"the FHE and sp-zoo phase launched flash kernels: {fhe_launches}")
+    # phase 12's drills, processes of their own, beside phases 18 and 19
+    # (neither gates on time); read, gated and said after phase 19
+    drills = resilience_drills_start()
+    drills_read = False
+    try:
+        say("== 18. FHE's ciphertext leaves (rlwe on the sp and cross-silo fronts) and the sp "
+            "simulator's other APIs (TA, FedAvg_seq, split NN, FedGKT, decentralized, vertical FL)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        fa.reset_launch_counts()
+        by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+        t0 = time.time()
+        fhe_zoo = fhe_sp_zoo_phase()
+        fhe_launches = dict(fa.launch_counts)
+        say(f"  phase {time.time() - t0:.1f}s; flash launches in the FHE and sp-zoo phase: "
+            f"{fhe_launches}")
+        # (i) ring products, folds, the split models and the decentralized and
+        # vertical learners run no attention
+        check(all(n == 0 for n in fhe_launches.values())
+              and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+              f"the FHE and sp-zoo phase launched flash kernels: {fhe_launches}")
 
-    say("== 19. FedGAN, FedNAS and FedSeg, and one FedAvg round of each remaining hub model "
-        "(MobileNet v1/v3, EfficientNet-lite, the LSTMs, the text classifier, LR on "
-        "stackoverflow_lr and lending_club)")
-    gc.collect()
-    torch.cuda.empty_cache()
-    fa.reset_launch_counts()
-    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
-    t0 = time.time()
-    hub = gan_nas_seg_hub_phase()
-    hub_launches = dict(fa.launch_counts)
-    say(f"  phase {time.time() - t0:.1f}s; flash launches in the hub phase: {hub_launches}")
-    # (e) convolutions, LSTMs and the text classifier's plain attention run
-    # no flash kernel
-    check(all(n == 0 for n in hub_launches.values())
-          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
-          f"the hub phase launched flash kernels: {hub_launches}")
+        say("== 19. FedGAN, FedNAS and FedSeg, and one FedAvg round of each remaining hub model "
+            "(MobileNet v1/v3, EfficientNet-lite, the LSTMs, the text classifier, LR on "
+            "stackoverflow_lr and lending_club)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        fa.reset_launch_counts()
+        by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+        t0 = time.time()
+        hub = gan_nas_seg_hub_phase()
+        hub_launches = dict(fa.launch_counts)
+        say(f"  phase {time.time() - t0:.1f}s; flash launches in the hub phase: {hub_launches}")
+        # (e) convolutions, LSTMs and the text classifier's plain attention run
+        # no flash kernel
+        check(all(n == 0 for n in hub_launches.values())
+              and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+              f"the hub phase launched flash kernels: {hub_launches}")
+
+        say("== 12 (a), (c), (d). the SIGKILL drills (ResNet-20), run beside phases 18 and 19")
+        t0 = time.time()
+        drills_read = True
+        resilience.update(resilience_drills_finish(drills))
+        say(f"  waited {time.time() - t0:.1f}s after phase 19; the drills' wall "
+            f"{resilience['drill_wall_s']['sp_cs_and_cs_async_side_by_side']:.1f}s")
+    finally:
+        if not drills_read:  # a phase failed: stop no drill midway, let each end
+            drills["pool"].shutdown(wait=True)
+            shutil.rmtree(drills["tmp"], ignore_errors=True)
 
     say("== 20. a user's own files: the native dataset readers into FedAvg rounds, the C++ data "
         f"plane, an HF llama checkpoint at Llama-2-7B's widths ({HF_LAYERS} layer) into LoRA "
@@ -7991,7 +8535,27 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the link phase launched flash kernels: {link_launches}")
 
-    say("== 25. result")
+    say("== 25. modelwatch: the sp front at ResNet-56 x 16 clients (a scaled and a NaN upload, "
+        "quarantine off and on), JAX's modelwatch drill on the cross-silo front (LR, 3 silos) "
+        "and FedBuff under quarantine, the LLM guard")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    modelwatch = modelwatch_phase()
+    mw_launches = dict(fa.launch_counts)
+    modelwatch["phase_s"] = time.time() - t0
+    say(f"  phase {modelwatch['phase_s']:.1f}s ((a) {modelwatch['a_s']:.1f}s, (b) "
+        f"{modelwatch['b_s']:.1f}s, (c) {modelwatch['c_s']:.1f}s); flash launches in the "
+        f"phase: {mw_launches}")
+    # (a)-(b) fold ResNet and LR uploads; (c)'s one step runs the tiny model
+    # through the kernels (a forward, its backward), nothing else does
+    check(mw_launches == {"flash_fwd": TINY["n_layers"], "flash_bwd_dq": TINY["n_layers"],
+                          "flash_bwd_dkv": TINY["n_layers"]},
+          f"the modelwatch phase's flash launches: {mw_launches}")
+
+    say("== 26. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -8060,6 +8624,8 @@ def main() -> int:
     print(json.dumps({"fedllm": {"card": card, **fedllm}}, default=str), flush=True)
     print(json.dumps({"link_layer": {"card": card, "flash_launches": link_launches, **link}},
                      default=str), flush=True)
+    print(json.dumps({"modelwatch": {"card": card, "flash_launches": mw_launches,
+                                     **modelwatch}}, default=str), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -8070,7 +8636,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(modelwatch_ab() if sys.argv[1:] == ["--modelwatch-ab"] else main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

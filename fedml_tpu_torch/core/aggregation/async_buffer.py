@@ -41,8 +41,15 @@ without publishing (an aborted SecAgg window).
 netlink's cost model in, and the admission cut stretches by the model
 versions a rank's predicted upload spans.
 
-Not ported (ROADMAP.md, Queue 1): modelwatch's fused statistics and
-quarantine and the mesh-sharded engine.
+Modelwatch (JAX ``:195-200``, ``:243-285``, ``:357-358``, ``:385-400``):
+:meth:`enable_watch` attaches a watch session whose statistics ride both
+fold sites of the bucketed engine; each publish finishes the session, folds
+its rows into the contribution ledger (``observe_round(version, stats)``)
+and starts a fresh one against the new model. With quarantine on, an
+arrival with a NaN or Inf, or a streaming robust-z outlier, gets the
+``outlier_rejected`` verdict and is never folded.
+
+Not ported (ROADMAP.md, Queue 1): the mesh-sharded engine.
 """
 
 from __future__ import annotations
@@ -192,6 +199,13 @@ class AsyncAggBuffer:
         self._weight_sum = 0.0
         self._template: Optional[StateDict] = None
         self._privacy: Any = None  # a core/privacy session, or None
+        # modelwatch: the publish window's stat session riding the fold
+        # (enable_watch); None leaves the default path untouched
+        self._watch = None
+        self._watch_ranks: List[Any] = []
+        self._ledger = None
+        self._quarantine = False
+        self.quarantined_total = 0
         self._merges_since_publish = 0
         self.version = int(initial_version)
         self.merges_total = 0
@@ -218,18 +232,70 @@ class AsyncAggBuffer:
         with self._lock:
             self._privacy = session
 
+    # --- modelwatch --------------------------------------------------------
+    def enable_watch(self, ref: StateDict, ledger: Any = None,
+                     quarantine: bool = False) -> bool:
+        """Attach a modelwatch session: per-client delta stats against
+        ``ref`` (the current global model) ride the fold, are fetched at
+        each publish and folded into ``ledger``. With ``quarantine``,
+        arriving outliers (streaming robust z against the ledger's window of
+        recent norms, or any NaN/Inf) get the ``outlier_rejected`` verdict
+        instead of folding. Returns False, and watches nothing, on an engine
+        without a fused watch or a model with object leaves."""
+        from ..telemetry import modelwatch
+
+        if not getattr(self.engine, "supports_watch", False) or \
+                modelwatch.has_object_leaves(ref):
+            return False
+        with self._lock:
+            self._watch = modelwatch.WatchSession(ref)
+            self._watch_ranks = []
+            self._ledger = ledger
+            self._quarantine = bool(quarantine)
+        return True
+
+    def _screen_arrival(self, rank: int, tree: StateDict) -> Optional[str]:
+        """Quarantine-mode admission: one arriving tree's stat row, fetched
+        (the opt-in path pays this sync; the default path never runs it),
+        and a refusal for NaN/Inf deltas and robust-z outliers."""
+        watch = self._watch
+        if watch is None:
+            return None
+        from ..telemetry import modelwatch
+
+        row = modelwatch.client_stat(tree, watch).cpu().numpy()
+        sq = float(row[modelwatch.COL_SQ])
+        bad = float(row[modelwatch.COL_NAN]) + float(row[modelwatch.COL_INF])
+        norm = math.sqrt(sq) if sq >= 0.0 else float("nan")
+        z = self._ledger.streaming_z(norm) if self._ledger is not None else 0.0
+        if bad > 0 or not math.isfinite(norm) or z >= modelwatch.z_threshold():
+            with self._lock:
+                self.quarantined_total += 1
+            tel.counter("modelwatch.quarantined").add(1)
+            if self._ledger is not None:
+                self._ledger.note_quarantined(rank, norm, z)
+            return quorum_mod.OUTLIER_REJECTED
+        if self._ledger is not None:
+            self._ledger.observe_stream_norm(norm)
+        return None
+
     # --- submit (receive-loop thread) --------------------------------------
     def submit(self, rank: int, model_params: StateDict, sample_num: float,
                client_version: Optional[int]) -> str:
         """Fold one arrival. Returns the verdict: ``accept`` (fresh),
-        ``stale_accepted`` (admitted with a decayed weight) or
-        ``stale_rejected`` (beyond the admission cut, never folded)."""
+        ``stale_accepted`` (admitted with a decayed weight),
+        ``stale_rejected`` (beyond the admission cut) or ``outlier_rejected``
+        (modelwatch quarantine); a rejected arrival is never folded."""
         staleness = 0 if client_version is None else max(0, self.version - int(client_version))
         if not self.policy.admit(staleness, rank):
             with self._lock:
                 self.stale_rejected_total += 1
             tel.counter(quorum_mod.STALE_REJECTED_COUNTER).add(1)
             return quorum_mod.STALE_REJECTED
+        if self._quarantine:
+            verdict = self._screen_arrival(rank, model_params)
+            if verdict is not None:
+                return verdict
         weight = float(sample_num) * self.policy.weight(staleness)
         with tel.span("async.merge", rank=int(rank), staleness=int(staleness)):
             with self._lock:
@@ -265,7 +331,9 @@ class AsyncAggBuffer:
         while len(self._pending) >= b:
             chunk = [t for _, t in self._pending[:b]]
             w = np.asarray([w for w, _ in self._pending[:b]], dtype=np.float32)
-            self._acc = self.engine.accumulate_bucket(self._acc, chunk, w)
+            self._acc = self.engine.accumulate_bucket(self._acc, chunk, w, watch=self._watch)
+            if self._watch is not None:
+                self._watch_ranks.extend(m["rank"] for m in self._pending_meta[:b])
             self._weight_sum += float(w.sum())
             del self._pending[:b]
             del self._pending_meta[:b]
@@ -278,10 +346,34 @@ class AsyncAggBuffer:
     def publish(self) -> Optional[StateDict]:
         """Fold the ragged pending tail, normalize, advance the model
         version and return the new global model (None when nothing merged
-        since the last publish)."""
+        since the last publish).
+
+        With a watch session attached, the window's stats are fetched here,
+        folded into the ledger, and a fresh session (ref the new model, prev
+        this window's update) is installed."""
         with tel.span("async.publish", version=self.version):
             with self._lock:
-                return self._publish_locked()
+                out = self._publish_locked()
+                watch, ranks = self._watch, self._watch_ranks
+                version = self.version
+                if watch is not None and out is not None:
+                    # detached while finishing: a submit in between folds
+                    # unwatched until the fresh session is in
+                    self._watch = None
+                    self._watch_ranks = []
+            if watch is None or out is None:
+                return out
+        from ..telemetry import modelwatch
+
+        watch.ranks = ranks
+        stats = watch.finish(out)
+        if self._ledger is not None:
+            self._ledger.observe_round(version, stats)
+        fresh = modelwatch.WatchSession(out, prev_update=stats.update_tree)
+        with self._lock:
+            if self._watch is None:  # a concurrent enable_watch wins
+                self._watch = fresh
+        return out
 
     def _publish_locked(self) -> Optional[StateDict]:
         if self._merges_since_publish == 0:
@@ -290,17 +382,23 @@ class AsyncAggBuffer:
             # nothing folded eagerly (the window fit one bucket): the engine's
             # own normalized fold, bit-identical to the synchronous path
             self.last_publish_weight = float(sum(w for w, _ in self._pending))
-            out = self.engine.aggregate(list(self._pending))
+            if self._watch is not None:
+                self._watch_ranks.extend(m["rank"] for m in self._pending_meta)
+            out = self.engine.aggregate(list(self._pending), watch=self._watch)
         else:
             if self._pending:
                 b = self.engine.bucket_size
                 chunk = [t for _, t in self._pending]
                 w = np.asarray([w for w, _ in self._pending], dtype=np.float32)
-                pad = b - len(chunk)
+                real = len(chunk)
+                pad = b - real
                 if pad > 0:  # zero-weight pad to the bucket's shape
                     chunk = chunk + [chunk[-1]] * pad
                     w = np.concatenate([w, np.zeros((pad,), np.float32)])
-                self._acc = self.engine.accumulate_bucket(self._acc, chunk, w)
+                if self._watch is not None:
+                    self._watch_ranks.extend(m["rank"] for m in self._pending_meta)
+                self._acc = self.engine.accumulate_bucket(self._acc, chunk, w,
+                                                          watch=self._watch, watch_real=real)
                 self._weight_sum += float(w.sum())
             self.last_publish_weight = float(self._weight_sum)
             if self._privacy is not None:
@@ -347,6 +445,7 @@ class AsyncAggBuffer:
             self._pending_meta = []
             self._merges_since_publish = 0
             self._staleness_sum = 0
+            self._watch_ranks = []
         return dropped
 
     # --- introspection -----------------------------------------------------
@@ -369,6 +468,9 @@ class AsyncAggBuffer:
                 "stale_rejected_total": self.stale_rejected_total,
                 "mean_staleness": (self._staleness_sum / n) if n else 0.0,
                 "publish_interval_ewma_s": self.publish_interval_ewma_s,
+                "modelwatch": self._watch is not None,
+                "modelwatch_quarantine": self._quarantine,
+                "quarantined_total": self.quarantined_total,
                 "policy": self.policy.as_dict(),
                 "client_versions": dict(self._client_versions),
             }

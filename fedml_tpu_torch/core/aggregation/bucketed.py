@@ -20,8 +20,15 @@ Object leaves (the FHE ciphertexts of ``core/fhe/rlwe.py``) define their own
 (``bucketed.py:39-48``): the weights normalised in f32, each passed as
 ``float(w)``.
 
-Not ported: the modelwatch fusion and the mesh-sharded engine (ROADMAP.md,
-Queue 1).
+Modelwatch rides the fold (``watch=``, a ``WatchSession`` of
+``core/telemetry/modelwatch.py``): each bucket's per-client
+stat block is computed from the same ``[bucket, P]`` f32 chunk the bucket
+contracts, on its device, and stays there until the session's publish-time
+fetch, so a watched fold adds no host synchronisation and publishes the
+same bits as an unwatched one (JAX ``bucketed.py:62-124``, ``:166-239``).
+Object-leaf cohorts fold unwatched.
+
+Not ported: the mesh-sharded engine (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ StateDict = Dict[str, torch.Tensor]
 DEFAULT_BUCKET_SIZE = 16
 
 
-def _is_object_leaf(leaf) -> bool:
+def is_object_leaf(leaf) -> bool:
     return not isinstance(leaf, (torch.Tensor, np.ndarray, np.generic, float, int))
 
 
@@ -52,7 +59,7 @@ def _object_fold(trees: Sequence[StateDict], weights: np.ndarray) -> StateDict:
     return acc
 
 
-def _flat_f32(tree: StateDict) -> torch.Tensor:
+def flat_f32(tree: StateDict) -> torch.Tensor:
     # one cat (which promotes mixed dtypes) and at most one cast: a cast per
     # leaf costs the host a dispatch per leaf and client
     return torch.cat([v.reshape(-1) for v in tree.values()]).to(torch.float32)
@@ -64,16 +71,24 @@ class BucketedAggregator:
     and normalises the weights; :meth:`accumulate_bucket` and
     :meth:`finalize` are the raw steps."""
 
+    # modelwatch's statistics ride this engine's fold
+    supports_watch = True
+
     def __init__(self, bucket_size: int = DEFAULT_BUCKET_SIZE):
         if bucket_size < 1:
             raise ValueError(f"bucket_size must be >= 1, got {bucket_size}")
         self.bucket_size = int(bucket_size)
 
     def accumulate_bucket(self, acc: Optional[torch.Tensor], chunk: Sequence[StateDict],
-                          weights) -> torch.Tensor:
+                          weights, watch=None, watch_real=None) -> torch.Tensor:
         """``acc + sum_i weights[i] * flat(chunk[i])`` in f32 (a new
         accumulator when ``acc`` is None; else ``acc`` is updated in place).
-        ``chunk`` holds exactly ``bucket_size`` state dicts."""
+        ``chunk`` holds exactly ``bucket_size`` state dicts.
+
+        With a ``watch`` session the bucket's stat block (delta norms
+        against ``watch.ref``, NaN/Inf counts) is computed from the same
+        stacked chunk and kept on the device in the session;
+        ``watch_real`` says how many of the chunk's rows are not padding."""
         if len(chunk) != self.bucket_size:
             raise ValueError(f"chunk has {len(chunk)} trees, bucket_size is {self.bucket_size}")
         for tree in chunk:
@@ -84,8 +99,13 @@ class BucketedAggregator:
                     "fold through aggregate(), not the f32 bucket step")
         dev = next(iter(chunk[0].values())).device
         w = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
-        with tel.span("agg.bucket", bucket_size=self.bucket_size, first=acc is None):
-            part = w @ torch.stack([_flat_f32(t) for t in chunk])
+        with tel.span("agg.bucket", bucket_size=self.bucket_size, first=acc is None,
+                      watched=watch is not None):
+            flat = torch.stack([flat_f32(t) for t in chunk])
+            part = w @ flat
+            if watch is not None:
+                watch.add_block(watch.block_from_flat(flat),
+                                len(chunk) if watch_real is None else watch_real)
             if acc is None:
                 return part
             return acc.add_(part)
@@ -102,15 +122,16 @@ class BucketedAggregator:
                 off += n
             return out
 
-    def aggregate(self, pairs: Sequence[Tuple[float, StateDict]]) -> StateDict:
+    def aggregate(self, pairs: Sequence[Tuple[float, StateDict]], watch=None) -> StateDict:
         """Weighted average of ``(weight, state dict)`` pairs; weights
-        normalised in f32, as the JAX engine does."""
+        normalised in f32, as the JAX engine does. A ``watch`` session rides
+        the fold (object-leaf cohorts skip it)."""
         if not pairs:
             raise ValueError("aggregate() needs at least one (weight, tree) pair")
         weights = np.asarray([float(w) for w, _ in pairs], dtype=np.float32)
         weights = weights / weights.sum()
         trees = [t for _, t in pairs]
-        if any(_is_object_leaf(v) for v in trees[0].values()):
+        if any(is_object_leaf(v) for v in trees[0].values()):
             with tel.span("agg.object_fold", k=len(trees)):
                 return _object_fold(trees, weights)
         b = self.bucket_size
@@ -125,7 +146,7 @@ class BucketedAggregator:
                     with tel.span("agg.pad_tail", pad=pad, real=real):
                         chunk = list(chunk) + [chunk[-1]] * pad
                         w = np.concatenate([w, np.zeros((pad,), np.float32)])
-                acc = self.accumulate_bucket(acc, chunk, w)
+                acc = self.accumulate_bucket(acc, chunk, w, watch=watch, watch_real=real)
             return self.finalize(acc, trees[0])
 
     def aggregate_stacked(self, stacked: StateDict, weights) -> StateDict:

@@ -59,8 +59,8 @@ DUPLICATE = "duplicate"
 # admitted with a decayed weight or refused past the admission cut
 STALE_ACCEPTED = "stale_accepted"
 STALE_REJECTED = "stale_rejected"
-# modelwatch quarantine's verdict (a robust-z delta-norm outlier or a NaN
-# delta); the port's buffer never returns it while modelwatch is not ported
+# modelwatch quarantine's verdict (args.modelwatch_quarantine): the async
+# buffer refuses a robust-z delta-norm outlier or a NaN/Inf delta with it
 OUTLIER_REJECTED = "outlier_rejected"
 
 

@@ -7,12 +7,14 @@ Counterpart of ``fedml_tpu/core/telemetry``: ``core``, ``trace_context``,
 ``netlink`` (per-pair link accounting, estimators and the link cost model)
 are copies of the JAX package's framework-free modules; ``prom``,
 ``statusz``, ``flight_recorder`` and ``slo`` are copies but for their
-modelwatch, server-mesh and mlops parts; ``devperf`` (the program cost
+server-mesh and mlops parts; ``modelwatch`` (fold-boundary delta
+statistics, the contribution ledger, quarantine and the LLM train guard)
+computes JAX's statistics in PyTorch on the fold's device; ``devperf`` (the program cost
 registry: MFU against the card's peak, the HBM sampler) is JAX's with the
 caller's analytic FLOPs in place of XLA's cost analysis; ``fleet`` (the
 server's fleet view: client telemetry deltas and their link blocks, the
 health tracker, the fleet sketches and their child-tier slots, the fleet
-trace with its link flows) is JAX's but for modelwatch's ledger. Typical
+trace with its link flows, modelwatch's ledger) is JAX's. Typical
 use::
 
     from fedml_tpu_torch.core import telemetry as tel
@@ -22,11 +24,10 @@ use::
         ...
     tel.histogram("serving.cb.ttft_seconds").observe(sp.duration_s)
 
-The link prober is ``core/distributed/link_probe.py``; modelwatch waits for
-a later slice (ROADMAP.md, Queue 1).
+The link prober is ``core/distributed/link_probe.py``.
 """
 
-from . import devperf, flight_recorder, netlink, prom, sketches, slo, statusz, tsdb
+from . import devperf, flight_recorder, modelwatch, netlink, prom, sketches, slo, statusz, tsdb
 from .core import (
     Counter,
     Histogram,
@@ -80,6 +81,7 @@ __all__ = [
     "new_trace_id",
     "devperf",
     "flight_recorder",
+    "modelwatch",
     "prom",
     "sketches",
     "slo",

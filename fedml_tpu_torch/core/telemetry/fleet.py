@@ -1,8 +1,7 @@
 """Fleet telemetry: merge per-client delta snapshots into one cohort view.
 
-A copy of ``fedml_tpu/core/telemetry/fleet.py`` but for modelwatch's
-contribution ledger (``ledger``), which comes with a later slice
-(ROADMAP.md, Queue 1). A delta's ``link`` block (the client's netlink
+A copy of ``fedml_tpu/core/telemetry/fleet.py``, with modelwatch's
+contribution ledger (``ledger``, built on first use). A delta's ``link`` block (the client's netlink
 pairs) is merged into this process's netlink registry, and the exported
 trace carries netlink's message-flow arrows. The fleet sketches are here (``sketches.py``): every
 view feeds its own :class:`~.sketches.FleetSketches`, past the exact-rank
@@ -72,6 +71,7 @@ class FleetTelemetry:
         self.unknown_keys: Set[str] = set()
         self.expected_ranks: Optional[Set[int]] = None
         self.health = HealthTracker()
+        self._ledger = None  # modelwatch ContributionLedger, built on first use
         # mergeable fleet sketches: round-time/delta-norm/staleness quantiles,
         # top-k offenders, distinct-clients HLL. Always fed (cheap); above
         # the exact-mode threshold NEW ranks fold into sketches ONLY, so
@@ -84,6 +84,18 @@ class FleetTelemetry:
         # every publish with its subtree's merged view, so ``sketch_view``
         # never double-counts across publishes
         self._child_sketches: Dict[int, _sketches.FleetSketches] = {}
+
+    @property
+    def ledger(self):
+        """The per-client contribution ledger (``telemetry.modelwatch``),
+        built on first use; its delta norms feed this fleet's sketches."""
+        led = self._ledger
+        if led is None:
+            from .modelwatch import ContributionLedger
+
+            led = self._ledger = ContributionLedger()
+            led.sketches = self.sketches
+        return led
 
     def set_expected_ranks(self, ranks) -> None:
         """Declare this round's cohort; ``None`` accepts any rank."""

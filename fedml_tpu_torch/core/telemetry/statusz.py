@@ -2,9 +2,10 @@
 
 A copy of ``fedml_tpu/core/telemetry/statusz.py`` (framework-free). Of the
 JAX page's always-on sections it keeps ``resilience``, ``links`` (netlink's
-per-pair estimates), ``alerts`` (the SLO engine), ``devperf`` and
-``fleet_sketches``; ``sharding`` and ``modelwatch`` are left out until the
-server mesh and modelwatch are ported (ROADMAP.md, Queue 1).
+per-pair estimates), ``alerts`` (the SLO engine), ``devperf``,
+``modelwatch`` (the active contribution ledger, once it has seen a round)
+and ``fleet_sketches``; ``sharding`` is left out until the server mesh is
+ported (ROADMAP.md, Queue 1).
 
 Borrowed from the Google-style z-pages idiom: every long-running fedml
 process (cross-silo server, serving replica, gateway) exposes a single
@@ -130,6 +131,16 @@ def render(service: Optional[str] = None,
             doc["sections"]["devperf"] = dev
     except Exception as e:  # noqa: BLE001 - status page must not throw
         doc["sections"]["devperf"] = {"error": repr(e)}
+    # modelwatch (per-client contribution ledger + divergence stats): shows
+    # whenever a server or simulator front registered an active ledger
+    try:
+        from . import modelwatch as _modelwatch
+
+        mw = _modelwatch.statusz_snapshot()
+        if mw:
+            doc["sections"]["modelwatch"] = mw
+    except Exception as e:  # noqa: BLE001 - status page must not throw
+        doc["sections"]["modelwatch"] = {"error": repr(e)}
     # fleet sketches (bounded quantile/offender/cardinality summary + the
     # series budget's live/degraded accounting): shows whenever a fleet view
     # is active — the million-client replacement for per-rank sections

@@ -35,11 +35,18 @@ global it trained from and the round's mean noised; with ``secagg+dp`` the
 unmasked mean is noised (the masked arrivals cannot be re-clipped here, so
 epsilon rests on the clients' clip).
 
-Not ported, each raising NotImplementedError when its knob is set
-(ROADMAP.md, Queue 1): the server mesh (``server_mesh``) and modelwatch
-quarantine (``modelwatch_quarantine``). The JAX package also runs
-modelwatch's fold-boundary statistics by default (off under secagg); with
-quarantine off they do not change the fold, and they are not ported.
+Modelwatch (JAX ``:124-146``, ``:252-313``), on unless
+``FEDML_MODELWATCH=0`` or ``modelwatch_disable`` and off under secagg (the
+masked vectors are one-time-pad noise to it): the fleet's contribution
+ledger is the process's active one; the synchronous round screens its
+cohort by sender rank before the DP clip (``modelwatch_quarantine`` drops
+outliers and NaN uploads) and folds its rows into the ledger once the new
+global is set; the async buffer watches every publish window
+(``enable_watch``) and refuses outliers with ``outlier_rejected`` under
+quarantine.
+
+Not ported, raising NotImplementedError when its knob is set (ROADMAP.md,
+Queue 1): the server mesh (``server_mesh``).
 """
 
 from __future__ import annotations
@@ -57,12 +64,13 @@ from ...core.aggregation.bucketed import get_engine
 from ...core.alg_frame.context import Context
 from ...core.engine import knob_set, refuse_knobs, sample_from_pool, sample_silos
 from ...core.privacy import WindowCoordinator, clip_to_reference, privacy_from_args
+from ...core.telemetry import modelwatch
 from ...core.telemetry.fleet import FleetTelemetry
 from ...utils.pytree import tree_to_device
 
 log = logging.getLogger(__name__)
 
-_KNOBS = (("server_mesh", knob_set), ("modelwatch_quarantine", knob_set))
+_KNOBS = (("server_mesh", knob_set),)
 
 
 def _float_tensor_leaves_only(tree) -> bool:
@@ -87,7 +95,7 @@ class FedMLAggregator:
         args: Any,
         server_aggregator,
     ):
-        refuse_knobs(args, _KNOBS, "the server mesh and modelwatch quarantine are")
+        refuse_knobs(args, _KNOBS, "the server mesh is")
         if os.environ.get("FEDML_SERVER_MESH", "").strip():
             raise NotImplementedError(
                 "FEDML_SERVER_MESH: the server mesh is not ported to fedml_tpu_torch yet "
@@ -139,6 +147,18 @@ class FedMLAggregator:
                 dp=self.dp_fold, support_ratio=ratio)
         elif self.dp_fold is not None and self.async_buffer is not None:
             self.dp_fold.attach(self.async_buffer)
+        # modelwatch: fold-boundary delta stats feeding the fleet's ledger;
+        # masked ring vectors (secagg) would only show one-time-pad noise
+        self._modelwatch = modelwatch.enabled(args) and self.secagg_coordinator is None
+        self._mw_prev_update = None  # the last published update direction
+        self._mw_round = 0
+        if self._modelwatch:
+            modelwatch.set_active(self.fleet.ledger)
+            if self.async_buffer is not None and not self.async_buffer.enable_watch(
+                    self.get_global_model_params(), ledger=self.fleet.ledger,
+                    quarantine=modelwatch.quarantine_enabled(args)):
+                log.warning("modelwatch: the async buffer cannot watch this model "
+                            "(object leaves); its publishes run without statistics")
 
     def get_global_model_params(self):
         return self.aggregator.get_model_params()
@@ -214,12 +234,31 @@ class FedMLAggregator:
             return True
         return False
 
+    def _modelwatch_session(self) -> Optional[modelwatch.WatchSession]:
+        """A watch session against the current global params (the model this
+        round's deltas trained from), or None when modelwatch is off or the
+        model has object leaves (FHE ciphertexts), as in JAX."""
+        if not self._modelwatch:
+            return None
+        ref = self.get_global_model_params()
+        if modelwatch.has_object_leaves(ref):
+            return None
+        return modelwatch.WatchSession(ref, prev_update=self._mw_prev_update)
+
     def aggregate(self):
         start = time.perf_counter()
         with tel.span("server.aggregate", k=len(self.model_dict)):
             Context().add("client_indexes_of_round", sorted(self.model_dict))
+            ranks = [i + 1 for i in sorted(self.model_dict)]  # sender ranks
             model_list = [(self.sample_num_dict[i], self.model_dict[i]) for i in sorted(self.model_dict)]
             model_list = self.aggregator.on_before_aggregation(model_list)
+            watch = self._modelwatch_session() if model_list else None
+            if watch is not None:
+                if len(ranks) != len(model_list):  # a hook reshaped the cohort
+                    ranks = list(range(len(model_list)))
+                model_list = modelwatch.screen_cohort(
+                    watch, model_list, ranks, ledger=self.fleet.ledger,
+                    quarantine=modelwatch.quarantine_enabled(self.args))
             if self.dp_fold is not None:
                 # enforce the sensitivity bound sigma is calibrated against:
                 # clip each arrival's delta against the model this round
@@ -237,6 +276,15 @@ class FedMLAggregator:
             self.set_global_model_params(averaged)
             self.aggregator.assess_contribution()
             self.model_dict.clear()
+            if watch is not None:
+                try:
+                    stats = watch.finish(averaged)
+                    self._mw_prev_update = stats.update_tree
+                    self.fleet.ledger.observe_round(self._mw_round, stats)
+                except Exception:  # noqa: BLE001 - logged below; stats must not fail the round
+                    log.warning("modelwatch: round %d's stats failed", self._mw_round,
+                                exc_info=True)
+                self._mw_round += 1
         dt = time.perf_counter() - start
         tel.histogram("server.aggregate_seconds").observe(dt)
         log.info("aggregate time cost: %.3fs", dt)

@@ -65,7 +65,10 @@ round closes, and every ``slo_tick_s`` when set) with the health, fleet
 sketch and DP accountant collectors, and with ``statusz_port`` (0: an
 ephemeral port, written to ``statusz_port_file``) serves `/statusz` (the
 ``round``, ``health``, ``async`` and ``privacy`` sections beside the
-always-on ones, devperf's among them) and `/metrics`. Under
+always-on ones, devperf's and modelwatch's among them) and `/metrics`
+(with the contribution ledger's ``fedml_client_{delta_norm,contribution,
+outlier_score}`` gauges). Each round's health report carries the ledger's
+view before the SLO tick, and ``run`` clears the active ledger as it ends. Under
 ``statusz_port``, ``slo_spec`` or ``slo_tick_s`` the fleet view is read, so
 the clients' telemetry deltas are merged.
 
@@ -114,7 +117,7 @@ from ...core.resilience import (QuorumPolicy, RoundQuorum, RoundStateStore, note
                                 overprovisioned_cohort_size)
 from ...core.resilience import quorum as quorum_mod
 from ...core.resilience.round_state import restore_numpy_rng
-from ...core.telemetry import netlink, slo, statusz, trace_context
+from ...core.telemetry import modelwatch, netlink, slo, statusz, trace_context
 from ..message_define import MyMessage
 
 log = logging.getLogger(__name__)
@@ -269,6 +272,7 @@ class FedMLServerManager(FedMLCommManager):
                 self._stop_statusz()
                 slo.deactivate(self._slo)
                 self._slo = None
+                modelwatch.clear_active()
                 fleet_sketches.set_active_provider(None)
 
     @property
@@ -348,6 +352,10 @@ class FedMLServerManager(FedMLCommManager):
             dp = getattr(self.aggregator, "dp_fold", None)
             if dp is not None:
                 out.extend(dp.prom_gauges())
+            # the contribution ledger (modelwatch), once one was built
+            led = fleet._ledger
+            if led is not None:
+                out.extend(led.prom_gauges())
             return out
 
         port_file = getattr(self.args, "statusz_port_file", None)
@@ -645,6 +653,10 @@ class FedMLServerManager(FedMLCommManager):
             # close the health round: the MAD straggler test over this
             # round's client.train durations
             report = fleet.health.end_round(round_idx)
+            # the report rides with the contribution ledger's view, before
+            # the SLO tick, so the round's alert state holds its rows
+            if fleet._ledger is not None:
+                fleet._ledger.annotate_report(report)
             if report.stragglers:
                 log.warning("round %d stragglers: %s", round_idx, report.stragglers)
         # the evaluator ticks after end_round: a fresh straggler ratio
@@ -736,8 +748,11 @@ class FedMLServerManager(FedMLCommManager):
         if metrics is not None:
             self.final_metrics = metrics
         tel.counter("engine.rounds").add(1)
-        if self.aggregator.fleet.merges:
-            self.aggregator.fleet.health.end_round(round_idx)
+        fleet = self.aggregator.fleet
+        if fleet.merges:
+            report = fleet.health.end_round(round_idx)
+            if fleet._ledger is not None:
+                fleet._ledger.annotate_report(report)
         self._slo_tick()
         final = buf.version >= self.round_num
         self._save_round_state(round_idx, global_model_params, final=final)

@@ -24,9 +24,15 @@ one's upload compresses and folds, folded at arrival for plain FedAvg
 ``AlgFrameSink``. Any other value than ``sequential`` and ``pipelined``
 raises NotImplementedError.
 
-Not ported yet, raising NotImplementedError (ROADMAP.md, Queue 1):
-modelwatch's quarantine. Modelwatch's fold statistics, on by default in the
-JAX package, change nothing the round computes; the port runs without them.
+Modelwatch (JAX ``:93-104``, ``:288-308``), on unless ``FEDML_MODELWATCH=0``
+or ``modelwatch_disable``: the weight-space server rule (FedAvg, FedProx,
+FedOpt, and pipelined pairs mode, which runs through it) screens each
+cohort against the round's global model before the fold, with
+``modelwatch_quarantine`` dropping outliers and NaN uploads, and after
+``on_after_aggregation`` folds the round's rows into the simulator's
+contribution ledger, the process's active one while ``train`` runs.
+FedNova, SCAFFOLD, Mime and FedDyn have their own server rules and are not
+watched, nor is pipelined fold-at-arrival, as in JAX.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ...core.engine import (AlgFrameSink, InProcessSequentialStrategy, RoundChec
                             RoundEngine, sample_cohort)
 from ...core.resilience import RoundStateStore
 from ...core.resilience.round_state import restore_numpy_rng
+from ...core.telemetry import modelwatch
 from ...ml.aggregator import create_server_aggregator
 from ...ml.trainer.trainer_creator import create_model_trainer
 from ...utils.pytree import tree_sub, tree_zeros_like
@@ -67,8 +74,6 @@ class FedAvgAPI:
         if str(getattr(args, "client_execution", "sequential") or "sequential") \
                 not in ("sequential", "pipelined"):
             raise _not_ported(f"client_execution={args.client_execution!r}")
-        if getattr(args, "modelwatch_quarantine", False):
-            raise _not_ported("modelwatch_quarantine")
         self.device = device
         self.args = args
         [
@@ -105,6 +110,15 @@ class FedAvgAPI:
         self._feddyn_h = tree_zeros_like(self.model_trainer.get_model_params())
         self._mime_s = tree_zeros_like(self.model_trainer.get_model_params())
         self.metrics_history: List[Dict[str, float]] = []
+
+        # modelwatch: fold-boundary delta stats and the contribution ledger
+        # for the weight-space server rule
+        self._mw_ledger: Optional[modelwatch.ContributionLedger] = None
+        self._mw_prev_update = None
+        self._mw_round = 0
+        if modelwatch.enabled(args):
+            self._mw_ledger = modelwatch.ContributionLedger()
+            modelwatch.set_active(self._mw_ledger)
 
         # durable round state: every round boundary is checkpointed async;
         # args.resume restarts from the last complete round
@@ -219,7 +233,11 @@ class FedAvgAPI:
             round_span_attrs={"optimizer": self.fed_opt},
             metrics_history=self.metrics_history,
         )
-        engine.run(self.model_trainer.get_model_params())
+        try:
+            engine.run(self.model_trainer.get_model_params())
+        finally:
+            if self._mw_ledger is not None:
+                modelwatch.clear_active(self._mw_ledger)
         return self.metrics_history[-1] if self.metrics_history else {}
 
     def _install_global(self, w_global) -> None:
@@ -267,12 +285,38 @@ class FedAvgAPI:
             new_w = agg.on_after_aggregation(new_w)
         else:
             lst = agg.on_before_aggregation(w_locals)
+            watch = self._mw_session(w_global)
+            if watch is not None:
+                lst = modelwatch.screen_cohort(
+                    watch, lst, list(range(len(lst))), ledger=self._mw_ledger,
+                    quarantine=modelwatch.quarantine_enabled(self.args))
             new_w = agg.aggregate(lst)
             if self._fedopt_server is not None:
                 new_w = self._fedopt_server.apply(w_global, new_w)
             new_w = agg.on_after_aggregation(new_w)
+            if watch is not None:
+                self._mw_observe(watch, new_w)
         agg.assess_contribution()
         return new_w
+
+    def _mw_session(self, w_global) -> Optional[modelwatch.WatchSession]:
+        """The round's watch session over the current global params, or None
+        when modelwatch is off or the model has object leaves (FHE)."""
+        if self._mw_ledger is None or modelwatch.has_object_leaves(w_global):
+            return None
+        return modelwatch.WatchSession(w_global, prev_update=self._mw_prev_update)
+
+    def _mw_observe(self, watch: modelwatch.WatchSession, new_w) -> None:
+        """Finish the round's stats into the ledger. A failure here is logged
+        with its traceback and leaves the round's model as it is, as in JAX
+        (the statistics never change the fold)."""
+        try:
+            stats = watch.finish(new_w)
+            self._mw_prev_update = stats.update_tree
+            self._mw_ledger.observe_round(self._mw_round, stats)
+        except Exception:  # noqa: BLE001 - logged below; stats must not fail the round
+            log.warning("modelwatch: round %d's stats failed", self._mw_round, exc_info=True)
+        self._mw_round += 1
 
     def _test_global(self, round_idx: int) -> Dict[str, float]:
         metrics = self.aggregator.test(self.test_global, self.device, self.args)

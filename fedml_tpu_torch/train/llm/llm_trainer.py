@@ -18,9 +18,13 @@ Telemetry as in the JAX package: the loop runs under the ``llm.train`` span
 is folded into its MFU against the card's peak in the compute dtype.
 Mid-training ``save_steps`` checkpoints are enqueued asynchronously
 (``wait=False``: the host snapshot is taken, the write runs behind the next
-steps) and ``train`` returns only once every save is on disk. The JAX
-loop's modelwatch guard (a NaN count and the param norm at the window's
-end) waits for modelwatch's slice (ROADMAP.md, Queue 1).
+steps) and ``train`` returns only once every save is on disk. Each window
+ends with modelwatch's guard (JAX ``:277-312``; on unless
+``FEDML_MODELWATCH=0``): one pass over the state dict, leaf by leaf in f32,
+gives ``[sq_norm, nan, inf]`` on the device, read after the window's own
+sync; it sets ``param_norm`` in the metrics and, on any NaN or Inf or a
+non-finite final loss, logs a warning and marks the flight recorder
+(``modelwatch_train_guard``).
 
 This slice is one device: any mesh axis above 1 (dp, fsdp, tp, sp, ep, pp)
 raises NotImplementedError.
@@ -36,7 +40,7 @@ import numpy as np
 import torch
 
 from ...core import telemetry as tel
-from ...core.telemetry import devperf
+from ...core.telemetry import devperf, flight_recorder, modelwatch
 from ...device import resolve_device
 from ...models.convert import params_from_jax, params_to_jax
 from ...models.lora import LORA_KEYS
@@ -193,7 +197,8 @@ class LLMTrainer:
     def train(self, batches: Optional[Iterator] = None) -> Dict[str, float]:
         """Run up to exp_args.max_steps steps over ``batches`` of (tokens,
         mask) numpy arrays (default: the synthetic stream). Returns
-        final_loss, steps and tokens_per_sec over the synchronised window,
+        final_loss, steps, tokens_per_sec over the synchronised window and
+        (with modelwatch on) param_norm,
         once the final checkpoint and every mid-training save are on
         disk."""
         if self.model is None:
@@ -222,6 +227,10 @@ class LLMTrainer:
                     self.save(step + 1, wait=False)
                 if step + 1 >= exp.max_steps:
                     break
+            # modelwatch's NaN guard and param norm: enqueued before the
+            # window's sync, so reading it adds no sync of its own
+            guard = (modelwatch.train_guard(self.model.state_dict())
+                     if modelwatch.enabled(exp) else None)
             self._sync()
         dt = sp.duration_s
         tokens_per_sec = tokens_seen / dt if dt > 0 else 0.0
@@ -232,12 +241,26 @@ class LLMTrainer:
             "steps": step + 1,
             "tokens_per_sec": tokens_per_sec,
         }
+        if guard is not None:
+            self._guard_window(guard.cpu().numpy().astype(np.float64), metrics)
         log.info("LLM train done: %s", metrics)
         self.save(step + 1)
         # drain any mid-training save still in flight: a returned train()
         # is durable
         self.ckpt.wait_until_finished()
         return metrics
+
+    @staticmethod
+    def _guard_window(g: np.ndarray, metrics: Dict[str, float]) -> None:
+        """``param_norm`` from the guard's ``[sq_norm, nan, inf]``, and a
+        warning and a flight-recorder mark for a non-finite window."""
+        metrics["param_norm"] = float(np.sqrt(max(g[0], 0.0)))
+        final_loss = metrics["final_loss"]
+        if int(g[1]) + int(g[2]) > 0 or not np.isfinite(final_loss):
+            log.warning("modelwatch: non-finite training window (nan=%d inf=%d loss=%s)",
+                        int(g[1]), int(g[2]), final_loss)
+            flight_recorder.mark("modelwatch_train_guard", nan=int(g[1]), inf=int(g[2]),
+                                 final_loss=float(final_loss))
 
     def text_batches(self, global_batch: int, steps: Optional[int] = None, *,
                      seed: Optional[int] = None):

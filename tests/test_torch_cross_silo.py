@@ -48,6 +48,7 @@ joined within JOIN_S and a party still alive fails the test. Tolerances:
 """
 
 import copy
+import importlib
 import json
 import threading
 import time
@@ -819,7 +820,6 @@ GATES = {
        for b in ("TRPC", "GRPC", "MPI", "MQTT_WEB3", "MQTT_THETASTORE")},
     "scenario_hierarchical": ("client", dict(scenario="hierarchical")),
     "server_mesh": ("server", dict(server_mesh="1x1")),
-    "modelwatch_quarantine": ("server", dict(modelwatch_quarantine=True)),
     "chaos_split_kill_rank": ("server", dict(chaos_split_kill_rank=1)),
     "mqtt_host": ("client", dict(backend="MQTT_S3", mqtt_host="broker.example")),
     "s3_bucket": ("server", dict(backend="MQTT_S3", s3_bucket="bucket")),
@@ -857,6 +857,8 @@ PORTED = {
     "link_wan_health": ("server", dict(link_wan_health=True)),
     "chaos_link_throttle": ("client", dict(chaos_link_throttle=1e6)),
     "chaos_link_base_delay_s": ("client", dict(chaos_link_base_delay_s=0.1)),
+    # modelwatch's quarantine (tests/test_torch_modelwatch.py runs it)
+    "modelwatch_quarantine": ("server", dict(modelwatch_quarantine=True)),
     # the message plane's other backends and the reference wire
     # (tests/test_torch_{trpc,grpc,web3,ref_wire}.py run them)
     "mqtt_s3_wire_fedml": ("server", dict(backend="MQTT_S3", mqtt_s3_wire="fedml",
@@ -911,14 +913,27 @@ def test_unported_knobs_and_backends_raise(gate, tmp_path):
 STATUSZ_CASES = ("statusz", "slo", "slo_tick_s")
 # /metrics families the server's own gauges and its SLO engine put there
 SERVER_FAMILIES = ("fedml_client_", "fedml_dp_", "fedml_alert_", "fedml_slo_")
-# the JAX server's modelwatch contribution ledger (modelwatch is not ported)
+# modelwatch's contribution ledger on both servers
 MODELWATCH_FAMILIES = {"fedml_client_delta_norm", "fedml_client_outlier_score",
                        "fedml_client_contribution"}
 
 
 def _serve_statusz(pkg, case, tmp_path):
     """A dp federation (LR, 2 clients, 2 rounds) whose server serves
-    /statusz; the pages are read during round 1's evaluation."""
+    /statusz; the pages are read during round 1's evaluation. The package's
+    telemetry registry is on for the run (the clients ship the deltas that
+    the health gauges read only then; a test elsewhere in the worker may
+    have left it off), and restored after."""
+    registry = importlib.import_module(f"{pkg.__name__}.core.telemetry").get_telemetry()
+    was = registry.enabled
+    registry.set_enabled(True)
+    try:
+        return _serve_statusz_run(pkg, case, tmp_path)
+    finally:
+        registry.set_enabled(was)
+
+
+def _serve_statusz_run(pkg, case, tmp_path):
     run_id = f"tcs_statusz_{case}_{pkg.__name__}"
     port_file = tmp_path / f"{pkg.__name__}.port"
     kw = dict(LR, privacy="dp", dp_l2_clip=0.05, dp_noise_multiplier=0.5, dp_seed=3,
@@ -971,8 +986,8 @@ def test_server_statusz_metrics_and_slo_tick(case, tmp_path):
     server's sections (round, health, privacy) with JAX's keys, the SLO
     engine's alerts section with the same SLOs ticked at least once a round
     (and by the ticker under slo_tick_s), and the same /metrics families of
-    the server's gauges (client health, the DP budget) and its SLO engine
-    (JAX's modelwatch ledger families aside: modelwatch is not ported)."""
+    the server's gauges (client health, the DP budget, modelwatch's
+    contribution ledger) and its SLO engine."""
     got = {pkg: _serve_statusz(pkg, case, tmp_path) for pkg in (fedml_tpu, fedml_tpu_torch)}
     jdoc, tdoc = got[fedml_tpu]["statusz"], got[fedml_tpu_torch]["statusz"]
     assert tdoc["service"] == jdoc["service"] == "cross_silo_server"
@@ -991,6 +1006,7 @@ def test_server_statusz_metrics_and_slo_tick(case, tmp_path):
     assert talerts["tick_count"] >= (3 if case == "slo_tick_s" else 1)
     assert jalerts["tick_count"] >= (3 if case == "slo_tick_s" else 1)
     tfam, jfam = _families(got[fedml_tpu_torch]["metrics"]), _families(got[fedml_tpu]["metrics"])
-    assert tfam == jfam - MODELWATCH_FAMILIES
+    assert tfam == jfam
+    assert MODELWATCH_FAMILIES <= tfam
     assert {"fedml_dp_epsilon_spent", "fedml_dp_budget_frac", "fedml_client_health",
             "fedml_alert_active"} <= tfam

@@ -1136,3 +1136,96 @@ def test_devperf_reads_the_card(cuda):
         assert st["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
     finally:
         devperf.reset()
+
+
+def _sync_calls(fn):
+    """(fn(), the synchronising CUDA calls it made, as
+    torch.cuda.set_sync_debug_mode("warn") reports them: their messages)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message) for w in caught if str(w.message).startswith("called a synchronizing")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed", [False, True], ids=["float32", "mixed"])
+def test_watched_fold_on_the_card_is_bit_equal_and_adds_no_sync(cuda, mixed):
+    """modelwatch's fused fold on the card: 20 uploads (a full bucket of 16
+    and a ragged one) published bit-equal with and without a watch, through
+    ``aggregate`` and through the async buffer's two fold sites, with as
+    many synchronising calls; the rows within rtol 1e-5 of the same stats
+    computed on the CPU (f32 sums in another order), NaN counts exact."""
+    from fedml_tpu_torch.core.aggregation.async_buffer import AsyncAggBuffer, StalenessPolicy
+    from fedml_tpu_torch.core.aggregation.bucketed import BucketedAggregator
+    from fedml_tpu_torch.core.telemetry import modelwatch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def tree(scale=1.0):
+        t = {"w": torch.randn(256, 128, device="cuda", generator=gen) * scale,
+             "b": torch.randn(128, device="cuda", generator=gen) * scale}
+        if mixed:
+            t["e"] = (torch.randn(64, device="cuda", generator=gen) * scale).to(torch.bfloat16)
+        return t
+
+    ref = tree()
+    pairs = [(float(i + 1), tree(50.0 if i == 7 else 1.0)) for i in range(20)]
+    pairs[11][1]["w"][0, 0] = float("nan")
+    eng = BucketedAggregator(bucket_size=16)
+    for _ in range(2):  # warm both paths (and the caching allocator's pools)
+        eng.aggregate(pairs)
+        eng.aggregate(pairs, watch=modelwatch.WatchSession(ref))
+    plain, n_plain = _sync_calls(lambda: eng.aggregate(pairs))
+    sess = modelwatch.WatchSession(ref)
+    watched, n_watched = _sync_calls(lambda: eng.aggregate(pairs, watch=sess))
+    assert len(n_watched) == len(n_plain), (n_plain, n_watched)
+    for k in plain:
+        bits = torch.int16 if plain[k].dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(plain[k].view(bits), watched[k].view(bits)), k
+    rows = sess.finish(watched).rows
+    cpu = modelwatch.WatchSession({k: v.cpu() for k, v in ref.items()})
+    modelwatch.screen_cohort(cpu, [(n, {k: v.cpu() for k, v in t.items()}) for n, t in pairs])
+    want = cpu.finish({k: v.cpu() for k, v in watched.items()}).rows
+    assert [r["nan"] for r in rows] == [r["nan"] for r in want] and rows[11]["nan"] == 1
+    for got, ref_row in zip(rows, want):
+        if ref_row["nan"]:
+            continue
+        for key in ("norm", "cosine", "update_ratio"):
+            assert got[key] == pytest.approx(ref_row[key], rel=1e-5), (ref_row["rank"], key)
+        assert got["group_norms"].keys() == ref_row["group_norms"].keys()
+    outs = []
+    for watch in (False, True):
+        buf = AsyncAggBuffer(publish_k=20, policy=StalenessPolicy(exponent=0.0), engine=eng)
+        if watch:
+            assert buf.enable_watch(ref, ledger=modelwatch.ContributionLedger())
+        for r, (n, t) in enumerate(pairs):
+            buf.submit(r, t, n, None)
+        outs.append(buf.publish())
+    for k in outs[0]:
+        bits = torch.int16 if outs[0][k].dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(outs[0][k].view(bits), outs[1][k].view(bits)), k
+
+
+@pytest.mark.cuda
+def test_train_guard_on_the_card_matches_a_plain_norm(cuda):
+    """The LLM guard's ``[sq_norm, nan, inf]`` over a bf16 and f32 state
+    dict on the card: the norm within rtol 1e-5 of float64's, the counts
+    exact."""
+    from fedml_tpu_torch.core.telemetry import modelwatch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sd = {"a": torch.randn(4096, 1024, device="cuda", generator=gen).to(torch.bfloat16),
+          "b": torch.randn(1000, device="cuda", generator=gen)}
+    g = modelwatch.train_guard(sd).cpu().double()
+    want = sum(float(v.double().pow(2).sum()) for v in sd.values())
+    assert float(g[0]) == pytest.approx(want, rel=1e-5) and g[1] == 0 and g[2] == 0
+    sd["b"][3] = float("nan")
+    sd["a"][0, :2] = float("inf")
+    g = modelwatch.train_guard(sd).cpu()
+    assert (int(g[1]), int(g[2])) == (1, 2)

@@ -453,7 +453,6 @@ def test_run_simulation_on_the_cpu_and_refusals(tmp_path_factory):
                         "hierarchy_edges.*HierarchyTree"),
                        (dict(backend="NCCL"), "NCCL"),
                        (dict(client_execution="threaded"), "threaded"),
-                       (dict(modelwatch_quarantine=True), "modelwatch_quarantine"),
                        (dict(allow_download=True), "allow_download")]:
         bad = copy.copy(args)
         for k, v in over.items():

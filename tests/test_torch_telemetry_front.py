@@ -63,11 +63,12 @@ def quiet_ride_alongs(monkeypatch, registries_on):
     import fedml_tpu.core.telemetry.netlink as jnet
     import fedml_tpu_torch.core.resilience as tres
     import fedml_tpu_torch.core.telemetry.devperf as tdev
+    import fedml_tpu_torch.core.telemetry.modelwatch as tmw
     import fedml_tpu_torch.core.telemetry.netlink as tnet
 
     for mod in (jmesh, jnet, jdev, jslo, jsk, tnet, tslo, tsk, tdev):
         monkeypatch.setattr(mod, "prom_gauges", lambda: [])
-    for mod in (jmesh, jnet, jdev, jmw, jslo, jsk, jres, tnet, tslo, tsk, tres, tdev):
+    for mod in (jmesh, jnet, jdev, jmw, jslo, jsk, jres, tnet, tslo, tsk, tres, tdev, tmw):
         monkeypatch.setattr(mod, "statusz_snapshot", lambda: {})
     for fr in (jfr, tfr):
         monkeypatch.setattr(fr, "active", lambda: None)
