@@ -17,9 +17,10 @@ subprocess replicas behind the gateway, int8 decode through the int8
 GEMM), and the LoRA step at Phi-3-mini's and Gemma-2B's attention widths
 (head dims 96 and 256) and JAX's own test geometry (16) in f32 and
 float16, a FedLLM federation under local DP with devperf's MFU, the
-server's /statusz and its SLO engine, and the link layer (pipelined sp
-rounds, netlink, link probes, the link throttle and the link knobs), on
-one CUDA card.
+server's /statusz and its SLO engine, the link layer (pipelined sp
+rounds, netlink, link probes, the link throttle and the link knobs),
+modelwatch, and several processes (the hierarchical silo's ranks over gloo,
+Parrot MPI and NCCL), on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -130,7 +131,7 @@ exception):
 11. async federation and the compressed uplink, ResNet-56 at full width on
    the CIFAR-10 surrogate: (b) first, the vmapped async driver through
    FedMLRunner (backend "vmap", async_rounds; 16 clients in flight, a
-   publish every 8 merges, 4 publishes, staleness exponent 0.5, cut 10):
+   publish every 8 merges, 2 publishes, staleness exponent 0.5, cut 10):
    finite losses, w_global moved, the publish count; publishes/hr,
    images/s, the async.merge / async.publish spans, staleness and peak
    memory; (a) the buffer's gate, cuDNN's TF32 off: exponent 0 and
@@ -141,7 +142,7 @@ exception):
    card waited for after each submit and publish: rounds/hr of server
    seconds at each size and their ratio (reported, not gated), and the
    same seed's event trace identical; (d) the cross-silo front over
-   INMEMORY: 16 ResNet-20 silos in async mode (a publish every 8 merges, 4 publishes),
+   INMEMORY: 16 ResNet-20 silos in async mode (a publish every 8 merges, 2 publishes),
    seconds a publish; phase 10's synchronous federation at ResNet-20
    (SILOS_R20) cut to 2 rounds, plain and with comm_compressor eftopk at ratio 1.0, cuDNN deterministic
    and TF32 off, final params bit-equal; topk at ratio 0.05 to an end with
@@ -192,11 +193,11 @@ exception):
    the window closes partial bit-equal to the 15 survivors' reference,
    secagg.dropouts and secagg.recovered each up by 1, no timer alive; (c)
    ``privacy: dp`` on phase 10's synchronous federation (2 rounds) and on
-   the async one, and ``secagg+dp`` (2 windows): each release's draws
+   the async one, and ``secagg+dp`` (1 window): each release's draws
    (published less the fold's clean vector on the card) with std within
    DP_STD_RTOL of z·C/n and mean within 4 sigma/sqrt(d), epsilon equal to
    a fresh accountant's; (d) secagg on the window's shared topk support at
-   0.05 (2 windows): 13,624 coordinates drawn from each window's nonce, the
+   0.05 (1 window): 13,624 coordinates drawn from each window's nonce, the
    publish bit-equal to the reference on the support and 0 elsewhere;
    per case the key exchange s, host ms to mask, the fold of a masked
    bucket, ms to unmask, DP noise ms on the card, seconds a window, upload
@@ -242,7 +243,7 @@ exception):
    the regional pass-through and the root's strip and unmask ms, bytes
    forwarded per tier; (c) no flash launch;
 16. the message plane's other backends, phase 10 (b)'s federation at
-   ResNet-20 (MP_PROCS: 4 silos, 2 rounds, cuDNN deterministic, TF32 off)
+   ResNet-20 (MP_PROCS: 4 silos, 1 round, cuDNN deterministic, TF32 off)
    over each,
    its final params bit-equal to the same federation over INMEMORY in this
    process: (a) a server and 4 client processes over TRPC on a block of
@@ -267,7 +268,7 @@ exception):
    and FoolsGold flags, the fold within TRUST_FOLD_TOL of the update (WeakDP
    and CRFL: their draws' std within 1% of sigma); multi-Krum and Bulyan
    keep no attacker; (c) cdp, ldp, nbafl and dp_clip through FedMLRunner,
-   2 rounds each: every draw's std within 1% of its frame's sigma, epsilon
+   1 round each: every draw's std within 1% of its frame's sigma, epsilon
    equal to the host accountant stepped with the same scales; (d) the
    vmapped front with cdp and the coordinate median: its fold bit-equal to
    the hooks over the unstacked list, the fused fold without middleware,
@@ -281,8 +282,8 @@ exception):
    (a) at N=4096, 4 primes, the card's keygen, encryption under one seeded
    generator and decryption residues (float64 negacyclic matrices) equal,
    integer for integer, to the plain np.convolve version over 4 chunks;
-   (b) rlwe through init and FedMLRunner on the sp front, 16 clients, 2
-   rounds: each round's decryption within the worst-case RLWE noise bound
+   (b) rlwe through init and FedMLRunner on the sp front, 16 clients, 1
+   round (FHE_SP): each round's decryption within the worst-case RLWE noise bound
    sum_i k_i (2N + 1) B / 2^46 (B the run's largest error draw) of the
    fixed-point sum sum_i k_i rint(2^30 x_i) / 2^46 of the clients'
    plaintexts, its gap to the f32 fold, encrypt ms and ciphertext bytes a
@@ -292,18 +293,18 @@ exception):
    global is the decryption, within the same bound of its arrivals'
    fixed-point sum; (d) R7 (backend vmap), R10 (additive_mask on a front)
    and R11 (a byte backend) refused before any round; (e) TurboAggregate,
-   4 ring groups, 2 rounds: each ring sum bit-equal to the plain field sum
+   4 ring groups, 1 round: each ring sum bit-equal to the plain field sum
    of the same quantized updates, the global within K/2 quantization steps
-   of the float fold, round s; (f) FedAvg_seq, 4 workers, 2 rounds: every
+   of the float fold, round s; (f) FedAvg_seq, 4 workers, 1 round: every
    client in one queue, each fold within FOLD_TOL of the float64 weighted
-   mean, makespan and round s; (g) split NN and FedGKT, 2 rounds at the JAX
+   mean, makespan and round s; (g) split NN and FedGKT, 1 round at the JAX
    package's widths: the first round of 2 clients (cut to 256 images) on
    the card against the CPU, TF32 off, each loss within SPLIT_LOSS_RTOL;
    test_acc and s a round; (h) DSGD, PushSum and vertical FL on the card
    against the CPU in float64, each loss falling; (i) no flash launch;
 19. FedGAN, FedNAS, FedSeg and the rest of the model hub, through the
    entry points, at each model's default widths: (a) FedGAN on the MNIST
-   surrogate, 4 clients, 2 rounds: round 0 on shards cut to 64 images on
+   surrogate, 4 clients, 1 round: round 0 on shards cut to 64 images on
    the card against the CPU in float64 (the same seeded pair, the same z:
    the latents come from a CPU generator), the pair and the losses within
    F64_TOL; finite losses, generated images in [-1, 1], each round's s;
@@ -458,10 +459,38 @@ exception):
    GUARD_NORM_RTOL of a plain f32 norm of the same params (the guard's ms
    printed), and one step with a NaN planted in an adapter marks the
    flight recorder (modelwatch_train_guard);
-26. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+26. several processes on the one card, no flash kernel on its path: (a)
+   the hierarchical silo (HIER: ResNet-20 on the CIFAR-10 surrogate, 2
+   silos, 2 rounds, bs 128) through run_hierarchical_cross_silo_server and
+   _client, the server and each silo's HIER_RANKS ranks processes of their
+   own (tools/launch_silo.py, the reference launcher's environment), the
+   ranks joined over gloo on the card, the parties over MQTT_S3 through a
+   SocketMqttBroker hosted here, every process under HIER_TIMEOUT_S: the
+   broker accepted 3 connections (only a silo's rank 0 talks WAN), a
+   silo's rank 0 a ClientMasterManager and the other a ClientSlaveManager,
+   every rank on the card over the backend the rule names with DP width
+   HIER_RANKS, every rank ending each round with its rank 0's upload bit
+   for bit; then each silo's local round of each round trained by one
+   rank in this process from the global its rank 0 received: every upload
+   within HIER_UPDATE_TOL (relative L2 of the update) of the one-rank
+   round's; round s, the silos' local round s beside one rank's, the
+   backend, each collective's calls and bytes per round; (b) Parrot MPI
+   (MPI_THREADS: ResNet-20, 4 clients x 2 rounds) as threads through
+   FedMLRunner, its round s; and launched externally (MPI_PROCS: a server
+   and 2 client processes over the MPI backend, GRPC between them, 1
+   round, started when (a)'s processes have ended, while this process runs
+   (a)'s one-rank rounds and (b)'s threads), its server's metrics equal to
+   the threaded form of the same config run here; (c) Parrot NCCL (NCCL_SIM:
+   phase 8's ResNet-56 x 16 clients, 1 round) with cuDNN deterministic and
+   TF32 off: one group on the visible card bit-equal to backend vmap, then
+   NCCL_GROUPS groups on the same card, the reduce within FOLD_TOL of the
+   float64 sum of the groups' clients and the update within
+   NCCL_UPDATE_TOL of vmap's; no cross-card transfer is measured (one
+   card);
+27. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
    resilience, privacy, secure_fronts, hierarchy, message_plane, trust,
    fhe_sp_zoo, gan_nas_seg_hub, files, front_door, head_dims, fedllm,
-   link_layer, modelwatch and kernels lines (JSON, the kernels line with the design each kernel ran
+   link_layer, modelwatch, multiprocess and kernels lines (JSON, the kernels line with the design each kernel ran
    on the main path, its launches in phase 23, and a row for each kernel
    at phase 22's head dims 96 and 256), the card line, and last the result
    line.
@@ -2512,19 +2541,21 @@ def cross_silo_phase(sp: dict) -> dict:
 
 # phase 7's ResNet-56 x 16 clients through the vmapped async driver
 # (FedMLRunner, backend "vmap", async_rounds): 16 clients in flight, a
-# publish every 8 merges, 4 publishes, staleness exponent 0.5, cut 10,
-# delays lognormal around 1.0 with spread 0.5
-ASYNC_VMAP = dict(RESNET, backend="vmap", async_rounds=True, async_publish_k=8, comm_round=4,
+# publish every 8 merges, 2 publishes (4 before phase 26 needed the
+# room), staleness exponent 0.5, cut 10, delays lognormal around 1.0
+# with spread 0.5
+ASYNC_VMAP = dict(RESNET, backend="vmap", async_rounds=True, async_publish_k=8, comm_round=2,
                   async_staleness_exponent=0.5, async_max_staleness=10, async_mean_delay=1.0,
                   async_delay_heterogeneity=0.5)
 # simulate_async_rounds at two fleet sizes over the ResNet-56 state dict
 ASYNC_SIM_CLIENTS = (1000, 10000)
 ASYNC_SIM = dict(publish_k=32, gen_batch=1024, publishes=8, seed=0)
-# the cross-silo front: phase 10's 16 silos at ResNet-20 in async mode (4
-# publishes of 8 merges; 27 s at ResNet-56 on the H100's slower host), then
+# the cross-silo front: phase 10's 16 silos at ResNet-20 in async mode (2
+# publishes of 8 merges, 4 before phase 26 needed the room; 27 s
+# at ResNet-56 and 4 publishes on the H100's slower host), then
 # its synchronous federation cut to 2 rounds, plain, eftopk at ratio 1.0 and
 # topk at ratio 0.05
-CS_ASYNC = dict(SILOS_R20, async_rounds=True, async_publish_k=8, comm_round=4)
+CS_ASYNC = dict(SILOS_R20, async_rounds=True, async_publish_k=8, comm_round=2)
 CS_COMPRESSED = dict(SILOS_R20, comm_round=2)
 LOSSY_RATIO = 0.05
 # the streaming fold (publish_k 32 = two buckets, scaled after the fold)
@@ -2715,7 +2746,7 @@ def async_fleet(template: dict) -> dict:
 
 def cross_silo_async() -> dict:
     """Phase 11 (d): the cross-silo front with async rounds over INMEMORY,
-    16 silos, a publish every 8 merges, 4 publishes."""
+    16 silos, a publish every 8 merges, CS_ASYNC's publishes."""
     import math
 
     import torch
@@ -3153,12 +3184,13 @@ PRIV_DROP_RANK = 16
 PRIV_DROP = dict(PRIV_SECAGG, comm_round=1, secagg_window_deadline_s=6.0)
 # (c) accounted DP (noise multiplier 0.8, clip 1.0, delta 1e-5, seed 0, the
 # defaults): phase 10's synchronous federation (2 rounds), the async one, and
-# secagg+dp over 2 windows
+# secagg+dp over 1 window (2 before phase 26 needed the room)
 PRIV_DP_SYNC = dict(SILOS_R20, privacy="dp", comm_round=2)
 PRIV_DP_ASYNC = dict(PRIV_ASYNC, privacy="dp")
-PRIV_BOTH = dict(PRIV_SECAGG, privacy="secagg+dp", comm_round=2)
-# (d) the masked uplink on the window's shared rand-k support, topk at 0.05
-PRIV_TOPK = dict(PRIV_SECAGG, comm_round=2, comm_compressor="topk", comm_compressor_ratio=0.05)
+PRIV_BOTH = dict(PRIV_SECAGG, privacy="secagg+dp", comm_round=1)
+# (d) the masked uplink on the window's shared rand-k support, topk at 0.05,
+# 1 window (2 before phase 26)
+PRIV_TOPK = dict(PRIV_SECAGG, comm_round=1, comm_compressor="topk", comm_compressor_ratio=0.05)
 PRIV_TIMEOUT_S = 300
 # the DP draws (published less clean, 272,474 of them a release): std within
 # 2% of the fold's sigma (a 1/sqrt(2d) = 0.14% standard error), mean within
@@ -3574,7 +3606,7 @@ def privacy_phase() -> dict:
     case["test_loss"] = [m["test_loss"] for m in evals]
     res["secagg_dp"] = case
     del fed
-    say(f"  (c) secagg+dp, 16 silos x 2 windows: {case}")
+    say(f"  (c) secagg+dp, 16 silos x {PRIV_BOTH['comm_round']} windows: {case}")
 
     fed, probe, evals = _priv_run(PRIV_TOPK, "smoke_priv_topk")
     from fedml_tpu_torch.utils.compression import secagg_support
@@ -3593,7 +3625,8 @@ def privacy_phase() -> dict:
     case["test_loss"] = [m["test_loss"] for m in evals]
     res["secagg_topk"] = case
     del fed
-    say(f"  (d) secagg on a topk 0.05 support, 16 silos x 2 windows: {case}")
+    say(f"  (d) secagg on a topk 0.05 support, 16 silos x {PRIV_TOPK['comm_round']} windows: "
+        f"{case}")
     base = _mean_after_first(res["plain_async"]["s_per_publish"])
     res["cost_of_privacy"] = {
         "no_privacy_s_per_publish": base,
@@ -4259,8 +4292,9 @@ def hierarchy_phase(flat: dict) -> dict:
 
 # -- phase 16: the message plane's other backends ----------------------------------
 
-# phase 10 (b)'s federation at ResNet-20 (4 silos, 2 rounds), over each backend
-MP_PROCS = dict(CS_PROCS, model="resnet20")
+# phase 10 (b)'s federation at ResNet-20 (4 silos) cut to 1 round (2 before
+# phase 26 needed the room), over each backend
+MP_PROCS = dict(CS_PROCS, model="resnet20", comm_round=1)
 # comm_bench payloads: ResNet-56's state dict on the card, and a flat f32
 # tensor of 64 MB on the card (the copy to the host is in every ping)
 MP_BENCH_BIG = 64_000_000
@@ -4504,7 +4538,9 @@ TRUST_DP = {"cdp": dict(epsilon=500.0, clipping_norm=50.0),
             "ldp": dict(epsilon=500.0, clipping_norm=50.0),
             "nbafl": dict(epsilon=50.0, nbafl_C=5.0),
             "dp_clip": dict(clipping_norm=5.0, noise_multiplier=1.0)}
-TRUST_DP_RUN = dict(TRUST_SP, client_num_per_round=4)  # 4 of 16 sampled: q = 0.25
+# 4 of 16 sampled: q = 0.25; 1 round a frame (2 before phase 26 needed
+# the room)
+TRUST_DP_RUN = dict(TRUST_SP, client_num_per_round=4, comm_round=1)
 # (d): the vmapped front, one round, 16 clients
 TRUST_VMAP = dict(SP_R20, backend="vmap", comm_round=1)
 # (f): exact Shapley and LOO over 4 clients (16 subsets), GTG over 16, the
@@ -4933,26 +4969,28 @@ def trust_phase() -> dict:
 
 # (b): phase 7's sp federation at ResNet-20 (ResNet-56's widths at a third
 # of its depth: 120 ciphertext chunks a client where ResNet-56 has 348), 16
-# clients, 2 rounds, rlwe at the JAX package's parameters (N 4096, 4 primes
+# clients, 1 round (2 before phase 26), rlwe at the JAX package's parameters (N 4096, 4 primes
 # of 20 bits, delta 2^30, sigma 3.2); (c) phase 10's 16 INMEMORY silos at
 # ResNet-20, one round. At ResNet-56, (b) and (c) took 46 s of the smoke on
 # the H100's slower host
-FHE_SP = dict(SP_R20, comm_round=2, enable_fhe=True, fhe_scheme="rlwe")
+FHE_SP = dict(SP_R20, comm_round=1, enable_fhe=True, fhe_scheme="rlwe")
 FHE_CS = dict(SILOS_R20, comm_round=1, enable_fhe=True, fhe_scheme="rlwe")
 FHE_PARITY_CHUNKS = 4   # (a): ring products on the card against np.convolve
 FHE_SECRET = "fedml_tpu"  # the default fhe_secret
 # (e), (f): phase 7's federation at ResNet-20 through TurboAggregate (4
-# ring groups) and FedAvg_seq (4 workers), 2 rounds each (at ResNet-56 they
-# took 22-29 s of the smoke on the H100)
-TA_RUN = dict(SP_R20, federated_optimizer="TA", ta_group_num=4, comm_round=2)
-SEQ_RUN = dict(SP_R20, federated_optimizer="FedAvg_seq", worker_num=4, comm_round=2)
+# ring groups) and FedAvg_seq (4 workers), 1 round each (2 before
+# phase 26 needed the room; at ResNet-56 and 2 rounds they took 22-29 s of
+# the smoke on the H100)
+TA_RUN = dict(SP_R20, federated_optimizer="TA", ta_group_num=4, comm_round=1)
+SEQ_RUN = dict(SP_R20, federated_optimizer="FedAvg_seq", worker_num=4, comm_round=1)
 # (g): the split models at the JAX package's widths (split_width 16,
-# gkt_width 8) on phase 7's CIFAR-10 surrogate, 16 clients, 2 rounds; the
+# gkt_width 8) on phase 7's CIFAR-10 surrogate, 16 clients, 1 round (2 before
+# phase 26); the
 # card-against-CPU gate on the first round of 2 clients cut to 256 images,
 # TF32 off: each step's loss within 1e-3 relative (Adam's steps turn f32
 # noise in a gradient near 0 into up to lr of a weight, tests/test_torch_sp_zoo.py)
-SPLIT_RUN = dict(RESNET, federated_optimizer="split_nn", comm_round=2)
-GKT_RUN = dict(RESNET, federated_optimizer="FedGKT", comm_round=2)
+SPLIT_RUN = dict(RESNET, federated_optimizer="split_nn", comm_round=1)
+GKT_RUN = dict(RESNET, federated_optimizer="FedGKT", comm_round=1)
 SPLIT_PARITY_IMAGES = 256
 SPLIT_LOSS_RTOL = 1e-3
 # (h): decentralized online logistic regression, 16 clients streaming 2,000
@@ -5174,9 +5212,11 @@ def fhe_sp() -> dict:
         runner.run()
         spans = _span_sums(since)
         hist = runner.runner.fl_trainer.metrics_history
-        check(len(probe.folds) == 2 and len(probe.decrypted) == 2 and len(probe.enc_ms) == 32,
+        n_rounds = int(FHE_SP["comm_round"])
+        check(len(probe.folds) == n_rounds and len(probe.decrypted) == n_rounds
+              and len(probe.enc_ms) == 16 * n_rounds,
               f"(b) {len(probe.folds)} folds, {len(probe.enc_ms)} encryptions")
-        rounds = [probe.check_fold(i, f"(b) round {i}", ctx.params) for i in range(2)]
+        rounds = [probe.check_fold(i, f"(b) round {i}", ctx.params) for i in range(n_rounds)]
         check(all(math.isfinite(m["test_loss"]) for m in hist), f"(b) {hist}")
         res = {"rounds": rounds, "round_s": [spans[r]["fedavg.round"] for r in sorted(spans)],
                "model": FHE_SP["model"], "encrypt_ms_client": sum(probe.enc_ms) / len(probe.enc_ms),
@@ -5192,7 +5232,7 @@ def fhe_sp() -> dict:
         _trust_reset()
         gc.collect()
         torch.cuda.empty_cache()
-    say(f"  (b) sp, rlwe, 16 clients x 2 rounds: {res}")
+    say(f"  (b) sp, rlwe, 16 clients x {FHE_SP['comm_round']} rounds: {res}")
     return res
 
 
@@ -5285,7 +5325,7 @@ def ta_run() -> dict:
         since = _last_span_seq()
         runner.run()
         spans = _span_sums(since)
-    check(len(rings) == 2, f"(e) {len(rings)} ring sums")
+    check(len(rings) == TA_RUN["comm_round"], f"(e) {len(rings)} ring sums")
     gaps = []
     for w_locals, partial, glob in rings:
         total = sum(n for n, _ in w_locals)
@@ -5397,7 +5437,7 @@ def _split_parity(opt: str) -> dict:
 
 
 def split_runs() -> dict:
-    """(g): split NN and FedGKT through FedMLRunner, 2 rounds on the card."""
+    """(g): split NN and FedGKT through FedMLRunner, 1 round on the card."""
     import math
 
     res = {}
@@ -5408,7 +5448,7 @@ def split_runs() -> dict:
         runner.run()
         wall = time.perf_counter() - t0
         hist = runner.runner.fl_trainer.metrics_history
-        check(len(hist) == 2 and all(math.isfinite(m["test_acc"]) for m in hist),
+        check(len(hist) == over["comm_round"] and all(math.isfinite(m["test_acc"]) for m in hist),
               f"(g) {opt}: {hist}")
         res[opt] = {"parity": gate, "s_a_round": wall / len(hist),
                     "test_acc": [m["test_acc"] for m in hist],
@@ -5514,10 +5554,11 @@ def fhe_sp_zoo_phase() -> dict:
 # -- phase 19: FedGAN, FedNAS, FedSeg and the rest of the model hub ----------------
 
 # (a) FedGAN on the MNIST surrogate (28x28x1, 12,000 images), 4 clients of
-# 3,000, all in every round, 2 rounds, Adam(2e-4, b1 0.5), batches of 64
+# 3,000, all in every round, 1 round (2 before phase 26 needed the
+# room), Adam(2e-4, b1 0.5), batches of 64
 GAN_RUN = dict(random_seed=0, dataset="mnist", data_cache_dir="", partition_method="homo",
                model="gan", federated_optimizer="FedGAN", client_num_in_total=4,
-               client_num_per_round=4, comm_round=2, epochs=1, batch_size=64,
+               client_num_per_round=4, comm_round=1, epochs=1, batch_size=64,
                learning_rate=2e-4, backend="sp")
 # (b) FedNAS on the CIFAR-10 surrogate: the DARTS supernet at the hub's
 # defaults (width 16, 3 cells of 3 steps), 1 round of NAS_CLIENTS of the
@@ -5680,7 +5721,8 @@ def gan_run() -> dict:
     run = _api_run(GAN_RUN, dataset, dim, DEV)
     hist = run["hist"]
     images = run["api"].generate(16)
-    check(len(hist) == 2 and all(math.isfinite(m[k]) for m in hist for k in ("d_loss", "g_loss"))
+    check(len(hist) == GAN_RUN["comm_round"]
+          and all(math.isfinite(m[k]) for m in hist for k in ("d_loss", "g_loss"))
           and images.shape == (16, 28, 28, 1) and abs(images).max() <= 1.0,
           f"(a) FedGAN: {hist}, images {images.shape}")
     res = {"parity_f64": par, "round_s": run["round_s"],
@@ -6299,8 +6341,9 @@ FRONT_ENDPOINTS = {
     "default": (1, {"FEDML_SERVE_MAX_BATCH": "1"}),
 }
 # the load on the flagship's 2 replicas: the endpoint bench's 4 closed-loop
-# clients, 64 requests, so that the p99 is a percentile of 64 latencies
-FRONT_LOAD = dict(clients=4, requests_per_client=16)
+# clients, 32 requests (64 before phase 26 needed the room; the
+# p99 is now a percentile of 32 latencies)
+FRONT_LOAD = dict(clients=4, requests_per_client=8)
 FRONT_MEM_FRACTION = "0.1"
 
 
@@ -6936,7 +6979,9 @@ def front_door_phase(libs) -> dict:
 # -- phase 23: the FedLLM silo under local DP, devperf, statusz and the SLO engine --------
 
 # Llama-2-7B's widths at 1 of its 32 layers (as phase 20 (c)), rank 8, seq T,
-# batch B; 2 silos x 2 rounds of ROUND_STEPS local steps. Most of the phase is
+# batch B; 2 silos x 2 rounds of ROUND_STEPS local steps (2 rounds: (c)
+# reads /statusz in the last round, after the SLO engine's first tick).
+# Most of the phase is
 # the trainer's final checkpoint of its whole model (1.9 GB) each silo round.
 FEDLLM = dict(LLAMA7B, n_layers=1)
 FEDLLM_ROUNDS = 2
@@ -8099,6 +8144,590 @@ def modelwatch_phase() -> dict:
     return out
 
 
+# -- phase 26: several processes: the hierarchical silo, Parrot MPI and NCCL ----
+
+# (a) BASELINE.md config 2's hierarchical variant: 2 silos of HIER_RANKS
+# processes each, their ranks joined over gloo on the one card (launched as
+# the reference's launcher launches them: tools/launch_silo.py), the parties
+# over MQTT_S3 through a SocketMqttBroker hosted here; ResNet-20 on the
+# CIFAR-10 surrogate (hetero 0.5 over the 2 silos: 45 and 49 steps of bs
+# 128 a round), 2 rounds. Two checks a round: every rank of a silo ends the
+# round with its rank 0's upload bit for bit (the ranks apply the same
+# summed gradient to the same weights: a slave that trained from stale
+# weights, or missed a step's all-reduce, ends elsewhere); and the upload
+# against the same silo's round trained by one rank, in this process, from
+# the global the silo's rank 0 received (relative L2 of the update, cuDNN
+# deterministic and TF32 off in every process). The 2-rank step sums two
+# half-batch gradients where the one-rank step takes one, an f32
+# difference the local round's 45-49 steps amplify: read 7.4e-4 to 3.4e-3
+# on the H100 (PERF.md). HIER_UPDATE_TOL is about 3x the worst; the
+# planted faults of `--hier-faults` read above it (PERF.md; the exact
+# checks of the DP round are the CPU tests' in float64,
+# tests/test_torch_multihost.py)
+HIER = dict(SILOS_R20, client_num_in_total=2, client_num_per_round=2, comm_round=2,
+            scenario="hierarchical")
+HIER_RANKS = 2
+HIER_TIMEOUT_S = 300
+HIER_UPDATE_TOL = 1e-2
+# (b) Parrot MPI: the threaded form (the server and 4 client threads over
+# INMEMORY) at ResNet-20, 4 clients x 2 rounds; then the form launched
+# externally, a server and 2 client processes over the MPI backend (GRPC
+# between processes), 1 round, against the threaded form of the same config
+# (cuDNN deterministic, TF32 off: equal metrics). The processes start as
+# soon as (a)'s have ended; (a)'s one-rank rounds and (b)'s threaded runs
+# go on here while they start up
+MPI_THREADS = dict(SP_R20, backend="MPI", client_num_in_total=4, client_num_per_round=4,
+                   comm_round=2)
+MPI_PROCS = dict(MPI_THREADS, client_num_in_total=2, client_num_per_round=2, comm_round=1)
+# (c) Parrot NCCL: phase 8's vmapped configuration (ResNet-56 x 16 clients)
+# cut to 1 round, cuDNN deterministic and TF32 off: one group on the visible
+# card bit-equal to backend vmap; NCCL_GROUPS groups on the same card, their
+# reduce within FOLD_TOL of the float64 sum of the groups' clients, and the
+# round's update within NCCL_UPDATE_TOL (relative L2) of vmap's. Read
+# 3.31e-7 on the H100 (PERF.md): each group's vmapped local rounds of 8
+# clients equal the 16-client ones, and only the fold's f32 order differs;
+# held to 1e-4, below the 1.5e-3 that f32 noise in the weights grows to
+# over a ResNet-56 local round (R56_UPDATE_TOL's note), far below a
+# weight normalised per group or a dropped group (1e-1 and more)
+NCCL_SIM = dict(RESNET, backend="NCCL", comm_round=1)
+NCCL_GROUPS = 2
+NCCL_UPDATE_TOL = 1e-4
+
+
+def _deterministic_flags():
+    import torch
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _recording_runner():
+    """Keep the FedMLRunner the one-line entry points build (they return the
+    metrics only): ``built["runner"]`` after the run."""
+    from fedml_tpu_torch import runner as runner_mod
+
+    built = {}
+    run = runner_mod.FedMLRunner.run
+
+    def recorded(self):
+        built["runner"], built["t_ready"] = self.runner, time.time()
+        return run(self)
+
+    runner_mod.FedMLRunner.run = recorded
+    return built
+
+
+def hier_party_main(spec_json: str) -> None:
+    """One process of phase 26 (a): the server, or one rank of a silo (its
+    rank and the silo's size from the launcher's environment), through
+    run_hierarchical_cross_silo_server / _client. A silo's rank 0 records
+    each round's global and upload, its other ranks each round's trained
+    params; every party prints one JSON line."""
+    import torch
+
+    spec = json.loads(spec_json)
+    _deterministic_flags()
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.core import telemetry as tel
+    from fedml_tpu_torch.cross_silo.client import fedml_client_master_manager as master
+    from fedml_tpu_torch.cross_silo.client import fedml_client_slave_manager as slave
+    from fedml_tpu_torch.parallel import multihost as mh
+
+    built = _recording_runner()
+    rec = {"globals": [], "uploads": [], "client_index": [], "trained": []}
+    send = master.ClientMasterManager.send_model_to_server
+    train = master.ClientMasterManager._ClientMasterManager__train
+
+    def recorded_train(self):
+        rec["globals"].append(_cpu(self.trainer_dist_adapter.get_model_params()))
+        rec["client_index"].append(int(self.client_index))
+        return train(self)
+
+    def recorded_send(self, receive_id, weights, n):
+        rec["uploads"].append(_cpu(weights))
+        return send(self, receive_id, weights, n)
+
+    slave_train = slave.ClientSlaveManager.train
+
+    def recorded_slave_train(self, meta):
+        slave_train(self, meta)
+        rec["trained"].append(_cpu(self.trainer_dist_adapter.get_model_params()))
+
+    master.ClientMasterManager._ClientMasterManager__train = recorded_train
+    master.ClientMasterManager.send_model_to_server = recorded_send
+    slave.ClientSlaveManager.train = recorded_slave_train
+    args = fedml.default_config("cross_silo", **spec["config"])
+    t0 = time.time()
+    if args.role == "server":
+        metrics = fedml.run_hierarchical_cross_silo_server(args)
+        w = built["runner"].server_manager.aggregator.get_global_model_params()
+        torch.save(_cpu(w), spec["params_out"])
+        out = {"role": "server", "metrics": metrics, "device": str(next(iter(w.values())).device),
+               "round_s": [r["dur_ns"] / 1e9 for r in tel.snapshot()["spans"]
+                           if r["name"] == "server.round"]}
+    else:
+        # join the silo's group first (the entry point's own call is then a
+        # no-op), to read what it chose before the run tears it down
+        mh.init_distributed(device=None if args.using_gpu else "cpu")
+        rank, ranks, backend = mh.process_index(), mh.process_count(), mh.backend()
+        fedml.run_hierarchical_cross_silo_client(args)
+        manager = built["runner"].client_manager
+        adapter = manager.trainer_dist_adapter
+        out = {"role": "client", "rank": rank, "ranks": ranks, "manager": type(manager).__name__,
+               "dp_width": adapter.dp_width, "backend": backend,
+               "device": str(adapter.trainer.trainer.model.device),
+               "stats": mh.collective_stats(),
+               "local_round_s": [r["dur_ns"] / 1e9 for r in tel.snapshot()["spans"]
+                                 if r["name"] == "client.train"]}
+        torch.save(rec, f"{spec['record_out']}_rank{rank}.pt")
+    out["t_imported"], out["t_ready"], out["t_end"] = t0, built["t_ready"], time.time()
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def _hier_federation(tmp: str, run_id: str) -> dict:
+    """Phase 26 (a)'s federation: the broker here, each silo's HIER_RANKS
+    processes first, then the server's; every process waited for under
+    HIER_TIMEOUT_S and killed past it."""
+    import torch
+
+    from fedml_tpu_torch.core.distributed.communication.mqtt_s3.socket_broker import SocketMqttBroker
+    from fedml_tpu_torch.tools.launch_silo import launch
+
+    os.makedirs(tmp, exist_ok=True)
+    broker = SocketMqttBroker(port=0)
+    parties, spawned = {}, {}
+    try:
+        for rank in (1, 2, 0):
+            spec = {"config": dict(HIER, run_id=run_id, rank=rank,
+                                   role="server" if rank == 0 else "client", backend="MQTT_S3",
+                                   mqtt_socket=broker.address, using_gpu=DEV == "cuda",
+                                   object_store_dir=os.path.join(tmp, "store")),
+                    "params_out": os.path.join(tmp, "global.pt"),
+                    "record_out": os.path.join(tmp, f"silo{rank}")}
+            code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                    f"chip_smoke.hier_party_main({json.dumps(spec)!r})")
+            spawned[rank] = time.time()
+            parties[rank] = launch([sys.executable, "-c", code], 1 if rank == 0 else HIER_RANKS,
+                                   cwd=ROOT, log_dir=os.path.join(tmp, f"party{rank}"))
+        deadline = time.monotonic() + HIER_TIMEOUT_S
+        rcs = {}
+        for rank, silo in parties.items():
+            try:
+                rcs[rank] = silo.wait(max(1.0, deadline - time.monotonic()))
+            except TimeoutError as e:
+                check(False, f"hierarchical party {rank}: {e}")
+        wall = time.time() - spawned[1]
+        reports = {}
+        for rank, codes in rcs.items():
+            for r, rc in enumerate(codes):
+                log_dir = os.path.join(tmp, f"party{rank}")
+                err = open(os.path.join(log_dir, f"rank{r}.err")).read()
+                check(rc == 0, f"hierarchical party {rank} rank {r} exited {rc}: {err[-3000:]}")
+                rep = json.loads(open(os.path.join(log_dir, f"rank{r}.out")).read()
+                                 .split("RESULT ")[-1])
+                rep["spawn_to_ready_s"] = rep["t_ready"] - spawned[rank]
+                reports[(rank, r)] = rep
+        accepted = broker.accepted
+    finally:
+        for silo in parties.values():
+            silo.kill()
+        broker.stop()
+    return {"reports": reports, "wall_s": wall, "accepted": accepted,
+            "global": torch.load(os.path.join(tmp, "global.pt")),
+            "records": {s: torch.load(os.path.join(tmp, f"silo{s}_rank0.pt")) for s in (1, 2)},
+            "replicas": {(s, r): torch.load(os.path.join(tmp, f"silo{s}_rank{r}.pt"))["trained"]
+                         for s in (1, 2) for r in range(1, HIER_RANKS)}}
+
+
+def _one_rank_rounds(records: dict) -> dict:
+    """Each silo's local round of each round trained by one rank, here: the
+    silo's trainer on its data index from the global its rank 0 received
+    (cuDNN deterministic, TF32 off, as in the silos' processes). Returns
+    the uploads and each round's seconds, the card waited for."""
+    import torch
+
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch.ml.trainer.trainer_creator import create_model_trainer
+
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for silo, rec in records.items():
+            args = fedml.init(fedml.default_config(
+                "cross_silo", **dict(HIER, rank=silo, role="client", using_gpu=DEV == "cuda")))
+            dev = fedml.get_device(args)
+            dataset, output_dim = fedml.data.load(args)
+            trainer = create_model_trainer(fedml.model.create(args, output_dim), args)
+            uploads, secs = [], []
+            for r, (glob, index) in enumerate(zip(rec["globals"], rec["client_index"])):
+                trainer.set_id(index)
+                trainer.set_model_params({k: v.to(dev) for k, v in glob.items()})
+                args.round_idx = r
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train(dataset[5][index], dev, args)
+                uploads.append(_cpu(trainer.get_model_params()))
+                secs.append(time.perf_counter() - t0)
+            out[silo] = {"uploads": uploads, "local_round_s": secs}
+    return out
+
+
+def hierarchical_federation(tmp: str) -> dict:
+    """Phase 26 (a), the federation with silos of HIER_RANKS processes
+    sharing the card over gloo, and its checks that need no reference."""
+    import torch
+
+    from fedml_tpu_torch.parallel.multihost import collective_backend
+
+    fed = _hier_federation(os.path.join(tmp, "fed"), "smoke_hier")
+    rounds = int(HIER["comm_round"])
+    check(fed["accepted"] == 3, f"the broker accepted {fed['accepted']} connections, not the "
+          "server's and one a silo")
+    server = fed["reports"][(0, 0)]
+    check(server["device"].startswith(DEV), f"the server's global on {server['device']}")
+    check(len(server["round_s"]) == rounds, f"server rounds {server['round_s']}")
+    for silo in (1, 2):
+        reps = [fed["reports"][(silo, r)] for r in range(HIER_RANKS)]
+        check([r["manager"] for r in reps] ==
+              ["ClientMasterManager"] + ["ClientSlaveManager"] * (HIER_RANKS - 1),
+              f"silo {silo}'s managers: {[r['manager'] for r in reps]}")
+        check(all(r["device"].startswith(DEV) for r in reps),
+              f"silo {silo}'s ranks on {[r['device'] for r in reps]}")
+        check(all(r["dp_width"] == HIER_RANKS for r in reps),
+              f"silo {silo}'s DP width {[r['dp_width'] for r in reps]}, not {HIER_RANKS}")
+        check(len(fed["records"][silo]["uploads"]) == rounds, f"silo {silo}'s uploads")
+    # every rank ends each round with its rank 0's upload, bit for bit
+    replica_diff = {}
+    for (silo, r), trained in fed["replicas"].items():
+        uploads = fed["records"][silo]["uploads"]
+        check(len(trained) == rounds, f"silo {silo} rank {r} trained {len(trained)} rounds")
+        for k, (w, up) in enumerate(zip(trained, uploads)):
+            replica_diff[f"silo{silo}_rank{r}_round{k}"] = max(
+                float((w[n].double() - up[n].double()).abs().max()) for n in up)
+    check(all(d == 0.0 for d in replica_diff.values()),
+          f"a silo's ranks ended a round apart from its rank 0's upload: {replica_diff}")
+    # what the collectives moved, per silo rank, per round
+    stats = {f"silo{s}_rank{r}": fed["reports"][(s, r)]["stats"]
+             for s in (1, 2) for r in range(HIER_RANKS)}
+    for name, st in stats.items():
+        check(set(st) >= {"broadcast_round_metadata", "broadcast_model_params", "dp_all_reduce"},
+              f"{name}'s collectives: {st}")
+    backend = collective_backend(HIER_RANKS, torch.device(DEV))
+    seen = {fed["reports"][(s, r)]["backend"] for s in (1, 2) for r in range(HIER_RANKS)}
+    check(seen == {backend}, f"the silos' ranks ran over {seen}, not {backend}")
+    fed.update(rounds=rounds, server=server, stats=stats, backend=backend,
+               replica_max_abs_diff=replica_diff)
+    return fed
+
+
+def hierarchical_vs_one_rank(fed: dict) -> dict:
+    """Phase 26 (a)'s reference: each silo's round trained by one rank in
+    this process from the same global, against every upload."""
+    rounds, server, stats = fed["rounds"], fed["server"], fed["stats"]
+    per_round = {op: {"calls": row["calls"] / rounds, "bytes": row["bytes"] / rounds}
+                 for op, row in stats["silo1_rank0"].items()}
+    one = _one_rank_rounds(fed["records"])
+    upload_err = {f"silo{s}_round{r}": _rel(fed["records"][s]["uploads"][r],
+                                            one[s]["uploads"][r], fed["records"][s]["globals"][r])
+                  for s in (1, 2) for r in range(rounds)}
+    worst = max(upload_err.values())
+    check(worst <= HIER_UPDATE_TOL, f"a {HIER_RANKS}-rank silo's upload {worst:.3g} (relative "
+          f"L2 of the update) from one rank's: {upload_err}")
+    res = {
+        "config": {k: HIER[k] for k in ("model", "client_num_per_round", "comm_round",
+                                        "batch_size")},
+        "ranks_a_silo": HIER_RANKS, "dp_backend": fed["backend"],
+        "round_s": server["round_s"], "wall_s": fed["wall_s"],
+        "local_round_s": {f"silo{s}": fed["reports"][(s, 0)]["local_round_s"] for s in (1, 2)},
+        "local_round_s_one_rank": {f"silo{s}": one[s]["local_round_s"] for s in (1, 2)},
+        "spawn_to_ready_s": {f"{k[0]}.{k[1]}": r["spawn_to_ready_s"]
+                             for k, r in fed["reports"].items()},
+        "test_acc": server["metrics"]["test_acc"],
+        "wan_connections": fed["accepted"],
+        "managers": {f"silo{s}": [fed["reports"][(s, r)]["manager"] for r in range(HIER_RANKS)]
+                     for s in (1, 2)},
+        "collectives_per_round_silo1_rank0": per_round,
+        "collectives_total": stats,
+        "explicit_host_staging_bytes": 0,
+        "replica_max_abs_diff_vs_upload": fed["replica_max_abs_diff"],
+        "upload_update_rel_l2_vs_one_rank": upload_err,
+        "upload_update_rel_l2_worst": worst, "upload_tol": HIER_UPDATE_TOL,
+    }
+    say(f"  (a) {HIER_RANKS} ranks a silo over {fed['backend']}, round s {res['round_s']}, local "
+        f"round s {res['local_round_s']} (one rank here {res['local_round_s_one_rank']}); per "
+        f"round on a rank: {per_round}; WAN connections {res['wan_connections']}; ranks from the "
+        f"upload {max(fed['replica_max_abs_diff'].values()):.3g}; upload vs one rank {worst:.3g} "
+        f"(tol {HIER_UPDATE_TOL})")
+    return res
+
+
+def mpi_rank_main(spec_json: str) -> None:
+    """One rank of phase 26 (b)'s externally launched Parrot-MPI run."""
+    spec = json.loads(spec_json)
+    _deterministic_flags()
+    import fedml_tpu_torch as fedml
+
+    args = fedml.default_config("simulation", **spec["config"])
+    t0 = time.time()
+    out = fedml.run_simulation(backend="MPI", args=args)
+    print("RESULT " + json.dumps({"metrics": out, "t_start": t0, "t_end": time.time()}),
+          flush=True)
+
+
+def mpi_processes_start(tmp: str) -> dict:
+    """Phase 26 (b)'s externally launched form: the client ranks, then the
+    server, each a process of its own."""
+    from fedml_tpu_torch.tools.launch_silo import launch
+
+    run_id = "smoke_mpi_procs"
+    n = int(MPI_PROCS["client_num_per_round"])
+    ports = _on_free_ports(run_id, "GRPC", n + 1)
+    ranks = {}
+    t0 = time.time()
+    try:
+        for rank in list(range(1, n + 1)) + [0]:
+            spec = {"config": dict(MPI_PROCS, **ports, run_id=run_id, rank=rank,
+                                   role="server" if rank == 0 else "client",
+                                   process_group_launched=True, using_gpu=DEV == "cuda")}
+            code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                    f"chip_smoke.mpi_rank_main({json.dumps(spec)!r})")
+            ranks[rank] = launch([sys.executable, "-c", code], 1, cwd=ROOT,
+                                 log_dir=os.path.join(tmp, f"rank{rank}"))
+    except BaseException:
+        for proc in ranks.values():
+            proc.kill()
+        raise
+    return {"ranks": ranks, "t0": t0, "tmp": tmp, "n": n}
+
+
+def mpi_threads() -> dict:
+    """Phase 26 (b)'s threaded form, then the threaded form of MPI_PROCS
+    (the processes' reference)."""
+    import math
+
+    import torch
+
+    from fedml_tpu_torch.core import telemetry as tel
+
+    since = _last_span_seq()
+    t0 = time.perf_counter()
+    _, _, model, runner = _fedavg_runner(MPI_THREADS, DEV == "cuda")
+    check(type(runner.runner).__name__ == "SimulatorMPI"
+          and not runner.runner.runner.launched_externally, "MPI did not build the threaded form")
+    metrics = runner.run()
+    wall = time.perf_counter() - t0
+    round_s = [r["dur_ns"] / 1e9 for r in tel.snapshot()["spans"]
+               if r["seq"] > since and r["name"] == "server.round"]
+    check(metrics["round"] == MPI_THREADS["comm_round"] - 1 and math.isfinite(metrics["test_loss"])
+          and len(round_s) == MPI_THREADS["comm_round"], f"MPI threads: {metrics}, {round_s}")
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        _, _, _, ref_runner = _fedavg_runner(dict(MPI_PROCS, run_id="smoke_mpi_ref"),
+                                             DEV == "cuda")
+        ref = ref_runner.run()
+    return {"threads": {"clients": MPI_THREADS["client_num_per_round"],
+                        "rounds": MPI_THREADS["comm_round"], "round_s": round_s, "wall_s": wall,
+                        "test_acc": metrics["test_acc"], "test_loss": metrics["test_loss"]},
+            "procs_reference": ref}
+
+
+def mpi_processes_finish(procs: dict, threads: dict) -> dict:
+    """Wait for phase 26 (b)'s processes under HIER_TIMEOUT_S (killed past
+    it); the server's metrics against the threaded form's."""
+    tmp, ranks, n = procs["tmp"], procs["ranks"], procs["n"]
+    try:
+        deadline = procs["t0"] + HIER_TIMEOUT_S
+        for rank, proc in ranks.items():
+            try:
+                rc = proc.wait(max(1.0, deadline - time.time()))
+            except TimeoutError as e:
+                check(False, f"MPI rank {rank}: {e}")
+            err = open(os.path.join(tmp, f"rank{rank}", "rank0.err")).read()
+            check(rc == [0], f"MPI rank {rank} exited {rc}: {err[-3000:]}")
+    finally:
+        for proc in ranks.values():
+            proc.kill()
+    wall = time.time() - procs["t0"]
+    ref = threads.pop("procs_reference")
+    got = json.loads(open(os.path.join(tmp, "rank0", "rank0.out")).read().split("RESULT ")[-1])
+    check(got["metrics"] == ref, f"MPI across processes {got['metrics']} != threaded {ref}")
+    res = dict(threads)
+    res["processes"] = {"processes": n + 1, "backend": "MPI (GRPC between processes)",
+                        "rounds": MPI_PROCS["comm_round"], "wall_s": wall,
+                        "server_s": got["t_end"] - got["t_start"], "metrics": got["metrics"],
+                        "metrics_equal_threaded": True}
+    say(f"  (b) MPI threads: round s {res['threads']['round_s']}; {n + 1} processes over GRPC: "
+        f"{res['processes']}")
+    return res
+
+
+def nccl_sim() -> dict:
+    """Phase 26 (c): Parrot NCCL on the visible card, one group and
+    NCCL_GROUPS groups, against backend vmap."""
+    import torch
+
+    from fedml_tpu_torch.simulation.collective import collective_sim
+
+    def run(over, devices=None, probe=None):
+        args, dataset, model, runner = _fedavg_runner(over, DEV == "cuda")
+        p0 = _cpu(model.params)
+        api = runner.runner.fl_trainer
+        if devices is not None:
+            api = collective_sim.CollectiveSimulator(args, model.device, dataset, model,
+                                                     devices=devices)
+        t0 = time.perf_counter()
+        metrics = api.train()
+        torch.cuda.synchronize()
+        return api, p0, metrics, _cpu(api.model.params), time.perf_counter() - t0
+
+    folds = []
+    fold = collective_sim.GroupReduceSink.fold
+
+    def recorded(self, round_idx, w_global, result):
+        out = fold(self, round_idx, w_global, result)
+        folds.append((result.stacked, _cpu(out)))
+        return out
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        _, p0, m_vmap, w_vmap, s_vmap = run(dict(NCCL_SIM, backend="vmap"))
+        api1, _, m_one, w_one, s_one = run(NCCL_SIM)
+        check(type(api1).__name__ == "CollectiveSimulator"
+              and [d.type for d in api1.devices] == [DEV], f"NCCL groups on {api1.devices}")
+        collective_sim.GroupReduceSink.fold = recorded
+        try:
+            api2, _, m_two, w_two, s_two = run(NCCL_SIM, devices=[f"{DEV}:0"] * NCCL_GROUPS)
+        finally:
+            collective_sim.GroupReduceSink.fold = fold
+    one_equal = m_one == m_vmap and all(torch.equal(w_one[k], w_vmap[k]) for k in w_vmap)
+    check(one_equal, "NCCL with one group is not the vmapped round bit for bit")
+    check(len(api2.devices) == NCCL_GROUPS and len(folds) == 1, "NCCL groups did not fold")
+    (groups, weights), got = folds[0]
+    ref = {k: sum(float(w[i]) * g[k][i].double().cpu() for g, w in groups
+                  for i in range(len(w))) for k in got}
+    fold_err = _of_scale(got, ref)
+    check(fold_err <= FOLD_TOL, f"the groups' reduce {fold_err:.3g} of scale from float64")
+    update_err = _rel(w_two, w_vmap, p0)
+    check(update_err <= NCCL_UPDATE_TOL, f"{NCCL_GROUPS} groups' update {update_err:.3g} from "
+          f"vmap's (tol {NCCL_UPDATE_TOL})")
+    res = {"config": {k: NCCL_SIM[k] for k in ("model", "client_num_per_round", "comm_round",
+                                               "batch_size")},
+           "one_group_bit_equal_vmap": one_equal, "groups": NCCL_GROUPS,
+           "groups_reduce_err_of_scale_vs_f64": fold_err,
+           "groups_update_rel_l2_vs_vmap": update_err, "groups_update_tol": NCCL_UPDATE_TOL,
+           "s_vmap": s_vmap, "s_one_group": s_one, "s_groups": s_two,
+           "test_acc": {"vmap": m_vmap["test_acc"], "one_group": m_one["test_acc"],
+                        "groups": m_two["test_acc"]},
+           "cross_card_transfer": "not measured: one visible card, every group on it"}
+    say(f"  (c) NCCL: one group bit-equal to vmap; {NCCL_GROUPS} groups' update "
+        f"{update_err:.3g} from vmap's, reduce {fold_err:.3g} of scale; s vmap {s_vmap:.3f}, "
+        f"one group {s_one:.3f}, {NCCL_GROUPS} groups {s_two:.3f}")
+    return res
+
+
+def multiprocess_phase() -> dict:
+    """Phase 26: (a) the hierarchical silo, (b) Parrot MPI, (c) Parrot NCCL.
+    (b)'s processes start when (a)'s have ended, while this process trains
+    (a)'s one-rank reference and runs (b)'s threaded forms."""
+    tmp = os.path.join(ROOT, ".smoke_run", "multiprocess")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out, procs = {}, None
+    try:
+        t0 = time.time()
+        fed = hierarchical_federation(os.path.join(tmp, "hier"))
+        t1 = time.time()
+        procs = mpi_processes_start(os.path.join(tmp, "mpi"))
+        out["hierarchical"] = hierarchical_vs_one_rank(fed)
+        t2 = time.time()
+        threads = mpi_threads()
+        out["mpi"] = mpi_processes_finish(procs, threads)
+        procs = None
+        t3 = time.time()
+        out["a_s"], out["b_s"] = t2 - t0, t3 - t2
+        out["a_federation_s"], out["b_overlapped_s"] = t1 - t0, t2 - t1
+        out["nccl"] = nccl_sim()
+        out["c_s"] = time.time() - t3
+    finally:
+        if procs is not None:
+            for proc in procs["ranks"].values():
+                proc.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# phase 26 (a)'s checks against planted faults, patched into the silos'
+# rank processes as they start (the port's code is unchanged): a slave
+# that keeps its own weights over the params broadcast, and ranks that
+# skip the gradient all-reduce
+HIER_FAULTS = {
+    "stale_slave": (
+        "from fedml_tpu_torch.cross_silo.client import fedml_client_slave_manager as _sm\n"
+        "_bcast = _sm.broadcast_model_params\n"
+        "def _stale(params, **kw):\n"
+        "    _bcast(params, **kw)\n"
+        "    return params\n"
+        "_sm.broadcast_model_params = _stale\n"),
+    "no_all_reduce": (
+        "from fedml_tpu_torch.parallel import dp as _dp\n"
+        "_dp.DataParallelGroup.all_reduce_grads_ = lambda self, params, loss: loss\n"),
+}
+
+
+def hier_faults() -> int:
+    """``python3 chip_smoke.py --hier-faults``: what phase 26 (a)'s checks
+    read on a sound federation and under each of HIER_FAULTS, in one call
+    on one card: the ranks' distance from their upload, each upload's from
+    the one-rank round, and the checks that failed. Prints one
+    ``hier_faults`` JSON line and the card line; exits 0 when the sound run
+    passes every check and each fault fails at least one."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this measurement needs one CUDA card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from fedml_tpu_torch.tools import launch_silo
+
+    global check
+    card = card_line()
+    launch, strict = launch_silo.launch, check
+    report = {}
+    try:
+        for name, prelude in [("sound", "")] + list(HIER_FAULTS.items()):
+            failed = []
+
+            def planted(cmd, nproc, _prelude=prelude, **kw):
+                return launch(list(cmd[:-1]) + [_prelude + cmd[-1]], nproc, **kw)
+
+            def check(cond, what, _failed=failed):  # noqa: F811 - recorded, not raised
+                if not cond:
+                    _failed.append(str(what)[:300])
+
+            launch_silo.launch = planted
+            t0 = time.time()
+            row = {}
+            try:
+                fed = hierarchical_federation(os.path.join(ROOT, ".smoke_run", "faults", name))
+                res = hierarchical_vs_one_rank(fed)
+                row = {"replica_max_abs_diff": fed["replica_max_abs_diff"],
+                       "upload_rel_l2": res["upload_update_rel_l2_vs_one_rank"],
+                       "upload_tol": HIER_UPDATE_TOL}
+            except Exception as e:  # noqa: BLE001 - a fault may break the run itself
+                failed.append(f"raised {e!r}"[:300])
+            report[name] = dict(row, failed_checks=failed, s=time.time() - t0)
+    finally:
+        launch_silo.launch, check = launch, strict
+        shutil.rmtree(os.path.join(ROOT, ".smoke_run", "faults"), ignore_errors=True)
+    print(json.dumps({"hier_faults": {"card": card, **report}}), flush=True)
+    print(card, flush=True)
+    ok = not report["sound"]["failed_checks"] and all(report[n]["failed_checks"]
+                                                        for n in HIER_FAULTS)
+    return 0 if ok else 1
+
+
 def modelwatch_ab() -> int:
     """``python3 chip_smoke.py --modelwatch-ab``: what the default-on
     statistics cost the sp and cross-silo fronts. Phases 7 and 10, as the
@@ -8555,7 +9184,28 @@ def main() -> int:
                           "flash_bwd_dkv": TINY["n_layers"]},
           f"the modelwatch phase's flash launches: {mw_launches}")
 
-    say("== 26. result")
+    say(f"== 26. several processes on the card: the hierarchical silo ({HIER_RANKS} ranks a silo "
+        "over gloo, ResNet-20 x 2 silos, through run_hierarchical_cross_silo_*), Parrot MPI "
+        "(threads, then processes over GRPC) and Parrot NCCL (ResNet-56 x 16, 1 and "
+        f"{NCCL_GROUPS} groups)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa.reset_launch_counts()
+    by_design0 = {name: libs.design_launches(name) for name in KERNELS}
+    t0 = time.time()
+    multiprocess = multiprocess_phase()
+    mp26_launches = dict(fa.launch_counts)
+    multiprocess["phase_s"] = time.time() - t0
+    say(f"  phase {multiprocess['phase_s']:.1f}s ((a) {multiprocess['a_s']:.1f}s, (b) "
+        f"{multiprocess['b_s']:.1f}s, (c) {multiprocess['c_s']:.1f}s); flash launches in this "
+        f"process: {mp26_launches}")
+    # ResNet training, the collectives and the folds run no attention (the
+    # party processes import the same code and run no attention either)
+    check(all(n == 0 for n in mp26_launches.values())
+          and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
+          f"the multi-process phase launched flash kernels: {mp26_launches}")
+
+    say("== 27. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -8626,6 +9276,8 @@ def main() -> int:
                      default=str), flush=True)
     print(json.dumps({"modelwatch": {"card": card, "flash_launches": mw_launches,
                                      **modelwatch}}, default=str), flush=True)
+    print(json.dumps({"multiprocess": {"card": card, "flash_launches": mp26_launches,
+                                       **multiprocess}}, default=str), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -8636,7 +9288,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(modelwatch_ab() if sys.argv[1:] == ["--modelwatch-ab"] else main())
+        modes = {"--modelwatch-ab": modelwatch_ab, "--hier-faults": hier_faults}
+        sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -32,7 +32,13 @@ payloads in one shared content-addressed ``cas_root``), "TRPC" (raw TCP
 frames from ``trpc_base_port``) or "GRPC"/"MPI" (from ``grpc_base_port``;
 ``grpc_wire="fedml"`` for the reference's wire; needs ``grpc``);
 ``run_cross_silo_server(args)`` and ``run_cross_silo_client(args)`` are the
-one-liners.
+one-liners. A silo of several processes (``scenario: hierarchical``, the
+reference's intra-silo DDP) runs ``run_hierarchical_cross_silo_client`` in
+each of its processes, launched with ``FEDML_COORDINATOR_ADDRESS``,
+``FEDML_NUM_PROCESSES`` and ``FEDML_PROCESS_ID`` (or ``coordinator_address``,
+``num_processes``, ``process_id``): rank 0 talks to the server, every rank
+trains its share of each batch (``parallel/``). ``backend="MPI"`` and
+``"NCCL"`` run the reference's other two simulators (``simulation/``).
 
 ``init`` configures the trust middleware from the config, as the JAX
 package's does: DP (``enable_dp``), attacks (``enable_attack``), defenses
@@ -86,8 +92,10 @@ def init(args: Optional[Any] = None, override: Optional[Dict[str, Any]] = None) 
     torch) and configure the trust middleware's singletons (attacker,
     defender, DP, FHE) from ``args``, as the JAX package's ``init`` does
     (``__init__.py:88-96``); FHE's ring products run on ``get_device(args)``.
-    mlops and multi-process runs are not ported: asking for either raises
-    NotImplementedError (ROADMAP.md, Queue 1)."""
+    First it joins this process to its silo's process group where the
+    config or the environment names one (``parallel/multihost.py``
+    ``init_distributed``; a no-op for one process). mlops is not ported:
+    asking for it raises NotImplementedError (ROADMAP.md, Queue 1)."""
     from .core.dp.fedml_differential_privacy import FedMLDifferentialPrivacy
     from .core.fhe.fhe_agg import FedMLFHE
     from .core.security.fedml_attacker import FedMLAttacker
@@ -98,12 +106,18 @@ def init(args: Optional[Any] = None, override: Optional[Dict[str, Any]] = None) 
     elif override:
         for k, v in override.items():
             setattr(args, k, v)
-    on = ["using_mlops"] if getattr(args, "using_mlops", False) else []
-    if int(getattr(args, "num_processes", 0) or 0) > 1:
-        on.append("num_processes > 1")
-    if on:
+    if getattr(args, "using_mlops", False):
         raise NotImplementedError(
-            f"{', '.join(on)}: not ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+            "using_mlops: not ported to fedml_tpu_torch yet (see ROADMAP.md, Queue 1)")
+    from .parallel.multihost import init_distributed
+
+    pid = getattr(args, "process_id", None)
+    init_distributed(
+        coordinator_address=getattr(args, "coordinator_address", None),
+        num_processes=int(getattr(args, "num_processes", 0) or 0) or None,
+        process_id=int(pid) if pid is not None else None,
+        device=None if getattr(args, "using_gpu", True) else "cpu",
+    )
     logging.basicConfig(
         level=logging.INFO,
         format="[fedml_tpu_torch] %(asctime)s %(levelname)s %(name)s: %(message)s")
@@ -150,6 +164,21 @@ def run_cross_silo_client(args: Optional[Any] = None):
     return _run_cross_silo("client", args)
 
 
+def run_hierarchical_cross_silo_server(args: Optional[Any] = None):
+    """Reference: launch_cross_silo_hi.py — the same managers, the
+    hierarchical scenario."""
+    if args is not None:
+        args.scenario = "hierarchical"
+    return _run_cross_silo("server", args)
+
+
+def run_hierarchical_cross_silo_client(args: Optional[Any] = None):
+    """One process of a hierarchical silo (see the package docstring)."""
+    if args is not None:
+        args.scenario = "hierarchical"
+    return _run_cross_silo("client", args)
+
+
 __all__ = [
     "Arguments",
     "FedMLRunner",
@@ -164,5 +193,7 @@ __all__ = [
     "resolve_device",
     "run_cross_silo_client",
     "run_cross_silo_server",
+    "run_hierarchical_cross_silo_client",
+    "run_hierarchical_cross_silo_server",
     "run_simulation",
 ]

@@ -40,6 +40,8 @@ class SocketMqttBroker:
         self._wills: Dict[socket.socket, Tuple[str, bytes]] = {}
         self._backlog: Dict[str, List[bytes]] = defaultdict(list)
         self._conns: Set[socket.socket] = set()
+        # every connection ever accepted: one a party that opened the WAN
+        self.accepted = 0
         self._stop = threading.Event()
         self._accept_thread = threading.Thread(target=self._accept_loop, daemon=True)
         self._accept_thread.start()
@@ -58,6 +60,7 @@ class SocketMqttBroker:
                 return
             with self._lock:
                 self._conns.add(conn)
+                self.accepted += 1
             threading.Thread(target=self._serve, args=(conn,), daemon=True).start()
 
     def _serve(self, conn: socket.socket) -> None:

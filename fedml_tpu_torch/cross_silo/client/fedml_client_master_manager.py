@@ -47,8 +47,14 @@ The link layer (JAX ``:78``, ``:164-182``, ``:364-369``): the client echoes
 each ``MSG_TYPE_LINK_PROBE`` straight back (its timestamp, sequence and an
 equal-size pad), so the server's prober measures a symmetric round trip on
 its own clock, and every telemetry delta carries this process's netlink
-pair snapshot (``delta["link"]``). ``init`` refuses ``num_processes > 1``,
-so a silo is one process and there are no slave processes to synchronise.
+pair snapshot (``delta["link"]``).
+
+A silo may be several processes (``parallel/multihost.py``): this manager
+runs on rank 0 only, the silo's one WAN talker. Before each local round it
+broadcasts the round's metadata and then the global params to the other
+ranks (``ClientSlaveManager``), which train the round with it; on both
+finish branches it broadcasts ``{"finished": True}`` to release them (JAX
+``:146-160``, ``:374-385``).
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from ...core.fhe.fhe_agg import refuse_fhe_front
 from ...core.privacy import (QuantSpec, WindowMember, clip_to_reference, masked_uplink_payload,
                              outbound_delta, privacy_from_args)
 from ...core.telemetry import netlink, trace_context
+from ...parallel.multihost import broadcast_model_params, broadcast_round_metadata, process_count
 from ...utils.compression import make_comm_compressor, secagg_support
 from ..message_define import MyMessage
 
@@ -200,12 +207,20 @@ class ClientMasterManager(FedMLCommManager):
             # fires against a reference server — without it the pair would
             # train forever.
             self.args.round_idx += 1
+            self._release_slaves()
             self.send_client_status(0, MyMessage.MSG_CLIENT_STATUS_FINISHED)
             self.finish()
 
     def handle_message_finish(self, msg_params: Message) -> None:
         log.info("====== training finished ======")
+        self._release_slaves()
         self.finish()
+
+    def _release_slaves(self) -> None:
+        """The silo's other ranks block for the next round's metadata: tell
+        them the federation is over."""
+        if process_count() > 1:
+            broadcast_round_metadata({"finished": True})
 
     def handle_message_link_probe(self, msg_params: Message) -> None:
         """Echo a link probe: bounce the originator's opaque timestamp and an
@@ -387,6 +402,16 @@ class ClientMasterManager(FedMLCommManager):
 
     def __train(self) -> None:
         log.info("====== training on round %d ======", self.args.round_idx)
+        if process_count() > 1:
+            # the silo's other ranks run this round's collectives with this
+            # one: they get its metadata, then the global params (they have
+            # no WAN connection; this broadcast is their only model source)
+            broadcast_round_metadata({
+                "model_version": int(self.args.round_idx),
+                "client_index": int(getattr(self, "client_index", self.rank)),
+                "finished": False,
+            })
+            broadcast_model_params(self.trainer_dist_adapter.get_model_params(), is_source=True)
         # the client.train span and the chaos knobs live in the engine's
         # shared local-round scaffolding
         weights, local_sample_num = run_local_round(

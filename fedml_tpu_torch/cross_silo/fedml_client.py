@@ -1,21 +1,27 @@
 """Cross-silo client entry: the counterpart of
 ``fedml_tpu/cross_silo/fedml_client.py`` (reference cross_silo/fedml_client.py:5).
 
-A silo is one process on one device here: ``init`` refuses
-``num_processes > 1``, so the JAX package's multi-host silo (slave processes
-fed over a device broadcast, ``ClientSlaveManager``) is not ported
-(ROADMAP.md, Queue 1)."""
+A silo may be several processes: ``parallel/multihost.init_distributed``
+joins them into one process group (``fedml_tpu_torch.init`` already did;
+this call is the idempotent safety net for direct construction). Exactly
+one, rank 0, builds the WAN-talking ``ClientMasterManager``; every other
+rank builds a ``ClientSlaveManager``, which receives each round's metadata
+and params over the group and trains the same round (reference rank-0
+gating, fedml_client_master_manager.py:67-70)."""
 
 from __future__ import annotations
 
 from typing import Any
 
+from ..parallel.multihost import init_distributed, is_main_process, shutdown_distributed
 from .client.fedml_client_master_manager import ClientMasterManager
+from .client.fedml_client_slave_manager import ClientSlaveManager
 from .client.fedml_trainer_dist_adapter import TrainerDistAdapter
 
 
 class FedMLCrossSiloClient:
     def __init__(self, args: Any, device, dataset, model, model_trainer=None):
+        init_distributed(device=device)
         [
             train_data_num,
             test_data_num,
@@ -40,12 +46,19 @@ class FedMLCrossSiloClient:
             test_data_local_dict,
             model_trainer,
         )
-        self.client_manager = ClientMasterManager(
-            args, trainer_dist_adapter, rank=client_rank, size=size, backend=backend
-        )
+        if is_main_process():
+            self.client_manager = ClientMasterManager(
+                args, trainer_dist_adapter, rank=client_rank, size=size, backend=backend
+            )
+        else:
+            # slave ranks never open a WAN connection
+            self.client_manager = ClientSlaveManager(args, trainer_dist_adapter)
 
     def run(self) -> None:
         self.client_manager.run()
+        # the silo's ranks leave their group together once the last
+        # broadcast (finished) is through
+        shutdown_distributed()
 
 
 Client = FedMLCrossSiloClient

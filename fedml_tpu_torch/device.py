@@ -28,10 +28,16 @@ def resolve_device(device: Any = "cuda") -> torch.device:
 
 def get_device(args: Optional[Any] = None) -> torch.device:
     """The compute device for this process: ``cuda:<gpu_id>`` unless
-    ``args.using_gpu`` is false, in which case the CPU."""
+    ``args.using_gpu`` is false, in which case the CPU; a rank of a silo's
+    process group computes on its own device (``parallel/multihost.py``:
+    ``cuda:(rank % device_count)``)."""
     using_gpu = bool(getattr(args, "using_gpu", True)) if args is not None else True
     if not using_gpu:
         return torch.device("cpu")
+    from .parallel import multihost
+
+    if multihost.is_initialized():
+        return multihost.process_device()
     gpu_id = int(getattr(args, "gpu_id", 0) or 0) if args is not None else 0
     dev = resolve_device(f"cuda:{gpu_id % max(1, torch.cuda.device_count())}")
     log.info("device = %s", dev)

@@ -52,6 +52,11 @@ def masked_loss(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> to
     [B, T] row is the mean over its tokens), or the mean sigmoid
     cross-entropy over multi-hot [B, C] float labels; the sum over valid rows
     divided by max(valid rows, 1)."""
+    return (row_losses(logits, y) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def row_losses(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The per-example losses :func:`masked_loss` weighs by the mask."""
     if y.dtype in _INT_LABELS:
         if y.ndim != logits.ndim - 1:
             raise ValueError(f"label shape {tuple(y.shape)} vs logits {tuple(logits.shape)}")
@@ -63,7 +68,7 @@ def masked_loss(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor) -> to
     else:  # multi-label
         losses = F.binary_cross_entropy_with_logits(logits, y.to(logits.dtype),
                                                     reduction="none").mean(dim=-1)
-    return (losses * mask).sum() / mask.sum().clamp_min(1.0)
+    return losses
 
 
 def make_eval_fn(model: FedModel) -> Callable:
@@ -152,7 +157,7 @@ class LocalTrainResult(NamedTuple):
 
 def make_local_train_fn(model: FedModel, args: Any, *, grad_transform: Optional[Callable] = None):
     """Build the whole-local-round function
-    ``local_train(x_all, y_all, idx, mask, rng, extras)``: trains
+    ``local_train(x_all, y_all, idx, mask, rng, extras, *, dp=None)``: trains
     ``model.module`` in place from the parameters it holds, over the steps
     ``idx``/``mask`` ([E, nb, B] numpy arrays) give, with a fresh optimizer.
 
@@ -161,27 +166,44 @@ def make_local_train_fn(model: FedModel, args: Any, *, grad_transform: Optional[
     FedProx's proximal term ``0.5 * mu * ||w - w_global||^2`` joins the loss
     when ``args.fedprox_mu`` > 0. ``rng`` is the ``torch.Generator`` dropout
     draws from.
+
+    ``dp`` (a ``parallel.dp.DataParallelGroup``) splits every batch over the
+    silo's ranks (``parallel/dp.py`` states the rule): this rank's share of
+    the batch, its masked loss over the whole batch's count, the proximal
+    term on the group's rank 0 only, then one all-reduce a step of the
+    gradients and the loss before the gradient transform and the
+    optimizer's step, which every rank takes alike.
     """
     loss_fn = make_client_loss_fn(model, args)
     mu = float(getattr(args, "fedprox_mu", 0.0) or 0.0)
     module = model.module
 
-    def local_train(x_all, y_all, idx, mask, rng, extras=None) -> LocalTrainResult:
+    def local_train(x_all, y_all, idx, mask, rng, extras=None, *, dp=None) -> LocalTrainResult:
         params = dict(module.named_parameters())
         dev = next(iter(params.values())).device
         global_params = tree_clone(params) if mu > 0.0 or grad_transform is not None else None
         opt = create_client_optimizer(args, list(params.values()))
         e, nb, b = idx.shape
         steps = e * nb
-        flat_idx = torch.from_numpy(np.ascontiguousarray(idx.reshape(steps, b))).to(dev).long()
-        flat_mask = torch.from_numpy(np.ascontiguousarray(mask.reshape(steps, b))).to(dev)
+        idx, mask = idx.reshape(steps, b), mask.reshape(steps, b)
+        count, prox_params = None, global_params
+        if dp is not None:
+            # the whole batch's count, from the host mask every rank holds
+            count = torch.from_numpy(np.maximum(mask.sum(axis=1, dtype=np.float32), 1.0)).to(dev)
+            idx, mask = idx[:, dp.batch_slice(b)], mask[:, dp.batch_slice(b)]
+            prox_params = global_params if dp.rank == 0 else None
+        flat_idx = torch.from_numpy(np.ascontiguousarray(idx)).to(dev).long()
+        flat_mask = torch.from_numpy(np.ascontiguousarray(mask)).to(dev)
         losses = torch.empty(steps, device=dev)
         for s in range(steps):
             bx = x_all.index_select(0, flat_idx[s])
             by = y_all.index_select(0, flat_idx[s])
-            loss = loss_fn(None, bx, by, flat_mask[s], global_params, rng)
+            loss = loss_fn(None, bx, by, flat_mask[s], prox_params, rng,
+                           None if count is None else count[s])
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            if dp is not None:
+                loss = dp.all_reduce_grads_(params, loss)
             if grad_transform is not None:
                 grads = {k: p.grad for k, p in params.items()}
                 current = {k: p.detach() for k, p in params.items()}
@@ -196,25 +218,31 @@ def make_local_train_fn(model: FedModel, args: Any, *, grad_transform: Optional[
 
 
 def make_client_loss_fn(model: FedModel, args: Any) -> Callable:
-    """``loss(params, x, y, mask, global_params, rng=None)``: one client's
+    """``loss(params, x, y, mask, global_params, rng=None, count=None)``: one client's
     masked loss in training mode, plus FedProx's ``0.5 * mu * ||params -
     global_params||^2`` when ``args.fedprox_mu`` > 0. ``params`` None runs
     the module's own parameters (the eager loop: autograd fills their
     ``.grad``); a state dict runs through ``torch.func.functional_call``
     (the client-batched round). Dropout draws from ``rng``, or with None
     from the default generator of the data's device (inside
-    ``torch.func.vmap`` only that one is allowed)."""
+    ``torch.func.vmap`` only that one is allowed). ``count`` divides the
+    masked sum in place of ``max(mask.sum(), 1)`` (a data-parallel rank's
+    shard of a batch, over the whole batch's count); the proximal term is
+    added only where ``global_params`` is given."""
     module = model.module
     mu = float(getattr(args, "fedprox_mu", 0.0) or 0.0)
 
-    def loss(params, x, y, mask, global_params, rng=None):
+    def loss(params, x, y, mask, global_params, rng=None, count=None):
         kwargs = {"train": True, "rng": rng}
         if params is None:
             logits = module(x, **kwargs)
         else:
             logits = torch.func.functional_call(module, params, (x,), kwargs)
-        out = masked_loss(logits, y, mask)
-        if mu > 0.0:
+        if count is None:
+            out = masked_loss(logits, y, mask)
+        else:
+            out = (row_losses(logits, y) * mask).sum() / count
+        if mu > 0.0 and global_params is not None:
             own = dict(module.named_parameters()) if params is None else params
             prox = sum(torch.sum(torch.square(p - global_params[k])) for k, p in own.items())
             out = out + 0.5 * mu * prox

@@ -1,23 +1,24 @@
 """Runner dispatch: counterpart of ``fedml_tpu/runner.py`` (reference
-``python/fedml/runner.py:19``). The port runs the ``sp`` and ``vmap``
-simulations and the cross-silo front (``training_type: cross_silo``,
-dispatched by ``role``), with its round-barrier secure-aggregation fronts
-(``secure_aggregation``: SecAgg and LightSecAgg, over INMEMORY); the other
-simulation backends (NCCL, MPI), cross-cloud, cross-device and placement
-plans raise NotImplementedError (ROADMAP.md, Queue 1)."""
+``python/fedml/runner.py:19``). The port runs the ``sp``, ``vmap``,
+``NCCL`` and ``MPI`` simulations and the cross-silo front (``training_type:
+cross_silo``, dispatched by ``role``), with its round-barrier
+secure-aggregation fronts (``secure_aggregation``: SecAgg and LightSecAgg,
+over INMEMORY); cross-cloud, cross-device and placement plans raise
+NotImplementedError (ROADMAP.md, Queue 1)."""
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
-from .constants import (COMM_BACKEND_INMEMORY, FEDML_SIMULATION_TYPE_SP, FEDML_SIMULATION_TYPE_VMAP,
+from .constants import (COMM_BACKEND_INMEMORY, FEDML_SIMULATION_TYPE_MPI, FEDML_SIMULATION_TYPE_NCCL,
+                        FEDML_SIMULATION_TYPE_SP, FEDML_SIMULATION_TYPE_VMAP,
                         FEDML_TRAINING_PLATFORM_CROSS_SILO, FEDML_TRAINING_PLATFORM_SIMULATION)
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to fedml_tpu_torch yet; the port runs the sp and vmap "
-        "simulations and cross-silo FedAvg (see ROADMAP.md, Queue 1)")
+        "NCCL and MPI simulations and cross-silo FedAvg (see ROADMAP.md, Queue 1)")
 
 
 class FedMLRunner:
@@ -49,6 +50,12 @@ class FedMLRunner:
             from .simulation.simulator import SimulatorSingleProcess as Simulator
         elif backend == FEDML_SIMULATION_TYPE_VMAP:
             from .simulation.simulator import SimulatorVmap as Simulator
+        elif backend == FEDML_SIMULATION_TYPE_NCCL:
+            # the cohort in client groups over the devices; the groups' partial
+            # sums reduced onto the first (the reference's broadcast + reduce)
+            from .simulation.simulator import SimulatorCollective as Simulator
+        elif backend == FEDML_SIMULATION_TYPE_MPI:
+            from .simulation.simulator import SimulatorMPI as Simulator
         else:
             raise _not_ported(f"simulation backend {backend!r}")
         return Simulator(args, device, dataset, model, client_trainer, server_aggregator)

@@ -6,8 +6,11 @@ FedOpt, FedNova, SCAFFOLD, FedDyn, Mime), the hierarchical trainer
 (``HierarchicalFL``), async FedAvg (``Async_FedAvg``), FedAvg_seq,
 TurboAggregate (``TA``), split NN (``split_nn``), FedGKT, FedGAN, FedNAS
 and FedSeg; ``SimulatorVmap`` the client-batched simulator (backend
-``vmap``) and, with ``async_rounds``, its event-driven async driver. The
-collective and MPI simulators are not ported yet (ROADMAP.md, Queue 1);
+``vmap``) and, with ``async_rounds``, its event-driven async driver;
+``SimulatorCollective`` the Parrot-NCCL simulator (backend ``NCCL``: the
+vmapped round in client groups over devices, ``collective/``) and
+``SimulatorMPI`` Parrot-MPI (backend ``MPI``: the cross-silo managers as
+threads over INMEMORY, or one rank a process, ``mpi_sim.py``);
 decentralized and vertical FL are library APIs (``sp/decentralized.py``,
 ``sp/classical_vertical_fl.py``), outside this dispatch as in the JAX
 package. Per-pixel labels reach only FedSeg: any other optimizer refuses
@@ -89,3 +92,35 @@ class SimulatorVmap:
 
     def run(self):
         return self.fl_trainer.train()
+
+
+class SimulatorCollective:
+    """Parrot-NCCL: the cohort in client groups over the devices
+    (``simulation/collective/collective_sim.py``)."""
+
+    def __init__(self, args: Any, device: Any, dataset, model, client_trainer=None,
+                 server_aggregator=None):
+        from ..core.fhe.fhe_agg import refuse_fhe_front
+        from .collective import CollectiveSimulator
+
+        refuse_fhe_front(args, "vmap")
+        self.fl_trainer = CollectiveSimulator(args, device, dataset, model)
+
+    def run(self):
+        return self.fl_trainer.train()
+
+
+class SimulatorMPI:
+    """Parrot-MPI over the message plane (reference simulation/simulator.py:70):
+    rank 0 runs the server manager, every other rank a client manager, as
+    threads over INMEMORY or one rank a process (``mpi_sim.py``)."""
+
+    def __init__(self, args: Any, device: Any, dataset, model, client_trainer=None,
+                 server_aggregator=None):
+        from .mpi_sim import FedMLDistributedRunner
+
+        self.runner = FedMLDistributedRunner(args, device, dataset, model, client_trainer,
+                                             server_aggregator)
+
+    def run(self):
+        return self.runner.run()

@@ -93,24 +93,28 @@ class VmapFedAvgAPI:
         self._vmapped_train = make_vmapped_local_train_fn(model, args)
 
     # --- data staging -----------------------------------------------------
-    def _stack_clients(self, client_indexes: List[int]):
+    def _stack_clients(self, client_indexes: List[int], first: int = 0, nb_max: int = 0,
+                       device=None):
         """The cohort's shards padded to a common N and stacked, with their
         index and mask arrays padded to a common batch count, on the device:
         ``x [K, N, ...]``, ``y [K, N, ...]``, ``idx`` (int32) and ``mask``
-        (f32) ``[K, E, nb, B]``."""
+        (f32) ``[K, E, nb, B]``. A slice of a cohort (the collective
+        simulator's groups) passes its position in the cohort, ``first`` (the
+        shuffle seeds follow it), the whole cohort's batch count ``nb_max``
+        and its group's ``device``."""
         shards = [self.train_data_local_dict[i] for i in client_indexes]
         n_max = max(len(s) for s in shards)
         bs = int(getattr(self.args, "batch_size", 32))
         epochs = int(getattr(self.args, "epochs", 1))
-        seed = int(getattr(self.args, "random_seed", 0))
+        seed = int(getattr(self.args, "random_seed", 0)) + int(first)
         # over each shard's real n: padded rows are never drawn
         arrays = [epoch_index_array(len(s), bs, epochs, seed + k) for k, s in enumerate(shards)]
-        nb_max = max(idx.shape[1] for idx, _ in arrays)
+        nb_max = max([nb_max] + [idx.shape[1] for idx, _ in arrays])
         xs = [_pad(s.x, n_max) for s in shards]
         ys = [_pad(s.y, n_max) for s in shards]
         idxs = [_pad(idx, nb_max, axis=1) for idx, _ in arrays]
         masks = [_pad(mask, nb_max, axis=1) for _, mask in arrays]
-        dev = self.model.device
+        dev = self.model.device if device is None else device
         return tuple(torch.from_numpy(np.stack(a)).to(dev) for a in (xs, ys, idxs, masks))
 
     def _client_sampling(self, round_idx: int, client_num_in_total: int,

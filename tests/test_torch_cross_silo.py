@@ -44,12 +44,27 @@ joined within JOIN_S and a party still alive fails the test. Tolerances:
   JAX's within 1e-5 of its scale round by round (the port's run is given
   JAX's realized noise, so both trajectories stay one), while the port's own
   draws pass the statistics test (std within 10% of z·C/n over 1,220 draws,
-  mean within 4 sigma/sqrt(d)) and its accountant's epsilon equals JAX's.
+  mean within 4 sigma/sqrt(d)) and its accountant's epsilon equals JAX's;
+- the hierarchical silo (``scenario: hierarchical``) through
+  ``run_hierarchical_cross_silo_server`` and ``_client``: a server process
+  and 2 silos of 2 processes each (ranks joined over gloo by
+  ``tools/launch_silo.py``, the parties over MQTT_S3 through a socket broker
+  hosted here), LR as above from JAX's initial params, 2 rounds: the final
+  params within 1e-5 of their scale of JAX's ``scenario: hierarchical`` run
+  (its local rounds sharded over the 8 virtual CPU devices), both with the
+  silos' batches split over 2 ranks and with ``n_proc_in_silo`` 1 (rank 0
+  unsharded, rank 1 training the whole batch beside it); the broker
+  accepted 3 connections (the server and each silo's rank 0: exactly one
+  WAN talker a silo).
 """
 
+import contextlib
 import copy
 import importlib
 import json
+import os
+import sys
+import textwrap
 import threading
 import time
 import urllib.request
@@ -74,6 +89,9 @@ from fedml_tpu_torch.core.distributed.fedml_comm_manager import _run_id_offset
 from fedml_tpu_torch.data import data_loader as tloader
 from fedml_tpu_torch.data.dataset import ArrayDataset as TArrayDataset
 from fedml_tpu_torch.models.convert import params_from_jax, params_to_jax
+from fedml_tpu_torch.core.distributed.communication.mqtt_s3.socket_broker import (
+    SocketMqttBroker as TSocketBroker)
+from fedml_tpu_torch.tools.launch_silo import launch
 
 JOIN_S = 120
 MODEL_TO_SERVER = 3  # MSG_TYPE_C2S_SEND_MODEL_TO_SERVER in both packages
@@ -323,6 +341,105 @@ def test_mqtt_s3_equals_inmemory(tmp_path):
     assert hist_a == hist_b
     assert list(wa) == list(wb) and all(torch.equal(wa[k], wb[k]) for k in wa)
     assert len(list((tmp_path / "store").iterdir())) == 2 * 2 + 2 * 2  # 2 rounds x (2 down + 2 up)
+
+
+HIER_PARTY = textwrap.dedent(
+    """
+    import json, os, sys
+    sys.path.insert(0, os.environ["REPO_ROOT"])
+    import numpy as np, torch
+    torch.set_num_threads(1)
+    import fedml_tpu_torch as fedml
+    from fedml_tpu_torch import runner as runner_mod
+    from fedml_tpu_torch.parallel import multihost as mh
+
+    spec = json.loads(sys.argv[1])
+    p0 = {k: torch.from_numpy(v) for k, v in np.load(spec["p0"]).items()}
+    create = fedml.model.create
+
+    def from_p0(args, output_dim=None, seed=None, device=None):
+        model = create(args, output_dim, seed, device)
+        model.module.load_state_dict(p0)
+        model.params = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+        return model
+
+    fedml.model.create = from_p0
+    built = {}
+    run = runner_mod.FedMLRunner.run
+
+    def recorded(self):
+        built["runner"] = self.runner
+        if hasattr(self.runner, "client_manager"):
+            # read before the silo's group is torn down at the end of run
+            built["rank"], built["ranks"] = mh.process_index(), mh.process_count()
+        return run(self)
+
+    runner_mod.FedMLRunner.run = recorded
+    args = fedml.default_config("cross_silo", **spec["config"])
+    if args.role == "server":
+        fedml.run_hierarchical_cross_silo_server(args)
+        w = built["runner"].server_manager.aggregator.get_global_model_params()
+        np.savez(spec["out"], **{k: v.numpy() for k, v in w.items()})
+        print("RESULT " + json.dumps({"role": "server"}))
+    else:
+        fedml.run_hierarchical_cross_silo_client(args)
+        manager = built["runner"].client_manager
+        print("RESULT " + json.dumps({
+            "rank": built["rank"], "ranks": built["ranks"], "manager": type(manager).__name__,
+            "dp_width": manager.trainer_dist_adapter.dp_width, "stats": mh.collective_stats()}))
+    """
+)
+
+
+@pytest.mark.parametrize("n_proc_in_silo", [0, 1])
+def test_hierarchical_silos_track_jax(n_proc_in_silo, tmp_path):
+    """A 2-rank silo (``n_proc_in_silo`` 0: all its ranks) splits every
+    batch over its ranks; with ``n_proc_in_silo`` 1 rank 0 trains unsharded
+    and rank 1, outside the group, trains the whole batch beside it. Either
+    way the federation is JAX's hierarchical one, and only each silo's rank
+    0 opens the WAN."""
+    kw = dict(LR, scenario="hierarchical", n_proc_in_silo=n_proc_in_silo)
+    p0 = _jax_p0(kw)
+    _, _, ref_w = _run_jax(f"tcs_jax_hier{n_proc_in_silo}", kw)
+    np.savez(tmp_path / "p0.npz", **{k: v.numpy() for k, v in params_from_jax(p0).items()})
+    script = tmp_path / "party.py"
+    script.write_text(HIER_PARTY)
+    broker = TSocketBroker(port=0)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["REPO_ROOT"] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    parties = []
+    try:
+        for rank in (1, 2, 0):
+            spec = {"p0": str(tmp_path / "p0.npz"), "out": str(tmp_path / "global.npz"),
+                    "config": dict(kw, rank=rank, role="server" if rank == 0 else "client",
+                                   run_id=f"tcs_hier{n_proc_in_silo}", backend="MQTT_S3",
+                                   mqtt_socket=broker.address, using_gpu=False,
+                                   object_store_dir=str(tmp_path / "store"))}
+            parties.append(launch([sys.executable, str(script), json.dumps(spec)],
+                                  1 if rank == 0 else 2, env=env,
+                                  log_dir=str(tmp_path / f"party{rank}")))
+        rcs = [p.wait(JOIN_S) for p in parties]
+        errs = {d.name: [(d / f).read_text()[-2000:] for f in os.listdir(d) if f.endswith(".err")]
+                for d in tmp_path.iterdir() if d.name.startswith("party") and d.is_dir()}
+        assert rcs == [[0, 0], [0, 0], [0]], errs
+        assert broker.accepted == 3  # the server and one rank a silo
+    finally:
+        for p in parties:
+            p.kill()
+        broker.stop()
+    got = {k: torch.from_numpy(v) for k, v in np.load(tmp_path / "global.npz").items()}
+    assert _max_err_of_scale(params_to_jax(got), ref_w) <= 1e-5
+    width = 2 if n_proc_in_silo == 0 else 1
+    for silo in (1, 2):
+        reports = [json.loads((tmp_path / f"party{silo}" / f"rank{r}.out").read_text()
+                              .split("RESULT ")[-1]) for r in (0, 1)]
+        assert [r["manager"] for r in reports] == ["ClientMasterManager", "ClientSlaveManager"]
+        assert [(r["rank"], r["ranks"]) for r in reports] == [(0, 2), (1, 2)]
+        assert [r["dp_width"] for r in reports] == [width, 1 if width == 1 else 2]
+        for r in reports:  # 2 rounds: metadata and params each round, then finished
+            assert r["stats"]["broadcast_round_metadata"]["calls"] == 3
+            assert r["stats"]["broadcast_model_params"]["calls"] == 2
+            assert ("dp_all_reduce" in r["stats"]) == (width == 2)
 
 
 def test_jax_server_with_port_clients_over_the_socket_broker(tmp_path):
@@ -818,7 +935,6 @@ GATES = {
     # JAX's compressed payload fails on every byte backend (ROADMAP.md, Queue 3, R6)
     **{f"comm_compressor_{b}": ("client", dict(comm_compressor="eftopk", backend=b))
        for b in ("TRPC", "GRPC", "MPI", "MQTT_WEB3", "MQTT_THETASTORE")},
-    "scenario_hierarchical": ("client", dict(scenario="hierarchical")),
     "server_mesh": ("server", dict(server_mesh="1x1")),
     "chaos_split_kill_rank": ("server", dict(chaos_split_kill_rank=1)),
     "mqtt_host": ("client", dict(backend="MQTT_S3", mqtt_host="broker.example")),
@@ -865,6 +981,9 @@ PORTED = {
                                           mqtt_s3_bucket_dir="bucket")),
     **{f"backend_{b}": ("server", dict(backend=b))
        for b in ("GRPC", "MPI", "TRPC", "MQTT_WEB3", "MQTT_THETASTORE")},
+    # a silo of one process trains unsharded (test_hierarchical_silos_track_jax
+    # runs silos of two)
+    "scenario_hierarchical": ("client", dict(scenario="hierarchical")),
 }
 
 
@@ -928,9 +1047,28 @@ def _serve_statusz(pkg, case, tmp_path):
     was = registry.enabled
     registry.set_enabled(True)
     try:
-        return _serve_statusz_run(pkg, case, tmp_path)
+        with _isolated_registry(registry):
+            return _serve_statusz_run(pkg, case, tmp_path)
     finally:
         registry.set_enabled(was)
+
+
+@contextlib.contextmanager
+def _isolated_registry(registry):
+    """The registry's counters and histograms set aside for the run (another
+    test in the worker may have left entries of its own: JAX's
+    tests/test_slo.py registers ``slo.test.*``), so /metrics shows only what
+    the run registered; put back after it, over any entry of the same name."""
+    with registry._lock:
+        saved = dict(registry._counters), dict(registry._histograms)
+        registry._counters.clear()
+        registry._histograms.clear()
+    try:
+        yield
+    finally:
+        with registry._lock:
+            registry._counters.update(saved[0])
+            registry._histograms.update(saved[1])
 
 
 def _serve_statusz_run(pkg, case, tmp_path):

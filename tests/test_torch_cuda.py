@@ -1229,3 +1229,85 @@ def test_train_guard_on_the_card_matches_a_plain_norm(cuda):
     sd["a"][0, :2] = float("inf")
     g = modelwatch.train_guard(sd).cpu()
     assert (int(g[1]), int(g[2])) == (1, 2)
+
+
+# --- several processes on the one card (parallel/, simulation/collective) ---------------
+
+_SHARED_CARD_RANK = """
+import json, os, sys
+sys.path.insert(0, os.environ["REPO_ROOT"])
+import torch
+from fedml_tpu_torch.parallel import multihost as mh
+from fedml_tpu_torch.parallel.dp import DataParallelGroup
+
+out_dir = sys.argv[1]
+assert mh.init_distributed()
+rank, dev = mh.process_index(), mh.process_device()
+meta = mh.broadcast_round_metadata({"round": 3} if rank == 0 else None)
+src = {"w": torch.arange(6.0, device=dev).reshape(2, 3) * (rank + 1),
+       "n": torch.tensor([7 * (rank + 1)], device=dev)}
+got = mh.broadcast_model_params(src)
+p = torch.zeros(4, device=dev, requires_grad=True)
+p.grad = torch.full((4,), float(rank + 1), device=dev)
+loss = DataParallelGroup(2, rank).all_reduce_grads_({"p": p}, torch.tensor(rank + 1.0, device=dev))
+res = {"backend": mh.backend(), "device": str(dev), "meta": meta,
+       "w": got["w"].tolist(), "n": got["n"].tolist(), "sum": p.grad.tolist() + [loss.item()],
+       "on_card": all(t.device == dev for t in (got["w"], got["n"], p.grad, loss)),
+       "stats": mh.collective_stats()}
+mh.shutdown_distributed()
+json.dump(res, open(os.path.join(out_dir, f"rank{rank}.json"), "w"))
+"""
+
+
+@pytest.mark.cuda
+def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
+    """Two ranks of one silo on the one card: the rule picks gloo (NCCL
+    refuses two ranks on a device), the tensors stay on the card through
+    the metadata and params broadcasts and the DP all-reduce."""
+    import json
+    import os
+    import sys
+
+    from fedml_tpu_torch.tools.launch_silo import launch
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("the shared-card rule is checked with one visible card")
+    script = tmp_path / "rank.py"
+    script.write_text(_SHARED_CARD_RANK)
+    env = dict(os.environ, REPO_ROOT=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    rcs = launch([sys.executable, str(script), str(tmp_path)], 2, env=env,
+                 log_dir=str(tmp_path / "logs")).wait(180)
+    assert rcs == [0, 0], [(tmp_path / "logs" / f"rank{r}.err").read_text()[-2000:]
+                           for r in (0, 1)]
+    for r in (0, 1):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert res["backend"] == "gloo" and res["device"] == "cuda:0" and res["on_card"]
+        assert res["meta"] == {"round": 3}
+        assert res["w"] == [[0.0, 1.0, 2.0], [3.0, 4.0, 5.0]] and res["n"] == [7]
+        assert res["sum"] == [3.0] * 5
+        assert res["stats"]["dp_all_reduce"] == {"calls": 1, "bytes": 20}
+
+
+@pytest.mark.cuda
+def test_nccl_one_group_on_the_card_is_the_vmapped_round(cuda):
+    """Backend NCCL on the one visible card runs one group: the vmapped
+    round, bit for bit (LR on the synthetic set, 4 clients, 2 rounds)."""
+    import fedml_tpu_torch
+
+    kw = dict(dataset="synthetic", model="lr", comm_round=2, client_num_in_total=4,
+              client_num_per_round=4, batch_size=16, frequency_of_the_test=1, random_seed=0,
+              data_cache_dir="")
+    out = {}
+    for backend in ("vmap", "NCCL"):
+        args = fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", backend=backend,
+                                                                   **kw))
+        dataset, output_dim = fedml_tpu_torch.data.load(args)
+        model = fedml_tpu_torch.model.create(args, output_dim)
+        runner = fedml_tpu_torch.FedMLRunner(args, fedml_tpu_torch.get_device(args), dataset,
+                                             model)
+        runner.run()
+        api = runner.runner.fl_trainer
+        out[backend] = (api.metrics_history, api.model.params)
+    assert [d.type for d in runner.runner.fl_trainer.devices] == ["cuda"]
+    assert out["NCCL"][0] == out["vmap"][0]
+    assert all(torch.equal(out["NCCL"][1][k], out["vmap"][1][k]) for k in out["vmap"][1])

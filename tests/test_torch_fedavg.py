@@ -451,7 +451,6 @@ def test_run_simulation_on_the_cpu_and_refusals(tmp_path_factory):
         assert names.count(name) == n, (name, names)
     for over, what in [(dict(backend="vmap", async_rounds=True, hierarchy_edges=2),
                         "hierarchy_edges.*HierarchyTree"),
-                       (dict(backend="NCCL"), "NCCL"),
                        (dict(client_execution="threaded"), "threaded"),
                        (dict(allow_download=True), "allow_download")]:
         bad = copy.copy(args)
@@ -459,12 +458,21 @@ def test_run_simulation_on_the_cpu_and_refusals(tmp_path_factory):
             setattr(bad, k, v)
         with pytest.raises(NotImplementedError, match=what):
             fedml_tpu_torch.run_simulation(backend=bad.backend, args=bad)
-    for over in (dict(backend="MPI"), dict(training_type="cross_device")):
+    for over in (dict(training_type="cross_device"),):
         bad = copy.copy(args)
         for k, v in over.items():
             setattr(bad, k, v)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fedml_tpu_torch.FedMLRunner(bad, "cpu", None, None)
+    # the NCCL and MPI simulators are ported (tests/test_torch_collective_sim.py
+    # holds them against JAX): the runner dispatches them as JAX's does
+    for backend, simulator in (("NCCL", "SimulatorCollective"), ("MPI", "SimulatorMPI")):
+        ok = copy.copy(args)
+        ok.backend = backend
+        dataset, output_dim = fedml_tpu_torch.data.load(ok)
+        model = fedml_tpu_torch.model.create(ok, output_dim, device="cpu")
+        runner = fedml_tpu_torch.FedMLRunner(ok, torch.device("cpu"), dataset, model)
+        assert type(runner.runner).__name__ == simulator
     with pytest.raises(NotImplementedError, match="using_mlops"):
         fedml_tpu_torch.init(fedml_tpu_torch.default_config("simulation", using_mlops=True))
     # FHE is ported: init configures its facade (the ring products on the
