@@ -19,8 +19,10 @@ GEMM), and the LoRA step at Phi-3-mini's and Gemma-2B's attention widths
 float16, a FedLLM federation under local DP with devperf's MFU, the
 server's /statusz and its SLO engine, the link layer (pipelined sp
 rounds, netlink, link probes, the link throttle and the link knobs),
-modelwatch, and several processes (the hierarchical silo's ranks over gloo,
-Parrot MPI and NCCL), on one CUDA card.
+modelwatch, several processes (the hierarchical silo's ranks over gloo,
+Parrot MPI and NCCL), and the MoE model at Mixtral-8x7B's widths with the
+LLM trainer's mesh (fsdp, tp, sp, ep over ranks sharing the card), on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -52,7 +54,7 @@ exception):
    (fedml_tpu_torch/tools/compare_kernels.py cuda_ms), the bound from the
    real head dim;
 4. train step: LLMTrainer.train for 3 steps at Llama-2-7B widths (d_model
-   4096, 32 heads, d_ff 11008, vocab 32000) cut to 2 layers, bf16 compute,
+   4096, 32 heads, d_ff 11008, vocab 32000) cut to N_LAYERS (1), bf16 compute,
    f32 params, LoRA rank 8 on q/k/v/o, seq_len 2048, batch 2: finite loss,
    adapters moved, base weights bit-unchanged;
 5. client round: LLMClientTrainer set_model_params -> train -> get_model_params;
@@ -61,7 +63,7 @@ exception):
    must have run exactly as often as those steps imply, and every launch on
    the design KERNELS names, as the kernels' C entry points count them by
    design (all three bf16 kernels on their wgmma/TMA designs);
-6. serve: Llama-2-7B's widths cut to SERVE_LAYERS (4) of its 32 layers
+6. serve: Llama-2-7B's widths cut to SERVE_LAYERS (2) of its 32 layers
    (max_seq_len 4096), bf16 weights drawn on the card from a seed, through
    every serving entry point.
    (a) the keystone: prefill 128 tokens at B=2, then 32 single-token steps,
@@ -83,7 +85,7 @@ exception):
    params, every eval round and the final params within PARROT_* of each
    other; (b) ResNet-56 at full width on the CIFAR-10 surrogate: one
    client's local round on the card against the CPU with cuDNN's TF32 off
-   (R56_*), then 16 clients, all in every round, for 3 rounds on the card in
+   (R56_*), then 16 clients, all in every round, for 2 rounds on the card in
    the port's documented precision (PyTorch's defaults: TF32 convolutions,
    f32 matmuls): finite losses, w_global moved, the last round's fold within
    FOLD_TOL of the float64 weighted mean of its 16 w_locals; round seconds,
@@ -92,7 +94,7 @@ exception):
    launch in the phase;
 8. vmapped FedAvg: the same ResNet-56 x 16 clients through the client-batched
    simulator (backend "vmap", FedMLRunner -> SimulatorVmap -> VmapFedAvgAPI),
-   3 rounds in the port's documented precision. (c) first, with cuDNN's TF32
+   2 rounds in the port's documented precision. (c) first, with cuDNN's TF32
    off: the vmapped local round of 4 clients over their first 2 steps, the
    last client's second step padded as _stack_clients pads a short shard,
    against the same functional step run client by client without vmap on
@@ -103,8 +105,8 @@ exception):
    images/s (real images, over the round), the fedavg.* split (the staging
    inside client_train) and peak memory, (e) no flash launch;
 9. algorithm zoo: FedNova, SCAFFOLD, FedDyn and Mime, each 2 rounds of
-   Parrot config 1's shape on the card and on the CPU from the same seeded
-   params: each eval's test_loss (PARROT_LOSS_RTOL + ZOO_LOSS_ATOL), the
+   Parrot config 1's shape on the card and on the CPU (a process of its own,
+   started before phase 2) from the same seeded params: each eval's test_loss (PARROT_LOSS_RTOL + ZOO_LOSS_ATOL), the
    final params and the server state (SCAFFOLD's c, FedDyn's h, Mime's s)
    within PARROT_PARAM_TOL of their scale; no flash launch;
 10. cross-silo: BASELINE.md config 2, the cross-silo front over the message
@@ -113,13 +115,13 @@ exception):
    process): first, with cuDNN deterministic and TF32 off, round 1's 16
    uploads and the server's fold against the sp simulator's round 1 of the
    same config from the same w_global (CS_UPLOAD_TOL, CS_FOLD_TOL), the fold
-   within CS_MEAN_TOL of the float64 weighted mean of its arrivals; then 3
+   within CS_MEAN_TOL of the float64 weighted mean of its arrivals; then 2
    rounds in the port's documented precision: round seconds, rounds/hr, the
    split from the server.* and client.train spans, peak memory, beside
    phase 7's sp round, and the same federation, 2 rounds, with the local
    rounds taken one at a time (a diagnostic); (b) a server and 4 client processes over
    the port's SocketMqttBroker (hosted here) with one object store,
-   ResNet-56, 2 rounds, cuDNN deterministic and TF32 off: every party on
+   ResNet-56, 1 round, cuDNN deterministic and TF32 off: every party on
    the card and exiting 0 within CS_PARTY_TIMEOUT_S, the final params within
    CS_PROC_TOL of the same federation in process over INMEMORY; seconds a
    round, payload bytes, object-store times, start to ready (the processes
@@ -487,13 +489,37 @@ exception):
    float64 sum of the groups' clients and the update within
    NCCL_UPDATE_TOL of vmap's; no cross-card transfer is measured (one
    card);
-27. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
+27. the MoE model and the LLM trainer's mesh. (a) LLMTrainer.train, 3
+   steps of B=1, T=2048 at Mixtral-8x7B's widths (MIXTRAL: d_model 4096,
+   32 heads over 8 KV heads, d_ff 14336, 8 experts, vocab 32000, rope_theta
+   1e6) cut to 2 layers, LoRA rank 8 on q/k/v/o, bf16 compute, f32 expert
+   stacks, top-1 Switch routing: K1-K3's launch counts and designs, the
+   first step's loss through the kernels against "xla" on the same weights
+   (MOE_LOSS_TOL), each layer's dropped tokens (its output rows that are
+   exactly zero, read by a forward hook) equal to the plain dispatch's and
+   the per-expert overflow on the same router logits, then 32 greedy
+   tokens through generate (no flash launch), then one more step under
+   torch.profiler; ms a step, train tokens/s, generate ms/token, peak HBM,
+   the profiled step's device ms split into the dispatch and combine
+   products, the experts' products, the f32 stacks' casts and the rest, and
+   K1-K3 against their plain versions and timed at this path's attention
+   shape (B=1, Hq 32, Hkv 8). (b) one group of 2
+   processes sharing the card over gloo (mesh_rank_main) runs fsdp=2, tp=2,
+   sp=2 (the zigzag ring) and ep=2 (4 experts) at the JAX package's default
+   widths (d_model 512, 8 heads, d_ff 1376, vocab 32000), 2 layers, T=512,
+   f32, 2 steps each, while this process runs each case on one rank: each
+   rank's losses (MESH_LOSS_RTOL) and parameter shards' update
+   (MESH_UPDATE_RTOL) equal to one rank's, resident parameter bytes under
+   fsdp at most MESH_RESIDENT of the model's, the ring shift counted under
+   sp, the collective bytes by op printed;
+28. the serve, fedavg (with its vmap and zoo entries), cross_silo, async,
    resilience, privacy, secure_fronts, hierarchy, message_plane, trust,
    fhe_sp_zoo, gan_nas_seg_hub, files, front_door, head_dims, fedllm,
-   link_layer, modelwatch, multiprocess and kernels lines (JSON, the kernels line with the design each kernel ran
-   on the main path, its launches in phase 23, and a row for each kernel
-   at phase 22's head dims 96 and 256), the card line, and last the result
-   line.
+   link_layer, modelwatch, multiprocess, moe_mesh and kernels lines (JSON,
+   the kernels line with the design each kernel ran on the main path, its
+   launches in phase 23, and a row for each kernel at phase 22's head dims
+   96 and 256 and at phase 27 (a)'s attention shape), the card line, and
+   last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -518,10 +544,10 @@ PEAK_BYTES = 3.35e12
 
 # Slice shapes: Llama-2-7B attention (32 heads of 128) at seq 2048, batch 2.
 B, T, HQ, D = 2, 2048, 32, 128
-# phases 4-5's depth: 2 of Llama-2-7B's 32 layers. Most of a LoRA phase's
-# seconds are the trainer's durable checkpoint of the whole model, 0.8 GB a
-# layer, and the smoke's time limit holds every phase.
-N_LAYERS = 2
+# phases 4-5's depth: 1 of Llama-2-7B's 32 layers. Most of a LoRA phase's
+# seconds are the trainer's durable checkpoint of the whole
+# model, 0.8 GB a layer, and the smoke's time limit holds every phase.
+N_LAYERS = 1
 TRAIN_STEPS = 3
 ROUND_STEPS = 2
 
@@ -1107,14 +1133,14 @@ def _flat(tree, prefix=()) -> dict:
     return out
 
 
-# -- phase 6: serving at Llama-2-7B's widths, 4 of its 32 layers ---------------
+# -- phase 6: serving at Llama-2-7B's widths, SERVE_LAYERS of its 32 layers -------
 
 DEV = "cuda"
 SERVE_SEED = 0
 # phase 4's cut of Llama-2-7B's depth: the decode step is host-bound (63.5
 # ms a token at 32 layers on an H100, 17.2 at 8, PERF.md), and at full depth
 # this phase took about 100 s of a smoke that must end inside 1,200 s
-SERVE_LAYERS = 4
+SERVE_LAYERS = 2
 KEY_B, KEY_P, KEY_STEPS = 2, 128, 32   # the keystone: prefill, then single-token steps
 SERVE_MAX_NEW = 32
 SERVE_SLOTS, SERVE_CHUNK = 8, 8
@@ -1498,7 +1524,7 @@ PARROT = dict(random_seed=0, dataset="mnist", data_cache_dir="", partition_metho
 # in every round (BASELINE.md's 16-silo shape), hetero alpha 0.5
 RESNET = dict(random_seed=0, dataset="cifar10", data_cache_dir="", partition_method="hetero",
               partition_alpha=0.5, model="resnet56", federated_optimizer="FedAvg",
-              client_num_in_total=16, client_num_per_round=16, comm_round=3, epochs=1,
+              client_num_in_total=16, client_num_per_round=16, comm_round=2, epochs=1,
               batch_size=128, client_optimizer="sgd", learning_rate=0.05, momentum=0.9,
               weight_decay=5e-4, frequency_of_the_test=1, backend="sp")
 # Parrot on the card against the same run on the CPU (12,000 SGD steps in
@@ -1509,7 +1535,7 @@ PARROT_LOSS_RTOL, PARROT_ACC_SLACK, PARROT_PARAM_TOL = 1e-4, 2, 1e-4
 # Parrot's rounds on each side, of the config's 10: its card and CPU runs
 # are host-bound, 21-49 s of phase 7 between H100 hosts at 10 rounds; the
 # config evaluates every 5th round and the last, so rounds 0 and 4
-PARROT_SMOKE_ROUNDS = 5
+PARROT_SMOKE_ROUNDS = 3
 # ResNet-56, card against CPU, cuDNN's TF32 off: the forward of the seeded
 # params on the client's first batch within 1e-4 of the logits' scale (56
 # f32 conv layers summed in other orders); the client's local round (3
@@ -1656,7 +1682,7 @@ def _span_sums(since: int) -> dict:
 
 def fedavg_phase() -> dict:
     """Phase 7: Parrot config 1 card vs CPU; ResNet-56 at full width, one
-    client round card vs CPU, then 3 rounds of 16 clients on the card
+    client round card vs CPU, then RESNET's rounds of 16 clients on the card
     through FedMLRunner (see the module docstring)."""
     import math
 
@@ -1692,7 +1718,8 @@ def fedavg_phase() -> dict:
     wall = time.perf_counter() - t0
     spans = _span_sums(since)
     hist = api.metrics_history
-    check([m["round"] for m in hist] == [0, 1, 2], f"eval rounds {[m['round'] for m in hist]}")
+    check([m["round"] for m in hist] == list(range(RESNET["comm_round"])),
+          f"eval rounds {[m['round'] for m in hist]}")
     check(all(math.isfinite(m["test_loss"]) for m in hist), f"test loss not finite: {hist}")
     w = _cpu(api.model_trainer.get_model_params())
     check(all(torch.isfinite(v).all() for v in w.values()), "w_global not finite")
@@ -1720,11 +1747,11 @@ def fedavg_phase() -> dict:
                       "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
                       "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32},
         "local_steps_per_round": steps, "images_per_round": images,
-        "round_s_mean_rounds_2_3": mean["round_s"],
+        "round_s_mean_after_round_1": mean["round_s"],
         "rounds_per_hr": 3600.0 / mean["round_s"],
         "local_steps_per_s": steps / mean["client_train_s"],
         "images_per_s": images / mean["round_s"],
-        "split_s_mean_rounds_2_3": {"client_train": mean["client_train_s"],
+        "split_s_mean_after_round_1": {"client_train": mean["client_train_s"],
                                     "aggregate": mean["aggregate_s"], "eval": mean["eval_s"],
                                     "other": mean["round_s"] - mean["client_train_s"]
                                     - mean["aggregate_s"] - mean["eval_s"]},
@@ -1734,7 +1761,7 @@ def fedavg_phase() -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "run_wall_s": wall,
     })
-    say(f"  ResNet-56, 16 clients x 3 rounds: {res['resnet56']}")
+    say(f"  ResNet-56, 16 clients x {RESNET['comm_round']} rounds: {res['resnet56']}")
     return res
 
 # -- phase 8: the vmapped FedAvg round ----------------------------------------
@@ -1804,7 +1831,7 @@ def vmap_loop_parity(api, args, model) -> dict:
 
 def vmap_phase() -> dict:
     """Phase 8: ResNet-56 x 16 clients through the vmapped simulator
-    (backend "vmap"): the vmap-vs-loop gate, then 3 rounds on the card."""
+    (backend "vmap"): the vmap-vs-loop gate, then RESNET's rounds on the card."""
     import math
 
     import torch
@@ -1844,7 +1871,8 @@ def vmap_phase() -> dict:
     wall = time.perf_counter() - t0
     spans = _span_sums(since)
     hist = api.metrics_history
-    check([m["round"] for m in hist] == [0, 1, 2], f"vmap eval rounds {[m['round'] for m in hist]}")
+    check([m["round"] for m in hist] == list(range(RESNET["comm_round"])),
+          f"vmap eval rounds {[m['round'] for m in hist]}")
     check(all(math.isfinite(m["test_loss"]) for m in hist), f"vmap test loss not finite: {hist}")
     w = _cpu(api.model.params)
     check(all(torch.isfinite(v).all() for v in w.values()), "vmap w_global not finite")
@@ -1870,11 +1898,11 @@ def vmap_phase() -> dict:
                       "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
                       "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32},
         "batched_steps_per_round": steps, "images_per_round": images,
-        "round_s_mean_rounds_2_3": mean["round_s"],
+        "round_s_mean_after_round_1": mean["round_s"],
         "rounds_per_hr": 3600.0 / mean["round_s"],
         "batched_steps_per_s": steps / mean["client_train_s"],
         "images_per_s": images / mean["round_s"],
-        "split_s_mean_rounds_2_3": {"client_train": mean["client_train_s"],
+        "split_s_mean_after_round_1": {"client_train": mean["client_train_s"],
                                     "aggregate": mean["aggregate_s"], "eval": mean["eval_s"],
                                     "other": mean["round_s"] - mean["client_train_s"]
                                     - mean["aggregate_s"] - mean["eval_s"]},
@@ -1884,13 +1912,21 @@ def vmap_phase() -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "run_wall_s": wall,
     })
-    say(f"  ResNet-56, 16 clients x 3 rounds, vmapped: {res}")
+    say(f"  ResNet-56, 16 clients x {RESNET['comm_round']} rounds, vmapped: {res}")
     return res
 
 
 # -- phase 9: the algorithm zoo ------------------------------------------------
 
 ZOO = ("FedNova", "SCAFFOLD", "FedDyn", "Mime")
+ZOO_ROUNDS = 2
+# the CPU runs' process: in the whole smoke it starts before the build
+# (phase 2) and ends during phase 3, which times kernels on the card's
+# clock, so no host-timed phase runs beside it; ZOO_CPU_THREADS threads
+# leave the host's other cores to nvcc (started beside the card's runs in
+# phase 9 instead, with all the cores, it took 18 s and slowed them 1.4-2x)
+ZOO_CPU_TIMEOUT_S = 300
+ZOO_CPU_THREADS = 2
 ZOO_STATE = {"SCAFFOLD": "_scaffold_c", "FedDyn": "_feddyn_h", "Mime": "_mime_s"}
 # each eval's test_loss within PARROT_LOSS_RTOL of the CPU's plus an absolute
 # 1e-7: FedDyn and Mime fit the surrogate to losses of 9e-5 and 2.5e-6 in 2
@@ -1899,31 +1935,82 @@ ZOO_STATE = {"SCAFFOLD": "_scaffold_c", "FedDyn": "_feddyn_h", "Mime": "_mime_s"
 ZOO_LOSS_ATOL = 1e-7
 
 
-def zoo_phase() -> dict:
-    """Phase 9: FedNova, SCAFFOLD, FedDyn and Mime, each 2 rounds of Parrot
-    config 1's shape, on the card and on the CPU from the same seeded params:
-    each eval's test_loss, the final params and the server state."""
+def _zoo_run(opt: str, where: str) -> dict:
+    """One algorithm's ZOO_ROUNDS rounds of Parrot config 1's shape on
+    ``where``: the seeded params, the eval history, the seconds, the final
+    params and the server state."""
+    t0 = time.perf_counter()
+    over = dict(PARROT, comm_round=ZOO_ROUNDS, federated_optimizer=opt)
+    _, _, model, runner = _fedavg_runner(over, where == "cuda")
+    check(model.device.type == where, f"{opt} model on {model.device}, wanted {where}")
+    p0 = _cpu(model.params)
+    runner.run()
+    api = runner.runner.fl_trainer
+    state = getattr(api, ZOO_STATE[opt]) if opt in ZOO_STATE else None
+    return {"p0": p0, "hist": api.metrics_history, "s": time.perf_counter() - t0,
+            "w": _cpu(api.model_trainer.get_model_params()),
+            "state": _cpu(state) if state is not None else None}
+
+
+def zoo_cpu_main(out_dir: str) -> None:
+    """Phase 9's CPU runs in a process of their own, each written to
+    ``out_dir`` as it ends."""
     import torch
 
+    sys.path.insert(0, ROOT)
+    torch.set_num_threads(ZOO_CPU_THREADS)
+    for opt in ZOO:
+        torch.save(_zoo_run(opt, "cpu"), os.path.join(out_dir, f"{opt}.pt"))
+
+
+def zoo_cpu_start() -> dict:
+    """Start :func:`zoo_cpu_main` (no card visible to it, ZOO_CPU_THREADS
+    threads; results and log under ``.smoke_zoo/``, outside ``.smoke_run/``,
+    which phases 4-5 remove while it runs); killed at exit if it is still
+    running then."""
+    import atexit
+
+    tmp = os.path.join(ROOT, ".smoke_zoo")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    threads = str(ZOO_CPU_THREADS)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=threads,
+               MKL_NUM_THREADS=threads, PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    log = open(os.path.join(tmp, "cpu.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as c; c.zoo_cpu_main({tmp!r})"],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "dir": tmp, "log": log}
+
+
+def zoo_phase(started: dict = None) -> dict:
+    """Phase 9: FedNova, SCAFFOLD, FedDyn and Mime, each ZOO_ROUNDS rounds
+    of Parrot config 1's shape, on the card and on the CPU (``started``, a
+    process of its own started earlier, or now) from the same seeded
+    params: each eval's test_loss, the final params and the server state."""
+    import torch
+
+    started = started or zoo_cpu_start()
+    try:
+        card = {opt: _zoo_run(opt, DEV) for opt in ZOO}
+        rc = started["proc"].wait(ZOO_CPU_TIMEOUT_S)
+    except BaseException:
+        started["proc"].kill()
+        raise
+    finally:
+        started["log"].close()
+    tail = open(os.path.join(started["dir"], "cpu.log")).read()[-3000:]
+    check(rc == 0, f"9: the CPU runs' process exited {rc}: {tail}")
     out = {}
     for opt in ZOO:
-        runs = {}
-        for where in (DEV, "cpu"):
-            t0 = time.perf_counter()
-            over = dict(PARROT, comm_round=2, federated_optimizer=opt)
-            _, _, model, runner = _fedavg_runner(over, where == "cuda")
-            check(model.device.type == where, f"{opt} model on {model.device}, wanted {where}")
-            p0 = _cpu(model.params)
-            runner.run()
-            api = runner.runner.fl_trainer
-            state = getattr(api, ZOO_STATE[opt]) if opt in ZOO_STATE else None
-            runs[where] = {"p0": p0, "hist": api.metrics_history, "s": time.perf_counter() - t0,
-                           "w": _cpu(api.model_trainer.get_model_params()),
-                           "state": _cpu(state) if state is not None else None}
-        gpu, cpu = runs[DEV], runs["cpu"]
+        gpu = card[opt]
+        cpu = torch.load(os.path.join(started["dir"], f"{opt}.pt"), weights_only=False)
         check(all(torch.equal(gpu["p0"][k], cpu["p0"][k]) for k in cpu["p0"]),
               f"{opt}: the card and the CPU started from different params")
-        check([m["round"] for m in gpu["hist"]] == [m["round"] for m in cpu["hist"]] == [0, 1],
+        check([m["round"] for m in gpu["hist"]] == [m["round"] for m in cpu["hist"]]
+              == list(range(ZOO_ROUNDS)),
               f"{opt} eval rounds {[m['round'] for m in gpu['hist']]}")
         row = {"card_s": gpu["s"], "cpu_s": cpu["s"], "rounds": []}
         for g, c in zip(gpu["hist"], cpu["hist"]):
@@ -1948,6 +2035,7 @@ def zoo_phase() -> dict:
                   f"{opt} {ZOO_STATE[opt]} {row['state_err_of_scale']:.3g} of its scale apart")
         say(f"  {opt}: {row}")
         out[opt] = row
+    shutil.rmtree(started["dir"], ignore_errors=True)
     return out
 
 
@@ -1965,8 +2053,8 @@ CROSS_SILO = {k: v for k, v in RESNET.items() if k != "backend"}
 # the H100)
 SP_R20 = dict(RESNET, model="resnet20")
 SILOS_R20 = dict(CROSS_SILO, model="resnet20")
-# (b): the same model over 4 silos, 2 rounds, each party a process of its own
-CS_PROCS = dict(CROSS_SILO, client_num_in_total=4, client_num_per_round=4, comm_round=2)
+# (b): the same model over 4 silos, 1 round, each party a process of its own
+CS_PROCS = dict(CROSS_SILO, client_num_in_total=4, client_num_per_round=4, comm_round=1)
 CS_PARTY_TIMEOUT_S = 420
 # limits of the gates, each from this phase's own readings on an H100
 # (PERF.md). (a) Round 1's 16 uploads and the server's fold against the sp
@@ -2177,7 +2265,7 @@ def _evals_of(fed) -> list:
 
 
 def cross_silo_timed(sp: dict) -> tuple:
-    """Phase 10 (a), timed: 3 rounds of the 16-silo federation in the port's
+    """Phase 10 (a), timed: RESNET's rounds of the 16-silo federation in the port's
     documented precision, beside phase 7's sp round."""
     import math
 
@@ -2193,9 +2281,10 @@ def cross_silo_timed(sp: dict) -> tuple:
     wall = fed.run()
     rows = _cs_round_split(since)
     k = int(CROSS_SILO["client_num_per_round"])
-    check([r["round"] for r in rows] == [0, 1, 2] and all(r["clients"] == k for r in rows),
+    rounds = list(range(CROSS_SILO["comm_round"]))
+    check([r["round"] for r in rows] == rounds and all(r["clients"] == k for r in rows),
           f"rounds {[(r['round'], r['clients']) for r in rows]}")
-    check([m["round"] for m in evals] == [0, 1, 2] and
+    check([m["round"] for m in evals] == rounds and
           all(math.isfinite(m["test_loss"]) for m in evals), f"evals {evals}")
     w = server.aggregator.get_global_model_params()
     check(all(v.device.type == DEV for v in w.values()), "the global params left the card")
@@ -2214,17 +2303,17 @@ def cross_silo_timed(sp: dict) -> tuple:
         "backend": "INMEMORY", "parties": "server + 16 client threads in one process",
         "precision": {"params": "float32", "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
                       "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32},
-        "round_s_mean_rounds_2_3": mean["round_s"], "rounds_per_hr": 3600.0 / mean["round_s"],
+        "round_s_mean_after_round_1": mean["round_s"], "rounds_per_hr": 3600.0 / mean["round_s"],
         "images_per_s": images / mean["round_s"],
-        "split_s_mean_rounds_2_3": {key[:-2]: mean[key] for key in keys if key != "round_s"},
+        "split_s_mean_after_round_1": {key[:-2]: mean[key] for key in keys if key != "round_s"},
         "per_round": rows, "test_acc": [m["test_acc"] for m in evals],
         "test_loss": [m["test_loss"] for m in evals], "w_global_max_move": moved,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "run_wall_s": wall,
-        "sp_phase7": {key: sp.get(key) for key in ("round_s_mean_rounds_2_3", "rounds_per_hr",
-                                                   "images_per_s", "split_s_mean_rounds_2_3",
+        "sp_phase7": {key: sp.get(key) for key in ("round_s_mean_after_round_1", "rounds_per_hr",
+                                                   "images_per_s", "split_s_mean_after_round_1",
                                                    "peak_mem_gb")},
     }
-    say(f"  ResNet-56, 16 silos x 3 rounds over INMEMORY: {res}")
+    say(f"  ResNet-56, 16 silos x {CROSS_SILO['comm_round']} rounds over INMEMORY: {res}")
     return res, fed
 
 
@@ -2440,7 +2529,7 @@ def _process_report(over: dict, results: dict, spawned: dict, got: dict, ref_w: 
 def cross_silo_processes(procs: tuple, ref_w: dict) -> dict:
     """Phase 10 (b): a server and 4 client processes over the port's
     SocketMqttBroker (hosted here) with one shared object store, ResNet-56,
-    2 rounds, cuDNN deterministic and TF32 off (``procs``, what
+    CS_PROCS's rounds, cuDNN deterministic and TF32 off (``procs``, what
     _party_processes returned); its final params against ``ref_w``, the
     same federation run in this process over INMEMORY."""
     results, spawned, got = procs
@@ -4299,7 +4388,7 @@ MP_PROCS = dict(CS_PROCS, model="resnet20", comm_round=1)
 # tensor of 64 MB on the card (the copy to the host is in every ping)
 MP_BENCH_BIG = 64_000_000
 MP_RESNET56_BYTES = 3_423_080  # 855,770 f32 params
-MP_BENCH_REPS = {"resnet56": 20, "64mb": 5}
+MP_BENCH_REPS = {"resnet56": 10, "64mb": 3}
 # bit-equal to INMEMORY: every wire carries f32 exactly (phase 10 (b)'s limit)
 MP_TOL = CS_PROC_TOL
 
@@ -4509,7 +4598,7 @@ def message_plane_phase() -> dict:
 
 # (b)-(c): the sp front at ResNet-20 (SP_R20) on the CIFAR-10 surrogate, 2
 # rounds; (b) with 4 Byzantine-random attackers of the 16 clients
-TRUST_SP = dict(SP_R20, comm_round=2)
+TRUST_SP = dict(SP_R20, comm_round=1)
 TRUST_ATTACK = dict(enable_attack=True, attack_type="byzantine", attack_mode="random",
                     byzantine_client_num=4)
 # (a): each defense type's config on the 16 clients of (b)'s first round.
@@ -4588,7 +4677,7 @@ def _trust_sp(over: dict) -> tuple:
         DefaultServerAggregator.aggregate = aggregate
     spans = _span_sums(since)
     rounds = [spans[r]["fedavg.round"] for r in sorted(spans)]
-    check(len(rounds) == 2 and math.isfinite(out["test_loss"]),
+    check(len(rounds) == int(over["comm_round"]) and math.isfinite(out["test_loss"]),
           f"sp run: rounds {rounds}, {out}")
     return first[0], selections, {"test_acc": out["test_acc"], "test_loss": out["test_loss"],
                                   "round_s": rounds}
@@ -4940,7 +5029,7 @@ def trust_phase() -> dict:
         pairs, _, attacked = _trust_sp(dict(TRUST_SP, **TRUST_ATTACK))
         _, selections, defended = _trust_sp(dict(TRUST_SP, **TRUST_ATTACK, enable_defense=True,
                                                  defense_type="multi_krum"))
-        check(len(selections) == 2 and all(min(s) >= 4 for s in selections),
+        check(len(selections) == int(TRUST_SP["comm_round"]) and all(min(s) >= 4 for s in selections),
               f"(b) multi-Krum kept an attacker: {selections}")
         defended["selected"] = selections
         say(f"  (b) sp, byzantine random x4: no defense {attacked}, multi_krum {defended}")
@@ -6341,9 +6430,9 @@ FRONT_ENDPOINTS = {
     "default": (1, {"FEDML_SERVE_MAX_BATCH": "1"}),
 }
 # the load on the flagship's 2 replicas: the endpoint bench's 4 closed-loop
-# clients, 32 requests (64 before phase 26 needed the room; the
-# p99 is now a percentile of 32 latencies)
-FRONT_LOAD = dict(clients=4, requests_per_client=8)
+# clients, 16 requests (64 until phase 26 and 32 until phase 27 needed the
+# room; the p99 of 16 latencies is in effect their maximum)
+FRONT_LOAD = dict(clients=4, requests_per_client=4)
 FRONT_MEM_FRACTION = "0.1"
 
 
@@ -8759,10 +8848,10 @@ def modelwatch_ab() -> int:
         t10 = time.time() - t0
         sp, inmem = fedavg["resnet56"], cs["inmemory_16"]
         row = {"modelwatch": flag, "phase7_s": t7, "phase10_s": t10,
-               "sp_round_s": sp["round_s_mean_rounds_2_3"],
-               "sp_aggregate_s": sp["split_s_mean_rounds_2_3"]["aggregate"],
-               "cs_round_s": inmem["round_s_mean_rounds_2_3"],
-               "cs_aggregate_s": inmem["split_s_mean_rounds_2_3"]["aggregate"]}
+               "sp_round_s": sp["round_s_mean_after_round_1"],
+               "sp_aggregate_s": sp["split_s_mean_after_round_1"]["aggregate"],
+               "cs_round_s": inmem["round_s_mean_after_round_1"],
+               "cs_aggregate_s": inmem["split_s_mean_after_round_1"]["aggregate"]}
         say(f"  pass FEDML_MODELWATCH={flag}: {row}")
         passes.append(row)
     os.environ.pop("FEDML_MODELWATCH")
@@ -8770,6 +8859,521 @@ def modelwatch_ab() -> int:
           flush=True)
     print(card, flush=True)
     return 0
+
+
+# -- phase 27: the MoE model and the LLM trainer's mesh -----------------------------
+
+# (a) Mistral AI's Mixtral-8x7B-v0.1 config.json: hidden 4096, 32 heads over
+# 8 KV heads (head dim 128), intermediate 14336, 8 experts, vocab 32000,
+# rope_theta 1e6; 2 of its 32 layers, LoRA rank 8 on q/k/v/o, bf16 compute,
+# f32 expert stacks (about 11.3 GB), routed by the repo's top-1 Switch
+# routing (not Mixtral's top-2, which the JAX package lacks).
+MIXTRAL = dict(vocab_size=32000, d_model=4096, n_layers=2, n_heads=32, n_kv_heads=8,
+               d_ff=14336, seq_len=T, rope_theta=1e6, lora_rank=8, remat=True, moe_experts=8)
+MOE_STEPS = 3
+MOE_GEN = 32
+MOE_PROMPT = 16
+# the first step's loss through the flash kernels against the same weights
+# through the plain attention ("xla"), both bf16: the attention outputs differ
+# by bf16 roundings (the kernels keep scores and the softmax in f32, the plain
+# path rounds its probabilities to bf16), carried through 2 layers into a loss
+# of about ln(32000) = 10.4 averaged over 2,047 targets
+MOE_LOSS_TOL = 1e-2
+# (b) the JAX package's default TransformerConfig widths (d_model 512, 8
+# heads, d_ff 1376, vocab 32000) at 2 layers, T=512, f32, full fine-tuning,
+# on 2 ranks sharing the card over gloo; every mesh shape in one group
+MESH_MODEL = dict(vocab_size=32000, d_model=512, n_layers=2, n_heads=8, n_kv_heads=8,
+                  d_ff=1376, seq_len=512, lora_rank=0, remat=True)
+MESH_CASES = {"fsdp": dict(fsdp=2), "tp": dict(tp=2), "sp": dict(sp=2),
+              "ep": dict(ep=2)}
+MESH_MODEL_OVER = {"sp": dict(attention_impl="ring"), "ep": dict(moe_experts=4)}
+MESH_STEPS = 2
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 300
+# each rank against one rank in the smoke's process, f32 with TF32 off: the
+# sharded sums run in other orders, so the losses differ by f32 rounding and
+# the updates by that rounding through Adam's normalisation (a weight whose
+# gradient is near the noise moves by up to lr either way)
+MESH_LOSS_RTOL = 1e-5
+MESH_UPDATE_RTOL = 1e-3
+MESH_RESIDENT = 0.55
+
+
+def _moe_batches(vocab: int, steps: int, seed: int):
+    import numpy as np
+
+    blocks = np.random.default_rng(seed).integers(0, vocab, (steps, T), dtype=np.int32)
+    return [(blocks[i:i + 1], np.ones((1, T), np.float32)) for i in range(steps)]
+
+
+def _moe_layers(model):
+    from fedml_tpu_torch.models.moe import MoEMLP
+
+    return [m for m in model.modules() if isinstance(m, MoEMLP)]
+
+
+def moe_routing_check(model, tokens) -> dict:
+    """The first batch's loss through the kernels and through "xla" on the
+    same weights, and each layer's dropped tokens (its output rows that are
+    exactly zero, read by a forward hook) against the plain dispatch's count
+    and the per-expert overflow on the same router logits (the hook
+    recomputes them from the layer's input with the layer's own product)."""
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.models.moe import capacity_for, dropped_tokens, moe_dispatch
+    from fedml_tpu_torch.models.transformer import TransformerLM
+    from fedml_tpu_torch.parallel.fsdp import causal_lm_loss
+
+    cfg = model.cfg
+    mask = torch.ones_like(tokens, dtype=torch.float32)
+    routing = []
+
+    def hook(mod, args, out):
+        x = args[0].reshape(-1, cfg.d_model)
+        routing.append({"logits": x.to(torch.float32) @ mod.router.to(torch.float32),
+                        "dropped": (out[0].reshape(-1, cfg.d_model) == 0).all(dim=-1).sum()})
+
+    handles = [m.register_forward_hook(hook) for m in _moe_layers(model)]
+    try:
+        with torch.no_grad():
+            logits, aux = model(tokens)
+    finally:
+        for h in handles:
+            h.remove()
+    with torch.no_grad():
+        loss_kernels = float(causal_lm_loss(logits, tokens, mask) + aux)
+        del logits
+        twin = TransformerLM(dataclasses.replace(cfg, attention_impl="xla"), device="meta")
+        twin.load_state_dict(model.state_dict(), assign=True)
+        logits, aux_x = twin(tokens)
+        loss_xla = float(causal_lm_loss(logits, tokens, mask) + aux_x)
+        del logits, twin
+    check(abs(loss_kernels - loss_xla) <= MOE_LOSS_TOL,
+          f"27 (a): the first step's loss {loss_kernels} through the kernels, {loss_xla} "
+          f"through xla (tolerance {MOE_LOSS_TOL})")
+    cap = capacity_for(tokens.numel(), cfg.moe_experts, cfg.moe_capacity_factor)
+    dropped = []
+    for i, r in enumerate(routing):
+        got = int(r["dropped"])
+        plain = int(dropped_tokens(moe_dispatch(r["logits"], cap)[0]))
+        counts = torch.bincount(r["logits"].argmax(-1), minlength=cfg.moe_experts)
+        overflow = int((counts - cap).clamp_min(0).sum())
+        check(got == plain == overflow,
+              f"27 (a): layer {i} dropped {got} tokens, the plain dispatch {plain}, the "
+              f"per-expert overflow {overflow}")
+        dropped.append({"layer": i, "dropped": got, "capacity": cap,
+                        "per_expert": counts.tolist()})
+    return {"loss_kernels": loss_kernels, "loss_xla": loss_xla,
+            "loss_gap": abs(loss_kernels - loss_xla), "dropped": dropped}
+
+
+def moe_step_split(prof, cfg, n_tokens: int) -> dict:
+    """A profiled MoE training step's device ms (torch.profiler: each kernel
+    counted under the aten op that launched it; forward, remat recompute
+    and backward): every kernel; the dispatch and combine products (each
+    mm/bmm with an operand dim of E*C, the dense dispatch's flattened expert
+    slots, which no other product of the step has); the experts' products
+    (each bmm with an [E, C, ...] operand); the casts of the f32 expert
+    stacks to the compute dtype (each copy_ of an [E, D, F] or [E, F, D]
+    tensor); the rest. "not measured" where the trace holds no device time."""
+    import torch
+
+    from fedml_tpu_torch.models.moe import capacity_for
+
+    E, D, Fd = cfg.moe_experts, cfg.d_model, cfg.d_ff
+    C = capacity_for(n_tokens, E, cfg.moe_capacity_factor)
+    stacks = ([E, D, Fd], [E, Fd, D])
+    total = sum(getattr(ev, "self_device_time_total", 0) or 0 for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    if not total:
+        return {"step_device_ms": "not measured"}
+    parts = {"dispatch_combine": 0.0, "experts": 0.0, "stack_casts": 0.0}
+    products = {"dispatch_combine": 0, "experts": 0, "stack_casts": 0}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        shapes = [list(x) for x in (ev.input_shapes or []) if x]
+        ms = (getattr(ev, "self_device_time_total", 0) or 0) / 1e3
+        if ev.name in ("aten::mm", "aten::bmm") and any(E * C in x for x in shapes):
+            part = "dispatch_combine"
+        elif ev.name == "aten::bmm" and any(x[:2] == [E, C] for x in shapes):
+            part = "experts"
+        elif ev.name == "aten::copy_" and any(x in stacks for x in shapes):
+            part = "stack_casts"
+        else:
+            continue
+        parts[part] += ms
+        products[part] += 1
+    parts["other"] = total - sum(parts.values())
+    return {"step_device_ms": total, "device_ms_by_part": parts, "ops_by_part": products,
+            "share_of_device_time": {k: v / total for k, v in parts.items()},
+            "capacity": C, "dispatch_flop_each": 2.0 * n_tokens * E * C * D}
+
+
+def moe_profiled_step(trainer, res: dict) -> dict:
+    """(a)'s last part, after the generation: one more training step of the
+    trained model under torch.profiler, split by :func:`moe_step_split`
+    (the 3 steps of the run are not profiled, so their times and tokens/s
+    are the plain run's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t_part = time.time()
+    toks, mask = _moe_batches(MIXTRAL["vocab_size"], 1, seed=1)[0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        trainer._step_fn(toks, mask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    split = moe_step_split(prof, trainer.cfg, T)
+    split["profiled_wall_ms"] = wall_ms
+    res.update(profiled_step=split, profile_s=time.time() - t_part)
+    if isinstance(split["step_device_ms"], float):
+        share = split["share_of_device_time"]
+        say(f"  a profiled step: {split['step_device_ms']:.2f} ms of device time "
+            f"({wall_ms:.1f} ms wall under the profiler): dispatch and combine products "
+            f"{share['dispatch_combine']:.4f} ({split['ops_by_part']['dispatch_combine']} ops), "
+            f"experts {share['experts']:.4f}, the f32 stacks' casts {share['stack_casts']:.4f}, "
+            f"the rest {share['other']:.4f}")
+    else:
+        say("  a profiled step: the trace holds no device time (not measured)")
+    return res
+
+
+def moe_phase(libs, tmp: str, on_trained=None):
+    """(a): LLMTrainer.train, 3 steps of B=1, T=2048 at Mixtral-8x7B's widths
+    (2 layers). ``on_trained()`` runs when the last step has finished on the
+    card, before the trainer's final checkpoint (which keeps the card idle).
+    Returns (the results, the trainer) for :func:`moe_generate`."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.train.llm.configurations import (DatasetArguments,
+                                                          ExperimentArguments, ModelArguments)
+    from fedml_tpu_torch.train.llm.llm_trainer import LLMTrainer
+
+    t_phase = time.time()
+    ma = ModelArguments(**MIXTRAL)
+    ea = ExperimentArguments(max_steps=MOE_STEPS, per_device_batch_size=1, learning_rate=1e-4,
+                             warmup_steps=1, output_dir=os.path.join(tmp, "moe"))
+    trainer = LLMTrainer(ma, DatasetArguments(), ea)  # the card by default
+    check(trainer.cfg.moe_experts == 8 and trainer.cfg.attention_impl == "auto"
+          and trainer.device.type == "cuda", f"27 (a): trainer {trainer.cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    trainer._build(trainer.init_params())
+    model = trainer.model
+    sizes = {n: p.numel() * p.element_size() for n, p in model.named_parameters()}
+    expert_bytes = sum(v for n, v in sizes.items() if ".moe_mlp.w_" in n)
+    say(f"  params {sum(p.numel() for p in model.parameters())} ({sum(sizes.values()) / 1e9:.3f}"
+        f" GB; f32 expert stacks {expert_bytes / 1e9:.3f} GB, embedding and head "
+        f"{(sizes['embed.embedding'] + sizes['lm_head.weight']) / 1e9:.3f} GB)")
+    batches = _moe_batches(ma.vocab_size, MOE_STEPS, seed=0)
+    tok0 = torch.from_numpy(batches[0][0]).to(DEV)
+    route = moe_routing_check(model, tok0)
+    say(f"  first step's loss: kernels {route['loss_kernels']:.6f}, xla {route['loss_xla']:.6f} "
+        f"(gap {route['loss_gap']:.3g}); dropped a layer "
+        f"{[d['dropped'] for d in route['dropped']]} of {T} at capacity "
+        f"{route['dropped'][0]['capacity']}")
+    # the kernels at this path's attention shape (B=1, T=2048, 32 heads over
+    # 8 KV heads of 128): each against its plain version, then timed
+    hq, hkv = MIXTRAL["n_heads"], MIXTRAL["n_kv_heads"]
+    hd = MIXTRAL["d_model"] // hq
+    kerrs = kernel_case(fa, 1, T, hq, hkv, hd, True, torch.bfloat16, quiet=True)
+    ktimes = time_kernels(fa, 1, T, hq, hkv, hd, torch.bfloat16)
+    # each step timed on the card (a sync either side); the last one signals
+    step_ms = []
+    inner = trainer._step_fn
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = inner(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(step_ms) == MOE_STEPS and on_trained is not None:
+            on_trained()
+        return loss
+
+    trainer._step_fn = timed_step
+    lora0 = _snapshot(model, True)
+    t0 = time.time()
+    metrics, launches, by_design = _launched(fa, libs, lambda: trainer.train(iter(batches)))
+    train_s = time.time() - t0
+    _check_launches("27 (a)", launches, by_design, MIXTRAL["n_layers"], MOE_STEPS, 2,
+                    "sm90_wgmma_tma")
+    check(metrics["steps"] == MOE_STEPS and np.isfinite(metrics["final_loss"]),
+          f"27 (a): {metrics}")
+    check(any(not torch.equal(lora0[n], p) for n, p in _snapshot(model, True).items()),
+          "27 (a): the adapters did not move")
+    trainer._step_fn = inner
+    window_step_ms = T / metrics["tokens_per_sec"] * 1e3
+    steady_ms = sum(step_ms[1:]) / len(step_ms[1:])
+    res = {"geometry": MIXTRAL, "metrics": metrics, "launches": launches,
+           "kernel_errs": kerrs, "kernel_times": ktimes,
+           "kernel_shape": f"B=1 T={T} Hq={hq} Hkv={hkv} D={hd} bf16 causal",
+           "by_design": by_design, "routing": route, "step_ms": step_ms,
+           "window_ms_a_step": window_step_ms, "steady_ms_a_step": steady_ms,
+           "train_tokens_per_sec": metrics["tokens_per_sec"],
+           "steady_tokens_per_sec": T / steady_ms * 1e3, "train_and_checkpoint_s": train_s,
+           "peak_hbm_gb_train": torch.cuda.max_memory_allocated() / 1e9,
+           "param_gb": sum(sizes.values()) / 1e9, "expert_gb": expert_bytes / 1e9}
+    say(f"  3 steps (ms, each synchronised): {[round(x, 1) for x in step_ms]}: "
+        f"{window_step_ms:.1f} ms a step over the window ({metrics['tokens_per_sec']:.1f} train "
+        f"tokens/s), {steady_ms:.1f} ms a step after the first ({res['steady_tokens_per_sec']:.1f}"
+        f" tokens/s); train() with its final checkpoint {train_s:.1f}s; launches {launches}")
+    res["a_train_s"] = time.time() - t_phase
+    return res, trainer
+
+
+def moe_generate(trainer, res: dict) -> dict:
+    """(a)'s end: 32 greedy tokens from the trained model (decode: the plain
+    masked attention and the MoE blocks, no flash kernel)."""
+    import torch
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.train.llm.generation import decode_model, generate
+
+    t_part = time.time()
+    dec = decode_model(trainer.cfg, trainer.model, device=DEV)
+    prompt = _moe_batches(MIXTRAL["vocab_size"], 1, seed=0)[0][0][:, :MOE_PROMPT]
+    fa.reset_launch_counts()
+    generate(dec, trainer.cfg, prompt, 2, device=DEV)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(dec, trainer.cfg, prompt, MOE_GEN, device=DEV)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3 / MOE_GEN
+    check(out.shape == (1, MOE_GEN) and int(out.min()) >= 0
+          and int(out.max()) < MIXTRAL["vocab_size"], f"27 (a): generated {out}")
+    check(all(n == 0 for n in fa.launch_counts.values()),
+          f"27 (a): decode launched flash kernels {dict(fa.launch_counts)}")
+    res.update(generate_ms_per_token=gen_ms, generated=out[0].tolist(),
+               peak_hbm_gb=torch.cuda.max_memory_allocated() / 1e9,
+               generate_s=time.time() - t_part)
+    say(f"  generate: {gen_ms:.2f} ms/token over {MOE_GEN} greedy tokens; peak HBM "
+        f"{res['peak_hbm_gb']:.2f} GB (training {res['peak_hbm_gb_train']:.2f})")
+    return res
+
+
+def _mesh_trainer(case: str, over: dict, device):
+    """The trainer of one mesh case (``over``: the mesh axes; {} for one
+    rank), f32, initialised from the case's seed."""
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.train.llm.configurations import (DatasetArguments,
+                                                          ExperimentArguments, ModelArguments)
+    from fedml_tpu_torch.train.llm.llm_trainer import LLMTrainer
+
+    ma = ModelArguments(**{**MESH_MODEL, **MESH_MODEL_OVER.get(case, {})})
+    ea = ExperimentArguments(max_steps=MESH_STEPS, per_device_batch_size=1, learning_rate=1e-3,
+                             warmup_steps=1, output_dir=os.path.join(
+                                 ROOT, ".smoke_run", "mesh", f"{case}_{'mesh' if over else 'one'}"),
+                             **over)
+    tr = LLMTrainer(ma, DatasetArguments(), ea, device=device)
+    tr.cfg = dataclasses.replace(tr.cfg, dtype=torch.float32)
+    model = tr.init_params(seed=7)
+    init = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    tr._build(model)
+    return tr, init
+
+
+def _mesh_batches(case: str):
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, MESH_MODEL["vocab_size"], (MESH_STEPS, MESH_RANKS,
+                                                      MESH_MODEL["seq_len"]), dtype=np.int32)
+    return [(toks[i], np.ones_like(toks[i], np.float32)) for i in range(MESH_STEPS)]
+
+
+def mesh_rank_main(spec_json: str) -> None:
+    """One rank of phase 27 (b): every mesh case in turn, each rank's
+    losses, its parameter shards and its collective bytes to a file."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from fedml_tpu_torch.parallel import multihost as mh
+
+    spec = json.loads(spec_json)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mh.init_distributed(device=spec["device"])
+    try:
+        rank = mh.process_index()
+        # started beside (a): while (a) builds its model, start this
+        # process's CUDA context and cuBLAS with one small product and meet
+        # the other rank once (a few microseconds of the card), so the cases
+        # that start at the go run warm
+        dev = mh.process_device()
+        x = torch.ones(64, 64, device=dev)
+        float((x @ x).sum())
+        mh.sync_process_group()
+        # the cases wait for (a)'s steps to end
+        go = os.path.join(spec["dir"], "go")
+        deadline = time.time() + MESH_TIMEOUT_S
+        while not os.path.exists(go):
+            if time.time() > deadline:
+                raise TimeoutError("27 (b): no go from the smoke")
+            time.sleep(0.05)
+        for case, over in MESH_CASES.items():
+            t0 = time.time()
+            before = mh.collective_stats()
+            tr, _ = _mesh_trainer(case, over, spec["device"])
+            losses = [tr.train(iter([b]))["final_loss"] for b in _mesh_batches(case)]
+            after = mh.collective_stats()
+            delta = {op: {k: row[k] - before.get(op, {}).get(k, 0) for k in row}
+                     for op, row in after.items()
+                     if row["calls"] - before.get(op, {}).get("calls", 0)}
+            sh = tr.sharded
+            torch.save({"losses": losses, "backend": mh.backend(), "rank": rank,
+                        "specs": sh.specs,
+                        "local": {n: t.detach().cpu() for n, t in sh.local.items()},
+                        "resident": sh.resident_bytes(), "full": sh.full_bytes(),
+                        "collectives": delta, "s": time.time() - t0},
+                       os.path.join(spec["dir"], f"{case}_rank{rank}.pt"))
+            del tr
+            if spec["device"] != "cpu":
+                torch.cuda.empty_cache()
+    finally:
+        mh.shutdown_distributed()
+
+
+def mesh_start() -> dict:
+    """(b)'s group of MESH_RANKS processes sharing the card: started now, it
+    joins and waits for :func:`mesh_phase`'s go."""
+    from fedml_tpu_torch.tools.launch_silo import launch
+
+    tmp = os.path.join(ROOT, ".smoke_run", "mesh")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    spec = json.dumps({"dir": tmp, "device": DEV})
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    group = launch([sys.executable, "-c", f"import chip_smoke as c; c.mesh_rank_main({spec!r})"],
+                   MESH_RANKS, env=env, cwd=ROOT, log_dir=os.path.join(tmp, "logs"))
+    return {"group": group, "dir": tmp, "t0": time.time()}
+
+
+def mesh_go(started: dict) -> None:
+    """Let (b)'s ranks run their cases (once)."""
+    go = os.path.join(started["dir"], "go")
+    if not os.path.exists(go):
+        open(go, "w").close()
+        started["go_t"] = time.time()
+
+
+def mesh_phase(started: dict = None) -> dict:
+    """(b): one group of MESH_RANKS processes sharing the card runs every
+    mesh case; the smoke's process runs each case on one rank meanwhile,
+    then holds every rank's losses and shards against it."""
+    import numpy as np
+    import torch
+
+    started = started or mesh_start()
+    t_phase = time.time()
+    group, tmp = started["group"], started["dir"]
+    mesh_go(started)
+    refs = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for case in MESH_CASES:
+            tr, init = _mesh_trainer(case, {}, DEV)
+            losses = [tr.train(iter([b]))["final_loss"] for b in _mesh_batches(case)]
+            refs[case] = {"losses": losses, "init": init,
+                          "after": {n: p.detach().cpu() for n, p in tr.model.named_parameters()}}
+            del tr
+        ref_s = time.time() - t_phase
+        rcs = group.wait(MESH_TIMEOUT_S)
+    except BaseException:
+        group.kill()
+        raise
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    errs = [open(os.path.join(tmp, "logs", f"rank{r}.err")).read()[-2000:]
+            for r in range(MESH_RANKS)]
+    check(rcs == [0] * MESH_RANKS, f"27 (b): ranks exited {rcs}: {errs}")
+    out = {"ranks": MESH_RANKS, "reference_s": ref_s, "cases": {}}
+    for case in MESH_CASES:
+        ref = refs[case]
+        row = {"ranks": []}
+        for r in range(MESH_RANKS):
+            got = torch.load(os.path.join(tmp, f"{case}_rank{r}.pt"))
+            lrel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+            num = den = 0.0
+            for n, loc in got["local"].items():
+                spec_n = got["specs"][n]
+                want, start = ref["after"][n], ref["init"][n]
+                for dim, axis in enumerate(spec_n):
+                    if axis is not None and MESH_CASES[case].get(axis, 1) > 1:
+                        k = MESH_CASES[case][axis]
+                        want, start = want.chunk(k, dim)[r], start.chunk(k, dim)[r]
+                num += float((loc.double() - want.double()).pow(2).sum())
+                den += float((want.double() - start.double()).pow(2).sum())
+            urel = float(np.sqrt(num / max(den, 1e-300)))
+            res_share = got["resident"] / got["full"]
+            check(lrel <= MESH_LOSS_RTOL, f"27 (b) {case} rank {r}: losses {got['losses']} "
+                                          f"against one rank's {ref['losses']} (rel {lrel:.3g})")
+            check(urel <= MESH_UPDATE_RTOL, f"27 (b) {case} rank {r}: its shards' update is "
+                                            f"{urel:.3g} of one rank's from it")
+            if case == "fsdp":
+                check(res_share <= MESH_RESIDENT, f"27 (b) fsdp rank {r}: resident param bytes "
+                                                  f"{res_share:.3f} of the model's")
+            if case == "sp":
+                ring = got["collectives"].get("ring_shift", {}).get("calls", 0)
+                check(ring > 0, f"27 (b) sp rank {r}: no ring shift ran")
+            check(got["backend"] == ("gloo" if DEV == "cpu" or torch.cuda.device_count() < 2
+                                     else "nccl"), f"27 (b): backend {got['backend']}")
+            row["ranks"].append({"loss_rel": lrel, "update_rel": urel, "resident_share": res_share,
+                                 "losses": got["losses"], "collectives": got["collectives"],
+                                 "s": got["s"]})
+        row["reference_losses"] = ref["losses"]
+        out["cases"][case] = row
+        r0 = row["ranks"][0]
+        say(f"  {case}=2: losses {r0['losses']} (one rank {ref['losses']}); worst loss rel "
+            f"{max(x['loss_rel'] for x in row['ranks']):.3g}, update rel "
+            f"{max(x['update_rel'] for x in row['ranks']):.3g}; resident "
+            f"{r0['resident_share']:.3f} of the model; {r0['s']:.1f}s; collective bytes by op "
+            + json.dumps({op: v["bytes"] for op, v in r0["collectives"].items()}))
+    shutil.rmtree(tmp, ignore_errors=True)
+    # (b)'s seconds from its go (the ranks' cases ran beside (a)'s checkpoint)
+    out["b_s"] = time.time() - started.get("go_t", t_phase)
+    out["checks_s"] = time.time() - t_phase
+    out["started_before_go_s"] = started.get("go_t", t_phase) - started["t0"]
+    return out
+
+
+def moe_mesh_phase(libs) -> dict:
+    """Phase 27: (b)'s processes start and join while (a) trains the MoE
+    model at Mixtral's widths, and run their cases while (a)'s trainer
+    writes its final checkpoint (the card idle); then (b)'s checks, then
+    (a)'s generation on a card (b) no longer uses."""
+    import torch
+
+    started = mesh_start()
+    tmp = os.path.join(ROOT, ".smoke_run", "moe")
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        res, trainer = moe_phase(libs, tmp, on_trained=lambda: mesh_go(started))
+        res["mesh"] = mesh_phase(started)
+        moe_generate(trainer, res)
+        moe_profiled_step(trainer, res)
+    except BaseException:
+        started["group"].kill()
+        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["a_s"] = res["a_train_s"] + res["generate_s"] + res["profile_s"]
+    return res
 
 
 def main() -> int:
@@ -8793,6 +9397,8 @@ def main() -> int:
     say(f"  {card}; torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    # phase 9's CPU runs, a process of their own, beside the build and phase 3
+    zoo_cpu = zoo_cpu_start()
     say("== 2. build")
     t0 = time.time()
     _build.kernels()
@@ -8922,7 +9528,7 @@ def main() -> int:
     fa.reset_launch_counts()
     by_design0 = {name: libs.design_launches(name) for name in KERNELS}
     t0 = time.time()
-    fedavg["zoo"] = zoo_phase()
+    fedavg["zoo"] = zoo_phase(zoo_cpu)
     zoo_launches = dict(fa.launch_counts)
     say(f"  phase {time.time() - t0:.1f}s; flash launches in the zoo phase: {zoo_launches}")
     check(all(n == 0 for n in zoo_launches.values())
@@ -9205,13 +9811,32 @@ def main() -> int:
           and all(libs.design_launches(name) == by_design0[name] for name in KERNELS),
           f"the multi-process phase launched flash kernels: {mp26_launches}")
 
-    say("== 27. result")
+    say("== 27. the MoE model at Mixtral-8x7B's widths (2 layers, LoRA, 3 steps and 32 greedy "
+        f"tokens) and the LLM mesh on {MESH_RANKS} ranks sharing the card over gloo (fsdp, tp, "
+        "sp with the zigzag ring, ep)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    moe = moe_mesh_phase(libs)
+    moe["phase_s"] = time.time() - t0
+    say(f"  phase {moe['phase_s']:.1f}s ((a) {moe['a_s']:.1f}s, (b) {moe['mesh']['b_s']:.1f}s); "
+        f"flash launches in (a) {moe['launches']}")
+
+    say("== 28. result")
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": errs[name], **timing[name],
                      "design": "+".join(sorted(by_design[name])),
                      "launches_phase23": fedllm["flash_launches"][name]})
+    # the MoE path's attention (phase 27 (a): Mixtral's 32 heads over 8 KV
+    # heads at B=1): its launches, error and times at that shape
+    for name, (source, replaces, _) in KERNELS.items():
+        rows.append({"name": f"{name}.moe", "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": moe["launches"][name],
+                     "max_abs_err": moe["kernel_errs"][name], **moe["kernel_times"][name],
+                     "shape": moe["kernel_shape"],
+                     "design": "+".join(sorted(moe["by_design"][name]))})
     # the instances at phase 22's head dims: launches in its (a) and (b),
     # error and times at their attention shapes in phase 3
     for label, part in (("d96", "phi3"), ("d256", "gemma2b")):
@@ -9278,6 +9903,7 @@ def main() -> int:
                                      **modelwatch}}, default=str), flush=True)
     print(json.dumps({"multiprocess": {"card": card, "flash_launches": mp26_launches,
                                        **multiprocess}}, default=str), flush=True)
+    print(json.dumps({"moe_mesh": {"card": card, **moe}}, default=str), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

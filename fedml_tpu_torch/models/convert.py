@@ -24,6 +24,12 @@ flax's names too (``Conv_0``, ``BasicBlock_i``, ``client_head``,
   ``DenseGeneral`` kernels ``[d, H, hd]`` and ``[H, hd, d]``
   (``models/layers.py``), which the port contracts as they are.
 
+- the MoE MLP's parameters are not Dense kernels and keep flax's names and
+  layout both ways: the router ``[D, E]`` and the expert stacks ``w_gate``
+  and ``w_up`` ``[E, D, F]`` and ``w_down`` ``[E, F, D]`` are used as
+  ``h @ w`` in both packages (``models/moe.py``), so flipping them the way
+  a Dense kernel is flipped would be wrong.
+
 Everything else keeps its name and shape: the embedding ``[V, D]``, norm
 scales ``[D]`` (flax's GroupNorm ``scale``/``bias`` are the port's
 GroupNorm's own names, models/layers.py), biases, and the LoRA factors
@@ -165,13 +171,15 @@ def params_to_jax(model: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict:
     out: Dict = {}
     for name, t in state.items():
         *head, leaf = name.split(".")
-        t = t.detach().cpu()
+        t = t.detach()
         if leaf == "weight":
             leaf, t = "kernel", _weight_to_flax(t)
         elif leaf == "kernel_q":
             t = _weight_to_flax(t)
-        # a contiguous copy that shares no storage with the model
-        t = t.clone(memory_format=torch.contiguous_format)
+        # a contiguous copy that shares no storage with the model: one copy,
+        # laid out on the device and then moved (the move is the copy)
+        t = (t.clone(memory_format=torch.contiguous_format) if t.device.type == "cpu"
+             else t.contiguous().cpu())
         node = out
         for k in head:
             node = node.setdefault(k, {})

@@ -42,8 +42,20 @@ on the CPU), as JAX's ``dot_general`` on the int8 operand. Its backward is
 not ported: an int8 forward whose input needs a gradient raises
 NotImplementedError, as JAX serves int8 only on the decode path.
 
-This slice is one device and dense: ring attention and MoE raise
-NotImplementedError (see ROADMAP.md).
+The MoE MLP (``moe_experts > 0``, models/moe.py) replaces the dense MLP
+of every block: a training forward then returns ``(logits, aux)``, the
+blocks' pre-weighted Switch aux losses summed (JAX's ``sow("losses",
+"moe_aux")`` read back by the trainer), each block returning its own aux so
+that a recomputed block (remat) adds it once; a decode model returns logits
+only, as JAX's decode ``apply`` does. ``attention_impl="ring"`` repeats the
+KV heads and runs ``parallel/ring_attention.ring_attention_inner``: the
+active mesh's ``sp`` ring, exact plain attention without one.
+
+Under a mesh with ``tp`` above 1 (the sharded step, parallel/fsdp.py) the
+projections are Megatron's: q/k/v and gate/up hold their output columns of
+this rank's heads and d_ff (``tp_mode="col"``), o/down their input rows
+(``"row"``), their outputs summed over the tp group; head counts are read
+from the projections' shapes, so the same modules run local heads.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import int8_matmul as int8_ops
+from .moe import MoEConfig, MoEMLP
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -125,12 +138,11 @@ class TransformerConfig:
 
     def check_supported(self) -> None:
         """Raise NotImplementedError on what this slice of the port lacks."""
-        if self.attention_impl == "ring":
-            raise _unsupported("attention_impl='ring' (sequence-parallel ring attention)")
-        if self.attention_impl not in ("auto", "xla", "pallas"):
+        if self.attention_impl not in ("auto", "xla", "pallas", "ring"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
-        if self.moe_experts > 0:
-            raise _unsupported("moe_experts > 0 (the MoE MLP)")
+        if self.moe_local_experts is not None:
+            raise _unsupported("moe_local_experts (the pipeline's shard_map experts; pipeline "
+                               "parallelism)")
         if self.weight_quant not in ("none", "int8"):
             raise ValueError(f"weight_quant must be 'none' or 'int8', got {self.weight_quant!r}")
         if self.remat_policy not in ("full", "dots"):
@@ -181,9 +193,12 @@ class LoRALinear(nn.Module):
     ``kernel_scale`` (f32 ``[out]``), JAX's zeros and ones until loaded."""
 
     def __init__(self, in_dim: int, features: int, cfg: TransformerConfig, name: str,
-                 device=None):
+                 device=None, tp_mode: Optional[str] = None):
         super().__init__()
         self.cfg = cfg
+        # under a tp mesh: "col" holds this rank's output columns, "row" its
+        # input rows (module docstring); None never splits
+        self.tp_mode = tp_mode
         dtype = _weight_dtype(cfg)
         self.int8 = cfg.weight_quant == "int8"
         if self.int8:
@@ -226,12 +241,48 @@ class LoRALinear(nn.Module):
             # one cast to x's dtype (JAX's dot_general on the int8 operand)
             y = int8_ops.int8_matmul(x, kq, ks, weights_checked=True)
         else:
+            tp = _tp_group() if self.tp_mode else None
+            if tp is not None:
+                return self._tp_forward(x, tp)
             # a no-op for a decode model, whose weights already are x's dtype
             y = F.linear(x, self.weight.to(x.dtype))
         if self.has_lora:
             scale = self.cfg.lora_alpha / self.cfg.lora_rank
             y = y + scale * ((x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype))
         return y
+
+    def _tp_forward(self, x: torch.Tensor, tp) -> torch.Tensor:
+        """Megatron's column- or row-parallel product over the tp group.
+        "col": x is whole on every member, W and lora_b hold this member's
+        output columns; the adapter's x.A is whole too, and both enter the
+        split through a copy whose backward sums the members' input
+        gradients. "row": x holds this member's input columns, W its input
+        rows and A is sliced to them; the partial products are summed over
+        the group, and lora_b is whole."""
+        from ..parallel import multihost as mh
+
+        dt = x.dtype
+        scale = self.cfg.lora_alpha / self.cfg.lora_rank if self.has_lora else 0.0
+        if self.tp_mode == "col":
+            y = F.linear(mh.CopyToGroup.apply(x, tp, "tp"), self.weight.to(dt))
+            if self.has_lora:
+                u = mh.CopyToGroup.apply(x @ self.lora_a.to(dt), tp, "tp")
+                y = y + scale * (u @ self.lora_b.to(dt))
+            return y
+        y = mh.ReduceFromGroup.apply(F.linear(x, self.weight.to(dt)), tp, "tp")
+        if self.has_lora:
+            a = mh.SliceForGroup.apply(self.lora_a, tp, 0, "tp")
+            u = mh.ReduceFromGroup.apply(x @ a.to(dt), tp, "tp")
+            y = y + scale * (u @ self.lora_b.to(dt))
+        return y
+
+
+def _tp_group():
+    """The active mesh's tp group (None without one, or at tp 1)."""
+    from ..parallel.ring_attention import get_active_mesh
+
+    mesh = get_active_mesh()
+    return None if mesh is None else mesh.group("tp")
 
 
 def repeat_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -287,10 +338,10 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         hd = cfg.head_dim
-        self.q_proj = LoRALinear(cfg.d_model, cfg.n_heads * hd, cfg, "q_proj", device)
-        self.k_proj = LoRALinear(cfg.d_model, cfg.n_kv_heads * hd, cfg, "k_proj", device)
-        self.v_proj = LoRALinear(cfg.d_model, cfg.n_kv_heads * hd, cfg, "v_proj", device)
-        self.o_proj = LoRALinear(cfg.n_heads * hd, cfg.d_model, cfg, "o_proj", device)
+        self.q_proj = LoRALinear(cfg.d_model, cfg.n_heads * hd, cfg, "q_proj", device, "col")
+        self.k_proj = LoRALinear(cfg.d_model, cfg.n_kv_heads * hd, cfg, "k_proj", device, "col")
+        self.v_proj = LoRALinear(cfg.d_model, cfg.n_kv_heads * hd, cfg, "v_proj", device, "col")
+        self.o_proj = LoRALinear(cfg.n_heads * hd, cfg.d_model, cfg, "o_proj", device, "row")
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 attn_start: Optional[torch.Tensor] = None,
@@ -300,27 +351,33 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, T, _ = x.shape
         hd = cfg.head_dim
-        q = self.q_proj(x).view(B, T, cfg.n_heads, hd)
-        k = self.k_proj(x).view(B, T, cfg.n_kv_heads, hd)
-        v = self.v_proj(x).view(B, T, cfg.n_kv_heads, hd)
-        q = rotary_embedding(q, positions, cfg.rope_theta)
-        k = rotary_embedding(k, positions, cfg.rope_theta)
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        # this rank's heads (all of them unless a tp mesh splits them)
+        nh, nkv = q.shape[-1] // hd, k.shape[-1] // hd
+        q = rotary_embedding(q.view(B, T, nh, hd), positions, cfg.rope_theta)
+        k = rotary_embedding(k.view(B, T, nkv, hd), positions, cfg.rope_theta)
+        v = v.view(B, T, nkv, hd)
         if cache is not None:
             if block_tables is not None:
                 out = self._paged_decode_attention(q, k, v, cache, cache_idx, block_tables)
             else:
                 out = self._decode_attention(q, k, v, cache, attn_start, cache_idx)
-            return self.o_proj(out.reshape(B, T, cfg.n_heads * hd))
+            return self.o_proj(out.reshape(B, T, nh * hd))
         impl = pick_attention(cfg.attention_impl, x.is_cuda, hd, q.dtype)
         if impl == "pallas":
             # GQA-native: the kernels map query heads to kv heads themselves
             from ..ops.flash_attention import flash_attention
 
             out = flash_attention(q, k, v, causal=True)
+        elif impl == "ring":
+            from ..parallel.ring_attention import ring_attention_inner
+
+            k, v = repeat_kv(k, v, nh)
+            out = ring_attention_inner(q, k, v)
         else:
-            k, v = repeat_kv(k, v, cfg.n_heads)
+            k, v = repeat_kv(k, v, nh)
             out = xla_attention(q, k, v, causal=True)
-        return self.o_proj(out.reshape(B, T, cfg.n_heads * hd))
+        return self.o_proj(out.reshape(B, T, nh * hd))
 
     def _decode_attention(self, q, k, v, cache: dict,
                           attn_start: Optional[torch.Tensor] = None,
@@ -410,9 +467,9 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        self.gate_proj = LoRALinear(cfg.d_model, cfg.d_ff, cfg, "gate_proj", device)
-        self.up_proj = LoRALinear(cfg.d_model, cfg.d_ff, cfg, "up_proj", device)
-        self.down_proj = LoRALinear(cfg.d_ff, cfg.d_model, cfg, "down_proj", device)
+        self.gate_proj = LoRALinear(cfg.d_model, cfg.d_ff, cfg, "gate_proj", device, "col")
+        self.up_proj = LoRALinear(cfg.d_model, cfg.d_ff, cfg, "up_proj", device, "col")
+        self.down_proj = LoRALinear(cfg.d_ff, cfg.d_model, cfg, "down_proj", device, "row")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -424,16 +481,28 @@ class Block(nn.Module):
         self.attn_norm = RMSNorm(cfg.d_model, device=device)
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.d_model, device=device)
-        self.mlp = MLP(cfg, device)
+        self.moe = cfg.moe_experts > 0
+        if self.moe:
+            self.moe_mlp = MoEMLP(MoEConfig(
+                n_experts=cfg.moe_experts, capacity_factor=cfg.moe_capacity_factor,
+                d_model=cfg.d_model, d_ff=cfg.d_ff, dtype=cfg.dtype, ep_axis=cfg.moe_ep_axis,
+                local_experts=cfg.moe_local_experts), device, stack_dtype=_weight_dtype(cfg))
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 attn_start: Optional[torch.Tensor] = None,
                 cache: Optional[dict] = None,
                 cache_idx: Optional[torch.Tensor] = None,
-                block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+                block_tables: Optional[torch.Tensor] = None):
+        """The block's output; a MoE block without a cache returns (output,
+        aux) (its own pre-weighted aux loss)."""
         x = x + self.attn(self.attn_norm(x), positions, attn_start,
                           None if cache is None else cache["attn"], cache_idx, block_tables)
-        return x + self.mlp(self.mlp_norm(x))
+        if not self.moe:
+            return x + self.mlp(self.mlp_norm(x))
+        y, aux = self.moe_mlp(self.mlp_norm(x))
+        return x + y if cache is not None else (x + y, aux)
 
 
 class Embed(nn.Module):
@@ -453,6 +522,19 @@ def _dots_policy(ctx, op, *args, **kwargs):
     if op in (aten.mm.default, aten.bmm.default, aten.addmm.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_checkpoint(cfg: TransformerConfig, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` with ``cfg``'s remat
+    policy ("full": save nothing; "dots": keep matmul outputs)."""
+    if cfg.remat_policy == "dots":
+        from functools import partial
+
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=partial(create_selective_checkpoint_contexts, _dots_policy))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 class TransformerLM(nn.Module):
@@ -477,7 +559,7 @@ class TransformerLM(nn.Module):
         with torch.no_grad():
             self.embed.embedding.normal_(0.0, self.cfg.d_model ** -0.5, generator=generator)
             for m in self.modules():
-                if isinstance(m, LoRALinear):
+                if isinstance(m, (LoRALinear, MoEMLP)):
                     m.reset_parameters(generator)
                 elif isinstance(m, RMSNorm):
                     m.scale.fill_(1.0)
@@ -485,24 +567,17 @@ class TransformerLM(nn.Module):
     def _run_block(self, block: Block, x, positions):
         if not (self.cfg.remat and torch.is_grad_enabled()):
             return block(x, positions)
-        if self.cfg.remat_policy == "dots":
-            from functools import partial
-
-            from torch.utils.checkpoint import create_selective_checkpoint_contexts
-
-            return checkpoint(block, x, positions, use_reentrant=False,
-                              context_fn=partial(create_selective_checkpoint_contexts,
-                                                 _dots_policy))
-        return checkpoint(block, x, positions, use_reentrant=False)
+        return remat_checkpoint(self.cfg, block, x, positions)
 
     def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 attn_start: Optional[torch.Tensor] = None,
                 cache_idx: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                *, cache: Optional[dict] = None) -> torch.Tensor:
-        """Logits [B, T, vocab] in f32. With ``cache`` (decode models only;
-        ``init_cache``) this is a decode-mode call that updates the cache in
-        place; ``block_tables`` selects the paged mode
+                *, cache: Optional[dict] = None):
+        """Logits [B, T, vocab] in f32; a MoE training model returns
+        (logits, aux), the blocks' aux losses summed. With ``cache`` (decode
+        models only; ``init_cache``) this is a decode-mode call that updates
+        the cache in place; ``block_tables`` selects the paged mode
         (``Attention._paged_decode_attention``), ``attn_start`` and
         ``cache_idx`` the contiguous ones (``Attention._decode_attention``)."""
         cfg = self.cfg
@@ -512,13 +587,18 @@ class TransformerLM(nn.Module):
         x = self.embed(tokens).to(cfg.dtype)
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+        aux = None
         for i, block in enumerate(self.layers):
             if cache is not None:
                 x = block(x, positions, attn_start, cache[f"layer_{i}"], cache_idx, block_tables)
-            else:
-                x = self._run_block(block, x, positions)
+                continue
+            x = self._run_block(block, x, positions)
+            if cfg.moe_experts > 0:
+                x, a = x
+                aux = a if aux is None else aux + a
         x = self.final_norm(x)
-        return self.lm_head(x).to(torch.float32)
+        logits = self.lm_head(x).to(torch.float32)
+        return (logits, aux) if aux is not None and not cfg.decode else logits
 
 
 def init_cache(cfg: TransformerConfig, batch: int, device=None) -> dict:

@@ -9,11 +9,19 @@ carry the collectives; without one, it is a plain grid of devices
 (:class:`DeviceGrid`) for code that places work itself. A mesh that needs
 more devices (or ranks) than there are raises the JAX package's
 ``ValueError``.
+
+The LLM trainer's mesh is a :class:`RankMesh`: the ranks of the process
+group laid out row-major over named axes (``("dp", "fsdp", "tp", "sp",
+"ep")``, JAX's ``mesh_shape()``), with one process group for every set of
+axes a collective runs over (a rank's ``tp`` group, its data group over
+``dp`` x ``fsdp`` x ``sp``, ...). The sharded step (``parallel/fsdp.py``),
+ring attention and the MoE read it as JAX's code reads its ``Mesh``.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import itertools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,3 +102,88 @@ def fsdp_mesh(dp: int, fsdp: int, devices=None):
 def tp_mesh(dp: int, fsdp: int, tp: int, devices=None):
     """3-D mesh for the LLM path: data x fully-sharded x tensor."""
     return create_mesh((dp, fsdp, tp), ("dp", "fsdp", "tp"), devices)
+
+
+class RankMesh:
+    """Ranks ``0..n-1`` of the process group as a row-major grid of
+    ``axis_shapes`` named ``axis_names`` (rank ``r`` sits where
+    ``torch.arange(n).reshape(axis_shapes)`` holds ``r``). Built collectively:
+    every rank constructs it with the same arguments, and it creates the
+    process group of every set of axes whose size is above 1 (the whole
+    world's group is reused). A mesh of one position needs no process group
+    and is this rank alone, whatever the group. A mesh of more positions
+    than the process group's ranks, or of fewer but more than one, raises
+    ``ValueError``."""
+
+    def __init__(self, axis_shapes: Sequence[int], axis_names: Sequence[str]):
+        self.axis_names = tuple(axis_names)
+        self.shape: Dict[str, int] = {n: int(s) for n, s in zip(axis_names, axis_shapes)}
+        self.size = int(np.prod([int(s) for s in axis_shapes])) if axis_shapes else 1
+        world = _dist_world()
+        have = world if world is not None else 1
+        if self.size > have:
+            raise ValueError(f"mesh needs {self.size} devices, have {have}")
+        if self.size > 1 and self.size != have:
+            raise ValueError(f"mesh of {self.size} ranks over a process group of {have}: the "
+                             "LLM mesh spans every rank of the group")
+        self._grid = np.arange(self.size).reshape([self.shape[n] for n in self.axis_names])
+        self.rank = 0
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        if self.size > 1:
+            import torch.distributed as dist
+
+            self.rank = dist.get_rank()
+            wide = [n for n in self.axis_names if self.shape[n] > 1]
+            for k in range(1, len(wide) + 1):
+                for axes in itertools.combinations(wide, k):
+                    ranks = self._partition(axes)
+                    if len(ranks) == 1:
+                        self._groups[axes] = dist.group.WORLD
+                    else:
+                        self._groups[axes], _ = dist.new_subgroups_by_enumeration(ranks)
+
+    def _partition(self, axes: Sequence[str]) -> List[List[int]]:
+        """The rank lists of the groups varying over ``axes`` (ascending)."""
+        keep = [i for i, n in enumerate(self.axis_names) if n in axes]
+        moved = np.moveaxis(self._grid, keep, list(range(len(self.axis_names) - len(keep),
+                                                            len(self.axis_names))))
+        flat = moved.reshape(-1, int(np.prod([self.shape[self.axis_names[i]] for i in keep])))
+        return [sorted(int(r) for r in row) for row in flat]
+
+    def present(self, *axes: Optional[str]) -> Tuple[str, ...]:
+        """``axes`` the mesh has with a size above 1, in mesh order."""
+        return tuple(n for n in self.axis_names if n in axes and self.shape[n] > 1)
+
+    def axis_size(self, *axes: str) -> int:
+        """The product of the sizes of ``axes`` (1 for an axis the mesh lacks)."""
+        return int(np.prod([self.shape.get(a, 1) for a in axes]))
+
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        where = np.argwhere(self._grid == (self.rank if rank is None else rank))[0]
+        return dict(zip(self.axis_names, (int(i) for i in where)))
+
+    def index(self, *axes: str, rank: Optional[int] = None) -> int:
+        """The row-major index of ``rank`` (default: this one) over ``axes``
+        in mesh order; an axis the mesh lacks counts as size 1."""
+        c = self.coords(rank)
+        idx = 0
+        for n in self.axis_names:
+            if n in axes:
+                idx = idx * self.shape[n] + c[n]
+        return idx
+
+    def group(self, *axes: str):
+        """The process group of this rank's neighbours along ``axes``, or
+        None when they span one rank."""
+        return self._groups.get(self.present(*axes))
+
+    def group_ranks(self, *axes: str) -> List[int]:
+        """The global ranks of this rank's group along ``axes``, in the
+        group's rank order."""
+        axes = self.present(*axes)
+        if not axes:
+            return [self.rank]
+        return next(r for r in self._partition(axes) if self.rank in r)
+
+    def __repr__(self) -> str:
+        return f"RankMesh({self.shape}, rank={self.rank})"

@@ -14,9 +14,20 @@ its own (the process computes on CUDA and ``num_processes`` is at most
 (NCCL refuses two ranks on one device), and on the CPU. The choice is
 logged and kept (:func:`backend`). Under gloo the tensors stay on the card:
 gloo's CUDA broadcast and all-reduce copy through host memory inside the
-library, and nothing here moves a tensor to the CPU to call them. Only
-those two collectives (and a barrier) are used: on the H100 with torch
-2.11, gloo's send and recv of a CUDA tensor fail.
+library, and nothing here moves a tensor to the CPU to call them. On the
+H100 with torch 2.11, gloo takes CUDA tensors in broadcast, all-reduce,
+all-gather and reduce-scatter, and fails send and recv: the ring shift
+(:func:`ppermute`) therefore stages a CUDA tensor through host memory under
+gloo, and is ``batch_isend_irecv`` under NCCL.
+
+**The LLM mesh's collectives** (``all_gather``, ``reduce_scatter``,
+``all_reduce``, ``ppermute``) run over a sub-group of the mesh
+(``parallel/mesh.py`` ``RankMesh.group``), and the autograd functions at
+the end of this module give the sharded step (``parallel/fsdp.py``) the
+differentiable forms it needs: copy into a group (all-reduce in the
+backward), reduce out of one, an all-reduce whose backward is one too,
+gather shards (reduce-scatter or take the own shard in the backward) and
+slice out the own part (all-gather in the backward).
 
 **Devices.** Rank r computes on ``cuda:(r % torch.cuda.device_count())``
 unless the caller asks for the CPU, and sets that device before its first
@@ -278,3 +289,153 @@ def sync_process_group() -> None:
         else:
             dist.barrier()
         _count("barrier", 0)
+
+
+# --- the mesh's collectives (counted) ------------------------------------------------
+
+def _group_size(group) -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size(group)
+
+
+def all_reduce(tensor: torch.Tensor, group, op: str = "all_reduce") -> torch.Tensor:
+    """The sum of ``tensor`` over ``group``, in a new tensor."""
+    out = tensor.detach().clone().contiguous()
+    all_reduce_sum_(out, op=op, group=group)
+    return out
+
+
+def all_gather(tensor: torch.Tensor, group, op: str = "all_gather") -> list:
+    """Every member's ``tensor`` (same shape), in the group's rank order."""
+    import torch.distributed as dist
+
+    t = tensor.detach().contiguous()
+    out = [torch.empty_like(t) for _ in range(_group_size(group))]
+    dist.all_gather(out, t, group=group)
+    _count(op, t.numel() * t.element_size() * len(out))
+    return out
+
+
+def reduce_scatter(tensor: torch.Tensor, group, dim: int, op: str = "reduce_scatter"
+                   ) -> torch.Tensor:
+    """This member's equal part along ``dim`` of the sum of ``tensor`` over
+    the group."""
+    import torch.distributed as dist
+
+    n = _group_size(group)
+    parts = [p.contiguous() for p in tensor.detach().chunk(n, dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    _count(op, tensor.numel() * tensor.element_size())
+    return out
+
+
+def ppermute(tensor: torch.Tensor, pairs, group, op: str = "ring_shift") -> torch.Tensor:
+    """``jax.lax.ppermute`` over ``group``: ``pairs`` lists (source, dest)
+    positions in the group's rank order, a bijection over the members;
+    returns what this member receives (its own tensor where it is its own
+    destination). Under NCCL one ``batch_isend_irecv``; under gloo a CUDA
+    tensor is staged through host memory (gloo's CUDA send/recv fail)."""
+    import torch.distributed as dist
+
+    me = dist.get_rank(group)
+    dest = dict(pairs)
+    src = {d: s for s, d in pairs}
+    t = tensor.detach().contiguous()
+    if dest[me] == me:
+        return t.clone()
+    staged = t.is_cuda and dist.get_backend(group) != "nccl"
+    send = t.cpu() if staged else t
+    recv = torch.empty_like(send)
+    to = dist.get_global_rank(group, dest[me])
+    frm = dist.get_global_rank(group, src[me])
+    ops = [dist.P2POp(dist.isend, send, to, group=group),
+           dist.P2POp(dist.irecv, recv, frm, group=group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    _count(op, t.numel() * t.element_size())
+    return recv.to(t.device, non_blocking=False) if staged else recv
+
+
+# --- differentiable forms --------------------------------------------------------------
+
+class CopyToGroup(torch.autograd.Function):
+    """Identity forward; all-reduce (sum) of the gradient over ``group``:
+    the input of a computation the group's members split (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, group, op):
+        ctx.group, ctx.op = group, op
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group, ctx.op + "_bwd"), None, None
+
+
+class ReduceFromGroup(torch.autograd.Function):
+    """All-reduce (sum) forward of the members' partial results; identity
+    backward (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, group, op):
+        return all_reduce(x, group, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum over ``group`` of each member's part of a quantity every
+    member then uses (the global MoE expert inputs, the aux statistics):
+    all-reduce forward, all-reduce of the members' partial gradients
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, op):
+        ctx.group, ctx.op = group, op
+        return all_reduce(x, group, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group, ctx.op + "_bwd"), None, None
+
+
+class GatherShards(torch.autograd.Function):
+    """A parameter's shards along ``dim`` over ``group``, concatenated.
+    Backward: ``reduce=True`` (the members computed on different data)
+    reduce-scatters the gradient, summing the members' parts; ``False``
+    (they computed the same thing) takes this member's part."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, reduce, op):
+        ctx.group, ctx.dim, ctx.reduce, ctx.op = group, dim, reduce, op
+        return torch.cat(all_gather(x, group, op), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce:
+            return reduce_scatter(g, ctx.group, ctx.dim, ctx.op + "_bwd"), None, None, None, None
+        import torch.distributed as dist
+
+        part = g.chunk(_group_size(ctx.group), dim=ctx.dim)[dist.get_rank(ctx.group)]
+        return part.contiguous(), None, None, None, None
+
+
+class SliceForGroup(torch.autograd.Function):
+    """This member's equal part of a replicated tensor along ``dim``;
+    backward all-gathers the members' gradients of their parts, so every
+    member ends with the whole (and the same) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, op):
+        import torch.distributed as dist
+
+        ctx.group, ctx.dim, ctx.op = group, dim, op
+        return x.chunk(_group_size(group), dim=dim)[dist.get_rank(group)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(all_gather(g, ctx.group, ctx.op + "_bwd"), dim=ctx.dim), None, None, None

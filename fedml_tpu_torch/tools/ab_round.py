@@ -5,9 +5,9 @@
 
 Each letter of ``--order`` is one process, started in that tree, that runs
 ``chip_smoke.cross_silo_timed`` (phase 10's federation: ResNet-56, 16 client
-threads over INMEMORY, 3 rounds, no resilience knob) once to warm up and
-then ``--repeats`` times, and prints the mean seconds of rounds 2-3 of each
-run with its split. Interleaving the trees (A B B A ...) inside one call
+threads over INMEMORY, ``CROSS_SILO``'s rounds, no resilience knob) once to
+warm up and then ``--repeats`` times, and prints the mean seconds of the
+rounds after the first of each run with its split. Interleaving the trees (A B B A ...) inside one call
 keeps the card, its power limit and the host's load the same for both.
 
 Where a tree has them, the process also counts and times the fleet-view
@@ -69,7 +69,7 @@ for _ in range(REPEATS):
     gc.collect()
     r, _ = c.cross_silo_timed({})
     print("AB_ROW", json.dumps({
-        "round_s": r["round_s_mean_rounds_2_3"], "split_s": r["split_s_mean_rounds_2_3"],
+        "round_s": r["round_s_mean_after_round_1"], "split_s": r["split_s_mean_after_round_1"],
         "calls": {k: {"n": n, "mean_us": (s / n * 1e6) if n else None}
                   for k, (n, s) in timed.items()}}), flush=True)
 """

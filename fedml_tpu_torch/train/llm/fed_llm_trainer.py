@@ -2,8 +2,9 @@
 
 Counterpart of ``fedml_tpu/train/llm/fed_llm_trainer.py`` (reference: the
 FedLLM spotlight project, which fine-tunes with PEFT and exchanges adapter
-weights). The client holds the full frozen base model on its device;
-get/set_model_params move the adapter subtree only, as nested numpy dicts in
+weights). The client holds the full frozen base model on its device, or
+over a silo's mesh of ranks its shards (``LLMTrainer``; each round's
+batches are the mesh's global batch); get/set_model_params move the adapter subtree only, as nested numpy dicts in
 the flax path layout (``layer_0/attn/q_proj/lora_a``), so a 7B base ships
 about 0.1% of its bytes per round and a JAX server can fold the result.
 
@@ -74,10 +75,12 @@ class LLMClientTrainer(ClientTrainer):
                 "(TypeError; ROADMAP.md, Queue 3, R15)")
 
     def _adapter_state(self) -> Dict[str, torch.Tensor]:
-        """The adapters as the DP frames take them: a state dict of copies
-        on the trainer's device."""
-        return {n: p.detach().clone() for n, p in self.llm.model.named_parameters()
-                if is_lora_name(n)}
+        """The adapters as the DP frames take them: a state dict of whole
+        copies on the trainer's device (over a mesh gathered: every rank
+        calls it)."""
+        sharded = self.llm.sharded
+        return {n: t.clone() for n, t in
+                sharded.full_state([n for n in sharded.local if is_lora_name(n)]).items()}
 
     def on_before_local_training(self, train_data, device, args) -> Any:
         """Refuse R14/R15; under local DP keep the round's incoming
@@ -118,11 +121,13 @@ class LLMClientTrainer(ClientTrainer):
 
         train_data: [N, seq_len] int token blocks (an array, or an object
         whose .x is one, as the FL data plane ships them), a TextDataset, or
-        None for the synthetic stream. Shards smaller than one batch wrap
-        around (TextDataset.batches)."""
+        None for the synthetic stream. Shards smaller than one global batch
+        (``per_device_batch_size`` times the mesh's size) wrap around
+        (TextDataset.batches)."""
         args = args or self.args
         steps = int(getattr(args, "local_steps", self.llm.exp_args.max_steps))
-        bs = self.llm.exp_args.per_device_batch_size
+        # the global batch: every rank of the silo's mesh draws it and takes its block
+        bs = self.llm.exp_args.per_device_batch_size * self.llm.mesh.size
         # distinct data each round: the seed mixes the round counter, else
         # every round would replay the shard's same first steps*bs blocks
         self._round = getattr(self, "_round", 0) + 1

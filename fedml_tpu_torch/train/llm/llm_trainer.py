@@ -26,8 +26,20 @@ sync; it sets ``param_norm`` in the metrics and, on any NaN or Inf or a
 non-finite final loss, logs a warning and marks the flight recorder
 (``modelwatch_train_guard``).
 
-This slice is one device: any mesh axis above 1 (dp, fsdp, tp, sp, ep, pp)
-raises NotImplementedError.
+A mesh (JAX ``:75-170``, ``:248-260``): ``exp_args.mesh_shape()`` laid
+over the ranks of the process group (``parallel/multihost.init_distributed``;
+``tools/launch_llm.py`` starts them) as a ``RankMesh``; every trainer
+runs ``parallel/fsdp.py``'s step over it, which at one position is the
+one-device step. Any of ``dp``, ``fsdp``, ``tp``, ``sp`` and ``ep`` above
+1 shards it (ZeRO-3 over fsdp, Megatron heads over
+tp, ring attention over sp, experts over ep; ``moe_ep_axis="ep"`` when ep
+is above 1), equal to the one-rank step: the global batch is
+``per_device_batch_size`` times the mesh's size, every rank draws the same
+batches and computes its block, the loss is CE plus the MoE aux. The
+checkpoint is the whole model, gathered by every rank and written by rank
+0. Each rank computes on its own device (``multihost.process_device``).
+``pp`` above 1 and ``server_mesh`` raise NotImplementedError (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -45,8 +57,10 @@ from ...device import resolve_device
 from ...models.convert import params_from_jax, params_to_jax
 from ...models.lora import LORA_KEYS
 from ...models.transformer import TransformerConfig, TransformerLM
-from ...parallel.fsdp import make_train_step
-from ...utils.checkpoint import CheckpointManager
+from ...parallel import multihost
+from ...parallel.fsdp import ShardedLM, make_train_step
+from ...parallel.mesh import RankMesh
+from ...utils.checkpoint import CheckpointManager, OwnedTree
 from .configurations import DatasetArguments, ExperimentArguments, ModelArguments
 from .optim import AdamW, warmup_cosine_decay_schedule
 
@@ -75,12 +89,17 @@ def is_lora_name(name: str) -> bool:
 
 
 def _check_single_device(exp_args: ExperimentArguments) -> None:
-    axes = {n: getattr(exp_args, n) for n in ("dp", "fsdp", "tp", "sp", "ep", "pp")}
-    wide = {n: v for n, v in axes.items() if int(v) > 1}
-    if wide:
+    """Refuse what is not ported yet: pipeline stages and the sharded
+    server mesh."""
+    if int(exp_args.pp) > 1:
         raise NotImplementedError(
-            f"mesh axes {wide}: fedml_tpu_torch trains on one device in this slice "
-            "(see ROADMAP.md, Queue 1)")
+            f"pp={exp_args.pp}: pipeline parallelism (parallel/pipeline.py, "
+            "train/llm/pp_trainer.py) is not ported to fedml_tpu_torch yet (see ROADMAP.md, "
+            "Queue 1)")
+    if getattr(exp_args, "server_mesh", None):
+        raise NotImplementedError(
+            "server_mesh: the sharded FedOpt server is not ported to fedml_tpu_torch yet (see "
+            "ROADMAP.md, Queue 1)")
 
 
 class LLMTrainer:
@@ -96,6 +115,8 @@ class LLMTrainer:
         self.exp_args = exp_args
         _check_single_device(exp_args)
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and multihost.is_initialized():
+            self.device = multihost.process_device()
         self.cfg = TransformerConfig(
             vocab_size=model_args.vocab_size,
             d_model=model_args.d_model,
@@ -112,12 +133,20 @@ class LLMTrainer:
             remat_policy=model_args.remat_policy,
             moe_experts=model_args.moe_experts,
             moe_capacity_factor=model_args.moe_capacity_factor,
+            moe_ep_axis="ep" if exp_args.ep > 1 else None,
         )
         self.cfg.check_supported()
+        # one position is the one-device step (also in a process of a larger
+        # group, e.g. a hierarchical silo's rank)
+        self.mesh = RankMesh(*exp_args.mesh_shape())
+        if self.mesh.size > 1:
+            log.info("LLM mesh: %s", self.mesh)
         self.schedule = warmup_cosine_decay_schedule(
             0.0, exp_args.learning_rate, exp_args.warmup_steps,
             max(exp_args.max_steps, exp_args.warmup_steps + 1))
         self.model: Optional[TransformerLM] = None
+        # the model's parameters as this rank's shards (all of each at one position)
+        self.sharded: Optional[ShardedLM] = None
         self.optimizer: Optional[AdamW] = None
         self._step_fn = None
         self.ckpt = CheckpointManager(exp_args.output_dir)
@@ -147,47 +176,51 @@ class LLMTrainer:
         return model
 
     def _build(self, model: TransformerLM) -> None:
-        """Install ``model``: with LoRA only the adapters require grad, so no
-        base gradient is ever formed; the optimizer holds the trainable
-        tensors only."""
+        """Install ``model``: its parameters become this rank's shards over
+        the mesh (``ShardedLM``; at one position all of each, unchanged);
+        with LoRA only the adapters require grad, so no base gradient is
+        ever formed; the optimizer holds the trainable leaves only."""
         lora = self.cfg.lora_rank > 0
-        trainable = []
-        for name, p in model.named_parameters():
-            train = is_lora_name(name) if lora else True
-            p.requires_grad_(train)
-            if train:
-                trainable.append(p)
+        flops_per_token = self._flops_per_token_hint(model)
+        self.sharded = ShardedLM(model, self.mesh,
+                                 trainable=(is_lora_name if lora else (lambda n: True)))
         self.model = model
-        self.optimizer = AdamW(trainable, self.schedule, grad_clip=self.exp_args.grad_clip,
-                               weight_decay=self.exp_args.weight_decay)
+        names = [n for n, p in self.sharded.local.items() if p.requires_grad]
+        self.optimizer = AdamW([self.sharded.local[n] for n in names], self.schedule,
+                               grad_clip=self.exp_args.grad_clip,
+                               weight_decay=self.exp_args.weight_decay,
+                               norm_groups=self.sharded.norm_groups(names))
         self._devperf_label = "llm_train"
         self._step_fn = devperf.instrument(
-            make_train_step(model, self.optimizer), self._devperf_label,
-            flops_per_token_hint=self._flops_per_token_hint(model),
+            make_train_step(self.sharded, self.optimizer), self._devperf_label,
+            n_devices=self.mesh.size, flops_per_token_hint=flops_per_token,
             device=self.device, dtype=self.cfg.dtype)
 
     def _flops_per_token_hint(self, model: TransformerLM) -> float:
-        """Analytic model FLOPs a token, the JAX trainer's: 6 x the matmul
-        params (every param but the embedding table) plus the causal
-        attention term; devperf's MFU numerator."""
+        """Analytic model FLOPs a token of a whole ``model`` (before
+        ``_build`` shards it), the JAX trainer's: 6 x the matmul params
+        (every param but the embedding table) plus the causal attention
+        term; devperf's MFU numerator."""
         n_params = sum(p.numel() for p in model.parameters())
         n_matmul = n_params - self.cfg.vocab_size * self.cfg.d_model
         return (6.0 * n_matmul
                 + 6.0 * self.cfg.n_layers * self.cfg.d_model * self.cfg.max_seq_len)
 
     def named_params(self) -> Dict:
-        """All params as a nested numpy dict in the flax path layout."""
-        return params_to_jax(self.model)
+        """All params as a nested numpy dict in the flax path layout (over a
+        mesh, gathered whole: every rank must call it)."""
+        return params_to_jax(self.sharded.full_state())
 
     def adapter_params(self) -> Dict:
         """The adapter subtree only (``split_lora``'s paths), without copying
         the base weights off the device."""
-        return params_to_jax({n: t for n, t in self.model.state_dict().items() if is_lora_name(n)})
+        return params_to_jax(self.sharded.full_state(
+            [n for n in self.sharded.local if is_lora_name(n)]))
 
     def set_named_params(self, named: Dict) -> None:
         """Copy a named-layout tree, whole or partial (e.g. adapters only),
         into the model in place."""
-        overlay_(self.model, params_from_jax(named))
+        self.sharded.load_full_state(params_from_jax(named))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -201,15 +234,16 @@ class LLMTrainer:
         (with modelwatch on) param_norm,
         once the final checkpoint and every mid-training save are on
         disk."""
-        if self.model is None:
+        if self.sharded is None:
             self._build(self.init_params())
         exp = self.exp_args
         if batches is None:
+            global_batch = exp.per_device_batch_size * self.mesh.size
             if self.data_args.dataset_path:
-                batches = self.text_batches(exp.per_device_batch_size, exp.max_steps)
+                batches = self.text_batches(global_batch, exp.max_steps)
             else:
                 batches = synthetic_token_batches(
-                    self.cfg.vocab_size, self.model_args.seq_len, exp.per_device_batch_size,
+                    self.cfg.vocab_size, self.model_args.seq_len, global_batch,
                     exp.max_steps, exp.seed)
         losses, tokens_seen, step = [], 0, 0
         self._sync()
@@ -217,9 +251,9 @@ class LLMTrainer:
         # itself shows the whole local-training window in round traces
         with tel.timed("llm.train", max_steps=exp.max_steps) as sp:
             for step, (toks, mask) in enumerate(batches):
-                tokens = torch.from_numpy(np.asarray(toks, np.int32)).to(self.device)
-                mask_t = torch.from_numpy(np.asarray(mask, np.float32)).to(self.device)
-                losses.append(self._step_fn(tokens, mask_t))
+                # every rank passes the global batch and computes its block
+                losses.append(self._step_fn(np.asarray(toks, np.int32),
+                                            np.asarray(mask, np.float32)))
                 tokens_seen += int(np.size(toks))
                 if exp.save_steps and (step + 1) % exp.save_steps == 0:
                     # async enqueue: the host snapshot is taken now, the write
@@ -229,8 +263,7 @@ class LLMTrainer:
                     break
             # modelwatch's NaN guard and param norm: enqueued before the
             # window's sync, so reading it adds no sync of its own
-            guard = (modelwatch.train_guard(self.model.state_dict())
-                     if modelwatch.enabled(exp) else None)
+            guard = self._guard() if modelwatch.enabled(exp) else None
             self._sync()
         dt = sp.duration_s
         tokens_per_sec = tokens_seen / dt if dt > 0 else 0.0
@@ -249,6 +282,21 @@ class LLMTrainer:
         # is durable
         self.ckpt.wait_until_finished()
         return metrics
+
+    def _guard(self) -> torch.Tensor:
+        """modelwatch's ``[sq_norm, nan, inf]`` of the whole model; over a
+        mesh, each set of shards summed over the axes that shard it (a
+        replicated leaf counted once)."""
+        by_axes: Dict[tuple, dict] = {}
+        for n, t in self.sharded.local.items():
+            by_axes.setdefault(self.sharded.sharded_axes(n), {})[n] = t.detach()
+        total = None
+        for axes, leaves in sorted(by_axes.items()):
+            g = modelwatch.train_guard(leaves)
+            if axes:
+                g = multihost.all_reduce(g, self.mesh.group(*axes), op="guard_all_reduce")
+            total = g if total is None else total + g
+        return total
 
     @staticmethod
     def _guard_window(g: np.ndarray, metrics: Dict[str, float]) -> None:
@@ -288,11 +336,14 @@ class LLMTrainer:
     # --- checkpointing ----------------------------------------------------
     def save(self, step: int, *, wait: bool = True) -> None:
         """Checkpoint the named layout (loadable by any later layout);
-        ``wait=False`` enqueues it behind the training steps."""
-        self.ckpt.save(step, _to_tensors(self.named_params()), wait=wait)
+        ``wait=False`` enqueues it behind the training steps. Over a mesh
+        every rank gathers and rank 0 writes."""
+        named = self.named_params()  # fresh host copies: the save takes them as they are
+        if self.mesh.size == 1 or multihost.is_main_process():
+            self.ckpt.save(step, OwnedTree(_to_tensors(named)), wait=wait)
 
     def restore(self, step: Optional[int] = None) -> bool:
-        if self.model is None:
+        if self.sharded is None:
             self._build(self.init_params())
         restored = self.ckpt.restore(step)
         if restored is None:

@@ -23,7 +23,7 @@ Numerics follow optax exactly:
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -51,21 +51,45 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         groups: Optional[Sequence] = None) -> None:
     """optax.clip_by_global_norm, in place: g / norm * max_norm when
-    norm >= max_norm (no host sync: the choice is made on the device)."""
-    norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in grads))
+    norm >= max_norm (no host sync: the choice is made on the device).
+
+    Over a mesh (``groups``, one entry a leaf) the norm is the whole
+    gradient's: a leaf held as shards has its squares summed over the
+    process group of the axes that shard it (leaves of one group summed
+    first, one all-reduce a group), and a replicated leaf (None) is
+    counted once, so every rank clips by the same norm."""
+    if groups is None:
+        norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in grads))
+    else:
+        from ...parallel import multihost as mh
+
+        by_group: dict = {}
+        for g, grp in zip(grads, groups):
+            sq = torch.sum(g.to(torch.float32) ** 2)
+            by_group[grp] = by_group[grp] + sq if grp in by_group else sq
+        total = []
+        for grp, sq in by_group.items():
+            total.append(sq if grp is None else mh.all_reduce(sq.reshape(1), grp,
+                                                              op="clip_norm")[0])
+        norm = torch.sqrt(sum(total))
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, (g / norm) * max_norm))
 
 
 class AdamW:
     """clip_by_global_norm + optax.adamw(schedule, weight_decay) over
-    ``params``. State: the step count (optax's) and the two moments."""
+    ``params``. State: the step count (optax's) and the two moments, each
+    shaped like its parameter (a shard's moments are shards: ZeRO)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], schedule: Callable[[int], float],
-                 *, grad_clip: float, weight_decay: float = 0.0):
+                 *, grad_clip: float, weight_decay: float = 0.0,
+                 norm_groups: Optional[Sequence] = None):
         self.params = list(params)
+        # over a mesh: the group a leaf's clip squares are summed over
+        self.norm_groups = norm_groups
         self.schedule = schedule
         self.grad_clip = grad_clip
         self.weight_decay = weight_decay
@@ -76,7 +100,7 @@ class AdamW:
     @torch.no_grad()
     def step(self) -> None:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        clip_by_global_norm_(grads, self.grad_clip)
+        clip_by_global_norm_(grads, self.grad_clip, self.norm_groups)
         lr = self.schedule(self.count)
         self.count += 1
         bc1 = 1.0 - B1 ** self.count

@@ -49,9 +49,17 @@ SAVE_SECONDS_HISTOGRAM = "checkpoint_save_seconds"
 DROPPED_COUNTER = "checkpoint.dropped"
 
 
+class OwnedTree(dict):
+    """A tree of host tensors its caller made for one save and gives up (the
+    trainer's gathered checkpoint): :func:`host_snapshot` takes it as it is,
+    as a plain dict, without a second copy."""
+
+
 def host_snapshot(tree: Any) -> Any:
     """``tree`` (nested dicts, lists and tuples) with every tensor copied to
-    the host; other leaves as they are."""
+    the host; other leaves as they are. An :class:`OwnedTree` is not copied."""
+    if isinstance(tree, OwnedTree):
+        return dict(tree)
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=True)
     if isinstance(tree, dict):
@@ -161,9 +169,10 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, *, wait: bool = True) -> bool:
         """Persist ``tree`` (nested dicts and lists of tensors) as ``step``.
         ``wait=True`` returns once the step file and the watermark are
-        durable. ``wait=False`` takes the host snapshot and hands the write
-        to a background waiter thread. Returns False iff the save was
-        dropped because a previous async save is still writing."""
+        durable. ``wait=False`` takes the host snapshot (none for an
+        :class:`OwnedTree`) and hands the write to a background waiter
+        thread. Returns False iff the save was dropped because a previous
+        async save is still writing."""
         with self._async_lock:
             if self._async_thread is not None and self._async_thread.is_alive():
                 if not wait:

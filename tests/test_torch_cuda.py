@@ -1311,3 +1311,109 @@ def test_nccl_one_group_on_the_card_is_the_vmapped_round(cuda):
     assert [d.type for d in runner.runner.fl_trainer.devices] == ["cuda"]
     assert out["NCCL"][0] == out["vmap"][0]
     assert all(torch.equal(out["NCCL"][1][k], out["vmap"][1][k]) for k in out["vmap"][1])
+
+
+@pytest.mark.cuda
+def test_moe_lora_step_through_the_kernels_matches_xla(cuda):
+    """A MoE model with LoRA on q/k/v/o, one training step on the card
+    through the flash kernels ("auto") against the same weights through the
+    plain attention ("xla"), bf16: the loss within 1e-2 (phase 27 (a)'s
+    tolerance: bf16 roundings through 2 layers), each adapter gradient
+    within 5e-2 of its norm, K1-K3 launched as the step needs."""
+    from fedml_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from fedml_tpu_torch.parallel.fsdp import causal_lm_loss
+
+    base = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512,
+                max_seq_len=256, lora_rank=4, moe_experts=4, remat=True)
+    toks = torch.randint(0, 512, (2, 256), generator=torch.Generator().manual_seed(0)).cuda()
+    out = {}
+    for impl in ("auto", "xla"):
+        model = TransformerLM(TransformerConfig(attention_impl=impl, **base), device="cuda")
+        model.reset_parameters(torch.Generator(device="cuda").manual_seed(1))
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n.endswith("lora_b"):
+                    p.normal_(0.0, 0.02, generator=torch.Generator(device="cuda").manual_seed(2))
+        for n, p in model.named_parameters():
+            p.requires_grad_(n.rsplit(".", 1)[-1] in ("lora_a", "lora_b"))
+        fa.reset_launch_counts()
+        logits, aux = model(toks)
+        loss = causal_lm_loss(logits, toks) + aux
+        loss.backward()
+        torch.cuda.synchronize()
+        out[impl] = (float(loss), {n: p.grad.float() for n, p in model.named_parameters()
+                                   if p.grad is not None}, dict(fa.launch_counts))
+    assert abs(out["auto"][0] - out["xla"][0]) <= 1e-2
+    assert out["auto"][2] == {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert out["xla"][2] == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for n, g in out["xla"][1].items():
+        err = float((out["auto"][1][n] - g).norm())
+        assert err <= 5e-2 * float(g.norm()) + 1e-6, (n, err)
+
+
+_RING_RANK = """
+import json, os, sys
+sys.path.insert(0, os.environ["REPO_ROOT"])
+import torch
+from fedml_tpu_torch.models.transformer import xla_attention
+from fedml_tpu_torch.parallel import multihost as mh
+from fedml_tpu_torch.parallel.mesh import RankMesh
+from fedml_tpu_torch.parallel.ring_attention import ring_attention
+
+out_dir = sys.argv[1]
+assert mh.init_distributed()
+rank, dev = mh.process_index(), mh.process_device()
+torch.backends.cuda.matmul.allow_tf32 = False
+g = torch.Generator(device="cpu").manual_seed(3)
+q, k, v, w = (torch.randn(2, 64, 4, 32, generator=g) for _ in range(4))
+mesh = RankMesh((2,), ("sp",))
+res = {"backend": mh.backend(), "device": str(dev)}
+for layout in ("zigzag", "contiguous"):
+    sl = slice(rank * 32, rank * 32 + 32)
+    ql, kl, vl = (x[:, sl].to(dev).requires_grad_() for x in (q, k, v))
+    o = ring_attention(ql, kl, vl, mesh, layout=layout)
+    (o * w[:, sl].to(dev)).sum().backward()
+    qf, kf, vf = (x.to(dev).requires_grad_() for x in (q, k, v))
+    ref = xla_attention(qf, kf, vf, causal=True)
+    (ref * w.to(dev)).sum().backward()
+    res[layout] = {"out": float((o - ref[:, sl]).abs().max()),
+                   "dq": float((ql.grad - qf.grad[:, sl]).abs().max()),
+                   "dk": float((kl.grad - kf.grad[:, sl]).abs().max()),
+                   "dv": float((vl.grad - vf.grad[:, sl]).abs().max()),
+                   "on_card": all(t.device == dev for t in (o, ql.grad, kl.grad, vl.grad))}
+res["stats"] = mh.collective_stats()
+mh.shutdown_distributed()
+json.dump(res, open(os.path.join(out_dir, f"rank{rank}.json"), "w"))
+"""
+
+
+@pytest.mark.cuda
+def test_ring_shift_across_two_ranks_sharing_the_card(cuda, tmp_path):
+    """Ring attention over 2 gloo ranks on the one card (the ring shift
+    stages CUDA tensors through host memory: gloo's CUDA send/recv fail):
+    each rank's output and dQ/dK/dV within 1e-5 of the whole sequence's
+    plain attention (f32, TF32 off), both layouts, the shifts counted."""
+    import json
+    import os
+    import sys
+
+    from fedml_tpu_torch.tools.launch_silo import launch
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("ranks share the card only with one visible card")
+    script = tmp_path / "rank.py"
+    script.write_text(_RING_RANK)
+    env = dict(os.environ, REPO_ROOT=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    rcs = launch([sys.executable, str(script), str(tmp_path)], 2, env=env,
+                 log_dir=str(tmp_path / "logs")).wait(180)
+    assert rcs == [0, 0], [(tmp_path / "logs" / f"rank{r}.err").read_text()[-2000:]
+                           for r in (0, 1)]
+    for r in (0, 1):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert res["backend"] == "gloo" and res["device"] == "cuda:0"
+        for layout in ("zigzag", "contiguous"):
+            row = res[layout]
+            assert row["on_card"]
+            assert max(row[n] for n in ("out", "dq", "dk", "dv")) <= 1e-5, (layout, row)
+        assert res["stats"]["ring_shift"]["calls"] > 0
+        assert res["stats"]["ring_zigzag"]["calls"] > 0

@@ -290,7 +290,12 @@ def test_client_hooks_run_or_refuse(tmp_path, flag, over, refusal):
 @pytest.mark.parametrize("over", [dict(dp=2), dict(fsdp=2), dict(tp=2), dict(sp=2), dict(ep=2),
                                   dict(pp=2)])
 def test_mesh_axes_raise(tmp_path, over):
-    with pytest.raises(NotImplementedError, match="one device"):
+    """dp, fsdp, tp, sp and ep train over a mesh of ranks
+    (tests/test_torch_llm_mesh.py): without a process group of that many
+    ranks the mesh raises JAX's ValueError. pp is not ported."""
+    exc, match = ((NotImplementedError, "ROADMAP.md") if "pp" in over
+                  else (ValueError, "mesh needs 2 devices, have 1"))
+    with pytest.raises(exc, match=match):
         tlt.LLMTrainer(tc.ModelArguments(**MODEL), tc.DatasetArguments(),
                        tc.ExperimentArguments(output_dir=str(tmp_path), **over), device="cpu")
 
@@ -298,16 +303,19 @@ def test_mesh_axes_raise(tmp_path, over):
 def test_unported_model_and_data_options_raise(tmp_path):
     """model_name_or_path and dataset_path are ported: on a directory with no
     config.json, and on one with no text, the port raises what JAX raises.
-    MoE stays refused."""
+    MoE is ported (tests/test_torch_moe.py); the pipeline's local experts
+    are not."""
     exp = tc.ExperimentArguments(output_dir=str(tmp_path), **EXP)
     jexp = jc.ExperimentArguments(output_dir=str(tmp_path / "jax"), **EXP)
     for tr, mc, e, kw in ((tlt, tc, exp, {"device": "cpu"}), (jlt, jc, jexp, {})):
         with pytest.raises(FileNotFoundError, match="config.json"):
             tr.LLMTrainer(mc.ModelArguments(model_name_or_path=str(tmp_path), **MODEL),
                           mc.DatasetArguments(), e, **kw)
-    with pytest.raises(NotImplementedError, match="moe"):
-        tlt.LLMTrainer(tc.ModelArguments(**{**MODEL, "moe_experts": 2}), tc.DatasetArguments(),
-                       exp, device="cpu")
+    moe = tlt.LLMTrainer(tc.ModelArguments(**{**MODEL, "moe_experts": 2}), tc.DatasetArguments(),
+                         exp, device="cpu")
+    assert moe.cfg.moe_experts == 2 and moe.cfg.moe_ep_axis is None
+    with pytest.raises(NotImplementedError, match="moe_local_experts"):
+        tt.TransformerLM(tt.TransformerConfig(moe_experts=2, moe_local_experts=1))
     (tmp_path / "no_text").mkdir()
     ttr = tlt.LLMTrainer(tc.ModelArguments(**MODEL),
                          tc.DatasetArguments(dataset_path=str(tmp_path / "no_text")), exp,
